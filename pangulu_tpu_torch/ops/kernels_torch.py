@@ -1,0 +1,162 @@
+"""Plain PyTorch versions of the three kernels on the main path.
+
+Counterpart of ``pangulu_tpu.ops.kernels_jax`` plus the reference
+semantics of the JAX package's Pallas kernels
+(``pangulu_tpu/ops/kernels_pallas.py``):
+
+  * :func:`getrf_with_inverses` — unpivoted LU of a diagonal tile with
+    the tiny-pivot rule, plus L^-1 (unit lower) and U^-1;
+  * :func:`mega_factorize` — the whole numeric factorization over the
+    level schedule (``Schedule.mega_tables``);
+  * :func:`mega_solve` — the forward then backward block solve against
+    the persisted triangle inverses (``Schedule.mega_solve_tables``).
+
+These run on any device.  The CPU tests hold them against the JAX
+package; ``chip_smoke.py`` holds the CUDA kernels
+(``ops.kernels_cuda``) against them on the card.  Matrix products here
+go to ``torch.matmul``, which must stay in full float32 on a CUDA
+device: ``torch.backends.cuda.matmul.allow_tf32`` is False by default,
+and the entry points that compare against these versions on the card
+(``chip_smoke.py``, ``tests/test_torch_gpu.py``) set it so.  TF32
+truncates the inputs to 10 mantissa bits, which the JAX package
+measured as a 1e4-fold worse backward error
+(``pangulu_tpu/numeric.py:309-314``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# The reference substitutes a tolerance for tiny diagonal pivots
+# (pangulu_common.h:133 PANGULU_TOL), scaled here by dtype as in
+# pangulu_tpu/ops/kernels_jax.py:33-38: |piv| < tol -> +tol.
+DEFAULT_TOL = {torch.float32: 1e-8, torch.float64: 1e-16}
+
+# Largest tile the CUDA kernels take: a whole nb x nb tile lives in one
+# thread block's shared memory.  nb=256 is a ROADMAP item.
+MAX_NB = 128
+
+# Schur-update chunk width of Schedule.mega_tables.  It sized the TPU
+# kernel's VMEM buffer (pangulu_tpu/ops/kernels_pallas.py:643); the port
+# keeps it so its tables stay bit-identical to the JAX package's.
+MEGA_UCH = 64
+
+
+@dataclasses.dataclass
+class KernelTables:
+    """Index tables of one schedule, on the host and on the device.
+
+    ``host`` is the numpy dict the schedule built (the per-level counts
+    are read from it, so no level loop reads the device); ``dev`` holds
+    the same int32 arrays as tensors on the device, shipped once."""
+
+    host: dict
+    dev: dict
+
+    @classmethod
+    def build(cls, tables: dict, device) -> "KernelTables":
+        dev = {k: torch.as_tensor(np.ascontiguousarray(v, np.int32),
+                                  device=device)
+               for k, v in tables.items() if isinstance(v, np.ndarray)}
+        return cls(host=tables, dev=dev)
+
+
+def check_nb(nb: int) -> None:
+    if nb > MAX_NB:
+        raise ValueError(
+            f"nb={nb} exceeds the port's limit nb <= {MAX_NB} (a tile "
+            "must fit one thread block's shared memory; nb=256 is a "
+            "ROADMAP item)")
+
+
+def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
+    """(f, L^-1, U^-1) of ``a`` ([nb, nb] or batched [B, nb, nb]).
+
+    ``f`` packs the unit-lower L strictly below the diagonal and U on
+    and above it.  Right-looking rank-1 elimination without pivoting; a
+    pivot with |p| < tol is replaced by +tol and kept on U's diagonal
+    (pangulu_tpu/ops/kernels_pallas.py:124-154, 444-461)."""
+    if tol is None:
+        tol = DEFAULT_TOL[a.dtype]
+    single = a.dim() == 2
+    f = (a[None] if single else a).clone()
+    nb = f.shape[-1]
+    for k in range(nb):
+        piv = f[:, k, k]
+        safe = torch.where(piv.abs() < tol, torch.full_like(piv, tol), piv)
+        f[:, k, k] = safe
+        lcol = f[:, k + 1:, k] / safe[:, None]
+        f[:, k + 1:, k] = lcol
+        f[:, k + 1:, k + 1:] -= lcol[:, :, None] * f[:, k:k + 1, k + 1:]
+    eye = torch.eye(nb, dtype=f.dtype, device=f.device).expand_as(f)
+    linv = torch.linalg.solve_triangular(f, eye, upper=False,
+                                         unitriangular=True)
+    uinv = torch.linalg.solve_triangular(f, eye, upper=True)
+    if single:
+        return f[0], linv[0], uinv[0]
+    return f, linv, uinv
+
+
+def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,
+                   tol: float, bl: int):
+    """Whole numeric factorization; returns ``(tiles, invs)``.
+
+    ``tiles`` [num_tiles+1, nb, nb] is factored IN PLACE (the JAX
+    package donated it, ``input_output_aliases={10: 0}``); ``invs``
+    [bl, 2, nb, nb] holds each level's (L^-1, U^-1), indexed by level.
+    Per level k: LU + inverses of the diagonal tile, L panels <- L·U^-1,
+    U panels <- L^-1·U, then ``dst -= L_i·U_j`` for each Schur update
+    (destinations are unique within a level)."""
+    h, d = tables.host, tables.dev
+    uch = h["uch"]
+    invs = tiles.new_empty((bl, 2, nb, nb))
+    for k in range(bl):
+        dix = int(h["diag_tab"][k])
+        f, linv, uinv = getrf_with_inverses(tiles[dix], tol)
+        tiles[dix] = f
+        invs[k, 0] = linv
+        invs[k, 1] = uinv
+        nl, nu, nup = (int(h[t][k]) for t in ("nl_tab", "nu_tab",
+                                               "nup_tab"))
+        lids = d["lid_tab"][k, :nl].long()
+        uids = d["uid_tab"][k, :nu].long()
+        if nl:
+            tiles[lids] = torch.matmul(tiles[lids], uinv)
+        if nu:
+            tiles[uids] = torch.matmul(linv, tiles[uids])
+        if nup:
+            dst, ul, uu = (d[t][k, :, :uch].reshape(-1)[:nup].long()
+                           for t in ("udst_tab", "udl_tab", "udu_tab"))
+            tiles[dst] -= torch.matmul(tiles[lids[ul]], tiles[uids[uu]])
+    return tiles, invs
+
+
+def _solve_level(x, tiles, inv, k, n, ids, rows):
+    """x_k <- x_k·inv^T, then x_r -= x_k·T^T for the level's n panel
+    tiles T (pangulu_tpu/ops/kernels_pallas.py:2074-2108)."""
+    xk = x[:, k] @ inv.T
+    x[:, k] = xk
+    if n:
+        t = tiles[ids[k, :n].long()]
+        x[:, rows[k, :n].long()] -= torch.einsum("rj,tij->rti", xk, t)
+
+
+def mega_solve(x: torch.Tensor, tiles: torch.Tensor, invs: torch.Tensor,
+               tables: KernelTables, *, nb: int, bl: int) -> torch.Tensor:
+    """Solve LU x = b for ``x`` [nrhs, bl+1, nb] (segment ``bl`` is the
+    scratch segment that padded table entries point to).  Forward sweep
+    over the L panels with ``invs[:, 0]`` in ascending level order, then
+    backward over the U column panels with ``invs[:, 1]`` descending.
+    Returns a new tensor."""
+    h, d = tables.host, tables.dev
+    x = x.clone()
+    for k in range(bl):
+        _solve_level(x, tiles, invs[k, 0], k, int(h["nl_tab"][k]),
+                     d["lid_tab"], d["lrow_tab"])
+    for k in reversed(range(bl)):
+        _solve_level(x, tiles, invs[k, 1], k, int(h["nuc_tab"][k]),
+                     d["ucid_tab"], d["ucrow_tab"])
+    return x

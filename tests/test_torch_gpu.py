@@ -1,0 +1,100 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions,
+on the card.  Marked ``gpu``: each test skips (with its reason) where
+no CUDA device is present.  This file imports neither JAX nor the JAX
+package, so on the GPU machine, which has no JAX, it runs without the
+suite's conftest.py:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+Tolerances are the JAX package's own contract (ROADMAP.md
+"Tolerances", tests/test_mega.py:31,82): f32 tiles and inverses
+rtol/atol 1e-5, f32 solves rtol 1e-4 / atol 1e-5, f64 1e-12.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import pangulu_tpu_torch as pt
+from pangulu_tpu_torch.models import poisson2d, random_unsymmetric, trefethen
+from pangulu_tpu_torch.ops import kernels_cuda as kc
+from pangulu_tpu_torch.ops import kernels_torch as kt
+from pangulu_tpu_torch.utils.perf import residual_norm
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+       torch.float64: dict(rtol=1e-12, atol=1e-12)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand kernels run only there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb,batch", [(10, 1), (16, 3), (128, 2)])
+def test_getrf_with_inverses_kernel(cuda, dtype, nb, batch):
+    rng = np.random.default_rng(nb)
+    a = torch.as_tensor(rng.standard_normal((batch, nb, nb))
+                        + nb * np.eye(nb), dtype=dtype, device=cuda)
+    for g, r in zip(kc.getrf_with_inverses(a), kt.getrf_with_inverses(a)):
+        torch.testing.assert_close(g, r, **TOL[dtype])
+
+
+def test_getrf_tiny_pivot_kernel(cuda):
+    """A zero pivot becomes +tol on U's diagonal, as in the plain version."""
+    a = torch.eye(16, dtype=torch.float32, device=cuda)
+    a[3, 3] = 0.0
+    f, _, _ = kc.getrf_with_inverses(a)
+    assert float(f[3, 3]) == pytest.approx(kt.DEFAULT_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("gen,nb,dtype,uch", [
+    (lambda: poisson2d(8), 16, "r32", kt.MEGA_UCH),
+    (lambda: random_unsymmetric(96, 0.06, seed=5), 16, "r32", kt.MEGA_UCH),
+    # uch=4: levels span several update chunks (chunk indexing of K2)
+    (lambda: random_unsymmetric(96, 0.06, seed=5), 16, "r32", 4),
+    (lambda: trefethen(20), 10, "r64", kt.MEGA_UCH),
+])
+def test_mega_kernels(cuda, gen, nb, dtype, uch):
+    a = gen()
+    h = pt.init(a, pt.InitOptions(nb=nb, dtype=dtype, ordering="rcm",
+                                  device="cuda"))
+    nt, bl = h.blocked.num_tiles, h.schedule.block_length
+    ftab = kt.KernelTables.build(h.schedule.mega_tables(nt, uch=uch), cuda)
+    stab = kt.KernelTables.build(h.schedule.mega_solve_tables(nt), cuda)
+    t0 = h.blocked.device_tiles(cuda)
+    tol = kt.DEFAULT_TOL[t0.dtype]
+    tk, ik = kc.mega_factorize(t0.clone(), ftab, nb=nb, tol=tol, bl=bl)
+    tp, ip = kt.mega_factorize(t0.clone(), ftab, nb=nb, tol=tol, bl=bl)
+    torch.testing.assert_close(tk[:nt], tp[:nt], **TOL[t0.dtype])
+    torch.testing.assert_close(ik, ip, **TOL[t0.dtype])
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (2, bl + 1, nb)), dtype=t0.dtype, device=cuda)
+    x[:, bl] = 0
+    stol = (dict(rtol=1e-4, atol=1e-5) if t0.dtype == torch.float32
+            else TOL[t0.dtype])
+    torch.testing.assert_close(
+        kc.mega_solve(x, tk, ik, stab, nb=nb, bl=bl),
+        kt.mega_solve(x, tk, ik, stab, nb=nb, bl=bl), **stol)
+
+
+def test_slice_on_cuda_counts_launches(cuda):
+    a = poisson2d(8)
+    b = a.to_scipy() @ np.ones(a.n)
+    kc.reset_launch_counts()
+    h = pt.init(a, pt.InitOptions(nb=16, dtype="r32", ordering="rcm",
+                                  device="cuda", check=True))
+    pt.gstrf(h)
+    x = pt.gstrs(h, b)
+    # one factorization, whose every level launched K1's kernel on its
+    # diagonal tile; one solve plus the default two refinement solves
+    assert kc.LAUNCHES == {"getrf_with_inverses": h.schedule.block_length,
+                           "mega_factorize": 1, "mega_solve": 3}
+    assert h.factor_tiles.is_cuda
+    assert h.perf.kernels["gstrf_residual"] < 1e-5
+    assert residual_norm(a.to_scipy(), x, b) < 1e-10

@@ -1,0 +1,171 @@
+"""The port imports without JAX, and never falls back silently.
+
+- Importing every module of pangulu_tpu_torch loads no jax module and
+  nothing of the JAX package (checked in a fresh interpreter, since this
+  test process has JAX loaded by conftest.py), and needs neither triton
+  nor nvcc.
+- device="cuda" without a GPU raises; a CUDA-tensor kernel call that
+  cannot build its library raises; options the port does not implement
+  raise NotImplementedError; nb above the kernels' limit raises.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pangulu_tpu_torch import InitOptions, init
+from pangulu_tpu_torch.models import poisson2d
+from pangulu_tpu_torch.ops import build, kernels_cuda
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import pangulu_tpu_torch
+for m in pkgutil.walk_packages(pangulu_tpu_torch.__path__,
+                               "pangulu_tpu_torch."):
+    importlib.import_module(m.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pangulu_tpu",
+                                    "triton"))
+print(len([m for m in sys.modules if m.startswith("pangulu_tpu_torch")]))
+assert not bad, bad
+"""
+
+
+def test_import_loads_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 20   # every module imported
+
+
+def test_cuda_device_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init(poisson2d(4), InitOptions(nb=4, device="cuda"))
+
+
+def test_default_device_is_cuda():
+    assert InitOptions().device == "cuda"
+
+
+def test_cuda_call_without_library_raises(monkeypatch, tmp_path):
+    """A tensor routed to the kernel with no library and no nvcc must
+    raise — never run the plain version instead."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "empty_build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels_cuda, "_library", None)
+    monkeypatch.setattr(kernels_cuda, "_on_cuda", lambda t: True)
+    a = torch.eye(4, dtype=torch.float32)
+    before = dict(kernels_cuda.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels_cuda.getrf_with_inverses(a)
+    assert kernels_cuda.LAUNCHES == before
+
+
+def _route_to_kernel_without_launching(monkeypatch):
+    """Send CPU tensors down the kernel path, and fail if it reaches
+    the library: the checks must reject the input before any launch."""
+    monkeypatch.setattr(kernels_cuda, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(kernels_cuda, "library",
+                        lambda: pytest.fail("reached the kernel launch"))
+
+
+def test_kernel_path_rejects_out_of_range_tables(monkeypatch):
+    from pangulu_tpu_torch.ops.kernels_torch import MEGA_UCH, KernelTables
+
+    _route_to_kernel_without_launching(monkeypatch)
+    h = init(poisson2d(8), InitOptions(nb=16, dtype="r32", ordering="rcm",
+                                       device="cpu"))
+    nt, bl = h.blocked.num_tiles, h.schedule.block_length
+    tiles = h.blocked.device_tiles("cpu")
+    t = h.schedule.mega_tables(nt, uch=MEGA_UCH)
+    t["lid_tab"][0, 0] = nt + 5
+    with pytest.raises(ValueError, match="lid_tab has entries outside"):
+        kernels_cuda.mega_factorize(tiles, KernelTables.build(t, "cpu"),
+                                    nb=16, tol=1e-8, bl=bl)
+    s = h.schedule.mega_solve_tables(nt)
+    s["lrow_tab"][0, 0] = bl + 1
+    x = torch.zeros((1, bl + 1, 16))
+    invs = torch.zeros((bl, 2, 16, 16))
+    with pytest.raises(ValueError, match="lrow_tab has entries outside"):
+        kernels_cuda.mega_solve(x, tiles, invs, KernelTables.build(s, "cpu"),
+                                nb=16, bl=bl)
+
+
+def test_kernel_path_rejects_unsupported_inputs(monkeypatch):
+    _route_to_kernel_without_launching(monkeypatch)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        kernels_cuda.getrf_with_inverses(torch.eye(4, dtype=torch.float16))
+    with pytest.raises(ValueError, match="nb <= 128"):
+        kernels_cuda.getrf_with_inverses(torch.eye(256))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels_cuda.getrf_with_inverses(torch.eye(8)[:, ::2][:4])
+
+
+def test_other_device_raises():
+    a = torch.empty((4, 4), device="meta")
+    with pytest.raises(ValueError, match="cpu"):
+        kernels_cuda.getrf_with_inverses(a)
+
+
+@pytest.mark.parametrize("opts,item", [
+    (dict(mesh_shape=(2, 2)), "M11"),
+    (dict(tile_storage="compressed"), "M9"),
+    (dict(dtype="cr32"), "M8"),
+    (dict(dtype="cr64"), "M8"),
+    (dict(profile_dir="/nonexistent"), "not ported"),
+])
+def test_unported_options_raise(opts, item):
+    with pytest.raises(NotImplementedError, match=item):
+        init(poisson2d(4), InitOptions(nb=4, device="cpu", **opts))
+
+
+def test_nb_above_limit_raises():
+    with pytest.raises(ValueError, match="nb <= 128"):
+        init(poisson2d(4), InitOptions(nb=256, device="cpu"))
+
+
+def test_native_rebuild_is_keyed_by_source(monkeypatch, tmp_path):
+    """Without a loadable shipped library the host source is rebuilt
+    into the build directory (never into native/), under a name that
+    changes with the source, so an edited source never loads a stale
+    build."""
+    from pangulu_tpu_torch import native
+
+    src = tmp_path / "pangulu_host.cpp"
+    src.write_bytes((ROOT / "native" / "pangulu_host.cpp").read_bytes())
+    monkeypatch.setattr(native, "_SHIPPED", tmp_path / "missing.so")
+    monkeypatch.setattr(native, "_SOURCE", src)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    path = native._rebuilt_path()
+    assert native.get_lib() is not None
+    assert sorted((tmp_path / "build").iterdir()) == [path]
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert native._rebuilt_path() not in (path, None)
+
+
+def test_cpu_wrapper_runs_plain_version():
+    """On a CPU tensor the wrapper IS the plain version (and counts no
+    launch)."""
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+
+    before = dict(kernels_cuda.LAUNCHES)
+    rng = np.random.default_rng(1)
+    a = torch.as_tensor(rng.standard_normal((8, 8)) + 8 * np.eye(8))
+    for g, r in zip(kernels_cuda.getrf_with_inverses(a),
+                    kt.getrf_with_inverses(a)):
+        assert torch.equal(g, r)
+    assert kernels_cuda.LAUNCHES == before
