@@ -6,22 +6,32 @@
 From the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  It
 
-  1. prints the card's name and power limit and builds the three CUDA
+  1. prints the card's name and power limit and builds the five CUDA
      kernels from pangulu_tpu_torch/csrc (timed);
   2. holds each kernel against its plain PyTorch version on the same
-     CUDA tensors: K1 getrf_with_inverses at nb=128 (f32, f64); K2
-     mega_factorize and K3 mega_solve on poisson2d(16) nb=16 and
-     poisson3d(32) nb=128 (r32, rcm), printing max errors and CUDA-event
-     times beside the plain version's;
-  3. drives the main path, init -> gstrf -> gstrs on poisson3d(32) with
-     nb=128, r32, rcm, device="cuda", with every launch count zeroed
-     before and read after (each must be > 0), then times the
-     factorization and the solve (median of several, CUDA events);
-  4. solves the reference's config 1, trefethen(20) nb=10 r64;
-  5. with --profile, traces one factorization and one solve of step 3
-     with torch.profiler and prints, per phase, each kernel's launches
-     and device time, the host wall time and the device's idle share;
-  6. prints one JSON line of per-kernel results, then the last line
+     CUDA tensors, printing max errors and CUDA-event times beside the
+     plain version's: K1 getrf_with_inverses at nb=128 (f32, f64); K2
+     mega_factorize and K3 mega_solve on poisson2d(16) nb=16 (r32 and
+     r64) and poisson3d(32) nb=128 (r32), rcm; K4 mega_factorize_groups
+     and K5 mega_solve_groups on poisson2d(12) nb=16 nd (uch 64 and 8,
+     shared destinations), poisson3d(32) nb=128 nd (r32) and
+     poisson2d(24) nb=16 nd (r64);
+  3. drives the rcm path, init -> gstrf -> gstrs on poisson3d(32) with
+     nb=128, r32, device="cuda", with every launch count zeroed before
+     and read after (exactly K1 = block_length, K2 = 1, K3 = 3, K4 =
+     K5 = 0), then times the factorization and the solve (median of
+     several, CUDA events);
+  4. drives the nested-dissection path the same way with ordering="nd"
+     (engines mega_group; exactly K1 = number of groups, K4 = 1, K5 = 3,
+     K2 = K3 = 0), times it, and times the chain engine (K2, K3) forced
+     on the same nd schedule;
+  5. solves the reference's config 1, trefethen(20) nb=10 r64, and
+     poisson2d(24) nb=16 nd r64 on the grouped path;
+  6. with --profile, traces one factorization and one solve of steps 3
+     and 4 with torch.profiler and prints, per phase, each kernel's
+     launches and device time, the host wall time and the device's idle
+     share;
+  7. prints one JSON line of per-kernel results, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or
@@ -48,10 +58,14 @@ REPLACES = {
     "getrf_with_inverses": "pangulu_tpu/ops/kernels_pallas.py:599",
     "mega_factorize": "pangulu_tpu/ops/kernels_pallas.py:1187",
     "mega_solve": "pangulu_tpu/ops/kernels_pallas.py:2155",
+    "mega_factorize_groups": "pangulu_tpu/ops/kernels_pallas.py:1915",
+    "mega_solve_groups": "pangulu_tpu/ops/kernels_pallas.py:2350",
 }
 # Tolerances (the JAX package's own contract, ROADMAP.md "Tolerances",
-# tests/test_mega.py:31,82): rtol, atol.
+# tests/test_mega.py:31,82, tests/test_mega_group.py:66,140): rtol, atol.
+# Grouped f32 factors sum a group's updates in another order: 2e-4.
 TOL_F32 = (1e-5, 1e-5)
+TOL_GROUP_F32 = (2e-4, 2e-4)
 TOL_SOLVE_F32 = (1e-4, 1e-5)
 TOL_F64 = (1e-12, 1e-12)
 
@@ -137,6 +151,17 @@ def profile(fn, setup=lambda: None) -> dict:
                 idle_share=1.0 - busy_ms / wall_ms, kernels=kernels)
 
 
+def print_profile(prof: dict) -> None:
+    for phase, p in prof.items():
+        print(f"  profile {phase}: wall {p['wall_ms']:.3f} ms, device "
+              f"busy {p['busy_ms']:.3f} ms, idle share "
+              f"{p['idle_share']:.3f}")
+        for name, k in sorted(p["kernels"].items(),
+                              key=lambda kv: -kv[1]["device_ms"]):
+            print(f"    {name}: {k['launches']} launches, "
+                  f"{k['device_ms']:.3f} device ms")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -149,7 +174,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace one factorization and one solve of the "
-                         "slice with torch.profiler")
+                         "rcm and nd paths with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -162,8 +187,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from pangulu_tpu_torch import InitOptions, gstrf, gstrs, init
     from pangulu_tpu_torch.models import poisson2d, poisson3d, trefethen
+    from pangulu_tpu_torch.numeric import LUFactorizer
     from pangulu_tpu_torch.ops import kernels_cuda as kc
     from pangulu_tpu_torch.ops import kernels_torch as kt
+    from pangulu_tpu_torch.sptrsv import TriangularSolver
     from pangulu_tpu_torch.utils.perf import residual_norm
 
     # true fp32 everywhere on the f32 path (no TF32 in plain matmuls)
@@ -174,12 +201,14 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
     lib = kc.library()
     print(f"kernel build: {lib.build_seconds:.1f} s -> {lib.path.name}")
     detail = {"card": card, "build_seconds": lib.build_seconds,
               "ptxas": [ln for ln in lib.log.splitlines()
                         if "registers" in ln or "spill" in ln]}
     kernels = {}
+    dtypes = {"r32": torch.float32, "r64": torch.float64}
 
     # ---- K1 ------------------------------------------------------------
     print("K1 getrf_with_inverses (nb=128, one tile as on the main path)")
@@ -199,130 +228,239 @@ def main() -> int:
             kernels["getrf_with_inverses"] = dict(max_abs_err=err, ms=ms,
                                                   plain_ms=pms)
 
-    # ---- K2, K3 ----------------------------------------------------------
-    for label, gen, nb in (("poisson2d(16)", lambda: poisson2d(16), 16),
-                           ("poisson3d(32)", lambda: poisson3d(32), 128)):
-        print(f"K2/K3 on {label}, nb={nb}, r32, rcm")
+    # ---- K2, K3 (chain) and K4, K5 (groups) ---------------------------
+    def hold(label, gen, nb, dtype, ordering, uch=kt.MEGA_UCH,
+             timed=True):
+        """Factor and solve with the kernels and the plain versions on
+        the same CUDA tensors; return the errors and times."""
+        grouped = ordering == "nd"
+        print(f"{'K4/K5' if grouped else 'K2/K3'} on {label}, nb={nb}, "
+              f"{dtype}, {ordering}, uch={uch}")
         a = gen()
-        h = init(a, InitOptions(nb=nb, dtype="r32", ordering="rcm",
+        h = init(a, InitOptions(nb=nb, dtype=dtype, ordering=ordering,
                                 device="cuda"))
         blk, sch = h.blocked, h.schedule
         nt, bl = blk.num_tiles, sch.block_length
-        ftab = kt.KernelTables.build(
-            sch.mega_tables(nt, uch=kt.MEGA_UCH), dev)
-        stab = kt.KernelTables.build(sch.mega_solve_tables(nt), dev)
-        tol = kt.DEFAULT_TOL[torch.float32]
+        if grouped:
+            ftab = kt.KernelTables.build(
+                sch.group_mega_tables(nt, uch=uch), dev)
+            stab = kt.KernelTables.build(sch.group_solve_tables(nt), dev)
+            if ftab.host["ngroups"] >= bl:
+                fail(f"{label}: the nd schedule does not compress")
+            fk, fp = kc.mega_factorize_groups, kt.mega_factorize_groups
+            sk, sp = kc.mega_solve_groups, kt.mega_solve_groups
+        else:
+            ftab = kt.KernelTables.build(sch.mega_tables(nt, uch=uch), dev)
+            stab = kt.KernelTables.build(sch.mega_solve_tables(nt), dev)
+            fk, fp = kc.mega_factorize, kt.mega_factorize
+            sk, sp = kc.mega_solve, kt.mega_solve
+        f64 = dtype == "r64"
+        ftol = TOL_F64 if f64 else (TOL_GROUP_F32 if grouped else TOL_F32)
+        stol = TOL_F64 if f64 else TOL_SOLVE_F32
         t0 = blk.device_tiles(dev)
-        kw = dict(nb=nb, tol=tol, bl=bl)
-        tk, ik = kc.mega_factorize(t0.clone(), ftab, **kw)
-        tp, ip = kt.mega_factorize(t0.clone(), ftab, **kw)
-        e2 = max(compare("tiles", tk[:nt], tp[:nt], *TOL_F32),
-                 compare("invs", ik, ip, *TOL_F32))
-        b = a.to_scipy() @ np.ones(a.n)
-        x = torch.zeros((2, bl + 1, nb), dtype=torch.float32, device=dev)
-        x[0, :bl].view(-1)[:a.n] = torch.as_tensor(b, device=dev)
+        kw = dict(nb=nb, tol=kt.DEFAULT_TOL[t0.dtype], bl=bl)
+        tk, ik = fk(t0.clone(), ftab, **kw)
+        tp, ip = fp(t0.clone(), ftab, **kw)
+        ef = max(compare("tiles", tk[:nt], tp[:nt], *ftol),
+                 compare("invs", ik, ip, *ftol))
+        # right-hand sides b = A·1 and 2b in the kernels' layout
+        x = torch.zeros((2, bl + 1, nb), dtype=t0.dtype, device=dev)
+        x[0, :bl].view(-1)[:a.n] = torch.as_tensor(
+            a.to_scipy() @ np.ones(a.n), device=dev)
         x[1] = 2 * x[0]
         skw = dict(nb=nb, bl=bl)
-        e3 = max(compare(f"solve nrhs={r}", kc.mega_solve(
-                     x[:r].contiguous(), tk, ik, stab, **skw),
-                     kt.mega_solve(x[:r].contiguous(), tk, ik, stab, **skw),
-                     *TOL_SOLVE_F32) for r in (1, 2))
-        fms = cuda_ms(lambda t: kc.mega_factorize(t, ftab, **kw),
-                      setup=t0.clone)
-        fpms = cuda_ms(lambda t: kt.mega_factorize(t, ftab, **kw),
-                       setup=t0.clone, reps=2)
-        x1 = x[:1].contiguous()
-        sms = cuda_ms(lambda _: kc.mega_solve(x1, tk, ik, stab, **skw),
-                      reps=10)
-        spms = cuda_ms(lambda _: kt.mega_solve(x1, tk, ik, stab, **skw),
-                       reps=3)
-        print(f"  mega_factorize: kernel {fms:.3f} ms, plain {fpms:.3f} ms")
-        print(f"  mega_solve (1 rhs): kernel {sms:.3f} ms, plain "
-              f"{spms:.3f} ms")
-        detail[f"K2K3_{label}"] = dict(
-            nb=nb, bl=bl, tiles=nt, k2_max_abs_err=e2, k3_max_abs_err=e3,
-            k2_ms=fms, k2_plain_ms=fpms, k3_ms=sms, k3_plain_ms=spms)
-        if nb == 128:
-            kernels["mega_factorize"] = dict(max_abs_err=e2, ms=fms,
-                                             plain_ms=fpms)
-            kernels["mega_solve"] = dict(max_abs_err=e3, ms=sms,
-                                         plain_ms=spms)
+        es = 0.0
+        for r in (1, 2):
+            xr = x[:r].contiguous()
+            got = sk(xr, tk, ik, stab, **skw)
+            es = max(es, compare(f"solve nrhs={r}", got,
+                                 sp(xr, tk, ik, stab, **skw), *stol))
+            if grouped and not torch.equal(got[:, bl], xr[:, bl]):
+                fail("K5 wrote the scratch segment")
+        out = dict(nb=nb, bl=bl, tiles=nt, dtype=dtype, ordering=ordering,
+                   uch=uch, factor_max_abs_err=ef, solve_max_abs_err=es)
+        if grouped:
+            out.update(groups=ftab.host["ngroups"],
+                       solve_groups=stab.host["ngroups"])
+        if timed:
+            fms = cuda_ms(lambda t: fk(t, ftab, **kw), setup=t0.clone)
+            fpms = cuda_ms(lambda t: fp(t, ftab, **kw), setup=t0.clone,
+                           reps=1)
+            x1 = x[:1].contiguous()
+            sms = cuda_ms(lambda _: sk(x1, tk, ik, stab, **skw), reps=10)
+            spms = cuda_ms(lambda _: sp(x1, tk, ik, stab, **skw), reps=2)
+            print(f"  factorization: kernel {fms:.3f} ms, plain "
+                  f"{fpms:.3f} ms")
+            print(f"  solve (1 rhs): kernel {sms:.3f} ms, plain "
+                  f"{spms:.3f} ms")
+            out.update(factor_ms=fms, factor_plain_ms=fpms, solve_ms=sms,
+                       solve_plain_ms=spms)
         del h, t0, tk, tp, ik, ip
         torch.cuda.empty_cache()
+        return out
 
-    # ---- the main path ---------------------------------------------------
-    print("slice: init -> gstrf -> gstrs, poisson3d(32), nb=128, r32, rcm, "
-          "cuda")
+    chain = {
+        "p2d16_r32": hold("poisson2d(16)", lambda: poisson2d(16), 16,
+                          "r32", "rcm"),
+        "p2d16_r64": hold("poisson2d(16)", lambda: poisson2d(16), 16,
+                          "r64", "rcm"),
+        "p3d32_r32": hold("poisson3d(32)", lambda: poisson3d(32), 128,
+                          "r32", "rcm"),
+    }
+    groups = {
+        "p2d12_r32": hold("poisson2d(12)", lambda: poisson2d(12), 16,
+                          "r32", "nd", timed=False),
+        "p2d12_r32_uch8": hold("poisson2d(12)", lambda: poisson2d(12), 16,
+                               "r32", "nd", uch=8, timed=False),
+        "p2d24_r64": hold("poisson2d(24)", lambda: poisson2d(24), 16,
+                          "r64", "nd", timed=False),
+        "p2d24_r64_uch8": hold("poisson2d(24)", lambda: poisson2d(24), 16,
+                               "r64", "nd", uch=8, timed=False),
+        "p3d32_r32": hold("poisson3d(32)", lambda: poisson3d(32), 128,
+                          "r32", "nd"),
+    }
+    detail["chain"], detail["groups"] = chain, groups
+    for name, res, f_or_s in (("mega_factorize", chain, "factor"),
+                              ("mega_solve", chain, "solve"),
+                              ("mega_factorize_groups", groups, "factor"),
+                              ("mega_solve_groups", groups, "solve")):
+        big = res["p3d32_r32"]
+        kernels[name] = dict(
+            max_abs_err=max(r[f"{f_or_s}_max_abs_err"] for r in res.values()
+                            if r["dtype"] == "r32"),
+            ms=big[f"{f_or_s}_ms"], plain_ms=big[f"{f_or_s}_plain_ms"])
+
+    # ---- the paths -------------------------------------------------------
     a = poisson3d(32)
     b = a.to_scipy() @ np.ones(a.n)
-    kc.reset_launch_counts()
-    h = init(a, InitOptions(nb=128, dtype="r32", ordering="rcm",
-                            device="cuda", check=True))
-    gstrf(h)
-    x = gstrs(h, b)
-    launches = dict(kc.LAUNCHES)
-    print(f"  launches: {launches}")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was not launched: {launches}")
-    fres = h.perf.kernels["gstrf_residual"]
-    sres = residual_norm(a.to_scipy(), x, b)
-    print(f"  gstrf residual ||L(U1)-A1||/||A1|| = {fres:.3e} (< 1e-5)")
-    print(f"  solve residual after refine = {sres:.3e} (< 1e-10)")
-    if x.shape != (a.n,) or not np.isfinite(x).all():
-        fail("solution has the wrong shape or non-finite values")
-    if not fres < 1e-5:
-        fail("gstrf residual too large")
-    if not sres < 1e-10:
-        fail("solve residual too large")
-    fac, ts = h._factorizer, h._trisolver
-    fms = cuda_ms(lambda t: fac.factorize(t, sync=False),
-                  setup=lambda: h.blocked.device_tiles(dev), reps=7)
-    xb = ts.blockify_rhs(h.reordering.transform_b(b.astype(np.float32)))
-    sms = cuda_ms(lambda _: ts.solve_blocked(h.factor_tiles, xb), reps=7)
-    flops = h.schedule.flop_estimate()
-    gflops = flops / (fms * 1e-3) / 1e9
-    print(f"  {fms:.3f} ms per factorization, {sms:.3f} ms per solve, "
-          f"{gflops:.1f} GFLOPS (dense-tile model, {flops:.3e} flop)")
-    detail["slice"] = dict(launches=launches, gstrf_residual=fres,
-                           solve_residual=sres, ms_per_factorization=fms,
-                           ms_per_solve=sms, gflops_dense=gflops,
-                           flops=flops, tiles=h.blocked.num_tiles,
-                           bl=h.schedule.block_length)
+
+    def drive(ordering, expect):
+        """init -> gstrf -> gstrs with the launch counts zeroed before and
+        read after; ``expect(h)`` gives the exact counts."""
+        print(f"path: init -> gstrf -> gstrs, poisson3d(32), nb=128, r32, "
+              f"{ordering}, cuda")
+        kc.reset_launch_counts()
+        h = init(a, InitOptions(nb=128, dtype="r32", ordering=ordering,
+                                device="cuda", check=True))
+        gstrf(h)
+        x = gstrs(h, b)
+        launches = dict(kc.LAUNCHES)
+        engines = (h.perf.kernels["engine"], h.perf.kernels["solve_engine"])
+        print(f"  engines: factorization {engines[0]}, solve {engines[1]}")
+        print(f"  launches: {launches}")
+        if launches != expect(h):
+            fail(f"launch counts {launches}, expected {expect(h)}")
+        fres = h.perf.kernels["gstrf_residual"]
+        sres = residual_norm(a.to_scipy(), x, b)
+        print(f"  gstrf residual ||L(U1)-A1||/||A1|| = {fres:.3e} (< 1e-5)")
+        print(f"  solve residual after refine = {sres:.3e} (< 1e-10)")
+        if x.shape != (a.n,) or not np.isfinite(x).all():
+            fail("solution has the wrong shape or non-finite values")
+        if not fres < 1e-5:
+            fail("gstrf residual too large")
+        if not sres < 1e-10:
+            fail("solve residual too large")
+        fac, ts = h._factorizer, h._trisolver
+        fms = cuda_ms(lambda t: fac.factorize(t, sync=False),
+                      setup=lambda: h.blocked.device_tiles(dev), reps=7)
+        xb = ts.blockify_rhs(h.reordering.transform_b(b.astype(np.float32)))
+        sms = cuda_ms(lambda _: ts.solve_blocked(h.factor_tiles, xb), reps=7)
+        flops = h.schedule.flop_estimate()
+        gflops = flops / (fms * 1e-3) / 1e9
+        print(f"  {fms:.3f} ms per factorization, {sms:.3f} ms per solve, "
+              f"{gflops:.1f} GFLOPS (dense-tile model, {flops:.3e} flop)")
+        out = dict(engines=engines, launches=launches, gstrf_residual=fres,
+                   solve_residual=sres, ms_per_factorization=fms,
+                   ms_per_solve=sms, gflops_dense=gflops, flops=flops,
+                   tiles=h.blocked.num_tiles, bl=h.schedule.block_length)
+        return h, xb, out
+
+    def zero_but(**counts):
+        return {k: counts.get(k, 0) for k in kc.LAUNCHES}
+
+    def tiles_of(h):
+        return lambda: h.blocked.device_tiles(dev)
+
+    prof = {}
+    h, xb, detail["rcm_path"] = drive("rcm", lambda h: zero_but(
+        getrf_with_inverses=h.schedule.block_length, mega_factorize=1,
+        mega_solve=3))
+    if detail["rcm_path"]["engines"] != ("mega", "mega"):
+        fail("the rcm path did not take the chain engines")
+    rcm_launches = detail["rcm_path"]["launches"]
     if args.profile:
-        prof = {"gstrf": profile(lambda t: fac.factorize(t, sync=False),
-                                 setup=lambda: h.blocked.device_tiles(dev)),
-                "gstrs": profile(
-                    lambda _: ts.solve_blocked(h.factor_tiles, xb))}
-        for phase, p in prof.items():
-            print(f"  profile {phase}: wall {p['wall_ms']:.3f} ms, device "
-                  f"busy {p['busy_ms']:.3f} ms, idle share "
-                  f"{p['idle_share']:.3f}")
-            for name, k in sorted(p["kernels"].items(),
-                                  key=lambda kv: -kv[1]["device_ms"]):
-                print(f"    {name}: {k['launches']} launches, "
-                      f"{k['device_ms']:.3f} device ms")
-        detail["profile"] = prof
-    del h, fac, ts
+        fac, ts = h._factorizer, h._trisolver
+        prof["rcm gstrf"] = profile(lambda t: fac.factorize(t, sync=False),
+                                    setup=tiles_of(h))
+        prof["rcm gstrs"] = profile(
+            lambda _: ts.solve_blocked(h.factor_tiles, xb))
+    del h, xb
     torch.cuda.empty_cache()
 
-    # ---- r64: the reference's config 1 ------------------------------------
-    print("r64: trefethen(20), nb=10, cuda")
-    a = trefethen(20)
-    b = a.to_scipy() @ np.ones(a.n)
-    h = init(a, InitOptions(nb=10, dtype="r64", device="cuda"))
-    gstrf(h)
-    x = gstrs(h, b)
-    rres = residual_norm(a.to_scipy(), x, b)
-    print(f"  solve residual = {rres:.3e} (< 1e-12)")
-    if not rres < 1e-12:
-        fail("r64 residual too large")
-    detail["r64_trefethen20_residual"] = rres
+    h, xb, nd = drive("nd", lambda h: zero_but(
+        getrf_with_inverses=h._factorizer.tables.host["ngroups"],
+        mega_factorize_groups=1, mega_solve_groups=3))
+    if nd["engines"] != ("mega_group", "mega_group"):
+        fail("the nd path did not take the grouped engines")
+    nd_launches = nd["launches"]
+    nd["groups"] = h._factorizer.tables.host["ngroups"]
+    nd["solve_groups"] = h._trisolver.tables.host["ngroups"]
+    # the chain engines on the same nd schedule: does grouping pay?
+    chain_fac = LUFactorizer(h.blocked, h.schedule, device=dev,
+                             dispatch="mega")
+    chain_ts = TriangularSolver(h.blocked, h.schedule, device=dev,
+                                inv_tiles=h._trisolver.inv_tiles,
+                                dispatch="mega")
+    nd["chain_ms_per_factorization"] = cuda_ms(
+        lambda t: chain_fac.factorize(t, sync=False), setup=tiles_of(h),
+        reps=7)
+    nd["chain_ms_per_solve"] = cuda_ms(
+        lambda _: chain_ts.solve_blocked(h.factor_tiles, xb), reps=7)
+    print(f"  chain engines forced on the same nd schedule: "
+          f"{nd['chain_ms_per_factorization']:.3f} ms per factorization, "
+          f"{nd['chain_ms_per_solve']:.3f} ms per solve")
+    detail["nd_path"] = nd
+    if args.profile:
+        fac, ts = h._factorizer, h._trisolver
+        prof["nd gstrf"] = profile(lambda t: fac.factorize(t, sync=False),
+                                   setup=tiles_of(h))
+        prof["nd gstrs"] = profile(
+            lambda _: ts.solve_blocked(h.factor_tiles, xb))
+    del h, xb, chain_fac, chain_ts
+    torch.cuda.empty_cache()
+    if args.profile:
+        print_profile(prof)
+        detail["profile"] = prof
 
+    # ---- r64 -------------------------------------------------------------
+    for label, gen, nb, ordering, engine in (
+            ("trefethen(20)", lambda: trefethen(20), 10, "auto", None),
+            ("poisson2d(24)", lambda: poisson2d(24), 16, "nd",
+             "mega_group")):
+        print(f"r64: {label}, nb={nb}, {ordering}, cuda")
+        a = gen()
+        b = a.to_scipy() @ np.ones(a.n)
+        h = init(a, InitOptions(nb=nb, dtype="r64", ordering=ordering,
+                                device="cuda"))
+        gstrf(h)
+        x = gstrs(h, b)
+        rres = residual_norm(a.to_scipy(), x, b)
+        print(f"  engine {h.perf.kernels['engine']}, solve residual = "
+              f"{rres:.3e} (< 1e-12)")
+        if engine and h.perf.kernels["engine"] != engine:
+            fail(f"{label} r64 did not take the {engine} engine")
+        if not rres < 1e-12:
+            fail("r64 residual too large")
+        detail[f"r64_{label}_residual"] = rres
+
+    launches = dict(rcm_launches)
+    launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]
+    launches["mega_solve_groups"] = nd_launches["mega_solve_groups"]
     out = {"kernels": [
         dict(name=n, route="cuda", source=SRC, replaces=REPLACES[n],
-             launches=launches[n], **kernels[n])
-        for n in ("getrf_with_inverses", "mega_factorize", "mega_solve")]}
+             launches=launches[n], **kernels[n]) for n in REPLACES]}
     detail["kernels"] = out["kernels"]
+    detail["seconds_after_build_start"] = time.perf_counter() - t_start
     od = ROOT / "pangulu_tpu_torch" / "_build"
     od.mkdir(parents=True, exist_ok=True)
     (od / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -47,6 +47,46 @@
 //   contraction and the panel updates; the panel's rows are distinct,
 //   so its tiles update x in parallel blocks without atomics.  Each
 //   product is warp-per-row so that tile reads are coalesced.
+//
+// K4 mega_factorize_groups
+//   Replaces pangulu_tpu/ops/kernels_pallas.py mega_factorize_groups
+//   (_group_kernel): the whole factorization, one super-level group of
+//   G independent same-depth columns per step (nested-dissection
+//   schedules: poisson3d(32) nb=128 nd packs 256 levels into 90 groups
+//   of at most 5 members).
+//   Bound on an H100: as for K2, the dependent chain, now of groups;
+//   per group one batched diagonal step (G blocks of K1's body), then
+//   the members' panel products and the group's Schur products (up to
+//   450 in one group there).
+//   Design: per group three stream-ordered launches from one host loop
+//   over host copies of the counts, as K2: K1's kernel with one block
+//   per member (tile ids from gdiag, inverse slots from glev, so invs
+//   stays indexed by level), the panels (each tile times ITS member's
+//   inverse; the member is found from the panel offsets), and the
+//   Schur step.  Within a group several members' updates may hit one
+//   destination (separator tiles; up to 5 there), which the TPU kernel
+//   handled with VMEM slots and load/write bits.  Here a host-built
+//   view of the same tables (schedule.group_dst_csr) lists each
+//   distinct destination with its updates, and one block per
+//   (destination, 64 x 64 quadrant) sums its products in registers and
+//   subtracts once: no atomics, the same sum order on every run, each
+//   destination read and written once.  Only l = udl & 0xFFFFF and
+//   u = udu & 0xFFF are read from the packed words; the rest is the
+//   TPU's buffer management.
+//
+// K5 mega_solve_groups
+//   Replaces pangulu_tpu/ops/kernels_pallas.py mega_solve_groups
+//   (_mega_solve_groups_kernel): forward then backward block solve over
+//   the groups of group_solve_tables.
+//   Bound on an H100: the group chain, 2 * ngroups dependent steps of
+//   matrix-vector work (35 groups a sweep for poisson3d(32) nd).
+//   Design: per group two launches, the members' contractions (one
+//   block per real member and RHS; padded members, which point at the
+//   scratch segment, are not launched) and the panel updates.  Rows of
+//   x are shared by several members' panel tiles (up to 8 in the
+//   forward sweep there), so a host-built view (schedule.group_row_csr)
+//   lists each distinct row with its tiles, and one block per (row,
+//   RHS) sums every contribution and subtracts once.  No atomics.
 
 #include <cuda_runtime.h>
 
@@ -58,19 +98,22 @@ namespace plu {
 // ---------------------------------------------------------------- K1
 // Block b factors tile t = (ids ? ids[b] : b) of ``a`` into the same
 // slot of ``f`` (which may be ``a``: in place) and writes its inverses
-// to linv/uinv + b * inv_stride.  The batched entry calls it with
-// ids = nullptr; the factorization's diagonal step (K2) calls it with
-// one block, ids = &diag_tab[k] and the level's slots of ``invs``.
+// to linv/uinv + i * inv_stride, i = (inv_ids ? inv_ids[b] : b).  The
+// batched entry calls it with both tables nullptr; K2's diagonal step
+// with one block, ids = &diag_tab[k] and the level's slots of ``invs``;
+// K4's with one block per member, ids = the group's diagonal tiles and
+// inv_ids = their levels (slots of ``invs`` 2 * nb * nb apart).
 template <typename T>
 __global__ void __launch_bounds__(kLuThreads)
     getrf_inv_kernel(const T* a, T* f, T* linv, T* uinv, size_t inv_stride,
-                     const int* ids, int nb, T tol) {
+                     const int* ids, const int* inv_ids, int nb, T tol) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   LuSmem<T> s(smem_raw, nb);
   const size_t nn = (size_t)nb * nb;
   const size_t off = (size_t)(ids ? ids[blockIdx.x] : blockIdx.x) * nn;
-  T* li = linv + blockIdx.x * inv_stride;
-  T* ui = uinv + blockIdx.x * inv_stride;
+  const size_t slot = inv_ids ? inv_ids[blockIdx.x] : blockIdx.x;
+  T* li = linv + slot * inv_stride;
+  T* ui = uinv + slot * inv_stride;
   copy_tile(a + off, s.F, nb);
   __syncthreads();
   lu_inverses_tile(s.F, s.lc, s.g ? s.g : li, s.g ? s.g : ui, li, ui, nb,
@@ -165,6 +208,117 @@ __global__ void __launch_bounds__(kSolveThreads)
   tile_matvec<T, true>(t, xs, xr + (size_t)rows[e] * nb, nb);
 }
 
+// ---------------------------------------------------------------- K4
+
+// Block b < npl: L panel tile b of group g <- L·U^-1 of its member;
+// else U panel tile b - npl <- L^-1·U.  The member m of panel tile p is
+// the one with off[m] <= p < off[m+1] (gloff or guoff row of g).
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+    group_panel_kernel(T* tiles, const T* invs, const int* lid,
+                       const int* uid, const int* glev, const int* gloff,
+                       const int* guoff, int g, int gw, int lw, int uw,
+                       int gs, int npl, int nb) {
+  const size_t nn = (size_t)nb * nb;
+  const bool is_l = blockIdx.x < npl;
+  const int p = is_l ? blockIdx.x : blockIdx.x - npl;
+  const int* off = (is_l ? gloff : guoff) + (size_t)g * (gw + 1);
+  int m = 0;
+  while (m + 1 < gs && off[m + 1] <= p) ++m;
+  const size_t k = glev[(size_t)g * gw + m];
+  if (is_l) {
+    T* t = tiles + (size_t)lid[(size_t)g * lw + p] * nn;
+    tile_gemm<T, 8, false>(t, invs + (2 * k + 1) * nn, t, nb, 0, 0);
+  } else {
+    T* t = tiles + (size_t)uid[(size_t)g * uw + p] * nn;
+    tile_gemm<T, 8, false>(invs + 2 * k * nn, t, t, nb, 0, 0);
+  }
+}
+
+// Block (d, q): distinct destination doff + d of group g, output
+// quadrant q of 64 x 64.  Its updates are dent[dptr[.]:dptr[.+1]],
+// indices j into the group's update list (chunk j / uch, entry j % uch
+// of the [ngroups, nchunks, row_w] tables); the products are summed in
+// registers and subtracted from the destination once.
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+    group_schur_kernel(T* tiles, const int* lid, const int* uid,
+                       const int* udl, const int* udu, const int* dkey,
+                       const int* dptr, const int* dent, int g, int doff,
+                       int lw, int uw, int nchunks, int row_w, int uch,
+                       int nb, int qdim) {
+  const size_t nn = (size_t)nb * nb;
+  const int d = doff + blockIdx.x;
+  const int r0 = blockIdx.y / qdim * 64, c0 = blockIdx.y % qdim * 64;
+  T acc[4][4];
+  zero_acc(acc);
+  for (int e = dptr[d]; e < dptr[d + 1]; ++e) {
+    const int j = dent[e];
+    const size_t o = ((size_t)g * nchunks + j / uch) * row_w + j % uch;
+    const T* l = tiles + (size_t)lid[(size_t)g * lw + (udl[o] & 0xFFFFF)] * nn;
+    const T* u = tiles + (size_t)uid[(size_t)g * uw + (udu[o] & 0xFFF)] * nn;
+    tile_gemm_acc(l, u, nb, r0, c0, acc);
+  }
+  tile_store<T, 4, true>(tiles + (size_t)dkey[d] * nn, nb, r0, c0, acc);
+}
+
+// ---------------------------------------------------------------- K5
+
+// Block (m, r): x[r, k, :] <- inv_k · x[r, k, :] for member m of group
+// g, k = kseg[g][m] (only real members are launched).
+template <typename T>
+__global__ void __launch_bounds__(kSolveThreads)
+    group_solve_diag_kernel(T* x, const T* invs, const int* kseg,
+                            size_t rhs_stride, int g, int gw, int slot,
+                            int nb) {
+  __shared__ T xs[kMaxNb];
+  const size_t k = kseg[(size_t)g * gw + blockIdx.x];
+  T* xk = x + blockIdx.y * rhs_stride + k * nb;
+  for (int i = threadIdx.x; i < nb; i += kSolveThreads) xs[i] = xk[i];
+  __syncthreads();
+  tile_matvec<T, false>(invs + (2 * k + slot) * nb * nb, xs, xk, nb);
+}
+
+// Block (d, r): x[r, rkey[d], :] -= sum over the row's panel entries t
+// of T_t · x[r, k_t, :], where tab is the group's [3, w] panel row
+// (tile id, x row, member) and k_t = kseg[g][member of t].  The source
+// segments (members of g) are never rows that g's panels update, so
+// they are read while other blocks write.  Dynamic shared memory holds
+// the row's source segments, ne * nb values.
+template <typename T>
+__global__ void __launch_bounds__(kSolveThreads)
+    group_solve_rows_kernel(T* x, const T* tiles, const int* kseg,
+                            const int* tab, const int* rkey,
+                            const int* rptr, const int* rent,
+                            size_t rhs_stride, int g, int gw, int w,
+                            int roff, int nb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  const size_t nn = (size_t)nb * nb;
+  const int d = roff + blockIdx.x;
+  const int e0 = rptr[d], ne = rptr[d + 1] - e0;
+  const int* ids = tab + (size_t)g * 3 * w;
+  const int* mem = ids + 2 * w;
+  T* xr = x + blockIdx.y * rhs_stride;
+  for (int i = threadIdx.x; i < ne * nb; i += kSolveThreads) {
+    const size_t k = kseg[(size_t)g * gw + mem[rent[e0 + i / nb]]];
+    xs[i] = xr[k * nb + i % nb];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  T* out = xr + (size_t)rkey[d] * nb;
+  for (int i = warp; i < nb; i += kSolveThreads / 32) {
+    T acc = T(0);
+    for (int e = 0; e < ne; ++e) {
+      const T* M = tiles + (size_t)ids[rent[e0 + e]] * nn + (size_t)i * nb;
+      for (int j = lane; j < nb; j += 32)
+        acc = fmat(M[j], xs[e * nb + j], acc);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) out[i] -= acc;
+  }
+}
+
 // ------------------------------------------------------ host launchers
 template <typename T>
 int getrf_inv(const T* a, T* f, T* linv, T* uinv, int batch, int nb,
@@ -175,7 +329,7 @@ int getrf_inv(const T* a, T* f, T* linv, T* uinv, int batch, int nb,
       (int)smem);
   if (e != cudaSuccess) return e;
   getrf_inv_kernel<T><<<batch, kLuThreads, smem, st>>>(
-      a, f, linv, uinv, (size_t)nb * nb, nullptr, nb, (T)tol);
+      a, f, linv, uinv, (size_t)nb * nb, nullptr, nullptr, nb, (T)tol);
   return cudaGetLastError();
 }
 
@@ -197,7 +351,8 @@ int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
     // diagonal step: K1's kernel on tile diag_tab[k], in place
     T* linv = invs + (size_t)(2 * k) * nn;
     getrf_inv_kernel<T><<<1, kLuThreads, smem, st>>>(
-        tiles, tiles, linv, linv + nn, 0, diag_tab + k, nb, (T)tol);
+        tiles, tiles, linv, linv + nn, 0, diag_tab + k, nullptr, nb,
+        (T)tol);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     ++*diag_launches;  // K1's launch count, reported to the wrapper
     const int np = h_nl[k] + h_nu[k];
@@ -249,6 +404,95 @@ int mega_solve(T* x, int nrhs, const T* tiles, const T* invs, const int* lid,
                st);
 }
 
+template <typename T>
+int mega_factorize_groups(T* tiles, T* invs, const int* gdiag,
+                          const int* glev, const int* gloff,
+                          const int* guoff, const int* lid, const int* uid,
+                          const int* udl, const int* udu, const int* dkey,
+                          const int* dptr, const int* dent, const int* h_gs,
+                          const int* h_npl, const int* h_npu,
+                          const int* h_ndst, const int* h_doff, int ng,
+                          int gw, int lw, int uw, int nchunks, int row_w,
+                          int uch, int nb, double tol, int* diag_launches,
+                          cudaStream_t st) {
+  const size_t smem = lu_smem_bytes<T>(nb);
+  cudaError_t e = cudaFuncSetAttribute(
+      getrf_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const size_t nn = (size_t)nb * nb;
+  const int qdim = (nb + 63) / 64;
+  for (int g = 0; g < ng; ++g) {
+    // diagonal step: K1's kernel, one block per member, in place
+    getrf_inv_kernel<T><<<h_gs[g], kLuThreads, smem, st>>>(
+        tiles, tiles, invs, invs + nn, 2 * nn, gdiag + (size_t)g * gw,
+        glev + (size_t)g * gw, nb, (T)tol);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    ++*diag_launches;  // K1's launch count, reported to the wrapper
+    const int np = h_npl[g] + h_npu[g];
+    if (np > 0) {
+      group_panel_kernel<T><<<np, kGemmThreads, 0, st>>>(
+          tiles, invs, lid, uid, glev, gloff, guoff, g, gw, lw, uw, h_gs[g],
+          h_npl[g], nb);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+    if (h_ndst[g] > 0) {
+      group_schur_kernel<T>
+          <<<dim3(h_ndst[g], qdim * qdim), kGemmThreads, 0, st>>>(
+              tiles, lid, uid, udl, udu, dkey, dptr, dent, g, h_doff[g], lw,
+              uw, nchunks, row_w, uch, nb, qdim);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+int group_sweep(T* x, int nrhs, const T* tiles, const T* invs, int slot,
+                const int* kseg, const int* tab, const int* rkey,
+                const int* rptr, const int* rent, const int* h_nmem,
+                const int* h_nrow, const int* h_roff, int ngr, int gw, int w,
+                int bl, int nb, size_t smem, bool descending,
+                cudaStream_t st) {
+  const size_t rhs_stride = (size_t)(bl + 1) * nb;
+  cudaError_t e;
+  for (int i = 0; i < ngr; ++i) {
+    const int g = descending ? ngr - 1 - i : i;
+    group_solve_diag_kernel<T><<<dim3(h_nmem[g], nrhs), kSolveThreads, 0,
+                                 st>>>(x, invs, kseg, rhs_stride, g, gw,
+                                       slot, nb);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if (h_nrow[g] > 0) {
+      group_solve_rows_kernel<T>
+          <<<dim3(h_nrow[g], nrhs), kSolveThreads, smem, st>>>(
+              x, tiles, kseg, tab, rkey, rptr, rent, rhs_stride, g, gw, w,
+              h_roff[g], nb);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+  }
+  return cudaSuccess;
+}
+
+// smem: bytes of the rows kernel's source segments (the most entries
+// of one row, times nb values), at most 48 KB (checked by the wrapper).
+template <typename T>
+int mega_solve_groups(T* x, int nrhs, const T* tiles, const T* invs,
+                      const int* kseg, const int* ltab, const int* uctab,
+                      const int* lkey, const int* lptr, const int* lent,
+                      const int* ukey, const int* uptr, const int* uent,
+                      const int* h_nmem, const int* h_lrow,
+                      const int* h_loff, const int* h_urow,
+                      const int* h_uoff, int ngr, int gw, int w, int bl,
+                      int nb, size_t smem, cudaStream_t st) {
+  int e = group_sweep(x, nrhs, tiles, invs, 0, kseg, ltab, lkey, lptr, lent,
+                      h_nmem, h_lrow, h_loff, ngr, gw, w, bl, nb, smem,
+                      false, st);
+  if (e != cudaSuccess) return e;
+  return group_sweep(x, nrhs, tiles, invs, 1, kseg, uctab, ukey, uptr, uent,
+                     h_nmem, h_urow, h_uoff, ngr, gw, w, bl, nb, smem, true,
+                     st);
+}
+
 }  // namespace plu
 
 // ------------------------------------------------------ C interface
@@ -258,7 +502,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 2; }
+int plu_kernels_abi() { return 3; }
 
 const char* plu_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
@@ -306,5 +550,43 @@ PLU_MEGA_FACTORIZE(plu_mega_factorize_f64, double)
   }
 PLU_MEGA_SOLVE(plu_mega_solve_f32, float)
 PLU_MEGA_SOLVE(plu_mega_solve_f64, double)
+
+#define PLU_MEGA_FACTORIZE_GROUPS(NAME, T)                                    \
+  int NAME(int dev, T* tiles, T* invs, const int* gdiag, const int* glev,    \
+           const int* gloff, const int* guoff, const int* lid,               \
+           const int* uid, const int* udl, const int* udu, const int* dkey,  \
+           const int* dptr, const int* dent, const int* h_gs,                \
+           const int* h_npl, const int* h_npu, const int* h_ndst,            \
+           const int* h_doff, int ng, int gw, int lw, int uw, int nchunks,   \
+           int row_w, int uch, int nb, double tol, int* diag_launches,       \
+           void* st) {                                                       \
+    cudaError_t e = cudaSetDevice(dev);                                      \
+    if (e != cudaSuccess) return e;                                          \
+    return plu::mega_factorize_groups(                                       \
+        tiles, invs, gdiag, glev, gloff, guoff, lid, uid, udl, udu, dkey,    \
+        dptr, dent, h_gs, h_npl, h_npu, h_ndst, h_doff, ng, gw, lw, uw,      \
+        nchunks, row_w, uch, nb, tol, diag_launches, PLU_STREAM(st));        \
+  }
+PLU_MEGA_FACTORIZE_GROUPS(plu_mega_factorize_groups_f32, float)
+PLU_MEGA_FACTORIZE_GROUPS(plu_mega_factorize_groups_f64, double)
+
+#define PLU_MEGA_SOLVE_GROUPS(NAME, T)                                        \
+  int NAME(int dev, T* x, int nrhs, const T* tiles, const T* invs,           \
+           const int* kseg, const int* ltab, const int* uctab,               \
+           const int* lkey, const int* lptr, const int* lent,                \
+           const int* ukey, const int* uptr, const int* uent,                \
+           const int* h_nmem, const int* h_lrow, const int* h_loff,          \
+           const int* h_urow, const int* h_uoff, int ngr, int gw, int w,     \
+           int bl, int nb, int smem, void* st) {                             \
+    cudaError_t e = cudaSetDevice(dev);                                      \
+    if (e != cudaSuccess) return e;                                          \
+    return plu::mega_solve_groups(x, nrhs, tiles, invs, kseg, ltab, uctab,   \
+                                  lkey, lptr, lent, ukey, uptr, uent,        \
+                                  h_nmem, h_lrow, h_loff, h_urow, h_uoff,    \
+                                  ngr, gw, w, bl, nb, (size_t)smem,          \
+                                  PLU_STREAM(st));                           \
+  }
+PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f32, float)
+PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f64, double)
 
 }  // extern "C"

@@ -4,6 +4,9 @@
 // Row-major tiles, 256 threads as a 16 x 16 grid, each thread owning a
 // TR x TR register block at rows ty + 16r and columns tx + 16s.  Ragged
 // edges (nb not a multiple of 16) are masked, so any nb <= 16*TR works.
+// tile_gemm_acc adds one product to the registers and tile_store writes
+// them, so a block can sum several products into one window and store
+// once (the grouped Schur step); tile_gemm is one of each.
 //
 // C may alias A or B when one block owns every element of C that the
 // aliased operand feeds (the in-place panel solves): every load happens
@@ -23,21 +26,16 @@ __device__ __forceinline__ double fmat(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-template <typename T, int TR, bool SUB>
-__device__ void tile_gemm(const T* A, const T* B, T* C, int nb, int r0,
-                          int c0) {
+// acc += A·B over the window at (r0, c0).  Ends with a barrier.
+template <typename T, int TR>
+__device__ void tile_gemm_acc(const T* A, const T* B, int nb, int r0,
+                              int c0, T (&acc)[TR][TR]) {
   constexpr int BK = 16;
   constexpr int BM = 16 * TR;
   __shared__ T As[BM][BK + 1];
   __shared__ T Bs[BK][BM + 1];
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  T acc[TR][TR];
-#pragma unroll
-  for (int r = 0; r < TR; ++r)
-#pragma unroll
-    for (int s = 0; s < TR; ++s) acc[r][s] = T(0);
-
   for (int k0 = 0; k0 < nb; k0 += BK) {
     for (int e = tid; e < BM * BK; e += kGemmThreads) {
       const int r = e / BK, kk = e % BK;
@@ -64,6 +62,13 @@ __device__ void tile_gemm(const T* A, const T* B, T* C, int nb, int r0,
     }
     __syncthreads();
   }
+}
+
+// The window at (r0, c0) of C = acc (or C -= acc when SUB).
+template <typename T, int TR, bool SUB>
+__device__ void tile_store(T* C, int nb, int r0, int c0,
+                           const T (&acc)[TR][TR]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int r = 0; r < TR; ++r) {
     const int gr = r0 + ty + 16 * r;
@@ -76,6 +81,23 @@ __device__ void tile_gemm(const T* A, const T* B, T* C, int nb, int r0,
       }
     }
   }
+}
+
+template <typename T, int TR>
+__device__ __forceinline__ void zero_acc(T (&acc)[TR][TR]) {
+#pragma unroll
+  for (int r = 0; r < TR; ++r)
+#pragma unroll
+    for (int s = 0; s < TR; ++s) acc[r][s] = T(0);
+}
+
+template <typename T, int TR, bool SUB>
+__device__ void tile_gemm(const T* A, const T* B, T* C, int nb, int r0,
+                          int c0) {
+  T acc[TR][TR];
+  zero_acc(acc);
+  tile_gemm_acc(A, B, nb, r0, c0, acc);
+  tile_store<T, TR, SUB>(C, nb, r0, c0, acc);
 }
 
 }  // namespace plu

@@ -24,16 +24,21 @@ import torch
 from pangulu_tpu_torch.ops import build
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.ops.kernels_torch import KernelTables, check_nb
+from pangulu_tpu_torch.schedule import group_dst_csr, group_row_csr
 
-_ABI = 2
+_ABI = 3
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
-# K1 or K3 wrapper call and per K2 wrapper call, plus, for K1, every
-# diagonal step that K2's level loop launches (K1's kernel on one tile;
-# the C entry counts them).  chip_smoke.py zeroes the counts before it
-# drives the main path and reads them after.
-LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0}
+# wrapper call of K1, K2, K3, K4 or K5, plus, for K1, every diagonal
+# step that K2's level loop or K4's group loop launches (K1's kernel;
+# the C entries count them).  chip_smoke.py zeroes the counts before it
+# drives a path and reads them after.
+LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0,
+            "mega_factorize_groups": 0, "mega_solve_groups": 0}
+
+# Bytes of dynamic shared memory a kernel may take without opting in.
+_SMEM_DEFAULT = 48 * 1024
 
 _library: build.KernelLibrary | None = None
 
@@ -70,6 +75,14 @@ def library() -> build.KernelLibrary:
         fn.restype = i
         fn.argtypes = ([i, p, i, p, p] + [p] * 4 + [p] * 2
                        + [i] * 3 + [p])
+        fn = getattr(lib, f"plu_mega_factorize_groups_{s}")
+        fn.restype = i
+        fn.argtypes = ([i, p, p] + [p] * 8 + [p] * 3 + [p] * 5
+                       + [i] * 8 + [d, p, p])
+        fn = getattr(lib, f"plu_mega_solve_groups_{s}")
+        fn.restype = i
+        fn.argtypes = ([i, p, i, p, p] + [p] * 3 + [p] * 6 + [p] * 5
+                       + [i] * 6 + [p])
     _library = kl
     return kl
 
@@ -244,4 +257,148 @@ def mega_solve(x: torch.Tensor, tiles: torch.Tensor, invs: torch.Tensor,
               *(t.data_ptr() for t in tabs), _ptr(nl), _ptr(nuc), bl, w,
               nb, _stream(dev))
         LAUNCHES["mega_solve"] += 1
+    return out
+
+
+def _view(tables: KernelTables, name: str, derive, device) -> tuple:
+    """(host arrays, device tensors) of a view derived from the tables
+    once and cached on them."""
+    if name not in tables.views:
+        host = derive(tables.host)
+        tables.views[name] = (host, {
+            k: torch.as_tensor(v, device=device) for k, v in host.items()
+            if k in ("key", "ptr", "ent")})
+    return tables.views[name]
+
+
+def _check_group_offsets(name, off, gs, width):
+    """Each group's panel offsets rise from 0 to at most ``width``."""
+    rows = np.arange(len(gs))
+    if (off[:, 0] != 0).any() or (np.diff(off, axis=1) < 0).any() \
+            or (off[rows, gs] > width).any():
+        raise ValueError(f"{name}: offsets must rise from 0 to at most "
+                         f"the panel width {width}")
+
+
+def mega_factorize_groups(tiles: torch.Tensor, tables: KernelTables, *,
+                          nb: int, tol: float, bl: int):
+    """K4: the whole factorization over super-level groups, ``tiles``
+    updated IN PLACE; returns ``(tiles, invs[bl, 2, nb, nb])`` with
+    ``invs`` indexed by level.  See
+    :func:`kernels_torch.mega_factorize_groups`."""
+    if not _on_cuda(tiles):
+        return kt.mega_factorize_groups(tiles, tables, nb=nb, tol=tol,
+                                        bl=bl)
+    s = _dtype_of(tiles)
+    check_nb(nb)
+    dev = tiles.device
+    nt = tiles.shape[0] - 1
+    _check_tensor("tiles", tiles, tiles.dtype, (nt + 1, nb, nb), dev)
+    h = tables.host
+    ng = int(h["ngroups"])
+    gw = h["gdiag_tab"].shape[1]
+    lw, uw = h["lid_tab"].shape[1], h["uid_tab"].shape[1]
+    _, nchunks, row_w = h["udst_tab"].shape
+    uch = int(h["uch"])
+    if uch > row_w:
+        raise ValueError(f"uch={uch} exceeds the update row width {row_w}")
+    gs, nup = _host_i32(h["gs_tab"]), _host_i32(h["nup_tab"])
+    if len(gs) != ng or gs.min(initial=1) < 1 or gs.max(initial=1) > gw:
+        raise ValueError(f"gs_tab must hold {ng} group sizes in [1, {gw}]")
+    if nup.max(initial=0) > nchunks * uch:
+        raise ValueError("a group's update count exceeds its table width")
+    gloff, guoff = _host_i32(h["gloff_tab"]), _host_i32(h["guoff_tab"])
+    _check_group_offsets("gloff_tab", gloff, gs, lw)
+    _check_group_offsets("guoff_tab", guoff, gs, uw)
+    glev = _host_i32(h["glev_tab"])
+    levels = np.concatenate([glev[g, :gs[g]] for g in range(ng)])
+    if not np.array_equal(np.sort(levels), np.arange(bl)):
+        raise ValueError(f"glev_tab must hold each of the {bl} levels "
+                         "once (every inverse slot is written)")
+    _check_table("gdiag_tab", h["gdiag_tab"], 0, nt)
+    for k in ("lid_tab", "uid_tab", "udst_tab"):
+        _check_table(k, h[k], 0, nt)
+    # the decoded indices; the other bits are the TPU's slot bookkeeping
+    _check_table("udl_tab & 0xFFFFF", h["udl_tab"] & 0xFFFFF, 0, lw - 1)
+    _check_table("udu_tab & 0xFFF", h["udu_tab"] & 0xFFF, 0, uw - 1)
+    csr, csr_dev = _view(tables, "dst_csr", group_dst_csr, dev)
+    tabs = _dev_tables(tables, ("gdiag_tab", "glev_tab", "gloff_tab",
+                                "guoff_tab", "lid_tab", "uid_tab",
+                                "udl_tab", "udu_tab"), dev)
+    rows = np.arange(ng)
+    npl, npu = _host_i32(gloff[rows, gs]), _host_i32(guoff[rows, gs])
+    invs = torch.empty((bl, 2, nb, nb), dtype=tiles.dtype, device=dev)
+    lib = library().lib
+    diag_launches = ctypes.c_int(0)
+    _call(getattr(lib, f"plu_mega_factorize_groups_{s}"), dev.index,
+          tiles.data_ptr(), invs.data_ptr(), *(t.data_ptr() for t in tabs),
+          *(csr_dev[k].data_ptr() for k in ("key", "ptr", "ent")),
+          _ptr(gs), _ptr(npl), _ptr(npu), _ptr(csr["cnt"]),
+          _ptr(csr["off"]), ng, gw, lw, uw, nchunks, row_w, uch, nb,
+          float(tol), ctypes.byref(diag_launches), _stream(dev))
+    LAUNCHES["getrf_with_inverses"] += diag_launches.value
+    LAUNCHES["mega_factorize_groups"] += 1
+    return tiles, invs
+
+
+def mega_solve_groups(x: torch.Tensor, tiles: torch.Tensor,
+                      invs: torch.Tensor, tables: KernelTables, *,
+                      nb: int, bl: int) -> torch.Tensor:
+    """K5: solve LU x = b over super-level groups for ``x``
+    [nrhs, bl+1, nb]; returns a new tensor.  See
+    :func:`kernels_torch.mega_solve_groups`."""
+    if not _on_cuda(x):
+        return kt.mega_solve_groups(x, tiles, invs, tables, nb=nb, bl=bl)
+    s = _dtype_of(x)
+    check_nb(nb)
+    dev = x.device
+    nrhs = x.shape[0]
+    nt = tiles.shape[0] - 1
+    _check_tensor("x", x, x.dtype, (nrhs, bl + 1, nb), dev)
+    _check_tensor("tiles", tiles, x.dtype, (nt + 1, nb, nb), dev)
+    _check_tensor("invs", invs, x.dtype, (bl, 2, nb, nb), dev)
+    h = tables.host
+    ng = int(h["ngroups"])
+    kseg = _host_i32(h["kseg_tab"])
+    gw, w = kseg.shape[1], h["ltab"].shape[-1]
+    nmem = _host_i32((kseg != bl).sum(axis=1))
+    real = np.arange(gw)[None, :] < nmem[:, None]
+    if (len(kseg) != ng or nmem.min(initial=1) < 1
+            or (kseg[real] > bl - 1).any() or (kseg[real] < 0).any()
+            or (kseg[~real] != bl).any()):
+        raise ValueError("kseg_tab must hold each group's levels first, "
+                         f"then the pad {bl}")
+    for tab, cnt in (("ltab", "nl_tab"), ("uctab", "nuc_tab")):
+        n = _host_i32(h[cnt])
+        if len(n) != ng or n.max(initial=0) > w:
+            raise ValueError(f"{cnt} does not match the groups or {tab}'s "
+                             "width")
+        _check_table(f"{tab}[:, 0]", h[tab][:, 0], 0, nt)
+        _check_table(f"{tab}[:, 1]", h[tab][:, 1], 0, bl)
+        used = np.arange(w)[None, :] < n[:, None]
+        if ((h[tab][:, 2] < 0) | (h[tab][:, 2] >= nmem[:, None]))[used].any():
+            raise ValueError(f"{tab}: a panel tile names no real member")
+    lcsr, lcsr_dev = _view(tables, "row_csr_l",
+                           lambda t: group_row_csr(t, "l"), dev)
+    ucsr, ucsr_dev = _view(tables, "row_csr_uc",
+                           lambda t: group_row_csr(t, "uc"), dev)
+    ent_max = max(int(np.diff(c["ptr"]).max(initial=0))
+                  for c in (lcsr, ucsr))
+    smem = ent_max * nb * x.element_size()
+    if smem > _SMEM_DEFAULT:
+        raise ValueError(f"a row takes {ent_max} panel tiles: {smem} bytes "
+                         f"of shared memory, over {_SMEM_DEFAULT}")
+    tabs = _dev_tables(tables, ("kseg_tab", "ltab", "uctab"), dev)
+    out = x.clone()
+    if nrhs:
+        lib = library().lib
+        _call(getattr(lib, f"plu_mega_solve_groups_{s}"), dev.index,
+              out.data_ptr(), nrhs, tiles.data_ptr(), invs.data_ptr(),
+              *(t.data_ptr() for t in tabs),
+              *(c[k].data_ptr() for c in (lcsr_dev, ucsr_dev)
+                for k in ("key", "ptr", "ent")),
+              _ptr(nmem), _ptr(lcsr["cnt"]), _ptr(lcsr["off"]),
+              _ptr(ucsr["cnt"]), _ptr(ucsr["off"]), ng, gw, w, bl, nb,
+              smem, _stream(dev))
+        LAUNCHES["mega_solve_groups"] += 1
     return out

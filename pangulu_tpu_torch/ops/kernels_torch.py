@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels on the main path.
+"""Plain PyTorch versions of the port's five kernels.
 
 Counterpart of ``pangulu_tpu.ops.kernels_jax`` plus the reference
 semantics of the JAX package's Pallas kernels
@@ -9,7 +9,11 @@ semantics of the JAX package's Pallas kernels
   * :func:`mega_factorize` — the whole numeric factorization over the
     level schedule (``Schedule.mega_tables``);
   * :func:`mega_solve` — the forward then backward block solve against
-    the persisted triangle inverses (``Schedule.mega_solve_tables``).
+    the persisted triangle inverses (``Schedule.mega_solve_tables``);
+  * :func:`mega_factorize_groups` / :func:`mega_solve_groups` — the same
+    two over super-level groups of independent columns
+    (``Schedule.group_mega_tables`` / ``group_solve_tables``), the
+    engines of nested-dissection schedules.
 
 These run on any device.  The CPU tests hold them against the JAX
 package; ``chip_smoke.py`` holds the CUDA kernels
@@ -29,6 +33,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from pangulu_tpu_torch.schedule import group_update_lists
 
 # The reference substitutes a tolerance for tiny diagonal pivots
 # (pangulu_common.h:133 PANGULU_TOL), scaled here by dtype as in
@@ -51,10 +57,13 @@ class KernelTables:
 
     ``host`` is the numpy dict the schedule built (the per-level counts
     are read from it, so no level loop reads the device); ``dev`` holds
-    the same int32 arrays as tensors on the device, shipped once."""
+    the same int32 arrays as tensors on the device, shipped once.
+    ``views`` caches what a CUDA wrapper derives from them once (the
+    grouped kernels' per-destination and per-row lists)."""
 
     host: dict
     dev: dict
+    views: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def build(cls, tables: dict, device) -> "KernelTables":
@@ -132,6 +141,84 @@ def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,
                            for t in ("udst_tab", "udl_tab", "udu_tab"))
             tiles[dst] -= torch.matmul(tiles[lids[ul]], tiles[uids[uu]])
     return tiles, invs
+
+
+def _members(off: np.ndarray, gs: int) -> np.ndarray:
+    """Member index of each tile of a group's concatenated panel, from
+    its offsets ``off[:gs+1]``."""
+    return np.repeat(np.arange(gs), np.diff(off[:gs + 1]))
+
+
+def mega_factorize_groups(tiles: torch.Tensor, tables: KernelTables, *,
+                          nb: int, tol: float, bl: int):
+    """Whole numeric factorization over super-level groups
+    (``Schedule.group_mega_tables``); returns ``(tiles, invs)``.
+
+    ``tiles`` is factored IN PLACE; ``invs`` [bl, 2, nb, nb] is indexed
+    by the ORIGINAL level id (``glev_tab``), so the solves read it as
+    they read the chain's.  Per group: LU + inverses of its members'
+    diagonal tiles as one batch, each panel tile times ITS member's
+    inverse, then ``dst -= L·U`` over the group's updates.  Members'
+    updates may share a destination, so they are summed into it
+    (``index_add_``), never assigned."""
+    h, d = tables.host, tables.dev
+    invs = tiles.new_empty((bl, 2, nb, nb))
+    updates = group_update_lists(h)
+    for g in range(int(h["ngroups"])):
+        gs = int(h["gs_tab"][g])
+        diag = d["gdiag_tab"][g, :gs].long()
+        lev = d["glev_tab"][g, :gs].long()
+        f, linv, uinv = getrf_with_inverses(tiles[diag], tol)
+        tiles[diag] = f
+        invs[lev, 0] = linv
+        invs[lev, 1] = uinv
+        lm = _members(h["gloff_tab"][g], gs)
+        um = _members(h["guoff_tab"][g], gs)
+        lids = d["lid_tab"][g, :len(lm)].long()
+        uids = d["uid_tab"][g, :len(um)].long()
+        if len(lm):
+            tiles[lids] = torch.matmul(tiles[lids], uinv[lm])
+        if len(um):
+            tiles[uids] = torch.matmul(linv[um], tiles[uids])
+        dst, ul, uu = (torch.as_tensor(a.astype(np.int64),
+                                       device=tiles.device)
+                       for a in updates[g])
+        if len(dst):
+            tiles.index_add_(0, dst, torch.matmul(tiles[lids[ul]],
+                                                  tiles[uids[uu]]),
+                             alpha=-1)
+    return tiles, invs
+
+
+def mega_solve_groups(x: torch.Tensor, tiles: torch.Tensor,
+                      invs: torch.Tensor, tables: KernelTables, *,
+                      nb: int, bl: int) -> torch.Tensor:
+    """Solve LU x = b for ``x`` [nrhs, bl+1, nb] over super-level groups
+    (``Schedule.group_solve_tables``).  Forward over the groups in
+    ascending order with ``invs[:, 0]``, backward in descending order
+    with ``invs[:, 1]``.  Per group: each real member's segment
+    ``x_k <- inv_k · x_k``, then ``x_r -= T · x_k(T)`` over the group's
+    panel tiles, where rows shared by several members sum all their
+    updates.  Returns a new tensor; the scratch segment ``bl`` is not
+    touched."""
+    h, d = tables.host, tables.dev
+    x = x.clone()
+    ng = int(h["ngroups"])
+    for key, ntab, slot, groups in (("ltab", "nl_tab", 0, range(ng)),
+                                    ("uctab", "nuc_tab", 1,
+                                     reversed(range(ng)))):
+        for g in groups:
+            kseg = h["kseg_tab"][g]
+            ks = torch.as_tensor(kseg[kseg != bl].astype(np.int64),
+                                 device=x.device)
+            xk = torch.einsum("rmj,mij->rmi", x[:, ks], invs[ks, slot])
+            x[:, ks] = xk
+            n = int(h[ntab][g])
+            if n:
+                ids, rows, mem = (d[key][g, i, :n].long() for i in range(3))
+                upd = torch.einsum("rtj,tij->rti", xk[:, mem], tiles[ids])
+                x.index_add_(1, rows, upd, alpha=-1)
+    return x
 
 
 def _solve_level(x, tiles, inv, k, n, ids, rows):

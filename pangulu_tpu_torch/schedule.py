@@ -57,6 +57,9 @@ class Schedule:
     n_tstrf: int
     n_gessm: int
     n_ssssm: int
+    # block_depths(), computed once
+    _depths: np.ndarray | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def max_lpanel(self):
@@ -194,6 +197,229 @@ class Schedule:
         return dict(nl_tab=nl, nuc_tab=nuc, lid_tab=lid, lrow_tab=lrow,
                     ucid_tab=ucid, ucrow_tab=ucrow)
 
+    def block_depths(self) -> np.ndarray:
+        """Exact block-column dependency depths: level j must precede
+        level k (j < k) iff tile (j,k) or (k,j) is present.  Distinct
+        columns at equal depth touch disjoint diagonal and panel tiles;
+        their Schur updates may share destinations, which commute
+        (addition).  The reference's concurrent ready-GETRF seeding
+        (pangulu_numeric.c:1054-1068) made static."""
+        if self._depths is not None:
+            return self._depths
+        depth = np.zeros(self.block_length, dtype=np.int64)
+        for lev in self.levels:
+            # the block pattern is structurally symmetric (block_full),
+            # so the column above the diagonal covers (j,k) and (k,j)
+            if len(lev.ucolrows):
+                depth[lev.k] = int(depth[lev.ucolrows].max()) + 1
+        self._depths = depth
+        return depth
+
+    def superlevels(self) -> list:
+        """Level indices grouped by equal dependency depth, in depth
+        order: each group's diagonals and panels factor concurrently."""
+        depth = self.block_depths()
+        groups: dict[int, list] = {}
+        for k, d in enumerate(depth):
+            groups.setdefault(int(d), []).append(k)
+        return [groups[d] for d in sorted(groups)]
+
+    def group_mega_tables(self, scratch_tile: int, uch: int = 64,
+                          max_pch: int = 32, gmax: int = 16):
+        """Index tables for the batched-group factorization
+        (``ops.kernels_torch.mega_factorize_groups`` and its CUDA
+        kernel): one step per group of ``G <= gmax`` same-depth columns
+        of one super-level, packed under a panel budget (the group's
+        concatenated L and U panels each hold at most ``max_pch``
+        tiles; a singleton group may exceed it).
+
+        Member panels are concatenated per group (offsets
+        ``gloff/guoff [ngroups, gmax+1]``), and ``udl/udu`` index the
+        concatenated lists.  Updates from different members may hit the
+        same destination tile.  The words are packed as in the JAX
+        package, whose TPU kernel keeps each destination in a VMEM slot:
+        ``udl = l | slot<<20 | load<<28 | write<<29`` and
+        ``udu = u | u0c<<12 | tier<<19`` (a VMEM window tier).  Only
+        ``l = udl & 0xFFFFF`` and ``u = udu & 0xFFF`` change a result;
+        the rest is TPU buffer management, kept for bit parity.
+
+        Returns a dict of tables plus geometry (pch, uch, ngroups,
+        gmax, widths)."""
+        supers = self.superlevels()
+        groups: list[list[int]] = []
+        for mem in supers:
+            cur: list[int] = []
+            nl_c = nu_c = 0
+            for k in mem:
+                nlk = len(self.levels[k].lpanel)
+                nuk = len(self.levels[k].upanel)
+                if cur and (len(cur) >= gmax
+                            or nl_c + nlk > max_pch
+                            or nu_c + nuk > max_pch):
+                    groups.append(cur)
+                    cur, nl_c, nu_c = [], 0, 0
+                cur.append(k)
+                nl_c += nlk
+                nu_c += nuk
+            if cur:
+                groups.append(cur)
+        gmax = max((len(g) for g in groups), default=1)
+        ng = len(groups)
+        nl_tot = max(max((sum(len(self.levels[k].lpanel) for k in g)
+                          for g in groups), default=1), 1)
+        nu_tot = max(max((sum(len(self.levels[k].upanel) for k in g)
+                          for g in groups), default=1), 1)
+        nup_tot = max(max((sum(len(self.levels[k].upd_dst) for k in g)
+                           for g in groups), default=1), 1)
+        pch = min(max(bucket(nl_tot), bucket(nu_tot)), max_pch)
+        nl_pan = -(-max(bucket(nl_tot), 1) // 128) * 128
+        nu_pan = -(-max(bucket(nu_tot), 1) // 128) * 128
+        nchunks = max(1, -(-nup_tot // uch))
+        row_w = max(uch, 128)
+
+        gs = np.zeros(ng, np.int32)
+        gdiag = np.full((ng, gmax), scratch_tile, np.int32)
+        glev = np.zeros((ng, gmax), np.int32)
+        gloff = np.zeros((ng, gmax + 1), np.int32)
+        guoff = np.zeros((ng, gmax + 1), np.int32)
+        nup_tab = np.zeros(ng, np.int32)
+        lid = np.full((ng, nl_pan), scratch_tile, np.int32)
+        uid = np.full((ng, nu_pan), scratch_tile, np.int32)
+        udst = np.full((ng, nchunks, row_w), scratch_tile, np.int32)
+        udl = np.zeros((ng, nchunks, row_w), np.int32)
+        udu = np.zeros((ng, nchunks, row_w), np.int32)
+        tiers = prodrow_tiers(pch)
+        if nl_pan >= (1 << 12) or nu_pan >= (1 << 12):
+            raise ValueError("group panel space exceeds 12-bit udu "
+                             "packing")
+
+        def _uword(uj, gu0, gu1):
+            ucj = uj // pch
+            if gu0 // pch != max(gu1 - 1, gu0) // pch:
+                return uj  # member window crosses chunks: full chunk
+            width = gu1 - gu0
+            ti = 0
+            for i, w in enumerate(tiers):
+                if w >= width:
+                    ti = i
+            w = tiers[ti]
+            u0c = max(0, min(gu0 - ucj * pch, pch - w))
+            return uj | (u0c << 12) | (ti << 19)
+
+        for gi, mem in enumerate(groups):
+            gs[gi] = len(mem)
+            ol = ou = 0
+            dsts, uls, uus, uws = [], [], [], []
+            for m, k in enumerate(mem):
+                lev = self.levels[k]
+                gdiag[gi, m] = lev.diag
+                glev[gi, m] = k
+                gloff[gi, m] = ol
+                guoff[gi, m] = ou
+                nlk, nuk = len(lev.lpanel), len(lev.upanel)
+                lid[gi, ol:ol + nlk] = lev.lpanel
+                uid[gi, ou:ou + nuk] = lev.upanel
+                dsts.append(lev.upd_dst)
+                uls.append(lev.upd_l + ol)
+                uus.append(lev.upd_u + ou)
+                uws.append(np.asarray(
+                    [_uword(int(u) + ou, ou, ou + nuk)
+                     for u in lev.upd_u], np.int64))
+                ol += nlk
+                ou += nuk
+            gloff[gi, len(mem):] = ol
+            guoff[gi, len(mem):] = ou
+            dsts = np.concatenate(dsts) if dsts else np.empty(0, np.int64)
+            uls = np.concatenate(uls) if uls else np.empty(0, np.int64)
+            uus = np.concatenate(uus) if uus else np.empty(0, np.int64)
+            uws = np.concatenate(uws) if uws else np.empty(0, np.int64)
+            nup_tab[gi] = len(dsts)
+            order = np.lexsort((uus, uls, uls // pch, uus // pch))
+            s_dst, s_l, s_u = dsts[order], uls[order], uws[order]
+            for c in range(0, int(nup_tab[gi]), uch):
+                cc = c // uch
+                cnt = min(uch, int(nup_tab[gi]) - c)
+                cd = s_dst[c:c + cnt]
+                # TPU slot bits: duplicates of a destination within the
+                # chunk share one slot, loaded first and written last
+                slot = np.zeros(cnt, np.int64)
+                load = np.zeros(cnt, np.int64)
+                write = np.zeros(cnt, np.int64)
+                seen: dict[int, int] = {}
+                last: dict[int, int] = {}
+                nxt = 0
+                for j, d in enumerate(cd):
+                    d = int(d)
+                    if d in seen:
+                        slot[j] = seen[d]
+                    else:
+                        seen[d] = nxt
+                        slot[j] = nxt
+                        load[j] = 1
+                        nxt += 1
+                    last[d] = j
+                for j in last.values():
+                    write[j] = 1
+                udst[gi, cc, :cnt] = cd
+                udl[gi, cc, :cnt] = (s_l[c:c + cnt] | (slot << 20)
+                                     | (load << 28) | (write << 29))
+                udu[gi, cc, :cnt] = s_u[c:c + cnt]
+        return dict(gs_tab=gs, gdiag_tab=gdiag, glev_tab=glev,
+                    gloff_tab=gloff, guoff_tab=guoff, nup_tab=nup_tab,
+                    lid_tab=lid, uid_tab=uid,
+                    udst_tab=udst, udl_tab=udl, udu_tab=udu,
+                    npan_l=nl_pan, npan_u=nu_pan, pch=pch, uch=uch,
+                    ngroups=ng, gmax=gmax)
+
+    def group_solve_tables(self, scratch_tile: int, gmax: int = 16):
+        """Index tables for the batched-group solve
+        (``ops.kernels_torch.mega_solve_groups`` and its CUDA kernel):
+        one step per super-level chunk of ``G <= gmax`` columns, for
+        both sweeps (equal-depth columns share no tile in either
+        triangle; the backward sweep walks the groups in reverse).
+
+        Panel rows are packed ``[ngroups, 3, W]``: row 0 tile ids, row 1
+        x-segment rows, row 2 the member each tile belongs to.  ``kseg``
+        pads with ``block_length`` (the scratch x segment)."""
+        bl = self.block_length
+        groups = [mem[s:s + gmax] for mem in self.superlevels()
+                  for s in range(0, len(mem), gmax)]
+        ngr = len(groups)
+        nl_tot = max((sum(len(self.levels[k].lpanel) for k in g)
+                      for g in groups), default=0)
+        nuc_tot = max((sum(len(self.levels[k].ucolpanel) for k in g)
+                       for g in groups), default=0)
+        w = -(-max(bucket(max(nl_tot, nuc_tot, 1)), 1) // 128) * 128
+        kseg = np.full((ngr, gmax), bl, dtype=np.int32)
+        nl_g = np.zeros(ngr, dtype=np.int32)
+        nuc_g = np.zeros(ngr, dtype=np.int32)
+        ltab = np.zeros((ngr, 3, w), dtype=np.int32)
+        uctab = np.zeros((ngr, 3, w), dtype=np.int32)
+        ltab[:, 0] = scratch_tile
+        ltab[:, 1] = bl
+        uctab[:, 0] = scratch_tile
+        uctab[:, 1] = bl
+        for gi, g in enumerate(groups):
+            ol = ou = 0
+            for mi, k in enumerate(g):
+                lev = self.levels[k]
+                kseg[gi, mi] = k
+                nlk = len(lev.lpanel)
+                nuk = len(lev.ucolpanel)
+                ltab[gi, 0, ol:ol + nlk] = lev.lpanel
+                ltab[gi, 1, ol:ol + nlk] = lev.lrows
+                ltab[gi, 2, ol:ol + nlk] = mi
+                uctab[gi, 0, ou:ou + nuk] = lev.ucolpanel
+                uctab[gi, 1, ou:ou + nuk] = lev.ucolrows
+                uctab[gi, 2, ou:ou + nuk] = mi
+                ol += nlk
+                ou += nuk
+            nl_g[gi] = ol
+            nuc_g[gi] = ou
+        return dict(kseg_tab=kseg, nl_tab=nl_g, nuc_tab=nuc_g,
+                    ltab=ltab, uctab=uctab, ngroups=ngr, gmax=gmax,
+                    row_w=w)
+
     def flop_estimate(self) -> float:
         """Dense-tile flop model (counterpart of the reference's exact
         sparse flop counters, pangulu_kernel_interface.c:4-178 — this
@@ -262,6 +488,76 @@ def build_schedule(blocked: BlockedMatrix) -> Schedule:
         block_length=bl, nb=blocked.nb, levels=levels,
         n_tstrf=n_tstrf, n_gessm=n_gessm, n_ssssm=n_ssssm,
     )
+
+
+def prodrow_tiers(pch: int) -> tuple:
+    """The TPU kernel's product-row width tiers (pch, pch/2, ... down
+    to 4 tiles, at most 4), whose index ``group_mega_tables`` packs into
+    each ``udu`` word.  Kept for bit parity of the tables."""
+    tiers = [pch]
+    while tiers[-1] > 4 and len(tiers) < 4:
+        tiers.append(tiers[-1] // 2)
+    return tuple(tiers)
+
+
+def group_update_lists(tables: dict) -> list:
+    """Per group of ``group_mega_tables``, its Schur updates as arrays
+    ``(dst, l, u)`` in table order: chunks read in order, the first
+    ``uch`` entries of each row, ``nup`` in all, with ``l``/``u``
+    decoded from the packed words (indices into the group's
+    concatenated panels)."""
+    uch = int(tables["uch"])
+    out = []
+    for g, nup in enumerate(tables["nup_tab"]):
+        nup = int(nup)
+        dst, l, u = (tables[k][g, :, :uch].reshape(-1)[:nup]
+                     for k in ("udst_tab", "udl_tab", "udu_tab"))
+        out.append((dst, l & 0xFFFFF, u & 0xFFF))
+    return out
+
+
+def _csr_by_key(keys: list) -> dict:
+    """Per group, the distinct values of its key array in order of
+    first appearance, each with the positions where it occurs, in
+    order.  Flat over all groups: ``key[d]`` is distinct value d and
+    ``ent[ptr[d]:ptr[d+1]]`` its positions; group g owns
+    ``off[g] : off[g] + cnt[g]``."""
+    key_all, ptr, ent, off, cnt = [], [0], [], [], []
+    for key in keys:
+        uniq, first, inv = np.unique(np.asarray(key), return_index=True,
+                                     return_inverse=True)
+        by_first = np.argsort(first)
+        rank = np.empty(len(uniq), np.int64)
+        rank[by_first] = np.arange(len(uniq))
+        r = rank[inv.reshape(-1)]
+        off.append(len(key_all))
+        cnt.append(len(uniq))
+        key_all.extend(uniq[by_first])
+        ptr.extend(len(ent) + np.cumsum(np.bincount(r,
+                                                    minlength=len(uniq))))
+        ent.extend(np.argsort(r, kind="stable"))
+    return {k: np.asarray(v, np.int32) for k, v in
+            dict(key=key_all, ptr=ptr, ent=ent, off=off, cnt=cnt).items()}
+
+
+def group_dst_csr(tables: dict) -> dict:
+    """A view of ``group_mega_tables`` for the CUDA kernel: per group,
+    its distinct Schur destinations (``key``, tile ids), each with its
+    updates (``ent``: indices into the group's update list of
+    :func:`group_update_lists`, in table order).  Layout of
+    :func:`_csr_by_key`."""
+    return _csr_by_key([dst for dst, _, _ in group_update_lists(tables)])
+
+
+def group_row_csr(tables: dict, sweep: str) -> dict:
+    """A view of ``group_solve_tables`` for the CUDA kernel: per group,
+    the distinct x rows (``key``) that its panel tiles update in one
+    sweep (``"l"`` forward, ``"uc"`` backward), each with its panel
+    entries (``ent``: columns of the group's ``ltab``/``uctab`` row, in
+    table order).  Layout of :func:`_csr_by_key`."""
+    tab, cnt = ((tables["ltab"], tables["nl_tab"]) if sweep == "l"
+                else (tables["uctab"], tables["nuc_tab"]))
+    return _csr_by_key([tab[g, 1, :n] for g, n in enumerate(cnt)])
 
 
 def bucket(n: int) -> int:

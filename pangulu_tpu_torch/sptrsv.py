@@ -4,8 +4,14 @@ Counterpart of ``pangulu_sptrsv.c`` and of
 ``pangulu_tpu.sptrsv.TriangularSolver._solve_mega``: the forward sweep
 on L (unit diagonal), then the backward sweep on U, both as products
 with the per-level triangle inverses that the factorization persisted,
-in one call of :func:`ops.kernels_cuda.mega_solve` (the hand-written
-CUDA kernel on a CUDA device, the plain version on the CPU).
+in one call of an engine in :mod:`ops.kernels_cuda` (the hand-written
+CUDA kernel on a CUDA device, the plain version on the CPU):
+:func:`~ops.kernels_cuda.mega_solve` level by level (``"mega"``), or
+:func:`~ops.kernels_cuda.mega_solve_groups` over super-level groups
+(``"mega_group"``), picked by the factorizer's rule
+(``pangulu_tpu/sptrsv.py:371-386``) when ``dispatch="auto"``.  The
+inverses are indexed by level, so either factorization engine feeds
+either solve.
 
 Multi-RHS is first-class: the kernel carries ``x`` as
 ``[nrhs, bl+1, nb]`` (the +1 segment is the scratch segment that padded
@@ -19,10 +25,15 @@ import numpy as np
 import torch
 
 from pangulu_tpu_torch.blocks import BlockedMatrix
+from pangulu_tpu_torch.numeric import (LUFactorizer, groups_worthwhile,
+                                       pick_engine)
 from pangulu_tpu_torch.ops import kernels_cuda
 from pangulu_tpu_torch.ops.kernels_torch import DEFAULT_TOL, KernelTables
 from pangulu_tpu_torch.schedule import Schedule
+from pangulu_tpu_torch.utils.log import get_logger
 from pangulu_tpu_torch.utils.perf import PerfCounters, device_sync
+
+log = get_logger()
 
 
 class TriangularSolver:
@@ -30,7 +41,8 @@ class TriangularSolver:
 
     def __init__(self, blocked: BlockedMatrix, schedule: Schedule,
                  perf: PerfCounters | None = None, device="cpu",
-                 inv_tiles: torch.Tensor | None = None):
+                 inv_tiles: torch.Tensor | None = None,
+                 dispatch: str = "auto"):
         self.blocked = blocked
         self.schedule = schedule
         self.perf = perf or PerfCounters()
@@ -38,8 +50,22 @@ class TriangularSolver:
         # triangle inverses persisted by the factorization; recomputed
         # by _ensure_inverses for checkpoint-loaded factors
         self.inv_tiles = inv_tiles
-        self.tables = KernelTables.build(
-            schedule.mega_solve_tables(blocked.num_tiles), self.device)
+        self.dispatch, why = pick_engine(dispatch, schedule,
+                                         LUFactorizer.GROUP_GMAX)
+        nt = blocked.num_tiles
+        if self.dispatch == "mega_group":
+            tables = schedule.group_solve_tables(
+                nt, gmax=LUFactorizer.GROUP_GMAX)
+            why += (f"; {schedule.block_length} levels -> "
+                    f"{tables['ngroups']} groups")
+        else:
+            tables = schedule.mega_solve_tables(nt)
+        log.info("solve engine: %s (%s)", self.dispatch, why)
+        self.tables = KernelTables.build(tables, self.device)
+        self.perf.kernels["solve_engine"] = self.dispatch
+
+    def _solve_group_worthwhile(self) -> bool:
+        return groups_worthwhile(self.schedule, LUFactorizer.GROUP_GMAX)
 
     def blockify_rhs(self, b: np.ndarray) -> torch.Tensor:
         """[n] or [n, nrhs] -> [bl+1, nb, nrhs] padded segments."""
@@ -90,9 +116,11 @@ class TriangularSolver:
         solution in the same layout without synchronising."""
         invs = self._ensure_inverses(tiles)
         xt = xb.permute(2, 0, 1).contiguous()      # [nrhs, bl+1, nb]
-        xt = kernels_cuda.mega_solve(
-            xt, tiles, invs, self.tables, nb=self.schedule.nb,
-            bl=self.schedule.block_length)
+        engine = (kernels_cuda.mega_solve_groups
+                  if self.dispatch == "mega_group"
+                  else kernels_cuda.mega_solve)
+        xt = engine(xt, tiles, invs, self.tables, nb=self.schedule.nb,
+                    bl=self.schedule.block_length)
         return xt.permute(1, 2, 0)
 
     def solve(self, tiles: torch.Tensor, b: np.ndarray) -> np.ndarray:

@@ -8,7 +8,9 @@ suite's conftest.py:
 
 Tolerances are the JAX package's own contract (ROADMAP.md
 "Tolerances", tests/test_mega.py:31,82): f32 tiles and inverses
-rtol/atol 1e-5, f32 solves rtol 1e-4 / atol 1e-5, f64 1e-12.
+rtol/atol 1e-5, f32 solves rtol 1e-4 / atol 1e-5, f64 1e-12; grouped
+f32 factors 2e-4 (tests/test_mega_group.py:66,140: a group's updates
+are summed in another order).
 """
 
 import numpy as np
@@ -16,7 +18,8 @@ import pytest
 import torch
 
 import pangulu_tpu_torch as pt
-from pangulu_tpu_torch.models import poisson2d, random_unsymmetric, trefethen
+from pangulu_tpu_torch.models import (poisson2d, random_unsymmetric,
+                                      smallworld, trefethen)
 from pangulu_tpu_torch.ops import kernels_cuda as kc
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.utils.perf import residual_norm
@@ -94,7 +97,66 @@ def test_slice_on_cuda_counts_launches(cuda):
     # one factorization, whose every level launched K1's kernel on its
     # diagonal tile; one solve plus the default two refinement solves
     assert kc.LAUNCHES == {"getrf_with_inverses": h.schedule.block_length,
-                           "mega_factorize": 1, "mega_solve": 3}
+                           "mega_factorize": 1, "mega_solve": 3,
+                           "mega_factorize_groups": 0,
+                           "mega_solve_groups": 0}
     assert h.factor_tiles.is_cuda
+    assert h.perf.kernels["gstrf_residual"] < 1e-5
+    assert residual_norm(a.to_scipy(), x, b) < 1e-10
+
+
+@pytest.mark.parametrize("gen,dtype,uch", [
+    # nd: members of a group share Schur destinations and solve rows
+    (lambda: poisson2d(12), "r32", kt.MEGA_UCH),
+    # uch=8: groups span several update chunks
+    (lambda: poisson2d(12), "r32", 8),
+    (lambda: smallworld(14), "r32", kt.MEGA_UCH),
+    (lambda: poisson2d(24), "r64", kt.MEGA_UCH),
+    (lambda: poisson2d(24), "r64", 8),
+])
+def test_group_kernels(cuda, gen, dtype, uch):
+    h = pt.init(gen(), pt.InitOptions(nb=16, dtype=dtype, ordering="nd",
+                                      device="cuda"))
+    nt, bl = h.blocked.num_tiles, h.schedule.block_length
+    ftab = kt.KernelTables.build(
+        h.schedule.group_mega_tables(nt, uch=uch), cuda)
+    stab = kt.KernelTables.build(h.schedule.group_solve_tables(nt), cuda)
+    assert ftab.host["ngroups"] < bl
+    t0 = h.blocked.device_tiles(cuda)
+    f32 = t0.dtype == torch.float32
+    tol = kt.DEFAULT_TOL[t0.dtype]
+    kw = dict(nb=16, tol=tol, bl=bl)
+    tk, ik = kc.mega_factorize_groups(t0.clone(), ftab, **kw)
+    tp, ip = kt.mega_factorize_groups(t0.clone(), ftab, **kw)
+    ftol = dict(rtol=2e-4, atol=2e-4) if f32 else TOL[t0.dtype]
+    torch.testing.assert_close(tk[:nt], tp[:nt], **ftol)
+    torch.testing.assert_close(ik, ip, **ftol)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (3, bl + 1, 16)), dtype=t0.dtype, device=cuda)
+    stol = dict(rtol=1e-4, atol=1e-5) if f32 else TOL[t0.dtype]
+    got = kc.mega_solve_groups(x, tk, ik, stab, nb=16, bl=bl)
+    torch.testing.assert_close(
+        got, kt.mega_solve_groups(x, tk, ik, stab, nb=16, bl=bl), **stol)
+    assert torch.equal(got[:, bl], x[:, bl])   # scratch segment untouched
+
+
+def test_nd_slice_on_cuda_counts_launches(cuda):
+    a = poisson2d(12)
+    b = a.to_scipy() @ np.ones(a.n)
+    kc.reset_launch_counts()
+    h = pt.init(a, pt.InitOptions(nb=16, dtype="r32", ordering="nd",
+                                  device="cuda", check=True))
+    pt.gstrf(h)
+    x = pt.gstrs(h, b)
+    ng = h._factorizer.tables.host["ngroups"]
+    assert ng < h.schedule.block_length
+    # one grouped factorization, whose every group launched K1's kernel
+    # once for its diagonal tiles; one grouped solve plus two refinement
+    # solves; no chain kernel
+    assert kc.LAUNCHES == {"getrf_with_inverses": ng, "mega_factorize": 0,
+                           "mega_solve": 0, "mega_factorize_groups": 1,
+                           "mega_solve_groups": 3}
+    assert h.perf.kernels["engine"] == "mega_group"
+    assert h.perf.kernels["solve_engine"] == "mega_group"
     assert h.perf.kernels["gstrf_residual"] < 1e-5
     assert residual_norm(a.to_scipy(), x, b) < 1e-10

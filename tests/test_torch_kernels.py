@@ -143,3 +143,39 @@ def test_mega_solve_vs_pallas(nrhs):
                         nb=16, bl=bl)
     np.testing.assert_allclose(got[:, :bl].numpy(),
                                np.asarray(ref)[:, :bl], **SOLVE_F32)
+
+
+def test_mega_factorize_f64_vs_dd_mega():
+    """The TPU's r64 chain kernel (kernels_pallas_dd.mega_factorize_dd,
+    through dispatch="dd_mega" as tests/test_dd.py:336-361 runs it)
+    computes in hi/lo f32 pairs what the port's K2 computes in double:
+    the port's f64 factors and inverses against hi + lo, at the dd
+    tests' 1e-13 (inverses 1e-12: Newton-Schulz there, triangular
+    solves here)."""
+    hj = jinit(jpoisson2d(12), JOpts(nb=16, dtype="r64", ordering="rcm"))
+    fac = JFactorizer(hj.blocked, hj.schedule, dispatch="dd_mega")
+    t_dd = np.asarray(fac.factorize())
+    i_dd = sum(np.asarray(p, np.float64) for p in fac.inv_tiles)
+    hp = pt.init(poisson2d(12), pt.InitOptions(nb=16, dtype="r64",
+                                               ordering="rcm", device="cpu"))
+    fp = LUFactorizer(hp.blocked, hp.schedule, device="cpu", dispatch="mega")
+    tp = fp.factorize()
+    nt = hp.blocked.num_tiles
+    np.testing.assert_allclose(tp[:nt].numpy(), t_dd[:nt],
+                               rtol=1e-13, atol=1e-13)
+    np.testing.assert_allclose(fp.inv_tiles.numpy(), i_dd, **F64)
+
+
+def test_getrf_f64_vs_dd_lu_scan_pallas():
+    """The TPU's dd tile LU (ops/dd.py dd_lu_scan_pallas, interpret
+    mode, the tests/test_dd.py:196-211 case) against the port's f64 K1
+    packed factor, hi + lo combined, at 1e-13."""
+    from pangulu_tpu.ops import dd
+
+    rng = np.random.default_rng(7)
+    nb = 16
+    a = rng.standard_normal((nb, nb)) + np.eye(nb) * 5
+    fh, fl = dd.dd_lu_scan_pallas(*dd.dd(a), nb=nb, tol=1e-30)
+    f, _, _ = kt.getrf_with_inverses(torch.from_numpy(a), tol=1e-30)
+    np.testing.assert_allclose(f.numpy(), dd.dd_to_f64(fh, fl),
+                               rtol=1e-13, atol=1e-13)
