@@ -7,11 +7,18 @@ From the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  It
 
   1. prints the card's name and power limit and builds the five CUDA
-     kernels from pangulu_tpu_torch/csrc (timed);
+     kernels from pangulu_tpu_torch/csrc (timed), printing what ptxas
+     says of K1's instances (registers, spills: none may spill) and of
+     K3's sweep kernel;
   2. holds each kernel against its plain PyTorch version on the same
      CUDA tensors, printing max errors and CUDA-event times beside the
-     plain version's: K1 getrf_with_inverses at nb=128 (f32, f64); K2
-     mega_factorize and K3 mega_solve on poisson2d(16) nb=16 (r32 and
+     plain version's: K1 getrf_with_inverses at nb = 10, 16, 64, 128
+     and on tiles whose pivot is zero mid-elimination (f32, f64), timed
+     per launch over many back-to-back launches at batch 1, 5, 16 and
+     132 beside torch.linalg.lu_factor_ex(pivot=False) as a yardstick;
+     the cost of one grid barrier (K3 takes one per level); K2
+     mega_factorize and K3 mega_solve (1 and 4 right-hand sides, two
+     solves bit-identical) on poisson2d(16) nb=16 (r32 and
      r64) and poisson3d(32) nb=128 (r32), rcm; K4 mega_factorize_groups
      and K5 mega_solve_groups on poisson2d(12) nb=16 nd (uch 64 and 8,
      shared destinations), poisson3d(32) nb=128 nd (r32) and
@@ -30,8 +37,11 @@ CUDA toolkit (nvcc).  It
   6. with --profile, traces one factorization and one solve of steps 3
      and 4 with torch.profiler and prints, per phase, each kernel's
      launches and device time, the host wall time and the device's idle
-     share;
-  7. prints one JSON line of per-kernel results, then the last line
+     share (K3's solve: exactly 2 launches of its sweep kernel);
+  7. prints one JSON line of per-kernel results (time, launches, error,
+     plain and library times, and the bound: the larger of the bytes
+     over 3.35 TB/s and the operations over 67 (f32) or 34 (f64)
+     TFLOP/s, the H100 SXM's published peaks), then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or
@@ -44,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -54,6 +65,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = "pangulu_tpu_torch/csrc/lu_kernels.cu"
+# K1's body; its kernel and launch are in SRC
+SOURCE = {"getrf_with_inverses": "pangulu_tpu_torch/csrc/tile_lu.cuh"}
 REPLACES = {
     "getrf_with_inverses": "pangulu_tpu/ops/kernels_pallas.py:599",
     "mega_factorize": "pangulu_tpu/ops/kernels_pallas.py:1187",
@@ -68,6 +81,65 @@ TOL_F32 = (1e-5, 1e-5)
 TOL_GROUP_F32 = (2e-4, 2e-4)
 TOL_SOLVE_F32 = (1e-4, 1e-5)
 TOL_F64 = (1e-12, 1e-12)
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# FLOP/s outside the tensor cores, float32 and float64.
+HBM_BYTES_S = 3.35e12
+FLOP_S = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def bound(nbytes: float, flop: float, dtype=torch.float32) -> dict:
+    """The least time the card could take for work that moves nbytes
+    and does flop operations of dtype, and which of the two sets it."""
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flop / FLOP_S[dtype] * 1e3
+    return dict(bound_ms=max(tb, tf),
+                bound_by="bytes" if tb >= tf else "operations")
+
+
+def lu_inverse_flop(nb: int) -> int:
+    """Operations of K1 on one tile: the LU's divisions and rank-1
+    updates, then the Gauss-Jordan steps of L^-1 and of U^-1."""
+    k = np.arange(nb)
+    r = nb - k - 1
+    return int((r + 2 * r * r).sum() + (2 * r * k).sum()
+               + ((nb - k) + 2 * k * (nb - k)).sum())
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """Per entry function of an ``nvcc -Xptxas -v`` log: its registers,
+    its spill bytes (stores + loads) and the lines that say so."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {"lines": []})
+        if cur is None or not ("spill" in ln or "registers" in ln):
+            continue
+        cur["lines"].append(ln.strip())
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_bytes"] = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m[1])
+    return out
+
+
+def tiny_pivot_tile(nb: int, k: int, rng) -> np.ndarray:
+    """A diagonally dominant tile whose pivot at step k is exactly 0, so
+    the tiny-pivot rule fires there: for k > 0 row k and column k copy
+    row 0 and column 0 around a00 = 1, which step 0 zeroes exactly; for
+    k = 0 the first row and column are zero."""
+    a = rng.standard_normal((nb, nb)) + nb * np.eye(nb)
+    if k == 0:
+        a[0, :] = 0.0
+        a[:, 0] = 0.0
+    else:
+        a[0, 0] = 1.0
+        a[k, :] = a[0, :]
+        a[:, k] = a[:, 0]
+    return a
 
 
 def fail(msg: str) -> None:
@@ -109,6 +181,26 @@ def cuda_ms(fn, setup=lambda: None, reps=5, warmup=1) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, n: int, reps: int = 3) -> float:
+    """Device ms per call of fn over n back-to-back calls between one
+    pair of CUDA events, median of reps.  The calls are queued behind a
+    device sleep, so the card runs them without waiting on the host."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -204,29 +296,80 @@ def main() -> int:
     t_start = time.perf_counter()
     lib = kc.library()
     print(f"kernel build: {lib.build_seconds:.1f} s -> {lib.path.name}")
+    ptx = ptxas_by_kernel(lib.log)
     detail = {"card": card, "build_seconds": lib.build_seconds,
-              "ptxas": [ln for ln in lib.log.splitlines()
-                        if "registers" in ln or "spill" in ln]}
+              "ptxas": ptx}
     kernels = {}
     dtypes = {"r32": torch.float32, "r64": torch.float64}
+    print("ptxas: K1's instances (getrf_inv_kernel<type, nb/32>) and K3's "
+          "sweep kernel")
+    k1_ptx = {}
+    for name, info in ptx.items():
+        m = re.search(r"getrf_inv_kernelI([fd])Li(\d)E", name)
+        if m:
+            label = (f"getrf_inv_kernel<{dict(f='float', d='double')[m[1]]}"
+                     f", nb<={32 * int(m[2])}>")
+            k1_ptx[label] = info
+        elif "solve_sweep_kernel" in name:
+            label = "solve_sweep_kernel<" + ("float>" if "IfE" in name
+                                            else "double>")
+        else:
+            continue
+        print(f"  {label}: {info.get('registers')} registers, "
+              f"{info.get('spill_bytes')} spill bytes")
+    if len(k1_ptx) != 6 or any(i.get("spill_bytes") != 0
+                               for i in k1_ptx.values()):
+        fail(f"K1: expected 6 instances without spills, ptxas says "
+             f"{k1_ptx}")
+    detail["K1_ptxas"] = k1_ptx
 
     # ---- K1 ------------------------------------------------------------
-    print("K1 getrf_with_inverses (nb=128, one tile as on the main path)")
+    print("K1 getrf_with_inverses against its plain version")
     rng = np.random.default_rng(0)
-    base = rng.standard_normal((128, 128)) + 128 * np.eye(128)
+    k1_err = {}
     for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
-        a = torch.as_tensor(base, dtype=dt, device=dev)
-        got = kc.getrf_with_inverses(a)
-        ref = kt.getrf_with_inverses(a)
-        err = max(compare(f"{dt} {n}", g, r, *tol)
-                  for n, g, r in zip(("f", "linv", "uinv"), got, ref))
-        ms = cuda_ms(lambda _: kc.getrf_with_inverses(a), reps=20)
-        pms = cuda_ms(lambda _: kt.getrf_with_inverses(a), reps=5)
-        print(f"  {dt}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        detail[f"K1_{dt}"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
-        if dt == torch.float32:
-            kernels["getrf_with_inverses"] = dict(max_abs_err=err, ms=ms,
-                                                  plain_ms=pms)
+        cases = [(f"nb={nb}", rng.standard_normal((2, nb, nb))
+                  + nb * np.eye(nb)) for nb in (10, 16, 64, 128)]
+        cases += [(f"nb={nb}, zero pivot at step {k}",
+                   tiny_pivot_tile(nb, k, rng)) for nb, k in
+                  ((16, 0), (16, 8), (128, 64), (128, 127))]
+        err = 0.0
+        for label, tile in cases:
+            a = torch.as_tensor(tile, dtype=dt, device=dev)
+            got = kc.getrf_with_inverses(a)
+            ref = kt.getrf_with_inverses(a)
+            err = max([err] + [compare(f"{dt} {label} {n}", g, r, *tol)
+                               for n, g, r in zip(("f", "linv", "uinv"),
+                                                  got, ref)])
+        k1_err[dt] = err
+    print("K1 per launch (nb=128; back-to-back launches, device time)")
+    k1 = {}
+    for dt in (torch.float32, torch.float64):
+        for batch in (1, 5, 16, 132):
+            a = torch.as_tensor(rng.standard_normal((batch, 128, 128))
+                                + 128 * np.eye(128), dtype=dt, device=dev)
+            ms = device_ms(lambda: kc.getrf_with_inverses(a), n=200)
+            lms = device_ms(lambda: torch.linalg.lu_factor_ex(
+                a, pivot=False), n=50)
+            row = dict(ms=ms, ms_per_tile=ms / batch, library_ms=lms,
+                       **bound(4 * a.numel() * a.element_size(),
+                               batch * lu_inverse_flop(128), dt))
+            if batch == 1:
+                row["plain_ms"] = cuda_ms(
+                    lambda _: kt.getrf_with_inverses(a), reps=3)
+            print(f"  {dt} batch {batch}: kernel {ms:.4f} ms "
+                  f"({ms / batch:.4f} ms a tile), bound "
+                  f"{row['bound_ms']:.3e} ms ({row['bound_by']}), "
+                  f"lu_factor_ex(pivot=False) {lms:.4f} ms"
+                  + (f", plain {row['plain_ms']:.3f} ms" if batch == 1
+                     else ""))
+            k1[f"{dt}_batch{batch}"] = row
+    detail["K1"] = k1
+    one = k1["torch.float32_batch1"]
+    kernels["getrf_with_inverses"] = dict(
+        max_abs_err=k1_err[torch.float32], ms=one["ms"],
+        plain_ms=one["plain_ms"], library_ms=one["library_ms"],
+        **{k: one[k] for k in ("bound_ms", "bound_by")})
 
     # ---- K2, K3 (chain) and K4, K5 (groups) ---------------------------
     def hold(label, gen, nb, dtype, ordering, uch=kt.MEGA_UCH,
@@ -263,22 +406,40 @@ def main() -> int:
         tp, ip = fp(t0.clone(), ftab, **kw)
         ef = max(compare("tiles", tk[:nt], tp[:nt], *ftol),
                  compare("invs", ik, ip, *ftol))
-        # right-hand sides b = A·1 and 2b in the kernels' layout
-        x = torch.zeros((2, bl + 1, nb), dtype=t0.dtype, device=dev)
+        # right-hand sides b = A·1, 2b, 3b, 4b in the kernels' layout
+        x = torch.zeros((4, bl + 1, nb), dtype=t0.dtype, device=dev)
         x[0, :bl].view(-1)[:a.n] = torch.as_tensor(
             a.to_scipy() @ np.ones(a.n), device=dev)
-        x[1] = 2 * x[0]
+        for r in range(1, 4):
+            x[r] = (r + 1) * x[0]
         skw = dict(nb=nb, bl=bl)
         es = 0.0
-        for r in (1, 2):
+        for r in (1, 4):
             xr = x[:r].contiguous()
             got = sk(xr, tk, ik, stab, **skw)
             es = max(es, compare(f"solve nrhs={r}", got,
                                  sp(xr, tk, ik, stab, **skw), *stol))
-            if grouped and not torch.equal(got[:, bl], xr[:, bl]):
-                fail("K5 wrote the scratch segment")
+            if not torch.equal(got[:, bl], xr[:, bl]):
+                fail("the solve wrote the scratch segment")
+            if not torch.equal(got, sk(xr, tk, ik, stab, **skw)):
+                fail("two solves of the same input differ")
+        # the work as these tables define it: every tile read once, the
+        # factors and inverses written once; per solve and RHS, the
+        # panel tiles and the 2 bl inverses read once, x read and written
+        esz, tile_b = t0.element_size(), nb * nb * t0.element_size()
+        npan = int(stab.host["nl_tab"].sum() + stab.host["nuc_tab"].sum())
         out = dict(nb=nb, bl=bl, tiles=nt, dtype=dtype, ordering=ordering,
-                   uch=uch, factor_max_abs_err=ef, solve_max_abs_err=es)
+                   uch=uch, factor_max_abs_err=ef, solve_max_abs_err=es,
+                   factor_bound=bound(2 * (nt + bl) * tile_b,
+                                      sch.flop_estimate(), t0.dtype),
+                   solve_bound=bound((npan + 2 * bl) * tile_b
+                                     + 2 * (bl + 1) * nb * esz,
+                                     2 * nb * nb * (npan + 2 * bl),
+                                     t0.dtype))
+        if not grouped:
+            # cooperative grid of K3's sweeps at one RHS
+            out["solve_items_widest_level"] = int(max(
+                1, stab.host["nl_tab"].max(), stab.host["nuc_tab"].max()))
         if grouped:
             out.update(groups=ftab.host["ngroups"],
                        solve_groups=stab.host["ngroups"])
@@ -286,15 +447,20 @@ def main() -> int:
             fms = cuda_ms(lambda t: fk(t, ftab, **kw), setup=t0.clone)
             fpms = cuda_ms(lambda t: fp(t, ftab, **kw), setup=t0.clone,
                            reps=1)
-            x1 = x[:1].contiguous()
-            sms = cuda_ms(lambda _: sk(x1, tk, ik, stab, **skw), reps=10)
-            spms = cuda_ms(lambda _: sp(x1, tk, ik, stab, **skw), reps=2)
             print(f"  factorization: kernel {fms:.3f} ms, plain "
                   f"{fpms:.3f} ms")
-            print(f"  solve (1 rhs): kernel {sms:.3f} ms, plain "
-                  f"{spms:.3f} ms")
-            out.update(factor_ms=fms, factor_plain_ms=fpms, solve_ms=sms,
-                       solve_plain_ms=spms)
+            out.update(factor_ms=fms, factor_plain_ms=fpms)
+            for r in (4, 1):
+                xr = x[:r].contiguous()
+                sms = cuda_ms(lambda _: sk(xr, tk, ik, stab, **skw),
+                              reps=10)
+                spms = cuda_ms(lambda _: sp(xr, tk, ik, stab, **skw),
+                               reps=2)
+                print(f"  solve ({r} rhs): kernel {sms:.3f} ms, plain "
+                      f"{spms:.3f} ms")
+                out.update({f"solve_ms_{r}rhs": sms,
+                            f"solve_plain_ms_{r}rhs": spms})
+            out.update(solve_ms=sms, solve_plain_ms=spms)
         del h, t0, tk, tp, ik, ip
         torch.cuda.empty_cache()
         return out
@@ -320,6 +486,24 @@ def main() -> int:
                           "r32", "nd"),
     }
     detail["chain"], detail["groups"] = chain, groups
+
+    # ---- one grid barrier ------------------------------------------------
+    print("grid barrier (K3 takes one a level; the first grid is K3's at "
+          "poisson3d(32) rcm, 1 rhs): device us per barrier")
+    detail["grid_sync_us"] = {}
+    for want in (chain["p3d32_r32"]["solve_items_widest_level"], 132,
+                 10 ** 6):
+        kc.grid_sync_probe(dev, want, 10)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        blocks = kc.grid_sync_probe(dev, want, 2000)
+        end.record()
+        end.synchronize()
+        us = start.elapsed_time(end) * 1e3 / 2000
+        print(f"  {blocks} blocks: {us:.3f} us")
+        detail["grid_sync_us"][blocks] = us
+
     for name, res, f_or_s in (("mega_factorize", chain, "factor"),
                               ("mega_solve", chain, "solve"),
                               ("mega_factorize_groups", groups, "factor"),
@@ -328,7 +512,8 @@ def main() -> int:
         kernels[name] = dict(
             max_abs_err=max(r[f"{f_or_s}_max_abs_err"] for r in res.values()
                             if r["dtype"] == "r32"),
-            ms=big[f"{f_or_s}_ms"], plain_ms=big[f"{f_or_s}_plain_ms"])
+            ms=big[f"{f_or_s}_ms"], plain_ms=big[f"{f_or_s}_plain_ms"],
+            library_ms=None, **big[f"{f_or_s}_bound"])
 
     # ---- the paths -------------------------------------------------------
     a = poisson3d(32)
@@ -394,6 +579,12 @@ def main() -> int:
                                     setup=tiles_of(h))
         prof["rcm gstrs"] = profile(
             lambda _: ts.solve_blocked(h.factor_tiles, xb))
+        sweeps = sum(k["launches"] for n, k in
+                     prof["rcm gstrs"]["kernels"].items()
+                     if "solve_sweep_kernel" in n)
+        if sweeps != 2:
+            fail(f"one rcm solve made {sweeps} launches of K3's sweep "
+                 "kernel, expected 2")
     del h, xb
     torch.cuda.empty_cache()
 
@@ -457,7 +648,8 @@ def main() -> int:
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]
     launches["mega_solve_groups"] = nd_launches["mega_solve_groups"]
     out = {"kernels": [
-        dict(name=n, route="cuda", source=SRC, replaces=REPLACES[n],
+        dict(name=n, route="cuda", source=SOURCE.get(n, SRC),
+             replaces=REPLACES[n],
              launches=launches[n], **kernels[n]) for n in REPLACES]}
     detail["kernels"] = out["kernels"]
     detail["seconds_after_build_start"] = time.perf_counter() - t_start

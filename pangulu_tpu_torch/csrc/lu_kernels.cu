@@ -11,7 +11,9 @@
 //   Replaces pangulu_tpu/ops/kernels_pallas.py getrf_with_inverses
 //   (_getrf_inv_kernel -> _lu_inverses).  One block per tile of the
 //   batch; the per-tile body is plu::lu_inverses_tile (tile_lu.cuh),
-//   whose note gives the bound and the design.
+//   whose note gives the bound and the design: the tile in registers,
+//   one barrier per elimination step.  Instances by the register tile
+//   a thread holds (nb <= 32, 64, 128).
 //
 // K2 mega_factorize
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_factorize
@@ -41,12 +43,25 @@
 //   triangle inverses that K2 persisted.
 //   Bound on an H100: again the level chain, 2 * bl dependent steps of
 //   tiny work (one nb x nb matrix-vector product per RHS, plus a panel
-//   of them); the bytes are each tile read once (about 180 MiB of f32
-//   for the bench problem, ~55 us at full bandwidth).
-//   Design: per level two stream-ordered launches, the diagonal
-//   contraction and the panel updates; the panel's rows are distinct,
-//   so its tiles update x in parallel blocks without atomics.  Each
-//   product is warp-per-row so that tile reads are coalesced.
+//   of them); the bytes are each tile read once (about 190 MiB of f32
+//   for the bench problem, ~60 us at full bandwidth).
+//   Design: one cooperative persistent launch per sweep
+//   (solve_sweep_kernel), 2 per solve, in place of two launches per
+//   level.  The kernel walks the levels with one grid barrier each
+//   (cooperative_groups grid.sync); the grid is the widest level's
+//   (panel tile, RHS) item count, capped at the blocks that fit on the
+//   card, and blocks take items in a grid-stride loop.  Every block
+//   with items at level k recomputes inv_k · x_k into its own shared
+//   memory (the inverse is one tile, read from L2) instead of waiting
+//   on a second barrier for one block to publish it; the contraction
+//   goes to a second buffer, so no block overwrites the x_k that
+//   another still reads.  The panel's rows are distinct, so its tiles
+//   update x without atomics.  Each product is warp-per-row so that
+//   tile reads are coalesced, with a warp's rows summed together so
+//   that all their loads are in flight at once.  One grid barrier
+//   measured 1.1 us on the H100 (PERF.md), so per-segment ready flags
+//   (the reference's synchronisation-free SpTRSV) would not pay: per
+//   level the two dependent tile products cost more than the barrier.
 //
 // K4 mega_factorize_groups
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_factorize_groups
@@ -88,12 +103,15 @@
 //   lists each distinct row with its tiles, and one block per (row,
 //   RHS) sums every contribution and subtracts once.  No atomics.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "tile_gemm.cuh"
 #include "tile_lu.cuh"
 
 namespace plu {
+
+namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------- K1
 // Block b factors tile t = (ids ? ids[b] : b) of ``a`` into the same
@@ -103,22 +121,35 @@ namespace plu {
 // with one block, ids = &diag_tab[k] and the level's slots of ``invs``;
 // K4's with one block per member, ids = the group's diagonal tiles and
 // inv_ids = their levels (slots of ``invs`` 2 * nb * nb apart).
-template <typename T>
-__global__ void __launch_bounds__(kLuThreads)
+// CB = lu_cb(nb) sizes the register tile (lu_kernel_for picks it).
+template <typename T, int CB>
+__global__ void __launch_bounds__(kLuThreads, 1)
     getrf_inv_kernel(const T* a, T* f, T* linv, T* uinv, size_t inv_stride,
                      const int* ids, const int* inv_ids, int nb, T tol) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  LuSmem<T> s(smem_raw, nb);
+  T* sF = reinterpret_cast<T*>(smem_raw);
   const size_t nn = (size_t)nb * nb;
   const size_t off = (size_t)(ids ? ids[blockIdx.x] : blockIdx.x) * nn;
   const size_t slot = inv_ids ? inv_ids[blockIdx.x] : blockIdx.x;
-  T* li = linv + slot * inv_stride;
-  T* ui = uinv + slot * inv_stride;
-  copy_tile(a + off, s.F, nb);
-  __syncthreads();
-  lu_inverses_tile(s.F, s.lc, s.g ? s.g : li, s.g ? s.g : ui, li, ui, nb,
-                   tol);
-  copy_tile(s.F, f + off, nb);
+  lu_inverses_tile<T, CB>(a + off, f + off, linv + slot * inv_stride,
+                          uinv + slot * inv_stride, nb, tol, sF,
+                          sF + 32 * CB * kLuVec);
+}
+
+template <typename T>
+using LuKernel = void (*)(const T*, T*, T*, T*, size_t, const int*,
+                          const int*, int, T);
+
+// K1's instance for nb, with its dynamic shared memory opted in.
+template <typename T>
+cudaError_t lu_kernel_for(int nb, LuKernel<T>* kern) {
+  const int cb = lu_cb(nb);
+  *kern = cb == 1   ? getrf_inv_kernel<T, 1>
+          : cb == 2 ? getrf_inv_kernel<T, 2>
+                    : getrf_inv_kernel<T, 4>;
+  return cudaFuncSetAttribute(*kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)lu_smem_bytes<T>(nb));
 }
 
 // ---------------------------------------------------------------- K2
@@ -169,43 +200,126 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// out[i] (=|-=) sum_j M[i][j] * xs[j], one warp per row i.
-template <typename T, bool SUB>
+// out[i] (=|-=) sum_j M[i][j] * xs[j], one warp per row i.  Every block
+// sums a row in the same order, so copies computed by different blocks
+// agree bit for bit.  With SUB, out is read through L2 (__ldcg): other
+// blocks wrote it before the last grid barrier, and L1 is not coherent.
+// A warp's rows (at most kMaxNb / 32 warps = 4) are summed together, so
+// that the loads of all of them, and with SUB the old values of out,
+// are in flight at once.  With XG, xs is x in global memory, read
+// through L2 by each lane (no shared copy, no barrier before the sum).
+template <typename T, bool SUB, bool XG = false>
 __device__ void tile_matvec(const T* M, const T* xs, T* out, int nb) {
+  constexpr int kWarps = kSolveThreads / 32, kRows = kMaxNb / kWarps;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int i = warp; i < nb; i += kSolveThreads / 32) {
-    T acc = T(0);
-    for (int j = lane; j < nb; j += 32) acc = fmat(M[i * nb + j], xs[j], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) out[i] = SUB ? out[i] - acc : acc;
+  T acc[kRows], old[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int i = warp + q * kWarps;
+    acc[q] = T(0);
+    old[q] = SUB && lane == 0 && i < nb ? __ldcg(out + i) : T(0);
+  }
+#pragma unroll 4
+  for (int j = lane; j < nb; j += 32) {
+    const T xj = XG ? __ldcg(xs + j) : xs[j];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = warp + q * kWarps;
+      if (i < nb) acc[q] = fmat(M[i * nb + j], xj, acc[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int i = warp + q * kWarps;
+    if (i < nb) {  // uniform across the warp
+      const T sum = warp_sum(acc[q]);
+      if (lane == 0) out[i] = SUB ? old[q] - sum : sum;
+    }
   }
 }
 
-// Block r: x[r, k, :] <- inv · x[r, k, :].
+// One sweep of the block solve in one cooperative launch; the kernel
+// walks the bl levels itself with one grid barrier per level.  Level k
+// (ascending, or descending for the backward sweep) has n = cnt[k]
+// panel tiles; its items are (t, r), t < max(n, 1), r < nrhs, taken
+// r-major by a grid-stride loop.  A block with items recomputes
+// x_k = inv_k · src[r, k] into shared memory once per r it meets (the
+// same sum on every block); the holder of item (0, r) writes it to
+// dst[r, k], and item (t < n, r) subtracts T_t · x_k from src[r,
+// rows[k][t]].  src[r, k] is read at level k only and dst[r, k] written
+// there only, while the panel rows of a level are distinct and never k
+// (Schedule.mega_solve_tables), so no two blocks touch one value
+// between two barriers: no atomics, the same result on every run.
 template <typename T>
 __global__ void __launch_bounds__(kSolveThreads)
-    solve_diag_kernel(T* x, const T* inv, size_t rhs_stride, int k, int nb) {
-  __shared__ T xs[kMaxNb];
-  T* xk = x + blockIdx.x * rhs_stride + (size_t)k * nb;
-  for (int i = threadIdx.x; i < nb; i += kSolveThreads) xs[i] = xk[i];
-  __syncthreads();
-  tile_matvec<T, false>(inv, xs, xk, nb);
+    solve_sweep_kernel(T* src, T* dst, int nrhs, const T* tiles,
+                       const T* invs, int slot, const int* ids,
+                       const int* rows, const int* cnt, int bl, int w,
+                       int nb, int descending) {
+  __shared__ T xk[kMaxNb];
+  cg::grid_group grid = cg::this_grid();
+  const size_t nn = (size_t)nb * nb;
+  const size_t rhs_stride = (size_t)(bl + 1) * nb;
+  for (int s = 0; s < bl; ++s) {
+    const int k = descending ? bl - 1 - s : s;
+    const int n = cnt[k], nt = n > 0 ? n : 1;
+    int have = -1;
+    for (int it = blockIdx.x; it < nt * nrhs; it += gridDim.x) {
+      const int r = it / nt, t = it % nt;
+      T* xr = src + r * rhs_stride;
+      // the item's panel tile and x row, read before the inverse
+      // product so that their latency overlaps it
+      const T* tile = nullptr;
+      T* xrow = nullptr;
+      if (t < n) {
+        const size_t e = (size_t)k * w + t;
+        tile = tiles + (size_t)ids[e] * nn;
+        xrow = xr + (size_t)rows[e] * nb;
+      }
+      if (r != have) {
+        __syncthreads();  // every reader of the last x_k is done
+        tile_matvec<T, false, true>(invs + (size_t)(2 * k + slot) * nn,
+                                    xr + (size_t)k * nb, xk, nb);
+        __syncthreads();
+        have = r;
+      }
+      if (t == 0)
+        for (int i = threadIdx.x; i < nb; i += kSolveThreads)
+          dst[r * rhs_stride + (size_t)k * nb + i] = xk[i];
+      if (t < n) tile_matvec<T, true>(tile, xk, xrow, nb);
+    }
+    grid.sync();
+  }
 }
 
-// Block (t, r): x[r, rows[k][t], :] -= T_t · x[r, k, :].
-template <typename T>
+// Spins through ``iters`` grid barriers: measures one barrier's cost.
 __global__ void __launch_bounds__(kSolveThreads)
-    solve_panel_kernel(T* x, const T* tiles, const int* ids, const int* rows,
-                       int w, size_t rhs_stride, int k, int nb) {
-  __shared__ T xs[kMaxNb];
-  const size_t nn = (size_t)nb * nb;
-  const size_t e = (size_t)k * w + blockIdx.x;
-  const T* t = tiles + (size_t)ids[e] * nn;
-  T* xr = x + blockIdx.y * rhs_stride;
-  for (int i = threadIdx.x; i < nb; i += kSolveThreads)
-    xs[i] = xr[(size_t)k * nb + i];
-  __syncthreads();
-  tile_matvec<T, true>(t, xs, xr + (size_t)rows[e] * nb, nb);
+    grid_sync_probe_kernel(int iters) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < iters; ++i) grid.sync();
+}
+
+// Cooperative launch of ``kern`` on at most ``want`` blocks, as many as
+// fit on the card at once (a cooperative grid must be co-resident:
+// the launch refuses a larger one, and a larger one would deadlock).
+template <typename K>
+cudaError_t launch_cooperative(K kern, int want, void** args,
+                               cudaStream_t st, int* blocks) {
+  int dev, sms, per_sm;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                    kSolveThreads, 0);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *blocks = want < per_sm * sms ? want : per_sm * sms;
+  if (*blocks < 1) *blocks = 1;
+  e = cudaLaunchCooperativeKernel((const void*)kern, dim3(*blocks),
+                                  dim3(kSolveThreads), args, 0, st);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K4
@@ -323,12 +437,10 @@ __global__ void __launch_bounds__(kSolveThreads)
 template <typename T>
 int getrf_inv(const T* a, T* f, T* linv, T* uinv, int batch, int nb,
               double tol, cudaStream_t st) {
-  const size_t smem = lu_smem_bytes<T>(nb);
-  cudaError_t e = cudaFuncSetAttribute(
-      getrf_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  LuKernel<T> lu;
+  cudaError_t e = lu_kernel_for<T>(nb, &lu);
   if (e != cudaSuccess) return e;
-  getrf_inv_kernel<T><<<batch, kLuThreads, smem, st>>>(
+  lu<<<batch, kLuThreads, lu_smem_bytes<T>(nb), st>>>(
       a, f, linv, uinv, (size_t)nb * nb, nullptr, nullptr, nb, (T)tol);
   return cudaGetLastError();
 }
@@ -341,16 +453,15 @@ int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
                    int row_w, int uch, int nb, double tol, int* diag_launches,
                    cudaStream_t st) {
   const size_t smem = lu_smem_bytes<T>(nb);
-  cudaError_t e = cudaFuncSetAttribute(
-      getrf_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  LuKernel<T> lu;
+  cudaError_t e = lu_kernel_for<T>(nb, &lu);
   if (e != cudaSuccess) return e;
   const size_t nn = (size_t)nb * nb;
   const int qdim = (nb + 63) / 64;
   for (int k = 0; k < bl; ++k) {
     // diagonal step: K1's kernel on tile diag_tab[k], in place
     T* linv = invs + (size_t)(2 * k) * nn;
-    getrf_inv_kernel<T><<<1, kLuThreads, smem, st>>>(
+    lu<<<1, kLuThreads, smem, st>>>(
         tiles, tiles, linv, linv + nn, 0, diag_tab + k, nullptr, nb,
         (T)tol);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -371,37 +482,35 @@ int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
   return cudaSuccess;
 }
 
+// One sweep: h_n (host copy of cnt) sizes the grid to the widest
+// level's item count, capped at what fits on the card.
 template <typename T>
-int sweep(T* x, int nrhs, const T* tiles, const T* invs, int slot,
-          const int* ids, const int* rows, const int* h_n, int bl, int w,
-          int nb, bool descending, cudaStream_t st) {
-  const size_t nn = (size_t)nb * nb;
-  const size_t rhs_stride = (size_t)(bl + 1) * nb;
-  cudaError_t e;
-  for (int i = 0; i < bl; ++i) {
-    const int k = descending ? bl - 1 - i : i;
-    solve_diag_kernel<T><<<nrhs, kSolveThreads, 0, st>>>(
-        x, invs + (size_t)(2 * k + slot) * nn, rhs_stride, k, nb);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    if (h_n[k] > 0) {
-      solve_panel_kernel<T><<<dim3(h_n[k], nrhs), kSolveThreads, 0, st>>>(
-          x, tiles, ids, rows, w, rhs_stride, k, nb);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    }
-  }
-  return cudaSuccess;
+int sweep(T* src, T* dst, int nrhs, const T* tiles, const T* invs, int slot,
+          const int* ids, const int* rows, const int* cnt, const int* h_n,
+          int bl, int w, int nb, int descending, cudaStream_t st) {
+  int widest = 1;
+  for (int k = 0; k < bl; ++k) widest = h_n[k] > widest ? h_n[k] : widest;
+  void* args[] = {&src,  &dst, &nrhs, &tiles, &invs, &slot,      &ids,
+                  &rows, &cnt, &bl,   &w,     &nb,   &descending};
+  int blocks;
+  return launch_cooperative(solve_sweep_kernel<T>, widest * nrhs, args, st,
+                            &blocks);
 }
 
+// x: the right-hand sides on entry, the solution on exit; y: scratch of
+// x's shape that holds the forward sweep's result (the backward sweep
+// reads it and writes x).
 template <typename T>
-int mega_solve(T* x, int nrhs, const T* tiles, const T* invs, const int* lid,
-               const int* lrow, const int* ucid, const int* ucrow,
+int mega_solve(T* x, T* y, int nrhs, const T* tiles, const T* invs,
+               const int* lid, const int* lrow, const int* ucid,
+               const int* ucrow, const int* nl, const int* nuc,
                const int* h_nl, const int* h_nuc, int bl, int w, int nb,
                cudaStream_t st) {
-  int e = sweep(x, nrhs, tiles, invs, 0, lid, lrow, h_nl, bl, w, nb, false,
-                st);
+  int e = sweep(x, y, nrhs, tiles, invs, 0, lid, lrow, nl, h_nl, bl, w, nb,
+                0, st);
   if (e != cudaSuccess) return e;
-  return sweep(x, nrhs, tiles, invs, 1, ucid, ucrow, h_nuc, bl, w, nb, true,
-               st);
+  return sweep(y, x, nrhs, tiles, invs, 1, ucid, ucrow, nuc, h_nuc, bl, w,
+               nb, 1, st);
 }
 
 template <typename T>
@@ -416,15 +525,14 @@ int mega_factorize_groups(T* tiles, T* invs, const int* gdiag,
                           int uch, int nb, double tol, int* diag_launches,
                           cudaStream_t st) {
   const size_t smem = lu_smem_bytes<T>(nb);
-  cudaError_t e = cudaFuncSetAttribute(
-      getrf_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  LuKernel<T> lu;
+  cudaError_t e = lu_kernel_for<T>(nb, &lu);
   if (e != cudaSuccess) return e;
   const size_t nn = (size_t)nb * nb;
   const int qdim = (nb + 63) / 64;
   for (int g = 0; g < ng; ++g) {
     // diagonal step: K1's kernel, one block per member, in place
-    getrf_inv_kernel<T><<<h_gs[g], kLuThreads, smem, st>>>(
+    lu<<<h_gs[g], kLuThreads, smem, st>>>(
         tiles, tiles, invs, invs + nn, 2 * nn, gdiag + (size_t)g * gw,
         glev + (size_t)g * gw, nb, (T)tol);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -502,7 +610,19 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 3; }
+int plu_kernels_abi() { return 4; }
+
+// ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
+// K3's size; *blocks receives the grid actually launched.  A
+// measurement of the barrier K3 takes once per level, on no path.
+int plu_grid_sync_probe(int dev, int want, int iters, int* blocks,
+                        void* st) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return e;
+  void* args[] = {&iters};
+  return plu::launch_cooperative(plu::grid_sync_probe_kernel, want, args,
+                                 PLU_STREAM(st), blocks);
+}
 
 const char* plu_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
@@ -539,14 +659,15 @@ PLU_MEGA_FACTORIZE(plu_mega_factorize_f32, float)
 PLU_MEGA_FACTORIZE(plu_mega_factorize_f64, double)
 
 #define PLU_MEGA_SOLVE(NAME, T)                                               \
-  int NAME(int dev, T* x, int nrhs, const T* tiles, const T* invs,           \
+  int NAME(int dev, T* x, T* y, int nrhs, const T* tiles, const T* invs,     \
            const int* lid, const int* lrow, const int* ucid,                 \
-           const int* ucrow, const int* h_nl, const int* h_nuc, int bl,      \
-           int w, int nb, void* st) {                                        \
+           const int* ucrow, const int* nl, const int* nuc,                  \
+           const int* h_nl, const int* h_nuc, int bl, int w, int nb,         \
+           void* st) {                                                       \
     cudaError_t e = cudaSetDevice(dev);                                      \
     if (e != cudaSuccess) return e;                                          \
-    return plu::mega_solve(x, nrhs, tiles, invs, lid, lrow, ucid, ucrow,     \
-                           h_nl, h_nuc, bl, w, nb, PLU_STREAM(st));          \
+    return plu::mega_solve(x, y, nrhs, tiles, invs, lid, lrow, ucid, ucrow,  \
+                           nl, nuc, h_nl, h_nuc, bl, w, nb, PLU_STREAM(st)); \
   }
 PLU_MEGA_SOLVE(plu_mega_solve_f32, float)
 PLU_MEGA_SOLVE(plu_mega_solve_f64, double)

@@ -67,10 +67,12 @@ class KernelLibrary:
 
 def build() -> tuple[pathlib.Path, float, str]:
     """Compile the kernels if their library for the current sources is
-    missing.  Returns (library path, seconds spent, compiler output)."""
+    missing.  Returns (library path, seconds spent, compiler output:
+    that of the earlier build when the library was there)."""
     out = BUILD_DIR / f"liblu_kernels_{source_hash()}.so"
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return out, 0.0, ""
+        return out, 0.0, log_path.read_text() if log_path.exists() else ""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -82,8 +84,8 @@ def build() -> tuple[pathlib.Path, float, str]:
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    log_path.write_text(log)
     tmp.replace(out)
-    (BUILD_DIR / "build.log").write_text(log)
     return out, secs, log
 
 

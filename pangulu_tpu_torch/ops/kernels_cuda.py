@@ -26,7 +26,7 @@ from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.ops.kernels_torch import KernelTables, check_nb
 from pangulu_tpu_torch.schedule import group_dst_csr, group_row_csr
 
-_ABI = 3
+_ABI = 4
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -73,7 +73,7 @@ def library() -> build.KernelLibrary:
                        + [i] * 7 + [d, p, p])
         fn = getattr(lib, f"plu_mega_solve_{s}")
         fn.restype = i
-        fn.argtypes = ([i, p, i, p, p] + [p] * 4 + [p] * 2
+        fn.argtypes = ([i, p, p, i, p, p] + [p] * 4 + [p] * 4
                        + [i] * 3 + [p])
         fn = getattr(lib, f"plu_mega_factorize_groups_{s}")
         fn.restype = i
@@ -83,6 +83,8 @@ def library() -> build.KernelLibrary:
         fn.restype = i
         fn.argtypes = ([i, p, i, p, p] + [p] * 3 + [p] * 6 + [p] * 5
                        + [i] * 6 + [p])
+    lib.plu_grid_sync_probe.restype = i
+    lib.plu_grid_sync_probe.argtypes = [i, i, i, p, p]
     _library = kl
     return kl
 
@@ -227,7 +229,8 @@ def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,
 def mega_solve(x: torch.Tensor, tiles: torch.Tensor, invs: torch.Tensor,
                tables: KernelTables, *, nb: int, bl: int) -> torch.Tensor:
     """K3: solve LU x = b for ``x`` [nrhs, bl+1, nb]; returns a new
-    tensor.  See :func:`kernels_torch.mega_solve`."""
+    tensor.  Two cooperative launches, one per sweep, counted as one
+    launch of K3.  See :func:`kernels_torch.mega_solve`."""
     if not _on_cuda(x):
         return kt.mega_solve(x, tiles, invs, tables, nb=nb, bl=bl)
     s = _dtype_of(x)
@@ -241,23 +244,38 @@ def mega_solve(x: torch.Tensor, tiles: torch.Tensor, invs: torch.Tensor,
     h = tables.host
     w = h["lid_tab"].shape[1]
     nl, nuc = _host_i32(h["nl_tab"]), _host_i32(h["nuc_tab"])
-    if len(nl) != bl or nl.max(initial=0) > w or nuc.max(initial=0) > w:
+    if (len(nl) != bl or len(nuc) != bl or min(nl.min(initial=0),
+                                              nuc.min(initial=0)) < 0
+            or nl.max(initial=0) > w or nuc.max(initial=0) > w):
         raise ValueError("solve tables do not match bl or their width")
     for k in ("lid_tab", "ucid_tab"):
         _check_table(k, h[k], 0, nt)
     for k in ("lrow_tab", "ucrow_tab"):
         _check_table(k, h[k], 0, bl)
     tabs = _dev_tables(tables, ("lid_tab", "lrow_tab", "ucid_tab",
-                                "ucrow_tab"), dev)
+                                "ucrow_tab", "nl_tab", "nuc_tab"), dev)
     out = x.clone()
     if nrhs:
         lib = library().lib
+        fwd = torch.empty_like(out)   # the forward sweep's result
         _call(getattr(lib, f"plu_mega_solve_{s}"), dev.index,
-              out.data_ptr(), nrhs, tiles.data_ptr(), invs.data_ptr(),
-              *(t.data_ptr() for t in tabs), _ptr(nl), _ptr(nuc), bl, w,
-              nb, _stream(dev))
+              out.data_ptr(), fwd.data_ptr(), nrhs, tiles.data_ptr(),
+              invs.data_ptr(), *(t.data_ptr() for t in tabs), _ptr(nl),
+              _ptr(nuc), bl, w, nb, _stream(dev))
         LAUNCHES["mega_solve"] += 1
     return out
+
+
+def grid_sync_probe(device, blocks: int, iters: int) -> int:
+    """Launch ``iters`` grid barriers on at most ``blocks`` cooperative
+    blocks of K3's size, on the current stream; returns the number of
+    blocks launched.  It measures the barrier K3 takes once a level and
+    runs on no path of the solver."""
+    device = torch.device(device)
+    got = ctypes.c_int(0)
+    _call(library().lib.plu_grid_sync_probe, device.index, blocks, iters,
+          ctypes.byref(got), _stream(device))
+    return got.value
 
 
 def _view(tables: KernelTables, name: str, derive, device) -> tuple:

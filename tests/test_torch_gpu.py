@@ -39,7 +39,9 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nb,batch", [(10, 1), (16, 3), (128, 2)])
+@pytest.mark.parametrize("batch", [1, 3])
+# each register-tile instance (nb <= 32, 64, 128), full and ragged
+@pytest.mark.parametrize("nb", [10, 16, 32, 64, 100, 128])
 def test_getrf_with_inverses_kernel(cuda, dtype, nb, batch):
     rng = np.random.default_rng(nb)
     a = torch.as_tensor(rng.standard_normal((batch, nb, nb))
@@ -48,12 +50,38 @@ def test_getrf_with_inverses_kernel(cuda, dtype, nb, batch):
         torch.testing.assert_close(g, r, **TOL[dtype])
 
 
-def test_getrf_tiny_pivot_kernel(cuda):
-    """A zero pivot becomes +tol on U's diagonal, as in the plain version."""
-    a = torch.eye(16, dtype=torch.float32, device=cuda)
-    a[3, 3] = 0.0
-    f, _, _ = kc.getrf_with_inverses(a)
-    assert float(f[3, 3]) == pytest.approx(kt.DEFAULT_TOL[torch.float32])
+def tiny_pivot_tile(nb: int, k: int, rng) -> np.ndarray:
+    """A diagonally dominant tile whose pivot at step k is exactly 0, so
+    the tiny-pivot rule fires there: for k > 0 row k and column k copy
+    row 0 and column 0 around a00 = 1, which step 0 zeroes exactly; for
+    k = 0 the first row and column are zero.  Either way the huge
+    entries 1/tol of the inverses are exact products, not sums that a
+    different order could round apart."""
+    a = rng.standard_normal((nb, nb)) + nb * np.eye(nb)
+    if k == 0:
+        a[0, :] = 0.0
+        a[:, 0] = 0.0
+    else:
+        a[0, 0] = 1.0
+        a[k, :] = a[0, :]
+        a[:, k] = a[:, 0]
+    return a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb", [16, 128])
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+def test_getrf_tiny_pivot_kernel(cuda, dtype, nb, where):
+    """A zero pivot becomes +tol on U's diagonal, at the first, a middle
+    and the last step, and the whole result matches the plain version."""
+    k = {"first": 0, "middle": nb // 2, "last": nb - 1}[where]
+    a = torch.as_tensor(tiny_pivot_tile(nb, k, np.random.default_rng(k)),
+                        dtype=dtype, device=cuda)
+    got = kc.getrf_with_inverses(a)
+    tol = torch.tensor(kt.DEFAULT_TOL[dtype], dtype=dtype)
+    assert float(got[0][k, k]) == float(tol)
+    for g, r in zip(got, kt.getrf_with_inverses(a)):
+        torch.testing.assert_close(g, r, **TOL[dtype])
 
 
 @pytest.mark.parametrize("gen,nb,dtype,uch", [
@@ -84,6 +112,39 @@ def test_mega_kernels(cuda, gen, nb, dtype, uch):
     torch.testing.assert_close(
         kc.mega_solve(x, tk, ik, stab, nb=nb, bl=bl),
         kt.mega_solve(x, tk, ik, stab, nb=nb, bl=bl), **stol)
+
+
+@pytest.mark.parametrize("dtype", ["r32", "r64"])
+# 600 right-hand sides: a level's (panel tile, RHS) items outnumber the
+# blocks a cooperative grid can hold, so blocks loop over items
+@pytest.mark.parametrize("nrhs", [64, 600])
+def test_mega_solve_many_rhs(cuda, dtype, nrhs):
+    h = pt.init(poisson2d(16), pt.InitOptions(nb=16, dtype=dtype,
+                                              ordering="rcm", device="cuda"))
+    nt, bl = h.blocked.num_tiles, h.schedule.block_length
+    ftab = kt.KernelTables.build(h.schedule.mega_tables(nt), cuda)
+    stab = kt.KernelTables.build(h.schedule.mega_solve_tables(nt), cuda)
+    t0 = h.blocked.device_tiles(cuda)
+    tk, ik = kc.mega_factorize(t0, ftab, nb=16, tol=kt.DEFAULT_TOL[t0.dtype],
+                               bl=bl)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (nrhs, bl + 1, 16)), dtype=t0.dtype, device=cuda)
+    got = kc.mega_solve(x, tk, ik, stab, nb=16, bl=bl)
+    stol = (dict(rtol=1e-4, atol=1e-5) if t0.dtype == torch.float32
+            else TOL[t0.dtype])
+    torch.testing.assert_close(
+        got, kt.mega_solve(x, tk, ik, stab, nb=16, bl=bl), **stol)
+    # no atomics, one sum order: a second solve is bit-identical
+    assert torch.equal(got, kc.mega_solve(x, tk, ik, stab, nb=16, bl=bl))
+    assert torch.equal(got[:, bl], x[:, bl])   # scratch segment untouched
+
+
+def test_grid_sync_probe(cuda):
+    """The barrier probe runs and reports a grid that fits the card."""
+    blocks = kc.grid_sync_probe(cuda, 10 ** 6, 8)
+    torch.cuda.synchronize()
+    props = torch.cuda.get_device_properties(cuda)
+    assert 1 <= blocks <= 2 * props.multi_processor_count
 
 
 def test_slice_on_cuda_counts_launches(cuda):
