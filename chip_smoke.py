@@ -8,8 +8,9 @@ CUDA toolkit (nvcc).  It
 
   1. prints the card's name and power limit and builds the five CUDA
      kernels from pangulu_tpu_torch/csrc (timed), printing what ptxas
-     says of K1's instances (registers, spills: none may spill) and of
-     K3's sweep kernel;
+     says of K1's instances (registers, spills: none may spill), of
+     K3's sweep kernel and of the float and double instances of K2's
+     and K4's four product kernels (no float instance may spill);
   2. holds each kernel against its plain PyTorch version on the same
      CUDA tensors, printing max errors and CUDA-event times beside the
      plain version's: K1 getrf_with_inverses at nb = 10, 16, 64, 128
@@ -22,26 +23,38 @@ CUDA toolkit (nvcc).  It
      r64) and poisson3d(32) nb=128 (r32), rcm; K4 mega_factorize_groups
      and K5 mega_solve_groups on poisson2d(12) nb=16 nd (uch 64 and 8,
      shared destinations), poisson3d(32) nb=128 nd (r32) and
-     poisson2d(24) nb=16 nd (r64);
+     poisson2d(24) nb=16 nd (r64).  Two kernel factorizations of one
+     store must be bit-identical; on poisson3d(32) (rcm and nd) the f32
+     kernel's error against the plain f64 factorization of the same
+     store must be at most 2x the f32 plain version's (true f32), and
+     the f64 kernel must agree with that plain f64 one to 1e-12;
   3. drives the rcm path, init -> gstrf -> gstrs on poisson3d(32) with
      nb=128, r32, device="cuda", with every launch count zeroed before
      and read after (exactly K1 = block_length, K2 = 1, K3 = 3, K4 =
      K5 = 0), then times the factorization and the solve (median of
-     several, CUDA events);
+     several, CUDA events), traces one factorization with
+     torch.profiler and prints its panel and Schur kernels' device ms
+     beside the stage yardsticks: per level, the panel products as one
+     torch.bmm and the Schur products as one torch.baddbmm on tiles
+     gathered beforehand, full f32;
   4. drives the nested-dissection path the same way with ordering="nd"
      (engines mega_group; exactly K1 = number of groups, K4 = 1, K5 = 3,
-     K2 = K3 = 0), times it, and times the chain engine (K2, K3) forced
-     on the same nd schedule;
+     K2 = K3 = 0), times it, compares its stages with their yardsticks
+     per group, and times the chain engine (K2, K3) forced on the same
+     nd schedule;
   5. solves the reference's config 1, trefethen(20) nb=10 r64, and
      poisson2d(24) nb=16 nd r64 on the grouped path;
-  6. with --profile, traces one factorization and one solve of steps 3
-     and 4 with torch.profiler and prints, per phase, each kernel's
-     launches and device time, the host wall time and the device's idle
-     share (K3's solve: exactly 2 launches of its sweep kernel);
+  6. with --profile, also traces one solve of steps 3 and 4 and prints,
+     per phase, each kernel's launches and device time, the host wall
+     time and the device's idle share (K3's solve: exactly 2 launches
+     of its sweep kernel);
   7. prints one JSON line of per-kernel results (time, launches, error,
      plain and library times, and the bound: the larger of the bytes
-     over 3.35 TB/s and the operations over 67 (f32) or 34 (f64)
-     TFLOP/s, the H100 SXM's published peaks), then the last line
+     over 3.35 TB/s and the operations over the H100 SXM's published
+     peak for the units that run them: 495 / 3 TFLOP/s (3xTF32 on
+     tensor cores) for K2's and K4's f32 products, 67 TFLOP/s f32 on
+     the CUDA cores for the rest; the CUDA-core bound of K2 and K4 is
+     kept in the details file), then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or
@@ -85,12 +98,21 @@ TOL_F64 = (1e-12, 1e-12)
 # FLOP/s outside the tensor cores, float32 and float64.
 HBM_BYTES_S = 3.35e12
 FLOP_S = {torch.float32: 67e12, torch.float64: 34e12}
+# The same sheet's tensor-core peaks, for the products' own bound:
+# 3xTF32 is three TF32 passes (495 TFLOP/s / 3), DMMA 67 TFLOP/s.
+TC_FLOP_S = {torch.float32: 495e12 / 3, torch.float64: 67e12}
+# K2's and K4's product kernels (csrc/lu_kernels.cu), one instance each
+# for float and double
+PRODUCT_KERNELS = ("panel_kernel", "schur_kernel", "group_panel_kernel",
+                   "group_schur_kernel")
 
 
-def bound(nbytes: float, flop: float, dtype=torch.float32) -> dict:
+def bound(nbytes: float, flop: float, dtype=torch.float32,
+          peak=FLOP_S) -> dict:
     """The least time the card could take for work that moves nbytes
-    and does flop operations of dtype, and which of the two sets it."""
-    tb, tf = nbytes / HBM_BYTES_S * 1e3, flop / FLOP_S[dtype] * 1e3
+    and does flop operations of dtype at the rate peak[dtype], and which
+    of the two sets it."""
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flop / peak[dtype] * 1e3
     return dict(bound_ms=max(tb, tf),
                 bound_by="bytes" if tb >= tf else "operations")
 
@@ -162,6 +184,12 @@ def compare(name, got, ref, rtol, atol):
     if not ok:
         fail(f"{name} disagrees with the plain version")
     return abs_err
+
+
+def rel_err(got, ref64) -> float:
+    """The largest error relative to the result's scale, max |got -
+    ref| / max |ref|, in float64."""
+    return float((got.double() - ref64).abs().max() / ref64.abs().max())
 
 
 def cuda_ms(fn, setup=lambda: None, reps=5, warmup=1) -> float:
@@ -254,6 +282,81 @@ def print_profile(prof: dict) -> None:
                   f"{k['device_ms']:.3f} device ms")
 
 
+def timed_calls(calls, reps: int = 3) -> float:
+    """Device ms of ``calls`` (pairs of a function and its arguments),
+    each between its own pair of CUDA events and summed, all queued
+    behind a device sleep so that the card runs them without waiting on
+    the host; median of reps."""
+    for fn, a in calls:
+        fn(*a)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in calls]
+        torch.cuda._sleep(100_000_000)
+        for (start, end), (fn, a) in zip(ev, calls):
+            start.record()
+            fn(*a)
+            end.record()
+        torch.cuda.synchronize()
+        times.append(sum(start.elapsed_time(end) for start, end in ev))
+    return statistics.median(times)
+
+
+def stage_yardsticks(tiles, invs, tables, grouped: bool) -> dict:
+    """The yardstick of each product stage of K2 (chain) or K4 (groups),
+    which the port never calls: per level or group, the panel products
+    as one torch.bmm and the Schur products as one torch.baddbmm (dst -
+    L·U), in full f32 (allow_tf32 is False), on tiles gathered
+    beforehand (the gathers are not timed).  Returns the summed device
+    ms of each stage.  A group's updates that share a destination are
+    separate products here; the kernel sums them before it subtracts."""
+    from pangulu_tpu_torch.schedule import group_update_lists
+
+    h, d = tables.host, tables.dev
+    calls = {"panel": [], "schur": []}
+
+    def add(lt, linv, uinv, ut, dst=None, lu=None, uu=None):
+        a, b = torch.cat([lt, linv]), torch.cat([uinv, ut])
+        if len(a):
+            calls["panel"].append((torch.bmm, (a, b)))
+        if dst is not None and len(dst):
+            calls["schur"].append((
+                lambda c, x, y: torch.baddbmm(c, x, y, alpha=-1),
+                (tiles[dst], tiles[lu], tiles[uu])))
+
+    def on_dev(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=tiles.device)
+
+    if grouped:
+        updates = group_update_lists(h)
+        for g in range(int(h["ngroups"])):
+            gs = int(h["gs_tab"][g])
+            lev = d["glev_tab"][g, :gs].long()
+            lm, um = (on_dev(np.repeat(np.arange(gs),
+                                       np.diff(h[o][g][:gs + 1])))
+                      for o in ("gloff_tab", "guoff_tab"))
+            lids = d["lid_tab"][g, :len(lm)].long()
+            uids = d["uid_tab"][g, :len(um)].long()
+            dst, ul, uu = (on_dev(x) for x in updates[g])
+            add(tiles[lids], invs[lev[um], 0], invs[lev[lm], 1], tiles[uids],
+                dst, lids[ul], uids[uu])
+    else:
+        uch, nb = int(h["uch"]), tiles.shape[-1]
+        for k in range(len(h["diag_tab"])):
+            nl, nu, nup = (int(h[t][k]) for t in ("nl_tab", "nu_tab",
+                                                   "nup_tab"))
+            lids = d["lid_tab"][k, :nl].long()
+            uids = d["uid_tab"][k, :nu].long()
+            dst, ul, uu = (d[t][k, :, :uch].reshape(-1)[:nup].long()
+                           for t in ("udst_tab", "udl_tab", "udu_tab"))
+            add(tiles[lids], invs[k, 0].expand(nu, nb, nb),
+                invs[k, 1].expand(nl, nb, nb), tiles[uids], dst, lids[ul],
+                uids[uu])
+    return {f"{s}_library_ms": timed_calls(c) for s, c in calls.items()}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -322,6 +425,22 @@ def main() -> int:
         fail(f"K1: expected 6 instances without spills, ptxas says "
              f"{k1_ptx}")
     detail["K1_ptxas"] = k1_ptx
+    print("ptxas: the product kernels of K2 and K4 (tensor cores: 3xTF32 "
+          "for float, DMMA for double)")
+    prod_ptx = {}
+    for name, info in ptx.items():
+        m = re.search(r"plu\d+(\w+?_kernel)I([fd])E", name)
+        if m and m[1] in PRODUCT_KERNELS:
+            label = f"{m[1]}<{dict(f='float', d='double')[m[2]]}>"
+            prod_ptx[label] = info
+            print(f"  {label}: {info.get('registers')} registers, "
+                  f"{info.get('spill_bytes')} spill bytes")
+    f32_ptx = {k: v for k, v in prod_ptx.items() if k.endswith("<float>")}
+    if len(prod_ptx) != 8 or any(i.get("spill_bytes") != 0
+                                 for i in f32_ptx.values()):
+        fail(f"products: expected 8 instances, the float ones without "
+             f"spills; ptxas says {prod_ptx}")
+    detail["product_ptxas"] = prod_ptx
 
     # ---- K1 ------------------------------------------------------------
     print("K1 getrf_with_inverses against its plain version")
@@ -373,9 +492,13 @@ def main() -> int:
 
     # ---- K2, K3 (chain) and K4, K5 (groups) ---------------------------
     def hold(label, gen, nb, dtype, ordering, uch=kt.MEGA_UCH,
-             timed=True):
+             timed=True, true_f32=False):
         """Factor and solve with the kernels and the plain versions on
-        the same CUDA tensors; return the errors and times."""
+        the same CUDA tensors; return the errors and times.  Two kernel
+        factorizations must be bit-identical.  With true_f32, the f32
+        kernel's error against the plain f64 factorization of the same
+        store must be at most 2x the f32 plain version's, and the f64
+        kernel must agree with that reference to TOL_F64."""
         grouped = ordering == "nd"
         print(f"{'K4/K5' if grouped else 'K2/K3'} on {label}, nb={nb}, "
               f"{dtype}, {ordering}, uch={uch}")
@@ -406,6 +529,34 @@ def main() -> int:
         tp, ip = fp(t0.clone(), ftab, **kw)
         ef = max(compare("tiles", tk[:nt], tp[:nt], *ftol),
                  compare("invs", ik, ip, *ftol))
+        tk2, ik2 = fk(t0.clone(), ftab, **kw)
+        if not (torch.equal(tk, tk2) and torch.equal(ik, ik2)):
+            fail("two kernel factorizations of the same store differ")
+        del tk2, ik2
+        f32_vs_f64 = None
+        if true_f32:
+            # the reference: the plain f64 version (torch.matmul), which
+            # shares no code with the kernels; the f64 kernel (DMMA) is
+            # held against it here too, at full width
+            kw64 = dict(nb=nb, bl=bl, tol=kt.DEFAULT_TOL[torch.float64])
+            t64, i64 = fp(t0.double(), ftab, **kw64)
+            tk64, ik64 = fk(t0.double(), ftab, **kw64)
+            f32_vs_f64 = dict(f64_kernel_max_abs_err=max(
+                compare("f64 kernel tiles", tk64[:nt], t64[:nt], *TOL_F64),
+                compare("f64 kernel invs", ik64, i64, *TOL_F64)))
+            del tk64, ik64
+            for part, got, ref, r64 in (("tiles", tk[:nt], tp[:nt], t64[:nt]),
+                                        ("invs", ik, ip, i64)):
+                ek, ep = rel_err(got, r64), rel_err(ref, r64)
+                print(f"  true f32, {part} against the plain f64 version: "
+                      f"kernel {ek:.3e}, plain {ep:.3e} (max |err| / max "
+                      f"|f64|; kernel <= 2x plain) "
+                      f"{'ok' if ek <= 2 * ep else 'FAIL'}")
+                f32_vs_f64[part] = dict(kernel=ek, plain=ep)
+                if ek > 2 * ep:
+                    fail(f"{label}: the f32 kernel's {part} are less "
+                         "accurate than true f32")
+            del t64, i64
         # right-hand sides b = A·1, 2b, 3b, 4b in the kernels' layout
         x = torch.zeros((4, bl + 1, nb), dtype=t0.dtype, device=dev)
         x[0, :bl].view(-1)[:a.n] = torch.as_tensor(
@@ -426,12 +577,16 @@ def main() -> int:
         # the work as these tables define it: every tile read once, the
         # factors and inverses written once; per solve and RHS, the
         # panel tiles and the 2 bl inverses read once, x read and written
+        # (the factorization's products run on tensor cores, so its bound
+        # takes their rate; the CUDA-core one is kept beside it)
         esz, tile_b = t0.element_size(), nb * nb * t0.element_size()
         npan = int(stab.host["nl_tab"].sum() + stab.host["nuc_tab"].sum())
+        fbytes, flop = 2 * (nt + bl) * tile_b, sch.flop_estimate()
         out = dict(nb=nb, bl=bl, tiles=nt, dtype=dtype, ordering=ordering,
                    uch=uch, factor_max_abs_err=ef, solve_max_abs_err=es,
-                   factor_bound=bound(2 * (nt + bl) * tile_b,
-                                      sch.flop_estimate(), t0.dtype),
+                   true_f32=f32_vs_f64,
+                   factor_bound=bound(fbytes, flop, t0.dtype, TC_FLOP_S),
+                   factor_cuda_core_bound=bound(fbytes, flop, t0.dtype),
                    solve_bound=bound((npan + 2 * bl) * tile_b
                                      + 2 * (bl + 1) * nb * esz,
                                      2 * nb * nb * (npan + 2 * bl),
@@ -471,7 +626,7 @@ def main() -> int:
         "p2d16_r64": hold("poisson2d(16)", lambda: poisson2d(16), 16,
                           "r64", "rcm"),
         "p3d32_r32": hold("poisson3d(32)", lambda: poisson3d(32), 128,
-                          "r32", "rcm"),
+                          "r32", "rcm", true_f32=True),
     }
     groups = {
         "p2d12_r32": hold("poisson2d(12)", lambda: poisson2d(12), 16,
@@ -483,7 +638,7 @@ def main() -> int:
         "p2d24_r64_uch8": hold("poisson2d(24)", lambda: poisson2d(24), 16,
                                "r64", "nd", uch=8, timed=False),
         "p3d32_r32": hold("poisson3d(32)", lambda: poisson3d(32), 128,
-                          "r32", "nd"),
+                          "r32", "nd", true_f32=True),
     }
     detail["chain"], detail["groups"] = chain, groups
 
@@ -566,6 +721,29 @@ def main() -> int:
     def tiles_of(h):
         return lambda: h.blocked.device_tiles(dev)
 
+    def stages(h, grouped):
+        """One factorization traced: its product kernels' device ms (and
+        launches) beside the stage yardsticks; returns (trace, stages)."""
+        fac = h._factorizer
+        p = profile(lambda t: fac.factorize(t, sync=False),
+                    setup=tiles_of(h))
+        out = {}
+        for stage in ("panel", "schur"):
+            name = f"::{'group_' if grouped else ''}{stage}_kernel"
+            ks = [k for n, k in p["kernels"].items()
+                  if n.split("<")[0].endswith(name)]
+            out[f"{stage}_kernel_ms"] = sum(k["device_ms"] for k in ks)
+            out[f"{stage}_kernel_launches"] = sum(k["launches"] for k in ks)
+        out.update(stage_yardsticks(h.factor_tiles, fac.inv_tiles,
+                                    fac.tables, grouped))
+        for stage in ("panel", "schur"):
+            lib = "bmm" if stage == "panel" else "baddbmm"
+            print(f"  {stage} stage: kernel {out[f'{stage}_kernel_ms']:.3f} "
+                  f"device ms ({out[f'{stage}_kernel_launches']} launches), "
+                  f"torch.{lib} per {'group' if grouped else 'level'} "
+                  f"{out[f'{stage}_library_ms']:.3f} ms")
+        return p, out
+
     prof = {}
     h, xb, detail["rcm_path"] = drive("rcm", lambda h: zero_but(
         getrf_with_inverses=h.schedule.block_length, mega_factorize=1,
@@ -573,10 +751,9 @@ def main() -> int:
     if detail["rcm_path"]["engines"] != ("mega", "mega"):
         fail("the rcm path did not take the chain engines")
     rcm_launches = detail["rcm_path"]["launches"]
+    prof["rcm gstrf"], detail["rcm_path"]["stages"] = stages(h, False)
     if args.profile:
         fac, ts = h._factorizer, h._trisolver
-        prof["rcm gstrf"] = profile(lambda t: fac.factorize(t, sync=False),
-                                    setup=tiles_of(h))
         prof["rcm gstrs"] = profile(
             lambda _: ts.solve_blocked(h.factor_tiles, xb))
         sweeps = sum(k["launches"] for n, k in
@@ -611,17 +788,16 @@ def main() -> int:
           f"{nd['chain_ms_per_factorization']:.3f} ms per factorization, "
           f"{nd['chain_ms_per_solve']:.3f} ms per solve")
     detail["nd_path"] = nd
+    prof["nd gstrf"], nd["stages"] = stages(h, True)
     if args.profile:
         fac, ts = h._factorizer, h._trisolver
-        prof["nd gstrf"] = profile(lambda t: fac.factorize(t, sync=False),
-                                   setup=tiles_of(h))
         prof["nd gstrs"] = profile(
             lambda _: ts.solve_blocked(h.factor_tiles, xb))
     del h, xb, chain_fac, chain_ts
     torch.cuda.empty_cache()
     if args.profile:
         print_profile(prof)
-        detail["profile"] = prof
+    detail["profile"] = prof
 
     # ---- r64 -------------------------------------------------------------
     for label, gen, nb, ordering, engine in (

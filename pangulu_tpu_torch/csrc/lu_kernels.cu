@@ -23,19 +23,25 @@
 //   Schur products of nb^3 FMA each (the bench problem has at most 14
 //   panel tiles and 49 updates a level, 6,958 updates in all), so a
 //   level fills at most a fraction of the 132 SMs and the run is bound
-//   by per-level latency: three launches and the diagonal step.
+//   by per-level latency: the diagonal step, then each product stage's
+//   block latency.  By operations alone the whole run is 0.52 ms at the
+//   67 TFLOP/s f32 peak and 0.21 ms at 3xTF32 (495 / 3 TFLOP/s).
 //   Design: the TPU kernel ran everything in one launch because its
 //   grid is sequential and it hand-scheduled DMAs; here each level is
 //   three stream-ordered launches (the diagonal step, which is K1's
 //   kernel on one tile in place, then panels, then Schur) read from
 //   device-resident tables, driven by one host loop over host copies
 //   of the per-level counts, with no host synchronisation and no
-//   device-to-host read.  Stream order is the level barrier.  Schur
+//   device-to-host read.  Stream order is the level barrier.  The
+//   products run on tensor cores (tile_gemm.cuh: 3xTF32 for float,
+//   DMMA for double).  A panel tile is nb / 32 blocks, one per row
+//   band (L·U^-1) or column band (L^-1·U), so that a level's panels
+//   fill more SMs and each block's k loop is a quarter as long.  Schur
 //   destinations are unique within a level, so each update is one
-//   block (or four, one per 64 x 64 quadrant) with no atomics; the
-//   TPU's (u-chunk, l-chunk, l) sort was for VMEM reuse and changes no
-//   result here.  One persistent cooperative launch (or a CUDA graph
-//   of this loop) is the follow-up.
+//   block per 64 x 64 quadrant with no atomics; the TPU's (u-chunk,
+//   l-chunk, l) sort was for VMEM reuse and changes no result here.
+//   One persistent cooperative launch (or a CUDA graph of this loop),
+//   and lookahead of the next diagonal tile, are the follow-ups.
 //
 // K3 mega_solve
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_solve
@@ -72,22 +78,24 @@
 //   Bound on an H100: as for K2, the dependent chain, now of groups;
 //   per group one batched diagonal step (G blocks of K1's body), then
 //   the members' panel products and the group's Schur products (up to
-//   450 in one group there).
+//   450 in one group there).  By operations alone: 1.36 ms at 67
+//   TFLOP/s f32, 0.55 ms at 3xTF32.
 //   Design: per group three stream-ordered launches from one host loop
 //   over host copies of the counts, as K2: K1's kernel with one block
 //   per member (tile ids from gdiag, inverse slots from glev, so invs
 //   stays indexed by level), the panels (each tile times ITS member's
-//   inverse; the member is found from the panel offsets), and the
-//   Schur step.  Within a group several members' updates may hit one
+//   inverse, nb / 32 bands a tile as in K2; the member is found from
+//   the panel offsets), and the Schur step.  Products on tensor cores
+//   as in K2.  Within a group several members' updates may hit one
 //   destination (separator tiles; up to 5 there), which the TPU kernel
 //   handled with VMEM slots and load/write bits.  Here a host-built
 //   view of the same tables (schedule.group_dst_csr) lists each
 //   distinct destination with its updates, and one block per
-//   (destination, 64 x 64 quadrant) sums its products in registers and
-//   subtracts once: no atomics, the same sum order on every run, each
-//   destination read and written once.  Only l = udl & 0xFFFFF and
-//   u = udu & 0xFFF are read from the packed words; the rest is the
-//   TPU's buffer management.
+//   (destination, 64 x 64 quadrant) sums its products in its MMA
+//   accumulators and subtracts once: no atomics, the same sum order on
+//   every run, each destination read and written once.  Only l = udl &
+//   0xFFFFF and u = udu & 0xFFF are read from the packed words; the
+//   rest is the TPU's buffer management.
 //
 // K5 mega_solve_groups
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_solve_groups
@@ -154,21 +162,58 @@ cudaError_t lu_kernel_for(int nb, LuKernel<T>* kern) {
 
 // ---------------------------------------------------------------- K2
 
-// Block b < nl: L panel lid[k][b] <- L·U^-1; else U panel
-// uid[k][b-nl] <- L^-1·U.  In place: one block owns the whole tile.
+// The product windows: a 32-row band of an L panel, a 32-column band
+// of a U panel, a 64 x 64 Schur quadrant, each over kGemmWarps warps.
+// A panel is computed in place, so it is split only where a band of
+// the output reads nothing but the same band of the tile: L·U^-1 by
+// rows, L^-1·U by columns.
+constexpr int kMaxNb = 128;
+constexpr int kBand = 32;
+constexpr int kQuad = 64;
+// 32 x 32 warp tiles: 1 x 4, 4 x 1 and 2 x 2 of them.  8 warps of 32 x
+// 16 measured no faster end to end on the H100 (tools/probe_products.py,
+// PERF.md).
+template <typename T> using LBand = Window<T, kBand, kMaxNb, 1, 4>;
+template <typename T> using UBand = Window<T, kMaxNb, kBand, 4, 1>;
+template <typename T> using Quad = Window<T, kQuad, kQuad, 2, 2>;
+
+// Dynamic shared memory of a panel block (the larger of the two
+// windows) and of a Schur block.
+template <typename T>
+constexpr size_t panel_smem_bytes() {
+  return LBand<T>::kSmemBytes > UBand<T>::kSmemBytes ? LBand<T>::kSmemBytes
+                                                     : UBand<T>::kSmemBytes;
+}
+template <typename T>
+constexpr size_t schur_smem_bytes() {
+  return Quad<T>::kSmemBytes;
+}
+
+// Row band s of an L panel tile t <- t·U^-1, or column band s of a U
+// panel tile t <- L^-1·t.
+template <typename T>
+__device__ __forceinline__ void panel_band(T* t, const T* inv, bool is_l,
+                                           int s, int nb, T* smem) {
+  if (is_l)
+    tile_gemm<LBand<T>, false>(t, inv, t, nb, s * kBand, 0, smem);
+  else
+    tile_gemm<UBand<T>, false>(inv, t, t, nb, 0, s * kBand, smem);
+}
+
+// Block (b, s): b < nl: row band s of L panel lid[k][b] <- L·U^-1; else
+// column band s of U panel uid[k][b-nl] <- L^-1·U.
 template <typename T>
 __global__ void __launch_bounds__(kGemmThreads)
     panel_kernel(T* tiles, const T* invs, const int* lid, const int* uid,
                  int lw, int uw, int k, int nl, int nb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const size_t nn = (size_t)nb * nb;
   const int b = blockIdx.x;
-  if (b < nl) {
-    T* t = tiles + (size_t)lid[(size_t)k * lw + b] * nn;
-    tile_gemm<T, 8, false>(t, invs + (size_t)(2 * k + 1) * nn, t, nb, 0, 0);
-  } else {
-    T* t = tiles + (size_t)uid[(size_t)k * uw + (b - nl)] * nn;
-    tile_gemm<T, 8, false>(invs + (size_t)(2 * k) * nn, t, t, nb, 0, 0);
-  }
+  const bool is_l = b < nl;
+  const size_t id =
+      is_l ? lid[(size_t)k * lw + b] : uid[(size_t)k * uw + b - nl];
+  panel_band(tiles + id * nn, invs + (size_t)(2 * k + is_l) * nn, is_l,
+             blockIdx.y, nb, reinterpret_cast<T*>(smem_raw));
 }
 
 // Block (j, q): update j of level k, output quadrant q of 64 x 64.
@@ -179,6 +224,7 @@ __global__ void __launch_bounds__(kGemmThreads)
     schur_kernel(T* tiles, const int* lid, const int* uid, const int* udst,
                  const int* udl, const int* udu, int lw, int uw, int nchunks,
                  int row_w, int uch, int k, int nb, int qdim) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const size_t nn = (size_t)nb * nb;
   const int j = blockIdx.x;
   const size_t o = ((size_t)k * nchunks + j / uch) * row_w + j % uch;
@@ -186,12 +232,12 @@ __global__ void __launch_bounds__(kGemmThreads)
   const T* u = tiles + (size_t)uid[(size_t)k * uw + udu[o]] * nn;
   T* dst = tiles + (size_t)udst[o] * nn;
   const int qr = blockIdx.y / qdim, qc = blockIdx.y % qdim;
-  tile_gemm<T, 4, true>(l, u, dst, nb, qr * 64, qc * 64);
+  tile_gemm<Quad<T>, true>(l, u, dst, nb, qr * kQuad, qc * kQuad,
+                           reinterpret_cast<T*>(smem_raw));
 }
 
 // ---------------------------------------------------------------- K3
 constexpr int kSolveThreads = 1024;
-constexpr int kMaxNb = 128;
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -324,15 +370,17 @@ cudaError_t launch_cooperative(K kern, int want, void** args,
 
 // ---------------------------------------------------------------- K4
 
-// Block b < npl: L panel tile b of group g <- L·U^-1 of its member;
-// else U panel tile b - npl <- L^-1·U.  The member m of panel tile p is
-// the one with off[m] <= p < off[m+1] (gloff or guoff row of g).
+// Block (b, s): b < npl: row band s of L panel tile b of group g <-
+// L·U^-1 of its member; else column band s of U panel tile b - npl <-
+// L^-1·U.  The member m of panel tile p is the one with off[m] <= p <
+// off[m+1] (gloff or guoff row of g).
 template <typename T>
 __global__ void __launch_bounds__(kGemmThreads)
     group_panel_kernel(T* tiles, const T* invs, const int* lid,
                        const int* uid, const int* glev, const int* gloff,
                        const int* guoff, int g, int gw, int lw, int uw,
                        int gs, int npl, int nb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const size_t nn = (size_t)nb * nb;
   const bool is_l = blockIdx.x < npl;
   const int p = is_l ? blockIdx.x : blockIdx.x - npl;
@@ -340,13 +388,9 @@ __global__ void __launch_bounds__(kGemmThreads)
   int m = 0;
   while (m + 1 < gs && off[m + 1] <= p) ++m;
   const size_t k = glev[(size_t)g * gw + m];
-  if (is_l) {
-    T* t = tiles + (size_t)lid[(size_t)g * lw + p] * nn;
-    tile_gemm<T, 8, false>(t, invs + (2 * k + 1) * nn, t, nb, 0, 0);
-  } else {
-    T* t = tiles + (size_t)uid[(size_t)g * uw + p] * nn;
-    tile_gemm<T, 8, false>(invs + 2 * k * nn, t, t, nb, 0, 0);
-  }
+  const size_t id = is_l ? lid[(size_t)g * lw + p] : uid[(size_t)g * uw + p];
+  panel_band(tiles + id * nn, invs + (2 * k + is_l) * nn, is_l, blockIdx.y,
+             nb, reinterpret_cast<T*>(smem_raw));
 }
 
 // Block (d, q): distinct destination doff + d of group g, output
@@ -361,19 +405,21 @@ __global__ void __launch_bounds__(kGemmThreads)
                        const int* dptr, const int* dent, int g, int doff,
                        int lw, int uw, int nchunks, int row_w, int uch,
                        int nb, int qdim) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const size_t nn = (size_t)nb * nb;
   const int d = doff + blockIdx.x;
-  const int r0 = blockIdx.y / qdim * 64, c0 = blockIdx.y % qdim * 64;
-  T acc[4][4];
-  zero_acc(acc);
+  const int r0 = blockIdx.y / qdim * kQuad, c0 = blockIdx.y % qdim * kQuad;
+  typename Quad<T>::Acc acc;
+  acc.zero();
   for (int e = dptr[d]; e < dptr[d + 1]; ++e) {
     const int j = dent[e];
     const size_t o = ((size_t)g * nchunks + j / uch) * row_w + j % uch;
     const T* l = tiles + (size_t)lid[(size_t)g * lw + (udl[o] & 0xFFFFF)] * nn;
     const T* u = tiles + (size_t)uid[(size_t)g * uw + (udu[o] & 0xFFF)] * nn;
-    tile_gemm_acc(l, u, nb, r0, c0, acc);
+    tile_gemm_acc<Quad<T>>(l, u, nb, r0, c0, acc, smem);
   }
-  tile_store<T, 4, true>(tiles + (size_t)dkey[d] * nn, nb, r0, c0, acc);
+  tile_store<Quad<T>, true>(tiles + (size_t)dkey[d] * nn, nb, r0, c0, acc);
 }
 
 // ---------------------------------------------------------------- K5
@@ -445,6 +491,18 @@ int getrf_inv(const T* a, T* f, T* linv, T* uinv, int batch, int nb,
   return cudaGetLastError();
 }
 
+// Opts a panel and a Schur kernel into their dynamic shared memory (the
+// f64 panel window is above the 48 KB a block gets without asking).
+template <typename P, typename S>
+cudaError_t products_for(P panel, S schur, size_t panel_smem,
+                         size_t schur_smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      panel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)panel_smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(
+      schur, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)schur_smem);
+}
+
 template <typename T>
 int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
                    const int* uid, const int* udst, const int* udl,
@@ -456,8 +514,12 @@ int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
   LuKernel<T> lu;
   cudaError_t e = lu_kernel_for<T>(nb, &lu);
   if (e != cudaSuccess) return e;
+  const size_t psm = panel_smem_bytes<T>(), ssm = schur_smem_bytes<T>();
+  if ((e = products_for(panel_kernel<T>, schur_kernel<T>, psm, ssm)) !=
+      cudaSuccess)
+    return e;
   const size_t nn = (size_t)nb * nb;
-  const int qdim = (nb + 63) / 64;
+  const int qdim = (nb + kQuad - 1) / kQuad, bands = (nb + kBand - 1) / kBand;
   for (int k = 0; k < bl; ++k) {
     // diagonal step: K1's kernel on tile diag_tab[k], in place
     T* linv = invs + (size_t)(2 * k) * nn;
@@ -468,12 +530,12 @@ int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
     ++*diag_launches;  // K1's launch count, reported to the wrapper
     const int np = h_nl[k] + h_nu[k];
     if (np > 0) {
-      panel_kernel<T><<<np, kGemmThreads, 0, st>>>(tiles, invs, lid, uid, lw,
-                                                   uw, k, h_nl[k], nb);
+      panel_kernel<T><<<dim3(np, bands), kGemmThreads, psm, st>>>(
+          tiles, invs, lid, uid, lw, uw, k, h_nl[k], nb);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
     if (h_nup[k] > 0) {
-      schur_kernel<T><<<dim3(h_nup[k], qdim * qdim), kGemmThreads, 0, st>>>(
+      schur_kernel<T><<<dim3(h_nup[k], qdim * qdim), kGemmThreads, ssm, st>>>(
           tiles, lid, uid, udst, udl, udu, lw, uw, nchunks, row_w, uch, k, nb,
           qdim);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -528,8 +590,12 @@ int mega_factorize_groups(T* tiles, T* invs, const int* gdiag,
   LuKernel<T> lu;
   cudaError_t e = lu_kernel_for<T>(nb, &lu);
   if (e != cudaSuccess) return e;
+  const size_t psm = panel_smem_bytes<T>(), ssm = schur_smem_bytes<T>();
+  if ((e = products_for(group_panel_kernel<T>, group_schur_kernel<T>, psm,
+                        ssm)) != cudaSuccess)
+    return e;
   const size_t nn = (size_t)nb * nb;
-  const int qdim = (nb + 63) / 64;
+  const int qdim = (nb + kQuad - 1) / kQuad, bands = (nb + kBand - 1) / kBand;
   for (int g = 0; g < ng; ++g) {
     // diagonal step: K1's kernel, one block per member, in place
     lu<<<h_gs[g], kLuThreads, smem, st>>>(
@@ -539,14 +605,14 @@ int mega_factorize_groups(T* tiles, T* invs, const int* gdiag,
     ++*diag_launches;  // K1's launch count, reported to the wrapper
     const int np = h_npl[g] + h_npu[g];
     if (np > 0) {
-      group_panel_kernel<T><<<np, kGemmThreads, 0, st>>>(
+      group_panel_kernel<T><<<dim3(np, bands), kGemmThreads, psm, st>>>(
           tiles, invs, lid, uid, glev, gloff, guoff, g, gw, lw, uw, h_gs[g],
           h_npl[g], nb);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
     if (h_ndst[g] > 0) {
       group_schur_kernel<T>
-          <<<dim3(h_ndst[g], qdim * qdim), kGemmThreads, 0, st>>>(
+          <<<dim3(h_ndst[g], qdim * qdim), kGemmThreads, ssm, st>>>(
               tiles, lid, uid, udl, udu, dkey, dptr, dent, g, h_doff[g], lw,
               uw, nchunks, row_w, uch, nb, qdim);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;

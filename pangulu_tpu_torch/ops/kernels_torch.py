@@ -24,7 +24,9 @@ and the entry points that compare against these versions on the card
 (``chip_smoke.py``, ``tests/test_torch_gpu.py``) set it so.  TF32
 truncates the inputs to 10 mantissa bits, which the JAX package
 measured as a 1e4-fold worse backward error
-(``pangulu_tpu/numeric.py:309-314``).
+(``pangulu_tpu/numeric.py:309-314``).  The CUDA kernels' f32 products
+use three TF32 terms instead (3xTF32, ``csrc/tile_gemm.cuh``), which
+:func:`tf32x3_matmul` emulates for the CPU tests.
 """
 
 from __future__ import annotations
@@ -109,8 +111,34 @@ def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
     return f, linv, uinv
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds:
+    to nearest with ties away from zero, keeping 10 mantissa bits (the
+    low 13 bits zero); inf and NaN pass through."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round takes float32, got {x.dtype}")
+    # adding half of the dropped range to the magnitude bits and masking
+    # rounds the magnitude half away from zero; the sign bit is kept
+    bits = x.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (float32) as the CUDA kernels' tensor-core products form
+    it: each operand splits into ``big = tf32(x)`` and ``small =
+    tf32(x - big)``, and the product is ``small·big + big·small +
+    big·big`` (small terms first; small·small dropped), each term an
+    f32 matmul of TF32 values.  It emulates the split, not the tensor
+    core's own rounding of its sums."""
+    ab, bb = tf32_round(a), tf32_round(b)
+    asm, bsm = tf32_round(a - ab), tf32_round(b - bb)
+    return (torch.matmul(asm, bb) + torch.matmul(ab, bsm)) + torch.matmul(ab,
+                                                                          bb)
+
+
 def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,
-                   tol: float, bl: int):
+                   tol: float, bl: int, mm=torch.matmul):
     """Whole numeric factorization; returns ``(tiles, invs)``.
 
     ``tiles`` [num_tiles+1, nb, nb] is factored IN PLACE (the JAX
@@ -118,7 +146,9 @@ def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,
     [bl, 2, nb, nb] holds each level's (L^-1, U^-1), indexed by level.
     Per level k: LU + inverses of the diagonal tile, L panels <- L·U^-1,
     U panels <- L^-1·U, then ``dst -= L_i·U_j`` for each Schur update
-    (destinations are unique within a level)."""
+    (destinations are unique within a level).  ``mm`` forms the panel
+    and Schur products (:func:`tf32x3_matmul` emulates the kernel's
+    tensor-core scheme)."""
     h, d = tables.host, tables.dev
     uch = h["uch"]
     invs = tiles.new_empty((bl, 2, nb, nb))
@@ -133,13 +163,13 @@ def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,
         lids = d["lid_tab"][k, :nl].long()
         uids = d["uid_tab"][k, :nu].long()
         if nl:
-            tiles[lids] = torch.matmul(tiles[lids], uinv)
+            tiles[lids] = mm(tiles[lids], uinv)
         if nu:
-            tiles[uids] = torch.matmul(linv, tiles[uids])
+            tiles[uids] = mm(linv, tiles[uids])
         if nup:
             dst, ul, uu = (d[t][k, :, :uch].reshape(-1)[:nup].long()
                            for t in ("udst_tab", "udl_tab", "udu_tab"))
-            tiles[dst] -= torch.matmul(tiles[lids[ul]], tiles[uids[uu]])
+            tiles[dst] -= mm(tiles[lids[ul]], tiles[uids[uu]])
     return tiles, invs
 
 
@@ -150,7 +180,7 @@ def _members(off: np.ndarray, gs: int) -> np.ndarray:
 
 
 def mega_factorize_groups(tiles: torch.Tensor, tables: KernelTables, *,
-                          nb: int, tol: float, bl: int):
+                          nb: int, tol: float, bl: int, mm=torch.matmul):
     """Whole numeric factorization over super-level groups
     (``Schedule.group_mega_tables``); returns ``(tiles, invs)``.
 
@@ -160,7 +190,8 @@ def mega_factorize_groups(tiles: torch.Tensor, tables: KernelTables, *,
     diagonal tiles as one batch, each panel tile times ITS member's
     inverse, then ``dst -= L·U`` over the group's updates.  Members'
     updates may share a destination, so they are summed into it
-    (``index_add_``), never assigned."""
+    (``index_add_``), never assigned.  ``mm`` forms the products, as in
+    :func:`mega_factorize`."""
     h, d = tables.host, tables.dev
     invs = tiles.new_empty((bl, 2, nb, nb))
     updates = group_update_lists(h)
@@ -177,15 +208,14 @@ def mega_factorize_groups(tiles: torch.Tensor, tables: KernelTables, *,
         lids = d["lid_tab"][g, :len(lm)].long()
         uids = d["uid_tab"][g, :len(um)].long()
         if len(lm):
-            tiles[lids] = torch.matmul(tiles[lids], uinv[lm])
+            tiles[lids] = mm(tiles[lids], uinv[lm])
         if len(um):
-            tiles[uids] = torch.matmul(linv[um], tiles[uids])
+            tiles[uids] = mm(linv[um], tiles[uids])
         dst, ul, uu = (torch.as_tensor(a.astype(np.int64),
                                        device=tiles.device)
                        for a in updates[g])
         if len(dst):
-            tiles.index_add_(0, dst, torch.matmul(tiles[lids[ul]],
-                                                  tiles[uids[uu]]),
+            tiles.index_add_(0, dst, mm(tiles[lids[ul]], tiles[uids[uu]]),
                              alpha=-1)
     return tiles, invs
 

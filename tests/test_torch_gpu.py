@@ -18,8 +18,9 @@ import pytest
 import torch
 
 import pangulu_tpu_torch as pt
-from pangulu_tpu_torch.models import (poisson2d, random_unsymmetric,
-                                      smallworld, trefethen)
+from pangulu_tpu_torch.models import (poisson2d, poisson3d,
+                                      random_unsymmetric, smallworld,
+                                      trefethen)
 from pangulu_tpu_torch.ops import kernels_cuda as kc
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.utils.perf import residual_norm
@@ -90,6 +91,16 @@ def test_getrf_tiny_pivot_kernel(cuda, dtype, nb, where):
     # uch=4: levels span several update chunks (chunk indexing of K2)
     (lambda: random_unsymmetric(96, 0.06, seed=5), 16, "r32", 4),
     (lambda: trefethen(20), 10, "r64", kt.MEGA_UCH),
+    # the tensor-core products' copy paths: f32 nb=10 rows are not
+    # 16-byte aligned (4-byte copies), f64 nb=9 neither (8-byte copies);
+    # nb=100 is ragged against the 32-wide bands and 64-wide quadrants
+    (lambda: poisson2d(24), 10, "r32", kt.MEGA_UCH),
+    (lambda: poisson2d(24), 9, "r64", kt.MEGA_UCH),
+    (lambda: poisson2d(24), 16, "r64", kt.MEGA_UCH),
+    (lambda: poisson3d(12), 100, "r32", kt.MEGA_UCH),
+    (lambda: poisson3d(12), 100, "r64", kt.MEGA_UCH),
+    (lambda: poisson3d(12), 128, "r32", kt.MEGA_UCH),
+    (lambda: poisson3d(12), 128, "r64", kt.MEGA_UCH),
 ])
 def test_mega_kernels(cuda, gen, nb, dtype, uch):
     a = gen()
@@ -166,17 +177,24 @@ def test_slice_on_cuda_counts_launches(cuda):
     assert residual_norm(a.to_scipy(), x, b) < 1e-10
 
 
-@pytest.mark.parametrize("gen,dtype,uch", [
+@pytest.mark.parametrize("gen,dtype,uch,nb", [
     # nd: members of a group share Schur destinations and solve rows
-    (lambda: poisson2d(12), "r32", kt.MEGA_UCH),
+    (lambda: poisson2d(12), "r32", kt.MEGA_UCH, 16),
     # uch=8: groups span several update chunks
-    (lambda: poisson2d(12), "r32", 8),
-    (lambda: smallworld(14), "r32", kt.MEGA_UCH),
-    (lambda: poisson2d(24), "r64", kt.MEGA_UCH),
-    (lambda: poisson2d(24), "r64", 8),
+    (lambda: poisson2d(12), "r32", 8, 16),
+    (lambda: smallworld(14), "r32", kt.MEGA_UCH, 16),
+    (lambda: poisson2d(24), "r64", kt.MEGA_UCH, 16),
+    (lambda: poisson2d(24), "r64", 8, 16),
+    # the product windows at ragged and full nb (see test_mega_kernels)
+    (lambda: poisson2d(24), "r32", kt.MEGA_UCH, 10),
+    (lambda: poisson2d(24), "r64", kt.MEGA_UCH, 10),
+    (lambda: poisson3d(12), "r32", kt.MEGA_UCH, 100),
+    (lambda: poisson3d(12), "r64", kt.MEGA_UCH, 100),
+    (lambda: poisson3d(12), "r32", kt.MEGA_UCH, 128),
+    (lambda: poisson3d(12), "r64", kt.MEGA_UCH, 128),
 ])
-def test_group_kernels(cuda, gen, dtype, uch):
-    h = pt.init(gen(), pt.InitOptions(nb=16, dtype=dtype, ordering="nd",
+def test_group_kernels(cuda, gen, dtype, uch, nb):
+    h = pt.init(gen(), pt.InitOptions(nb=nb, dtype=dtype, ordering="nd",
                                       device="cuda"))
     nt, bl = h.blocked.num_tiles, h.schedule.block_length
     ftab = kt.KernelTables.build(
@@ -186,18 +204,18 @@ def test_group_kernels(cuda, gen, dtype, uch):
     t0 = h.blocked.device_tiles(cuda)
     f32 = t0.dtype == torch.float32
     tol = kt.DEFAULT_TOL[t0.dtype]
-    kw = dict(nb=16, tol=tol, bl=bl)
+    kw = dict(nb=nb, tol=tol, bl=bl)
     tk, ik = kc.mega_factorize_groups(t0.clone(), ftab, **kw)
     tp, ip = kt.mega_factorize_groups(t0.clone(), ftab, **kw)
     ftol = dict(rtol=2e-4, atol=2e-4) if f32 else TOL[t0.dtype]
     torch.testing.assert_close(tk[:nt], tp[:nt], **ftol)
     torch.testing.assert_close(ik, ip, **ftol)
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
-        (3, bl + 1, 16)), dtype=t0.dtype, device=cuda)
+        (3, bl + 1, nb)), dtype=t0.dtype, device=cuda)
     stol = dict(rtol=1e-4, atol=1e-5) if f32 else TOL[t0.dtype]
-    got = kc.mega_solve_groups(x, tk, ik, stab, nb=16, bl=bl)
+    got = kc.mega_solve_groups(x, tk, ik, stab, nb=nb, bl=bl)
     torch.testing.assert_close(
-        got, kt.mega_solve_groups(x, tk, ik, stab, nb=16, bl=bl), **stol)
+        got, kt.mega_solve_groups(x, tk, ik, stab, nb=nb, bl=bl), **stol)
     assert torch.equal(got[:, bl], x[:, bl])   # scratch segment untouched
 
 
@@ -221,3 +239,58 @@ def test_nd_slice_on_cuda_counts_launches(cuda):
     assert h.perf.kernels["solve_engine"] == "mega_group"
     assert h.perf.kernels["gstrf_residual"] < 1e-5
     assert residual_norm(a.to_scipy(), x, b) < 1e-10
+
+
+def _factor(grouped):
+    return kc.mega_factorize_groups if grouped else kc.mega_factorize
+
+
+def _store_and_tables(cuda, ordering, gen=lambda: poisson3d(12), nb=128):
+    h = pt.init(gen(), pt.InitOptions(nb=nb, dtype="r32", ordering=ordering,
+                                      device="cuda"))
+    nt, bl = h.blocked.num_tiles, h.schedule.block_length
+    sch = h.schedule
+    tab = (sch.group_mega_tables(nt) if ordering == "nd"
+           else sch.mega_tables(nt))
+    return h.blocked.device_tiles(cuda), kt.KernelTables.build(tab, cuda), \
+        dict(nb=nb, bl=bl), nt
+
+
+def rel_err(got, ref64):
+    """The largest error relative to the result's scale:
+    max |got - ref| / max |ref|, in float64."""
+    return float((got.double() - ref64).abs().max() / ref64.abs().max())
+
+
+@pytest.mark.parametrize("ordering", ["rcm", "nd"])
+def test_true_f32_products(cuda, ordering):
+    """The f32 kernel (3xTF32 products on tensor cores) is as accurate as
+    true f32: against the plain f64 factorization of the same store
+    (torch.matmul, no code shared with the kernels), its error is at
+    most 2x the f32 plain version's (torch.matmul in full f32).  The
+    f64 kernel (DMMA products) agrees with that reference to 1e-12."""
+    t0, tab, kw, nt = _store_and_tables(cuda, ordering)
+    grouped = ordering == "nd"
+    tol32, tol64 = kt.DEFAULT_TOL[torch.float32], kt.DEFAULT_TOL[
+        torch.float64]
+    tk, ik = _factor(grouped)(t0.clone(), tab, tol=tol32, **kw)
+    plain = kt.mega_factorize_groups if grouped else kt.mega_factorize
+    tp, ip = plain(t0.clone(), tab, tol=tol32, **kw)
+    t64, i64 = plain(t0.double(), tab, tol=tol64, **kw)
+    tk64, ik64 = _factor(grouped)(t0.double(), tab, tol=tol64, **kw)
+    torch.testing.assert_close(tk64[:nt], t64[:nt], **TOL[torch.float64])
+    torch.testing.assert_close(ik64, i64, **TOL[torch.float64])
+    for got, ref, r64 in ((tk[:nt], tp[:nt], t64[:nt]), (ik, ip, i64)):
+        assert rel_err(got, r64) <= 2 * rel_err(ref, r64)
+
+
+@pytest.mark.parametrize("ordering", ["rcm", "nd"])
+def test_factorization_deterministic(cuda, ordering):
+    """No atomics, one sum order: two kernel factorizations of the same
+    store are bit-identical, chain and grouped."""
+    t0, tab, kw, _ = _store_and_tables(cuda, ordering)
+    f = _factor(ordering == "nd")
+    tol = kt.DEFAULT_TOL[torch.float32]
+    ta, ia = f(t0.clone(), tab, tol=tol, **kw)
+    tb, ib = f(t0.clone(), tab, tol=tol, **kw)
+    assert torch.equal(ta, tb) and torch.equal(ia, ib)
