@@ -9,8 +9,9 @@ CUDA toolkit (nvcc).  It
   1. prints the card's name and power limit and builds the five CUDA
      kernels from pangulu_tpu_torch/csrc (timed), printing what ptxas
      says of K1's instances (registers, spills: none may spill), of
-     K3's sweep kernel and of the float and double instances of K2's
-     and K4's four product kernels (no float instance may spill);
+     K3's and K5's sweep kernels and of the float and double instances
+     of K2's and K4's four product kernels (no float instance may
+     spill);
   2. holds each kernel against its plain PyTorch version on the same
      CUDA tensors, printing max errors and CUDA-event times beside the
      plain version's: K1 getrf_with_inverses at nb = 10, 16, 64, 128
@@ -40,14 +41,17 @@ CUDA toolkit (nvcc).  It
   4. drives the nested-dissection path the same way with ordering="nd"
      (engines mega_group; exactly K1 = number of groups, K4 = 1, K5 = 3,
      K2 = K3 = 0), times it, compares its stages with their yardsticks
-     per group, and times the chain engine (K2, K3) forced on the same
-     nd schedule;
+     per group, times the chain engine (K2, K3) forced on the same nd
+     schedule, and traces one nd solve: its launches, device and wall
+     time and idle share are printed, and it must be exactly 2 launches
+     of K5's group_sweep_kernel (one per sweep) and no other K5 kernel;
+     K5's cooperative grid and blocks per SM are printed;
   5. solves the reference's config 1, trefethen(20) nb=10 r64, and
      poisson2d(24) nb=16 nd r64 on the grouped path;
-  6. with --profile, also traces one solve of steps 3 and 4 and prints,
-     per phase, each kernel's launches and device time, the host wall
-     time and the device's idle share (K3's solve: exactly 2 launches
-     of its sweep kernel);
+  6. with --profile, also traces one rcm solve and prints, per phase,
+     each kernel's launches and device time, the host wall time and the
+     device's idle share (K3's solve: exactly 2 launches of its sweep
+     kernel);
   7. prints one JSON line of per-kernel results (time, launches, error,
      plain and library times, and the bound: the larger of the bytes
      over 3.35 TB/s and the operations over the H100 SXM's published
@@ -368,8 +372,8 @@ def card_line() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace one factorization and one solve of the "
-                         "rcm and nd paths with torch.profiler")
+                    help="print the traces of one factorization of the "
+                         "rcm and nd paths and add one of an rcm solve")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -404,18 +408,21 @@ def main() -> int:
               "ptxas": ptx}
     kernels = {}
     dtypes = {"r32": torch.float32, "r64": torch.float64}
-    print("ptxas: K1's instances (getrf_inv_kernel<type, nb/32>) and K3's "
-          "sweep kernel")
-    k1_ptx = {}
+    print("ptxas: K1's instances (getrf_inv_kernel<type, nb/32>), K3's "
+          "and K5's sweep kernels")
+    k1_ptx, k5_ptx = {}, {}
     for name, info in ptx.items():
         m = re.search(r"getrf_inv_kernelI([fd])Li(\d)E", name)
         if m:
             label = (f"getrf_inv_kernel<{dict(f='float', d='double')[m[1]]}"
                      f", nb<={32 * int(m[2])}>")
             k1_ptx[label] = info
-        elif "solve_sweep_kernel" in name:
-            label = "solve_sweep_kernel<" + ("float>" if "IfE" in name
-                                            else "double>")
+        elif "solve_sweep_kernel" in name or "group_sweep_kernel" in name:
+            label = (name.split("I")[0].removeprefix("_ZN3plu")
+                     .lstrip("0123456789")
+                     + ("<float>" if "IfE" in name else "<double>"))
+            if label.startswith("group_sweep_kernel"):
+                k5_ptx[label] = info
         else:
             continue
         print(f"  {label}: {info.get('registers')} registers, "
@@ -424,7 +431,10 @@ def main() -> int:
                                for i in k1_ptx.values()):
         fail(f"K1: expected 6 instances without spills, ptxas says "
              f"{k1_ptx}")
-    detail["K1_ptxas"] = k1_ptx
+    if len(k5_ptx) != 2:
+        fail(f"K5: expected group_sweep_kernel for float and double, "
+             f"ptxas says {k5_ptx}")
+    detail["K1_ptxas"], detail["K5_ptxas"] = k1_ptx, k5_ptx
     print("ptxas: the product kernels of K2 and K4 (tensor cores: 3xTF32 "
           "for float, DMMA for double)")
     prod_ptx = {}
@@ -789,14 +799,24 @@ def main() -> int:
           f"{nd['chain_ms_per_solve']:.3f} ms per solve")
     detail["nd_path"] = nd
     prof["nd gstrf"], nd["stages"] = stages(h, True)
-    if args.profile:
-        fac, ts = h._factorizer, h._trisolver
-        prof["nd gstrs"] = profile(
-            lambda _: ts.solve_blocked(h.factor_tiles, xb))
-    del h, xb, chain_fac, chain_ts
+    # one nd solve traced: K5 is one cooperative launch per sweep
+    ts = h._trisolver
+    prof["nd gstrs"] = profile(lambda _: ts.solve_blocked(h.factor_tiles, xb))
+    print_profile({"nd gstrs": prof["nd gstrs"]})
+    k5_names = {n: k["launches"] for n, k in prof["nd gstrs"]["kernels"]
+                .items() if re.search(r"group_(sweep|solve_\w+)_kernel", n)}
+    if list(k5_names.values()) != [2] or "group_sweep_kernel" not in \
+            next(iter(k5_names)):
+        fail(f"one nd solve made the launches {k5_names}, expected 2 of "
+             "K5's group_sweep_kernel and no other")
+    nd["k5_grid"] = dict(kc.GRID["mega_solve_groups"])
+    print(f"  K5 grid (1 rhs): {nd['k5_grid']['forward']} blocks forward, "
+          f"{nd['k5_grid']['backward']} backward, "
+          f"{nd['k5_grid']['blocks_per_sm']} blocks per SM (occupancy query)")
+    del h, xb, chain_fac, chain_ts, ts
     torch.cuda.empty_cache()
     if args.profile:
-        print_profile(prof)
+        print_profile({k: v for k, v in prof.items() if k != "nd gstrs"})
     detail["profile"] = prof
 
     # ---- r64 -------------------------------------------------------------

@@ -101,15 +101,28 @@
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_solve_groups
 //   (_mega_solve_groups_kernel): forward then backward block solve over
 //   the groups of group_solve_tables.
-//   Bound on an H100: the group chain, 2 * ngroups dependent steps of
-//   matrix-vector work (35 groups a sweep for poisson3d(32) nd).
-//   Design: per group two launches, the members' contractions (one
-//   block per real member and RHS; padded members, which point at the
-//   scratch segment, are not launched) and the panel updates.  Rows of
-//   x are shared by several members' panel tiles (up to 8 in the
-//   forward sweep there), so a host-built view (schedule.group_row_csr)
-//   lists each distinct row with its tiles, and one block per (row,
-//   RHS) sums every contribution and subtracts once.  No atomics.
+//   Bound on an H100: by bytes, each panel tile and inverse read once
+//   (4,220 tiles and 512 inverses of f32 for poisson3d(32) nb=128 nd,
+//   296 MiB, 0.093 ms at 3.35 TB/s); by latency, the group chain, 2 *
+//   ngroups dependent matrix-vector steps (35 groups a sweep there),
+//   each a grid barrier (1.1 us measured) plus the loads after it.
+//   Design: one cooperative persistent launch per sweep
+//   (group_sweep_kernel), 2 per solve, walking a host-built step list
+//   (schedule.group_solve_steps) with one grid barrier between steps.
+//   Step p joins group p-1's row updates with group p's member
+//   contractions: a row that is also a member is one item (subtract the
+//   row's panel products, then the inverse), so a sweep is ngroups + 1
+//   steps, one barrier a group, with no inverse product done twice.
+//   Rows of x are shared by several members' tiles (up to 8 in the
+//   forward sweep there): an item sums all of them in registers and
+//   subtracts once; the inverse product goes to a second buffer (x ->
+//   y forward, y -> x backward), so within a step every item owns its
+//   segment and reads only what earlier steps wrote: no atomics,
+//   bit-identical runs, and the scratch segment is never written.
+//   Tiles and inverses are read-only, so before each barrier the grid
+//   asks L2 for the next step's (a bulk prefetch each); only x waits.
+//   The kernel takes no dynamic shared memory (the shared v is one
+//   segment), so no row is too long for it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -348,22 +361,28 @@ __global__ void __launch_bounds__(kSolveThreads)
 // Cooperative launch of ``kern`` on at most ``want`` blocks, as many as
 // fit on the card at once (a cooperative grid must be co-resident:
 // the launch refuses a larger one, and a larger one would deadlock).
+// ``smem`` bytes of dynamic shared memory a block go to both the
+// occupancy query and the launch, so the grid is sized for the blocks
+// that are launched.  *blocks receives the grid, *per_sm (if given) the
+// blocks an SM holds.
 template <typename K>
-cudaError_t launch_cooperative(K kern, int want, void** args,
-                               cudaStream_t st, int* blocks) {
-  int dev, sms, per_sm;
+cudaError_t launch_cooperative(K kern, int want, size_t smem, void** args,
+                               cudaStream_t st, int* blocks,
+                               int* per_sm = nullptr) {
+  int dev, sms, fit;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                    kSolveThreads, 0);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kern,
+                                                    kSolveThreads, smem);
   if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *blocks = want < per_sm * sms ? want : per_sm * sms;
+  if (fit < 1) return cudaErrorCooperativeLaunchTooLarge;
+  if (per_sm) *per_sm = fit;
+  *blocks = want < fit * sms ? want : fit * sms;
   if (*blocks < 1) *blocks = 1;
   e = cudaLaunchCooperativeKernel((const void*)kern, dim3(*blocks),
-                                  dim3(kSolveThreads), args, 0, st);
+                                  dim3(kSolveThreads), args, smem, st);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -424,58 +443,189 @@ __global__ void __launch_bounds__(kGemmThreads)
 
 // ---------------------------------------------------------------- K5
 
-// Block (m, r): x[r, k, :] <- inv_k · x[r, k, :] for member m of group
-// g, k = kseg[g][m] (only real members are launched).
-template <typename T>
-__global__ void __launch_bounds__(kSolveThreads)
-    group_solve_diag_kernel(T* x, const T* invs, const int* kseg,
-                            size_t rhs_stride, int g, int gw, int slot,
-                            int nb) {
-  __shared__ T xs[kMaxNb];
-  const size_t k = kseg[(size_t)g * gw + blockIdx.x];
-  T* xk = x + blockIdx.y * rhs_stride + k * nb;
-  for (int i = threadIdx.x; i < nb; i += kSolveThreads) xs[i] = xk[i];
-  __syncthreads();
-  tile_matvec<T, false>(invs + (2 * k + slot) * nb * nb, xs, xk, nb);
+// Asks L2 to fetch [p, p + bytes) (cp.async.bulk.prefetch: one
+// instruction for a whole tile, no registers, no wait), cut to the
+// 16-byte bounds inside the range as the instruction requires.
+__device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
+  const size_t a = __cvta_generic_to_global(p);
+  const size_t lo = (a + 15) & ~size_t(15), hi = (a + bytes) & ~size_t(15);
+  if (hi > lo)
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(lo),
+                 "r"((unsigned)(hi - lo))
+                 : "memory");
 }
 
-// Block (d, r): x[r, rkey[d], :] -= sum over the row's panel entries t
-// of T_t · x[r, k_t, :], where tab is the group's [3, w] panel row
-// (tile id, x row, member) and k_t = kseg[g][member of t].  The source
-// segments (members of g) are never rows that g's panels update, so
-// they are read while other blocks write.  Dynamic shared memory holds
-// the row's source segments, ne * nb values.
+// The most entry tiles of one item that K5 stages in shared memory
+// beside its inverse (the card's shared memory may allow fewer).
+constexpr int kMaxStage = 8;
+
+// cp.async of the nn values at src into shared dst: 16 bytes a copy
+// when nn values are a whole number of 16-byte chunks (then every tile
+// and inverse, and every staging slot, starts 16-byte aligned), else
+// one value a copy.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, int nn) {
+  constexpr int V = 16 / sizeof(T);
+  if (nn % V == 0) {
+    for (int i = threadIdx.x * V; i < nn; i += kSolveThreads * V)
+      cp_async<16>(dst + i, src + i, true);
+  } else {
+    for (int i = threadIdx.x; i < nn; i += kSolveThreads)
+      cp_async<sizeof(T)>(dst + i, src + i, true);
+  }
+}
+
+// Issues the copies of item d's inverse (when d.inv) and of its first
+// nstage entry tiles into the block's staging slots sm[0], sm[1..]: one
+// cp.async group, waited for by group_item.
+template <typename T>
+__device__ void stage_item(int4 d, const T* tiles, const T* inv,
+                           const int2* ent, int nn, int nstage, T* sm) {
+  if (d.y) stage_tile(sm, inv, nn);
+  const int ns = min(d.w - d.z, nstage);
+  for (int e = 0; e < ns; ++e)
+    stage_tile(sm + (size_t)(1 + e) * nn,
+               tiles + (size_t)__ldg(ent + d.z + e).x * nn, nn);
+  cp_async_commit();
+}
+
+// acc[q] += sum_j M[i][j] * x[j] for the rows i = warp + q * kWarps, in
+// column order within a lane; x is read through L2 (__ldcg): other
+// blocks wrote it before the last grid barrier.
+template <typename T, int R>
+__device__ __forceinline__ void rows_dot(const T* M, const T* x, int nb,
+                                         T (&acc)[R]) {
+  constexpr int kWarps = kSolveThreads / 32;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll 4
+  for (int j = lane; j < nb; j += 32) {
+    const T xj = __ldcg(x + j);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = warp + q * kWarps;
+      if (i < nb) acc[q] = fmat(M[i * nb + j], xj, acc[q]);
+    }
+  }
+}
+
+// One item d = (seg, inv, e0, e1) of a step of schedule.group_solve_steps
+// for one RHS (xs, xd: its source and destination buffers), its inverse
+// and first nstage entry tiles staged in sm by stage_item:
+// v = xs[seg] - sum_e T_e · xd[k_e] over entries ent[e0:e1] = (tile,
+// k_e), summed in registers in entry order, one warp per row; then
+// xd[seg] = inv · v (through shared v) if d.inv, else xs[seg] = v.
+template <typename T>
+__device__ void group_item(T* xs, T* xd, const T* tiles, int4 d,
+                           const int2* ent, int nb, int nstage, const T* sm,
+                           T* v) {
+  constexpr int kWarps = kSolveThreads / 32, kRows = kMaxNb / kWarps;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const size_t nn = (size_t)nb * nb;
+  T* row = xs + (size_t)d.x * nb;
+  T acc[kRows], old[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int i = warp + q * kWarps;
+    acc[q] = T(0);
+    old[q] = lane == 0 && i < nb ? __ldcg(row + i) : T(0);
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every thread's staged copies are in
+  for (int e = 0; e < d.w - d.z; ++e) {
+    const int2 te = __ldg(ent + d.z + e);
+    const T* xk = xd + (size_t)te.y * nb;
+    if (e < nstage)
+      rows_dot(sm + (1 + e) * nn, xk, nb, acc);
+    else
+      rows_dot(tiles + (size_t)te.x * nn, xk, nb, acc);
+  }
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int i = warp + q * kWarps;
+    if (i < nb) {  // uniform across the warp
+      const T val = old[q] - warp_sum(acc[q]);
+      if (lane == 0) {
+        if (d.y)
+          v[i] = val;
+        else
+          row[i] = val;
+      }
+    }
+  }
+  if (d.y) {  // uniform across the block
+    __syncthreads();
+    tile_matvec<T, false>(sm, v, xd + (size_t)d.x * nb, nb);
+  }
+  __syncthreads();  // v and the staging slots are free for the next item
+}
+
+// One sweep of K5 in one cooperative launch: the kernel walks the steps
+// of schedule.group_solve_steps (step[s] = first item, first entry)
+// with one grid barrier between two steps.  Step s's items (i, r), i
+// < n items, r < nrhs, are taken r-major by a grid-stride loop.  Within
+// a step every item has its own segment and reads dst only where an
+// earlier step wrote it, so no two blocks touch one value between two
+// barriers: no atomics, one sum order, the same bits on every run.
+// Tiles and inverses are read-only for the whole solve, so only x has
+// to wait for a barrier: before the barrier that ends step s, each
+// block issues the copies of its first item of step s+1 (its inverse
+// and first tiles, into dynamic shared memory: (1 + nstage) tiles),
+// and the grid asks L2 for all of step s+1's tiles and inverses.
 template <typename T>
 __global__ void __launch_bounds__(kSolveThreads)
-    group_solve_rows_kernel(T* x, const T* tiles, const int* kseg,
-                            const int* tab, const int* rkey,
-                            const int* rptr, const int* rent,
-                            size_t rhs_stride, int g, int gw, int w,
-                            int roff, int nb) {
+    group_sweep_kernel(T* src, T* dst, int nrhs, const T* tiles,
+                       const T* invs, int slot, const int2* step,
+                       const int4* item, const int2* ent, int nsteps,
+                       int nstage, int bl, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);
-  const size_t nn = (size_t)nb * nb;
-  const int d = roff + blockIdx.x;
-  const int e0 = rptr[d], ne = rptr[d + 1] - e0;
-  const int* ids = tab + (size_t)g * 3 * w;
-  const int* mem = ids + 2 * w;
-  T* xr = x + blockIdx.y * rhs_stride;
-  for (int i = threadIdx.x; i < ne * nb; i += kSolveThreads) {
-    const size_t k = kseg[(size_t)g * gw + mem[rent[e0 + i / nb]]];
-    xs[i] = xr[k * nb + i % nb];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  __shared__ T v[kMaxNb];
+  cg::grid_group grid = cg::this_grid();
+  const int nn = nb * nb;
+  const size_t rhs_stride = (size_t)(bl + 1) * nb;
+  auto inv_of = [&](int4 d) { return invs + (2 * (size_t)d.x + slot) * nn; };
+  int2 cur = __ldg(step), nxt = __ldg(step + 1);
+  int4 d = make_int4(0, 0, 0, 0);
+  if (blockIdx.x < (nxt.x - cur.x) * nrhs) {
+    d = __ldg(item + cur.x + blockIdx.x % (nxt.x - cur.x));
+    stage_item(d, tiles, inv_of(d), ent, nn, nstage, sm);
   }
-  __syncthreads();
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  T* out = xr + (size_t)rkey[d] * nb;
-  for (int i = warp; i < nb; i += kSolveThreads / 32) {
-    T acc = T(0);
-    for (int e = 0; e < ne; ++e) {
-      const T* M = tiles + (size_t)ids[rent[e0 + e]] * nn + (size_t)i * nb;
-      for (int j = lane; j < nb; j += 32)
-        acc = fmat(M[j], xs[e * nb + j], acc);
+  for (int s = 0;; ++s) {
+    const int n = nxt.x - cur.x;
+    const bool last = s + 1 == nsteps;
+    const int2 after = last ? nxt : __ldg(step + s + 2);
+    // the block's first item of step s+1, loaded while this step runs
+    const int n1 = after.x - nxt.x;
+    const bool has1 = blockIdx.x < n1 * nrhs;
+    const int4 d1 = has1 ? __ldg(item + nxt.x + blockIdx.x % n1) : d;
+    for (int it = blockIdx.x; it < n * nrhs; it += gridDim.x) {
+      if (it != blockIdx.x) {
+        d = __ldg(item + cur.x + it % n);
+        stage_item(d, tiles, inv_of(d), ent, nn, nstage, sm);
+      }
+      const int r = it / n;
+      group_item(src + r * rhs_stride, dst + r * rhs_stride, tiles, d, ent,
+                 nb, nstage, sm, v);
     }
-    acc = warp_sum(acc);
-    if (lane == 0) out[i] -= acc;
+    if (last) break;
+    const int ne = after.y - nxt.y, np = ne + n1;
+    for (int p = blockIdx.x + threadIdx.x * gridDim.x; p < np;
+         p += gridDim.x * kSolveThreads) {
+      if (p < ne) {
+        prefetch_l2(tiles + (size_t)__ldg(ent + nxt.y + p).x * nn,
+                    nn * sizeof(T));
+      } else {
+        const int4 dp = __ldg(item + nxt.x + p - ne);
+        if (dp.y) prefetch_l2(inv_of(dp), nn * sizeof(T));
+      }
+    }
+    if (has1) {
+      d = d1;
+      stage_item(d, tiles, inv_of(d), ent, nn, nstage, sm);
+    }
+    cur = nxt;
+    nxt = after;
+    grid.sync();
   }
 }
 
@@ -555,8 +705,8 @@ int sweep(T* src, T* dst, int nrhs, const T* tiles, const T* invs, int slot,
   void* args[] = {&src,  &dst, &nrhs, &tiles, &invs, &slot,      &ids,
                   &rows, &cnt, &bl,   &w,     &nb,   &descending};
   int blocks;
-  return launch_cooperative(solve_sweep_kernel<T>, widest * nrhs, args, st,
-                            &blocks);
+  return launch_cooperative(solve_sweep_kernel<T>, widest * nrhs, 0, args,
+                            st, &blocks);
 }
 
 // x: the right-hand sides on entry, the solution on exit; y: scratch of
@@ -621,50 +771,55 @@ int mega_factorize_groups(T* tiles, T* invs, const int* gdiag,
   return cudaSuccess;
 }
 
+// One sweep of K5: nsteps steps of at most ``width`` items (host
+// values) size the grid, capped at what fits on the card.
 template <typename T>
-int group_sweep(T* x, int nrhs, const T* tiles, const T* invs, int slot,
-                const int* kseg, const int* tab, const int* rkey,
-                const int* rptr, const int* rent, const int* h_nmem,
-                const int* h_nrow, const int* h_roff, int ngr, int gw, int w,
-                int bl, int nb, size_t smem, bool descending,
-                cudaStream_t st) {
-  const size_t rhs_stride = (size_t)(bl + 1) * nb;
-  cudaError_t e;
-  for (int i = 0; i < ngr; ++i) {
-    const int g = descending ? ngr - 1 - i : i;
-    group_solve_diag_kernel<T><<<dim3(h_nmem[g], nrhs), kSolveThreads, 0,
-                                 st>>>(x, invs, kseg, rhs_stride, g, gw,
-                                       slot, nb);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    if (h_nrow[g] > 0) {
-      group_solve_rows_kernel<T>
-          <<<dim3(h_nrow[g], nrhs), kSolveThreads, smem, st>>>(
-              x, tiles, kseg, tab, rkey, rptr, rent, rhs_stride, g, gw, w,
-              h_roff[g], nb);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    }
-  }
-  return cudaSuccess;
+int group_sweep(T* src, T* dst, int nrhs, const T* tiles, const T* invs,
+                int slot, const int* step, const int* item, const int* ent,
+                int nsteps, int width, int bl, int nb, cudaStream_t st,
+                int* blocks, int* per_sm) {
+  // staging slots: the inverse and as many entry tiles (at most
+  // kMaxStage) as the shared memory a block may opt into holds beside v
+  int dev, optin;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  const size_t tile = (size_t)nb * nb * sizeof(T);
+  const size_t room = optin - kMaxNb * sizeof(T);
+  if (room < tile) return cudaErrorInvalidValue;
+  int nstage = (int)(room / tile) - 1;
+  nstage = nstage < kMaxStage ? nstage : kMaxStage;
+  const size_t smem = (1 + nstage) * tile;
+  e = cudaFuncSetAttribute(group_sweep_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  const int2* step2 = reinterpret_cast<const int2*>(step);
+  const int4* item4 = reinterpret_cast<const int4*>(item);
+  const int2* ent2 = reinterpret_cast<const int2*>(ent);
+  void* args[] = {&src,   &dst,  &nrhs,   &tiles,  &invs, &slot, &step2,
+                  &item4, &ent2, &nsteps, &nstage, &bl,   &nb};
+  return launch_cooperative(group_sweep_kernel<T>, width * nrhs, smem, args,
+                            st, blocks, per_sm);
 }
 
-// smem: bytes of the rows kernel's source segments (the most entries
-// of one row, times nb values), at most 48 KB (checked by the wrapper).
+// x: the right-hand sides on entry, the solution on exit; y: scratch of
+// x's shape that holds the forward sweep's result (the backward sweep
+// reads it and writes x).  grid[0], grid[1]: the blocks of the forward
+// and backward launch; grid[2]: the blocks an SM holds.
 template <typename T>
-int mega_solve_groups(T* x, int nrhs, const T* tiles, const T* invs,
-                      const int* kseg, const int* ltab, const int* uctab,
-                      const int* lkey, const int* lptr, const int* lent,
-                      const int* ukey, const int* uptr, const int* uent,
-                      const int* h_nmem, const int* h_lrow,
-                      const int* h_loff, const int* h_urow,
-                      const int* h_uoff, int ngr, int gw, int w, int bl,
-                      int nb, size_t smem, cudaStream_t st) {
-  int e = group_sweep(x, nrhs, tiles, invs, 0, kseg, ltab, lkey, lptr, lent,
-                      h_nmem, h_lrow, h_loff, ngr, gw, w, bl, nb, smem,
-                      false, st);
+int mega_solve_groups(T* x, T* y, int nrhs, const T* tiles, const T* invs,
+                      const int* fstep, const int* fitem, const int* fent,
+                      const int* bstep, const int* bitem, const int* bent,
+                      int fsteps, int fwidth, int bsteps, int bwidth, int bl,
+                      int nb, int* grid, cudaStream_t st) {
+  int e = group_sweep(x, y, nrhs, tiles, invs, 0, fstep, fitem, fent, fsteps,
+                      fwidth, bl, nb, st, &grid[0], &grid[2]);
   if (e != cudaSuccess) return e;
-  return group_sweep(x, nrhs, tiles, invs, 1, kseg, uctab, ukey, uptr, uent,
-                     h_nmem, h_urow, h_uoff, ngr, gw, w, bl, nb, smem, true,
-                     st);
+  return group_sweep(y, x, nrhs, tiles, invs, 1, bstep, bitem, bent, bsteps,
+                     bwidth, bl, nb, st, &grid[1], nullptr);
 }
 
 }  // namespace plu
@@ -676,7 +831,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 4; }
+int plu_kernels_abi() { return 5; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -686,7 +841,7 @@ int plu_grid_sync_probe(int dev, int want, int iters, int* blocks,
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return e;
   void* args[] = {&iters};
-  return plu::launch_cooperative(plu::grid_sync_probe_kernel, want, args,
+  return plu::launch_cooperative(plu::grid_sync_probe_kernel, want, 0, args,
                                  PLU_STREAM(st), blocks);
 }
 
@@ -758,19 +913,16 @@ PLU_MEGA_FACTORIZE_GROUPS(plu_mega_factorize_groups_f32, float)
 PLU_MEGA_FACTORIZE_GROUPS(plu_mega_factorize_groups_f64, double)
 
 #define PLU_MEGA_SOLVE_GROUPS(NAME, T)                                        \
-  int NAME(int dev, T* x, int nrhs, const T* tiles, const T* invs,           \
-           const int* kseg, const int* ltab, const int* uctab,               \
-           const int* lkey, const int* lptr, const int* lent,                \
-           const int* ukey, const int* uptr, const int* uent,                \
-           const int* h_nmem, const int* h_lrow, const int* h_loff,          \
-           const int* h_urow, const int* h_uoff, int ngr, int gw, int w,     \
-           int bl, int nb, int smem, void* st) {                             \
+  int NAME(int dev, T* x, T* y, int nrhs, const T* tiles, const T* invs,     \
+           const int* fstep, const int* fitem, const int* fent,              \
+           const int* bstep, const int* bitem, const int* bent, int fsteps,  \
+           int fwidth, int bsteps, int bwidth, int bl, int nb, int* grid,    \
+           void* st) {                                                       \
     cudaError_t e = cudaSetDevice(dev);                                      \
     if (e != cudaSuccess) return e;                                          \
-    return plu::mega_solve_groups(x, nrhs, tiles, invs, kseg, ltab, uctab,   \
-                                  lkey, lptr, lent, ukey, uptr, uent,        \
-                                  h_nmem, h_lrow, h_loff, h_urow, h_uoff,    \
-                                  ngr, gw, w, bl, nb, (size_t)smem,          \
+    return plu::mega_solve_groups(x, y, nrhs, tiles, invs, fstep, fitem,     \
+                                  fent, bstep, bitem, bent, fsteps, fwidth,  \
+                                  bsteps, bwidth, bl, nb, grid,              \
                                   PLU_STREAM(st));                           \
   }
 PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f32, float)

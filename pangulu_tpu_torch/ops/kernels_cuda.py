@@ -24,9 +24,9 @@ import torch
 from pangulu_tpu_torch.ops import build
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.ops.kernels_torch import KernelTables, check_nb
-from pangulu_tpu_torch.schedule import group_dst_csr, group_row_csr
+from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 4
+_ABI = 5
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -37,8 +37,9 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0,
             "mega_factorize_groups": 0, "mega_solve_groups": 0}
 
-# Bytes of dynamic shared memory a kernel may take without opting in.
-_SMEM_DEFAULT = 48 * 1024
+# The cooperative grid of the last K5 call: blocks of its forward and
+# backward launch, and the blocks an SM holds (the occupancy query).
+GRID: dict = {}
 
 _library: build.KernelLibrary | None = None
 
@@ -81,8 +82,7 @@ def library() -> build.KernelLibrary:
                        + [i] * 8 + [d, p, p])
         fn = getattr(lib, f"plu_mega_solve_groups_{s}")
         fn.restype = i
-        fn.argtypes = ([i, p, i, p, p] + [p] * 3 + [p] * 6 + [p] * 5
-                       + [i] * 6 + [p])
+        fn.argtypes = [i, p, p, i, p, p] + [p] * 6 + [i] * 6 + [p, p]
     lib.plu_grid_sync_probe.restype = i
     lib.plu_grid_sync_probe.argtypes = [i, i, i, p, p]
     _library = kl
@@ -278,14 +278,15 @@ def grid_sync_probe(device, blocks: int, iters: int) -> int:
     return got.value
 
 
-def _view(tables: KernelTables, name: str, derive, device) -> tuple:
-    """(host arrays, device tensors) of a view derived from the tables
-    once and cached on them."""
+def _view(tables: KernelTables, name: str, derive, device,
+          ship=("key", "ptr", "ent")) -> tuple:
+    """(host arrays, device tensors of the ``ship`` keys) of a view
+    derived from the tables once and cached on them."""
     if name not in tables.views:
         host = derive(tables.host)
         tables.views[name] = (host, {
             k: torch.as_tensor(v, device=device) for k, v in host.items()
-            if k in ("key", "ptr", "ent")})
+            if k in ship})
     return tables.views[name]
 
 
@@ -359,11 +360,66 @@ def mega_factorize_groups(tiles: torch.Tensor, tables: KernelTables, *,
     return tiles, invs
 
 
+_STEP_KEYS = ("step", "item", "ent")
+
+
+def _group_solve_steps(h: dict, bl: int, nt: int, fused: bool) -> dict:
+    """Both sweeps' step tables of :func:`schedule.group_solve_steps`
+    (keys ``l_step``, ``uc_item``, ...), after the checks that keep K5
+    inside x and the tile store and its steps free of races."""
+    ng = int(h["ngroups"])
+    kseg = _host_i32(h["kseg_tab"])
+    gw, w = kseg.shape[1], h["ltab"].shape[-1]
+    nmem = _host_i32((kseg != bl).sum(axis=1))
+    real = np.arange(gw)[None, :] < nmem[:, None]
+    if (len(kseg) != ng or nmem.min(initial=1) < 1
+            or (kseg[real] > bl - 1).any() or (kseg[real] < 0).any()
+            or (kseg[~real] != bl).any()):
+        raise ValueError("kseg_tab must hold each group's levels first, "
+                         f"then the pad {bl}")
+    if not np.array_equal(np.sort(kseg[real]), np.arange(bl)):
+        raise ValueError(f"kseg_tab must hold each of the {bl} levels once "
+                         "(every segment of the result is written)")
+    out = {}
+    for tab, cnt, sweep in (("ltab", "nl_tab", "l"), ("uctab", "nuc_tab",
+                                                      "uc")):
+        n = _host_i32(h[cnt])
+        if len(n) != ng or n.max(initial=0) > w:
+            raise ValueError(f"{cnt} does not match the groups or {tab}'s "
+                             "width")
+        _check_table(f"{tab}[:, 0]", h[tab][:, 0], 0, nt)
+        _check_table(f"{tab}[:, 1]", h[tab][:, 1], 0, bl)
+        used = np.arange(w)[None, :] < n[:, None]
+        if ((h[tab][:, 2] < 0) | (h[tab][:, 2] >= nmem[:, None]))[used].any():
+            raise ValueError(f"{tab}: a panel tile names no real member")
+        # a member updated by its own group would race with its inverse
+        if any(np.isin(h[tab][g, 1, :n[g]], kseg[g, :nmem[g]]).any()
+               for g in range(ng)):
+            raise ValueError(f"{tab}: a group's panel row is one of its "
+                             "own members")
+        for k, v in group_solve_steps(h, sweep, bl, fused=fused).items():
+            out[f"{sweep}_{k}"] = v
+    return out
+
+
+def solve_steps_view(tables: KernelTables, bl: int, nt: int, device,
+                     fused: bool = True) -> tuple:
+    """K5's step tables of a table set, checked and shipped once and
+    cached on it: the first call fixes the schedule (the kernel's is
+    ``fused``; ``tools/probe_solve_groups.py`` asks for the two steps a
+    group of ``fused=False`` on a table set of its own)."""
+    return _view(tables, f"solve_steps_{bl}_{nt}",
+                 lambda h: _group_solve_steps(h, bl, nt, fused), device,
+                 [f"{sw}_{k}" for sw in ("l", "uc") for k in _STEP_KEYS])
+
+
 def mega_solve_groups(x: torch.Tensor, tiles: torch.Tensor,
                       invs: torch.Tensor, tables: KernelTables, *,
                       nb: int, bl: int) -> torch.Tensor:
     """K5: solve LU x = b over super-level groups for ``x``
-    [nrhs, bl+1, nb]; returns a new tensor.  See
+    [nrhs, bl+1, nb]; returns a new tensor.  Two cooperative launches,
+    one per sweep, counted as one launch of K5; the grid of the last
+    call is in ``GRID["mega_solve_groups"]``.  See
     :func:`kernels_torch.mega_solve_groups`."""
     if not _on_cuda(x):
         return kt.mega_solve_groups(x, tiles, invs, tables, nb=nb, bl=bl)
@@ -375,48 +431,21 @@ def mega_solve_groups(x: torch.Tensor, tiles: torch.Tensor,
     _check_tensor("x", x, x.dtype, (nrhs, bl + 1, nb), dev)
     _check_tensor("tiles", tiles, x.dtype, (nt + 1, nb, nb), dev)
     _check_tensor("invs", invs, x.dtype, (bl, 2, nb, nb), dev)
-    h = tables.host
-    ng = int(h["ngroups"])
-    kseg = _host_i32(h["kseg_tab"])
-    gw, w = kseg.shape[1], h["ltab"].shape[-1]
-    nmem = _host_i32((kseg != bl).sum(axis=1))
-    real = np.arange(gw)[None, :] < nmem[:, None]
-    if (len(kseg) != ng or nmem.min(initial=1) < 1
-            or (kseg[real] > bl - 1).any() or (kseg[real] < 0).any()
-            or (kseg[~real] != bl).any()):
-        raise ValueError("kseg_tab must hold each group's levels first, "
-                         f"then the pad {bl}")
-    for tab, cnt in (("ltab", "nl_tab"), ("uctab", "nuc_tab")):
-        n = _host_i32(h[cnt])
-        if len(n) != ng or n.max(initial=0) > w:
-            raise ValueError(f"{cnt} does not match the groups or {tab}'s "
-                             "width")
-        _check_table(f"{tab}[:, 0]", h[tab][:, 0], 0, nt)
-        _check_table(f"{tab}[:, 1]", h[tab][:, 1], 0, bl)
-        used = np.arange(w)[None, :] < n[:, None]
-        if ((h[tab][:, 2] < 0) | (h[tab][:, 2] >= nmem[:, None]))[used].any():
-            raise ValueError(f"{tab}: a panel tile names no real member")
-    lcsr, lcsr_dev = _view(tables, "row_csr_l",
-                           lambda t: group_row_csr(t, "l"), dev)
-    ucsr, ucsr_dev = _view(tables, "row_csr_uc",
-                           lambda t: group_row_csr(t, "uc"), dev)
-    ent_max = max(int(np.diff(c["ptr"]).max(initial=0))
-                  for c in (lcsr, ucsr))
-    smem = ent_max * nb * x.element_size()
-    if smem > _SMEM_DEFAULT:
-        raise ValueError(f"a row takes {ent_max} panel tiles: {smem} bytes "
-                         f"of shared memory, over {_SMEM_DEFAULT}")
-    tabs = _dev_tables(tables, ("kseg_tab", "ltab", "uctab"), dev)
+    host, steps = solve_steps_view(tables, bl, nt, dev)
     out = x.clone()
     if nrhs:
         lib = library().lib
+        fwd = torch.empty_like(out)   # the forward sweep's result
+        grid = (ctypes.c_int * 3)()
         _call(getattr(lib, f"plu_mega_solve_groups_{s}"), dev.index,
-              out.data_ptr(), nrhs, tiles.data_ptr(), invs.data_ptr(),
-              *(t.data_ptr() for t in tabs),
-              *(c[k].data_ptr() for c in (lcsr_dev, ucsr_dev)
-                for k in ("key", "ptr", "ent")),
-              _ptr(nmem), _ptr(lcsr["cnt"]), _ptr(lcsr["off"]),
-              _ptr(ucsr["cnt"]), _ptr(ucsr["off"]), ng, gw, w, bl, nb,
-              smem, _stream(dev))
+              out.data_ptr(), fwd.data_ptr(), nrhs, tiles.data_ptr(),
+              invs.data_ptr(),
+              *(steps[f"{sw}_{k}"].data_ptr() for sw in ("l", "uc")
+                for k in _STEP_KEYS),
+              *(v for sw in ("l", "uc")
+                for v in (len(host[f"{sw}_step"]) - 1, host[f"{sw}_width"])),
+              bl, nb, grid, _stream(dev))
+        GRID["mega_solve_groups"] = dict(forward=grid[0], backward=grid[1],
+                                         blocks_per_sm=grid[2])
         LAUNCHES["mega_solve_groups"] += 1
     return out

@@ -560,6 +560,76 @@ def group_row_csr(tables: dict, sweep: str) -> dict:
     return _csr_by_key([tab[g, 1, :n] for g, n in enumerate(cnt)])
 
 
+def group_solve_steps(tables: dict, sweep: str, bl: int,
+                      fused: bool = True) -> dict:
+    """The step schedule of one sweep of ``group_solve_tables`` that the
+    CUDA kernel walks, one grid barrier between two steps.
+
+    An item ``(seg, inv, e0, e1)`` of a step computes ``v = src[seg] -
+    sum T_t · dst[k_t]`` over its entries ``t`` (``ent[e0:e1]``, rows
+    ``(tile id, source segment k_t)`` in table order) and writes ``inv_seg
+    · v`` to ``dst[seg]`` when ``inv`` is 1, else ``v`` back to
+    ``src[seg]``.  The sweep walks the groups forward (``"l"``) or
+    backward (``"uc"``); a group's x rows (``group_row_csr``) are never
+    its members.
+
+    ``fused`` (the kernel's schedule): step p holds the row updates of
+    the p-th group walked and the members of the next one, a row that is
+    also such a member being one item (the update, then its inverse):
+    one barrier a group.  Otherwise two steps a group, its members, then
+    its rows.  Empty steps are dropped.  Every item of a step has its own
+    segment, every ``dst[k_t]`` it reads was written in an earlier step,
+    and every member is written to ``dst`` once.
+
+    Returns ``step`` [nsteps+1, 2] (first item, first entry of each
+    step), ``item`` [nitems, 4], ``ent`` [nent, 2] and ``width``, the
+    most items of one step."""
+    tab = tables["ltab"] if sweep == "l" else tables["uctab"]
+    csr = group_row_csr(tables, sweep)
+    kseg = tables["kseg_tab"]
+    ng = int(tables["ngroups"])
+
+    def rows(g):
+        """(segment, entries) of each distinct row of group g."""
+        out = []
+        for d in range(csr["off"][g], csr["off"][g] + csr["cnt"][g]):
+            t = csr["ent"][csr["ptr"][d]:csr["ptr"][d + 1]]
+            out.append((int(csr["key"][d]),
+                        np.stack([tab[g, 0, t], kseg[g, tab[g, 2, t]]], 1)))
+        return out
+
+    def members(g):
+        return [int(k) for k in kseg[g][kseg[g] != bl]]
+
+    order = list(range(ng)) if sweep == "l" else list(range(ng))[::-1]
+    steps = []
+    if fused:
+        for p in range(ng + 1):
+            upd = rows(order[p - 1]) if p else []
+            mem = members(order[p]) if p < ng else []
+            segs = {k for k, _ in upd}
+            steps.append([(k, k in mem, e) for k, e in upd]
+                         + [(k, True, None) for k in mem if k not in segs])
+    else:
+        for g in order:
+            steps.append([(k, True, None) for k in members(g)])
+            steps.append([(k, False, e) for k, e in rows(g)])
+    step, item, ent = [[0, 0]], [], []
+    for s in steps:
+        if not s:
+            continue
+        for k, inv, e in s:
+            n = 0 if e is None else len(e)
+            item.append([k, int(inv), len(ent), len(ent) + n])
+            if n:
+                ent.extend(e.tolist())
+        step.append([len(item), len(ent)])
+    step = np.asarray(step, np.int32)
+    return dict(step=step, item=np.asarray(item, np.int32).reshape(-1, 4),
+                ent=np.asarray(ent, np.int32).reshape(-1, 2),
+                width=int(np.diff(step[:, 0]).max(initial=0)))
+
+
 def bucket(n: int) -> int:
     """Pad a batch size to the next power of two (the static-shape
     analogue of the reference's 7 geometric storage-bin capacity

@@ -149,19 +149,20 @@ def make_sources(src: pathlib.Path, dst: pathlib.Path, edits) -> None:
         p.write_text(text.replace(old, new))
 
 
-def build_all(names) -> dict:
-    """Build every variant's library at once (one nvcc each) where the
-    build module will look for it; returns per variant its csrc and
-    build directories."""
+def build_all(variants: dict) -> dict:
+    """Build every variant's library (``variants``: name -> (what the
+    edit does, edits)) at once, one nvcc each, where the build module
+    will look for it; returns per variant its csrc and build
+    directories."""
     from pangulu_tpu_torch.ops import build
 
     base = build.BUILD_DIR / "probe"
     dirs, procs = {}, []
     shipped = build.CSRC_DIR
     nvcc = build.find_nvcc()
-    for name in names:
+    for name, (_, edits) in variants.items():
         csrc, bdir = base / name / "csrc", base / name / "build"
-        make_sources(shipped, csrc, VARIANTS[name][1])
+        make_sources(shipped, csrc, edits)
         bdir.mkdir(parents=True, exist_ok=True)
         build.CSRC_DIR = csrc
         out = bdir / f"liblu_kernels_{build.source_hash()}.so"
@@ -201,7 +202,7 @@ def variants(out_path: str | None) -> dict:
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    dirs = build_all(list(VARIANTS))
+    dirs = build_all(VARIANTS)
     print(f"built {len(dirs)} variants in {time.perf_counter() - t0:.1f} s")
     a = poisson3d(32)
     cases = {}

@@ -219,6 +219,39 @@ def test_group_kernels(cuda, gen, dtype, uch, nb):
     assert torch.equal(got[:, bl], x[:, bl])   # scratch segment untouched
 
 
+@pytest.mark.parametrize("dtype", ["r32", "r64"])
+# 600 right-hand sides: a step's (item, RHS) pairs outnumber the blocks
+# a cooperative grid can hold, so blocks loop over items
+@pytest.mark.parametrize("nrhs", [64, 600])
+def test_mega_solve_groups_many_rhs(cuda, dtype, nrhs):
+    """K5 on an nd schedule whose groups share rows (poisson2d(24)
+    nb=16): the plain version's result, bit-identical repeated solves,
+    the scratch segment untouched."""
+    h = pt.init(poisson2d(24), pt.InitOptions(nb=16, dtype=dtype,
+                                              ordering="nd", device="cuda"))
+    nt, bl = h.blocked.num_tiles, h.schedule.block_length
+    ftab = kt.KernelTables.build(h.schedule.group_mega_tables(nt), cuda)
+    stab = kt.KernelTables.build(h.schedule.group_solve_tables(nt), cuda)
+    t0 = h.blocked.device_tiles(cuda)
+    tk, ik = kc.mega_factorize_groups(t0, ftab, nb=16, bl=bl,
+                                      tol=kt.DEFAULT_TOL[t0.dtype])
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (nrhs, bl + 1, 16)), dtype=t0.dtype, device=cuda)
+    got = kc.mega_solve_groups(x, tk, ik, stab, nb=16, bl=bl)
+    grid = kc.GRID["mega_solve_groups"]
+    props = torch.cuda.get_device_properties(cuda)
+    assert 1 <= grid["forward"] <= (grid["blocks_per_sm"]
+                                    * props.multi_processor_count)
+    stol = (dict(rtol=1e-4, atol=1e-5) if t0.dtype == torch.float32
+            else TOL[t0.dtype])
+    torch.testing.assert_close(
+        got, kt.mega_solve_groups(x, tk, ik, stab, nb=16, bl=bl), **stol)
+    # no atomics, one sum order: a second solve is bit-identical
+    assert torch.equal(got, kc.mega_solve_groups(x, tk, ik, stab, nb=16,
+                                                 bl=bl))
+    assert torch.equal(got[:, bl], x[:, bl])   # scratch segment untouched
+
+
 def test_nd_slice_on_cuda_counts_launches(cuda):
     a = poisson2d(12)
     b = a.to_scipy() @ np.ones(a.n)

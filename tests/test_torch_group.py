@@ -31,6 +31,7 @@ from pangulu_tpu_torch.io import load_factor
 from pangulu_tpu_torch.numeric import LUFactorizer
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.schedule import (group_dst_csr, group_row_csr,
+                                        group_solve_steps,
                                         group_update_lists)
 from pangulu_tpu_torch.sptrsv import TriangularSolver
 from pangulu_tpu_torch.utils.perf import residual_norm
@@ -125,6 +126,116 @@ def test_row_csr_lists_every_panel_tile_once(p2d_nd, sweep):
         for d in range(lo, lo + m):
             e = c["ent"][c["ptr"][d]:c["ptr"][d + 1]]
             assert (tab[g, 1, e] == c["key"][d]).all()
+
+
+def _row_updates(t, sweep):
+    """Per group, each distinct x row with its panel entries as (tile
+    id, source segment) pairs, from ``group_row_csr``."""
+    tab = t["ltab"] if sweep == "l" else t["uctab"]
+    c = group_row_csr(t, sweep)
+    out = []
+    for g in range(int(t["ngroups"])):
+        for d in range(c["off"][g], c["off"][g] + c["cnt"][g]):
+            e = c["ent"][c["ptr"][d]:c["ptr"][d + 1]]
+            out.append((int(c["key"][d]), tuple(zip(
+                tab[g, 0, e].tolist(),
+                t["kseg_tab"][g, tab[g, 2, e]].tolist()))))
+    return out
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("sweep", ["l", "uc"])
+def test_solve_steps_list_every_row_and_member_once(p2d_nd, sweep, fused):
+    """The CUDA K5's step tables: every member of every group is one
+    inverse item, every distinct row of every group one update item with
+    the entries of group_row_csr, and the offsets rise."""
+    hp, _ = p2d_nd
+    bl = hp.schedule.block_length
+    t = hp.schedule.group_solve_tables(hp.blocked.num_tiles)
+    s = group_solve_steps(t, sweep, bl, fused=fused)
+    step, item, ent = s["step"], s["item"], s["ent"]
+    assert step[0].tolist() == [0, 0]
+    assert (np.diff(step[:, 0]) > 0).all() and (np.diff(step[:, 1]) >= 0).all()
+    assert step[-1].tolist() == [len(item), len(ent)]
+    assert (item[:, 2] <= item[:, 3]).all()
+    assert (item[1:, 2] == item[:-1, 3]).all() and item[0, 2] == 0
+    assert s["width"] == np.diff(step[:, 0]).max()
+    assert sorted(item[item[:, 1] == 1, 0]) == list(range(bl))
+    got = sorted((int(k), tuple(map(tuple, ent[e0:e1].tolist())))
+                 for k, _, e0, e1 in item if e1 > e0)
+    assert got == sorted(_row_updates(t, sweep))
+    ng = int(t["ngroups"])
+    assert len(step) - 1 <= (ng + 1 if fused else 2 * ng)
+
+
+def _walk_steps(x, tiles, invs, t, bl):
+    """The CUDA K5's schedule run in numpy: per sweep, each step's items
+    as the kernel computes them, with what each item reads and writes
+    recorded.  No item reads or writes a value that another item of its
+    step writes, and every level's segment of the sweep's destination is
+    written once (the destination starts as NaN: a read of an unwritten
+    value would show).  Returns the solution of both schedules."""
+    out = {}
+    for fused in (True, False):
+        bufs = {"x": x.copy(), "y": np.full_like(x, np.nan)}
+        for slot, (src, dst), sweep in ((0, ("x", "y"), "l"),
+                                        (1, ("y", "x"), "uc")):
+            s = group_solve_steps(t, sweep, bl, fused=fused)
+            written = []
+            for a, b in zip(s["step"][:-1, 0], s["step"][1:, 0]):
+                reads, writes = [], []
+                for k, inv, e0, e1 in s["item"][a:b]:
+                    seg = (dst if inv else src, k)
+                    reads.append({(src, k)} | {(dst, int(kk)) for _, kk
+                                               in s["ent"][e0:e1]})
+                    writes.append(seg)
+                    tid, kk = s["ent"][e0:e1].T
+                    v = bufs[src][:, k] - np.einsum(
+                        "tij,rtj->ri", tiles[tid], bufs[dst][:, kk])
+                    if inv:
+                        v = np.einsum("ij,rj->ri", invs[k, slot], v)
+                    bufs[seg[0]][:, k] = v
+                assert len(set(writes)) == len(writes)
+                for i, r in enumerate(reads):
+                    assert not (r & (set(writes) - {writes[i]}))
+                written += [w for w in writes if w[0] == dst]
+            assert sorted(k for _, k in written) == list(range(bl))
+        assert np.array_equal(bufs["x"][:, bl], x[:, bl])
+        out[fused] = bufs["x"]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["r32", "r64"])
+@pytest.mark.parametrize("gen,kw", [("poisson2d", dict(nx=12)),
+                                    ("poisson3d", dict(nx=12))])
+def test_solve_steps_walk_matches_plain_and_pallas(gen, kw, dtype):
+    """The step schedule of the CUDA K5 (fused and two steps a group),
+    walked on the host, solves as the plain version and the JAX Pallas
+    K5 (interpret mode) do, on the same factors and right-hand sides."""
+    hp, hj = _pair(gen, "nd", dtype=dtype, **kw)
+    nt, bl = hp.blocked.num_tiles, hp.schedule.block_length
+    t = hp.schedule.group_solve_tables(nt)
+    fac = LUFactorizer(hp.blocked, hp.schedule, device="cpu")
+    tiles, invs = fac.factorize(), fac.inv_tiles
+    rng = np.random.default_rng(bl)
+    x = np.zeros((2, bl + 1, NB), tiles.numpy().dtype)
+    x[:, :bl] = rng.standard_normal((2, bl, NB))
+    x[:, bl] = 7.0     # the scratch segment must come back untouched
+    walked = _walk_steps(x, tiles.numpy(), invs.numpy(), t, bl)
+    plain = kt.mega_solve_groups(
+        torch.from_numpy(x), tiles, invs, kt.KernelTables.build(t, "cpu"),
+        nb=NB, bl=bl).numpy()
+    tj = hj.schedule.group_solve_tables(nt)
+    pallas = np.asarray(kernels_pallas.mega_solve_groups(
+        jnp.asarray(x), jnp.asarray(tiles.numpy()),
+        jnp.asarray(invs.numpy()),
+        *(jnp.asarray(tj[k]) for k in ("nl_tab", "nuc_tab", "kseg_tab",
+                                       "ltab", "uctab")),
+        nb=NB, bl=bl, ngr=tj["ngroups"], gmax=tj["gmax"], npan=tj["row_w"]))
+    tol = SOLVE_F32 if dtype == "r32" else dict(rtol=1e-12, atol=1e-12)
+    for got in walked.values():
+        np.testing.assert_allclose(got, plain, **tol)
+        np.testing.assert_allclose(got[:, :bl], pallas[:, :bl], **tol)
 
 
 def _jax_group_factorize(hj, uch):

@@ -103,6 +103,45 @@ def test_kernel_path_rejects_out_of_range_tables(monkeypatch):
                                 nb=16, bl=bl)
 
 
+def _break_missing_level(t, bl):
+    g = int(np.argmax((t["kseg_tab"] != bl).sum(axis=1) >= 2))
+    t["kseg_tab"][g, 1] = t["kseg_tab"][g, 0]      # one level twice
+    return "each of the .* levels once"
+
+
+def _break_row_is_member(t, bl):
+    g = int(np.argmax(t["nl_tab"] > 0))
+    t["ltab"][g, 1, 0] = t["kseg_tab"][g, 0]
+    return "one of its own members"
+
+
+def _break_row_out_of_range(t, bl):
+    t["uctab"][int(np.argmax(t["nuc_tab"] > 0)), 1, 0] = bl + 1
+    return r"uctab\[:, 1\] has entries outside"
+
+
+@pytest.mark.parametrize("breaker", [_break_missing_level,
+                                     _break_row_is_member,
+                                     _break_row_out_of_range])
+def test_kernel_path_rejects_bad_group_solve_tables(monkeypatch, breaker):
+    """K5's wrapper refuses, before any launch, tables whose step
+    schedule would leave a segment unwritten, race a member with its own
+    group's update, or index outside x."""
+    from pangulu_tpu_torch.ops.kernels_torch import KernelTables
+
+    _route_to_kernel_without_launching(monkeypatch)
+    h = init(poisson2d(12), InitOptions(nb=16, dtype="r32", ordering="nd",
+                                        device="cpu"))
+    nt, bl = h.blocked.num_tiles, h.schedule.block_length
+    t = h.schedule.group_solve_tables(nt)
+    match = breaker(t, bl)
+    x = torch.zeros((1, bl + 1, 16))
+    with pytest.raises(ValueError, match=match):
+        kernels_cuda.mega_solve_groups(
+            x, h.blocked.device_tiles("cpu"), torch.zeros((bl, 2, 16, 16)),
+            KernelTables.build(t, "cpu"), nb=16, bl=bl)
+
+
 def test_kernel_path_rejects_unsupported_inputs(monkeypatch):
     _route_to_kernel_without_launching(monkeypatch)
     with pytest.raises(TypeError, match="float32 or float64"):
