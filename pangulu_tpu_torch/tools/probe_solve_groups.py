@@ -39,18 +39,15 @@ VARIANTS = {
     "no_prefetch": (
         "no L2 prefetch of the next step's tiles and inverses",
         [("lu_kernels.cu", "np = ne + n1;", "np = 0;")]),
-    "no_tile_staging": (
-        "only the inverse staged in shared memory, no entry tile",
+    "no_l1_warm": (
+        "no L1 prefetch of a block's next item before the barrier",
         [("lu_kernels.cu",
-          "nstage = nstage < kMaxStage ? nstage : kMaxStage;",
-          "nstage = 0;")]),
-    "stage_at_use": (
-        "every item staged when its block takes it, none before the "
-        "barrier",
-        [("lu_kernels.cu", "if (it != blockIdx.x) {", "{"),
-         ("lu_kernels.cu", "if (has1) {", "if (false) {"),
-         ("lu_kernels.cu", "if (blockIdx.x < (nxt.x - cur.x) * nrhs) {",
-          "if (false) {")]),
+          "if (has1) warm_l1(d1, f1, tiles, inv_of(d1), ent, nb);", "")]),
+    "late_items": (
+        "a block loads each item's descriptor when it takes the item",
+        [("lu_kernels.cu",
+          "const int4 d = it == blockIdx.x ? d0 : __ldg(item + cur.x + it % n);",
+          "const int4 d = __ldg(item + cur.x + it % n);")]),
 }
 SCHEDULES = ("fused", "two_phase")
 ROUNDS = 5
