@@ -455,12 +455,9 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
                  : "memory");
 }
 
-// Asks L1 for the line that holds p (prefetch.global.L1: no register,
-// no wait).
-__device__ __forceinline__ void prefetch_l1(const void* p) {
-  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(__cvta_generic_to_global(p))
-               : "memory");
-}
+// The entry rows of one item that K5 reads into shared memory at once
+// (an item with more reads the rest from global memory).
+constexpr int kStageEnt = 64;
 
 // acc[q] += sum_j M[i][j] * x[j] for the rows i = warp + q * kWarps, in
 // column order within a lane; x is read through L2 (__ldcg): other
@@ -481,38 +478,22 @@ __device__ __forceinline__ void rows_dot(const T* M, const T* x, int nb,
   }
 }
 
-// Asks this SM's L1 for what the thread will read first of item d (its
-// first entry's tile id is first): the entry row, and its share of the
-// first tile and of the inverse (the rows and columns rows_dot and
-// tile_matvec give it).  Issued before a grid barrier, it overlaps the
-// barrier, since tiles and inverses are read-only for the whole solve.
-template <typename T>
-__device__ void warm_l1(int4 d, int first, const T* tiles, const T* inv,
-                        const int2* ent, int nb) {
-  constexpr int kWarps = kSolveThreads / 32, kRows = kMaxNb / kWarps;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const T* M = tiles + (size_t)first * nb * nb;
-  if (threadIdx.x == 0 && d.w > d.z) prefetch_l1(ent + d.z);
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int i = warp + q * kWarps;
-    for (int j = lane; i < nb && j < nb; j += 32) {
-      if (d.w > d.z) prefetch_l1(M + i * nb + j);
-      if (d.y) prefetch_l1(inv + i * nb + j);
-    }
-  }
-}
-
 // One item d = (seg, inv, e0, e1) of a step of schedule.group_solve_steps
 // for one RHS (xs, xd: its source and destination buffers):
 // v = xs[seg] - sum_e T_e · xd[k_e] over entries ent[e0:e1] = (tile,
 // k_e), summed in registers in entry order, one warp per row; then
-// xd[seg] = inv · v (through shared v) if d.inv, else xs[seg] = v.
+// xd[seg] = inv · v (through shared v) if d.inv, else xs[seg] = v.  The
+// entry rows are first read into shared sent all at once, so that a
+// row of many entries waits on one load of them, not one per entry.
 template <typename T>
 __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
-                           int4 d, const int2* ent, int nb, T* v) {
+                           int4 d, const int2* ent, int nb, T* v,
+                           int2* sent) {
   constexpr int kWarps = kSolveThreads / 32, kRows = kMaxNb / kWarps;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int ne = d.w - d.z;
+  for (int t = threadIdx.x; t < ne && t < kStageEnt; t += kSolveThreads)
+    sent[t] = __ldg(ent + d.z + t);
   T* row = xs + (size_t)d.x * nb;
   T acc[kRows], old[kRows];
 #pragma unroll
@@ -521,8 +502,9 @@ __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
     acc[q] = T(0);
     old[q] = lane == 0 && i < nb ? __ldcg(row + i) : T(0);
   }
-  for (int e = d.z; e < d.w; ++e) {
-    const int2 te = __ldg(ent + e);
+  __syncthreads();  // sent is in
+  for (int e = 0; e < ne; ++e) {
+    const int2 te = e < kStageEnt ? sent[e] : __ldg(ent + d.z + e);
     rows_dot(tiles + (size_t)te.x * nb * nb, xd + (size_t)te.y * nb, nb,
              acc);
   }
@@ -542,8 +524,8 @@ __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
   if (d.y) {  // uniform across the block
     __syncthreads();
     tile_matvec<T, false>(inv, v, xd + (size_t)d.x * nb, nb);
-    __syncthreads();  // v is free for the block's next item
   }
+  __syncthreads();  // v and sent are free for the block's next item
 }
 
 // One sweep of K5 in one cooperative launch: the kernel walks the steps
@@ -553,53 +535,42 @@ __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
 // a step every item has its own segment and reads dst only where an
 // earlier step wrote it, so no two blocks touch one value between two
 // barriers: no atomics, one sum order, the same bits on every run.
-// Tiles and inverses are read-only for the whole solve, so only x has
-// to wait for a barrier: each block loads its first item of step s+1
-// (and that item's first tile id, first[]) while step s runs, and
-// before the barrier asks its L1 for that item's entry row and first
-// tile and inverse, and the grid asks L2 for all of step s+1's tiles
-// and inverses (a bulk prefetch each).
+// Before the barrier that ends step s, the grid asks L2 for step s+1's
+// tiles and inverses (read-only for the whole solve; a bulk prefetch
+// each): only x has to wait for the barrier.
 template <typename T>
 __global__ void __launch_bounds__(kSolveThreads)
     group_sweep_kernel(T* src, T* dst, int nrhs, const T* tiles,
                        const T* invs, int slot, const int2* step,
-                       const int4* item, const int* first, const int2* ent,
-                       int nsteps, int bl, int nb) {
+                       const int4* item, const int2* ent, int nsteps, int bl,
+                       int nb) {
   __shared__ T v[kMaxNb];
+  __shared__ int2 sent[kStageEnt];
   cg::grid_group grid = cg::this_grid();
   const size_t nn = (size_t)nb * nb, rhs_stride = (size_t)(bl + 1) * nb;
-  auto inv_of = [&](int4 d) { return invs + (2 * (size_t)d.x + slot) * nn; };
   int2 cur = __ldg(step), nxt = __ldg(step + 1);
-  int4 d0 = __ldg(item + blockIdx.x % (nxt.x - cur.x));
   for (int s = 0;; ++s) {
     const int n = nxt.x - cur.x;
-    const bool last = s + 1 == nsteps;
-    const int2 after = last ? nxt : __ldg(step + s + 2);
-    const int n1 = after.x - nxt.x;
-    const bool has1 = !last && blockIdx.x < n1 * nrhs;
-    const int i1 = has1 ? nxt.x + blockIdx.x % n1 : 0;
-    const int4 d1 = has1 ? __ldg(item + i1) : d0;
-    const int f1 = has1 ? __ldg(first + i1) : 0;
     for (int it = blockIdx.x; it < n * nrhs; it += gridDim.x) {
-      const int4 d = it == blockIdx.x ? d0 : __ldg(item + cur.x + it % n);
       const int r = it / n;
+      const int4 d = __ldg(item + cur.x + it % n);
       group_item(src + r * rhs_stride, dst + r * rhs_stride, tiles,
-                 inv_of(d), d, ent, nb, v);
+                 invs + (2 * (size_t)d.x + slot) * nn, d, ent, nb, v, sent);
     }
-    if (last) break;
-    const int ne = after.y - nxt.y, np = ne + n1;
+    if (s + 1 == nsteps) break;
+    const int2 after = __ldg(step + s + 2);
+    const int ne = after.y - nxt.y, np = ne + after.x - nxt.x;
     for (int p = blockIdx.x + threadIdx.x * gridDim.x; p < np;
          p += gridDim.x * kSolveThreads) {
       if (p < ne) {
         prefetch_l2(tiles + (size_t)__ldg(ent + nxt.y + p).x * nn,
                     nn * sizeof(T));
       } else {
-        const int4 dp = __ldg(item + nxt.x + p - ne);
-        if (dp.y) prefetch_l2(inv_of(dp), nn * sizeof(T));
+        const int4 d = __ldg(item + nxt.x + p - ne);
+        if (d.y)
+          prefetch_l2(invs + (2 * (size_t)d.x + slot) * nn, nn * sizeof(T));
       }
     }
-    if (has1) warm_l1(d1, f1, tiles, inv_of(d1), ent, nb);
-    d0 = d1;
     cur = nxt;
     nxt = after;
     grid.sync();
@@ -752,14 +723,14 @@ int mega_factorize_groups(T* tiles, T* invs, const int* gdiag,
 // values) size the grid, capped at what fits on the card.
 template <typename T>
 int group_sweep(T* src, T* dst, int nrhs, const T* tiles, const T* invs,
-                int slot, const int* step, const int* item, const int* first,
-                const int* ent, int nsteps, int width, int bl, int nb,
-                cudaStream_t st, int* blocks, int* per_sm) {
+                int slot, const int* step, const int* item, const int* ent,
+                int nsteps, int width, int bl, int nb, cudaStream_t st,
+                int* blocks, int* per_sm) {
   const int2* step2 = reinterpret_cast<const int2*>(step);
   const int4* item4 = reinterpret_cast<const int4*>(item);
   const int2* ent2 = reinterpret_cast<const int2*>(ent);
-  void* args[] = {&src,  &dst,   &nrhs,   &tiles, &invs, &slot, &step2,
-                  &item4, &first, &ent2, &nsteps, &bl,  &nb};
+  void* args[] = {&src,  &dst,   &nrhs, &tiles,  &invs, &slot,
+                  &step2, &item4, &ent2, &nsteps, &bl,   &nb};
   return launch_cooperative(group_sweep_kernel<T>, width * nrhs, 0, args, st,
                             blocks, per_sm);
 }
@@ -770,16 +741,15 @@ int group_sweep(T* src, T* dst, int nrhs, const T* tiles, const T* invs,
 // and backward launch; grid[2]: the blocks an SM holds.
 template <typename T>
 int mega_solve_groups(T* x, T* y, int nrhs, const T* tiles, const T* invs,
-                      const int* fstep, const int* fitem, const int* ffirst,
-                      const int* fent, const int* bstep, const int* bitem,
-                      const int* bfirst, const int* bent, int fsteps,
-                      int fwidth, int bsteps, int bwidth, int bl, int nb,
-                      int* grid, cudaStream_t st) {
-  int e = group_sweep(x, y, nrhs, tiles, invs, 0, fstep, fitem, ffirst, fent,
-                      fsteps, fwidth, bl, nb, st, &grid[0], &grid[2]);
+                      const int* fstep, const int* fitem, const int* fent,
+                      const int* bstep, const int* bitem, const int* bent,
+                      int fsteps, int fwidth, int bsteps, int bwidth, int bl,
+                      int nb, int* grid, cudaStream_t st) {
+  int e = group_sweep(x, y, nrhs, tiles, invs, 0, fstep, fitem, fent, fsteps,
+                      fwidth, bl, nb, st, &grid[0], &grid[2]);
   if (e != cudaSuccess) return e;
-  return group_sweep(y, x, nrhs, tiles, invs, 1, bstep, bitem, bfirst, bent,
-                     bsteps, bwidth, bl, nb, st, &grid[1], nullptr);
+  return group_sweep(y, x, nrhs, tiles, invs, 1, bstep, bitem, bent, bsteps,
+                     bwidth, bl, nb, st, &grid[1], nullptr);
 }
 
 }  // namespace plu
@@ -874,16 +844,16 @@ PLU_MEGA_FACTORIZE_GROUPS(plu_mega_factorize_groups_f64, double)
 
 #define PLU_MEGA_SOLVE_GROUPS(NAME, T)                                        \
   int NAME(int dev, T* x, T* y, int nrhs, const T* tiles, const T* invs,     \
-           const int* fstep, const int* fitem, const int* ffirst,            \
-           const int* fent, const int* bstep, const int* bitem,              \
-           const int* bfirst, const int* bent, int fsteps, int fwidth,       \
-           int bsteps, int bwidth, int bl, int nb, int* grid, void* st) {    \
+           const int* fstep, const int* fitem, const int* fent,              \
+           const int* bstep, const int* bitem, const int* bent, int fsteps,  \
+           int fwidth, int bsteps, int bwidth, int bl, int nb, int* grid,    \
+           void* st) {                                                       \
     cudaError_t e = cudaSetDevice(dev);                                      \
     if (e != cudaSuccess) return e;                                          \
     return plu::mega_solve_groups(x, y, nrhs, tiles, invs, fstep, fitem,     \
-                                  ffirst, fent, bstep, bitem, bfirst, bent,  \
-                                  fsteps, fwidth, bsteps, bwidth, bl, nb,    \
-                                  grid, PLU_STREAM(st));                     \
+                                  fent, bstep, bitem, bent, fsteps, fwidth,  \
+                                  bsteps, bwidth, bl, nb, grid,              \
+                                  PLU_STREAM(st));                           \
   }
 PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f32, float)
 PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f64, double)

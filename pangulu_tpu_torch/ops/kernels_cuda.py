@@ -82,7 +82,7 @@ def library() -> build.KernelLibrary:
                        + [i] * 8 + [d, p, p])
         fn = getattr(lib, f"plu_mega_solve_groups_{s}")
         fn.restype = i
-        fn.argtypes = [i, p, p, i, p, p] + [p] * 8 + [i] * 6 + [p, p]
+        fn.argtypes = [i, p, p, i, p, p] + [p] * 6 + [i] * 6 + [p, p]
     lib.plu_grid_sync_probe.restype = i
     lib.plu_grid_sync_probe.argtypes = [i, i, i, p, p]
     _library = kl
@@ -360,7 +360,7 @@ def mega_factorize_groups(tiles: torch.Tensor, tables: KernelTables, *,
     return tiles, invs
 
 
-_STEP_KEYS = ("step", "item", "first", "ent")
+_STEP_KEYS = ("step", "item", "ent")
 
 
 def _group_solve_steps(h: dict, bl: int, nt: int, fused: bool) -> dict:

@@ -582,8 +582,7 @@ def group_solve_steps(tables: dict, sweep: str, bl: int,
     and every member is written to ``dst`` once.
 
     Returns ``step`` [nsteps+1, 2] (first item, first entry of each
-    step), ``item`` [nitems, 4], ``first`` [nitems] (the tile id of each
-    item's first entry, 0 for none), ``ent`` [nent, 2] and ``width``, the
+    step), ``item`` [nitems, 4], ``ent`` [nent, 2] and ``width``, the
     most items of one step."""
     tab = tables["ltab"] if sweep == "l" else tables["uctab"]
     csr = group_row_csr(tables, sweep)
@@ -628,10 +627,7 @@ def group_solve_steps(tables: dict, sweep: str, bl: int,
     step = np.asarray(step, np.int32)
     item = np.asarray(item, np.int32).reshape(-1, 4)
     ent = np.asarray(ent, np.int32).reshape(-1, 2)
-    first = np.zeros(len(item), np.int32)
-    some = item[:, 3] > item[:, 2]
-    first[some] = ent[item[some, 2], 0]
-    return dict(step=step, item=item, first=first, ent=ent,
+    return dict(step=step, item=item, ent=ent,
                 width=int(np.diff(step[:, 0]).max(initial=0)))
 
 

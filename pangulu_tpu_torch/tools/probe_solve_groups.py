@@ -38,16 +38,24 @@ VARIANTS = {
     "shipped": ("the shipped sources", []),
     "no_prefetch": (
         "no L2 prefetch of the next step's tiles and inverses",
-        [("lu_kernels.cu", "np = ne + n1;", "np = 0;")]),
-    "no_l1_warm": (
-        "no L1 prefetch of a block's next item before the barrier",
+        [("lu_kernels.cu", "np = ne + after.x - nxt.x;", "np = 0;")]),
+    "ent_global": (
+        "each entry row read from global memory as its tile is taken, "
+        "not all of an item's at once into shared memory",
         [("lu_kernels.cu",
-          "if (has1) warm_l1(d1, f1, tiles, inv_of(d1), ent, nb);", "")]),
-    "late_items": (
-        "a block loads each item's descriptor when it takes the item",
+          "  for (int t = threadIdx.x; t < ne && t < kStageEnt; "
+          "t += kSolveThreads)\n    sent[t] = __ldg(ent + d.z + t);\n", ""),
+         ("lu_kernels.cu",
+          "const int2 te = e < kStageEnt ? sent[e] : __ldg(ent + d.z + e);",
+          "const int2 te = __ldg(ent + d.z + e);")]),
+    "unroll1": (
+        "the update's column loop not unrolled (fewer loads in flight, "
+        "fewer registers)",
         [("lu_kernels.cu",
-          "const int4 d = it == blockIdx.x ? d0 : __ldg(item + cur.x + it % n);",
-          "const int4 d = __ldg(item + cur.x + it % n);")]),
+          "#pragma unroll 4\n  for (int j = lane; j < nb; j += 32) {\n"
+          "    const T xj = __ldcg(x + j);",
+          "#pragma unroll 1\n  for (int j = lane; j < nb; j += 32) {\n"
+          "    const T xj = __ldcg(x + j);")]),
 }
 SCHEDULES = ("fused", "two_phase")
 ROUNDS = 5

@@ -160,9 +160,6 @@ def test_solve_steps_list_every_row_and_member_once(p2d_nd, sweep, fused):
     assert (item[:, 2] <= item[:, 3]).all()
     assert (item[1:, 2] == item[:-1, 3]).all() and item[0, 2] == 0
     assert s["width"] == np.diff(step[:, 0]).max()
-    some = item[:, 3] > item[:, 2]
-    assert (s["first"][some] == ent[item[some, 2], 0]).all()
-    assert (s["first"][~some] == 0).all()
     assert sorted(item[item[:, 1] == 1, 0]) == list(range(bl))
     got = sorted((int(k), tuple(map(tuple, ent[e0:e1].tolist())))
                  for k, _, e0, e1 in item if e1 > e0)
