@@ -803,16 +803,33 @@ def main() -> int:
     ts = h._trisolver
     prof["nd gstrs"] = profile(lambda _: ts.solve_blocked(h.factor_tiles, xb))
     print_profile({"nd gstrs": prof["nd gstrs"]})
-    k5_names = {n: k["launches"] for n, k in prof["nd gstrs"]["kernels"]
-                .items() if re.search(r"group_(sweep|solve_\w+)_kernel", n)}
-    if list(k5_names.values()) != [2] or "group_sweep_kernel" not in \
-            next(iter(k5_names)):
-        fail(f"one nd solve made the launches {k5_names}, expected 2 of "
-             "K5's group_sweep_kernel and no other")
+    k5 = [(m[0], k["launches"]) for n, k in prof["nd gstrs"]["kernels"]
+          .items() if (m := re.search(r"group_(sweep|solve_\w+)_kernel", n))]
+    if k5 != [("group_sweep_kernel", 2)]:
+        fail(f"one nd solve made the launches {k5}, expected 2 of K5's "
+             "group_sweep_kernel and no other")
+    walls = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts.solve_blocked(h.factor_tiles, xb)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    nd["gstrs_host_wall_ms"] = statistics.median(walls)
+    print(f"  one nd solve without the profiler: host wall "
+          f"{nd['gstrs_host_wall_ms']:.3f} ms (call to synchronise, median "
+          "of 7)")
     nd["k5_grid"] = dict(kc.GRID["mega_solve_groups"])
-    print(f"  K5 grid (1 rhs): {nd['k5_grid']['forward']} blocks forward, "
-          f"{nd['k5_grid']['backward']} backward, "
-          f"{nd['k5_grid']['blocks_per_sm']} blocks per SM (occupancy query)")
+    steps, _ = kc.solve_steps_view(ts.tables, nd["bl"], nd["tiles"], dev)
+    for sw in ("l", "uc"):
+        nd["k5_grid"][f"{sw}_steps"] = len(steps[f"{sw}_step"]) - 1
+        nd["k5_grid"][f"{sw}_widest_step"] = steps[f"{sw}_width"]
+    g = nd["k5_grid"]
+    print(f"  K5 grid (1 rhs): {g['forward']} blocks forward, "
+          f"{g['backward']} backward, {g['blocks_per_sm']} blocks per SM "
+          f"(occupancy query); steps {g['l_steps']} forward, "
+          f"{g['uc_steps']} backward, widest {g['l_widest_step']} and "
+          f"{g['uc_widest_step']} items")
     del h, xb, chain_fac, chain_ts, ts
     torch.cuda.empty_cache()
     if args.profile:

@@ -122,7 +122,14 @@
 //   Tiles and inverses are read-only, so before each barrier the grid
 //   asks L2 for the next step's (a bulk prefetch each); only x waits.
 //   The kernel takes no dynamic shared memory (the shared v is one
-//   segment), so no row is too long for it.
+//   segment), so no row is too long for it.  Measured on the H100 and
+//   not kept (PERF.md, tools/probe_solve_groups.py): two steps a group
+//   (members, then rows), staging a block's next item (inverse and
+//   first tiles) in shared memory with cp.async before the barrier,
+//   warming its L1 with the next item, reading an item's entry rows
+//   into shared memory at once; each was slower than these direct
+//   loads, which take one block per item (1024 threads, one per SM at
+//   64 registers).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -361,12 +368,11 @@ __global__ void __launch_bounds__(kSolveThreads)
 // Cooperative launch of ``kern`` on at most ``want`` blocks, as many as
 // fit on the card at once (a cooperative grid must be co-resident:
 // the launch refuses a larger one, and a larger one would deadlock).
-// ``smem`` bytes of dynamic shared memory a block go to both the
-// occupancy query and the launch, so the grid is sized for the blocks
-// that are launched.  *blocks receives the grid, *per_sm (if given) the
-// blocks an SM holds.
+// The kernels launched here take no dynamic shared memory: a kernel
+// that did would have to give its bytes to the occupancy query too.
+// *blocks receives the grid, *per_sm (if given) the blocks an SM holds.
 template <typename K>
-cudaError_t launch_cooperative(K kern, int want, size_t smem, void** args,
+cudaError_t launch_cooperative(K kern, int want, void** args,
                                cudaStream_t st, int* blocks,
                                int* per_sm = nullptr) {
   int dev, sms, fit;
@@ -375,14 +381,14 @@ cudaError_t launch_cooperative(K kern, int want, size_t smem, void** args,
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kern,
-                                                    kSolveThreads, smem);
+                                                    kSolveThreads, 0);
   if (e != cudaSuccess) return e;
   if (fit < 1) return cudaErrorCooperativeLaunchTooLarge;
   if (per_sm) *per_sm = fit;
   *blocks = want < fit * sms ? want : fit * sms;
   if (*blocks < 1) *blocks = 1;
   e = cudaLaunchCooperativeKernel((const void*)kern, dim3(*blocks),
-                                  dim3(kSolveThreads), args, smem, st);
+                                  dim3(kSolveThreads), args, 0, st);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -455,10 +461,6 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
                  : "memory");
 }
 
-// The entry rows of one item that K5 reads into shared memory at once
-// (an item with more reads the rest from global memory).
-constexpr int kStageEnt = 64;
-
 // acc[q] += sum_j M[i][j] * x[j] for the rows i = warp + q * kWarps, in
 // column order within a lane; x is read through L2 (__ldcg): other
 // blocks wrote it before the last grid barrier.
@@ -482,18 +484,12 @@ __device__ __forceinline__ void rows_dot(const T* M, const T* x, int nb,
 // for one RHS (xs, xd: its source and destination buffers):
 // v = xs[seg] - sum_e T_e · xd[k_e] over entries ent[e0:e1] = (tile,
 // k_e), summed in registers in entry order, one warp per row; then
-// xd[seg] = inv · v (through shared v) if d.inv, else xs[seg] = v.  The
-// entry rows are first read into shared sent all at once, so that a
-// row of many entries waits on one load of them, not one per entry.
+// xd[seg] = inv · v (through shared v) if d.inv, else xs[seg] = v.
 template <typename T>
 __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
-                           int4 d, const int2* ent, int nb, T* v,
-                           int2* sent) {
+                           int4 d, const int2* ent, int nb, T* v) {
   constexpr int kWarps = kSolveThreads / 32, kRows = kMaxNb / kWarps;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int ne = d.w - d.z;
-  for (int t = threadIdx.x; t < ne && t < kStageEnt; t += kSolveThreads)
-    sent[t] = __ldg(ent + d.z + t);
   T* row = xs + (size_t)d.x * nb;
   T acc[kRows], old[kRows];
 #pragma unroll
@@ -502,9 +498,8 @@ __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
     acc[q] = T(0);
     old[q] = lane == 0 && i < nb ? __ldcg(row + i) : T(0);
   }
-  __syncthreads();  // sent is in
-  for (int e = 0; e < ne; ++e) {
-    const int2 te = e < kStageEnt ? sent[e] : __ldg(ent + d.z + e);
+  for (int e = d.z; e < d.w; ++e) {
+    const int2 te = __ldg(ent + e);
     rows_dot(tiles + (size_t)te.x * nb * nb, xd + (size_t)te.y * nb, nb,
              acc);
   }
@@ -524,8 +519,8 @@ __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
   if (d.y) {  // uniform across the block
     __syncthreads();
     tile_matvec<T, false>(inv, v, xd + (size_t)d.x * nb, nb);
+    __syncthreads();  // v is free for the block's next item
   }
-  __syncthreads();  // v and sent are free for the block's next item
 }
 
 // One sweep of K5 in one cooperative launch: the kernel walks the steps
@@ -545,7 +540,6 @@ __global__ void __launch_bounds__(kSolveThreads)
                        const int4* item, const int2* ent, int nsteps, int bl,
                        int nb) {
   __shared__ T v[kMaxNb];
-  __shared__ int2 sent[kStageEnt];
   cg::grid_group grid = cg::this_grid();
   const size_t nn = (size_t)nb * nb, rhs_stride = (size_t)(bl + 1) * nb;
   int2 cur = __ldg(step), nxt = __ldg(step + 1);
@@ -555,7 +549,7 @@ __global__ void __launch_bounds__(kSolveThreads)
       const int r = it / n;
       const int4 d = __ldg(item + cur.x + it % n);
       group_item(src + r * rhs_stride, dst + r * rhs_stride, tiles,
-                 invs + (2 * (size_t)d.x + slot) * nn, d, ent, nb, v, sent);
+                 invs + (2 * (size_t)d.x + slot) * nn, d, ent, nb, v);
     }
     if (s + 1 == nsteps) break;
     const int2 after = __ldg(step + s + 2);
@@ -653,8 +647,8 @@ int sweep(T* src, T* dst, int nrhs, const T* tiles, const T* invs, int slot,
   void* args[] = {&src,  &dst, &nrhs, &tiles, &invs, &slot,      &ids,
                   &rows, &cnt, &bl,   &w,     &nb,   &descending};
   int blocks;
-  return launch_cooperative(solve_sweep_kernel<T>, widest * nrhs, 0, args,
-                            st, &blocks);
+  return launch_cooperative(solve_sweep_kernel<T>, widest * nrhs, args, st,
+                            &blocks);
 }
 
 // x: the right-hand sides on entry, the solution on exit; y: scratch of
@@ -731,7 +725,7 @@ int group_sweep(T* src, T* dst, int nrhs, const T* tiles, const T* invs,
   const int2* ent2 = reinterpret_cast<const int2*>(ent);
   void* args[] = {&src,  &dst,   &nrhs, &tiles,  &invs, &slot,
                   &step2, &item4, &ent2, &nsteps, &bl,   &nb};
-  return launch_cooperative(group_sweep_kernel<T>, width * nrhs, 0, args, st,
+  return launch_cooperative(group_sweep_kernel<T>, width * nrhs, args, st,
                             blocks, per_sm);
 }
 
@@ -771,7 +765,7 @@ int plu_grid_sync_probe(int dev, int want, int iters, int* blocks,
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return e;
   void* args[] = {&iters};
-  return plu::launch_cooperative(plu::grid_sync_probe_kernel, want, 0, args,
+  return plu::launch_cooperative(plu::grid_sync_probe_kernel, want, args,
                                  PLU_STREAM(st), blocks);
 }
 

@@ -39,15 +39,6 @@ VARIANTS = {
     "no_prefetch": (
         "no L2 prefetch of the next step's tiles and inverses",
         [("lu_kernels.cu", "np = ne + after.x - nxt.x;", "np = 0;")]),
-    "ent_global": (
-        "each entry row read from global memory as its tile is taken, "
-        "not all of an item's at once into shared memory",
-        [("lu_kernels.cu",
-          "  for (int t = threadIdx.x; t < ne && t < kStageEnt; "
-          "t += kSolveThreads)\n    sent[t] = __ldg(ent + d.z + t);\n", ""),
-         ("lu_kernels.cu",
-          "const int2 te = e < kStageEnt ? sent[e] : __ldg(ent + d.z + e);",
-          "const int2 te = __ldg(ent + d.z + e);")]),
     "unroll1": (
         "the update's column loop not unrolled (fewer loads in flight, "
         "fewer registers)",
@@ -56,6 +47,27 @@ VARIANTS = {
           "    const T xj = __ldcg(x + j);",
           "#pragma unroll 1\n  for (int j = lane; j < nb; j += 32) {\n"
           "    const T xj = __ldcg(x + j);")]),
+    "threads512": (
+        "blocks of 512 threads (16 warps, 8 rows a warp) in place of 1024",
+        [("lu_kernels.cu", "constexpr int kSolveThreads = 1024;",
+          "constexpr int kSolveThreads = 512;")]),
+    "no_updates": (
+        "timing only, results wrong: no panel products (the entry loop "
+        "runs no entry)",
+        [("lu_kernels.cu", "for (int e = d.z; e < d.w; ++e) {",
+          "for (int e = d.z; e < d.z; ++e) {")]),
+    "no_inverse": (
+        "timing only, results wrong: no inverse product",
+        [("lu_kernels.cu",
+          "    tile_matvec<T, false>(inv, v, xd + (size_t)d.x * nb, nb);\n", "")]),
+    "barriers_only": (
+        "timing only, results wrong: neither products nor inverses, so "
+        "left are the steps, their barriers, the prefetches and x's "
+        "loads and stores",
+        [("lu_kernels.cu", "for (int e = d.z; e < d.w; ++e) {",
+          "for (int e = d.z; e < d.z; ++e) {"),
+         ("lu_kernels.cu",
+          "    tile_matvec<T, false>(inv, v, xd + (size_t)d.x * nb, nb);\n", "")]),
 }
 SCHEDULES = ("fused", "two_phase")
 ROUNDS = 5
