@@ -530,13 +530,9 @@ __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
 // a step every item has its own segment and reads dst only where an
 // earlier step wrote it, so no two blocks touch one value between two
 // barriers: no atomics, one sum order, the same bits on every run.
-// Only x has to wait for a barrier: the tables, tiles and inverses are
-// read-only for the whole solve.  So while step s runs, each block
-// loads its first item of step s+1, the step row after it, and each
-// thread its share of step s+1's tile and inverse ids; before the
-// barrier that ends step s the grid asks L2 for those tiles and
-// inverses (a bulk prefetch each).  After a barrier a block's first
-// load is then x itself.
+// Before the barrier that ends step s, the grid asks L2 for step s+1's
+// tiles and inverses (read-only for the whole solve; a bulk prefetch
+// each): only x has to wait for the barrier.
 template <typename T>
 __global__ void __launch_bounds__(kSolveThreads)
     group_sweep_kernel(T* src, T* dst, int nrhs, const T* tiles,
@@ -546,36 +542,20 @@ __global__ void __launch_bounds__(kSolveThreads)
   __shared__ T v[kMaxNb];
   cg::grid_group grid = cg::this_grid();
   const size_t nn = (size_t)nb * nb, rhs_stride = (size_t)(bl + 1) * nb;
-  const int pstride = gridDim.x * kSolveThreads;
-  const int p0 = blockIdx.x + threadIdx.x * gridDim.x;
   int2 cur = __ldg(step), nxt = __ldg(step + 1);
-  int2 after = nsteps > 1 ? __ldg(step + 2) : nxt;
-  int4 d0 = __ldg(item + cur.x + blockIdx.x % (nxt.x - cur.x));
   for (int s = 0;; ++s) {
     const int n = nxt.x - cur.x;
-    const bool last = s + 1 == nsteps;
-    // loaded now, used after this step's items
-    const int2 after2 = s + 2 < nsteps ? __ldg(step + s + 3) : after;
-    const int n1 = after.x - nxt.x, ne = after.y - nxt.y;
-    const bool has1 = !last && blockIdx.x < n1 * nrhs;
-    const int4 d1 = has1 ? __ldg(item + nxt.x + blockIdx.x % n1) : d0;
-    int4 pf = make_int4(-1, 0, 0, 0);  // this thread's first prefetch
-    if (!last && p0 < ne)
-      pf = make_int4(__ldg(ent + nxt.y + p0).x, 0, 0, 0);
-    else if (!last && p0 < ne + n1)
-      pf = __ldg(item + nxt.x + p0 - ne);
     for (int it = blockIdx.x; it < n * nrhs; it += gridDim.x) {
       const int r = it / n;
-      const int4 d = it == blockIdx.x ? d0 : __ldg(item + cur.x + it % n);
+      const int4 d = __ldg(item + cur.x + it % n);
       group_item(src + r * rhs_stride, dst + r * rhs_stride, tiles,
                  invs + (2 * (size_t)d.x + slot) * nn, d, ent, nb, v);
     }
-    if (last) break;
-    if (p0 < ne)
-      prefetch_l2(tiles + (size_t)pf.x * nn, nn * sizeof(T));
-    else if (p0 < ne + n1 && pf.y)
-      prefetch_l2(invs + (2 * (size_t)pf.x + slot) * nn, nn * sizeof(T));
-    for (int p = p0 + pstride; p < ne + n1; p += pstride) {
+    if (s + 1 == nsteps) break;
+    const int2 after = __ldg(step + s + 2);
+    const int ne = after.y - nxt.y, np = ne + after.x - nxt.x;
+    for (int p = blockIdx.x + threadIdx.x * gridDim.x; p < np;
+         p += gridDim.x * kSolveThreads) {
       if (p < ne) {
         prefetch_l2(tiles + (size_t)__ldg(ent + nxt.y + p).x * nn,
                     nn * sizeof(T));
@@ -585,10 +565,8 @@ __global__ void __launch_bounds__(kSolveThreads)
           prefetch_l2(invs + (2 * (size_t)d.x + slot) * nn, nn * sizeof(T));
       }
     }
-    d0 = d1;
     cur = nxt;
     nxt = after;
-    after = after2;
     grid.sync();
   }
 }
