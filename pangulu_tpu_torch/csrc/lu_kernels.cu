@@ -109,10 +109,12 @@
 //   Design: one cooperative persistent launch per sweep
 //   (group_sweep_kernel), 2 per solve, walking a host-built step list
 //   (schedule.group_solve_steps) with one grid barrier between steps.
-//   Step p joins group p-1's row updates with group p's member
-//   contractions: a row that is also a member is one item (subtract the
-//   row's panel products, then the inverse), so a sweep is ngroups + 1
-//   steps, one barrier a group, with no inverse product done twice.
+//   Consecutive groups that do not depend on each other (the gmax-wide
+//   chunks of one super-level) form one bundle, and step p joins bundle
+//   p-1's row updates with bundle p's member contractions: a row that
+//   is also a member is one item (subtract the row's panel products,
+//   then the inverse).  So a sweep is one barrier a super-level (25
+//   steps there, not 2 * 35), with no inverse product done twice.
 //   Rows of x are shared by several members' tiles (up to 8 in the
 //   forward sweep there): an item sums all of them in registers and
 //   subtracts once; the inverse product goes to a second buffer (x ->

@@ -573,13 +573,17 @@ def group_solve_steps(tables: dict, sweep: str, bl: int,
     backward (``"uc"``); a group's x rows (``group_row_csr``) are never
     its members.
 
-    ``fused`` (the kernel's schedule): step p holds the row updates of
-    the p-th group walked and the members of the next one, a row that is
-    also such a member being one item (the update, then its inverse):
-    one barrier a group.  Otherwise two steps a group, its members, then
-    its rows.  Empty steps are dropped.  Every item of a step has its own
-    segment, every ``dst[k_t]`` it reads was written in an earlier step,
-    and every member is written to ``dst`` once.
+    ``fused`` (the kernel's schedule): consecutive groups (in sweep
+    order) join one bundle while none of a group's members is a row of
+    the bundle and none of its rows a member (chunks of one super-level
+    do); step p holds the row updates of the p-th bundle, a row that
+    several of its groups update summing their entries in group order,
+    and the members of the next bundle, a row that is also such a
+    member being one item (the update, then its inverse): one barrier a
+    bundle.  Otherwise two steps a group, its members, then its rows.
+    Empty steps are dropped.  Every item of a step has its own segment,
+    every ``dst[k_t]`` it reads was written in an earlier step, and every
+    member is written to ``dst`` once.
 
     Returns ``step`` [nsteps+1, 2] (first item, first entry of each
     step), ``item`` [nitems, 4], ``ent`` [nent, 2] and ``width``, the
@@ -604,12 +608,21 @@ def group_solve_steps(tables: dict, sweep: str, bl: int,
     order = list(range(ng)) if sweep == "l" else list(range(ng))[::-1]
     steps = []
     if fused:
-        for p in range(ng + 1):
-            upd = rows(order[p - 1]) if p else []
-            mem = members(order[p]) if p < ng else []
-            segs = {k for k, _ in upd}
-            steps.append([(k, k in mem, e) for k, e in upd]
-                         + [(k, True, None) for k in mem if k not in segs])
+        bundles = []   # (members, {row: [entries of each group]})
+        for g in order:
+            mem, upd = members(g), rows(g)
+            if not (bundles and bundles[-1][1].keys().isdisjoint(mem)
+                    and {k for k, _ in upd}.isdisjoint(bundles[-1][0])):
+                bundles.append(([], {}))
+            bundles[-1][0].extend(mem)
+            for k, e in upd:
+                bundles[-1][1].setdefault(k, []).append(e)
+        for p in range(len(bundles) + 1):
+            upd = bundles[p - 1][1] if p else {}
+            mem = bundles[p][0] if p < len(bundles) else []
+            steps.append([(k, k in mem, np.concatenate(e))
+                          for k, e in upd.items()]
+                         + [(k, True, None) for k in mem if k not in upd])
     else:
         for g in order:
             steps.append([(k, True, None) for k in members(g)])

@@ -7,7 +7,7 @@ one NVIDIA GPU.  From the root of the repository:
 Each source variant (VARIANTS: the shipped ``csrc/`` with one textual
 edit, all built at once as ``probe_products.py`` builds its own) runs
 each step schedule of ``schedule.group_solve_steps``: ``fused`` (the
-kernel's, one barrier a group) and ``two_phase`` (a group's members,
+kernel's, one barrier a super-level) and ``two_phase`` (a group's members,
 a barrier, its rows, a barrier).  For each pair, on poisson3d(32)
 nb=128 r32 nd with the factors of the shipped K4: K5's device ms per
 solve at 1 and 4 right-hand sides (back-to-back calls queued behind a

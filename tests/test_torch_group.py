@@ -129,27 +129,36 @@ def test_row_csr_lists_every_panel_tile_once(p2d_nd, sweep):
 
 
 def _row_updates(t, sweep):
-    """Per group, each distinct x row with its panel entries as (tile
-    id, source segment) pairs, from ``group_row_csr``."""
+    """Every panel entry of every group as (x row, tile id, source
+    segment), from ``group_row_csr``."""
     tab = t["ltab"] if sweep == "l" else t["uctab"]
     c = group_row_csr(t, sweep)
     out = []
     for g in range(int(t["ngroups"])):
         for d in range(c["off"][g], c["off"][g] + c["cnt"][g]):
             e = c["ent"][c["ptr"][d]:c["ptr"][d + 1]]
-            out.append((int(c["key"][d]), tuple(zip(
-                tab[g, 0, e].tolist(),
-                t["kseg_tab"][g, tab[g, 2, e]].tolist()))))
+            out += [(int(c["key"][d]), tid, k) for tid, k in zip(
+                tab[g, 0, e].tolist(), t["kseg_tab"][g, tab[g, 2, e]].tolist())]
     return out
+
+
+@pytest.fixture(scope="module")
+def p3d_nd():
+    """poisson3d(12) nb=16 nd: 26 solve groups over 25 super-levels, so
+    two groups are chunks of one super-level."""
+    return pt.init(tm.poisson3d(12), pt.InitOptions(
+        nb=NB, dtype="r32", ordering="nd", device="cpu"))
 
 
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("sweep", ["l", "uc"])
-def test_solve_steps_list_every_row_and_member_once(p2d_nd, sweep, fused):
+def test_solve_steps_list_every_row_and_member_once(p3d_nd, sweep, fused):
     """The CUDA K5's step tables: every member of every group is one
-    inverse item, every distinct row of every group one update item with
-    the entries of group_row_csr, and the offsets rise."""
-    hp, _ = p2d_nd
+    inverse item, every panel entry of every group sits once under its
+    row, each step has one item a segment, and the offsets rise.  The
+    fused schedule takes one step a super-level: chunks of one
+    super-level share their steps."""
+    hp = p3d_nd
     bl = hp.schedule.block_length
     t = hp.schedule.group_solve_tables(hp.blocked.num_tiles)
     s = group_solve_steps(t, sweep, bl, fused=fused)
@@ -160,12 +169,15 @@ def test_solve_steps_list_every_row_and_member_once(p2d_nd, sweep, fused):
     assert (item[:, 2] <= item[:, 3]).all()
     assert (item[1:, 2] == item[:-1, 3]).all() and item[0, 2] == 0
     assert s["width"] == np.diff(step[:, 0]).max()
+    for a, b in zip(step[:-1, 0], step[1:, 0]):
+        assert len(set(item[a:b, 0])) == b - a
     assert sorted(item[item[:, 1] == 1, 0]) == list(range(bl))
-    got = sorted((int(k), tuple(map(tuple, ent[e0:e1].tolist())))
-                 for k, _, e0, e1 in item if e1 > e0)
-    assert got == sorted(_row_updates(t, sweep))
-    ng = int(t["ngroups"])
-    assert len(step) - 1 <= (ng + 1 if fused else 2 * ng)
+    got = [(int(k), tid, src) for k, _, e0, e1 in item
+           for tid, src in ent[e0:e1].tolist()]
+    assert sorted(got) == sorted(_row_updates(t, sweep))
+    ng, nsl = int(t["ngroups"]), len(hp.schedule.superlevels())
+    assert nsl < ng
+    assert len(step) - 1 <= (nsl + 1 if fused else 2 * ng)
 
 
 def _walk_steps(x, tiles, invs, t, bl):
