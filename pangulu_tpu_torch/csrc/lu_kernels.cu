@@ -532,12 +532,9 @@ __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
 // a step every item has its own segment and reads dst only where an
 // earlier step wrote it, so no two blocks touch one value between two
 // barriers: no atomics, one sum order, the same bits on every run.
-// The tables, tiles and inverses are read-only for the whole solve, so
-// only x has to wait for a barrier.  While step s runs, cp.async copies
-// into shared memory the block's first item of step s+1, the step row
-// after it and each thread's prefetch id (no register holds them across
-// the step); before the barrier that ends step s the grid asks L2 for
-// step s+1's tiles and inverses (a bulk prefetch each).
+// Before the barrier that ends step s, the grid asks L2 for step s+1's
+// tiles and inverses (read-only for the whole solve; a bulk prefetch
+// each): only x has to wait for the barrier.
 template <typename T>
 __global__ void __launch_bounds__(kSolveThreads)
     group_sweep_kernel(T* src, T* dst, int nrhs, const T* tiles,
@@ -545,47 +542,21 @@ __global__ void __launch_bounds__(kSolveThreads)
                        const int4* item, const int2* ent, int nsteps, int bl,
                        int nb) {
   __shared__ T v[kMaxNb];
-  // by step parity: the next step's first item and the step row after it
-  __shared__ int4 s_item[2];
-  __shared__ int2 s_step[2];
-  __shared__ int4 s_pf[kSolveThreads];  // each thread's prefetch id
   cg::grid_group grid = cg::this_grid();
   const size_t nn = (size_t)nb * nb, rhs_stride = (size_t)(bl + 1) * nb;
-  const int p0 = blockIdx.x + threadIdx.x * gridDim.x;
   int2 cur = __ldg(step), nxt = __ldg(step + 1);
-  int2 after = nsteps > 1 ? __ldg(step + 2) : nxt;
-  int4 d0 = __ldg(item + cur.x + blockIdx.x % (nxt.x - cur.x));
   for (int s = 0;; ++s) {
     const int n = nxt.x - cur.x;
-    const bool last = s + 1 == nsteps;
-    if (!last) {
-      const int n1 = after.x - nxt.x, ne = after.y - nxt.y;
-      if (threadIdx.x == 0) {
-        if (blockIdx.x < n1 * nrhs)
-          cp_async<16>(&s_item[s & 1], item + nxt.x + blockIdx.x % n1, true);
-        if (s + 2 < nsteps) cp_async<8>(&s_step[s & 1], step + s + 3, true);
-      }
-      if (p0 < ne)
-        cp_async<8>(&s_pf[threadIdx.x], ent + nxt.y + p0, true);
-      else if (p0 < ne + n1)
-        cp_async<16>(&s_pf[threadIdx.x], item + nxt.x + p0 - ne, true);
-      cp_async_commit();
-    }
     for (int it = blockIdx.x; it < n * nrhs; it += gridDim.x) {
       const int r = it / n;
-      const int4 d = it == blockIdx.x ? d0 : __ldg(item + cur.x + it % n);
+      const int4 d = __ldg(item + cur.x + it % n);
       group_item(src + r * rhs_stride, dst + r * rhs_stride, tiles,
                  invs + (2 * (size_t)d.x + slot) * nn, d, ent, nb, v);
     }
-    if (last) break;
-    const int n1 = after.x - nxt.x, ne = after.y - nxt.y;
-    cp_async_wait_all();
-    const int4 pf = s_pf[threadIdx.x];
-    if (p0 < ne)
-      prefetch_l2(tiles + (size_t)pf.x * nn, nn * sizeof(T));
-    else if (p0 < ne + n1 && pf.y)
-      prefetch_l2(invs + (2 * (size_t)pf.x + slot) * nn, nn * sizeof(T));
-    for (int p = p0 + gridDim.x * kSolveThreads; p < ne + n1;
+    if (s + 1 == nsteps) break;
+    const int2 after = __ldg(step + s + 2);
+    const int ne = after.y - nxt.y, np = ne + after.x - nxt.x;
+    for (int p = blockIdx.x + threadIdx.x * gridDim.x; p < np;
          p += gridDim.x * kSolveThreads) {
       if (p < ne) {
         prefetch_l2(tiles + (size_t)__ldg(ent + nxt.y + p).x * nn,
@@ -598,9 +569,7 @@ __global__ void __launch_bounds__(kSolveThreads)
     }
     cur = nxt;
     nxt = after;
-    grid.sync();  // also a block barrier: s_item and s_step are in
-    d0 = s_item[s & 1];
-    if (s + 2 < nsteps) after = s_step[s & 1];
+    grid.sync();
   }
 }
 

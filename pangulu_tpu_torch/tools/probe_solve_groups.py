@@ -38,7 +38,7 @@ VARIANTS = {
     "shipped": ("the shipped sources", []),
     "no_prefetch": (
         "no L2 prefetch of the next step's tiles and inverses",
-        [("lu_kernels.cu", "  if (hi > lo)\n", "  if (false)\n")]),
+        [("lu_kernels.cu", "np = ne + after.x - nxt.x;", "np = 0;")]),
     "unroll1": (
         "the update's column loop not unrolled (fewer loads in flight, "
         "fewer registers)",
