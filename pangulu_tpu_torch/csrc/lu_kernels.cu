@@ -103,9 +103,9 @@
 //   the groups of group_solve_tables.
 //   Bound on an H100: by bytes, each panel tile and inverse read once
 //   (4,220 tiles and 512 inverses of f32 for poisson3d(32) nb=128 nd,
-//   296 MiB, 0.093 ms at 3.35 TB/s); by latency, the group chain, 2 *
-//   ngroups dependent matrix-vector steps (35 groups a sweep there),
-//   each a grid barrier (1.1 us measured) plus the loads after it.
+//   296 MiB, 0.093 ms at 3.35 TB/s); by latency, the chain of dependent
+//   matrix-vector steps, one a super-level and sweep (2 * 25 there),
+//   each a grid barrier (1.1 us measured) plus the loads around it.
 //   Design: one cooperative persistent launch per sweep
 //   (group_sweep_kernel), 2 per solve, walking a host-built step list
 //   (schedule.group_solve_steps) with one grid barrier between steps.
@@ -124,14 +124,16 @@
 //   Tiles and inverses are read-only, so before each barrier the grid
 //   asks L2 for the next step's (a bulk prefetch each); only x waits.
 //   The kernel takes no dynamic shared memory (the shared v is one
-//   segment), so no row is too long for it.  Measured on the H100 and
-//   not kept (PERF.md, tools/probe_solve_groups.py): two steps a group
-//   (members, then rows), staging a block's next item (inverse and
-//   first tiles) in shared memory with cp.async before the barrier,
-//   warming its L1 with the next item, reading an item's entry rows
-//   into shared memory at once; each was slower than these direct
-//   loads, which take one block per item (1024 threads, one per SM at
-//   64 registers).
+//   segment), so no row is too long for it.  One block per item
+//   (1024 threads, one block an SM at the 64-register cap).  Measured
+//   on the H100 and not kept (PERF.md, tools/probe_solve_groups.py):
+//   two steps a group (members, then rows); staging a block's next
+//   item (inverse and first tiles) in shared memory with cp.async
+//   before the barrier; warming its L1 with the next item; reading an
+//   item's entry rows into shared memory at once; loading the next
+//   step's descriptors while a step runs, into registers or by cp.async
+//   into shared memory.  Each early load added registers at the cap,
+//   and the spills cost more than the latency it hid.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
