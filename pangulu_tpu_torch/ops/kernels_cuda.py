@@ -363,7 +363,7 @@ def mega_factorize_groups(tiles: torch.Tensor, tables: KernelTables, *,
 _STEP_KEYS = ("step", "item", "ent")
 
 
-def _group_solve_steps(h: dict, bl: int, nt: int, fused: bool) -> dict:
+def _group_solve_steps(h: dict, bl: int, nt: int) -> dict:
     """Both sweeps' step tables of :func:`schedule.group_solve_steps`
     (keys ``l_step``, ``uc_item``, ...), after the checks that keep K5
     inside x and the tile store and its steps free of races."""
@@ -397,19 +397,17 @@ def _group_solve_steps(h: dict, bl: int, nt: int, fused: bool) -> dict:
                for g in range(ng)):
             raise ValueError(f"{tab}: a group's panel row is one of its "
                              "own members")
-        for k, v in group_solve_steps(h, sweep, bl, fused=fused).items():
+        for k, v in group_solve_steps(h, sweep, bl).items():
             out[f"{sweep}_{k}"] = v
     return out
 
 
-def solve_steps_view(tables: KernelTables, bl: int, nt: int, device,
-                     fused: bool = True) -> tuple:
+def solve_steps_view(tables: KernelTables, bl: int, nt: int,
+                     device) -> tuple:
     """K5's step tables of a table set, checked and shipped once and
-    cached on it: the first call fixes the schedule (the kernel's is
-    ``fused``; ``tools/probe_solve_groups.py`` asks for the two steps a
-    group of ``fused=False`` on a table set of its own)."""
+    cached on it."""
     return _view(tables, f"solve_steps_{bl}_{nt}",
-                 lambda h: _group_solve_steps(h, bl, nt, fused), device,
+                 lambda h: _group_solve_steps(h, bl, nt), device,
                  [f"{sw}_{k}" for sw in ("l", "uc") for k in _STEP_KEYS])
 
 

@@ -560,8 +560,7 @@ def group_row_csr(tables: dict, sweep: str) -> dict:
     return _csr_by_key([tab[g, 1, :n] for g, n in enumerate(cnt)])
 
 
-def group_solve_steps(tables: dict, sweep: str, bl: int,
-                      fused: bool = True) -> dict:
+def group_solve_steps(tables: dict, sweep: str, bl: int) -> dict:
     """The step schedule of one sweep of ``group_solve_tables`` that the
     CUDA kernel walks, one grid barrier between two steps.
 
@@ -573,15 +572,13 @@ def group_solve_steps(tables: dict, sweep: str, bl: int,
     backward (``"uc"``); a group's x rows (``group_row_csr``) are never
     its members.
 
-    ``fused`` (the kernel's schedule): consecutive groups (in sweep
-    order) join one bundle while none of a group's members is a row of
-    the bundle and none of its rows a member (chunks of one super-level
-    do); step p holds the row updates of the p-th bundle, a row that
-    several of its groups update summing their entries in group order,
-    and the members of the next bundle, a row that is also such a
-    member being one item (the update, then its inverse): one barrier a
-    bundle.  Otherwise two steps a group, its members, then its rows.
-    Empty steps are dropped.  Every item of a step has its own segment,
+    Consecutive groups (in sweep order) join one bundle while none of a
+    group's members is a row of the bundle and none of its rows a member
+    (chunks of one super-level do); step p holds the row updates of the
+    p-th bundle, a row that several of its groups update summing their
+    entries in group order, and the members of the next bundle, a row
+    that is also such a member being one item (the update, then its
+    inverse): one barrier a bundle.  Empty steps are dropped.  Every item of a step has its own segment,
     every ``dst[k_t]`` it reads was written in an earlier step, and every
     member is written to ``dst`` once.
 
@@ -606,27 +603,22 @@ def group_solve_steps(tables: dict, sweep: str, bl: int,
         return [int(k) for k in kseg[g][kseg[g] != bl]]
 
     order = list(range(ng)) if sweep == "l" else list(range(ng))[::-1]
+    bundles = []   # (members, {row: [entries of each group]})
+    for g in order:
+        mem, upd = members(g), rows(g)
+        if not (bundles and bundles[-1][1].keys().isdisjoint(mem)
+                and {k for k, _ in upd}.isdisjoint(bundles[-1][0])):
+            bundles.append(([], {}))
+        bundles[-1][0].extend(mem)
+        for k, e in upd:
+            bundles[-1][1].setdefault(k, []).append(e)
     steps = []
-    if fused:
-        bundles = []   # (members, {row: [entries of each group]})
-        for g in order:
-            mem, upd = members(g), rows(g)
-            if not (bundles and bundles[-1][1].keys().isdisjoint(mem)
-                    and {k for k, _ in upd}.isdisjoint(bundles[-1][0])):
-                bundles.append(([], {}))
-            bundles[-1][0].extend(mem)
-            for k, e in upd:
-                bundles[-1][1].setdefault(k, []).append(e)
-        for p in range(len(bundles) + 1):
-            upd = bundles[p - 1][1] if p else {}
-            mem = bundles[p][0] if p < len(bundles) else []
-            steps.append([(k, k in mem, np.concatenate(e))
-                          for k, e in upd.items()]
-                         + [(k, True, None) for k in mem if k not in upd])
-    else:
-        for g in order:
-            steps.append([(k, True, None) for k in members(g)])
-            steps.append([(k, False, e) for k, e in rows(g)])
+    for p in range(len(bundles) + 1):
+        upd = bundles[p - 1][1] if p else {}
+        mem = bundles[p][0] if p < len(bundles) else []
+        steps.append([(k, k in mem, np.concatenate(e))
+                      for k, e in upd.items()]
+                     + [(k, True, None) for k in mem if k not in upd])
     step, item, ent = [[0, 0]], [], []
     for s in steps:
         if not s:

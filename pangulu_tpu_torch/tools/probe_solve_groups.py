@@ -6,14 +6,15 @@ one NVIDIA GPU.  From the root of the repository:
 
 Each source variant (VARIANTS: the shipped ``csrc/`` with one textual
 edit, all built at once as ``probe_products.py`` builds its own) runs
-each step schedule of ``schedule.group_solve_steps``: ``fused`` (the
-kernel's, one barrier a super-level) and ``two_phase`` (a group's members,
-a barrier, its rows, a barrier).  For each pair, on poisson3d(32)
+each of two step schedules: ``bundled`` (the kernel's,
+``schedule.group_solve_steps``: one barrier a super-level) and
+``two_phase`` (:func:`two_phase_steps`: a group's members, a barrier,
+its rows, a barrier).  For each pair, on poisson3d(32)
 nb=128 r32 nd with the factors of the shipped K4: K5's device ms per
 solve at 1 and 4 right-hand sides (back-to-back calls queued behind a
 device sleep, median of ROUNDS rounds taken in turns over all pairs),
 its largest error against the plain version, whether its result is the
-shipped fused one bit for bit, the cooperative grid, and from one
+shipped bundled one bit for bit, the cooperative grid, and from one
 traced solve the device busy ms, host wall ms and idle share; and per
 variant ptxas's registers and spills of ``group_sweep_kernel``.  It
 prints the card's name and power limit, a line per pair, then one JSON
@@ -69,9 +70,38 @@ VARIANTS = {
          ("lu_kernels.cu",
           "    tile_matvec<T, false>(inv, v, xd + (size_t)d.x * nb, nb);\n", "")]),
 }
-SCHEDULES = ("fused", "two_phase")
+SCHEDULES = ("bundled", "two_phase")
 ROUNDS = 5
 CALLS = 20   # back-to-back solves a timing
+
+
+def two_phase_steps(h: dict, sweep: str, bl: int) -> dict:
+    """Step tables of one sweep of ``group_solve_tables`` ``h`` in the
+    layout of ``schedule.group_solve_steps``, two steps a group: its
+    members' inverse items, then its rows' update items."""
+    from pangulu_tpu_torch.schedule import group_row_csr
+    tab = h["ltab"] if sweep == "l" else h["uctab"]
+    csr, kseg = group_row_csr(h, sweep), h["kseg_tab"]
+    ng = int(h["ngroups"])
+    step, item, ent = [[0, 0]], [], []
+    for g in (range(ng) if sweep == "l" else range(ng - 1, -1, -1)):
+        mem = [(int(k), 1, []) for k in kseg[g][kseg[g] != bl]]
+        rows = []
+        for d in range(csr["off"][g], csr["off"][g] + csr["cnt"][g]):
+            t = csr["ent"][csr["ptr"][d]:csr["ptr"][d + 1]]
+            rows.append((int(csr["key"][d]), 0,
+                         np.stack([tab[g, 0, t], kseg[g, tab[g, 2, t]]],
+                                  1).tolist()))
+        for s in (mem, rows):
+            if s:
+                for k, inv, e in s:
+                    item.append([k, inv, len(ent), len(ent) + len(e)])
+                    ent.extend(e)
+                step.append([len(item), len(ent)])
+    step = np.asarray(step, np.int32)
+    return dict(step=step, item=np.asarray(item, np.int32).reshape(-1, 4),
+                ent=np.asarray(ent, np.int32).reshape(-1, 2),
+                width=int(np.diff(step[:, 0]).max(initial=0)))
 
 
 def main() -> int:
@@ -103,11 +133,18 @@ def main() -> int:
     tiles, invs = kc.mega_factorize_groups(
         h.blocked.device_tiles(dev), ftab, nb=128, bl=bl,
         tol=kt.DEFAULT_TOL[torch.float32])
-    tabs = {}
-    for sched in SCHEDULES:
-        tabs[sched] = kt.KernelTables.build(sch.group_solve_tables(nt), dev)
-        kc.solve_steps_view(tabs[sched], bl, nt, dev,
-                            fused=sched == "fused")
+    tabs = {s: kt.KernelTables.build(sch.group_solve_tables(nt), dev)
+            for s in SCHEDULES}
+    # the two-phase steps go where the kernel path caches its own, in
+    # the view of kernels_cuda.solve_steps_view
+    host = {f"{sw}_{k}": v for sw in ("l", "uc") for k, v in
+            two_phase_steps(tabs["two_phase"].host, sw, bl).items()}
+    tabs["two_phase"].views[f"solve_steps_{bl}_{nt}"] = (host, {
+        k: torch.as_tensor(v, device=dev) for k, v in host.items()
+        if not k.endswith("_width")})
+    if kc.solve_steps_view(tabs["two_phase"], bl, nt, dev)[0] is not host:
+        raise RuntimeError("the kernel path does not read the two-phase "
+                           "steps")
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.standard_normal((4, bl + 1, 128)),
                         dtype=torch.float32, device=dev)
@@ -118,16 +155,16 @@ def main() -> int:
         return kc.mega_solve_groups(xs[r], tiles, invs, tabs[pair[1]],
                                     nb=128, bl=bl)
 
-    plain = kt.mega_solve_groups(xs[1], tiles, invs, tabs["fused"], nb=128,
-                                 bl=bl)
-    ref = solve(("shipped", "fused"), 1)
+    plain = kt.mega_solve_groups(xs[1], tiles, invs, tabs["bundled"],
+                                 nb=128, bl=bl)
+    ref = solve(("shipped", "bundled"), 1)
     res = {p: {} for p in pairs}
     for p in pairs:
         use_variant(*dirs[p[0]])
         got = solve(p, 1)
         res[p].update(
             max_abs_err=float((got.double() - plain.double()).abs().max()),
-            same_bits_as_shipped_fused=bool(torch.equal(got, ref)),
+            same_bits_as_shipped_bundled=bool(torch.equal(got, ref)),
             grid=dict(kc.GRID["mega_solve_groups"]))
         tr = cs.profile(lambda _: solve(p, 1))
         res[p].update(wall_ms=tr["wall_ms"], busy_ms=tr["busy_ms"],

@@ -150,18 +150,20 @@ def p3d_nd():
         nb=NB, dtype="r32", ordering="nd", device="cpu"))
 
 
-@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("fixture", ["p2d_nd", "p3d_nd"])
 @pytest.mark.parametrize("sweep", ["l", "uc"])
-def test_solve_steps_list_every_row_and_member_once(p3d_nd, sweep, fused):
+def test_solve_steps_list_every_row_and_member_once(request, fixture,
+                                                    sweep):
     """The CUDA K5's step tables: every member of every group is one
     inverse item, every panel entry of every group sits once under its
     row, each step has one item a segment, and the offsets rise.  The
-    fused schedule takes one step a super-level: chunks of one
-    super-level share their steps."""
-    hp = p3d_nd
+    schedule takes one step a super-level (and one more): chunks of one
+    super-level, as in poisson3d(12), share their steps."""
+    hp = request.getfixturevalue(fixture)
+    hp = hp[0] if fixture == "p2d_nd" else hp
     bl = hp.schedule.block_length
     t = hp.schedule.group_solve_tables(hp.blocked.num_tiles)
-    s = group_solve_steps(t, sweep, bl, fused=fused)
+    s = group_solve_steps(t, sweep, bl)
     step, item, ent = s["step"], s["item"], s["ent"]
     assert step[0].tolist() == [0, 0]
     assert (np.diff(step[:, 0]) > 0).all() and (np.diff(step[:, 1]) >= 0).all()
@@ -176,8 +178,8 @@ def test_solve_steps_list_every_row_and_member_once(p3d_nd, sweep, fused):
            for tid, src in ent[e0:e1].tolist()]
     assert sorted(got) == sorted(_row_updates(t, sweep))
     ng, nsl = int(t["ngroups"]), len(hp.schedule.superlevels())
-    assert nsl < ng
-    assert len(step) - 1 <= (nsl + 1 if fused else 2 * ng)
+    assert nsl < ng or fixture == "p2d_nd"
+    assert len(step) - 1 <= nsl + 1
 
 
 def _walk_steps(x, tiles, invs, t, bl):
@@ -186,44 +188,41 @@ def _walk_steps(x, tiles, invs, t, bl):
     recorded.  No item reads or writes a value that another item of its
     step writes, and every level's segment of the sweep's destination is
     written once (the destination starts as NaN: a read of an unwritten
-    value would show).  Returns the solution of both schedules."""
-    out = {}
-    for fused in (True, False):
-        bufs = {"x": x.copy(), "y": np.full_like(x, np.nan)}
-        for slot, (src, dst), sweep in ((0, ("x", "y"), "l"),
-                                        (1, ("y", "x"), "uc")):
-            s = group_solve_steps(t, sweep, bl, fused=fused)
-            written = []
-            for a, b in zip(s["step"][:-1, 0], s["step"][1:, 0]):
-                reads, writes = [], []
-                for k, inv, e0, e1 in s["item"][a:b]:
-                    seg = (dst if inv else src, k)
-                    reads.append({(src, k)} | {(dst, int(kk)) for _, kk
-                                               in s["ent"][e0:e1]})
-                    writes.append(seg)
-                    tid, kk = s["ent"][e0:e1].T
-                    v = bufs[src][:, k] - np.einsum(
-                        "tij,rtj->ri", tiles[tid], bufs[dst][:, kk])
-                    if inv:
-                        v = np.einsum("ij,rj->ri", invs[k, slot], v)
-                    bufs[seg[0]][:, k] = v
-                assert len(set(writes)) == len(writes)
-                for i, r in enumerate(reads):
-                    assert not (r & (set(writes) - {writes[i]}))
-                written += [w for w in writes if w[0] == dst]
-            assert sorted(k for _, k in written) == list(range(bl))
-        assert np.array_equal(bufs["x"][:, bl], x[:, bl])
-        out[fused] = bufs["x"]
-    return out
+    value would show).  Returns the solution."""
+    bufs = {"x": x.copy(), "y": np.full_like(x, np.nan)}
+    for slot, (src, dst), sweep in ((0, ("x", "y"), "l"),
+                                    (1, ("y", "x"), "uc")):
+        s = group_solve_steps(t, sweep, bl)
+        written = []
+        for a, b in zip(s["step"][:-1, 0], s["step"][1:, 0]):
+            reads, writes = [], []
+            for k, inv, e0, e1 in s["item"][a:b]:
+                seg = (dst if inv else src, k)
+                reads.append({(src, k)} | {(dst, int(kk)) for _, kk
+                                           in s["ent"][e0:e1]})
+                writes.append(seg)
+                tid, kk = s["ent"][e0:e1].T
+                v = bufs[src][:, k] - np.einsum(
+                    "tij,rtj->ri", tiles[tid], bufs[dst][:, kk])
+                if inv:
+                    v = np.einsum("ij,rj->ri", invs[k, slot], v)
+                bufs[seg[0]][:, k] = v
+            assert len(set(writes)) == len(writes)
+            for i, r in enumerate(reads):
+                assert not (r & (set(writes) - {writes[i]}))
+            written += [w for w in writes if w[0] == dst]
+        assert sorted(k for _, k in written) == list(range(bl))
+    assert np.array_equal(bufs["x"][:, bl], x[:, bl])
+    return bufs["x"]
 
 
 @pytest.mark.parametrize("dtype", ["r32", "r64"])
 @pytest.mark.parametrize("gen,kw", [("poisson2d", dict(nx=12)),
                                     ("poisson3d", dict(nx=12))])
 def test_solve_steps_walk_matches_plain_and_pallas(gen, kw, dtype):
-    """The step schedule of the CUDA K5 (fused and two steps a group),
-    walked on the host, solves as the plain version and the JAX Pallas
-    K5 (interpret mode) do, on the same factors and right-hand sides."""
+    """The step schedule of the CUDA K5, walked on the host, solves as
+    the plain version and the JAX Pallas K5 (interpret mode) do, on the
+    same factors and right-hand sides."""
     hp, hj = _pair(gen, "nd", dtype=dtype, **kw)
     nt, bl = hp.blocked.num_tiles, hp.schedule.block_length
     t = hp.schedule.group_solve_tables(nt)
@@ -245,9 +244,8 @@ def test_solve_steps_walk_matches_plain_and_pallas(gen, kw, dtype):
                                        "ltab", "uctab")),
         nb=NB, bl=bl, ngr=tj["ngroups"], gmax=tj["gmax"], npan=tj["row_w"]))
     tol = SOLVE_F32 if dtype == "r32" else dict(rtol=1e-12, atol=1e-12)
-    for got in walked.values():
-        np.testing.assert_allclose(got, plain, **tol)
-        np.testing.assert_allclose(got[:, :bl], pallas[:, :bl], **tol)
+    np.testing.assert_allclose(walked, plain, **tol)
+    np.testing.assert_allclose(walked[:, :bl], pallas[:, :bl], **tol)
 
 
 def _jax_group_factorize(hj, uch):
