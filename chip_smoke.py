@@ -48,11 +48,28 @@ CUDA toolkit (nvcc).  It
      K5's cooperative grid and blocks per SM are printed;
   5. solves the reference's config 1, trefethen(20) nb=10 r64, and
      poisson2d(24) nb=16 nd r64 on the grouped path;
-  6. with --profile, also traces one rcm solve and prints, per phase,
+  6. drives the rest of the public surface on the nd path of
+     poisson3d(32), nb=128, r32, each part with the launch counts zeroed
+     before and read after: (a) write_matrix to .mtx and .lid, both read
+     back bit-equal, then `python -m pangulu_tpu_torch -f <the .mtx>
+     -nb 128 --dtype r32 --ordering nd --check` in a subprocess (exit 0,
+     residual < 1e-10); (b) gstrs(trans=True), ||A^T x - b||/||b|| <
+     1e-10 after refinement, no hand kernel launched, its time beside the
+     forward solve's; (c) update_values with the values scaled by
+     (1 + 0.1 u), then gstrf: exactly K1 = number of groups, K4 = 1,
+     gstrf residual < 1e-5, its host ms beside init's; (d) gstrs_device
+     on a CUDA tensor of 4 right-hand sides with refine=1: a CUDA tensor
+     back, 2 K5 calls of 2 device launches each, residuals < 5e-5; (e)
+     analyze leaves torch.cuda.memory_allocated() unchanged; (f)
+     factor_diagnostics on poisson2d(24), nb=16, r64, nd: logabsdet
+     within 1e-10 of splu's with its sign, cond1_est between exact/3 and
+     exact (dense f64);
+  7. with --profile, also traces one rcm solve and prints, per phase,
      each kernel's launches and device time, the host wall time and the
      device's idle share (K3's solve: exactly 2 launches of its sweep
      kernel);
-  7. prints one JSON line of per-kernel results (time, launches, error,
+  8. prints the numbers of step 6 as one JSON line, then one JSON
+     line of per-kernel results (time, launches, error,
      plain and library times, and the bound: the larger of the bytes
      over 3.35 TB/s and the operations over the H100 SXM's published
      peak for the units that run them: 495 / 3 TFLOP/s (3xTF32 on
@@ -362,6 +379,244 @@ def stage_yardsticks(tiles, invs, tables, grouped: bool) -> dict:
                 invs[k, 1].expand(nl, nb, nb), tiles[uids], dst, lids[ul],
                 uids[uu])
     return {f"{s}_library_ms": timed_calls(c) for s, c in calls.items()}
+
+
+def cycle_parity(p) -> int:
+    """Sign of the permutation p, from its cycle lengths."""
+    p, seen, sign = np.asarray(p), np.zeros(len(p), bool), 1
+    for i in range(len(p)):
+        j, length = i, 0
+        while not seen[j]:
+            seen[j], j, length = True, p[j], length + 1
+        if length and length % 2 == 0:
+            sign = -sign
+    return sign
+
+
+def surface_phase(a, dev) -> dict:
+    """The rest of the public surface on the nd path of poisson3d(32),
+    nb=128, r32 (the matrix ``a``), with the launch counts zeroed before
+    and read after each part: (a) the CLI on files written and read
+    back, (b) the transpose solve, (c) update_values + gstrf, (d)
+    gstrs_device, (e) analyze; then (f) factor_diagnostics on
+    poisson2d(24), nb=16, r64, nd.  Returns its numbers; any failure
+    raises."""
+    import os
+    import tempfile
+
+    import scipy.sparse.linalg as spla
+
+    from pangulu_tpu_torch import (InitOptions, analyze, factor_diagnostics,
+                                   gstrf, gstrs, gstrs_device, init,
+                                   update_values)
+    from pangulu_tpu_torch.io.mmio import read_matrix, write_matrix
+    from pangulu_tpu_torch.models import poisson2d
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.utils.perf import residual_norm
+
+    out = {}
+    opts = dict(nb=128, dtype="r32", ordering="nd", device="cuda")
+    s = a.to_scipy()
+
+    def zero_but(**counts):
+        return {k: counts.get(k, 0) for k in kc.LAUNCHES}
+
+    def expect_launches(what, want):
+        got = dict(kc.LAUNCHES)
+        print(f"  launches: {got}")
+        if got != want:
+            fail(f"{what}: launch counts {got}, expected {want}")
+        return got
+
+    # (a) files and the CLI
+    print("surface (a): write_matrix -> .mtx and .lid, read back, and "
+          "python -m pangulu_tpu_torch on the .mtx")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {ext: os.path.join(tmp, f"p3d32.{ext}") for ext in
+                 ("mtx", "lid")}
+        for p in paths.values():
+            write_matrix(p, a)
+        back = {ext: read_matrix(p, dtype=np.float64)
+                for ext, p in paths.items()}
+        for ext, m in back.items():
+            for f in ("colptr", "rowidx", "values"):
+                if not np.array_equal(getattr(m, f), getattr(a, f)):
+                    fail(f"the .{ext} file read back another CSC ({f})")
+        print(f"  .mtx and .lid read back bit-equal (n={a.n}, nnz={a.nnz})")
+        cmd = [sys.executable, "-m", "pangulu_tpu_torch", "-f",
+               paths["mtx"], "-nb", "128", "--dtype", "r32", "--ordering",
+               "nd", "--check"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600, env=dict(os.environ,
+                                                   PYTHONPATH=str(ROOT)))
+        out["cli_wall_s"] = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"the CLI exited {res.returncode}:\n{res.stdout[-3000:]}\n"
+             f"{res.stderr[-3000:]}")
+    line = [ln for ln in res.stdout.splitlines() if "solve residual" in ln]
+    out["cli_residual"] = float(line[-1].split("=")[1]) if line else None
+    out["cli_stdout"] = res.stdout
+    print(f"  CLI: exit 0 in {out['cli_wall_s']:.3f} s (wall, process start "
+          f"to exit), solve residual {out['cli_residual']:.3e} (< 1e-10)")
+    if not (out["cli_residual"] is not None and out["cli_residual"] < 1e-10):
+        fail("the CLI's solve residual is missing or too large")
+
+    # the handle of parts (b) to (e)
+    print("surface: init -> gstrf, poisson3d(32), nb=128, r32, nd, cuda")
+    t0 = time.perf_counter()
+    h = init(a, InitOptions(check=True, **opts))
+    out["init_host_ms"] = (time.perf_counter() - t0) * 1e3
+    gstrf(h)
+    ng = h._factorizer.tables.host["ngroups"]
+
+    # (b) the transpose solve
+    print("surface (b): gstrs(trans=True)")
+    rng = np.random.default_rng(7)
+    xt = rng.standard_normal(a.n)
+    bt = s.T @ xt
+    kc.reset_launch_counts()
+    x = gstrs(h, bt, trans=True)
+    expect_launches("the transpose solve (PyTorch ops, no hand kernel)",
+                    zero_but())
+    out["trans_residual"] = residual_norm(s.T.tocsc(), x, bt)
+    print(f"  ||A^T x - b||/||b|| after refinement = "
+          f"{out['trans_residual']:.3e} (< 1e-10)")
+    if not out["trans_residual"] < 1e-10:
+        fail("the transpose solve's residual is too large")
+    ts = h._trisolver
+    xb = ts.blockify_rhs(h.reordering.transform_b_trans(
+        bt.astype(np.float32)))
+    out["trans_solve_ms"] = cuda_ms(
+        lambda _: ts.solve_blocked_trans(h.factor_tiles, xb), reps=5)
+    out["forward_solve_ms"] = cuda_ms(
+        lambda _: ts.solve_blocked(h.factor_tiles, xb), reps=5)
+    t0 = time.perf_counter()
+    gstrs(h, bt, trans=True)
+    out["gstrs_trans_host_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"  one solve, CUDA events, median of 5: transpose "
+          f"{out['trans_solve_ms']:.3f} ms, forward (K5) "
+          f"{out['forward_solve_ms']:.3f} ms; gstrs(trans=True) with 2 "
+          f"refinement rounds {out['gstrs_trans_host_ms']:.3f} host ms")
+    p = profile(lambda _: ts.solve_blocked_trans(h.factor_tiles, xb))
+    out["trans_trace"] = p
+    print_profile({"transpose solve": p})
+
+    # (c) the refactorization
+    print("surface (c): update_values (values x (1 + 0.1 u)) -> gstrf")
+    s2 = s.copy()
+    s2.data = s2.data * (1.0 + 0.1 * np.random.default_rng(8).random(
+        s2.nnz))
+    t0 = time.perf_counter()
+    update_values(h, s2)
+    out["update_values_host_ms"] = (time.perf_counter() - t0) * 1e3
+    kc.reset_launch_counts()
+    t0 = time.perf_counter()
+    gstrf(h)
+    torch.cuda.synchronize()
+    out["refactor_gstrf_host_ms"] = (time.perf_counter() - t0) * 1e3
+    out["refactor_launches"] = expect_launches(
+        "update_values + gstrf",
+        zero_but(getrf_with_inverses=ng, mega_factorize_groups=1))
+    out["refactor_gstrf_residual"] = h.perf.kernels["gstrf_residual"]
+    print(f"  update_values {out['update_values_host_ms']:.3f} host ms "
+          f"(init {out['init_host_ms']:.3f} host ms); gstrf "
+          f"{out['refactor_gstrf_host_ms']:.3f} host ms (with its check); "
+          f"gstrf residual {out['refactor_gstrf_residual']:.3e} (< 1e-5)")
+    if not out["refactor_gstrf_residual"] < 1e-5:
+        fail("the refactorization's gstrf residual is too large")
+    # the cycle a Newton or transient user repeats, without the check
+    h.opts.check = False
+    t0 = time.perf_counter()
+    update_values(h, s2)
+    t1 = time.perf_counter()
+    gstrf(h)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    h.opts.check = True
+    out["update_values_host_ms_2"] = (t1 - t0) * 1e3
+    out["refactor_gstrf_nocheck_host_ms"] = (t2 - t1) * 1e3
+    print(f"  again without the check: update_values "
+          f"{out['update_values_host_ms_2']:.3f} host ms, gstrf "
+          f"{out['refactor_gstrf_nocheck_host_ms']:.3f} host ms (call to "
+          "synchronise)")
+
+    # (d) the device-resident solve
+    print("surface (d): gstrs_device, 4 right-hand sides, refine=1")
+    b4 = torch.as_tensor(s2 @ rng.standard_normal((a.n, 4)),
+                         dtype=torch.float32, device=dev)
+    kc.reset_launch_counts()
+    x4 = gstrs_device(h, b4, refine=1)
+    torch.cuda.synchronize()
+    expect_launches("gstrs_device", zero_but(mega_solve_groups=2))
+    if not (x4.is_cuda and tuple(x4.shape) == (a.n, 4)):
+        fail("gstrs_device did not return an [n, 4] CUDA tensor")
+    a32 = h.a_origin   # the new values in working precision
+    b4h, x4h = b4.cpu().numpy(), x4.cpu().numpy()
+    out["device_residuals"] = [residual_norm(a32, x4h[:, c], b4h[:, c])
+                               for c in range(4)]
+    print(f"  residuals {', '.join(f'{r:.3e}' for r in out['device_residuals'])}"
+          f" (< 5e-5, tests/test_device_solve.py)")
+    if not max(out["device_residuals"]) < 5e-5:
+        fail("gstrs_device's residual is too large")
+    p = profile(lambda _: gstrs_device(h, b4, refine=1))
+    sweeps = {n: k["launches"] for n, k in p["kernels"].items()
+              if "group_sweep_kernel" in n}
+    print(f"  traced: {sweeps} (2 a solve_blocked call, 2 calls)")
+    out["gstrs_device_trace"] = p
+    print_profile({"gstrs_device(refine=1)": p})
+    if sum(sweeps.values()) != 4:
+        fail(f"one gstrs_device call made {sweeps}, expected 4 launches "
+             "of K5's group_sweep_kernel")
+    out["gstrs_device_ms"] = cuda_ms(
+        lambda _: gstrs_device(h, b4, refine=1), reps=5)
+    print(f"  gstrs_device(refine=1), CUDA events, median of 5: "
+          f"{out['gstrs_device_ms']:.3f} ms")
+
+    # (e) analyze allocates nothing on the card
+    print("surface (e): analyze")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    info = analyze(a, InitOptions(**opts))
+    torch.cuda.synchronize()
+    out["analyze_allocated_bytes"] = torch.cuda.memory_allocated() - before
+    print(f"  tiles {info['tiles']}, flops {info['flops']:.3e}, "
+          f"factor_hbm_bytes {info['factor_hbm_bytes']}; device bytes "
+          f"allocated by it: {out['analyze_allocated_bytes']}")
+    if out["analyze_allocated_bytes"] != 0 or \
+            info["tiles"] != h.blocked.num_tiles:
+        fail("analyze allocated device memory or reports another store")
+    del h, xb, x4, b4
+    torch.cuda.empty_cache()
+
+    # (f) factor_diagnostics on a small r64 system
+    print("surface (f): factor_diagnostics, poisson2d(24), nb=16, r64, nd")
+    a2 = poisson2d(24)
+    s2 = a2.to_scipy().tocsc()
+    h2 = init(a2, InitOptions(nb=16, dtype="r64", ordering="nd",
+                              device="cuda"))
+    gstrf(h2)
+    np.random.seed(0)
+    d = factor_diagnostics(h2)
+    lu = spla.splu(s2)
+    du = lu.U.diagonal()
+    logdet = float(np.sum(np.log(np.abs(du))))
+    sign = (float(np.prod(np.sign(du))) * cycle_parity(lu.perm_r)
+            * cycle_parity(lu.perm_c))
+    dense = s2.toarray()
+    exact = float(np.linalg.norm(dense, 1)
+                  * np.linalg.norm(np.linalg.inv(dense), 1))
+    out["diagnostics"] = dict(d, splu_logabsdet=logdet, splu_sign=sign,
+                              exact_cond1=exact)
+    print(f"  logabsdet {d['logabsdet']:.12e} (splu {logdet:.12e}), sign "
+          f"{d['sign']:+.0f} (splu {sign:+.0f}), cond1_est "
+          f"{d['cond1_est']:.6e} (exact {exact:.6e})")
+    if not (abs(d["logabsdet"] - logdet) <= 1e-10 * abs(logdet)
+            and d["sign"] == sign):
+        fail("factor_diagnostics' determinant disagrees with splu's")
+    if not exact / 3 <= d["cond1_est"] <= exact * (1 + 1e-8):
+        fail("factor_diagnostics' condition estimate is out of its band")
+    return out
 
 
 def card_line() -> str:
@@ -863,6 +1118,12 @@ def main() -> int:
         if not rres < 1e-12:
             fail("r64 residual too large")
         detail[f"r64_{label}_residual"] = rres
+
+    # ---- the rest of the public surface ----------------------------------
+    surface = surface_phase(a=poisson3d(32), dev=dev)
+    detail["surface"] = surface
+    print(json.dumps({"surface": {k: v for k, v in surface.items()
+                                  if k != "cli_stdout"}}))
 
     launches = dict(rcm_launches)
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]

@@ -1,4 +1,6 @@
-"""Public API: init / gstrf / gstrs / gssv / finalize.
+"""Public API: init / gstrf / gstrs / gssv / finalize, and the rest of
+the JAX package's single-device surface (analyze, update_values,
+gstrs_device, factor_diagnostics, the transpose solve).
 
 Mirrors the reference's five exported entry points and options struct
 (include/pangulu.h:11-15, include/pangulu_interface_common.h:3-20,
@@ -29,7 +31,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from pangulu_tpu_torch.blocks import BlockedMatrix, gather_factor, tile_matrix
+from pangulu_tpu_torch.blocks import (BlockedMatrix, gather_factor,
+                                      refill_values, tile_matrix)
 from pangulu_tpu_torch.numeric import LUFactorizer
 from pangulu_tpu_torch.ops.kernels_torch import check_nb
 from pangulu_tpu_torch.reorder import Reordering, reorder
@@ -124,6 +127,8 @@ class Handle:
     factor_tiles: Optional[torch.Tensor] = None  # device tiles after gstrf
     _factorizer: object = None
     _trisolver: object = None
+    _device_transforms: object = None  # gstrs_device permutation state
+    _a3_rows_dev: object = None        # gstrs_device residual state
 
 
 def init(a, opts: InitOptions | None = None) -> Handle:
@@ -199,6 +204,35 @@ def init(a, opts: InitOptions | None = None) -> Handle:
     )
 
 
+def analyze(a, opts: InitOptions | None = None) -> dict:
+    """Symbolic-only analysis: run reorder + symbolic + tiling and
+    report what a factorization would cost, allocating nothing on the
+    device (pangulu_tpu/api.py:247-274).
+
+    Returns: n, nnz, nb, block_length, tiles, fill_nnz (dense-tile
+    entries), flops (dense-tile model), factor_hbm_bytes (the tile
+    store's device bytes), dtype, and per-phase analysis times.
+    """
+    h = init(a, opts)
+    nb = h.blocked.nb
+    tiles = h.blocked.num_tiles
+    itemsize = np.dtype(h.blocked.dtype).itemsize
+    out = {
+        "n": h.blocked.n,
+        "nnz": int(h.reordering.reordered.nnz),
+        "nb": nb,
+        "block_length": h.schedule.block_length,
+        "tiles": tiles,
+        "fill_nnz": tiles * nb * nb,
+        "flops": h.schedule.flop_estimate(),
+        "factor_hbm_bytes": (tiles + 1) * nb * nb * itemsize,
+        "dtype": str(np.dtype(h.blocked.dtype)),
+        "phase_time_s": dict(h.perf.phase_time),
+    }
+    finalize(h)
+    return out
+
+
 def gstrf(handle: Handle) -> None:
     """Numeric factorization (reference: pangulu_gstrf, pangulu.c:211)."""
     handle._factorizer = LUFactorizer(
@@ -218,14 +252,30 @@ def gstrf(handle: Handle) -> None:
         handle.perf.kernels["gstrf_residual"] = res
 
 
-def _solve_once(handle: Handle, b: np.ndarray) -> np.ndarray:
-    bt = handle.reordering.transform_b(b)
-    w = handle._trisolver.solve(handle.factor_tiles, bt)
-    return handle.reordering.transform_x(w)
+def _ensure_trisolver(handle: Handle) -> TriangularSolver:
+    """The handle's cached solver, built at first use on the inverses
+    the factorization persisted (recomputed from the packed factors when
+    there are none, e.g. a checkpoint-loaded handle)."""
+    if handle._trisolver is None:
+        inv_tiles = getattr(handle._factorizer, "inv_tiles", None)
+        handle._trisolver = TriangularSolver(
+            handle.blocked, handle.schedule, perf=handle.perf,
+            device=handle.device, inv_tiles=inv_tiles)
+    return handle._trisolver
 
 
-def gstrs(handle: Handle, b: np.ndarray,
-          refine: int | None = None) -> np.ndarray:
+def _solve_once(handle: Handle, b: np.ndarray,
+                trans: bool = False) -> np.ndarray:
+    ro, ts = handle.reordering, handle._trisolver
+    if trans:
+        w = ts.solve_trans(handle.factor_tiles, ro.transform_b_trans(b))
+        return ro.transform_x_trans(w)
+    w = ts.solve(handle.factor_tiles, ro.transform_b(b))
+    return ro.transform_x(w)
+
+
+def gstrs(handle: Handle, b: np.ndarray, refine: int | None = None,
+          trans: bool = False) -> np.ndarray:
     """Triangular solves for one or many rhs (reference: pangulu_gstrs,
     pangulu.c:271): reorder b, solve, un-reorder x.
 
@@ -233,25 +283,27 @@ def gstrs(handle: Handle, b: np.ndarray,
     once in working precision, then correct with float64 host residuals
     ``r = b - A x`` and extra triangular solves (pangulu_tpu/api.py:
     510-539).  Default: the value from InitOptions (-1 = 2 for r32,
-    0 for r64)."""
+    0 for r64).
+
+    ``trans``: solve ``A^T x = b`` from the SAME factors (A^T = U^T L^T;
+    no reference equivalent — SuperLU-style surface), refined against
+    A^T."""
     if handle.factor_tiles is None:
         raise RuntimeError("gstrs called before gstrf (reference aborts "
                            "the same way)")
     work_dtype = handle.blocked.dtype
     b_in = np.asarray(b)
     b = b_in.astype(work_dtype)
-    if handle._trisolver is None:
-        inv_tiles = getattr(handle._factorizer, "inv_tiles", None)
-        handle._trisolver = TriangularSolver(
-            handle.blocked, handle.schedule, perf=handle.perf,
-            device=handle.device, inv_tiles=inv_tiles)
+    _ensure_trisolver(handle)
     if refine is None:
         refine = handle.opts.refine
     if refine is None or refine < 0:  # auto
         refine = 2 if np.dtype(work_dtype) == np.float32 else 0
-    x = _solve_once(handle, b)
+    x = _solve_once(handle, b, trans=trans)
     if refine:
         a64 = handle.a_origin.astype(np.float64)
+        if trans:
+            a64 = a64.T.tocsc()
         x64 = x.astype(np.float64)
         b64 = b_in.astype(np.float64)
         prev = None
@@ -264,11 +316,194 @@ def gstrs(handle: Handle, b: np.ndarray,
                          "f32 pivoting) limits further gains", rn)
                 break
             prev = rn
-            dx = _solve_once(handle, r.astype(work_dtype))
+            dx = _solve_once(handle, r.astype(work_dtype), trans=trans)
             x64 = x64 + dx.astype(np.float64)
         return (x64.astype(b_in.dtype) if b_in.dtype.kind == "f"
                 else x64)
     return x.astype(b_in.dtype) if b_in.dtype.kind == "f" else x
+
+
+def gstrs_device(handle: Handle, b: torch.Tensor,
+                 refine: int = 0) -> torch.Tensor:
+    """Device-resident gstrs (pangulu_tpu/api.py:542-625): ``b`` is a
+    tensor ``[n]`` or ``[n, nrhs]`` already on the handle's device; the
+    scaling, permutations, solve (K3 or K5 on a CUDA device, through
+    :meth:`TriangularSolver.solve_blocked`) and back-permutation all run
+    there, and the result returns as a tensor on that device WITHOUT a
+    host synchronisation, so back-to-back solves chain on the device.
+
+    ``refine``: rounds of device-side iterative refinement with the
+    ORIGINAL A3 tiles (residual in working precision — for f64-class
+    accuracy use the host-residual path of :func:`gstrs`)."""
+    if handle.factor_tiles is None:
+        raise RuntimeError("gstrs called before gstrf (reference aborts "
+                           "the same way)")
+    if not isinstance(b, torch.Tensor) or b.device != handle.device:
+        raise ValueError(f"gstrs_device takes a tensor on {handle.device}, "
+                         f"got {type(b).__name__}"
+                         + (f" on {b.device}" if isinstance(b, torch.Tensor)
+                            else ""))
+    solver = _ensure_trisolver(handle)
+    bl, nb = handle.schedule.block_length, handle.schedule.nb
+    n = handle.blocked.n
+    dt = handle.blocked.torch_dtype
+    if handle._device_transforms is None:
+        ro = handle.reordering
+        pad = bl * nb - n  # blocked slots beyond n read b[0] * 0
+        in_idx = np.concatenate([ro.perm, np.zeros(pad, np.int64)])
+        in_scale = np.concatenate([ro.row_scale[ro.perm], np.zeros(pad)])
+        cpinv = np.empty(n, np.int64)
+        cpinv[ro.colperm] = np.arange(n)
+        invperm = np.empty(n, np.int64)
+        invperm[ro.perm] = np.arange(n)
+        handle._device_transforms = tuple(
+            torch.as_tensor(v, device=handle.device)
+            for v in (in_idx, in_scale.astype(handle.blocked.dtype),
+                      invperm[cpinv],
+                      ro.col_scale.astype(handle.blocked.dtype)))
+    in_idx, in_scale, out_idx, out_scale = handle._device_transforms
+    squeeze = b.ndim == 1
+    b2 = b[:, None] if squeeze else b
+    nrhs = b2.shape[1]
+    bt = (b2[in_idx] * in_scale[:, None]).to(dt)
+    xb = torch.zeros((bl + 1, nb, nrhs), dtype=dt, device=handle.device)
+    xb[:bl] = bt.reshape(bl, nb, nrhs)
+    w = solver.solve_blocked(handle.factor_tiles, xb)
+    for _ in range(refine):
+        # device-side refinement: r = bt - A3 w (working precision)
+        w = w + solver.solve_blocked(handle.factor_tiles,
+                                     _a3_residual_device(handle, w, xb))
+    xflat = w[:bl].reshape(bl * nb, nrhs)[:n]
+    out = xflat[out_idx] * out_scale[:, None]
+    return out[:, 0] if squeeze else out
+
+
+def _a3_residual_device(handle: Handle, w: torch.Tensor,
+                        xb: torch.Tensor) -> torch.Tensor:
+    """Blocked working-precision residual ``xb - A3 w`` on the device
+    (A3 tiles gathered block-row-wise; pad slots hit the all-zero
+    scratch tile and segment, so they are exact no-ops;
+    pangulu_tpu/api.py:704-728)."""
+    if handle._a3_rows_dev is None:
+        blocked, bl = handle.blocked, handle.schedule.block_length
+        wmax = max(int(np.diff(blocked.brownnzptr).max()), 1)
+        row_ids = np.full((bl, wmax), blocked.num_tiles, np.int64)
+        row_cols = np.full((bl, wmax), bl, np.int64)
+        for k in range(bl):
+            s, e = blocked.brownnzptr[k], blocked.brownnzptr[k + 1]
+            row_ids[k, : e - s] = blocked.tile_of_csr[s:e]
+            row_cols[k, : e - s] = blocked.bcolidx[s:e]
+        handle._a3_rows_dev = (
+            blocked.device_tiles(handle.device),
+            torch.as_tensor(row_ids, device=handle.device),
+            torch.as_tensor(row_cols, device=handle.device))
+    a3, row_ids, row_cols = handle._a3_rows_dev
+    bl = row_ids.shape[0]
+    r = xb.clone()
+    for i in range(row_ids.shape[1]):
+        r[:bl] -= torch.bmm(a3[row_ids[:, i]], w[row_cols[:, i]])
+    return r
+
+
+def update_values(handle: Handle, a_new) -> None:
+    """Refactorization fast path (pangulu_tpu/api.py:731-771): replace
+    the matrix VALUES while keeping its sparsity pattern, reusing the
+    reordering, symbolic analysis, tiling and schedule; call
+    :func:`gstrf` afterwards to factor the new values.
+
+    The reference has no equivalent — a new matrix requires
+    finalize+init (README.md:125), repeating the entire O(fill) setup.
+    Here the update is O(nnz).  The MC64 scaling and permutations are
+    those of the ORIGINAL matrix (standard refactorize semantics:
+    fastest, and stable while the new values are not wildly different;
+    re-run :func:`init` when they are).  A matrix of another pattern
+    raises ``ValueError`` and leaves the handle as it was.
+    """
+    dtype = handle.opts.resolve_dtype()
+    if not isinstance(a_new, CscMatrix):
+        a_new = CscMatrix.from_scipy(sp.csc_matrix(a_new))
+    a_new = a_new.astype(dtype)
+    a_origin = a_new.to_scipy().copy()
+    a_new = add_diagonal_elements(a_new)
+    with handle.perf.phase("update_values"):
+        a3 = handle.reordering.transform_matrix(a_new)
+        ref = handle.reordering.reordered
+        if a3.nnz != ref.nnz or not (
+                np.array_equal(a3.colptr, ref.colptr)
+                and np.array_equal(a3.rowidx, ref.rowidx)):
+            raise ValueError(
+                "update_values requires the same sparsity pattern; "
+                "call init() for a structurally different matrix")
+        handle.reordering.reordered = a3
+        refill_values(handle.blocked, a3)
+    handle.a_origin = a_origin
+    # numeric state goes; the analysis is reused (the permutation state
+    # of gstrs_device depends on the pattern and the scalings only)
+    handle.factor_tiles = None
+    handle._factorizer = None
+    handle._trisolver = None
+    handle._a3_rows_dev = None   # gstrs_device's residual reads A3 values
+
+
+def _parity(p: np.ndarray) -> int:
+    """Sign of the permutation ``p``, from its cycle lengths."""
+    seen = np.zeros(len(p), dtype=bool)
+    sign = 1
+    for i in range(len(p)):
+        if seen[i]:
+            continue
+        j, clen = i, 0
+        while not seen[j]:
+            seen[j] = True
+            j = p[j]
+            clen += 1
+        if clen % 2 == 0:
+            sign = -sign
+    return sign
+
+
+def factor_diagnostics(handle: Handle) -> dict:
+    """Post-gstrf diagnostics from the factors (pangulu_tpu/api.py:
+    774-841; beyond the reference's API):
+
+    * ``logabsdet`` / ``sign``: log|det A| and its sign, from U's
+      diagonal and the reordering permutation parities (det A =
+      sign(P) sign(Q) det(Dr)^-1 det(Dc)^-1 prod(diag U) for the
+      scaled, permuted factorization).
+    * ``cond1_est``: Hager/Higham 1-norm condition estimate —
+      ||A||_1 * est(||A^-1||_1) by ``scipy.sparse.linalg.onenormest``,
+      the A^-1 applications being gstrs solves (the transpose solve
+      powers the adjoint applications).  It draws from ``np.random``.
+    """
+    import scipy.sparse.linalg as spla
+
+    if handle.factor_tiles is None:
+        raise RuntimeError("factor_diagnostics requires gstrf first")
+    ro = handle.reordering
+    nb, n = handle.blocked.nb, handle.blocked.n
+    diag_ids = torch.as_tensor(
+        np.array([lev.diag for lev in handle.schedule.levels]),
+        device=handle.device)
+    diag = torch.diagonal(handle.factor_tiles[diag_ids], dim1=-2, dim2=-1)
+    diag = diag.reshape(-1).cpu().numpy().astype(np.float64)[:n]
+    # undo the MC64 scalings' determinant contribution
+    logabsdet = (float(np.sum(np.log(np.abs(diag))))
+                 - float(np.sum(np.log(ro.row_scale)))
+                 - float(np.sum(np.log(ro.col_scale))))
+    # Only the MC64 COLUMN permutation contributes a sign: the
+    # fill-reducing permutation is applied symmetrically
+    # (A3 = A2[p][:, p], det(P) det(P^T) = +1) and the scalings are
+    # positive diagonals.
+    sign = float(np.prod(np.sign(diag))) * _parity(np.asarray(ro.colperm))
+    op = spla.LinearOperator(
+        (n, n),
+        matvec=lambda v: gstrs(handle, v.astype(np.float64)),
+        rmatvec=lambda v: gstrs(handle, v.astype(np.float64), trans=True),
+        dtype=np.float64)
+    inv_norm = float(spla.onenormest(op))
+    a_norm = float(spla.norm(handle.a_origin.tocsc(), 1))
+    return {"logabsdet": logabsdet, "sign": sign,
+            "cond1_est": a_norm * inv_norm}
 
 
 def gssv(handle: Handle, b: np.ndarray) -> np.ndarray:
@@ -283,6 +518,8 @@ def finalize(handle: Handle) -> None:
     handle.factor_tiles = None
     handle._factorizer = None
     handle._trisolver = None
+    handle._device_transforms = None
+    handle._a3_rows_dev = None
 
 
 def spsolve(a, b, **options):
@@ -311,10 +548,17 @@ class Solver:
         self._factored = True
         return self
 
-    def solve(self, b: np.ndarray) -> np.ndarray:
+    def solve(self, b: np.ndarray, trans: bool = False) -> np.ndarray:
         if not self._factored:
             self.factor()
-        return gstrs(self.handle, b)
+        return gstrs(self.handle, b, trans=trans)
+
+    def update_values(self, a_new) -> "Solver":
+        """Same-pattern refactorization fast path (see
+        :func:`update_values`); the next solve refactors."""
+        update_values(self.handle, a_new)
+        self._factored = False
+        return self
 
     @property
     def perf(self) -> PerfCounters:

@@ -1,0 +1,135 @@
+"""Command-line interface — counterpart of the reference example program
+(examples/example.c) and of ``pangulu_tpu.cli``: read a matrix file
+(and an optional rhs), run init/gstrf/gstrs, report residual and perf.
+
+    python -m pangulu_tpu_torch -f matrix.mtx -nb 128 [-r rhs.txt]
+                                [--dtype r32] [--check] [--device cpu]
+
+``--device cuda`` (the default) runs the hand-written CUDA kernels,
+``--device cpu`` their plain PyTorch versions.  The options the port
+does not implement yet exit with code 2 and name their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _unported(args) -> str | None:
+    """Why the port refuses one of these options (its ROADMAP.md item),
+    or None."""
+    if args.mesh:
+        return "--mesh: multi-device execution is ROADMAP M11"
+    if args.tile_storage == "compressed":
+        return "--tile-storage compressed is ROADMAP M9"
+    if args.dtype in ("cr32", "cr64"):
+        return f"--dtype {args.dtype}: complex types are ROADMAP M8"
+    if args.profile_dir:
+        return ("--profile-dir: profiler traces of the numeric phase are "
+                "ROADMAP M6")
+    return None
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="pangulu_tpu_torch",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("-f", "--file", default=None,
+                    help=".mtx / .mtx.gz / .lid (binary CSR) / .npz matrix "
+                         "file (required unless --load-factor)")
+    ap.add_argument("-nb", type=int, default=128, help="block size")
+    ap.add_argument("-r", "--rhs", default=None,
+                    help="rhs file (default: b = A @ ones)")
+    ap.add_argument("--dtype", default="r64",
+                    choices=["r32", "r64", "cr32", "cr64"])
+    ap.add_argument("--ordering", default="auto",
+                    choices=["auto", "mindeg", "rcm", "nd", "natural"])
+    ap.add_argument("--symbolic", default="auto",
+                    choices=["auto", "scalar", "block"])
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda: the hand-written kernels (the default); "
+                         "cpu: their plain PyTorch versions")
+    ap.add_argument("--no-mc64", action="store_true")
+    ap.add_argument("--check", action="store_true",
+                    help="run the gstrf residual check (reference "
+                         "-DPANGULU_PERF)")
+    ap.add_argument("--mesh", default=None,
+                    help="p,q mesh shape for multi-device runs (ROADMAP "
+                         "M11, not ported yet)")
+    ap.add_argument("--refine", type=int, default=-1,
+                    help="iterative-refinement rounds in gstrs "
+                         "(-1 = auto: 2 for r32)")
+    ap.add_argument("--save-factor", default=None, metavar="PATH",
+                    help="write the factorization to PATH (.npz) after "
+                         "gstrf for later solve-only reuse")
+    ap.add_argument("--load-factor", default=None, metavar="PATH",
+                    help="skip init+gstrf; load a factor saved with "
+                         "--save-factor (by either package) and go "
+                         "straight to gstrs")
+    ap.add_argument("--profile-dir", default=None,
+                    help="profiler trace of the numeric phase (ROADMAP "
+                         "M6, not ported yet)")
+    ap.add_argument("--tile-storage", default="dense",
+                    choices=["dense", "compressed"],
+                    help="factor storage: dense tiles, or O(fill) "
+                         "compressed slots (ROADMAP M9, not ported yet)")
+    args = ap.parse_args(argv)
+    if not args.file and not args.load_factor:
+        ap.error("either -f/--file or --load-factor is required")
+    why = _unported(args)
+    if why:
+        print(f"pangulu_tpu_torch: {why} (not ported yet)",
+              file=sys.stderr)
+        return 2
+
+    from pangulu_tpu_torch.api import InitOptions, finalize, gstrf, gstrs, init
+    from pangulu_tpu_torch.io.checkpoint import load_factor, save_factor
+    from pangulu_tpu_torch.io.mmio import generated_rhs, read_matrix, read_rhs
+    from pangulu_tpu_torch.sparse import VALUE_DTYPES, CscMatrix
+    from pangulu_tpu_torch.utils.perf import (device_memory_stats,
+                                              host_rss_bytes, residual_norm)
+
+    if args.load_factor:
+        try:
+            handle = load_factor(args.load_factor, device=args.device)
+        except NotImplementedError as e:
+            print(f"pangulu_tpu_torch: {e}", file=sys.stderr)
+            return 2
+        # the checkpoint records its own value type: the --dtype default
+        # must not override it (a saved r32 factor would otherwise read
+        # the rhs as r64)
+        dtype = VALUE_DTYPES[handle.opts.dtype]
+        a = CscMatrix.from_scipy(handle.a_origin)
+    else:
+        dtype = VALUE_DTYPES[args.dtype]
+        try:
+            a = read_matrix(args.file, dtype=dtype)
+        except (OSError, ValueError, NotImplementedError) as e:
+            print(f"error reading matrix {args.file!r}: {e}",
+                  file=sys.stderr)
+            return 2
+        opts = InitOptions(nb=args.nb, dtype=args.dtype,
+                           mc64=not args.no_mc64, ordering=args.ordering,
+                           symbolic_mode=args.symbolic, check=args.check,
+                           refine=args.refine, device=args.device)
+        handle = init(a, opts)
+        gstrf(handle)
+        if args.save_factor:
+            save_factor(handle, args.save_factor)
+    b = (read_rhs(args.rhs, a.n, dtype) if args.rhs
+         else generated_rhs(a))
+    x = gstrs(handle, b)
+    res = residual_norm(a.to_scipy(), x, b)
+    print(handle.perf.summary())
+    print(f"solve residual ||Ax-b||/||b|| = {res:.6e}")
+    print(f"host RSS: {host_rss_bytes() / 2**20:.1f} MiB")
+    for dev, st in device_memory_stats().items():
+        print(f"{dev}: peak {st['peak_bytes_allocated'] / 2**20:.1f} MiB "
+              f"allocated, {st['free_bytes'] / 2**20:.1f} of "
+              f"{st['total_bytes'] / 2**20:.1f} MiB free")
+    finalize(handle)
+    return 0 if res < 1e-4 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,7 +2,8 @@
 
 The sequential host pipeline — elimination tree, symbolic fill
 enumeration, minimum-degree and nested-dissection orderings, MC64
-matching with exact dual scalings — is C++ shared with the JAX package
+matching with exact dual scalings, the MatrixMarket reader — is C++
+shared with the JAX package
 (the reference implements these in C: pangulu_symbolic.c,
 pangulu_reordering.c).  Python fallbacks exist for every function; the
 library is an accelerator, not a dependency.
@@ -119,6 +120,11 @@ def get_lib():
     lib.pangulu_mc64.argtypes = [ctypes.c_int64, i64p, i32p, f64p, i64p,
                                  f64p, f64p]
     lib.pangulu_mc64.restype = ctypes.c_int
+    lib.pangulu_mmio_probe.argtypes = [ctypes.c_char_p, i64p]
+    lib.pangulu_mmio_probe.restype = ctypes.c_int
+    lib.pangulu_mmio_read.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                      i32p, i32p, f64p, f64p]
+    lib.pangulu_mmio_read.restype = ctypes.c_int64
     _lib = lib
     return _lib
 
@@ -222,3 +228,30 @@ def mc64(n, colptr, rowidx, absval):
     if rc != 0:
         return None
     return colperm, rs, cs
+
+
+def mmio_read(path):
+    """Fast MatrixMarket coordinate read: (nrows, ncols, rows, cols,
+    values, symmetry) or None (no lib / unsupported variant — the caller
+    falls back to scipy).  symmetry: 0 general, 1 symmetric,
+    2 skew-symmetric, 3 hermitian.  Symmetry is NOT expanded here."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    hdr = np.zeros(5, dtype=np.int64)
+    pathb = str(path).encode()
+    if lib.pangulu_mmio_probe(pathb, _ptr(hdr, ctypes.c_int64)) != 0:
+        return None
+    nrows, ncols, nnz, field, symmetry = (int(x) for x in hdr)
+    rows = np.empty(nnz, dtype=np.int32)
+    cols = np.empty(nnz, dtype=np.int32)
+    re = np.empty(nnz, dtype=np.float64)
+    im = np.empty(nnz, dtype=np.float64) if field == 3 else None
+    got = lib.pangulu_mmio_read(
+        pathb, nnz, _ptr(rows, ctypes.c_int32),
+        _ptr(cols, ctypes.c_int32), _ptr(re, ctypes.c_double),
+        _ptr(im, ctypes.c_double) if im is not None else None)
+    if got != nnz:
+        return None
+    vals = re + 1j * im if field == 3 else re
+    return nrows, ncols, rows, cols, vals, symmetry

@@ -43,8 +43,10 @@ from pangulu_tpu_torch.schedule import group_update_lists
 # pangulu_tpu/ops/kernels_jax.py:33-38: |piv| < tol -> +tol.
 DEFAULT_TOL = {torch.float32: 1e-8, torch.float64: 1e-16}
 
-# Largest tile the CUDA kernels take: a whole nb x nb tile lives in one
-# thread block's shared memory.  nb=256 is a ROADMAP item.
+# Largest tile the CUDA kernels take.  K1 keeps a tile in registers and
+# has instances for nb <= 32, 64 and 128 only (csrc/tile_lu.cuh); the
+# products of K2 and K4 stage tiles through shared-memory windows sized
+# for nb <= 128 (csrc/tile_gemm.cuh).  nb=256 is ROADMAP W4.
 MAX_NB = 128
 
 # Schur-update chunk width of Schedule.mega_tables.  It sized the TPU
@@ -78,9 +80,10 @@ class KernelTables:
 def check_nb(nb: int) -> None:
     if nb > MAX_NB:
         raise ValueError(
-            f"nb={nb} exceeds the port's limit nb <= {MAX_NB} (a tile "
-            "must fit one thread block's shared memory; nb=256 is a "
-            "ROADMAP item)")
+            f"nb={nb} exceeds the port's limit nb <= {MAX_NB} (K1's "
+            "register-tile instances stop at nb=128 and the products' "
+            "shared-memory windows are sized for it; nb=256 is ROADMAP "
+            "W4)")
 
 
 def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):

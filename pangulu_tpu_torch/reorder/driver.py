@@ -59,6 +59,37 @@ class Reordering:
             return (scale * b)[self.perm]
         return (scale[:, None] * b)[self.perm]
 
+    def transform_matrix(self, a: CscMatrix) -> CscMatrix:
+        """Apply the SAME scaling + permutations to a new matrix:
+        A3 = P((Dr A Dc)[:, colperm])P^T.  Used by the refactorization
+        fast path (api.update_values) — for a same-pattern matrix the
+        result has the same pattern as :attr:`reordered`."""
+        s = a.to_scipy()
+        a1 = _scale_csc(s, self.row_scale, self.col_scale)
+        a2 = sp.csc_matrix(a1)[:, self.colperm]
+        a3 = sp.csc_matrix(a2)[self.perm][:, self.perm]
+        a3.sort_indices()
+        return CscMatrix.from_scipy(a3)
+
+    def transform_b_trans(self, b: np.ndarray) -> np.ndarray:
+        """b -> rhs of the TRANSPOSED reordered system: solving
+        A^T x = b with A = Dr^-1 A1 Dc^-1, A2 = A1 Q, A3 = P A2 P^T
+        gives A3^T (P Dr^-1 x) = P Q^T Dc b."""
+        b = np.asarray(b)
+        scale = self.col_scale.astype(b.real.dtype)
+        v = scale * b if b.ndim == 1 else scale[:, None] * b
+        v = v[self.colperm]
+        return v[self.perm]
+
+    def transform_x_trans(self, w: np.ndarray) -> np.ndarray:
+        """solution of the transposed reordered system -> solution of
+        the original A^T x = b (x = Dr P^T w; no column permutation)."""
+        w = np.asarray(w)
+        z = np.empty_like(w)
+        z[self.perm] = w
+        scale = self.row_scale.astype(w.real.dtype)
+        return scale * z if w.ndim == 1 else scale[:, None] * z
+
     def transform_x(self, w: np.ndarray) -> np.ndarray:
         """solution of reordered system -> solution of original system
         (reference: pangulu_reorder_vector_x_tran)."""

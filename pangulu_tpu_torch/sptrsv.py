@@ -11,7 +11,9 @@ CUDA kernel on a CUDA device, the plain version on the CPU):
 (``"mega_group"``), picked by the factorizer's rule
 (``pangulu_tpu/sptrsv.py:371-386``) when ``dispatch="auto"``.  The
 inverses are indexed by level, so either factorization engine feeds
-either solve.
+either solve.  The transpose solve (:meth:`TriangularSolver.solve_trans`)
+runs as PyTorch ops, as its JAX counterpart runs in XLA outside any
+Pallas kernel.
 
 Multi-RHS is first-class: the kernel carries ``x`` as
 ``[nrhs, bl+1, nb]`` (the +1 segment is the scratch segment that padded
@@ -63,6 +65,7 @@ class TriangularSolver:
         log.info("solve engine: %s (%s)", self.dispatch, why)
         self.tables = KernelTables.build(tables, self.device)
         self.perf.kernels["solve_engine"] = self.dispatch
+        self._trans = None  # the transpose solve's tables, at first use
 
     def _solve_group_worthwhile(self) -> bool:
         return groups_worthwhile(self.schedule, LUFactorizer.GROUP_GMAX)
@@ -130,6 +133,72 @@ class TriangularSolver:
         xb = self.blockify_rhs(b)
         with self.perf.phase("sptrsv"):
             x = self.solve_blocked(tiles, xb)
+            device_sync(self.device)
+        out = self.unblockify(x)
+        return out[:, 0] if squeeze else out
+
+    def _trans_tables(self) -> dict:
+        """Per sweep of the transpose solve, the tiles that each level
+        reads and their block rows, flat on the device, with the level
+        offsets on the host: the forward sweep on U^T reads column k's
+        tiles above the diagonal (``Level.ucolpanel``), the backward
+        sweep on L^T those below it (``Level.lpanel``)."""
+        if self._trans is None:
+            self._trans = {}
+            for sweep, ids, rows in (("uc", "ucolpanel", "ucolrows"),
+                                     ("l", "lpanel", "lrows")):
+                per = [(getattr(lev, ids), getattr(lev, rows))
+                       for lev in self.schedule.levels]
+                off = np.cumsum([0] + [len(i) for i, _ in per])
+                flat = (torch.as_tensor(
+                    np.concatenate([p[j] for p in per]).astype(np.int64),
+                    device=self.device) for j in (0, 1))
+                self._trans[sweep] = (*flat, off)
+        return self._trans
+
+    def solve_blocked_trans(self, tiles: torch.Tensor,
+                            xb: torch.Tensor) -> torch.Tensor:
+        """Device-resident TRANSPOSE solve, (LU)^T x = b from the same
+        factors (A^T = U^T L^T), of a blocked rhs ``[bl+1, nb, nrhs]``;
+        returns a new tensor in that layout without synchronising.
+
+        The counterpart of the JAX package's ``_fused_solve_trans``
+        (``pangulu_tpu/sptrsv.py:82-110``), an XLA function that no
+        Pallas kernel backs: PyTorch ops on the tiles' device, one level
+        after the other.  Left-looking, so the column panels serve both
+        sweeps: forward on U^T, level k gathers column k's tiles above
+        the diagonal and their solved segments; backward on L^T, those
+        below it.  A diagonal step is a product with the transposed
+        persisted inverse ((U^-1)^T = (U^T)^-1).  Only each level's real
+        panel entries are read, not the padded table rows."""
+        invs = self._ensure_inverses(tiles)
+        tabs = self._trans_tables()
+        nb = self.schedule.nb
+        x = xb.clone()
+        nrhs = x.shape[-1]
+
+        def level(k, slot, sweep):
+            ids, rows, off = tabs[sweep]
+            acc = x[k]
+            if off[k + 1] > off[k]:
+                s, e = int(off[k]), int(off[k + 1])
+                t = tiles[ids[s:e]].reshape(-1, nb)      # [(b, j), i]
+                acc = acc - t.T @ x[rows[s:e]].reshape(-1, nrhs)
+            x[k] = invs[k, slot].T @ acc
+
+        for k in range(self.schedule.block_length):       # U^T y = b
+            level(k, 1, "uc")
+        for k in reversed(range(self.schedule.block_length)):  # L^T x = y
+            level(k, 0, "l")
+        return x
+
+    def solve_trans(self, tiles: torch.Tensor, b: np.ndarray) -> np.ndarray:
+        """Solve (LU)^T x = b on the factored tiles (transpose solve — no
+        reference equivalent; SuperLU-style trans surface)."""
+        squeeze = np.asarray(b).ndim == 1
+        xb = self.blockify_rhs(b)
+        with self.perf.phase("sptrsv"):
+            x = self.solve_blocked_trans(tiles, xb)
             device_sync(self.device)
         out = self.unblockify(x)
         return out[:, 0] if squeeze else out

@@ -130,6 +130,14 @@ def device_memory_stats() -> dict:
     return out
 
 
+def host_rss_bytes() -> int:
+    """Peak resident set size of this process in bytes (Linux reports
+    ``ru_maxrss`` in KiB)."""
+    import resource
+
+    return int(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss) * 1024
+
+
 def residual_norm(a_scipy, x: np.ndarray, b: np.ndarray) -> float:
     """Relative residual ||Ax - b||_2 / ||b||_2, accumulated in float64
     (reference: examples/example.c:304-364 uses Kahan summation)."""

@@ -327,3 +327,76 @@ def test_factorization_deterministic(cuda, ordering):
     ta, ia = f(t0.clone(), tab, tol=tol, **kw)
     tb, ib = f(t0.clone(), tab, tol=tol, **kw)
     assert torch.equal(ta, tb) and torch.equal(ia, ib)
+
+
+def _factored_pair(cuda, gen, dtype, ordering):
+    """The same matrix factored on the card and on the CPU."""
+    a = gen()
+    hs = []
+    for dev in ("cuda", "cpu"):
+        h = pt.init(a, pt.InitOptions(nb=16, dtype=dtype, ordering=ordering,
+                                      device=dev))
+        pt.gstrf(h)
+        hs.append(h)
+    return a, *hs
+
+
+@pytest.mark.parametrize("dtype,ordering", [("r32", "rcm"), ("r32", "nd"),
+                                            ("r64", "nd")])
+def test_transpose_solve_on_cuda(cuda, dtype, ordering):
+    """gstrs(trans=True) on the card equals the CPU path's, and the
+    refined solution meets the residual bound."""
+    a, hc, hh = _factored_pair(cuda, lambda: poisson2d(12), dtype, ordering)
+    s = a.to_scipy()
+    b = s.T @ np.random.default_rng(4).standard_normal((a.n, 2))
+    x0 = pt.gstrs(hc, b, refine=0, trans=True)
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == "r32"
+           else dict(rtol=1e-10, atol=1e-10))
+    np.testing.assert_allclose(x0, pt.gstrs(hh, b, refine=0, trans=True),
+                               **tol)
+    x = pt.gstrs(hc, b, trans=True)
+    for c in range(2):
+        assert residual_norm(s.T.tocsc(), x[:, c], b[:, c]) < 1e-10
+
+
+@pytest.mark.parametrize("ordering", ["rcm", "nd"])
+def test_gstrs_device_on_cuda(cuda, ordering):
+    """gstrs_device takes and returns CUDA tensors, makes two K3 or K5
+    launches with refine=1, and matches the host path."""
+    a, hc, hh = _factored_pair(cuda, lambda: poisson2d(12), "r32", ordering)
+    b = (a.to_scipy() @ np.random.default_rng(5).standard_normal((a.n, 4))
+         ).astype(np.float32)
+    kc.reset_launch_counts()
+    x = pt.gstrs_device(hc, torch.as_tensor(b, device=cuda), refine=1)
+    engine = {"mega": "mega_solve", "mega_group": "mega_solve_groups"}[
+        hc._trisolver.dispatch]
+    assert kc.LAUNCHES[engine] == 2
+    assert sum(kc.LAUNCHES.values()) == 2
+    assert x.is_cuda and tuple(x.shape) == (a.n, 4)
+    xh = pt.gstrs_device(hh, torch.as_tensor(b), refine=1).numpy()
+    np.testing.assert_allclose(x.cpu().numpy(), xh, rtol=1e-4, atol=1e-5)
+    for c in range(4):
+        assert residual_norm(a.to_scipy(), x[:, c].cpu().numpy(),
+                             b[:, c]) < 5e-5
+
+
+def test_update_values_then_gstrf_on_cuda(cuda):
+    """update_values + gstrf on the card: the kernels run again (K1 per
+    group, one K4), and the new factor solves the new matrix."""
+    a = poisson2d(12)
+    h = pt.init(a, pt.InitOptions(nb=16, dtype="r32", ordering="nd",
+                                  device="cuda", check=True))
+    pt.gstrf(h)
+    s2 = a.to_scipy().copy()
+    s2.data = s2.data * (1.0 + 0.1 * np.random.default_rng(6).random(
+        s2.nnz))
+    pt.update_values(h, s2)
+    kc.reset_launch_counts()
+    pt.gstrf(h)
+    ng = h._factorizer.tables.host["ngroups"]
+    assert kc.LAUNCHES == {"getrf_with_inverses": ng, "mega_factorize": 0,
+                           "mega_solve": 0, "mega_factorize_groups": 1,
+                           "mega_solve_groups": 0}
+    assert h.perf.kernels["gstrf_residual"] < 1e-5
+    b = s2 @ np.ones(a.n)
+    assert residual_norm(h.a_origin, pt.gstrs(h, b), b) < 1e-10

@@ -30,6 +30,9 @@ import pangulu_tpu_torch
 for m in pkgutil.walk_packages(pangulu_tpu_torch.__path__,
                                "pangulu_tpu_torch."):
     importlib.import_module(m.name)
+for m in ("pangulu_tpu_torch.io.mmio", "pangulu_tpu_torch.cli",
+          "pangulu_tpu_torch.__main__"):
+    assert m in sys.modules, m
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pangulu_tpu",
                                     "triton"))
