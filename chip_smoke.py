@@ -9,30 +9,41 @@ CUDA toolkit (nvcc).  It
   1. prints the card's name and power limit and builds the five CUDA
      kernels from pangulu_tpu_torch/csrc (timed), printing what ptxas
      says of K1's instances (registers, spills: none may spill), of
-     K3's and K5's sweep kernels (K5's float instance may spill at most
-     K5_F32_SPILL_BYTES) and of the float and double instances of K2's
-     and K4's four product kernels (no float instance may spill);
+     K3's and K5's sweep kernels at tile widths 128 and 256 (K5's may
+     spill at most K5_SPILL_BYTES) and of the float and double
+     instances of K2's and K4's product kernels (panels for bands 128
+     and 256 wide) and of K1's blocked step (no float instance may
+     spill);
   2. holds each kernel against its plain PyTorch version on the same
      CUDA tensors, printing max errors and CUDA-event times beside the
      plain version's: K1 getrf_with_inverses at nb = 10, 16, 64, 128
-     and on tiles whose pivot is zero mid-elimination (f32, f64), timed
-     per launch over many back-to-back launches at batch 1, 5, 16 and
-     132 beside torch.linalg.lu_factor_ex(pivot=False) as a yardstick;
+     and on tiles whose pivot is zero mid-elimination (f32, f64); K1's
+     blocked step at nb = 129, 200, 256, and on tiles with a zero pivot
+     in each diagonal block, against its plain twin
+     (getrf_with_inverses_blocked) at the f32 contract and the rank-1
+     plain version at the blocked-LU bound (BLOCKED_TOL); K1 timed per
+     launch over many back-to-back launches at batch 1, 5, 16 and 132,
+     at nb=128 and nb=256, beside torch.linalg.lu_factor_ex(pivot=False)
+     as a yardstick;
      the cost of one grid barrier (K3 takes one per level); K2
      mega_factorize and K3 mega_solve (1 and 4 right-hand sides, two
      solves bit-identical) on poisson2d(16) nb=16 (r32 and
      r64) and poisson3d(32) nb=128 (r32), rcm; K4 mega_factorize_groups
      and K5 mega_solve_groups on poisson2d(12) nb=16 nd (uch 64 and 8,
      shared destinations), poisson3d(32) nb=128 nd (r32) and
-     poisson2d(24) nb=16 nd (r64).  Two kernel factorizations of one
-     store must be bit-identical; on poisson3d(32) (rcm and nd) the f32
-     kernel's error against the plain f64 factorization of the same
-     store must be at most 2x the f32 plain version's (true f32), and
-     the f64 kernel must agree with that plain f64 one to 1e-12;
+     poisson2d(24) nb=16 nd (r64); all four at nb=256 (uch =
+     mega_uch(256) = 16) on poisson3d(32) r32, rcm and nd, and on
+     poisson3d(16) r64, rcm and nd.  Two kernel factorizations of one
+     store must be bit-identical; on poisson3d(32) (rcm and nd, nb=128
+     and nb=256) the f32 kernel's error against the plain f64
+     factorization of the same store must be at most 2x the f32 plain
+     version's (true f32), and the f64 kernel must agree with that
+     plain f64 one to 1e-12;
   3. drives the rcm path, init -> gstrf -> gstrs on poisson3d(32) with
      nb=128, r32, device="cuda", with every launch count zeroed before
      and read after (exactly K1 = block_length, K2 = 1, K3 = 3, K4 =
-     K5 = 0), then times the factorization and the solve (median of
+     K5 = 0, and K1's device launches, as the C entries report them,
+     one a K1 launch), then times the factorization and the solve (median of
      several, CUDA events), traces one factorization with
      torch.profiler and prints its panel and Schur kernels' device ms
      beside the stage yardsticks: per level, the panel products as one
@@ -45,7 +56,13 @@ CUDA toolkit (nvcc).  It
      schedule, and traces one nd solve: its launches, device and wall
      time and idle share are printed, and it must be exactly 2 launches
      of K5's group_sweep_kernel (one per sweep) and no other K5 kernel;
-     K5's cooperative grid and blocks per SM are printed;
+     K5's cooperative grid and blocks per SM are printed; then drives
+     both paths again at nb=256 (exactly K1 = 128 and 34 by the
+     schedules, K2 = K4 = 1, K3 = K5 = 3, and K1's device launches
+     exactly five a K1 launch, the blocked step's; the same residual
+     limits; ms per factorization and per solve) and traces one
+     factorization and one solve of each: every kernel's launches and
+     device ms, and K1's share of the factorization's device ms;
   5. solves the reference's config 1, trefethen(20) nb=10 r64, and
      poisson2d(24) nb=16 nd r64 on the grouped path;
   6. drives the rest of the public surface on the nd path of
@@ -69,14 +86,17 @@ CUDA toolkit (nvcc).  It
      device's idle share (K3's solve: exactly 2 launches of its sweep
      kernel);
   8. prints the numbers of step 6 as one JSON line, then one JSON
-     line of per-kernel results (time, launches, error,
-     plain and library times, and the bound: the larger of the bytes
-     over 3.35 TB/s and the operations over the H100 SXM's published
-     peak for the units that run them: 495 / 3 TFLOP/s (3xTF32 on
-     tensor cores) for K2's and K4's f32 products, 67 TFLOP/s f32 on
-     the CUDA cores for the rest; the CUDA-core bound of K2 and K4 is
-     kept in the details file), then the last line
-     {"ok": true, "device": {...}}.
+     line of per-kernel results, each kernel at nb=128 and again at
+     nb=256 (named name@nb=256, its launches from the nb=256 paths):
+     time, launches, error, plain and library times, and the bound:
+     the larger of the bytes over 3.35 TB/s and the operations over
+     the H100 SXM's published peak for the units that run them: 495 /
+     3 TFLOP/s (3xTF32 on tensor cores) for K2's and K4's f32
+     products and for the products of K1's blocked step (67 TFLOP/s
+     DMMA in f64), 67 TFLOP/s f32 (34 f64) on the CUDA cores for the
+     rest, K1's register-tile chains among them; the CUDA-core bound
+     of K2 and K4 is kept in the details file; then
+     the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the package beside this file, it prints no result and exits 2.
@@ -122,21 +142,34 @@ FLOP_S = {torch.float32: 67e12, torch.float64: 34e12}
 # The same sheet's tensor-core peaks, for the products' own bound:
 # 3xTF32 is three TF32 passes (495 TFLOP/s / 3), DMMA 67 TFLOP/s.
 TC_FLOP_S = {torch.float32: 495e12 / 3, torch.float64: 67e12}
+# K1's blocked step for 128 < nb <= 256 is held to the rank-1 plain
+# version at pangulu_tpu_torch.testing.BLOCKED_TOL (the JAX package's
+# bound for its blocked LU against the scan), and to its plain twin
+# (getrf_with_inverses_blocked) at TOL_F32 / TOL_F64.
 # K2's and K4's product kernels (csrc/lu_kernels.cu), one instance each
-# for float and double
+# for float and double (panels: one for bands 128 wide, one for 256),
+# and those of K1's blocked step
 PRODUCT_KERNELS = ("panel_kernel", "schur_kernel", "group_panel_kernel",
-                   "group_schur_kernel")
-# K5's float sweep kernel sits at the 64-register cap of 1024-thread
-# blocks and spills this much; more has made it slower every time
-K5_F32_SPILL_BYTES = 12
+                   "group_schur_kernel", "lu_panels_kernel",
+                   "lu_update_kernel", "lu_inverse_kernel")
+PRODUCT_INSTANCES = 18
+# K5's sweep kernel sits at the 64-register cap of 1024-thread blocks;
+# its spill bytes may not exceed these, by type and tile width (the
+# instance of 256 takes two passes of 128 rows; more spills have made it
+# slower every time at 128)
+K5_SPILL_BYTES = {("float", 128): 12, ("double", 128): 148,
+                  ("float", 256): 80, ("double", 256): 172}
 
 
 def bound(nbytes: float, flop: float, dtype=torch.float32,
-          peak=FLOP_S) -> dict:
+          peak=FLOP_S, tc_flop: float = 0.0) -> dict:
     """The least time the card could take for work that moves nbytes
-    and does flop operations of dtype at the rate peak[dtype], and which
-    of the two sets it."""
-    tb, tf = nbytes / HBM_BYTES_S * 1e3, flop / peak[dtype] * 1e3
+    and does flop operations of dtype at the rate peak[dtype], and
+    tc_flop more on the tensor cores (TC_FLOP_S[dtype]), which run
+    beside the CUDA cores; and which of the two, bytes or operations,
+    sets it."""
+    tb = nbytes / HBM_BYTES_S * 1e3
+    tf = max(flop / peak[dtype], tc_flop / TC_FLOP_S[dtype]) * 1e3
     return dict(bound_ms=max(tb, tf),
                 bound_by="bytes" if tb >= tf else "operations")
 
@@ -148,6 +181,21 @@ def lu_inverse_flop(nb: int) -> int:
     r = nb - k - 1
     return int((r + 2 * r * r).sum() + (2 * r * k).sum()
                + ((nb - k) + 2 * k * (nb - k)).sum())
+
+
+def k1_bound(nb: int, batch: int, dtype) -> dict:
+    """K1's bound on batch tiles of nb: the tile read and its factor and
+    two inverses written; lu_inverse_flop(nb) operations a tile.  Up to
+    nb = 128 all run on the CUDA cores.  Above, the blocked step runs
+    K1's body on the two diagonal blocks (128 and nb - 128) on the CUDA
+    cores and the rest of the operations as products on tensor cores."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 4 * batch * nb * nb * elt
+    flop = batch * lu_inverse_flop(nb)
+    if nb <= 128:
+        return bound(nbytes, flop, dtype)
+    chains = batch * (lu_inverse_flop(128) + lu_inverse_flop(nb - 128))
+    return bound(nbytes, chains, dtype, tc_flop=flop - chains)
 
 
 def ptxas_by_kernel(log: str) -> dict:
@@ -172,20 +220,14 @@ def ptxas_by_kernel(log: str) -> dict:
     return out
 
 
-def tiny_pivot_tile(nb: int, k: int, rng) -> np.ndarray:
-    """A diagonally dominant tile whose pivot at step k is exactly 0, so
-    the tiny-pivot rule fires there: for k > 0 row k and column k copy
-    row 0 and column 0 around a00 = 1, which step 0 zeroes exactly; for
-    k = 0 the first row and column are zero."""
-    a = rng.standard_normal((nb, nb)) + nb * np.eye(nb)
-    if k == 0:
-        a[0, :] = 0.0
-        a[:, 0] = 0.0
-    else:
-        a[0, 0] = 1.0
-        a[k, :] = a[0, :]
-        a[:, k] = a[:, 0]
-    return a
+def kernel_label(name: str):
+    """(kernel, "float" or "double", its int template argument or None)
+    of a mangled plu:: kernel name, or None for any other name."""
+    m = re.search(r"plu\d+(\w+?_kernel)I([fd])(?:Li(\d+)E)?E", name)
+    if not m:
+        return None
+    return (m[1], dict(f="float", d="double")[m[2]],
+            int(m[3]) if m[3] else None)
 
 
 def fail(msg: str) -> None:
@@ -648,6 +690,9 @@ def main() -> int:
     from pangulu_tpu_torch.ops import kernels_cuda as kc
     from pangulu_tpu_torch.ops import kernels_torch as kt
     from pangulu_tpu_torch.sptrsv import TriangularSolver
+    from pangulu_tpu_torch.testing import (BLOCKED_TOL,
+                                           blocked_tiny_pivot_tile,
+                                           tiny_pivot_tile)
     from pangulu_tpu_torch.utils.perf import residual_norm
 
     # true fp32 everywhere on the f32 path (no TF32 in plain matmuls)
@@ -667,20 +712,23 @@ def main() -> int:
     kernels = {}
     dtypes = {"r32": torch.float32, "r64": torch.float64}
     print("ptxas: K1's instances (getrf_inv_kernel<type, nb/32>), K3's "
-          "and K5's sweep kernels")
-    k1_ptx, k5_ptx = {}, {}
+          "and K5's sweep kernels (<type, tile width>)")
+    k1_ptx, k5_ptx, prod_ptx = {}, {}, {}
     for name, info in ptx.items():
-        m = re.search(r"getrf_inv_kernelI([fd])Li(\d)E", name)
-        if m:
-            label = (f"getrf_inv_kernel<{dict(f='float', d='double')[m[1]]}"
-                     f", nb<={32 * int(m[2])}>")
+        lab = kernel_label(name)
+        if lab is None:
+            continue
+        base, ty, arg = lab
+        if base == "getrf_inv_kernel":
+            label = f"getrf_inv_kernel<{ty}, nb<={32 * arg}>"
             k1_ptx[label] = info
-        elif "solve_sweep_kernel" in name or "group_sweep_kernel" in name:
-            label = (name.split("I")[0].removeprefix("_ZN3plu")
-                     .lstrip("0123456789")
-                     + ("<float>" if "IfE" in name else "<double>"))
-            if label.startswith("group_sweep_kernel"):
-                k5_ptx[label] = info
+        elif base in ("solve_sweep_kernel", "group_sweep_kernel"):
+            label = f"{base}<{ty}, {arg}>"
+            if base == "group_sweep_kernel":
+                k5_ptx[(ty, arg)] = info
+        elif base in PRODUCT_KERNELS:
+            prod_ptx[f"{base}<{ty}" + (f", {arg}>" if arg else ">")] = info
+            continue
         else:
             continue
         print(f"  {label}: {info.get('registers')} registers, "
@@ -689,29 +737,24 @@ def main() -> int:
                                for i in k1_ptx.values()):
         fail(f"K1: expected 6 instances without spills, ptxas says "
              f"{k1_ptx}")
-    k5_f32_spill = k5_ptx.get("group_sweep_kernel<float>", {}).get(
-        "spill_bytes")
-    if len(k5_ptx) != 2 or k5_f32_spill is None \
-            or k5_f32_spill > K5_F32_SPILL_BYTES:
-        fail(f"K5: expected group_sweep_kernel for float and double, the "
-             f"float one spilling at most {K5_F32_SPILL_BYTES} bytes; "
-             f"ptxas says {k5_ptx}")
-    detail["K1_ptxas"], detail["K5_ptxas"] = k1_ptx, k5_ptx
-    print("ptxas: the product kernels of K2 and K4 (tensor cores: 3xTF32 "
-          "for float, DMMA for double)")
-    prod_ptx = {}
-    for name, info in ptx.items():
-        m = re.search(r"plu\d+(\w+?_kernel)I([fd])E", name)
-        if m and m[1] in PRODUCT_KERNELS:
-            label = f"{m[1]}<{dict(f='float', d='double')[m[2]]}>"
-            prod_ptx[label] = info
-            print(f"  {label}: {info.get('registers')} registers, "
-                  f"{info.get('spill_bytes')} spill bytes")
-    f32_ptx = {k: v for k, v in prod_ptx.items() if k.endswith("<float>")}
-    if len(prod_ptx) != 8 or any(i.get("spill_bytes") != 0
-                                 for i in f32_ptx.values()):
-        fail(f"products: expected 8 instances, the float ones without "
-             f"spills; ptxas says {prod_ptx}")
+    if k5_ptx.keys() != K5_SPILL_BYTES.keys() or any(
+            k5_ptx[k].get("spill_bytes", 1 << 30) > c
+            for k, c in K5_SPILL_BYTES.items()):
+        fail(f"K5: expected group_sweep_kernel for float and double at "
+             f"widths 128 and 256, spilling at most {K5_SPILL_BYTES} "
+             f"bytes; ptxas says {k5_ptx}")
+    detail["K1_ptxas"] = k1_ptx
+    detail["K5_ptxas"] = {f"{t}<{w}>": i for (t, w), i in k5_ptx.items()}
+    print("ptxas: the product kernels of K2 and K4 and of K1's blocked "
+          "step (tensor cores: 3xTF32 for float, DMMA for double)")
+    for label, info in prod_ptx.items():
+        print(f"  {label}: {info.get('registers')} registers, "
+              f"{info.get('spill_bytes')} spill bytes")
+    f32_ptx = {k: v for k, v in prod_ptx.items() if "<float" in k}
+    if len(prod_ptx) != PRODUCT_INSTANCES or any(
+            i.get("spill_bytes") != 0 for i in f32_ptx.values()):
+        fail(f"products: expected {PRODUCT_INSTANCES} instances, the float "
+             f"ones without spills; ptxas says {prod_ptx}")
     detail["product_ptxas"] = prod_ptx
 
     # ---- K1 ------------------------------------------------------------
@@ -733,34 +776,71 @@ def main() -> int:
                                for n, g, r in zip(("f", "linv", "uinv"),
                                                   got, ref)])
         k1_err[dt] = err
-    print("K1 per launch (nb=128; back-to-back launches, device time)")
+    print("K1 at 128 < nb <= 256 (the blocked step) against its plain twin "
+          "(getrf_with_inverses_blocked) and the rank-1 plain version")
+    k1_err256 = {}
+    for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        cases = [(f"nb={nb}", rng.standard_normal((2, nb, nb))
+                  + nb * np.eye(nb)) for nb in (129, 200, 256)]
+        cases += [(f"nb={nb}, zero pivots at steps {k1} and 128+{k2}",
+                   blocked_tiny_pivot_tile(nb, k1, k2, rng))
+                  for nb, k1, k2 in ((256, 0, 127), (256, 64, 1),
+                                     (200, 127, 40))]
+        err = 0.0
+        for label, tile in cases:
+            a = torch.as_tensor(tile, dtype=dt, device=dev)
+            got = kc.getrf_with_inverses(a)
+            for n, g, r in zip(("f", "linv", "uinv"), got,
+                               kt.getrf_with_inverses_blocked(a)):
+                compare(f"{dt} {label} {n} (twin)", g, r, *tol)
+            err = max([err] + [
+                compare(f"{dt} {label} {n} (rank-1)", g, r, *t)
+                for n, g, r, t in zip(("f", "linv", "uinv"), got,
+                                      kt.getrf_with_inverses(a),
+                                      BLOCKED_TOL[dt])])
+        k1_err256[dt] = err
+    print("K1 per launch at nb=128 and nb=256 (back-to-back launches, "
+          "device time; nb=256 is the blocked step's five launches)")
     k1 = {}
-    for dt in (torch.float32, torch.float64):
-        for batch in (1, 5, 16, 132):
-            a = torch.as_tensor(rng.standard_normal((batch, 128, 128))
-                                + 128 * np.eye(128), dtype=dt, device=dev)
-            ms = device_ms(lambda: kc.getrf_with_inverses(a), n=200)
-            lms = device_ms(lambda: torch.linalg.lu_factor_ex(
-                a, pivot=False), n=50)
-            row = dict(ms=ms, ms_per_tile=ms / batch, library_ms=lms,
-                       **bound(4 * a.numel() * a.element_size(),
-                               batch * lu_inverse_flop(128), dt))
-            if batch == 1:
-                row["plain_ms"] = cuda_ms(
-                    lambda _: kt.getrf_with_inverses(a), reps=3)
-            print(f"  {dt} batch {batch}: kernel {ms:.4f} ms "
-                  f"({ms / batch:.4f} ms a tile), bound "
-                  f"{row['bound_ms']:.3e} ms ({row['bound_by']}), "
-                  f"lu_factor_ex(pivot=False) {lms:.4f} ms"
-                  + (f", plain {row['plain_ms']:.3f} ms" if batch == 1
-                     else ""))
-            k1[f"{dt}_batch{batch}"] = row
+    for nb in (128, 256):
+        for dt in (torch.float32, torch.float64):
+            for batch in (1, 5, 16, 132):
+                a = torch.as_tensor(rng.standard_normal((batch, nb, nb))
+                                    + nb * np.eye(nb), dtype=dt, device=dev)
+                ms = device_ms(lambda: kc.getrf_with_inverses(a), n=200)
+                lms = device_ms(lambda: torch.linalg.lu_factor_ex(
+                    a, pivot=False), n=50)
+                row = dict(ms=ms, ms_per_tile=ms / batch, library_ms=lms,
+                           **k1_bound(nb, batch, dt))
+                if batch == 1:
+                    # the kernel's own plain counterpart: the blocked
+                    # twin above 128; the rank-1 version beside it
+                    row["plain_ms"] = cuda_ms(
+                        lambda _: (kt.getrf_with_inverses if nb <= 128 else
+                                   kt.getrf_with_inverses_blocked)(a),
+                        reps=3)
+                    if nb > 128:
+                        row["plain_rank1_ms"] = cuda_ms(
+                            lambda _: kt.getrf_with_inverses(a), reps=3)
+                print(f"  nb={nb} {dt} batch {batch}: kernel {ms:.4f} ms "
+                      f"({ms / batch:.4f} ms a tile), bound "
+                      f"{row['bound_ms']:.3e} ms ({row['bound_by']}), "
+                      f"lu_factor_ex(pivot=False) {lms:.4f} ms"
+                      + (f", plain {row['plain_ms']:.3f} ms" if batch == 1
+                         else "")
+                      + (f" (rank-1 {row['plain_rank1_ms']:.3f} ms)"
+                         if "plain_rank1_ms" in row else ""))
+                k1[f"{dt}_batch{batch}" if nb == 128
+                   else f"{dt}_nb256_batch{batch}"] = row
     detail["K1"] = k1
-    one = k1["torch.float32_batch1"]
-    kernels["getrf_with_inverses"] = dict(
-        max_abs_err=k1_err[torch.float32], ms=one["ms"],
-        plain_ms=one["plain_ms"], library_ms=one["library_ms"],
-        **{k: one[k] for k in ("bound_ms", "bound_by")})
+    for name, one, err in (
+            ("getrf_with_inverses", k1["torch.float32_batch1"], k1_err),
+            ("getrf_with_inverses@nb=256", k1["torch.float32_nb256_batch1"],
+             k1_err256)):
+        kernels[name] = dict(
+            max_abs_err=err[torch.float32], ms=one["ms"],
+            plain_ms=one["plain_ms"], library_ms=one["library_ms"],
+            **{k: one[k] for k in ("bound_ms", "bound_by")})
 
     # ---- K2, K3 (chain) and K4, K5 (groups) ---------------------------
     def hold(label, gen, nb, dtype, ordering, uch=kt.MEGA_UCH,
@@ -913,6 +993,20 @@ def main() -> int:
                           "r32", "nd", true_f32=True),
     }
     detail["chain"], detail["groups"] = chain, groups
+    # nb=256: K1's blocked step, the 256-wide panel bands, K3 and K5 of
+    # tile width 256; r64 on a smaller matrix
+    u256 = kt.mega_uch(256)
+    nb256 = {
+        "p3d32_r32_rcm": hold("poisson3d(32)", lambda: poisson3d(32), 256,
+                              "r32", "rcm", uch=u256, true_f32=True),
+        "p3d32_r32_nd": hold("poisson3d(32)", lambda: poisson3d(32), 256,
+                             "r32", "nd", uch=u256, true_f32=True),
+        "p3d16_r64_rcm": hold("poisson3d(16)", lambda: poisson3d(16), 256,
+                              "r64", "rcm", uch=u256, timed=False),
+        "p3d16_r64_nd": hold("poisson3d(16)", lambda: poisson3d(16), 256,
+                             "r64", "nd", uch=u256, timed=False),
+    }
+    detail["nb256"] = nb256
 
     # ---- one grid barrier ------------------------------------------------
     print("grid barrier (K3 takes one a level; the first grid is K3's at "
@@ -941,18 +1035,23 @@ def main() -> int:
                             if r["dtype"] == "r32"),
             ms=big[f"{f_or_s}_ms"], plain_ms=big[f"{f_or_s}_plain_ms"],
             library_ms=None, **big[f"{f_or_s}_bound"])
+        big = nb256["p3d32_r32_" + ("nd" if res is groups else "rcm")]
+        kernels[f"{name}@nb=256"] = dict(
+            max_abs_err=big[f"{f_or_s}_max_abs_err"],
+            ms=big[f"{f_or_s}_ms"], plain_ms=big[f"{f_or_s}_plain_ms"],
+            library_ms=None, **big[f"{f_or_s}_bound"])
 
     # ---- the paths -------------------------------------------------------
     a = poisson3d(32)
     b = a.to_scipy() @ np.ones(a.n)
 
-    def drive(ordering, expect):
+    def drive(ordering, expect, nb=128):
         """init -> gstrf -> gstrs with the launch counts zeroed before and
         read after; ``expect(h)`` gives the exact counts."""
-        print(f"path: init -> gstrf -> gstrs, poisson3d(32), nb=128, r32, "
+        print(f"path: init -> gstrf -> gstrs, poisson3d(32), nb={nb}, r32, "
               f"{ordering}, cuda")
         kc.reset_launch_counts()
-        h = init(a, InitOptions(nb=128, dtype="r32", ordering=ordering,
+        h = init(a, InitOptions(nb=nb, dtype="r32", ordering=ordering,
                                 device="cuda", check=True))
         gstrf(h)
         x = gstrs(h, b)
@@ -962,6 +1061,15 @@ def main() -> int:
         print(f"  launches: {launches}")
         if launches != expect(h):
             fail(f"launch counts {launches}, expected {expect(h)}")
+        # K1's device launches, as the C entries report them: one a K1
+        # launch up to nb = 128, the blocked step's five above
+        per_k1 = 1 if nb <= 128 else 5
+        k1_dev = kc.DEVICE_LAUNCHES["getrf_with_inverses"]
+        print(f"  K1's device launches: {k1_dev} ({per_k1} a K1 launch)")
+        if k1_dev != per_k1 * launches["getrf_with_inverses"]:
+            fail(f"K1 made {k1_dev} device launches in "
+                 f"{launches['getrf_with_inverses']} launches, expected "
+                 f"{per_k1} each")
         fres = h.perf.kernels["gstrf_residual"]
         sres = residual_norm(a.to_scipy(), x, b)
         print(f"  gstrf residual ||L(U1)-A1||/||A1|| = {fres:.3e} (< 1e-5)")
@@ -981,7 +1089,8 @@ def main() -> int:
         gflops = flops / (fms * 1e-3) / 1e9
         print(f"  {fms:.3f} ms per factorization, {sms:.3f} ms per solve, "
               f"{gflops:.1f} GFLOPS (dense-tile model, {flops:.3e} flop)")
-        out = dict(engines=engines, launches=launches, gstrf_residual=fres,
+        out = dict(engines=engines, launches=launches,
+                   k1_device_launches=k1_dev, gstrf_residual=fres,
                    solve_residual=sres, ms_per_factorization=fms,
                    ms_per_solve=sms, gflops_dense=gflops, flops=flops,
                    tiles=h.blocked.num_tiles, bl=h.schedule.block_length)
@@ -1098,6 +1207,55 @@ def main() -> int:
         print_profile({k: v for k, v in prof.items() if k != "nd gstrs"})
     detail["profile"] = prof
 
+    # ---- the paths at nb=256 -------------------------------------------
+    # one K1 launch is the blocked step's five device launches: K1's
+    # body (getrf_inv_kernel) twice, then once each stage kernel; drive()
+    # holds that count exactly (kernels_cuda.DEVICE_LAUNCHES), the traces
+    # below give the kernels' device ms
+    k1_kernels = ("getrf_inv_kernel", "lu_panels_kernel", "lu_update_kernel",
+                  "lu_inverse_kernel")
+    launches256 = {}   # K1, K2, K3 from the rcm path, K4, K5 from nd
+    for ordering, engine, expect in (
+            ("rcm", "mega", lambda h: zero_but(
+                getrf_with_inverses=h.schedule.block_length,
+                mega_factorize=1, mega_solve=3)),
+            ("nd", "mega_group", lambda h: zero_but(
+                getrf_with_inverses=h._factorizer.tables.host["ngroups"],
+                mega_factorize_groups=1, mega_solve_groups=3))):
+        h, xb, res = drive(ordering, expect, nb=256)
+        if res["engines"] != (engine, engine):
+            fail(f"the nb=256 {ordering} path did not take the {engine} "
+                 "engines")
+        own = (("getrf_with_inverses", "mega_factorize", "mega_solve")
+               if ordering == "rcm" else
+               ("mega_factorize_groups", "mega_solve_groups"))
+        launches256.update({k: res["launches"][k] for k in own})
+        fac, ts = h._factorizer, h._trisolver
+        if ordering == "nd":
+            res.update(groups=fac.tables.host["ngroups"],
+                       solve_groups=ts.tables.host["ngroups"])
+        # one factorization and one solve of its factors, traced apart
+        tr = {f"nb=256 {ordering} gstrf": profile(
+                  lambda t: fac.factorize(t, sync=False), setup=tiles_of(h)),
+              f"nb=256 {ordering} gstrs": profile(
+                  lambda _: ts.solve_blocked(h.factor_tiles, xb))}
+        print_profile(tr)
+        fk = tr[f"nb=256 {ordering} gstrf"]["kernels"]
+        k1 = {k: [v for n, v in fk.items()
+                  if n.split("<")[0].endswith("::" + k)] for k in k1_kernels}
+        k1_ms = sum(v["device_ms"] for vs in k1.values() for v in vs)
+        all_ms = sum(v["device_ms"] for v in fk.values())
+        res.update(trace=tr, k1_trace_launches={
+            k: sum(v["launches"] for v in vs) for k, vs in k1.items()},
+            k1_device_ms=k1_ms, k1_share=k1_ms / all_ms)
+        print(f"  K1's blocked step in the trace: {k1_ms:.3f} of "
+              f"{all_ms:.3f} device ms ({k1_ms / all_ms:.1%}), launches "
+              f"{res['k1_trace_launches']} (counted: "
+              f"{res['k1_device_launches']})")
+        detail[f"{ordering}256_path"] = res
+        del h, xb, fac, ts
+        torch.cuda.empty_cache()
+
     # ---- r64 -------------------------------------------------------------
     for label, gen, nb, ordering, engine in (
             ("trefethen(20)", lambda: trefethen(20), 10, "auto", None),
@@ -1128,10 +1286,15 @@ def main() -> int:
     launches = dict(rcm_launches)
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]
     launches["mega_solve_groups"] = nd_launches["mega_solve_groups"]
+    # the nb=256 entries: K1's launches from the rcm path at nb=256, the
+    # blocked step in lu_kernels.cu
+    launches.update({f"{n}@nb=256": v for n, v in launches256.items()})
     out = {"kernels": [
-        dict(name=n, route="cuda", source=SOURCE.get(n, SRC),
-             replaces=REPLACES[n],
-             launches=launches[n], **kernels[n]) for n in REPLACES]}
+        dict(name=n, route="cuda",
+             source=SOURCE.get(n, SRC) if "@" not in n else SRC,
+             replaces=REPLACES[n.split("@")[0]], launches=launches[n],
+             **kernels[n])
+        for n in (*REPLACES, *(f"{r}@nb=256" for r in REPLACES))]}
     detail["kernels"] = out["kernels"]
     detail["seconds_after_build_start"] = time.perf_counter() - t_start
     od = ROOT / "pangulu_tpu_torch" / "_build"

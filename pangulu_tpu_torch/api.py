@@ -53,7 +53,7 @@ class InitOptions:
     include/pangulu_interface_common.h:3-12, plus the compile-time
     PANGULU_FLAGS promoted to runtime options)."""
 
-    nb: int = 128                # block size (<= 128 in this port)
+    nb: int = 128                # block size (<= 256 in this port)
     dtype: str = "r64"           # r32 | r64 (cr32/cr64: ROADMAP M8)
     mc64: bool = True            # -DPANGULU_MC64
     ordering: str = "auto"       # METIS analogue: mindeg|rcm|nd|natural|auto

@@ -5,7 +5,7 @@
 //
 // Every entry runs on the caller's stream, allocates nothing, never
 // synchronises, and returns the first CUDA error (cudaGetLastError after
-// each launch), 0 on success.  Tiles are row-major nb x nb, nb <= 128.
+// each launch), 0 on success.  Tiles are row-major nb x nb, nb <= 256.
 //
 // K1 getrf_with_inverses
 //   Replaces pangulu_tpu/ops/kernels_pallas.py getrf_with_inverses
@@ -14,6 +14,18 @@
 //   whose note gives the bound and the design: the tile in registers,
 //   one barrier per elimination step.  Instances by the register tile
 //   a thread holds (nb <= 32, 64, 128).
+//   For 128 < nb <= 256 a tile (256 KiB of f32 at 256: a whole SM's
+//   registers) does not fit one block's register tile.  The step is
+//   blocked instead, as the TPU kernel's _lu_blocked and the C
+//   reference's dense GETRF are: split at 128, K1's body on each
+//   diagonal block, the panels, the trailing update and the inverses'
+//   off-diagonal blocks as tensor-core products (tile_gemm.cuh) between
+//   them: five stream-ordered launches, counted as one K1 launch (see
+//   "K1, blocked" below).  Bound: still the two dependent chains of
+//   128 and nb - 128 steps, plus four product stages' latency.  A
+//   thread block cluster holding the whole tile (rows over 2 CTAs in
+//   f32, 4 in f64, the pivot row broadcast through distributed shared
+//   memory) is the follow-up, ROADMAP W4.
 //
 // K2 mega_factorize
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_factorize
@@ -29,14 +41,16 @@
 //   Design: the TPU kernel ran everything in one launch because its
 //   grid is sequential and it hand-scheduled DMAs; here each level is
 //   three stream-ordered launches (the diagonal step, which is K1's
-//   kernel on one tile in place, then panels, then Schur) read from
+//   kernel on one tile in place, then panels, then Schur; seven above
+//   nb = 128, where the diagonal step is K1's blocked five) read from
 //   device-resident tables, driven by one host loop over host copies
 //   of the per-level counts, with no host synchronisation and no
 //   device-to-host read.  Stream order is the level barrier.  The
 //   products run on tensor cores (tile_gemm.cuh: 3xTF32 for float,
 //   DMMA for double).  A panel tile is nb / 32 blocks, one per row
 //   band (L·U^-1) or column band (L^-1·U), so that a level's panels
-//   fill more SMs and each block's k loop is a quarter as long.  Schur
+//   fill more SMs and each block's k loop is a quarter as long; a band
+//   spans the tile (128 wide up to nb = 128, 256 wide above).  Schur
 //   destinations are unique within a level, so each update is one
 //   block per 64 x 64 quadrant with no atomics; the TPU's (u-chunk,
 //   l-chunk, l) sort was for VMEM reuse and changes no result here.
@@ -81,21 +95,21 @@
 //   450 in one group there).  By operations alone: 1.36 ms at 67
 //   TFLOP/s f32, 0.55 ms at 3xTF32.
 //   Design: per group three stream-ordered launches from one host loop
-//   over host copies of the counts, as K2: K1's kernel with one block
-//   per member (tile ids from gdiag, inverse slots from glev, so invs
-//   stays indexed by level), the panels (each tile times ITS member's
-//   inverse, nb / 32 bands a tile as in K2; the member is found from
-//   the panel offsets), and the Schur step.  Products on tensor cores
+//   over host copies of the counts, as K2: K1's kernel with one block per
+//   member (above nb = 128 each stage of K1's blocked step over all
+//   members at once; tile ids from gdiag, inverse slots from glev, so
+//   invs stays indexed by level), the panels (each tile times ITS
+//   member's inverse, nb / 32 bands a tile as in K2; the member is found
+//   from the panel offsets), and the Schur step.  Products on tensor cores
 //   as in K2.  Within a group several members' updates may hit one
 //   destination (separator tiles; up to 5 there), which the TPU kernel
-//   handled with VMEM slots and load/write bits.  Here a host-built
-//   view of the same tables (schedule.group_dst_csr) lists each
-//   distinct destination with its updates, and one block per
-//   (destination, 64 x 64 quadrant) sums its products in its MMA
-//   accumulators and subtracts once: no atomics, the same sum order on
-//   every run, each destination read and written once.  Only l = udl &
-//   0xFFFFF and u = udu & 0xFFF are read from the packed words; the
-//   rest is the TPU's buffer management.
+//   handled with VMEM slots and load/write bits.  Here a host-built view
+//   of the same tables (schedule.group_dst_csr) lists each distinct
+//   destination with its updates, and one block per (destination, 64 x 64
+//   quadrant) sums its products in its MMA accumulators and subtracts
+//   once: no atomics, the same sum order on every run, each destination
+//   read and written once.  Only l = udl & 0xFFFFF and u = udu & 0xFFF are
+//   read from the packed words; the rest is the TPU's buffer management.
 //
 // K5 mega_solve_groups
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_solve_groups
@@ -146,42 +160,48 @@ namespace plu {
 namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------- K1
-// Block b factors tile t = (ids ? ids[b] : b) of ``a`` into the same
-// slot of ``f`` (which may be ``a``: in place) and writes its inverses
-// to linv/uinv + i * inv_stride, i = (inv_ids ? inv_ids[b] : b).  The
+// Block b factors the n x n diagonal block at (off, off) of tile t =
+// (ids ? ids[b] : b) of ``a`` (nb x nb tiles) into the same place of
+// ``f`` (which may be ``a``: in place) and writes its inverses to the
+// same block of linv/uinv + i * inv_stride, i = (inv_ids ? inv_ids[b] :
+// b).  For nb <= 128 the block is the tile (off = 0, n = nb); the
+// blocked step for nb > 128 runs it on both diagonal blocks.  The
 // batched entry calls it with both tables nullptr; K2's diagonal step
 // with one block, ids = &diag_tab[k] and the level's slots of ``invs``;
 // K4's with one block per member, ids = the group's diagonal tiles and
 // inv_ids = their levels (slots of ``invs`` 2 * nb * nb apart).
-// CB = lu_cb(nb) sizes the register tile (lu_kernel_for picks it).
+// CB = lu_cb(n) sizes the register tile (lu_kernel_for picks it).
 template <typename T, int CB>
 __global__ void __launch_bounds__(kLuThreads, 1)
     getrf_inv_kernel(const T* a, T* f, T* linv, T* uinv, size_t inv_stride,
-                     const int* ids, const int* inv_ids, int nb, T tol) {
+                     const int* ids, const int* inv_ids, int nb, int off,
+                     int n, T tol) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sF = reinterpret_cast<T*>(smem_raw);
-  const size_t nn = (size_t)nb * nb;
-  const size_t off = (size_t)(ids ? ids[blockIdx.x] : blockIdx.x) * nn;
-  const size_t slot = inv_ids ? inv_ids[blockIdx.x] : blockIdx.x;
-  lu_inverses_tile<T, CB>(a + off, f + off, linv + slot * inv_stride,
-                          uinv + slot * inv_stride, nb, tol, sF,
-                          sF + 32 * CB * kLuVec);
+  const size_t d = (size_t)off * (nb + 1);  // the block's first element
+  const size_t t =
+      (size_t)(ids ? ids[blockIdx.x] : blockIdx.x) * nb * nb + d;
+  const size_t slot =
+      (size_t)(inv_ids ? inv_ids[blockIdx.x] : blockIdx.x) * inv_stride + d;
+  lu_inverses_tile<T, CB>(a + t, f + t, linv + slot, uinv + slot, n, nb,
+                          tol, sF, sF + 32 * CB * kLuVec);
 }
 
 template <typename T>
 using LuKernel = void (*)(const T*, T*, T*, T*, size_t, const int*,
-                          const int*, int, T);
+                          const int*, int, int, int, T);
 
-// K1's instance for nb, with its dynamic shared memory opted in.
+// K1's instance for an n x n block, with its dynamic shared memory
+// opted in.
 template <typename T>
-cudaError_t lu_kernel_for(int nb, LuKernel<T>* kern) {
-  const int cb = lu_cb(nb);
+cudaError_t lu_kernel_for(int n, LuKernel<T>* kern) {
+  const int cb = lu_cb(n);
   *kern = cb == 1   ? getrf_inv_kernel<T, 1>
           : cb == 2 ? getrf_inv_kernel<T, 2>
                     : getrf_inv_kernel<T, 4>;
   return cudaFuncSetAttribute(*kern,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)lu_smem_bytes<T>(nb));
+                              (int)lu_smem_bytes<T>(n));
 }
 
 // ---------------------------------------------------------------- K2
@@ -190,23 +210,27 @@ cudaError_t lu_kernel_for(int nb, LuKernel<T>* kern) {
 // of a U panel, a 64 x 64 Schur quadrant, each over kGemmWarps warps.
 // A panel is computed in place, so it is split only where a band of
 // the output reads nothing but the same band of the tile: L·U^-1 by
-// rows, L^-1·U by columns.
-constexpr int kMaxNb = 128;
+// rows, L^-1·U by columns; a band spans the tile, so the bands have
+// two widths: kSplit for nb <= 128, kMaxNb for nb <= 256.
+constexpr int kSplit = kLuMaxN;  // 128: K1's split of a larger tile
+constexpr int kMaxNb = 256;
 constexpr int kBand = 32;
 constexpr int kQuad = 64;
-// 32 x 32 warp tiles: 1 x 4, 4 x 1 and 2 x 2 of them.  8 warps of 32 x
-// 16 measured no faster end to end on the H100 (tools/probe_products.py,
+// Warp tiles 32 x 32 (1 x 4, 4 x 1 and 2 x 2 of them) at width 128, 32
+// x 64 and 64 x 32 at width 256.  8 warps of 32 x 16 measured no faster
+// end to end on the H100 at width 128 (tools/probe_products.py,
 // PERF.md).
-template <typename T> using LBand = Window<T, kBand, kMaxNb, 1, 4>;
-template <typename T> using UBand = Window<T, kMaxNb, kBand, 4, 1>;
+template <typename T, int NB> using LBand = Window<T, kBand, NB, 1, 4>;
+template <typename T, int NB> using UBand = Window<T, NB, kBand, 4, 1>;
 template <typename T> using Quad = Window<T, kQuad, kQuad, 2, 2>;
 
 // Dynamic shared memory of a panel block (the larger of the two
 // windows) and of a Schur block.
-template <typename T>
+template <typename T, int NB>
 constexpr size_t panel_smem_bytes() {
-  return LBand<T>::kSmemBytes > UBand<T>::kSmemBytes ? LBand<T>::kSmemBytes
-                                                     : UBand<T>::kSmemBytes;
+  return LBand<T, NB>::kSmemBytes > UBand<T, NB>::kSmemBytes
+             ? LBand<T, NB>::kSmemBytes
+             : UBand<T, NB>::kSmemBytes;
 }
 template <typename T>
 constexpr size_t schur_smem_bytes() {
@@ -214,19 +238,22 @@ constexpr size_t schur_smem_bytes() {
 }
 
 // Row band s of an L panel tile t <- t·U^-1, or column band s of a U
-// panel tile t <- L^-1·t.
-template <typename T>
+// panel tile t <- L^-1·t, with the bands of width NB >= nb.
+template <typename T, int NB>
 __device__ __forceinline__ void panel_band(T* t, const T* inv, bool is_l,
                                            int s, int nb, T* smem) {
+  const Mat<T> c = tile_of(t, nb);
   if (is_l)
-    tile_gemm<LBand<T>, false>(t, inv, t, nb, s * kBand, 0, smem);
+    tile_gemm<LBand<T, NB>, kStore>(c, tile_of(inv, nb), c, s * kBand, 0,
+                                    smem);
   else
-    tile_gemm<UBand<T>, false>(inv, t, t, nb, 0, s * kBand, smem);
+    tile_gemm<UBand<T, NB>, kStore>(tile_of(inv, nb), c, c, 0, s * kBand,
+                                    smem);
 }
 
 // Block (b, s): b < nl: row band s of L panel lid[k][b] <- L·U^-1; else
 // column band s of U panel uid[k][b-nl] <- L^-1·U.
-template <typename T>
+template <typename T, int NB>
 __global__ void __launch_bounds__(kGemmThreads)
     panel_kernel(T* tiles, const T* invs, const int* lid, const int* uid,
                  int lw, int uw, int k, int nl, int nb) {
@@ -236,8 +263,8 @@ __global__ void __launch_bounds__(kGemmThreads)
   const bool is_l = b < nl;
   const size_t id =
       is_l ? lid[(size_t)k * lw + b] : uid[(size_t)k * uw + b - nl];
-  panel_band(tiles + id * nn, invs + (size_t)(2 * k + is_l) * nn, is_l,
-             blockIdx.y, nb, reinterpret_cast<T*>(smem_raw));
+  panel_band<T, NB>(tiles + id * nn, invs + (size_t)(2 * k + is_l) * nn,
+                    is_l, blockIdx.y, nb, reinterpret_cast<T*>(smem_raw));
 }
 
 // Block (j, q): update j of level k, output quadrant q of 64 x 64.
@@ -256,8 +283,118 @@ __global__ void __launch_bounds__(kGemmThreads)
   const T* u = tiles + (size_t)uid[(size_t)k * uw + udu[o]] * nn;
   T* dst = tiles + (size_t)udst[o] * nn;
   const int qr = blockIdx.y / qdim, qc = blockIdx.y % qdim;
-  tile_gemm<Quad<T>, true>(l, u, dst, nb, qr * kQuad, qc * kQuad,
-                           reinterpret_cast<T*>(smem_raw));
+  tile_gemm<Quad<T>, kSubtract>(tile_of(l, nb), tile_of(u, nb),
+                                tile_of(dst, nb), qr * kQuad, qc * kQuad,
+                                reinterpret_cast<T*>(smem_raw));
+}
+
+// ------------------------------------------- K1, blocked (nb > 128)
+// A tile of 128 < nb <= 256 is split at h = kSplit into [[A11, A12],
+// [A21, A22]] (A22 of h2 = nb - h) and factored in place by five
+// stream-ordered launches (DiagStep::run): K1's body on A11; the panels
+// (lu_panels_kernel); the trailing update and the inverses' first
+// products (lu_update_kernel); K1's body on A22; the inverses' second
+// products (lu_inverse_kernel).  kernels_torch.getrf_with_inverses_
+// blocked is the plain twin, step for step.  Each stage takes a batch:
+// blockIdx.y is the member, addressed as getrf_inv_kernel's blockIdx.x.
+
+// Member blockIdx.y of a K1 batch: its tile and inverse slots.
+template <typename T>
+struct LuMember {
+  T *f, *linv, *uinv;
+  __device__ LuMember(T* tiles, T* linv0, T* uinv0, size_t inv_stride,
+                      const int* ids, const int* inv_ids, int nb) {
+    const int b = blockIdx.y;
+    f = tiles + (size_t)(ids ? ids[b] : b) * nb * nb;
+    const size_t slot = (size_t)(inv_ids ? inv_ids[b] : b) * inv_stride;
+    linv = linv0 + slot;
+    uinv = uinv0 + slot;
+  }
+};
+
+// Block x < nbands: row band x of L21 <- A21·U11^-1; else column band
+// x - nbands of U12 <- L11^-1·A12 (both in place, as K2's panels).
+// nbands = ceil(h2 / 32).  Each block also zeroes its band of the
+// inverses' zero blocks: U^-1's lower-left, L^-1's upper-right.
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+    lu_panels_kernel(T* tiles, T* linv, T* uinv, size_t inv_stride,
+                     const int* ids, const int* inv_ids, int nb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const LuMember<T> m(tiles, linv, uinv, inv_stride, ids, inv_ids, nb);
+  constexpr int h = kSplit;
+  const int h2 = nb - h, nbands = (h2 + kBand - 1) / kBand;
+  const bool is_l = blockIdx.x < nbands;
+  const int b0 = (is_l ? blockIdx.x : blockIdx.x - nbands) * kBand;
+  const int bw = min(kBand, h2 - b0);
+  if (is_l) {
+    const Mat<T> a21 = block_of(m.f, nb, h, 0, h2, h);
+    tile_gemm<LBand<T, kSplit>, kStore>(a21, block_of(m.uinv, nb, 0, 0, h, h),
+                                        a21, b0, 0, smem);
+    for (int e = threadIdx.x; e < bw * h; e += kGemmThreads)
+      m.uinv[(size_t)(h + b0 + e / h) * nb + e % h] = T(0);
+  } else {
+    const Mat<T> a12 = block_of(m.f, nb, 0, h, h, h2);
+    tile_gemm<UBand<T, kSplit>, kStore>(block_of(m.linv, nb, 0, 0, h, h), a12,
+                                        a12, 0, b0, smem);
+    for (int e = threadIdx.x; e < h * bw; e += kGemmThreads)
+      m.linv[(size_t)(e / bw) * nb + h + b0 + e % bw] = T(0);
+  }
+}
+
+// 64 x 64 quadrant jobs, qd = ceil(h2 / 64): x < qd^2: A22 -= L21·U12;
+// then 2 qd of L^-1's lower-left block <- -L21·L11^-1 (W); then 2 qd of
+// U^-1's upper-right block <- -U11^-1·U12 (V).
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+    lu_update_kernel(T* tiles, T* linv, T* uinv, size_t inv_stride,
+                     const int* ids, const int* inv_ids, int nb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const LuMember<T> m(tiles, linv, uinv, inv_stride, ids, inv_ids, nb);
+  constexpr int h = kSplit, hq = kSplit / kQuad;
+  const int h2 = nb - h, qd = (h2 + kQuad - 1) / kQuad;
+  const Mat<T> l21 = block_of(m.f, nb, h, 0, h2, h);
+  const Mat<T> u12 = block_of(m.f, nb, 0, h, h, h2);
+  int j = blockIdx.x;
+  if (j < qd * qd) {
+    tile_gemm<Quad<T>, kSubtract>(l21, u12, block_of(m.f, nb, h, h, h2, h2),
+                                  j / qd * kQuad, j % qd * kQuad, smem);
+  } else if ((j -= qd * qd) < qd * hq) {
+    tile_gemm<Quad<T>, kNegate>(l21, block_of(m.linv, nb, 0, 0, h, h),
+                                block_of(m.linv, nb, h, 0, h2, h),
+                                j / hq * kQuad, j % hq * kQuad, smem);
+  } else {
+    j -= qd * hq;
+    tile_gemm<Quad<T>, kNegate>(block_of(m.uinv, nb, 0, 0, h, h), u12,
+                                block_of(m.uinv, nb, 0, h, h, h2),
+                                j / qd * kQuad, j % qd * kQuad, smem);
+  }
+}
+
+// Block x < h / 32: column band x of L^-1's lower-left block <-
+// L22^-1·W; else row band x - h / 32 of U^-1's upper-right block <-
+// V·U22^-1 (both in place: a band reads only itself).
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+    lu_inverse_kernel(T* tiles, T* linv, T* uinv, size_t inv_stride,
+                      const int* ids, const int* inv_ids, int nb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const LuMember<T> m(tiles, linv, uinv, inv_stride, ids, inv_ids, nb);
+  constexpr int h = kSplit, nbands = kSplit / kBand;
+  const int h2 = nb - h;
+  if (blockIdx.x < nbands) {
+    const Mat<T> w = block_of(m.linv, nb, h, 0, h2, h);
+    tile_gemm<UBand<T, kSplit>, kStore>(block_of(m.linv, nb, h, h, h2, h2), w,
+                                        w, 0, blockIdx.x * kBand, smem);
+  } else {
+    const Mat<T> v = block_of(m.uinv, nb, 0, h, h, h2);
+    tile_gemm<LBand<T, kSplit>, kStore>(v, block_of(m.uinv, nb, h, h, h2, h2),
+                                        v, (blockIdx.x - nbands) * kBand, 0,
+                                        smem);
+  }
 }
 
 // ---------------------------------------------------------------- K3
@@ -274,36 +411,40 @@ __device__ __forceinline__ T warp_sum(T v) {
 // sums a row in the same order, so copies computed by different blocks
 // agree bit for bit.  With SUB, out is read through L2 (__ldcg): other
 // blocks wrote it before the last grid barrier, and L1 is not coherent.
-// A warp's rows (at most kMaxNb / 32 warps = 4) are summed together, so
+// A warp's rows (kSplit / 32 warps = 4 a pass) are summed together, so
 // that the loads of all of them, and with SUB the old values of out,
-// are in flight at once.  With XG, xs is x in global memory, read
+// are in flight at once.  Tiles of NB = 256 take two passes of 128 rows
+// with the registers of one.  With XG, xs is x in global memory, read
 // through L2 by each lane (no shared copy, no barrier before the sum).
-template <typename T, bool SUB, bool XG = false>
+template <typename T, int NB, bool SUB, bool XG = false>
 __device__ void tile_matvec(const T* M, const T* xs, T* out, int nb) {
-  constexpr int kWarps = kSolveThreads / 32, kRows = kMaxNb / kWarps;
+  constexpr int kWarps = kSolveThreads / 32, kRows = kSplit / kWarps;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  T acc[kRows], old[kRows];
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int i = warp + q * kWarps;
-    acc[q] = T(0);
-    old[q] = SUB && lane == 0 && i < nb ? __ldcg(out + i) : T(0);
-  }
-#pragma unroll 4
-  for (int j = lane; j < nb; j += 32) {
-    const T xj = XG ? __ldcg(xs + j) : xs[j];
+#pragma unroll 1
+  for (int i0 = 0; i0 < NB; i0 += kSplit) {
+    T acc[kRows], old[kRows];
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
-      const int i = warp + q * kWarps;
-      if (i < nb) acc[q] = fmat(M[i * nb + j], xj, acc[q]);
+      const int i = i0 + warp + q * kWarps;
+      acc[q] = T(0);
+      old[q] = SUB && lane == 0 && i < nb ? __ldcg(out + i) : T(0);
     }
-  }
+#pragma unroll 4
+    for (int j = lane; j < nb; j += 32) {
+      const T xj = XG ? __ldcg(xs + j) : xs[j];
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int i = warp + q * kWarps;
-    if (i < nb) {  // uniform across the warp
-      const T sum = warp_sum(acc[q]);
-      if (lane == 0) out[i] = SUB ? old[q] - sum : sum;
+      for (int q = 0; q < kRows; ++q) {
+        const int i = i0 + warp + q * kWarps;
+        if (i < nb) acc[q] = fmat(M[i * nb + j], xj, acc[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = i0 + warp + q * kWarps;
+      if (i < nb) {  // uniform across the warp
+        const T sum = warp_sum(acc[q]);
+        if (lane == 0) out[i] = SUB ? old[q] - sum : sum;
+      }
     }
   }
 }
@@ -319,14 +460,15 @@ __device__ void tile_matvec(const T* M, const T* xs, T* out, int nb) {
 // rows[k][t]].  src[r, k] is read at level k only and dst[r, k] written
 // there only, while the panel rows of a level are distinct and never k
 // (Schedule.mega_solve_tables), so no two blocks touch one value
-// between two barriers: no atomics, the same result on every run.
-template <typename T>
+// between two barriers: no atomics, the same result on every run.  One
+// instance a tile width NB >= nb: 128 and 256.
+template <typename T, int NB>
 __global__ void __launch_bounds__(kSolveThreads)
     solve_sweep_kernel(T* src, T* dst, int nrhs, const T* tiles,
                        const T* invs, int slot, const int* ids,
                        const int* rows, const int* cnt, int bl, int w,
                        int nb, int descending) {
-  __shared__ T xk[kMaxNb];
+  __shared__ T xk[NB];
   cg::grid_group grid = cg::this_grid();
   const size_t nn = (size_t)nb * nb;
   const size_t rhs_stride = (size_t)(bl + 1) * nb;
@@ -348,15 +490,15 @@ __global__ void __launch_bounds__(kSolveThreads)
       }
       if (r != have) {
         __syncthreads();  // every reader of the last x_k is done
-        tile_matvec<T, false, true>(invs + (size_t)(2 * k + slot) * nn,
-                                    xr + (size_t)k * nb, xk, nb);
+        tile_matvec<T, NB, false, true>(invs + (size_t)(2 * k + slot) * nn,
+                                        xr + (size_t)k * nb, xk, nb);
         __syncthreads();
         have = r;
       }
       if (t == 0)
         for (int i = threadIdx.x; i < nb; i += kSolveThreads)
           dst[r * rhs_stride + (size_t)k * nb + i] = xk[i];
-      if (t < n) tile_matvec<T, true>(tile, xk, xrow, nb);
+      if (t < n) tile_matvec<T, NB, true>(tile, xk, xrow, nb);
     }
     grid.sync();
   }
@@ -403,7 +545,7 @@ cudaError_t launch_cooperative(K kern, int want, void** args,
 // L·U^-1 of its member; else column band s of U panel tile b - npl <-
 // L^-1·U.  The member m of panel tile p is the one with off[m] <= p <
 // off[m+1] (gloff or guoff row of g).
-template <typename T>
+template <typename T, int NB>
 __global__ void __launch_bounds__(kGemmThreads)
     group_panel_kernel(T* tiles, const T* invs, const int* lid,
                        const int* uid, const int* glev, const int* gloff,
@@ -418,8 +560,8 @@ __global__ void __launch_bounds__(kGemmThreads)
   while (m + 1 < gs && off[m + 1] <= p) ++m;
   const size_t k = glev[(size_t)g * gw + m];
   const size_t id = is_l ? lid[(size_t)g * lw + p] : uid[(size_t)g * uw + p];
-  panel_band(tiles + id * nn, invs + (2 * k + is_l) * nn, is_l, blockIdx.y,
-             nb, reinterpret_cast<T*>(smem_raw));
+  panel_band<T, NB>(tiles + id * nn, invs + (2 * k + is_l) * nn, is_l,
+                    blockIdx.y, nb, reinterpret_cast<T*>(smem_raw));
 }
 
 // Block (d, q): distinct destination doff + d of group g, output
@@ -446,9 +588,11 @@ __global__ void __launch_bounds__(kGemmThreads)
     const size_t o = ((size_t)g * nchunks + j / uch) * row_w + j % uch;
     const T* l = tiles + (size_t)lid[(size_t)g * lw + (udl[o] & 0xFFFFF)] * nn;
     const T* u = tiles + (size_t)uid[(size_t)g * uw + (udu[o] & 0xFFF)] * nn;
-    tile_gemm_acc<Quad<T>>(l, u, nb, r0, c0, acc, smem);
+    tile_gemm_acc<Quad<T>>(tile_of(l, nb), tile_of(u, nb), r0, c0, acc,
+                           smem);
   }
-  tile_store<Quad<T>, true>(tiles + (size_t)dkey[d] * nn, nb, r0, c0, acc);
+  tile_store<Quad<T>, kSubtract>(tile_of(tiles + (size_t)dkey[d] * nn, nb),
+                                 r0, c0, acc);
 }
 
 // ---------------------------------------------------------------- K5
@@ -465,12 +609,12 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
                  : "memory");
 }
 
-// acc[q] += sum_j M[i][j] * x[j] for the rows i = warp + q * kWarps, in
-// column order within a lane; x is read through L2 (__ldcg): other
-// blocks wrote it before the last grid barrier.
+// acc[q] += sum_j M[i][j] * x[j] for the rows i = i0 + warp + q *
+// kWarps < nb, in column order within a lane; x is read through L2
+// (__ldcg): other blocks wrote it before the last grid barrier.
 template <typename T, int R>
 __device__ __forceinline__ void rows_dot(const T* M, const T* x, int nb,
-                                         T (&acc)[R]) {
+                                         int i0, T (&acc)[R]) {
   constexpr int kWarps = kSolveThreads / 32;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 #pragma unroll 4
@@ -478,7 +622,7 @@ __device__ __forceinline__ void rows_dot(const T* M, const T* x, int nb,
     const T xj = __ldcg(x + j);
 #pragma unroll
     for (int q = 0; q < R; ++q) {
-      const int i = warp + q * kWarps;
+      const int i = i0 + warp + q * kWarps;
       if (i < nb) acc[q] = fmat(M[i * nb + j], xj, acc[q]);
     }
   }
@@ -489,40 +633,45 @@ __device__ __forceinline__ void rows_dot(const T* M, const T* x, int nb,
 // v = xs[seg] - sum_e T_e · xd[k_e] over entries ent[e0:e1] = (tile,
 // k_e), summed in registers in entry order, one warp per row; then
 // xd[seg] = inv · v (through shared v) if d.inv, else xs[seg] = v.
-template <typename T>
+// Tiles of NB = 256 take two passes of 128 rows, each over all the
+// entries, with the registers of one (tile_matvec).
+template <typename T, int NB>
 __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
                            int4 d, const int2* ent, int nb, T* v) {
-  constexpr int kWarps = kSolveThreads / 32, kRows = kMaxNb / kWarps;
+  constexpr int kWarps = kSolveThreads / 32, kRows = kSplit / kWarps;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   T* row = xs + (size_t)d.x * nb;
-  T acc[kRows], old[kRows];
+#pragma unroll 1
+  for (int i0 = 0; i0 < NB; i0 += kSplit) {
+    T acc[kRows], old[kRows];
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int i = warp + q * kWarps;
-    acc[q] = T(0);
-    old[q] = lane == 0 && i < nb ? __ldcg(row + i) : T(0);
-  }
-  for (int e = d.z; e < d.w; ++e) {
-    const int2 te = __ldg(ent + e);
-    rows_dot(tiles + (size_t)te.x * nb * nb, xd + (size_t)te.y * nb, nb,
-             acc);
-  }
+    for (int q = 0; q < kRows; ++q) {
+      const int i = i0 + warp + q * kWarps;
+      acc[q] = T(0);
+      old[q] = lane == 0 && i < nb ? __ldcg(row + i) : T(0);
+    }
+    for (int e = d.z; e < d.w; ++e) {
+      const int2 te = __ldg(ent + e);
+      rows_dot(tiles + (size_t)te.x * nb * nb, xd + (size_t)te.y * nb, nb,
+               i0, acc);
+    }
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int i = warp + q * kWarps;
-    if (i < nb) {  // uniform across the warp
-      const T val = old[q] - warp_sum(acc[q]);
-      if (lane == 0) {
-        if (d.y)
-          v[i] = val;
-        else
-          row[i] = val;
+    for (int q = 0; q < kRows; ++q) {
+      const int i = i0 + warp + q * kWarps;
+      if (i < nb) {  // uniform across the warp
+        const T val = old[q] - warp_sum(acc[q]);
+        if (lane == 0) {
+          if (d.y)
+            v[i] = val;
+          else
+            row[i] = val;
+        }
       }
     }
   }
   if (d.y) {  // uniform across the block
     __syncthreads();
-    tile_matvec<T, false>(inv, v, xd + (size_t)d.x * nb, nb);
+    tile_matvec<T, NB, false>(inv, v, xd + (size_t)d.x * nb, nb);
     __syncthreads();  // v is free for the block's next item
   }
 }
@@ -536,14 +685,15 @@ __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
 // barriers: no atomics, one sum order, the same bits on every run.
 // Before the barrier that ends step s, the grid asks L2 for step s+1's
 // tiles and inverses (read-only for the whole solve; a bulk prefetch
-// each): only x has to wait for the barrier.
-template <typename T>
+// each): only x has to wait for the barrier.  One instance a tile width
+// NB >= nb: 128 and 256.
+template <typename T, int NB>
 __global__ void __launch_bounds__(kSolveThreads)
     group_sweep_kernel(T* src, T* dst, int nrhs, const T* tiles,
                        const T* invs, int slot, const int2* step,
                        const int4* item, const int2* ent, int nsteps, int bl,
                        int nb) {
-  __shared__ T v[kMaxNb];
+  __shared__ T v[NB];
   cg::grid_group grid = cg::this_grid();
   const size_t nn = (size_t)nb * nb, rhs_stride = (size_t)(bl + 1) * nb;
   int2 cur = __ldg(step), nxt = __ldg(step + 1);
@@ -552,8 +702,9 @@ __global__ void __launch_bounds__(kSolveThreads)
     for (int it = blockIdx.x; it < n * nrhs; it += gridDim.x) {
       const int r = it / n;
       const int4 d = __ldg(item + cur.x + it % n);
-      group_item(src + r * rhs_stride, dst + r * rhs_stride, tiles,
-                 invs + (2 * (size_t)d.x + slot) * nn, d, ent, nb, v);
+      group_item<T, NB>(src + r * rhs_stride, dst + r * rhs_stride, tiles,
+                        invs + (2 * (size_t)d.x + slot) * nn, d, ent, nb,
+                        v);
     }
     if (s + 1 == nsteps) break;
     const int2 after = __ldg(step + s + 2);
@@ -576,16 +727,6 @@ __global__ void __launch_bounds__(kSolveThreads)
 }
 
 // ------------------------------------------------------ host launchers
-template <typename T>
-int getrf_inv(const T* a, T* f, T* linv, T* uinv, int batch, int nb,
-              double tol, cudaStream_t st) {
-  LuKernel<T> lu;
-  cudaError_t e = lu_kernel_for<T>(nb, &lu);
-  if (e != cudaSuccess) return e;
-  lu<<<batch, kLuThreads, lu_smem_bytes<T>(nb), st>>>(
-      a, f, linv, uinv, (size_t)nb * nb, nullptr, nullptr, nb, (T)tol);
-  return cudaGetLastError();
-}
 
 // Opts a panel and a Schur kernel into their dynamic shared memory (the
 // f64 panel window is above the 48 KB a block gets without asking).
@@ -599,34 +740,136 @@ cudaError_t products_for(P panel, S schur, size_t panel_smem,
       schur, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)schur_smem);
 }
 
+// K1 for tiles of one nb: its instances picked and opted in once
+// (init), then launched per batch (run), in one launch for nb <= 128,
+// in the five of the blocked step above it.
+template <typename T>
+struct DiagStep {
+  int nb, h2;
+  LuKernel<T> lu, lu2;  // K1's body on the tile (or A11), and on A22
+  size_t smem, smem2;
+
+  cudaError_t init(int nb_) {
+    nb = nb_;
+    h2 = nb - kSplit;
+    cudaError_t e = lu_kernel_for<T>(nb <= kSplit ? nb : kSplit, &lu);
+    smem = lu_smem_bytes<T>(nb <= kSplit ? nb : kSplit);
+    if (e != cudaSuccess || nb <= kSplit) return e;
+    if ((e = lu_kernel_for<T>(h2, &lu2)) != cudaSuccess) return e;
+    smem2 = lu_smem_bytes<T>(h2);
+    const size_t psm = panel_smem_bytes<T, kSplit>();
+    if ((e = products_for(lu_panels_kernel<T>, lu_update_kernel<T>, psm,
+                          schur_smem_bytes<T>())) != cudaSuccess)
+      return e;
+    return cudaFuncSetAttribute(lu_inverse_kernel<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)psm);
+  }
+
+  // ``batch`` tiles (ids, inv_ids and inv_stride as getrf_inv_kernel)
+  // from a into f.  Above 128, a != f only from the batched entry
+  // (ids == nullptr: the batch is contiguous), which copies a to f
+  // first; every stage then runs in place.  counts[0] += 1 when the
+  // whole step was launched (one K1 launch), counts[1] += each device
+  // launch it made (1 up to nb = 128, 5 above).
+  cudaError_t run(const T* a, T* f, T* linv, T* uinv, size_t inv_stride,
+                  const int* ids, const int* inv_ids, int batch, T tol,
+                  int* counts, cudaStream_t st) const {
+    cudaError_t e;
+    auto launched = [counts]() {
+      const cudaError_t le = cudaGetLastError();
+      counts[1] += le == cudaSuccess;
+      return le;
+    };
+    if (nb <= kSplit) {
+      lu<<<batch, kLuThreads, smem, st>>>(a, f, linv, uinv, inv_stride, ids,
+                                          inv_ids, nb, 0, nb, tol);
+      if ((e = launched()) != cudaSuccess) return e;
+      ++counts[0];
+      return cudaSuccess;
+    }
+    if (a != f &&
+        (e = cudaMemcpyAsync(f, a, sizeof(T) * batch * nb * nb,
+                             cudaMemcpyDeviceToDevice, st)) != cudaSuccess)
+      return e;
+    const int nbands = (h2 + kBand - 1) / kBand, qd = (h2 + kQuad - 1) / kQuad;
+    const size_t psm = panel_smem_bytes<T, kSplit>();
+    lu<<<batch, kLuThreads, smem, st>>>(f, f, linv, uinv, inv_stride, ids,
+                                        inv_ids, nb, 0, kSplit, tol);
+    if ((e = launched()) != cudaSuccess) return e;
+    lu_panels_kernel<T><<<dim3(2 * nbands, batch), kGemmThreads, psm, st>>>(
+        f, linv, uinv, inv_stride, ids, inv_ids, nb);
+    if ((e = launched()) != cudaSuccess) return e;
+    lu_update_kernel<T>
+        <<<dim3(qd * qd + 2 * qd * (kSplit / kQuad), batch), kGemmThreads,
+           schur_smem_bytes<T>(), st>>>(f, linv, uinv, inv_stride, ids,
+                                        inv_ids, nb);
+    if ((e = launched()) != cudaSuccess) return e;
+    lu2<<<batch, kLuThreads, smem2, st>>>(f, f, linv, uinv, inv_stride, ids,
+                                          inv_ids, nb, kSplit, h2, tol);
+    if ((e = launched()) != cudaSuccess) return e;
+    lu_inverse_kernel<T>
+        <<<dim3(2 * (kSplit / kBand), batch), kGemmThreads, psm, st>>>(
+            f, linv, uinv, inv_stride, ids, inv_ids, nb);
+    if ((e = launched()) != cudaSuccess) return e;
+    ++counts[0];
+    return cudaSuccess;
+  }
+};
+
+template <typename T>
+int getrf_inv(const T* a, T* f, T* linv, T* uinv, int batch, int nb,
+              double tol, int* k1_launches, cudaStream_t st) {
+  DiagStep<T> diag;
+  cudaError_t e = diag.init(nb);
+  if (e != cudaSuccess) return e;
+  return diag.run(a, f, linv, uinv, (size_t)nb * nb, nullptr, nullptr, batch,
+                  (T)tol, k1_launches, st);
+}
+
+// K2's and K4's panel kernels and their shared memory for tiles of nb:
+// the bands of width kSplit up to nb = 128, of kMaxNb above.
+template <typename T>
+struct PanelKernels {
+  decltype(&panel_kernel<T, kSplit>) chain;
+  decltype(&group_panel_kernel<T, kSplit>) group;
+  size_t smem;
+  explicit PanelKernels(int nb) {
+    const bool narrow = nb <= kSplit;
+    chain = narrow ? panel_kernel<T, kSplit> : panel_kernel<T, kMaxNb>;
+    group = narrow ? group_panel_kernel<T, kSplit>
+                   : group_panel_kernel<T, kMaxNb>;
+    smem = narrow ? panel_smem_bytes<T, kSplit>()
+                  : panel_smem_bytes<T, kMaxNb>();
+  }
+};
+
 template <typename T>
 int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
                    const int* uid, const int* udst, const int* udl,
                    const int* udu, const int* h_nl, const int* h_nu,
                    const int* h_nup, int bl, int lw, int uw, int nchunks,
-                   int row_w, int uch, int nb, double tol, int* diag_launches,
+                   int row_w, int uch, int nb, double tol, int* k1_launches,
                    cudaStream_t st) {
-  const size_t smem = lu_smem_bytes<T>(nb);
-  LuKernel<T> lu;
-  cudaError_t e = lu_kernel_for<T>(nb, &lu);
+  DiagStep<T> diag;
+  cudaError_t e = diag.init(nb);
   if (e != cudaSuccess) return e;
-  const size_t psm = panel_smem_bytes<T>(), ssm = schur_smem_bytes<T>();
-  if ((e = products_for(panel_kernel<T>, schur_kernel<T>, psm, ssm)) !=
-      cudaSuccess)
+  const PanelKernels<T> pk(nb);
+  const size_t psm = pk.smem, ssm = schur_smem_bytes<T>();
+  if ((e = products_for(pk.chain, schur_kernel<T>, psm, ssm)) != cudaSuccess)
     return e;
   const size_t nn = (size_t)nb * nb;
   const int qdim = (nb + kQuad - 1) / kQuad, bands = (nb + kBand - 1) / kBand;
   for (int k = 0; k < bl; ++k) {
-    // diagonal step: K1's kernel on tile diag_tab[k], in place
+    // diagonal step: K1 on tile diag_tab[k], in place; its launches are
+    // reported to the wrapper through k1_launches
     T* linv = invs + (size_t)(2 * k) * nn;
-    lu<<<1, kLuThreads, smem, st>>>(
-        tiles, tiles, linv, linv + nn, 0, diag_tab + k, nullptr, nb,
-        (T)tol);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    ++*diag_launches;  // K1's launch count, reported to the wrapper
+    if ((e = diag.run(tiles, tiles, linv, linv + nn, 0, diag_tab + k,
+                      nullptr, 1, (T)tol, k1_launches, st)) != cudaSuccess)
+      return e;
     const int np = h_nl[k] + h_nu[k];
     if (np > 0) {
-      panel_kernel<T><<<dim3(np, bands), kGemmThreads, psm, st>>>(
+      pk.chain<<<dim3(np, bands), kGemmThreads, psm, st>>>(
           tiles, invs, lid, uid, lw, uw, k, h_nl[k], nb);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
@@ -651,8 +894,9 @@ int sweep(T* src, T* dst, int nrhs, const T* tiles, const T* invs, int slot,
   void* args[] = {&src,  &dst, &nrhs, &tiles, &invs, &slot,      &ids,
                   &rows, &cnt, &bl,   &w,     &nb,   &descending};
   int blocks;
-  return launch_cooperative(solve_sweep_kernel<T>, widest * nrhs, args, st,
-                            &blocks);
+  return launch_cooperative(nb <= kSplit ? solve_sweep_kernel<T, kSplit>
+                                         : solve_sweep_kernel<T, kMaxNb>,
+                            widest * nrhs, args, st, &blocks);
 }
 
 // x: the right-hand sides on entry, the solution on exit; y: scratch of
@@ -680,28 +924,28 @@ int mega_factorize_groups(T* tiles, T* invs, const int* gdiag,
                           const int* h_npl, const int* h_npu,
                           const int* h_ndst, const int* h_doff, int ng,
                           int gw, int lw, int uw, int nchunks, int row_w,
-                          int uch, int nb, double tol, int* diag_launches,
+                          int uch, int nb, double tol, int* k1_launches,
                           cudaStream_t st) {
-  const size_t smem = lu_smem_bytes<T>(nb);
-  LuKernel<T> lu;
-  cudaError_t e = lu_kernel_for<T>(nb, &lu);
+  DiagStep<T> diag;
+  cudaError_t e = diag.init(nb);
   if (e != cudaSuccess) return e;
-  const size_t psm = panel_smem_bytes<T>(), ssm = schur_smem_bytes<T>();
-  if ((e = products_for(group_panel_kernel<T>, group_schur_kernel<T>, psm,
-                        ssm)) != cudaSuccess)
+  const PanelKernels<T> pk(nb);
+  const size_t psm = pk.smem, ssm = schur_smem_bytes<T>();
+  if ((e = products_for(pk.group, group_schur_kernel<T>, psm, ssm)) !=
+      cudaSuccess)
     return e;
   const size_t nn = (size_t)nb * nb;
   const int qdim = (nb + kQuad - 1) / kQuad, bands = (nb + kBand - 1) / kBand;
   for (int g = 0; g < ng; ++g) {
-    // diagonal step: K1's kernel, one block per member, in place
-    lu<<<h_gs[g], kLuThreads, smem, st>>>(
-        tiles, tiles, invs, invs + nn, 2 * nn, gdiag + (size_t)g * gw,
-        glev + (size_t)g * gw, nb, (T)tol);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    ++*diag_launches;  // K1's launch count, reported to the wrapper
+    // diagonal step: K1 on the group's members as one batch, in place;
+    // its launches are reported to the wrapper through k1_launches
+    if ((e = diag.run(tiles, tiles, invs, invs + nn, 2 * nn,
+                      gdiag + (size_t)g * gw, glev + (size_t)g * gw, h_gs[g],
+                      (T)tol, k1_launches, st)) != cudaSuccess)
+      return e;
     const int np = h_npl[g] + h_npu[g];
     if (np > 0) {
-      group_panel_kernel<T><<<dim3(np, bands), kGemmThreads, psm, st>>>(
+      pk.group<<<dim3(np, bands), kGemmThreads, psm, st>>>(
           tiles, invs, lid, uid, glev, gloff, guoff, g, gw, lw, uw, h_gs[g],
           h_npl[g], nb);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -729,8 +973,9 @@ int group_sweep(T* src, T* dst, int nrhs, const T* tiles, const T* invs,
   const int2* ent2 = reinterpret_cast<const int2*>(ent);
   void* args[] = {&src,  &dst,   &nrhs, &tiles,  &invs, &slot,
                   &step2, &item4, &ent2, &nsteps, &bl,   &nb};
-  return launch_cooperative(group_sweep_kernel<T>, width * nrhs, args, st,
-                            blocks, per_sm);
+  return launch_cooperative(nb <= kSplit ? group_sweep_kernel<T, kSplit>
+                                         : group_sweep_kernel<T, kMaxNb>,
+                            width * nrhs, args, st, blocks, per_sm);
 }
 
 // x: the right-hand sides on entry, the solution on exit; y: scratch of
@@ -759,7 +1004,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 5; }
+int plu_kernels_abi() { return 7; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -778,17 +1023,21 @@ const char* plu_error_string(int e) {
 }
 
 int plu_getrf_inv_f32(int dev, const float* a, float* f, float* linv,
-                      float* uinv, int batch, int nb, double tol, void* st) {
+                      float* uinv, int batch, int nb, double tol,
+                      int* k1_launches, void* st) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return e;
-  return plu::getrf_inv(a, f, linv, uinv, batch, nb, tol, PLU_STREAM(st));
+  return plu::getrf_inv(a, f, linv, uinv, batch, nb, tol, k1_launches,
+                        PLU_STREAM(st));
 }
 
 int plu_getrf_inv_f64(int dev, const double* a, double* f, double* linv,
-                      double* uinv, int batch, int nb, double tol, void* st) {
+                      double* uinv, int batch, int nb, double tol,
+                      int* k1_launches, void* st) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return e;
-  return plu::getrf_inv(a, f, linv, uinv, batch, nb, tol, PLU_STREAM(st));
+  return plu::getrf_inv(a, f, linv, uinv, batch, nb, tol, k1_launches,
+                        PLU_STREAM(st));
 }
 
 #define PLU_MEGA_FACTORIZE(NAME, T)                                           \
@@ -796,12 +1045,12 @@ int plu_getrf_inv_f64(int dev, const double* a, double* f, double* linv,
            const int* uid, const int* udst, const int* udl, const int* udu,  \
            const int* h_nl, const int* h_nu, const int* h_nup, int bl,       \
            int lw, int uw, int nchunks, int row_w, int uch, int nb,          \
-           double tol, int* diag_launches, void* st) {                       \
+           double tol, int* k1_launches, void* st) {                         \
     cudaError_t e = cudaSetDevice(dev);                                      \
     if (e != cudaSuccess) return e;                                          \
     return plu::mega_factorize(tiles, invs, diag_tab, lid, uid, udst, udl,   \
                                udu, h_nl, h_nu, h_nup, bl, lw, uw, nchunks,  \
-                               row_w, uch, nb, tol, diag_launches,           \
+                               row_w, uch, nb, tol, k1_launches,             \
                                PLU_STREAM(st));                              \
   }
 PLU_MEGA_FACTORIZE(plu_mega_factorize_f32, float)
@@ -828,14 +1077,14 @@ PLU_MEGA_SOLVE(plu_mega_solve_f64, double)
            const int* dptr, const int* dent, const int* h_gs,                \
            const int* h_npl, const int* h_npu, const int* h_ndst,            \
            const int* h_doff, int ng, int gw, int lw, int uw, int nchunks,   \
-           int row_w, int uch, int nb, double tol, int* diag_launches,       \
+           int row_w, int uch, int nb, double tol, int* k1_launches,         \
            void* st) {                                                       \
     cudaError_t e = cudaSetDevice(dev);                                      \
     if (e != cudaSuccess) return e;                                          \
     return plu::mega_factorize_groups(                                       \
         tiles, invs, gdiag, glev, gloff, guoff, lid, uid, udl, udu, dkey,    \
         dptr, dent, h_gs, h_npl, h_npu, h_ndst, h_doff, ng, gw, lw, uw,      \
-        nchunks, row_w, uch, nb, tol, diag_launches, PLU_STREAM(st));        \
+        nchunks, row_w, uch, nb, tol, k1_launches, PLU_STREAM(st));          \
   }
 PLU_MEGA_FACTORIZE_GROUPS(plu_mega_factorize_groups_f32, float)
 PLU_MEGA_FACTORIZE_GROUPS(plu_mega_factorize_groups_f64, double)

@@ -1,10 +1,13 @@
 // Tile products of the factorization engines on Hopper's tensor cores:
-// C = A·B or C -= A·B over a window of row-major nb x nb tiles.
+// C = A·B, C -= A·B or C = -A·B over a window of row-major matrices: nb
+// x nb tiles, or blocks of them (Mat: a row stride apart from the
+// bounds).
 //
 // Replaces the precision=HIGHEST dots inside pangulu_tpu/ops/
 // kernels_pallas.py _mega_kernel (K2: the panel solves L·U^-1 and
 // L^-1·U, the Schur products dst -= L·U) and _group_kernel (K4: the
-// same per group member, and the summed Schur stream).
+// same per group member, and the summed Schur stream), and the MXU dots
+// of the blocked diagonal LU (_lu_blocked) in K1's step for nb > 128.
 //
 // Bound on an H100: a product is nb^3 FMA on tiles that sit in L2, so
 // operations bound it: 128^3 FMA is 4.2 MFLOP, 0.06 us of the card's
@@ -35,24 +38,28 @@
 //     (DMMA, which rounds like an FMA).  Both go through one routine;
 //     only the atom (Mma<T>) differs.  Plain TF32 inputs are never
 //     used.
-//   * 4 warps (128 threads), each a 32 x 32 warp tile; the window is WM
-//     x WN warp tiles: 2 x 2 (64 x 64, a Schur quadrant), 1 x 4 (a
-//     32-row band of an L panel) or 4 x 1 (a 32-column band of a U
-//     panel), so a panel tile runs on nb/32 blocks.
+//   * 4 warps (128 threads); the window is WM x WN warp tiles: 2 x 2
+//     (64 x 64, a Schur quadrant), 1 x 4 (a 32-row band of an L panel)
+//     or 4 x 1 (a 32-column band of a U panel), so a panel tile runs on
+//     nb/32 blocks.  A band spans the whole tile: 128 wide for nb <=
+//     128 (32 x 32 warp tiles), 256 wide for nb <= 256 (32 x 64 and 64 x
+//     32).
 //   * A and B slices (BK = 32 f32 / 16 f64 deep) are staged with
 //     cp.async, double buffered: slice s+1's copy is issued after the
 //     barrier that ends slice s-1 and overlaps slice s's MMAs, one
 //     barrier a slice.  16-byte copies when a row is 16-byte aligned
 //     (nb·sizeof(T) % 16 == 0), element copies otherwise (f32 nb not a
-//     multiple of 4, e.g. 10; f64 odd nb); out-of-tile rows, columns
+//     multiple of 4, e.g. 10; f64 odd nb); out-of-bounds rows, columns
 //     and k are zero-filled by the copy's src-size operand, so an MMA
-//     never reads past the tile and any nb <= 128 works.  Shared rows
-//     are padded so that every fragment load is free of bank
-//     conflicts.
+//     never reads past a matrix, and any bounds up to the window's
+//     width work (nb <= 256 with the 256-wide bands, a block of a tile
+//     with its own row stride and a k range).  Shared rows are padded
+//     so that every fragment load is free of bank conflicts.
 //   * The store loads every old value of a C -= A·B window before its
-//     first store, 2-wide when nb is even: the compiler cannot tell
-//     that rows of C do not alias, so a load after a store waits for
-//     it, and interleaved they were 16 dependent round trips.
+//     first store, 2-wide when C's pairs are aligned (row stride,
+//     column bound and offset even, as for any even nb): the compiler
+//     cannot tell that rows of C do not alias, so a load after a store
+//     waits for it, and interleaved they were 16 dependent round trips.
 //
 #pragma once
 
@@ -63,6 +70,27 @@ namespace plu {
 
 constexpr int kGemmWarps = 4;
 constexpr int kGemmThreads = 32 * kGemmWarps;
+
+// A rows x cols row-major matrix at p with row stride ld: a whole nb x
+// nb tile (tile_of), or a block of one (block_of).  T may be const.
+template <typename T>
+struct Mat {
+  T* p;
+  int ld, rows, cols;
+};
+template <typename T>
+__device__ __forceinline__ Mat<T> tile_of(T* p, int nb) {
+  return {p, nb, nb, nb};
+}
+// The rows x cols block at (r, c) of a matrix at p with row stride ld.
+template <typename T>
+__device__ __forceinline__ Mat<T> block_of(T* p, int ld, int r, int c,
+                                           int rows, int cols) {
+  return {p + (size_t)r * ld + c, ld, rows, cols};
+}
+
+// What tile_store does with the product: C = A·B, C -= A·B, C = -A·B.
+enum StoreOp { kStore, kSubtract, kNegate };
 
 __device__ __forceinline__ float fmat(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -240,13 +268,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// ROWS x COLS of the nb x nb tile src at (gr0, gc0) into dst (row
-// stride ld), zero outside the tile.  With vec every row of src is
-// 16-byte aligned and nb a multiple of the chunk, so a chunk is wholly
-// inside or wholly outside.
+// ROWS x COLS of the nr x nc matrix src (row stride lds) at (gr0, gc0)
+// into dst (row stride ld), zero outside the matrix.  With vec every
+// row of src is 16-byte aligned and nc a multiple of the chunk, so a
+// chunk is wholly inside or wholly outside.
 template <typename T, int ROWS, int COLS>
-__device__ __forceinline__ void stage(T* dst, int ld, const T* src, int nb,
-                                      int gr0, int gc0, bool vec) {
+__device__ __forceinline__ void stage(T* dst, int ld, const T* src, int lds,
+                                      int nr, int nc, int gr0, int gc0,
+                                      bool vec) {
   if (vec) {
     constexpr int V = 16 / sizeof(T), CPR = COLS / V;
     static_assert(ROWS * CPR % kGemmThreads == 0, "whole copies a thread");
@@ -254,8 +283,8 @@ __device__ __forceinline__ void stage(T* dst, int ld, const T* src, int nb,
     for (int j = 0; j < ROWS * CPR / kGemmThreads; ++j) {
       const int e = threadIdx.x + j * kGemmThreads;
       const int r = e / CPR, c = e % CPR * V, gr = gr0 + r, gc = gc0 + c;
-      const bool in = gr < nb && gc < nb;
-      cp_async<16>(dst + r * ld + c, in ? src + (size_t)gr * nb + gc : src,
+      const bool in = gr < nr && gc < nc;
+      cp_async<16>(dst + r * ld + c, in ? src + (size_t)gr * lds + gc : src,
                    in);
     }
   } else {
@@ -264,32 +293,37 @@ __device__ __forceinline__ void stage(T* dst, int ld, const T* src, int nb,
     for (int j = 0; j < ROWS * COLS / kGemmThreads; ++j) {
       const int e = threadIdx.x + j * kGemmThreads;
       const int r = e / COLS, c = e % COLS, gr = gr0 + r, gc = gc0 + c;
-      const bool in = gr < nb && gc < nb;
+      const bool in = gr < nr && gc < nc;
       cp_async<sizeof(T)>(dst + r * ld + c,
-                          in ? src + (size_t)gr * nb + gc : src, in);
+                          in ? src + (size_t)gr * lds + gc : src, in);
     }
   }
 }
 
-// acc += A·B over the window W at (r0, c0); smem holds W::kSmemBytes.
-// Ends with a barrier.
-template <class W>
-__device__ void tile_gemm_acc(const typename W::T* A, const typename W::T* B,
-                              int nb, int r0, int c0, typename W::Acc& acc,
+// acc += A·B over the window W at (r0, c0), k over A.cols (= B.rows);
+// smem holds W::kSmemBytes.  Ends with a barrier.
+template <class W, typename TA, typename TB>
+__device__ void tile_gemm_acc(const Mat<TA>& A, const Mat<TB>& B, int r0,
+                              int c0, typename W::Acc& acc,
                               typename W::T* smem) {
   using T = typename W::T;
   using Mt = typename W::Mt;
-  const bool vec = nb * sizeof(T) % 16 == 0;
-  const int nk = (nb + W::BK - 1) / W::BK;
+  // 16-byte copies when both operands' rows start 16-byte aligned and
+  // each bound along a row is a whole number of chunks
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = (A.ld | B.ld | A.cols | B.cols) % V == 0 &&
+                   ((size_t)A.p | (size_t)B.p) % 16 == 0;
+  const int nk = (A.cols + W::BK - 1) / W::BK;
   const int wr = W::warp_row(), wc = W::warp_col();
   // slice s into buffer s & 1, as one copy group.  Double buffered: a
-  // block has at most 4 f32 slices at nb = 128 (a 4-slice ring is a
-  // variant of tools/probe_products.py; PERF.md has its times).
+  // block has 4 f32 slices at nb = 128, 8 at nb = 256 (a 4-slice ring
+  // is a variant of tools/probe_products.py; PERF.md has its times).
   auto load = [&](int s) {
     T* sa = smem + (s & 1) * W::STAGE;
-    stage<T, W::BM, W::BK>(sa, W::LDA, A, nb, r0, s * W::BK, vec);
-    stage<T, W::BK, W::BN>(sa + W::BM * W::LDA, W::LDB, B, nb, s * W::BK, c0,
-                           vec);
+    stage<T, W::BM, W::BK>(sa, W::LDA, A.p, A.ld, A.rows, A.cols, r0,
+                           s * W::BK, vec);
+    stage<T, W::BK, W::BN>(sa + W::BM * W::LDA, W::LDB, B.p, B.ld, B.rows,
+                           B.cols, s * W::BK, c0, vec);
     cp_async_commit();
   };
   load(0);
@@ -342,19 +376,23 @@ __device__ __forceinline__ void pair_at(int r0, int c0, int m, int n, int i,
   c = c0 + W::warp_col() + n * Mt::N + Mt::col(i);
 }
 
-// The window W at (r0, c0) of C = acc (or C -= acc when SUB).  A pair
-// is one 2-wide access when nb is even (then every pair is aligned and
-// wholly inside or outside the tile); when nb is odd its second column
-// may be outside.  With SUB every old value is loaded before the first
-// store, so that the loads are in flight together: the compiler cannot
-// tell that rows of C do not alias, so a load after a store waits for
-// it.
-template <class W, bool SUB>
-__device__ void tile_store(typename W::T* C, int nb, int r0, int c0,
+// The window W at (r0, c0) of C = acc (OP kStore), C -= acc
+// (kSubtract) or C = -acc (kNegate).  A pair is one 2-wide access when
+// the row stride, the column bound and C's offset are even (then every
+// pair is aligned and wholly inside or outside C); otherwise its second
+// column may be outside.  With kSubtract every old value is loaded
+// before the first store, so that the loads are in flight together:
+// the compiler cannot tell that rows of C do not alias, so a load
+// after a store waits for it.
+template <class W, StoreOp OP>
+__device__ void tile_store(const Mat<typename W::T>& C, int r0, int c0,
                            const typename W::Acc& acc) {
   using T = typename W::T;
   using V = typename Pair<T>::V;
-  const bool wide = nb % 2 == 0;
+  constexpr bool SUB = OP == kSubtract;
+  const int nr = C.rows, nc = C.cols;
+  const bool wide =
+      (C.ld | nc | (int)((size_t)C.p / sizeof(T))) % 2 == 0;
   typename W::Acc old;
   if (SUB) {
 #pragma unroll
@@ -365,15 +403,15 @@ __device__ void tile_store(typename W::T* C, int nb, int r0, int c0,
         for (int i = 0; i < W::Mt::NC; i += 2) {
           int r, c;
           pair_at<W>(r0, c0, m, n, i, r, c);
-          if (r >= nb || c >= nb) continue;
-          const T* p = C + (size_t)r * nb + c;
+          if (r >= nr || c >= nc) continue;
+          const T* p = C.p + (size_t)r * C.ld + c;
           if (wide) {
             const V v = *reinterpret_cast<const V*>(p);
             old.v[m][n][i] = v.x;
             old.v[m][n][i + 1] = v.y;
           } else {
             old.v[m][n][i] = p[0];
-            old.v[m][n][i + 1] = c + 1 < nb ? p[1] : T(0);
+            old.v[m][n][i + 1] = c + 1 < nc ? p[1] : T(0);
           }
         }
   }
@@ -385,28 +423,34 @@ __device__ void tile_store(typename W::T* C, int nb, int r0, int c0,
       for (int i = 0; i < W::Mt::NC; i += 2) {
         int r, c;
         pair_at<W>(r0, c0, m, n, i, r, c);
-        if (r >= nb || c >= nb) continue;
-        T* p = C + (size_t)r * nb + c;
-        const T x = SUB ? old.v[m][n][i] - acc.v[m][n][i] : acc.v[m][n][i];
-        const T y = SUB ? old.v[m][n][i + 1] - acc.v[m][n][i + 1]
-                        : acc.v[m][n][i + 1];
+        if (r >= nr || c >= nc) continue;
+        T* p = C.p + (size_t)r * C.ld + c;
+        T x = acc.v[m][n][i], y = acc.v[m][n][i + 1];
+        if (SUB) {
+          x = old.v[m][n][i] - x;
+          y = old.v[m][n][i + 1] - y;
+        } else if (OP == kNegate) {
+          x = -x;
+          y = -y;
+        }
         if (wide) {
           *reinterpret_cast<V*>(p) = V{x, y};
         } else {
           p[0] = x;
-          if (c + 1 < nb) p[1] = y;
+          if (c + 1 < nc) p[1] = y;
         }
       }
 }
 
-template <class W, bool SUB>
-__device__ void tile_gemm(const typename W::T* A, const typename W::T* B,
-                          typename W::T* C, int nb, int r0, int c0,
+// The window W at (r0, c0) of C (OP) A·B.
+template <class W, StoreOp OP, typename TA, typename TB>
+__device__ void tile_gemm(const Mat<TA>& A, const Mat<TB>& B,
+                          const Mat<typename W::T>& C, int r0, int c0,
                           typename W::T* smem) {
   typename W::Acc acc;
   acc.zero();
-  tile_gemm_acc<W>(A, B, nb, r0, c0, acc, smem);
-  tile_store<W, SUB>(C, nb, r0, c0, acc);
+  tile_gemm_acc<W>(A, B, r0, c0, acc, smem);
+  tile_store<W, OP>(C, r0, c0, acc);
 }
 
 }  // namespace plu

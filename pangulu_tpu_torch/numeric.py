@@ -27,8 +27,8 @@ import torch
 
 from pangulu_tpu_torch.blocks import BlockedMatrix
 from pangulu_tpu_torch.ops import kernels_cuda
-from pangulu_tpu_torch.ops.kernels_torch import (DEFAULT_TOL, MEGA_UCH,
-                                                 KernelTables)
+from pangulu_tpu_torch.ops.kernels_torch import (DEFAULT_TOL, KernelTables,
+                                                 mega_uch)
 from pangulu_tpu_torch.schedule import Schedule, build_schedule
 from pangulu_tpu_torch.utils.log import get_logger
 from pangulu_tpu_torch.utils.perf import PerfCounters, device_sync
@@ -80,15 +80,16 @@ class LUFactorizer:
         self.dispatch, why = pick_engine(dispatch, self.schedule,
                                          self.GROUP_GMAX)
         nt = blocked.num_tiles
+        uch = mega_uch(blocked.nb)
         # ship the tables to the device once; the engines read their
         # loop counts from the host copies
         if self.dispatch == "mega_group":
             tables = self.schedule.group_mega_tables(
-                nt, uch=MEGA_UCH, gmax=self.GROUP_GMAX)
+                nt, uch=uch, gmax=self.GROUP_GMAX)
             why += (f"; {self.schedule.block_length} levels -> "
                     f"{tables['ngroups']} groups (gmax={tables['gmax']})")
         else:
-            tables = self.schedule.mega_tables(nt, uch=MEGA_UCH)
+            tables = self.schedule.mega_tables(nt, uch=uch)
         log.info("engine: %s (%s)", self.dispatch, why)
         self.tables = KernelTables.build(tables, self.device)
         self.inv_tiles = None  # [bl, 2, nb, nb] after factorize()

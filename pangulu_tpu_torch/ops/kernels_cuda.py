@@ -26,16 +26,21 @@ from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.ops.kernels_torch import KernelTables, check_nb
 from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 5
+_ABI = 7
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
 # wrapper call of K1, K2, K3, K4 or K5, plus, for K1, every diagonal
 # step that K2's level loop or K4's group loop launches (K1's kernel;
-# the C entries count them).  chip_smoke.py zeroes the counts before it
-# drives a path and reads them after.
+# the C entries count them).  A K1 launch at 128 < nb <= 256 is the
+# blocked step's five device launches, counted as one.  chip_smoke.py
+# zeroes the counts before it drives a path and reads them after.
 LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0,
             "mega_factorize_groups": 0, "mega_solve_groups": 0}
+
+# K1's device launches, as the C entries report them: one a K1 launch up
+# to nb = 128, five above (the blocked step).  Zeroed with LAUNCHES.
+DEVICE_LAUNCHES = {"getrf_with_inverses": 0}
 
 # The cooperative grid of the last K5 call: blocks of its forward and
 # backward launch, and the blocks an SM holds (the occupancy query).
@@ -45,8 +50,15 @@ _library: build.KernelLibrary | None = None
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, DEVICE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count_k1(k1) -> None:
+    """Add a C entry's K1 counts (K1 launches, device launches)."""
+    LAUNCHES["getrf_with_inverses"] += k1[0]
+    DEVICE_LAUNCHES["getrf_with_inverses"] += k1[1]
 
 
 def library() -> build.KernelLibrary:
@@ -67,7 +79,7 @@ def library() -> build.KernelLibrary:
     for s in _SUFFIX.values():
         fn = getattr(lib, f"plu_getrf_inv_{s}")
         fn.restype = i
-        fn.argtypes = [i, p, p, p, p, i, i, d, p]
+        fn.argtypes = [i, p, p, p, p, i, i, d, p, p]
         fn = getattr(lib, f"plu_mega_factorize_{s}")
         fn.restype = i
         fn.argtypes = ([i, p, p] + [p] * 6 + [p] * 3
@@ -155,7 +167,9 @@ def _stream(device) -> int:
 
 def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
     """K1: (f, L^-1, U^-1) of ``a`` ([nb, nb] or [B, nb, nb]); see
-    :func:`kernels_torch.getrf_with_inverses`."""
+    :func:`kernels_torch.getrf_with_inverses`.  Above nb = 128 the card
+    runs the blocked step of
+    :func:`kernels_torch.getrf_with_inverses_blocked`."""
     if not _on_cuda(a):
         return kt.getrf_with_inverses(a, tol)
     s = _dtype_of(a)
@@ -172,11 +186,12 @@ def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
     f, linv, uinv = (torch.empty_like(a3) for _ in range(3))
     if a3.shape[0]:
         lib = library().lib
+        k1 = (ctypes.c_int * 2)()
         _call(getattr(lib, f"plu_getrf_inv_{s}"), a.device.index,
               a3.data_ptr(), f.data_ptr(), linv.data_ptr(),
-              uinv.data_ptr(), a3.shape[0], nb, float(tol),
+              uinv.data_ptr(), a3.shape[0], nb, float(tol), k1,
               _stream(a.device))
-        LAUNCHES["getrf_with_inverses"] += 1
+        _count_k1(k1)
     if single:
         return f[0], linv[0], uinv[0]
     return f, linv, uinv
@@ -216,12 +231,12 @@ def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,
                                 "udst_tab", "udl_tab", "udu_tab"), dev)
     invs = torch.empty((bl, 2, nb, nb), dtype=tiles.dtype, device=dev)
     lib = library().lib
-    diag_launches = ctypes.c_int(0)
+    k1 = (ctypes.c_int * 2)()
     _call(getattr(lib, f"plu_mega_factorize_{s}"), dev.index,
           tiles.data_ptr(), invs.data_ptr(), *(t.data_ptr() for t in tabs),
           _ptr(nl), _ptr(nu), _ptr(nup), bl, lw, uw, nchunks, row_w, uch,
-          nb, float(tol), ctypes.byref(diag_launches), _stream(dev))
-    LAUNCHES["getrf_with_inverses"] += diag_launches.value
+          nb, float(tol), k1, _stream(dev))
+    _count_k1(k1)
     LAUNCHES["mega_factorize"] += 1
     return tiles, invs
 
@@ -348,14 +363,14 @@ def mega_factorize_groups(tiles: torch.Tensor, tables: KernelTables, *,
     npl, npu = _host_i32(gloff[rows, gs]), _host_i32(guoff[rows, gs])
     invs = torch.empty((bl, 2, nb, nb), dtype=tiles.dtype, device=dev)
     lib = library().lib
-    diag_launches = ctypes.c_int(0)
+    k1 = (ctypes.c_int * 2)()
     _call(getattr(lib, f"plu_mega_factorize_groups_{s}"), dev.index,
           tiles.data_ptr(), invs.data_ptr(), *(t.data_ptr() for t in tabs),
           *(csr_dev[k].data_ptr() for k in ("key", "ptr", "ent")),
           _ptr(gs), _ptr(npl), _ptr(npu), _ptr(csr["cnt"]),
           _ptr(csr["off"]), ng, gw, lw, uw, nchunks, row_w, uch, nb,
-          float(tol), ctypes.byref(diag_launches), _stream(dev))
-    LAUNCHES["getrf_with_inverses"] += diag_launches.value
+          float(tol), k1, _stream(dev))
+    _count_k1(k1)
     LAUNCHES["mega_factorize_groups"] += 1
     return tiles, invs
 

@@ -43,16 +43,33 @@ from pangulu_tpu_torch.schedule import group_update_lists
 # pangulu_tpu/ops/kernels_jax.py:33-38: |piv| < tol -> +tol.
 DEFAULT_TOL = {torch.float32: 1e-8, torch.float64: 1e-16}
 
-# Largest tile the CUDA kernels take.  K1 keeps a tile in registers and
-# has instances for nb <= 32, 64 and 128 only (csrc/tile_lu.cuh); the
-# products of K2 and K4 stage tiles through shared-memory windows sized
-# for nb <= 128 (csrc/tile_gemm.cuh).  nb=256 is ROADMAP W4.
-MAX_NB = 128
+# Largest tile the CUDA kernels take.  K1 keeps a tile of nb <= 128 in
+# registers (instances for nb <= 32, 64 and 128, csrc/tile_lu.cuh) and
+# runs 128 < nb <= 256 as a blocked step over two such diagonal blocks
+# (getrf_with_inverses_blocked is its plain twin); the products of K2
+# and K4 have shared-memory windows for nb <= 128 and for nb <= 256
+# (csrc/lu_kernels.cu).  nb > 256 is ROADMAP W4.
+MAX_NB = 256
 
-# Schur-update chunk width of Schedule.mega_tables.  It sized the TPU
-# kernel's VMEM buffer (pangulu_tpu/ops/kernels_pallas.py:643); the port
-# keeps it so its tables stay bit-identical to the JAX package's.
+# K1's split of a tile above 128: the largest register tile.
+LU_SPLIT = 128
+
+# Schur-update chunk width of Schedule.mega_tables at nb <= 128.  It
+# sized the TPU kernel's VMEM buffer (pangulu_tpu/ops/kernels_pallas.py:
+# 643); the port keeps it so its tables stay bit-identical to the JAX
+# package's.  mega_uch gives it for every nb.
 MEGA_UCH = 64
+
+
+def mega_uch(nb: int) -> int:
+    """Schur-update chunk width for tiles of ``nb``: 64 up to nb=128,
+    else as many tiles as fill 4 MiB of f32, at least 8 (16 at nb=256).
+    A copy of pangulu_tpu/ops/kernels_pallas.py:646-649 (mega_uch), so
+    that the tables stay bit-identical to the JAX package's at every
+    nb; the port's kernels take any chunk width."""
+    if nb <= 128:
+        return MEGA_UCH
+    return max(4 * 1024 * 1024 // (nb * nb * 4), 8)
 
 
 @dataclasses.dataclass
@@ -80,10 +97,10 @@ class KernelTables:
 def check_nb(nb: int) -> None:
     if nb > MAX_NB:
         raise ValueError(
-            f"nb={nb} exceeds the port's limit nb <= {MAX_NB} (K1's "
-            "register-tile instances stop at nb=128 and the products' "
-            "shared-memory windows are sized for it; nb=256 is ROADMAP "
-            "W4)")
+            f"nb={nb} exceeds the port's limit nb <= {MAX_NB} (K1 runs "
+            "nb > 128 as a blocked step over two 128-wide diagonal blocks "
+            "and the products' shared-memory windows stop at nb=256; nb > "
+            "256 is ROADMAP W4)")
 
 
 def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
@@ -111,6 +128,46 @@ def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
     uinv = torch.linalg.solve_triangular(f, eye, upper=True)
     if single:
         return f[0], linv[0], uinv[0]
+    return f, linv, uinv
+
+
+def getrf_with_inverses_blocked(a: torch.Tensor, tol: float | None = None,
+                                h: int = LU_SPLIT):
+    """(f, L^-1, U^-1) of ``a`` ([nb, nb] or [B, nb, nb], nb > h) by the
+    blocked right-looking step of the CUDA kernel for nb > 128: with
+    ``A = [[A11, A12], [A21, A22]]`` split at ``h``,
+
+      1. ``(F11, L11^-1, U11^-1)`` of A11 (:func:`getrf_with_inverses`);
+      2. ``L21 = A21·U11^-1``, ``U12 = L11^-1·A12``;
+      3. ``A22 -= L21·U12``, and ``(F22, L22^-1, U22^-1)`` of it;
+      4. ``L^-1 = [[L11^-1, 0], [L22^-1·(-L21·L11^-1), L22^-1]]``,
+         ``U^-1 = [[U11^-1, (-U11^-1·U12)·U22^-1], [0, U22^-1]]``.
+
+    In exact arithmetic it is :func:`getrf_with_inverses`, the reference
+    semantics: the same pivots, and the tiny-pivot rule applied at the
+    same step inside each diagonal block.  In floating point the
+    products' sums run in another order (the JAX package's blocked LU,
+    pangulu_tpu/ops/kernels_pallas.py:261-288, is held to the scan at
+    factor 3e-5 and inverses 2e-4 in f32, tests/test_pallas.py:79-99).
+    The kernel forms the products on tensor cores (3xTF32 for float,
+    DMMA for double) in this order."""
+    if tol is None:
+        tol = DEFAULT_TOL[a.dtype]
+    nb = a.shape[-1]
+    if not 0 < h < nb:
+        raise ValueError(f"split h={h} must lie inside nb={nb}")
+    a11, a12 = a[..., :h, :h], a[..., :h, h:]
+    a21, a22 = a[..., h:, :h], a[..., h:, h:]
+    f11, l11i, u11i = getrf_with_inverses(a11, tol)
+    l21 = a21 @ u11i
+    u12 = l11i @ a12
+    f22, l22i, u22i = getrf_with_inverses(a22 - l21 @ u12, tol)
+    f = torch.cat([torch.cat([f11, u12], -1), torch.cat([l21, f22], -1)], -2)
+    zl, zu = torch.zeros_like(a12), torch.zeros_like(a21)
+    linv = torch.cat([torch.cat([l11i, zl], -1),
+                      torch.cat([l22i @ -(l21 @ l11i), l22i], -1)], -2)
+    uinv = torch.cat([torch.cat([u11i, -(u11i @ u12) @ u22i], -1),
+                      torch.cat([zu, u22i], -1)], -2)
     return f, linv, uinv
 
 

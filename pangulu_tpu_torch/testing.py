@@ -1,0 +1,51 @@
+"""Inputs and tolerances that the port's tests and ``chip_smoke.py``
+share for K1 (the diagonal step): tiles whose pivots are exactly zero
+at a chosen step, and the bound that holds K1's blocked step (128 < nb
+<= 256) against the rank-1 plain version."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pangulu_tpu_torch.ops.kernels_torch import LU_SPLIT
+
+# K1's blocked step against the rank-1 plain version: (rtol, atol) of
+# the factor, L^-1 and U^-1.  In f32 the JAX package's bound for its
+# blocked LU against the scan (tests/test_pallas.py:79-99); in f64 the
+# contract's 1e-12.
+BLOCKED_TOL = {torch.float32: ((3e-5, 3e-5), (2e-4, 2e-4), (2e-4, 2e-4)),
+               torch.float64: ((1e-12, 1e-12),) * 3}
+
+
+def tiny_pivot_tile(nb: int, k: int, rng) -> np.ndarray:
+    """A diagonally dominant tile whose pivot at step k is exactly 0, so
+    the tiny-pivot rule fires there: for k > 0 row k and column k copy
+    row 0 and column 0 around a00 = 1, which step 0 zeroes exactly; for
+    k = 0 the first row and column are zero.  Either way the huge
+    entries 1/tol of the inverses are exact products, not sums that a
+    different order could round apart."""
+    a = rng.standard_normal((nb, nb)) + nb * np.eye(nb)
+    if k == 0:
+        a[0, :] = 0.0
+        a[:, 0] = 0.0
+    else:
+        a[0, 0] = 1.0
+        a[k, :] = a[0, :]
+        a[:, k] = a[:, 0]
+    return a
+
+
+def blocked_tiny_pivot_tile(nb: int, k1: int, k2: int, rng) -> np.ndarray:
+    """A tile of nb > LU_SPLIT whose pivots at step k1 of A11 and step
+    k2 of A22 (split at LU_SPLIT) are exactly 0 in the rank-1 scan and
+    in the blocked step alike: each diagonal block is a tiny_pivot_tile,
+    A12 = 0 (so A22 is never updated), and A21 is random except its
+    columns 0 and k1, which would meet U11^-1's 1/tol entries."""
+    h = LU_SPLIT
+    a = np.zeros((nb, nb))
+    a[:h, :h] = tiny_pivot_tile(h, k1, rng)
+    a[h:, h:] = tiny_pivot_tile(nb - h, k2, rng)
+    a[h:, :h] = rng.standard_normal((nb - h, h))
+    a[h:, [0, k1]] = 0.0
+    return a

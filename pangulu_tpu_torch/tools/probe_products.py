@@ -78,10 +78,10 @@ VARIANTS = {
         "32 x 32",
         [("tile_gemm.cuh", "constexpr int kGemmWarps = 4;",
           "constexpr int kGemmWarps = 8;"),
-         ("lu_kernels.cu", "Window<T, kBand, kMaxNb, 1, 4>",
-          "Window<T, kBand, kMaxNb, 1, 8>"),
-         ("lu_kernels.cu", "Window<T, kMaxNb, kBand, 4, 1>",
-          "Window<T, kMaxNb, kBand, 4, 2>"),
+         ("lu_kernels.cu", "Window<T, kBand, NB, 1, 4>",
+          "Window<T, kBand, NB, 1, 8>"),
+         ("lu_kernels.cu", "Window<T, NB, kBand, 4, 1>",
+          "Window<T, NB, kBand, 4, 2>"),
          ("lu_kernels.cu", "Window<T, kQuad, kQuad, 2, 2>",
           "Window<T, kQuad, kQuad, 2, 4>")]),
     "ring4": (
@@ -89,18 +89,9 @@ VARIANTS = {
         [("tile_gemm.cuh", "kSmemBytes = 2 * STAGE",
           "kSmemBytes = 4 * STAGE"),
          ("tile_gemm.cuh",
-          "    T* sa = smem + (s & 1) * W::STAGE;\n"
-          "    stage<T, W::BM, W::BK>(sa, W::LDA, A, nb, r0, s * W::BK, vec);\n"
-          "    stage<T, W::BK, W::BN>(sa + W::BM * W::LDA, W::LDB, B, nb, "
-          "s * W::BK, c0,\n"
-          "                           vec);\n",
-          "    if (s < nk) {\n"
-          "    T* sa = smem + (s % 4) * W::STAGE;\n"
-          "    stage<T, W::BM, W::BK>(sa, W::LDA, A, nb, r0, s * W::BK, vec);\n"
-          "    stage<T, W::BK, W::BN>(sa + W::BM * W::LDA, W::LDB, B, nb, "
-          "s * W::BK, c0,\n"
-          "                           vec);\n"
-          "    }\n"),
+          "    T* sa = smem + (s & 1) * W::STAGE;\n    stage<",
+          "    if (s >= nk) {\n      cp_async_commit();\n      return;\n"
+          "    }\n    T* sa = smem + (s % 4) * W::STAGE;\n    stage<"),
          ("tile_gemm.cuh",
           "  load(0);\n  for (int s = 0; s < nk; ++s) {\n",
           "  for (int s = 0; s < 3; ++s) load(s);\n"
@@ -230,12 +221,14 @@ def variants(out_path: str | None) -> dict:
     res = {}
     for name, (csrc, bdir) in dirs.items():
         lib = use_variant(csrc, bdir)
-        ptx = {k: v for k, v in cs.ptxas_by_kernel(lib.log).items()
-               if any(f"plu{len(p)}{p}IfE" in k for p in PRODUCT_KERNELS)}
-        row = dict(edit=VARIANTS[name][0], ptxas={
-            k.split("I")[0].removeprefix("_ZN3plu").lstrip("0123456789"):
-            [v.get("registers"), v.get("spill_bytes")]
-            for k, v in ptx.items()})
+        # the float instances these nb=128 runs take (panels: width 128)
+        ptx = {}
+        for k, v in cs.ptxas_by_kernel(lib.log).items():
+            lab = cs.kernel_label(k)
+            if lab and lab[0] in PRODUCT_KERNELS and lab[1:] in (
+                    ("float", None), ("float", 128)):
+                ptx[lab[0]] = [v.get("registers"), v.get("spill_bytes")]
+        row = dict(edit=VARIANTS[name][0], ptxas=ptx)
         for ordering, c in cases.items():
             fk = kc.mega_factorize_groups if c["grouped"] else \
                 kc.mega_factorize

@@ -2,7 +2,8 @@
 """Probe of K5's design (csrc/lu_kernels.cu ``group_sweep_kernel``) on
 one NVIDIA GPU.  From the root of the repository:
 
-    python3 pangulu_tpu_torch/tools/probe_solve_groups.py [--out F]
+    python3 pangulu_tpu_torch/tools/probe_solve_groups.py [--nb 128|256]
+        [--out F]
 
 Each source variant (VARIANTS: the shipped ``csrc/`` with one textual
 edit, all built at once as ``probe_products.py`` builds its own) runs
@@ -18,7 +19,9 @@ shipped bundled one bit for bit, the cooperative grid, and from one
 traced solve the device busy ms, host wall ms and idle share; and per
 variant ptxas's registers and spills of ``group_sweep_kernel``.  It
 prints the card's name and power limit, a line per pair, then one JSON
-line.
+line.  --nb 256 runs the same at nb=256 (the instance of NB = 256,
+two passes of 128 rows an item) for the variants of NB256, which weigh
+its register pressure, on the bundled schedule only.
 """
 
 from __future__ import annotations
@@ -60,7 +63,8 @@ VARIANTS = {
     "no_inverse": (
         "timing only, results wrong: no inverse product",
         [("lu_kernels.cu",
-          "    tile_matvec<T, false>(inv, v, xd + (size_t)d.x * nb, nb);\n", "")]),
+          "    tile_matvec<T, NB, false>(inv, v, xd + (size_t)d.x * nb, nb);\n",
+          "")]),
     "barriers_only": (
         "timing only, results wrong: neither products nor inverses, so "
         "left are the steps, their barriers, the prefetches and x's "
@@ -68,9 +72,38 @@ VARIANTS = {
         [("lu_kernels.cu", "for (int e = d.z; e < d.w; ++e) {",
           "for (int e = d.z; e < d.z; ++e) {"),
          ("lu_kernels.cu",
-          "    tile_matvec<T, false>(inv, v, xd + (size_t)d.x * nb, nb);\n", "")]),
+          "    tile_matvec<T, NB, false>(inv, v, xd + (size_t)d.x * nb, nb);\n",
+          "")]),
+    "old_after_sum": (
+        "an item's old values of x read after its entries' sum, not "
+        "before (no old[] live across the entry loop)",
+        [("lu_kernels.cu",
+          "      old[q] = lane == 0 && i < nb ? __ldcg(row + i) : T(0);\n",
+          ""),
+         ("lu_kernels.cu",
+          "        const T val = old[q] - warp_sum(acc[q]);",
+          "        const T val = (lane == 0 ? __ldcg(row + i) : T(0)) -\n"
+          "                      warp_sum(acc[q]);")]),
+    "one_pass": (
+        "an item's rows in one pass (NB / 32 rows a warp: 8 at NB = 256) "
+        "in place of passes of 128 rows",
+        [("lu_kernels.cu",
+          "  constexpr int kWarps = kSolveThreads / 32, kRows = kSplit / kWarps;\n"
+          "  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;\n"
+          "  T* row = xs + (size_t)d.x * nb;\n"
+          "#pragma unroll 1\n"
+          "  for (int i0 = 0; i0 < NB; i0 += kSplit) {",
+          "  constexpr int kWarps = kSolveThreads / 32, kRows = NB / kWarps;\n"
+          "  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;\n"
+          "  T* row = xs + (size_t)d.x * nb;\n"
+          "#pragma unroll 1\n"
+          "  for (int i0 = 0; i0 < NB; i0 += NB) {")]),
 }
 SCHEDULES = ("bundled", "two_phase")
+# at nb=256: the shipped sources and the register-pressure variants, on
+# the kernel's own schedule
+NB256 = (("shipped", "old_after_sum", "one_pass", "threads512"),
+         ("bundled",))
 ROUNDS = 5
 CALLS = 20   # back-to-back solves a timing
 
@@ -106,8 +139,11 @@ def two_phase_steps(h: dict, sweep: str, bl: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--nb", type=int, default=128, choices=(128, 256))
     ap.add_argument("--out", help="also write the results here")
     args = ap.parse_args()
+    nb = args.nb
+    names, scheds = (tuple(VARIANTS), SCHEDULES) if nb == 128 else NB256
     if not torch.cuda.is_available():
         print("probe_solve_groups: no CUDA device", file=sys.stderr)
         return 2
@@ -122,41 +158,44 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line())
     dev = torch.device("cuda", 0)
-    dirs = build_all(VARIANTS)
+    dirs = build_all({n: VARIANTS[n] for n in names})
     libs = {name: use_variant(*d) for name, d in dirs.items()}
     use_variant(*dirs["shipped"])
-    h = init(poisson3d(32), InitOptions(nb=128, dtype="r32", ordering="nd",
+    h = init(poisson3d(32), InitOptions(nb=nb, dtype="r32", ordering="nd",
                                         device="cuda"))
     nt, sch = h.blocked.num_tiles, h.schedule
     bl = sch.block_length
-    ftab = kt.KernelTables.build(sch.group_mega_tables(nt), dev)
+    ftab = kt.KernelTables.build(
+        sch.group_mega_tables(nt, uch=kt.mega_uch(nb)), dev)
     tiles, invs = kc.mega_factorize_groups(
-        h.blocked.device_tiles(dev), ftab, nb=128, bl=bl,
+        h.blocked.device_tiles(dev), ftab, nb=nb, bl=bl,
         tol=kt.DEFAULT_TOL[torch.float32])
     tabs = {s: kt.KernelTables.build(sch.group_solve_tables(nt), dev)
-            for s in SCHEDULES}
+            for s in scheds}
     # the two-phase steps go where the kernel path caches its own, in
     # the view of kernels_cuda.solve_steps_view
-    host = {f"{sw}_{k}": v for sw in ("l", "uc") for k, v in
-            two_phase_steps(tabs["two_phase"].host, sw, bl).items()}
-    tabs["two_phase"].views[f"solve_steps_{bl}_{nt}"] = (host, {
-        k: torch.as_tensor(v, device=dev) for k, v in host.items()
-        if not k.endswith("_width")})
-    if kc.solve_steps_view(tabs["two_phase"], bl, nt, dev)[0] is not host:
-        raise RuntimeError("the kernel path does not read the two-phase "
-                           "steps")
+    if "two_phase" in tabs:
+        host = {f"{sw}_{k}": v for sw in ("l", "uc") for k, v in
+                two_phase_steps(tabs["two_phase"].host, sw, bl).items()}
+        tabs["two_phase"].views[f"solve_steps_{bl}_{nt}"] = (host, {
+            k: torch.as_tensor(v, device=dev) for k, v in host.items()
+            if not k.endswith("_width")})
+        if kc.solve_steps_view(tabs["two_phase"], bl, nt, dev)[0] \
+                is not host:
+            raise RuntimeError("the kernel path does not read the "
+                               "two-phase steps")
     rng = np.random.default_rng(0)
-    x = torch.as_tensor(rng.standard_normal((4, bl + 1, 128)),
+    x = torch.as_tensor(rng.standard_normal((4, bl + 1, nb)),
                         dtype=torch.float32, device=dev)
     xs = {1: x[:1].contiguous(), 4: x}
-    pairs = [(v, s) for v in VARIANTS for s in SCHEDULES]
+    pairs = [(v, s) for v in names for s in scheds]
 
     def solve(pair, r):
         return kc.mega_solve_groups(xs[r], tiles, invs, tabs[pair[1]],
-                                    nb=128, bl=bl)
+                                    nb=nb, bl=bl)
 
     plain = kt.mega_solve_groups(xs[1], tiles, invs, tabs["bundled"],
-                                 nb=128, bl=bl)
+                                 nb=nb, bl=bl)
     ref = solve(("shipped", "bundled"), 1)
     res = {p: {} for p in pairs}
     for p in pairs:
@@ -183,12 +222,15 @@ def main() -> int:
         for r in xs:
             res[p][f"ms_{r}rhs"] = statistics.median(times[(p, r)])
             res[p][f"ms_{r}rhs_each"] = times[(p, r)]
-        ptx = cs.ptxas_by_kernel(libs[p[0]].log)
-        res[p]["ptxas"] = {
-            ("float" if "IfE" in k else "double"):
-            [i.get("registers"), i.get("spill_bytes")]
-            for k, i in ptx.items() if "group_sweep_kernel" in k}
+        # the instances this nb takes
+        res[p]["ptxas"] = {}
+        for k, i in cs.ptxas_by_kernel(libs[p[0]].log).items():
+            lab = cs.kernel_label(k)
+            if lab and lab[0] == "group_sweep_kernel" and lab[2] == nb:
+                res[p]["ptxas"][lab[1]] = [i.get("registers"),
+                                           i.get("spill_bytes")]
         res[p]["edit"] = VARIANTS[p[0]][0]
+        res[p]["nb"] = nb
         out[f"{p[0]}/{p[1]}"] = res[p]
         print(f"{p[0]}/{p[1]}: {json.dumps(res[p])}")
     if args.out:

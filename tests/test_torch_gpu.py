@@ -10,7 +10,10 @@ Tolerances are the JAX package's own contract (ROADMAP.md
 "Tolerances", tests/test_mega.py:31,82): f32 tiles and inverses
 rtol/atol 1e-5, f32 solves rtol 1e-4 / atol 1e-5, f64 1e-12; grouped
 f32 factors 2e-4 (tests/test_mega_group.py:66,140: a group's updates
-are summed in another order).
+are summed in another order).  K1's blocked step (128 < nb <= 256)
+against the rank-1 plain version: f32 factor 3e-5, inverses 2e-4, the
+JAX package's bound for its blocked LU (tests/test_pallas.py:79-99);
+against its plain twin (getrf_with_inverses_blocked) the f32 contract.
 """
 
 import numpy as np
@@ -23,6 +26,8 @@ from pangulu_tpu_torch.models import (poisson2d, poisson3d,
                                       trefethen)
 from pangulu_tpu_torch.ops import kernels_cuda as kc
 from pangulu_tpu_torch.ops import kernels_torch as kt
+from pangulu_tpu_torch.testing import (BLOCKED_TOL, blocked_tiny_pivot_tile,
+                                       tiny_pivot_tile)
 from pangulu_tpu_torch.utils.perf import residual_norm
 
 pytestmark = pytest.mark.gpu
@@ -51,24 +56,6 @@ def test_getrf_with_inverses_kernel(cuda, dtype, nb, batch):
         torch.testing.assert_close(g, r, **TOL[dtype])
 
 
-def tiny_pivot_tile(nb: int, k: int, rng) -> np.ndarray:
-    """A diagonally dominant tile whose pivot at step k is exactly 0, so
-    the tiny-pivot rule fires there: for k > 0 row k and column k copy
-    row 0 and column 0 around a00 = 1, which step 0 zeroes exactly; for
-    k = 0 the first row and column are zero.  Either way the huge
-    entries 1/tol of the inverses are exact products, not sums that a
-    different order could round apart."""
-    a = rng.standard_normal((nb, nb)) + nb * np.eye(nb)
-    if k == 0:
-        a[0, :] = 0.0
-        a[:, 0] = 0.0
-    else:
-        a[0, 0] = 1.0
-        a[k, :] = a[0, :]
-        a[:, k] = a[:, 0]
-    return a
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nb", [16, 128])
 @pytest.mark.parametrize("where", ["first", "middle", "last"])
@@ -83,6 +70,47 @@ def test_getrf_tiny_pivot_kernel(cuda, dtype, nb, where):
     assert float(got[0][k, k]) == float(tol)
     for g, r in zip(got, kt.getrf_with_inverses(a)):
         torch.testing.assert_close(g, r, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch", [1, 3])
+# A22 of 1, 72 and 128 rows: register tiles of 32, 128 and 128
+@pytest.mark.parametrize("nb", [129, 200, 256])
+def test_getrf_blocked_kernel(cuda, dtype, nb, batch):
+    """K1 at 128 < nb <= 256 (the blocked step): its plain twin at the
+    f32 contract, the rank-1 plain version at the blocked-LU bound."""
+    rng = np.random.default_rng(nb)
+    a = torch.as_tensor(rng.standard_normal((batch, nb, nb))
+                        + nb * np.eye(nb), dtype=dtype, device=cuda)
+    kc.reset_launch_counts()
+    got = kc.getrf_with_inverses(a)
+    # one K1 launch, the blocked step's five device launches
+    assert kc.LAUNCHES["getrf_with_inverses"] == 1
+    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 5}
+    for g, r in zip(got, kt.getrf_with_inverses_blocked(a)):
+        torch.testing.assert_close(g, r, **TOL[dtype])
+    for g, r, (rtol, atol) in zip(got, kt.getrf_with_inverses(a),
+                                  BLOCKED_TOL[dtype]):
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb,k1,k2", [(256, 0, 127), (256, 64, 1),
+                                      (200, 127, 40)])
+def test_getrf_blocked_tiny_pivot_kernel(cuda, dtype, nb, k1, k2):
+    """A zero pivot in each diagonal block becomes +tol at the same step
+    as in the rank-1 scan, and the result matches both plain versions."""
+    a = torch.as_tensor(blocked_tiny_pivot_tile(
+        nb, k1, k2, np.random.default_rng(k1)), dtype=dtype, device=cuda)
+    got = kc.getrf_with_inverses(a)
+    tol = float(torch.tensor(kt.DEFAULT_TOL[dtype], dtype=dtype))
+    k = kt.LU_SPLIT + k2
+    assert float(got[0][k1, k1]) == tol and float(got[0][k, k]) == tol
+    for g, r in zip(got, kt.getrf_with_inverses_blocked(a)):
+        torch.testing.assert_close(g, r, **TOL[dtype])
+    for g, r, (rtol, atol) in zip(got, kt.getrf_with_inverses(a),
+                                  BLOCKED_TOL[dtype]):
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("gen,nb,dtype,uch", [
@@ -101,6 +129,11 @@ def test_getrf_tiny_pivot_kernel(cuda, dtype, nb, where):
     (lambda: poisson3d(12), 100, "r64", kt.MEGA_UCH),
     (lambda: poisson3d(12), 128, "r32", kt.MEGA_UCH),
     (lambda: poisson3d(12), 128, "r64", kt.MEGA_UCH),
+    # 256-wide panel bands and the blocked K1: full and ragged
+    (lambda: poisson3d(12), 256, "r32", kt.mega_uch(256)),
+    (lambda: poisson3d(12), 256, "r64", kt.mega_uch(256)),
+    (lambda: poisson3d(12), 200, "r32", kt.mega_uch(200)),
+    (lambda: poisson3d(12), 200, "r64", kt.mega_uch(200)),
 ])
 def test_mega_kernels(cuda, gen, nb, dtype, uch):
     a = gen()
@@ -172,6 +205,8 @@ def test_slice_on_cuda_counts_launches(cuda):
                            "mega_factorize": 1, "mega_solve": 3,
                            "mega_factorize_groups": 0,
                            "mega_solve_groups": 0}
+    assert kc.DEVICE_LAUNCHES == {
+        "getrf_with_inverses": h.schedule.block_length}
     assert h.factor_tiles.is_cuda
     assert h.perf.kernels["gstrf_residual"] < 1e-5
     assert residual_norm(a.to_scipy(), x, b) < 1e-10
@@ -192,6 +227,10 @@ def test_slice_on_cuda_counts_launches(cuda):
     (lambda: poisson3d(12), "r64", kt.MEGA_UCH, 100),
     (lambda: poisson3d(12), "r32", kt.MEGA_UCH, 128),
     (lambda: poisson3d(12), "r64", kt.MEGA_UCH, 128),
+    # the blocked K1 on a batch of members, 256-wide panel bands
+    (lambda: poisson3d(12), "r32", kt.mega_uch(256), 256),
+    (lambda: poisson3d(12), "r64", kt.mega_uch(256), 256),
+    (lambda: poisson3d(12), "r32", kt.mega_uch(200), 200),
 ])
 def test_group_kernels(cuda, gen, dtype, uch, nb):
     h = pt.init(gen(), pt.InitOptions(nb=nb, dtype=dtype, ordering="nd",
@@ -274,6 +313,31 @@ def test_nd_slice_on_cuda_counts_launches(cuda):
     assert residual_norm(a.to_scipy(), x, b) < 1e-10
 
 
+@pytest.mark.parametrize("ordering", ["rcm", "nd"])
+def test_nb256_slice_on_cuda_counts_launches(cuda, ordering):
+    """init -> gstrf -> gstrs at nb=256: K1 once a level (chain) or a
+    group, each call one K1 launch of five device launches, and the
+    residual bounds of nb=128."""
+    a = poisson3d(12)
+    b = a.to_scipy() @ np.ones(a.n)
+    kc.reset_launch_counts()
+    h = pt.init(a, pt.InitOptions(nb=256, dtype="r32", ordering=ordering,
+                                  device="cuda", check=True))
+    pt.gstrf(h)
+    x = pt.gstrs(h, b)
+    grouped = ordering == "nd"
+    steps = (h._factorizer.tables.host["ngroups"] if grouped
+             else h.schedule.block_length)
+    assert kc.LAUNCHES == {"getrf_with_inverses": steps,
+                           "mega_factorize": int(not grouped),
+                           "mega_solve": 3 * int(not grouped),
+                           "mega_factorize_groups": int(grouped),
+                           "mega_solve_groups": 3 * int(grouped)}
+    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 5 * steps}
+    assert h.perf.kernels["gstrf_residual"] < 1e-5
+    assert residual_norm(a.to_scipy(), x, b) < 1e-10
+
+
 def _factor(grouped):
     return kc.mega_factorize_groups if grouped else kc.mega_factorize
 
@@ -283,8 +347,9 @@ def _store_and_tables(cuda, ordering, gen=lambda: poisson3d(12), nb=128):
                                       device="cuda"))
     nt, bl = h.blocked.num_tiles, h.schedule.block_length
     sch = h.schedule
-    tab = (sch.group_mega_tables(nt) if ordering == "nd"
-           else sch.mega_tables(nt))
+    uch = kt.mega_uch(nb)
+    tab = (sch.group_mega_tables(nt, uch=uch) if ordering == "nd"
+           else sch.mega_tables(nt, uch=uch))
     return h.blocked.device_tiles(cuda), kt.KernelTables.build(tab, cuda), \
         dict(nb=nb, bl=bl), nt
 
@@ -295,14 +360,15 @@ def rel_err(got, ref64):
     return float((got.double() - ref64).abs().max() / ref64.abs().max())
 
 
+@pytest.mark.parametrize("nb", [128, 256])
 @pytest.mark.parametrize("ordering", ["rcm", "nd"])
-def test_true_f32_products(cuda, ordering):
+def test_true_f32_products(cuda, ordering, nb):
     """The f32 kernel (3xTF32 products on tensor cores) is as accurate as
     true f32: against the plain f64 factorization of the same store
     (torch.matmul, no code shared with the kernels), its error is at
     most 2x the f32 plain version's (torch.matmul in full f32).  The
     f64 kernel (DMMA products) agrees with that reference to 1e-12."""
-    t0, tab, kw, nt = _store_and_tables(cuda, ordering)
+    t0, tab, kw, nt = _store_and_tables(cuda, ordering, nb=nb)
     grouped = ordering == "nd"
     tol32, tol64 = kt.DEFAULT_TOL[torch.float32], kt.DEFAULT_TOL[
         torch.float64]
@@ -317,11 +383,12 @@ def test_true_f32_products(cuda, ordering):
         assert rel_err(got, r64) <= 2 * rel_err(ref, r64)
 
 
+@pytest.mark.parametrize("nb", [128, 256])
 @pytest.mark.parametrize("ordering", ["rcm", "nd"])
-def test_factorization_deterministic(cuda, ordering):
+def test_factorization_deterministic(cuda, ordering, nb):
     """No atomics, one sum order: two kernel factorizations of the same
     store are bit-identical, chain and grouped."""
-    t0, tab, kw, _ = _store_and_tables(cuda, ordering)
+    t0, tab, kw, _ = _store_and_tables(cuda, ordering, nb=nb)
     f = _factor(ordering == "nd")
     tol = kt.DEFAULT_TOL[torch.float32]
     ta, ia = f(t0.clone(), tab, tol=tol, **kw)

@@ -149,8 +149,8 @@ def test_kernel_path_rejects_unsupported_inputs(monkeypatch):
     _route_to_kernel_without_launching(monkeypatch)
     with pytest.raises(TypeError, match="float32 or float64"):
         kernels_cuda.getrf_with_inverses(torch.eye(4, dtype=torch.float16))
-    with pytest.raises(ValueError, match="nb <= 128"):
-        kernels_cuda.getrf_with_inverses(torch.eye(256))
+    with pytest.raises(ValueError, match="nb <= 256"):
+        kernels_cuda.getrf_with_inverses(torch.eye(512))
     with pytest.raises(ValueError, match="contiguous"):
         kernels_cuda.getrf_with_inverses(torch.eye(8)[:, ::2][:4])
 
@@ -174,8 +174,8 @@ def test_unported_options_raise(opts, item):
 
 
 def test_nb_above_limit_raises():
-    with pytest.raises(ValueError, match="nb <= 128"):
-        init(poisson2d(4), InitOptions(nb=256, device="cpu"))
+    with pytest.raises(ValueError, match=r"nb <= 256.*ROADMAP W4"):
+        init(poisson2d(4), InitOptions(nb=512, device="cpu"))
 
 
 def test_native_rebuild_is_keyed_by_source(monkeypatch, tmp_path):
@@ -205,9 +205,22 @@ def test_cpu_wrapper_runs_plain_version():
     from pangulu_tpu_torch.ops import kernels_torch as kt
 
     before = dict(kernels_cuda.LAUNCHES)
+    dev_before = dict(kernels_cuda.DEVICE_LAUNCHES)
     rng = np.random.default_rng(1)
     a = torch.as_tensor(rng.standard_normal((8, 8)) + 8 * np.eye(8))
     for g, r in zip(kernels_cuda.getrf_with_inverses(a),
                     kt.getrf_with_inverses(a)):
         assert torch.equal(g, r)
     assert kernels_cuda.LAUNCHES == before
+    assert kernels_cuda.DEVICE_LAUNCHES == dev_before
+
+
+def test_reset_launch_counts_zeroes_both_counters(monkeypatch):
+    """reset_launch_counts zeroes the per-kernel launches and K1's
+    device launches alike (chip_smoke.py reads both after a path)."""
+    monkeypatch.setitem(kernels_cuda.LAUNCHES, "mega_solve", 3)
+    monkeypatch.setitem(kernels_cuda.DEVICE_LAUNCHES,
+                        "getrf_with_inverses", 10)
+    kernels_cuda.reset_launch_counts()
+    assert set(kernels_cuda.LAUNCHES.values()) == {0}
+    assert kernels_cuda.DEVICE_LAUNCHES == {"getrf_with_inverses": 0}
