@@ -6,7 +6,7 @@
 From the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  It
 
-  1. prints the card's name and power limit and builds the five CUDA
+  1. prints the card's name and power limit and builds the CUDA
      kernels from pangulu_tpu_torch/csrc (timed), printing what ptxas
      says of K1's instances (registers, spills: none may spill), of
      K3's and K5's sweep kernels at tile widths 128 and 256 (K5's may
@@ -81,22 +81,53 @@ CUDA toolkit (nvcc).  It
      factor_diagnostics on poisson2d(24), nb=16, r64, nd: logabsdet
      within 1e-10 of splu's with its sign, cond1_est between exact/3 and
      exact (dense f64);
-  7. with --profile, also traces one rcm solve and prints, per phase,
+  7. drives tile_storage="compressed" (compressed_phase; step 1 also
+     fails if one of the ten P6/P2 instances spills): init -> gstrf ->
+     gstrs on poisson3d(32), nb=128, nd, r32 with the launch counts
+     zeroed before and read after (exactly K1 = 256 and
+     the P6 decompress and compress launches the level structure
+     implies, testing.compressed_launches), gstrf residual < 1e-5, solve
+     residual < 1e-10, the store's bytes against the dense store's, the
+     gstrf peak of max_memory_allocated against the dense nd engines',
+     the densified factors against the dense K4 factors (2e-4) and under
+     the true-f32 rule (error against the plain f64 factorization <= 2x
+     the plain f32 one's), ms per factorization and per solve (CUDA
+     events) beside the dense nd engines' of step 4, one traced
+     factorization; P6 against its plain version bit for bit (float and
+     double, uint16 and uint32 positions, the TPU probe's one-tile case
+     of 1024 slots at nb=128, scratch tiles in the batch); P2 against its
+     plain version (the path's 256 diagonal tiles at nb=128, 32 tiles at
+     nb=256: f64 within 1e-12, f32 <= 2x the plain f32 error against
+     plain f64); P6 per launch over the widest level's update tiles and
+     P2 per launch at batch 256, each beside its bound, its plain
+     version and one PyTorch call (zero_ + scatter_, gather,
+     solve_triangular); save_factor -> load_factor -> gstrs with exact
+     counts (one P6 launch for the diagonal tiles, one P2); poisson2d(256)
+     nb=128 nd r32 (store ratio, solve residual < 1e-10) and circuit(600,
+     seed=2) nb=32 r64 (< 1e-6); its numbers go out as a
+     {"compressed": ...} JSON line;
+  8. with --profile, also traces one rcm solve and prints, per phase,
      each kernel's launches and device time, the host wall time and the
      device's idle share (K3's solve: exactly 2 launches of its sweep
      kernel);
-  8. prints the numbers of step 6 as one JSON line, then one JSON
-     line of per-kernel results, each kernel at nb=128 and again at
-     nb=256 (named name@nb=256, its launches from the nb=256 paths):
+  9. prints the numbers of step 6 as one JSON line, then one JSON
+     line of per-kernel results, K1-K5 at nb=128 and again at nb=256
+     (named name@nb=256, its launches from the nb=256 paths), and P6
+     (decompress_tiles, compress_tiles) and P2 (newton_inverses), their
+     launches from the compressed path and the reloaded factor:
      time, launches, error, plain and library times, and the bound:
      the larger of the bytes over 3.35 TB/s and the operations over
      the H100 SXM's published peak for the units that run them: 495 /
      3 TFLOP/s (3xTF32 on tensor cores) for K2's and K4's f32
      products and for the products of K1's blocked step (67 TFLOP/s
      DMMA in f64), 67 TFLOP/s f32 (34 f64) on the CUDA cores for the
-     rest, K1's register-tile chains among them; the CUDA-core bound
-     of K2 and K4 is kept in the details file; then
-     the last line {"ok": true, "device": {...}}.
+     rest, K1's register-tile chains among them (P2's operations are
+     those of two triangle inverses, not of its doubling's products);
+     the CUDA-core bound of K2 and K4 is kept in the details file.
+     Before it, a {"retraced": ...} line names any phase whose trace
+     came back empty and was taken once more (only the nb=256 nd
+     solve's may be; any other empty trace fails); then the last line
+     {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the package beside this file, it prints no result and exits 2.
@@ -120,13 +151,24 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = "pangulu_tpu_torch/csrc/lu_kernels.cu"
 # K1's body; its kernel and launch are in SRC
-SOURCE = {"getrf_with_inverses": "pangulu_tpu_torch/csrc/tile_lu.cuh"}
+SOURCE = {"getrf_with_inverses": "pangulu_tpu_torch/csrc/tile_lu.cuh",
+          "decompress_tiles": "pangulu_tpu_torch/csrc/compressed.cuh",
+          "compress_tiles": "pangulu_tpu_torch/csrc/compressed.cuh",
+          "newton_inverses": "pangulu_tpu_torch/csrc/compressed.cuh"}
+# the dense store's kernels (each also at nb=256) and the compressed
+# store's (csrc/compressed.cuh)
+DENSE = ("getrf_with_inverses", "mega_factorize", "mega_solve",
+         "mega_factorize_groups", "mega_solve_groups")
+COMPRESSED = ("decompress_tiles", "compress_tiles", "newton_inverses")
 REPLACES = {
     "getrf_with_inverses": "pangulu_tpu/ops/kernels_pallas.py:599",
     "mega_factorize": "pangulu_tpu/ops/kernels_pallas.py:1187",
     "mega_solve": "pangulu_tpu/ops/kernels_pallas.py:2155",
     "mega_factorize_groups": "pangulu_tpu/ops/kernels_pallas.py:1915",
     "mega_solve_groups": "pangulu_tpu/ops/kernels_pallas.py:2350",
+    "decompress_tiles": "tools/exp_scatter.py:73",
+    "compress_tiles": "tools/exp_scatter.py:73",
+    "newton_inverses": "tools/exp_batched_scan.py:87",
 }
 # Tolerances (the JAX package's own contract, ROADMAP.md "Tolerances",
 # tests/test_mega.py:31,82, tests/test_mega_group.py:66,140): rtol, atol.
@@ -153,6 +195,9 @@ PRODUCT_KERNELS = ("panel_kernel", "schur_kernel", "group_panel_kernel",
                    "group_schur_kernel", "lu_panels_kernel",
                    "lu_update_kernel", "lu_inverse_kernel")
 PRODUCT_INSTANCES = 18
+# P6: decompress and compress for float and double, uint16 and uint32
+# positions; P2: newton for float and double
+COMPRESSED_INSTANCES = 10
 # K5's sweep kernel sits at the 64-register cap of 1024-thread blocks;
 # its spill bytes may not exceed these, by type and tile width (the
 # instance of 256 takes two passes of 128 rows; more spills have made it
@@ -181,6 +226,16 @@ def lu_inverse_flop(nb: int) -> int:
     r = nb - k - 1
     return int((r + 2 * r * r).sum() + (2 * r * k).sum()
                + ((nb - k) + 2 * k * (nb - k)).sum())
+
+
+def triangle_inverses_flop(nb: int) -> int:
+    """Operations the function of P2 needs on one tile, whatever the
+    algorithm: the inverse of a unit-lower triangle (entry (i, j), i > j,
+    is an inner product of i - j terms) and that of an upper triangle (the
+    same, plus one scaling by D^-1 for each entry of the triangle)."""
+    d = np.arange(1, nb)
+    unit = int((2 * d * (nb - d)).sum())
+    return 2 * unit + nb * (nb + 1) // 2
 
 
 def k1_bound(nb: int, batch: int, dtype) -> dict:
@@ -298,20 +353,25 @@ def device_ms(fn, n: int, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile(fn, setup=lambda: None) -> dict:
-    """Trace one call of fn(setup()) after a warm-up: per kernel name its
-    launches and device ms, the host wall ms of the call (launch to
-    synchronise), the device's busy ms (union of kernel intervals) and
-    its idle share of the wall time."""
+# per traced phase that took a second trace, the traces it took (written
+# out as a JSON line)
+RETRACED = {}
+
+
+def trace_once(fn, arg, pause: float = 0.0) -> tuple:
+    """One call fn(arg) under torch.profiler, ``pause`` seconds after the
+    trace starts (pangulu_tpu_torch/tools/probe_profiler.py weighs a
+    pause): (host wall ms of the call, launch to synchronise; the device
+    intervals; per kernel name its launches and device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
-    fn(setup())
-    arg = setup()
     torch.cuda.synchronize()
     with trace(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(pause)
         t0 = time.perf_counter()
         fn(arg)
         torch.cuda.synchronize()
@@ -326,6 +386,23 @@ def profile(fn, setup=lambda: None) -> dict:
         k = kernels.setdefault(name, {"launches": 0, "device_ms": 0.0})
         k["launches"] += 1
         k["device_ms"] += (hi - lo) * 1e-3
+    return wall_ms, spans, kernels
+
+
+def profile(fn, setup=lambda: None, retry: str = "") -> dict:
+    """Trace one call of fn(setup()) after a warm-up: per kernel name its
+    launches and device ms, the host wall ms of the call (launch to
+    synchronise), the device's busy ms (union of kernel intervals) and
+    its idle share of the wall time.  A trace with no device activity
+    fails, unless ``retry`` names the phase: then it is taken once more,
+    and the phase goes into RETRACED."""
+    fn(setup())
+    wall_ms, spans, kernels = trace_once(fn, setup())
+    if not spans and retry:
+        print(f"  (the profiler recorded no device activity in {retry}; "
+              "tracing again)")
+        RETRACED[retry] = 2
+        wall_ms, spans, kernels = trace_once(fn, setup())
     if not spans:
         fail("the profiler saw no device activity")
     busy, end = 0.0, float("-inf")
@@ -661,6 +738,374 @@ def surface_phase(a, dev) -> dict:
     return out
 
 
+def slot_library_inputs(st, ids, dense=None):
+    """For the tiles ``ids`` of store ``st``: the flat positions (tile of
+    the batch * nb^2 + in-tile position) and slot values of their real
+    slots, for the library yardsticks of P6."""
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+
+    pos, live = kt.slot_ranges(st.off, st.cap, ids)
+    p = pos[live]
+    ix = kt.slot_positions(st.idx, p)
+    keep = ix < st.nb * st.nb
+    row = torch.arange(len(ids), device=p.device)[:, None].expand_as(pos)
+    flat = (row[live] * st.nb * st.nb + ix)[keep]
+    return flat, st.values[p[keep]]
+
+
+def compressed_phase(dev, nd: dict, a) -> tuple:
+    """tile_storage="compressed" on the card: (1) init -> gstrf -> gstrs
+    on poisson3d(32), nb=128, nd, r32 with exact launch counts, its
+    factors against the dense nd engines' under the true-f32 rule, its
+    store bytes and gstrf peak memory beside the dense store's, ms per
+    factorization and per solve beside the dense nd engines' (``nd``,
+    from the nd path of this run) and one trace; (2) P6 against its plain
+    version bit for bit (float and double, uint16 and uint32 positions,
+    the TPU probe's one-tile case, scratch tiles in the batch); (3) P2
+    against its plain version at nb=128 (the path's 256 diagonal tiles)
+    and nb=256; (4) save_factor -> load_factor -> gstrs with exact counts
+    (P6 on the diagonal tiles, then P2); (5) poisson2d(256) nb=128 nd r32
+    and circuit(600) nb=32 r64.  ``a`` is poisson3d(32) on the card.
+    Returns (details, kernel entries, launches of the main-path runs)."""
+    import os
+    import tempfile
+
+    from pangulu_tpu_torch import InitOptions, gstrf, gstrs, init
+    from pangulu_tpu_torch.compressed import CompressedTiles
+    from pangulu_tpu_torch.io import load_factor, save_factor
+    from pangulu_tpu_torch.models import circuit, poisson2d, poisson3d
+    from pangulu_tpu_torch.numeric import LUFactorizer
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+    from pangulu_tpu_torch.ops.kernels_torch import Indices
+    from pangulu_tpu_torch.testing import compressed_launches
+    from pangulu_tpu_torch.utils.perf import residual_norm
+
+    # the path's tile width and its K1 launches (one a level), the
+    # poisson2d grid of (5) and the poisson3d grid of P6's nb=256 store
+    nb, nlevels, p2d, small3d = 128, 256, 256, 16
+    out, kern = {}, {}
+
+    def expect_launches(what, want):
+        want = {k: want.get(k, 0) for k in kc.LAUNCHES}
+        got = dict(kc.LAUNCHES)
+        print(f"  launches: {got}")
+        if got != want:
+            fail(f"{what}: launch counts {got}, expected {want}")
+        return got
+
+    # (1) the main path
+    s = a.to_scipy()
+    b = s @ np.ones(a.n)
+    print(f"compressed (1): init -> gstrf -> gstrs, poisson3d(32), nb={nb}, "
+          f"r32, nd, tile_storage='compressed', {dev}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kc.reset_launch_counts()
+    h = init(a, InitOptions(nb=nb, dtype="r32", ordering="nd",
+                            tile_storage="compressed", check=True,
+                            device=str(dev)))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gstrf(h)
+    torch.cuda.synchronize()
+    out["gstrf_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    x = gstrs(h, b)
+    sch, st, clu = h.schedule, h.factor_tiles, h._factorizer
+    want = compressed_launches(sch, factorizations=1, solves=3)
+    if want["getrf_with_inverses"] != nlevels:
+        fail(f"the schedule should have {nlevels} levels")
+    out["launches"] = expect_launches("the compressed path", want)
+    out["gstrf_residual"] = h.perf.kernels["gstrf_residual"]
+    out["solve_residual"] = residual_norm(s, x, b)
+    print(f"  gstrf residual {out['gstrf_residual']:.3e} (< 1e-5), solve "
+          f"residual after refine {out['solve_residual']:.3e} (< 1e-10)")
+    if x.shape != (a.n,) or not np.isfinite(x).all():
+        fail("the compressed solution has the wrong shape or non-finite "
+             "values")
+    if not (out["gstrf_residual"] < 1e-5 and out["solve_residual"] < 1e-10):
+        fail("the compressed path's residuals are too large")
+    out.update(store_bytes=st.compressed_bytes, dense_bytes=st.dense_bytes,
+               slots=st.values.numel(), capmax=st.capmax)
+    print(f"  store: {st.compressed_bytes / 2**20:.3f} MiB compressed "
+          f"({st.values.numel()} slots) against {st.dense_bytes / 2**20:.3f}"
+          f" MiB dense ({st.dense_bytes / st.compressed_bytes:.3f}x)")
+    if not st.compressed_bytes < st.dense_bytes:
+        fail("the compressed store is not smaller than the dense one")
+
+    # the dense nd engines on the same store: factors (true f32), peak
+    a3 = h.reordering.reordered
+    st.refill(a3)
+    v0 = st.values.clone()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fac = LUFactorizer(h.blocked, sch, device=dev)
+    kfac = fac.factorize()
+    torch.cuda.synchronize()
+    out["dense_gstrf_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    peaks = (out["gstrf_peak_bytes"] / 2**20,
+             out["dense_gstrf_peak_bytes"] / 2**20)
+    print(f"  gstrf peak device bytes (max_memory_allocated above what was "
+          f"allocated before): compressed {peaks[0]:.3f} MiB, dense nd "
+          f"engines {peaks[1]:.3f} MiB")
+    # ms per factorization and per solve, CUDA events
+    out["ms_per_factorization"] = cuda_ms(
+        lambda _: clu.factorize(), setup=lambda: st.values.copy_(v0), reps=5)
+    xb = torch.as_tensor(np.zeros((sch.block_length + 1, nb, 1),
+                                  np.float32), device=dev)
+    xb[:sch.block_length].view(-1)[:a.n] = torch.as_tensor(
+        h.reordering.transform_b(b.astype(np.float32)), device=dev)
+    out["ms_per_solve"] = cuda_ms(lambda _: clu.solve_blocked(xb), reps=5)
+    dense_ms = (nd["ms_per_factorization"], nd["ms_per_solve"])
+    print(f"  {out['ms_per_factorization']:.3f} ms per factorization, "
+          f"{out['ms_per_solve']:.3f} ms per solve (CUDA events, median of "
+          f"5); dense nd engines in this run: {dense_ms[0]:.3f} and "
+          f"{dense_ms[1]:.3f}")
+    prof = profile(lambda _: clu.factorize(),
+                   setup=lambda: st.values.copy_(v0))
+    out["trace"] = prof
+    print_profile({"compressed gstrf": prof})
+    comp = torch.as_tensor(st.to_dense(), device=dev)
+    nt, bl = h.blocked.num_tiles, sch.block_length
+    t0 = h.blocked.device_tiles(dev)
+    kw = dict(nb=nb, bl=bl)
+    p32 = kt.mega_factorize_groups(t0.clone(), fac.tables,
+                                   tol=kt.DEFAULT_TOL[torch.float32], **kw)[0]
+    r64 = kt.mega_factorize_groups(t0.double(), fac.tables,
+                                   tol=kt.DEFAULT_TOL[torch.float64], **kw)[0]
+    errs = {n: rel_err(t[:nt], r64[:nt]) for n, t in
+            (("compressed", comp), ("dense_k4", kfac), ("plain_f32", p32))}
+    out["true_f32"] = errs
+    print(f"  true f32, factors against the plain f64 version (max |err| / "
+          f"max |f64|): compressed {errs['compressed']:.3e}, dense K4 "
+          f"{errs['dense_k4']:.3e}, plain f32 {errs['plain_f32']:.3e} "
+          "(compressed <= 2x plain)")
+    compare("compressed factors against the dense K4 factors", comp[:nt],
+            kfac[:nt], *TOL_GROUP_F32)
+    if errs["compressed"] > 2 * errs["plain_f32"]:
+        fail("the compressed factors are less accurate than true f32")
+    del comp, t0, p32, r64, kfac, fac
+    torch.cuda.empty_cache()
+
+    # (2) P6 against its plain version, bit for bit
+    print("compressed (2): P6 against its plain version, bit for bit")
+    rng = np.random.default_rng(11)
+    nn = 128 * 128
+    probe_pos = np.sort(rng.permutation(nn)[:1024])
+    probe = dict(values=np.r_[rng.standard_normal(1024), np.zeros(8)],
+                 idx=np.r_[probe_pos, [nn] * 8].astype(np.uint16),
+                 off=[0, 1024], cap=[1024, 0], ids=[1, 0, 1], nb=128)
+    h256 = init(poisson3d(small3d), InitOptions(nb=256, dtype="r64",
+                                           ordering="nd", device="cpu"))
+    st256 = CompressedTiles(h256.blocked, h256.reordering.reordered, dev)
+    cases = [("the TPU probe's tile (1024 slots, nb=128, u16)",
+              torch.as_tensor(probe["values"], device=dev),
+              torch.as_tensor(probe["idx"], device=dev),
+              Indices.build(probe["off"], dev),
+              Indices.build(probe["cap"], dev),
+              Indices.build(probe["ids"], dev), 128)]
+    for label, store in ((f"poisson3d(32) nb={nb} nd factored (u16)", st),
+                         (f"poisson3d({small3d}) nb=256 nd (u32)", st256)):
+        ids = np.r_[store.num_tiles, np.arange(store.num_tiles)[::-1],
+                    store.num_tiles]
+        cases.append((label, store.values, store.idx, store.off, store.cap,
+                      Indices.build(ids, dev), store.nb))
+    out["p6_cases"] = []
+    for label, vals, idx, off, cap, ids, nbc in cases:
+        for dt in (torch.float32, torch.float64):
+            v = vals.to(dt)
+            got = kc.decompress_tiles(v, idx, off, cap, ids, nbc)
+            ref = kt.decompress_tiles(v, idx, off, cap, ids, nbc)
+            backs = [torch.full_like(v, 5.0) for _ in range(2)]
+            kc.compress_tiles(backs[0], idx, off, cap, ids, got)
+            kt.compress_tiles(backs[1], idx, off, cap, ids, got)
+            torch.cuda.synchronize()
+            live = backs[1] != 5.0
+            ok = (torch.equal(got, ref) and torch.equal(backs[0], backs[1])
+                  and torch.equal(backs[0][live], v[live]))
+            print(f"  {label}, {dt}: {len(ids)} tiles, decompress and "
+                  f"compress {'bit-equal' if ok else 'DIFFER'}")
+            out["p6_cases"].append(dict(case=label, dtype=str(dt), ok=ok))
+            if not ok:
+                fail(f"P6 disagrees with its plain version ({label}, {dt})")
+    del st256, h256, cases
+
+    # P6 per launch over one level's tiles: the level with the most
+    # update destinations
+    levels = clu._level_tables()
+    k = max(range(bl), key=lambda i: len(levels[i][3]))
+    ids = levels[k][3]
+    nbt, esz, isz = len(ids), st.values.element_size(), st.idx.element_size()
+    caps = int(st.cap.host[ids.host].sum())
+    st.values.copy_(v0)
+    dense = kc.decompress_tiles(st.values, st.idx, st.off, st.cap, ids, nb)
+    flat, svals = slot_library_inputs(st, ids)
+    buf = dense.new_empty(dense.numel())
+    p6 = dict(level=k, tiles=nbt, slots=caps)
+    p6["decompress_ms"] = device_ms(lambda: kc.decompress_tiles(
+        st.values, st.idx, st.off, st.cap, ids, nb), n=50)
+    p6["decompress_plain_ms"] = cuda_ms(lambda _: kt.decompress_tiles(
+        st.values, st.idx, st.off, st.cap, ids, nb), reps=5)
+    p6["decompress_library_ms"] = device_ms(
+        lambda: buf.zero_().scatter_(0, flat, svals), n=50)
+    p6["compress_ms"] = device_ms(lambda: kc.compress_tiles(
+        st.values, st.idx, st.off, st.cap, ids, dense), n=50)
+    p6["compress_plain_ms"] = cuda_ms(lambda _: kt.compress_tiles(
+        st.values, st.idx, st.off, st.cap, ids, dense), reps=5)
+    p6["compress_library_ms"] = device_ms(
+        lambda: torch.gather(dense.reshape(-1), 0, flat), n=50)
+    meta = 3 * 4 * nbt                       # ids, off and cap reads
+    p6["decompress_bound"] = bound(caps * (esz + isz) + nbt * nb * nb * esz
+                                   + meta, 0)
+    p6["compress_bound"] = bound(caps * (isz + 2 * esz) + meta, 0)
+    if not torch.equal(st.values, v0):
+        fail("compressing a level's own tiles changed the store")
+    print(f"  P6 per launch, level {k} ({nbt} update destinations, {caps} "
+          f"slots): decompress {p6['decompress_ms']:.4f} ms (bound "
+          f"{p6['decompress_bound']['bound_ms']:.4f}, plain "
+          f"{p6['decompress_plain_ms']:.3f}, zero_ + scatter_ "
+          f"{p6['decompress_library_ms']:.4f}); compress "
+          f"{p6['compress_ms']:.4f} ms (bound "
+          f"{p6['compress_bound']['bound_ms']:.4f}, plain "
+          f"{p6['compress_plain_ms']:.3f}, gather "
+          f"{p6['compress_library_ms']:.4f})")
+    out["p6"] = p6
+    for name, d in (("decompress_tiles", "decompress"),
+                    ("compress_tiles", "compress")):
+        kern[name] = dict(max_abs_err=0.0, ms=p6[f"{d}_ms"],
+                          plain_ms=p6[f"{d}_plain_ms"],
+                          library_ms=p6[f"{d}_library_ms"],
+                          **p6[f"{d}_bound"])
+    del dense, buf, flat, svals
+
+    # (3) P2 against its plain version
+    print("compressed (3): P2 against its plain version")
+    diag = Indices.build([lev.diag for lev in sch.levels], dev)
+    st.values.copy_(v0)
+    clu.factorize()
+    d128 = kc.decompress_tiles(st.values, st.idx, st.off, st.cap, diag, nb)
+    f256 = kt.getrf_with_inverses(torch.as_tensor(
+        rng.standard_normal((32, 256, 256)) + 256 * np.eye(256),
+        device=dev))[0]
+    p2 = {}
+    err32 = 0.0
+    for label, f64 in ((f"nb={nb}, the path's {bl} diagonal tiles",
+                        d128.double()), ("nb=256, 32 tiles", f256)):
+        for g, r, n in zip(kc.newton_inverses(f64), kt.newton_inverses(f64),
+                           ("L^-1", "U^-1")):
+            e = rel_err(g, r)
+            print(f"  {label} f64 {n}: {e:.3e} of max |plain| (<= 1e-12)")
+            if not e <= 1e-12:
+                fail(f"P2 f64 disagrees with its plain version ({label})")
+        f32 = f64.float()
+        tol32 = kt.DEFAULT_TOL[torch.float32]
+        for g, p, r, n in zip(kc.newton_inverses(f32),
+                              kt.newton_inverses(f32),
+                              kt.newton_inverses(f32.double(), tol32),
+                              ("L^-1", "U^-1")):
+            ek, ep = rel_err(g, r), rel_err(p, r)
+            err32 = max(err32, float((g - p).abs().max()))
+            print(f"  {label} f32 {n} against the plain f64: kernel "
+                  f"{ek:.3e}, plain f32 {ep:.3e} (kernel <= 2x plain) "
+                  f"{'ok' if ek <= 2 * ep else 'FAIL'}")
+            p2[f"{label} {n}"] = dict(kernel=ek, plain=ep)
+            if ek > 2 * ep:
+                fail(f"P2 f32 is less accurate than true f32 ({label})")
+    d32 = d128.contiguous()
+    nb_, batch = nb, d32.shape[0]
+    eye = torch.eye(nb_, device=dev).expand(2 * batch, nb_, nb_)
+    dg = torch.diagonal(d32, dim1=-2, dim2=-1)
+    safe = torch.where(dg.abs() < kt.DEFAULT_TOL[torch.float32],
+                       torch.full_like(dg, kt.DEFAULT_TOL[torch.float32]),
+                       dg)
+    lower = torch.cat([torch.tril(d32, -1) + eye[:batch],
+                       (torch.triu(d32, 1) + torch.diag_embed(safe))
+                       .transpose(-1, -2)]).contiguous()
+    p2["ms"] = device_ms(lambda: kc.newton_inverses(d32), n=20)
+    p2["plain_ms"] = cuda_ms(lambda _: kt.newton_inverses(d32), reps=5)
+    p2["library_ms"] = device_ms(lambda: torch.linalg.solve_triangular(
+        lower, eye, upper=False), n=20)
+    # the factor read, L^-1 and U^-1 written; the operations the two
+    # triangle inverses need (not the doubling's dense products)
+    p2["bound"] = bound(3 * batch * nb_ * nb_ * 4,
+                        batch * triangle_inverses_flop(nb_))
+    p2["max_abs_err_f32"] = err32
+    print(f"  P2 per launch, nb={nb}, batch {batch} (both triangles): "
+          f"{p2['ms']:.4f} ms (bound {p2['bound']['bound_ms']:.4f}, "
+          f"{p2['bound']['bound_by']}), plain {p2['plain_ms']:.3f}, "
+          f"solve_triangular on the stacked triangles "
+          f"{p2['library_ms']:.4f}")
+    out["p2"] = p2
+    kern["newton_inverses"] = dict(max_abs_err=err32, ms=p2["ms"],
+                                   plain_ms=p2["plain_ms"],
+                                   library_ms=p2["library_ms"],
+                                   **p2["bound"])
+    del d128, f256, d32, lower, eye
+
+    # (4) a checkpoint reloaded on the card
+    print("compressed (4): save_factor -> load_factor -> gstrs")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "comp.npz")
+        save_factor(h, path)
+        out["checkpoint_bytes"] = os.path.getsize(path)
+        kc.reset_launch_counts()
+        h2 = load_factor(path, device=str(dev))
+        x2 = gstrs(h2, b)
+        out["reload_launches"] = expect_launches(
+            "the reloaded compressed factor",
+            compressed_launches(sch, solves=3, reloads=1))
+    out["reload_solve_residual"] = residual_norm(s, x2, b)
+    print(f"  .npz {out['checkpoint_bytes']} bytes; solve residual "
+          f"{out['reload_solve_residual']:.3e} (< 1e-10)")
+    compare("reloaded solution against the first", torch.as_tensor(x2),
+            torch.as_tensor(x), *TOL_SOLVE_F32)
+    if not out["reload_solve_residual"] < 1e-10:
+        fail("the reloaded factor's solve residual is too large")
+    del h2, x2, h, clu, st, v0, xb
+    torch.cuda.empty_cache()
+
+    # (5) the other matrices
+    for key, label, gen, nbm, dtype, ordering, limit in (
+            ("p2d256", f"poisson2d({p2d})", lambda: poisson2d(p2d), nb, "r32",
+             "nd", 1e-10),
+            ("circuit600", "circuit(600, seed=2)",
+             lambda: circuit(600, seed=2), 32, "r64", "auto", 1e-6)):
+        print(f"compressed (5): {label}, nb={nbm}, {dtype}, {ordering}")
+        m = gen()
+        bm = m.to_scipy() @ np.ones(m.n)
+        t0 = time.perf_counter()
+        hm = init(m, InitOptions(nb=nbm, dtype=dtype, ordering=ordering,
+                                 tile_storage="compressed", device=str(dev)))
+        gstrf(hm)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        xm = gstrs(hm, bm)
+        t2 = time.perf_counter()
+        sm = hm.factor_tiles
+        res = dict(n=m.n, bl=hm.schedule.block_length,
+                   tiles=hm.blocked.num_tiles,
+                   store_bytes=sm.compressed_bytes,
+                   dense_bytes=sm.dense_bytes,
+                   init_gstrf_host_s=t1 - t0, gstrs_host_s=t2 - t1,
+                   solve_residual=residual_norm(m.to_scipy(), xm, bm))
+        out[key] = res
+        print(f"  {res['bl']} levels, store {sm.compressed_bytes / 2**20:.3f}"
+              f" MiB against {sm.dense_bytes / 2**20:.3f} MiB dense "
+              f"({sm.dense_bytes / sm.compressed_bytes:.3f}x); init + gstrf "
+              f"{res['init_gstrf_host_s']:.3f} s, gstrs "
+              f"{res['gstrs_host_s']:.3f} s (host wall); solve residual "
+              f"{res['solve_residual']:.3e} (< {limit:g})")
+        if not res["solve_residual"] < limit:
+            fail(f"{label} compressed: solve residual too large")
+        del hm, sm
+        torch.cuda.empty_cache()
+    return out, kern, {"decompress_tiles": out["launches"]["decompress_tiles"],
+                       "compress_tiles": out["launches"]["compress_tiles"],
+                       "newton_inverses":
+                           out["reload_launches"]["newton_inverses"]}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -756,6 +1201,18 @@ def main() -> int:
         fail(f"products: expected {PRODUCT_INSTANCES} instances, the float "
              f"ones without spills; ptxas says {prod_ptx}")
     detail["product_ptxas"] = prod_ptx
+    comp_ptx = {n: i for n, i in ptx.items() if re.search(
+        r"plu\d+(newton|decompress|compress)_kernel", n)}
+    print("ptxas: the compressed store's kernels (P6 decompress/compress "
+          "<type, position type>, P2 newton<type>)")
+    for name, info in sorted(comp_ptx.items()):
+        print(f"  {name}: {info.get('registers')} registers, "
+              f"{info.get('spill_bytes')} spill bytes")
+    if len(comp_ptx) != COMPRESSED_INSTANCES or any(
+            i.get("spill_bytes") != 0 for i in comp_ptx.values()):
+        fail(f"compressed store: expected {COMPRESSED_INSTANCES} instances "
+             f"without spills; ptxas says {comp_ptx}")
+    detail["compressed_ptxas"] = comp_ptx
 
     # ---- K1 ------------------------------------------------------------
     print("K1 getrf_with_inverses against its plain version")
@@ -1238,7 +1695,9 @@ def main() -> int:
         tr = {f"nb=256 {ordering} gstrf": profile(
                   lambda t: fac.factorize(t, sync=False), setup=tiles_of(h)),
               f"nb=256 {ordering} gstrs": profile(
-                  lambda _: ts.solve_blocked(h.factor_tiles, xb))}
+                  lambda _: ts.solve_blocked(h.factor_tiles, xb),
+                  retry=(f"nb=256 {ordering} gstrs" if ordering == "nd"
+                         else ""))}
         print_profile(tr)
         fk = tr[f"nb=256 {ordering} gstrf"]["kernels"]
         k1 = {k: [v for n, v in fk.items()
@@ -1283,23 +1742,34 @@ def main() -> int:
     print(json.dumps({"surface": {k: v for k, v in surface.items()
                                   if k != "cli_stdout"}}))
 
+    # ---- the compressed store ------------------------------------------
+    comp, comp_kernels, comp_launches = compressed_phase(dev, nd,
+                                                         poisson3d(32))
+    detail["compressed"] = comp
+    kernels.update(comp_kernels)
+    print(json.dumps({"compressed": {k: v for k, v in comp.items()
+                                     if k != "trace"}}))
+
     launches = dict(rcm_launches)
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]
     launches["mega_solve_groups"] = nd_launches["mega_solve_groups"]
     # the nb=256 entries: K1's launches from the rcm path at nb=256, the
     # blocked step in lu_kernels.cu
     launches.update({f"{n}@nb=256": v for n, v in launches256.items()})
+    launches.update(comp_launches)
     out = {"kernels": [
         dict(name=n, route="cuda",
              source=SOURCE.get(n, SRC) if "@" not in n else SRC,
              replaces=REPLACES[n.split("@")[0]], launches=launches[n],
              **kernels[n])
-        for n in (*REPLACES, *(f"{r}@nb=256" for r in REPLACES))]}
+        for n in (*DENSE, *(f"{r}@nb=256" for r in DENSE), *COMPRESSED)]}
     detail["kernels"] = out["kernels"]
     detail["seconds_after_build_start"] = time.perf_counter() - t_start
     od = ROOT / "pangulu_tpu_torch" / "_build"
     od.mkdir(parents=True, exist_ok=True)
     (od / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    detail["retraced"] = RETRACED
+    print(json.dumps({"retraced": RETRACED}))
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,10 @@ and the JAX package's single-device surface for real types:
 ``python -m pangulu_tpu_torch`` (:mod:`pangulu_tpu_torch.cli`).
 
 The main path is ported: MC64 + fill-reducing ordering, symbolic
-analysis, the dense tile store, the single-call factorization engine
-and the matmul-only block triangular solve.  On ``device="cuda"`` its
-three kernels are CUDA C++ built at first use
+analysis, the dense tile store (or, with ``tile_storage="compressed"``,
+the O(fill) compressed store of :mod:`pangulu_tpu_torch.compressed`),
+the factorization engines and the matmul-only block triangular solve.
+On ``device="cuda"`` their kernels are CUDA C++ built at first use
 (``ops/build.py``); on ``device="cpu"`` their plain PyTorch versions
 run.
 """

@@ -18,8 +18,9 @@ Or simply ``x = Solver(A, device="cuda").solve(b)``.
 The device is explicit: ``device="cuda"`` (the default) runs the
 hand-written CUDA kernels and raises when there is no GPU;
 ``device="cpu"`` runs their plain PyTorch versions and must be asked
-for.  Options this port does not implement yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+for.  ``tile_storage="compressed"`` keeps the factors in O(fill) slot
+lists (:mod:`pangulu_tpu_torch.compressed`).  Options this port does not
+implement yet raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 
 from pangulu_tpu_torch.blocks import (BlockedMatrix, gather_factor,
                                       refill_values, tile_matrix)
+from pangulu_tpu_torch.compressed import CompressedLU, CompressedTiles
 from pangulu_tpu_torch.numeric import LUFactorizer
 from pangulu_tpu_torch.ops.kernels_torch import check_nb
 from pangulu_tpu_torch.reorder import Reordering, reorder
@@ -42,7 +44,9 @@ from pangulu_tpu_torch.sparse import (VALUE_DTYPES, CscMatrix,
 from pangulu_tpu_torch.sptrsv import TriangularSolver
 from pangulu_tpu_torch.symbolic import SymbolicResult, symbolic
 from pangulu_tpu_torch.utils.log import config_banner, get_logger
-from pangulu_tpu_torch.utils.perf import PerfCounters, factorization_residual
+from pangulu_tpu_torch.utils.perf import (PerfCounters,
+                                          factorization_residual,
+                                          resolve_device)
 
 log = get_logger()
 
@@ -64,7 +68,8 @@ class InitOptions:
                                  # -1 = auto (2 for r32, 0 for r64)
     device: str = "cuda"         # "cuda" (hand kernels) or "cpu" (plain)
     mesh_shape: Optional[tuple] = None  # multi-device: ROADMAP M11
-    tile_storage: str = "dense"  # "compressed": ROADMAP M9
+    tile_storage: str = "dense"  # "dense" tiles, or "compressed": O(fill)
+                                 # slot lists (compressed.py)
     profile_dir: Optional[str] = None  # profiler traces: not ported
 
     def resolve_dtype(self):
@@ -80,31 +85,16 @@ class InitOptions:
         return VALUE_DTYPES[self.dtype]
 
     def resolve_device(self) -> torch.device:
-        dev = torch.device(self.device)
-        if dev.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "device='cuda' but no CUDA device is available; ask "
-                    "for device='cpu' explicitly to run the plain "
-                    "PyTorch versions")
-            if dev.index is None:
-                dev = torch.device("cuda", torch.cuda.current_device())
-        elif dev.type != "cpu":
-            raise ValueError(f"device must be 'cuda' or 'cpu', got "
-                             f"{self.device!r}")
-        return dev
+        return resolve_device(self.device)
 
     def check_supported(self) -> None:
         if self.mesh_shape is not None:
             raise NotImplementedError(
                 "mesh_shape: multi-device execution is ROADMAP M11 (not "
                 "ported yet)")
-        if self.tile_storage == "compressed":
-            raise NotImplementedError(
-                "tile_storage='compressed' is ROADMAP M9 (not ported yet)")
-        if self.tile_storage != "dense":
-            raise ValueError(f"tile_storage must be 'dense', got "
-                             f"{self.tile_storage!r}")
+        if self.tile_storage not in ("dense", "compressed"):
+            raise ValueError(f"tile_storage must be 'dense' or "
+                             f"'compressed', got {self.tile_storage!r}")
         if self.profile_dir is not None:
             raise NotImplementedError(
                 "profile_dir: profiler traces of the numeric phase are "
@@ -124,11 +114,14 @@ class Handle:
     schedule: Schedule
     perf: PerfCounters
     device: torch.device = torch.device("cpu")
-    factor_tiles: Optional[torch.Tensor] = None  # device tiles after gstrf
+    # after gstrf: the device tiles, or the CompressedTiles store
+    factor_tiles: object = None
     _factorizer: object = None
     _trisolver: object = None
     _device_transforms: object = None  # gstrs_device permutation state
     _a3_rows_dev: object = None        # gstrs_device residual state
+    _comp_store: object = None         # compressed store, reused by
+                                       # update_values + gstrf
 
 
 def init(a, opts: InitOptions | None = None) -> Handle:
@@ -233,19 +226,47 @@ def analyze(a, opts: InitOptions | None = None) -> dict:
     return out
 
 
+def _compressed(handle: Handle) -> bool:
+    return isinstance(handle.factor_tiles, CompressedTiles)
+
+
 def gstrf(handle: Handle) -> None:
-    """Numeric factorization (reference: pangulu_gstrf, pangulu.c:211)."""
-    handle._factorizer = LUFactorizer(
-        handle.blocked, handle.schedule, perf=handle.perf,
-        device=handle.device, tol=handle.opts.tol)
-    handle.factor_tiles = handle._factorizer.factorize()
+    """Numeric factorization (reference: pangulu_gstrf, pangulu.c:211).
+
+    With ``tile_storage="compressed"`` the factors stay in the O(fill)
+    store and :class:`~pangulu_tpu_torch.compressed.CompressedLU` runs
+    the level loop over it.  (The JAX package takes its out-of-core
+    ``PanelLU`` there on a TPU at f32 and nb in {128, 256}, ROADMAP M10,
+    and this executor everywhere else.)"""
+    if handle.opts.tile_storage == "compressed":
+        log.info("engine: compressed (each level staged dense, then "
+                 "written back)")
+        handle._factorizer = CompressedLU(
+            handle.blocked, handle.schedule, handle.reordering.reordered,
+            perf=handle.perf, device=handle.device, tol=handle.opts.tol,
+            store=handle._comp_store)
+        handle.factor_tiles = handle._factorizer.factorize()
+        # the store's structure serves a same-pattern refactorization
+        # (update_values + gstrf): O(nnz) refill, no fill walk
+        handle._comp_store = handle.factor_tiles
+        st = handle.factor_tiles
+        log.info("compressed tile store: %.1f MiB vs %.1f MiB dense "
+                 "(%.1fx)", st.compressed_bytes / 2 ** 20,
+                 st.dense_bytes / 2 ** 20,
+                 st.dense_bytes / max(st.compressed_bytes, 1))
+    else:
+        handle._factorizer = LUFactorizer(
+            handle.blocked, handle.schedule, perf=handle.perf,
+            device=handle.device, tol=handle.opts.tol)
+        handle.factor_tiles = handle._factorizer.factorize()
     # drop any cached solver: it holds the previous factorization's
     # triangle inverses
     handle._trisolver = None
     log.info(handle.perf.summary())
     if handle.opts.check:
-        lmat, umat = gather_factor(handle.blocked,
-                                   handle.factor_tiles.cpu().numpy())
+        tiles = (handle.factor_tiles.to_dense() if _compressed(handle)
+                 else handle.factor_tiles.cpu().numpy())
+        lmat, umat = gather_factor(handle.blocked, tiles)
         res = factorization_residual(
             handle.reordering.reordered.to_scipy(), lmat, umat)
         log.info("gstrf check ||L(U*1)-A*1||/||A*1|| = %.3e", res)
@@ -270,7 +291,10 @@ def _solve_once(handle: Handle, b: np.ndarray,
     if trans:
         w = ts.solve_trans(handle.factor_tiles, ro.transform_b_trans(b))
         return ro.transform_x_trans(w)
-    w = ts.solve(handle.factor_tiles, ro.transform_b(b))
+    if _compressed(handle):
+        w = handle._factorizer.solve(ro.transform_b(b))
+    else:
+        w = ts.solve(handle.factor_tiles, ro.transform_b(b))
     return ro.transform_x(w)
 
 
@@ -291,10 +315,16 @@ def gstrs(handle: Handle, b: np.ndarray, refine: int | None = None,
     if handle.factor_tiles is None:
         raise RuntimeError("gstrs called before gstrf (reference aborts "
                            "the same way)")
+    if _compressed(handle):
+        if trans:
+            raise NotImplementedError(
+                "transpose solve requires the dense tile store (not "
+                "compressed factors), as in the JAX package")
+    else:
+        _ensure_trisolver(handle)
     work_dtype = handle.blocked.dtype
     b_in = np.asarray(b)
     b = b_in.astype(work_dtype)
-    _ensure_trisolver(handle)
     if refine is None:
         refine = handle.opts.refine
     if refine is None or refine < 0:  # auto
@@ -338,6 +368,10 @@ def gstrs_device(handle: Handle, b: torch.Tensor,
     if handle.factor_tiles is None:
         raise RuntimeError("gstrs called before gstrf (reference aborts "
                            "the same way)")
+    if _compressed(handle):
+        raise NotImplementedError(
+            "gstrs_device supports the dense tile store (not compressed "
+            "factors), as in the JAX package")
     if not isinstance(b, torch.Tensor) or b.device != handle.device:
         raise ValueError(f"gstrs_device takes a tensor on {handle.device}, "
                          f"got {type(b).__name__}"
@@ -479,6 +513,11 @@ def factor_diagnostics(handle: Handle) -> dict:
 
     if handle.factor_tiles is None:
         raise RuntimeError("factor_diagnostics requires gstrf first")
+    if _compressed(handle):
+        # its condition estimate needs the transpose solve
+        raise NotImplementedError(
+            "factor_diagnostics requires the dense tile store (its "
+            "condition estimate takes the transpose solve)")
     ro = handle.reordering
     nb, n = handle.blocked.nb, handle.blocked.n
     diag_ids = torch.as_tensor(
@@ -520,6 +559,7 @@ def finalize(handle: Handle) -> None:
     handle._trisolver = None
     handle._device_transforms = None
     handle._a3_rows_dev = None
+    handle._comp_store = None
 
 
 def spsolve(a, b, **options):

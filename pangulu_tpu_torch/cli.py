@@ -21,8 +21,6 @@ def _unported(args) -> str | None:
     or None."""
     if args.mesh:
         return "--mesh: multi-device execution is ROADMAP M11"
-    if args.tile_storage == "compressed":
-        return "--tile-storage compressed is ROADMAP M9"
     if args.dtype in ("cr32", "cr64"):
         return f"--dtype {args.dtype}: complex types are ROADMAP M8"
     if args.profile_dir:
@@ -72,7 +70,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tile-storage", default="dense",
                     choices=["dense", "compressed"],
                     help="factor storage: dense tiles, or O(fill) "
-                         "compressed slots (ROADMAP M9, not ported yet)")
+                         "compressed slots (low memory)")
     args = ap.parse_args(argv)
     if not args.file and not args.load_factor:
         ap.error("either -f/--file or --load-factor is required")
@@ -111,7 +109,8 @@ def main(argv=None) -> int:
         opts = InitOptions(nb=args.nb, dtype=args.dtype,
                            mc64=not args.no_mc64, ordering=args.ordering,
                            symbolic_mode=args.symbolic, check=args.check,
-                           refine=args.refine, device=args.device)
+                           refine=args.refine, device=args.device,
+                           tile_storage=args.tile_storage)
         handle = init(a, opts)
         gstrf(handle)
         if args.save_factor:

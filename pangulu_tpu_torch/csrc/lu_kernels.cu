@@ -148,10 +148,15 @@
 //   step's descriptors while a step runs, into registers or by cp.async
 //   into shared memory.  Each early load added registers at the cap,
 //   and the spills cost more than the latency it hid.
+//
+// P6 decompress_tiles / compress_tiles and P2 newton_inverses
+//   The compressed tile store's kernels, in compressed.cuh (its note
+//   gives their bounds and designs).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "compressed.cuh"
 #include "tile_gemm.cuh"
 #include "tile_lu.cuh"
 
@@ -1004,7 +1009,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 7; }
+int plu_kernels_abi() { return 8; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1104,5 +1109,32 @@ PLU_MEGA_FACTORIZE_GROUPS(plu_mega_factorize_groups_f64, double)
   }
 PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f32, float)
 PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f64, double)
+
+// P6: the tiles ids of the compressed store to dense (to_dense = 1) or
+// back (0); idx_bytes is the width of a slot position (2 or 4).
+#define PLU_STAGE_SLOTS(NAME, T)                                              \
+  int NAME(int dev, int to_dense, T* values, const void* idx, int idx_bytes, \
+           const int* off, const int* cap, const int* ids, int batch, int nb, \
+           T* dense, void* st) {                                              \
+    cudaError_t e = cudaSetDevice(dev);                                       \
+    if (e != cudaSuccess) return e;                                           \
+    return plu::stage_slots(to_dense != 0, values, idx, idx_bytes, off, cap,  \
+                            ids, batch, nb, dense, PLU_STREAM(st));           \
+  }
+PLU_STAGE_SLOTS(plu_stage_slots_f32, float)
+PLU_STAGE_SLOTS(plu_stage_slots_f64, double)
+
+// P2: L^-1 and U^-1 of a batch of factored tiles; work holds 6 tiles a
+// member.
+#define PLU_NEWTON_INVERSES(NAME, T)                                          \
+  int NAME(int dev, const T* f, T* linv, T* uinv, T* work, int batch, int nb, \
+           int steps, double tol, void* st) {                                 \
+    cudaError_t e = cudaSetDevice(dev);                                       \
+    if (e != cudaSuccess) return e;                                           \
+    return plu::newton_inverses(f, linv, uinv, work, batch, nb, steps, tol,   \
+                                PLU_STREAM(st));                              \
+  }
+PLU_NEWTON_INVERSES(plu_newton_inverses_f32, float)
+PLU_NEWTON_INVERSES(plu_newton_inverses_f64, double)
 
 }  // extern "C"

@@ -6,8 +6,11 @@ block pattern and scatter plan, the permutations and scalings and the
 original matrix.  :func:`load_factor` reads such a file into a port
 :class:`~pangulu_tpu_torch.api.Handle`, so factors made by either
 package are solved by the port; :func:`save_factor` writes the same
-format.  Only the dense tile store is read (compressed storage is
-ROADMAP M9, complex embedding M8).
+format.  Both stores cross: dense tiles (``factor_tiles``) and the
+compressed store's slot lists (``comp_values``, ``comp_idx``,
+``comp_off``, ``comp_cap``, ``comp_capmax``, ``comp_nnz``;
+pangulu_tpu/io/checkpoint.py:32-46, 123-153).  Complex embedding is
+ROADMAP M8.
 """
 
 from __future__ import annotations
@@ -30,11 +33,24 @@ def save_factor(handle, path) -> None:
     rr = ro.reordered
     ao = sp.csc_matrix(handle.a_origin)
     tid, ri, cj, vals = b.scatter_plan
+    from pangulu_tpu_torch.compressed import CompressedTiles
+
+    ft = handle.factor_tiles
+    if isinstance(ft, CompressedTiles):
+        # O(fill): values and slot positions, not dense tiles
+        factor_fields = dict(
+            factor_storage="compressed",
+            comp_values=ft.values.cpu().numpy(),
+            comp_idx=ft.idx.cpu().numpy(),
+            comp_off=ft.host_off, comp_cap=ft.host_cap,
+            comp_capmax=ft.capmax, comp_nnz=ft.nnz_pattern)
+    else:
+        factor_fields = dict(factor_storage="dense",
+                             factor_tiles=ft.cpu().numpy())
     np.savez_compressed(
         path,
         format_version=_FORMAT_VERSION,
-        factor_storage="dense",
-        factor_tiles=handle.factor_tiles.cpu().numpy(),
+        **factor_fields,
         nb=b.nb, n=b.n, block_length=b.block_length, num_tiles=b.num_tiles,
         dtype=str(np.dtype(b.dtype)),
         opts_dtype=handle.opts.dtype,
@@ -70,10 +86,8 @@ def handle_from_arrays(z, device="cuda"):
                          f"library supports ({_FORMAT_VERSION})")
     storage = (str(z["factor_storage"]) if "factor_storage" in z
                else "dense")
-    if storage != "dense":
-        raise NotImplementedError(
-            f"factor_storage={storage!r}: compressed checkpoints are "
-            "ROADMAP M9 (not ported yet)")
+    if storage not in ("dense", "compressed"):
+        raise ValueError(f"unknown factor_storage {storage!r}")
     if "complex_embed" in z and str(z["complex_embed"]):
         raise NotImplementedError("complex checkpoints are ROADMAP M8 "
                                   "(not ported yet)")
@@ -107,14 +121,29 @@ def handle_from_arrays(z, device="cuda"):
         (z["origin_data"], z["origin_indices"], z["origin_indptr"]),
         shape=(n, n))
     opts = InitOptions(nb=nb, dtype=str(z["opts_dtype"]),
-                       refine=int(z["opts_refine"]), device=str(device))
+                       refine=int(z["opts_refine"]), device=str(device),
+                       tile_storage=storage)
     dev = opts.resolve_device()
+    schedule = build_schedule(blocked)
+    perf = PerfCounters()
+    factorizer = None
+    if storage == "compressed":
+        from pangulu_tpu_torch.compressed import CompressedLU, CompressedTiles
+
+        factor_tiles = CompressedTiles.from_arrays(
+            blocked, z["comp_values"], z["comp_idx"], z["comp_off"],
+            z["comp_cap"], int(z["comp_capmax"]), int(z["comp_nnz"]), dev)
+        # solve-ready: the inverses come from the factored diagonal
+        # tiles at the first solve
+        factorizer = CompressedLU.from_store(blocked, schedule,
+                                             factor_tiles, perf=perf)
+    else:
+        factor_tiles = torch.as_tensor(np.asarray(z["factor_tiles"]),
+                                       device=dev)
     return Handle(
         opts=opts, a_origin=a_origin, reordering=reordering,
-        symbolic_result=None, blocked=blocked,
-        schedule=build_schedule(blocked), perf=PerfCounters(), device=dev,
-        factor_tiles=torch.as_tensor(np.asarray(z["factor_tiles"]),
-                                     device=dev),
+        symbolic_result=None, blocked=blocked, schedule=schedule, perf=perf,
+        device=dev, factor_tiles=factor_tiles, _factorizer=factorizer,
     )
 
 

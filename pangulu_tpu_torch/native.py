@@ -112,6 +112,9 @@ def get_lib():
         ctypes.c_int64, i64p, i32p, i64p, ctypes.c_int64, u8p,
         ctypes.c_int64, i64p]
     lib.pangulu_fill_walk_counts.restype = ctypes.c_int64
+    lib.pangulu_fill_entries.argtypes = [ctypes.c_int64, i64p, i32p, i64p,
+                                         i32p, i32p]
+    lib.pangulu_fill_entries.restype = ctypes.c_int64
     lib.pangulu_mindeg.argtypes = [ctypes.c_int64, i64p, i32p, i64p]
     lib.pangulu_mindeg.restype = None
     lib.pangulu_ndorder_aligned.argtypes = [
@@ -179,6 +182,24 @@ def fill_walk_counts(n, indptr, indices, parent, nb, bl):
         _ptr(parent, ctypes.c_int64), nb, _ptr(mark, ctypes.c_uint8), bl,
         _ptr(colcnt, ctypes.c_int64))
     return int(count), mark.reshape(bl, bl).astype(bool), colcnt
+
+
+def fill_entries(n, indptr, indices, parent, count):
+    """All strictly-lower fill entries (i, j) of L, or None
+    (pangulu_tpu/native.py:161-176)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    indptr, indices, parent = _i64(indptr), _i32(indices), _i64(parent)
+    out_i = np.empty(count, dtype=np.int32)
+    out_j = np.empty(count, dtype=np.int32)
+    got = lib.pangulu_fill_entries(
+        n, _ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32),
+        _ptr(parent, ctypes.c_int64), _ptr(out_i, ctypes.c_int32),
+        _ptr(out_j, ctypes.c_int32))
+    if got != count:
+        return None
+    return out_i, out_j
 
 
 def mindeg(n, indptr, indices):

@@ -31,7 +31,8 @@ from pangulu_tpu_torch.ops.kernels_torch import (DEFAULT_TOL, KernelTables,
                                                  mega_uch)
 from pangulu_tpu_torch.schedule import Schedule, build_schedule
 from pangulu_tpu_torch.utils.log import get_logger
-from pangulu_tpu_torch.utils.perf import PerfCounters, device_sync
+from pangulu_tpu_torch.utils.perf import (PerfCounters, device_sync,
+                                          resolve_device)
 
 log = get_logger()
 
@@ -61,7 +62,9 @@ def pick_engine(dispatch: str, schedule: Schedule, gmax: int):
 
 class LUFactorizer:
     """Runs gstrf on a blocked matrix (reference: pangulu_gstrf,
-    pangulu.c:211) on ``device`` with the engine ``dispatch`` picks."""
+    pangulu.c:211) on ``device`` with the engine ``dispatch`` picks.
+    ``device="cuda"`` (the default) runs the hand kernels and raises
+    without a GPU; ``device="cpu"`` the plain versions."""
 
     # Most members of one group; wider super-levels split (members stay
     # independent).  The JAX package's value, kept for table parity.
@@ -69,12 +72,12 @@ class LUFactorizer:
 
     def __init__(self, blocked: BlockedMatrix,
                  schedule: Schedule | None = None,
-                 perf: PerfCounters | None = None, device="cpu",
+                 perf: PerfCounters | None = None, device="cuda",
                  tol: float | None = None, dispatch: str = "auto"):
         self.blocked = blocked
         self.schedule = schedule or build_schedule(blocked)
         self.perf = perf or PerfCounters()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.tol = (tol if tol is not None
                     else DEFAULT_TOL[blocked.torch_dtype])
         self.dispatch, why = pick_engine(dispatch, self.schedule,

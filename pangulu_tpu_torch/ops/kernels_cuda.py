@@ -1,4 +1,5 @@
-"""Wrappers of the hand-written CUDA kernels (``csrc/lu_kernels.cu``).
+"""Wrappers of the hand-written CUDA kernels (``csrc/lu_kernels.cu``,
+with the compressed store's in ``csrc/compressed.cuh``).
 
 Each wrapper takes the same arguments as its plain version in
 :mod:`pangulu_tpu_torch.ops.kernels_torch`:
@@ -23,20 +24,25 @@ import torch
 
 from pangulu_tpu_torch.ops import build
 from pangulu_tpu_torch.ops import kernels_torch as kt
-from pangulu_tpu_torch.ops.kernels_torch import KernelTables, check_nb
+from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
+                                                 check_nb)
 from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 7
+_ABI = 8
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
-# wrapper call of K1, K2, K3, K4 or K5, plus, for K1, every diagonal
-# step that K2's level loop or K4's group loop launches (K1's kernel;
-# the C entries count them).  A K1 launch at 128 < nb <= 256 is the
-# blocked step's five device launches, counted as one.  chip_smoke.py
-# zeroes the counts before it drives a path and reads them after.
+# wrapper call of K1, K2, K3, K4, K5, P6 (decompress_tiles,
+# compress_tiles) or P2 (newton_inverses) that launched, plus, for K1,
+# every diagonal step that K2's level loop or K4's group loop launches
+# (K1's kernel; the C entries count them).  A K1 launch at 128 < nb <=
+# 256 is the blocked step's five device launches, counted as one.  An
+# empty batch launches nothing and counts nothing.  chip_smoke.py zeroes
+# the counts before it drives a path and reads them after.
 LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0,
-            "mega_factorize_groups": 0, "mega_solve_groups": 0}
+            "mega_factorize_groups": 0, "mega_solve_groups": 0,
+            "decompress_tiles": 0, "compress_tiles": 0,
+            "newton_inverses": 0}
 
 # K1's device launches, as the C entries report them: one a K1 launch up
 # to nb = 128, five above (the blocked step).  Zeroed with LAUNCHES.
@@ -95,6 +101,12 @@ def library() -> build.KernelLibrary:
         fn = getattr(lib, f"plu_mega_solve_groups_{s}")
         fn.restype = i
         fn.argtypes = [i, p, p, i, p, p] + [p] * 6 + [i] * 6 + [p, p]
+        fn = getattr(lib, f"plu_stage_slots_{s}")
+        fn.restype = i
+        fn.argtypes = [i, i, p, p, i, p, p, p, i, i, p, p]
+        fn = getattr(lib, f"plu_newton_inverses_{s}")
+        fn.restype = i
+        fn.argtypes = [i, p, p, p, p, i, i, i, d, p]
     lib.plu_grid_sync_probe.restype = i
     lib.plu_grid_sync_probe.argtypes = [i, i, i, p, p]
     _library = kl
@@ -462,3 +474,122 @@ def mega_solve_groups(x: torch.Tensor, tiles: torch.Tensor,
                                          blocks_per_sm=grid[2])
         LAUNCHES["mega_solve_groups"] += 1
     return out
+
+
+# ------------------------------------------------ the compressed store
+
+_IDX_BYTES = {torch.uint16: 2, torch.uint32: 4}
+
+
+def _check_slots(values, idx, off: Indices, cap: Indices, nb: int):
+    """The store's arrays, and (once a store) its host tables: every
+    tile's slot range inside ``values``, the scratch tile empty, the slot
+    offsets within int32.  Returns the number of tiles nt."""
+    dev = values.device
+    if values.dim() != 1 or not values.is_contiguous():
+        raise ValueError("values must be a contiguous 1-D tensor")
+    _dtype_of(values)
+    if idx.dtype not in _IDX_BYTES:
+        raise TypeError(f"slot positions are uint16 or uint32, got "
+                        f"{idx.dtype}")
+    if idx.dtype == torch.uint16 and nb * nb > 0xFFFF:
+        raise ValueError(f"uint16 slot positions hold nb <= 255 (sentinel "
+                         f"nb*nb), got nb={nb}")
+    _check_tensor("idx", idx, idx.dtype, values.shape, dev)
+    nt = len(off) - 1
+    for name, ix in (("off", off), ("cap", cap)):
+        _check_tensor(name, ix.dev, torch.int32, (nt + 1,), dev)
+    key = ("store", values.numel(), id(cap))
+    if key not in off.checked:
+        o, c = off.host.astype(np.int64), cap.host.astype(np.int64)
+        if len(c) != nt + 1 or c[nt] != 0 or (c < 0).any() or (o < 0).any() \
+                or (o + c > values.numel()).any() \
+                or values.numel() >= 2 ** 31:
+            raise ValueError("off/cap name slot ranges outside values, or "
+                             "the scratch tile has slots")
+        off.checked.add(key)
+    return nt
+
+
+def _check_ids(ids: Indices, nt: int, device) -> None:
+    """The batch's tile ids: in [0, nt] (nt the scratch tile), the real
+    ones distinct (compress would write a slot twice)."""
+    _check_tensor("ids", ids.dev, torch.int32, (len(ids),), device)
+    key = ("ids", nt)
+    if key not in ids.checked:
+        _check_table("ids", ids.host, 0, nt)
+        real = ids.host[ids.host != nt]
+        if len(np.unique(real)) != len(real):
+            raise ValueError("a batch's real tile ids repeat")
+        ids.checked.add(key)
+
+
+def _stage_slots(to_dense, values, idx, off, cap, ids, nb, dense):
+    lib = library().lib
+    dev = values.device
+    _call(getattr(lib, f"plu_stage_slots_{_dtype_of(values)}"), dev.index,
+          int(to_dense), values.data_ptr(), idx.data_ptr(),
+          _IDX_BYTES[idx.dtype], off.dev.data_ptr(), cap.dev.data_ptr(),
+          ids.dev.data_ptr(), len(ids), nb, dense.data_ptr(), _stream(dev))
+
+
+def decompress_tiles(values: torch.Tensor, idx: torch.Tensor, off: Indices,
+                     cap: Indices, ids: Indices, nb: int) -> torch.Tensor:
+    """P6: the dense [B, nb, nb] tiles ``ids`` of the compressed store;
+    see :func:`kernels_torch.decompress_tiles`."""
+    if not _on_cuda(values):
+        return kt.decompress_tiles(values, idx, off, cap, ids, nb)
+    check_nb(nb)
+    nt = _check_slots(values, idx, off, cap, nb)
+    _check_ids(ids, nt, values.device)
+    dense = torch.empty((len(ids), nb, nb), dtype=values.dtype,
+                        device=values.device)
+    if len(ids):
+        _stage_slots(True, values, idx, off, cap, ids, nb, dense)
+        LAUNCHES["decompress_tiles"] += 1
+    return dense
+
+
+def compress_tiles(values: torch.Tensor, idx: torch.Tensor, off: Indices,
+                   cap: Indices, ids: Indices, dense: torch.Tensor) -> None:
+    """P6, the compress direction: the slots of tiles ``ids`` from the
+    dense tiles ``dense`` [B, nb, nb], ``values`` updated IN PLACE; see
+    :func:`kernels_torch.compress_tiles`."""
+    if not _on_cuda(values):
+        return kt.compress_tiles(values, idx, off, cap, ids, dense)
+    nb = dense.shape[-1]
+    check_nb(nb)
+    nt = _check_slots(values, idx, off, cap, nb)
+    _check_ids(ids, nt, values.device)
+    _check_tensor("dense", dense, values.dtype, (len(ids), nb, nb),
+                  values.device)
+    if len(ids):
+        _stage_slots(False, values, idx, off, cap, ids, nb, dense)
+        LAUNCHES["compress_tiles"] += 1
+    return None
+
+
+def newton_inverses(f: torch.Tensor, tol: float | None = None):
+    """P2: (L^-1, U^-1) of a batch [B, nb, nb] of factored diagonal tiles
+    by Newton–Schulz doubling, one launch for both; see
+    :func:`kernels_torch.newton_inverses`."""
+    if not _on_cuda(f):
+        return kt.newton_inverses(f, tol)
+    s = _dtype_of(f)
+    if tol is None:
+        tol = kt.DEFAULT_TOL[f.dtype]
+    if f.dim() != 3 or f.shape[-1] != f.shape[-2]:
+        raise ValueError(f"expected [B, nb, nb], got {tuple(f.shape)}")
+    batch, nb = f.shape[0], f.shape[-1]
+    check_nb(nb)
+    _check_tensor("f", f, f.dtype, f.shape, f.device)
+    linv, uinv = torch.empty_like(f), torch.empty_like(f)
+    if batch:
+        work = torch.empty((batch, 2, 3, nb, nb), dtype=f.dtype,
+                           device=f.device)
+        _call(getattr(library().lib, f"plu_newton_inverses_{s}"),
+              f.device.index, f.data_ptr(), linv.data_ptr(),
+              uinv.data_ptr(), work.data_ptr(), batch, nb,
+              kt.newton_steps(nb), float(tol), _stream(f.device))
+        LAUNCHES["newton_inverses"] += 1
+    return linv, uinv

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's five kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Counterpart of ``pangulu_tpu.ops.kernels_jax`` plus the reference
 semantics of the JAX package's Pallas kernels
@@ -13,7 +13,15 @@ semantics of the JAX package's Pallas kernels
   * :func:`mega_factorize_groups` / :func:`mega_solve_groups` — the same
     two over super-level groups of independent columns
     (``Schedule.group_mega_tables`` / ``group_solve_tables``), the
-    engines of nested-dissection schedules.
+    engines of nested-dissection schedules;
+  * :func:`decompress_tiles` / :func:`compress_tiles` — a batch of tiles
+    of the compressed tile store to dense and back (the TPU probe
+    ``tools/exp_scatter.py``'s scatter and gather modes);
+  * :func:`newton_inverses` — L^-1 and U^-1 of a batch of factored
+    diagonal tiles by Newton–Schulz doubling
+    (``tools/exp_batched_scan.py`` batched_newton, and
+    ``pangulu_tpu/ops/kernels_jax.py`` unit_lower_inv_newton /
+    upper_inv_newton).
 
 These run on any device.  The CPU tests hold them against the JAX
 package; ``chip_smoke.py`` holds the CUDA kernels
@@ -337,3 +345,123 @@ def mega_solve(x: torch.Tensor, tiles: torch.Tensor, invs: torch.Tensor,
         _solve_level(x, tiles, invs[k, 1], k, int(h["nuc_tab"][k]),
                      d["ucid_tab"], d["ucrow_tab"])
     return x
+
+
+@dataclasses.dataclass(eq=False)
+class Indices:
+    """int32 indices on the host and the same on a device, shipped once.
+    The plain versions read ``dev``; the CUDA wrappers check ``host``
+    once for each store they index (``checked`` holds what was)."""
+
+    host: np.ndarray
+    dev: torch.Tensor
+    checked: set = dataclasses.field(default_factory=set)
+
+    @classmethod
+    def build(cls, a, device) -> "Indices":
+        host = np.ascontiguousarray(a, dtype=np.int32)
+        return cls(host=host, dev=torch.as_tensor(host, device=device))
+
+    def __len__(self) -> int:
+        return len(self.host)
+
+
+def slot_positions(idx: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``idx[pos]`` widened to int64.  torch's uint16 and uint32 take
+    little arithmetic, so the slots are read through their signed view
+    and masked back to the unsigned value."""
+    view = {torch.uint16: (torch.int16, 0xFFFF),
+            torch.uint32: (torch.int32, 0xFFFFFFFF)}
+    if idx.dtype not in view:
+        raise TypeError(f"slot indices are uint16 or uint32, got {idx.dtype}")
+    signed, mask = view[idx.dtype]
+    return idx.view(signed)[pos].to(torch.int64) & mask
+
+
+def slot_ranges(off: Indices, cap: Indices, ids: Indices):
+    """(slot position, in-range mask) [B, max cap] of the tiles ``ids``."""
+    t = ids.dev.long()
+    o, c = off.dev.long()[t], cap.dev.long()[t]
+    width = int(cap.host[ids.host].max(initial=0))
+    ar = torch.arange(width, device=o.device)
+    return o[:, None] + ar[None, :], ar[None, :] < c[:, None]
+
+
+def decompress_tiles(values: torch.Tensor, idx: torch.Tensor, off: Indices,
+                     cap: Indices, ids: Indices, nb: int) -> torch.Tensor:
+    """Dense [B, nb, nb] tiles ``ids`` of the compressed store
+    (``pangulu_tpu/compressed.py:240-248`` gather): zeros, then
+    ``dense[idx[s]] = values[s]`` for the tile's slots ``s`` in
+    ``[off[t], off[t] + cap[t])``; a sentinel position (>= nb*nb) is
+    dropped.  The scratch tile (cap 0) comes out zero."""
+    nn = nb * nb
+    pos, live = slot_ranges(off, cap, ids)
+    p = torch.where(live, pos, 0)
+    ix = torch.where(live, slot_positions(idx, p), nn).clamp_max(nn)
+    dense = values.new_zeros((len(ids), nn + 1))
+    dense.scatter_(1, ix, torch.where(live, values[p], 0))
+    return dense[:, :nn].reshape(len(ids), nb, nb)
+
+
+def compress_tiles(values: torch.Tensor, idx: torch.Tensor, off: Indices,
+                   cap: Indices, ids: Indices, dense: torch.Tensor) -> None:
+    """Write the dense tiles ``dense`` [B, nb, nb] back into the slots of
+    tiles ``ids`` IN PLACE (``pangulu_tpu/compressed.py:250-258``
+    scatter): ``values[s] = dense[idx[s]]`` for every real slot; sentinel
+    slots and every slot of another tile are left as they are."""
+    nb = dense.shape[-1]
+    nn = nb * nb
+    pos, live = slot_ranges(off, cap, ids)
+    ix = slot_positions(idx, torch.where(live, pos, 0))
+    live = live & (ix < nn)
+    v = dense.reshape(len(ids), nn).gather(1, ix.clamp_max(nn - 1))
+    values[pos[live]] = v[live]
+
+
+def newton_steps(nb: int) -> int:
+    """Doubling steps that make the Newton–Schulz inverse of a unit
+    triangular nb x nb matrix exact: ceil(log2 nb) - 1."""
+    return max((nb - 1).bit_length() - 1, 0)
+
+
+def _newton(t: torch.Tensor, steps: int) -> torch.Tensor:
+    """X <- X (2I - T X) from X = 2I - T, ``steps`` times: for T = I + N
+    with N nilpotent, T X_k = I - N^(2^(k+1))."""
+    two = 2 * torch.eye(t.shape[-1], dtype=t.dtype, device=t.device)
+    x = two - t
+    for _ in range(steps):
+        x = torch.matmul(x, two - torch.matmul(t, x))
+    return x
+
+
+def unit_lower_inv_newton(f: torch.Tensor) -> torch.Tensor:
+    """Inverse of unit_tril(f) ([..., nb, nb]) by Newton–Schulz doubling
+    (pangulu_tpu/ops/kernels_jax.py:158-177): exact after
+    :func:`newton_steps` steps, not an approximation."""
+    nb = f.shape[-1]
+    eye = torch.eye(nb, dtype=f.dtype, device=f.device)
+    return _newton(torch.tril(f, -1) + eye, newton_steps(nb))
+
+
+def upper_inv_newton(f: torch.Tensor, tol: float) -> torch.Tensor:
+    """Inverse of triu(f) with the tiny-pivot substitution (|d| < tol ->
+    +tol) by the same doubling on U = D (I + M), M = D^-1 R strictly
+    upper: U^-1 = (I + M)^-1 D^-1 (pangulu_tpu/ops/kernels_jax.py:
+    180-197)."""
+    nb = f.shape[-1]
+    d = torch.diagonal(f, dim1=-2, dim2=-1)
+    d = torch.where(d.abs() < tol, torch.full_like(d, tol), d)
+    dinv = 1.0 / d
+    eye = torch.eye(nb, dtype=f.dtype, device=f.device)
+    x = _newton(eye + torch.triu(f, 1) * dinv[..., :, None],
+                newton_steps(nb))
+    return x * dinv[..., None, :]
+
+
+def newton_inverses(f: torch.Tensor, tol: float | None = None):
+    """(L^-1, U^-1) of a batch [B, nb, nb] of factored diagonal tiles (L
+    unit lower below the diagonal, U on and above it) by
+    :func:`unit_lower_inv_newton` and :func:`upper_inv_newton`."""
+    if tol is None:
+        tol = DEFAULT_TOL[f.dtype]
+    return unit_lower_inv_newton(f), upper_inv_newton(f, tol)

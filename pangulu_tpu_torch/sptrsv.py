@@ -33,22 +33,24 @@ from pangulu_tpu_torch.ops import kernels_cuda
 from pangulu_tpu_torch.ops.kernels_torch import DEFAULT_TOL, KernelTables
 from pangulu_tpu_torch.schedule import Schedule
 from pangulu_tpu_torch.utils.log import get_logger
-from pangulu_tpu_torch.utils.perf import PerfCounters, device_sync
+from pangulu_tpu_torch.utils.perf import (PerfCounters, device_sync,
+                                          resolve_device)
 
 log = get_logger()
 
 
 class TriangularSolver:
-    """gstrs executor over factored tiles on ``device``."""
+    """gstrs executor over factored tiles on ``device`` (``"cuda"``, the
+    default, or ``"cpu"``, as :class:`~numeric.LUFactorizer`)."""
 
     def __init__(self, blocked: BlockedMatrix, schedule: Schedule,
-                 perf: PerfCounters | None = None, device="cpu",
+                 perf: PerfCounters | None = None, device="cuda",
                  inv_tiles: torch.Tensor | None = None,
                  dispatch: str = "auto"):
         self.blocked = blocked
         self.schedule = schedule
         self.perf = perf or PerfCounters()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # triangle inverses persisted by the factorization; recomputed
         # by _ensure_inverses for checkpoint-loaded factors
         self.inv_tiles = inv_tiles

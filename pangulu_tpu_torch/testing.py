@@ -1,7 +1,8 @@
-"""Inputs and tolerances that the port's tests and ``chip_smoke.py``
-share for K1 (the diagonal step): tiles whose pivots are exactly zero
-at a chosen step, and the bound that holds K1's blocked step (128 < nb
-<= 256) against the rank-1 plain version."""
+"""Inputs, tolerances and counts that the port's tests and
+``chip_smoke.py`` share: for K1 (the diagonal step), tiles whose pivots
+are exactly zero at a chosen step, and the bound that holds K1's blocked
+step (128 < nb <= 256) against the rank-1 plain version; for the
+compressed store, the launches its engine makes."""
 
 from __future__ import annotations
 
@@ -49,3 +50,25 @@ def blocked_tiny_pivot_tile(nb: int, k1: int, k2: int, rng) -> np.ndarray:
     a[h:, :h] = rng.standard_normal((nb - h, h))
     a[h:, [0, k1]] = 0.0
     return a
+
+
+def compressed_launches(schedule, factorizations: int = 0, solves: int = 0,
+                        reloads: int = 0) -> dict:
+    """The kernel launches of ``CompressedLU`` (the keys of
+    ``kernels_cuda.LAUNCHES`` it uses) for that many factorizations,
+    solves (one ``solve_blocked`` call each) and first solves of a
+    reloaded store, from the level structure: a factorization launches
+    K1 once a level and decompresses and compresses the diagonal tile
+    and each non-empty L panel, U panel and update batch; a solve
+    decompresses each non-empty L panel (forward) and U column panel
+    (backward); a reloaded store first decompresses its diagonal tiles
+    in one batch and forms their inverses in one P2 launch."""
+    lv = schedule.levels
+    stage = sum(1 + (len(v.lpanel) > 0) + (len(v.upanel) > 0)
+                + (len(v.upd_dst) > 0) for v in lv)
+    panels = sum((len(v.lpanel) > 0) + (len(v.ucolpanel) > 0) for v in lv)
+    return {"getrf_with_inverses": factorizations * len(lv),
+            "decompress_tiles": (factorizations * stage + solves * panels
+                                 + reloads),
+            "compress_tiles": factorizations * stage,
+            "newton_inverses": reloads}

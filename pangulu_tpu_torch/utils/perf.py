@@ -106,6 +106,23 @@ class PerfCounters:
         return "\n".join(lines)
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` ("cuda", "cuda:i" or "cpu") as a torch.device with its
+    index.  "cuda" raises when there is no GPU: the plain versions run
+    only where ``device="cpu"`` is asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' but no CUDA device is available; ask for "
+                "device='cpu' explicitly to run the plain PyTorch versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    return dev
+
+
 def device_sync(device) -> None:
     """Wait for the queued work on ``device`` (a no-op for the CPU)."""
     device = torch.device(device)

@@ -137,12 +137,14 @@ def test_transpose_solve_of_loaded_factor(tmp_path):
 
 
 def test_transpose_solve_unsupported_paths_raise():
-    """tests/test_trans_solve.py:66: the port has no compressed store
-    (ROADMAP M9) and solves nothing before gstrf."""
+    """tests/test_trans_solve.py:66: compressed factors have no transpose
+    solve, and nothing is solved before gstrf."""
     a = tm.poisson2d(8)
-    with pytest.raises(NotImplementedError, match="M9"):
-        pt.init(a, pt.InitOptions(nb=8, tile_storage="compressed",
-                                  device="cpu"))
+    hc = pt.init(a, pt.InitOptions(nb=8, tile_storage="compressed",
+                                   device="cpu"))
+    pt.gstrf(hc)
+    with pytest.raises(NotImplementedError):
+        pt.gstrs(hc, np.ones(a.n), trans=True)
     h = pt.init(a, pt.InitOptions(nb=8, dtype="r64", device="cpu"))
     with pytest.raises(RuntimeError, match="before gstrf"):
         pt.gstrs(h, np.ones(a.n), trans=True)

@@ -98,7 +98,6 @@ def test_cli_bad_file_exits_2(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "2,2"], "M11"),
-    (["--tile-storage", "compressed"], "M9"),
     (["--dtype", "cr32"], "M8"),
     (["--dtype", "cr64"], "M8"),
     (["--profile-dir", "prof"], "M6"),

@@ -36,6 +36,12 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.float64: dict(rtol=1e-12, atol=1e-12)}
 
 
+def _counts(**launched) -> dict:
+    """kernels_cuda.LAUNCHES as it must read: the given counts, 0 for
+    every other kernel."""
+    return {k: launched.get(k, 0) for k in kc.LAUNCHES}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -201,10 +207,9 @@ def test_slice_on_cuda_counts_launches(cuda):
     x = pt.gstrs(h, b)
     # one factorization, whose every level launched K1's kernel on its
     # diagonal tile; one solve plus the default two refinement solves
-    assert kc.LAUNCHES == {"getrf_with_inverses": h.schedule.block_length,
-                           "mega_factorize": 1, "mega_solve": 3,
-                           "mega_factorize_groups": 0,
-                           "mega_solve_groups": 0}
+    assert kc.LAUNCHES == _counts(
+        getrf_with_inverses=h.schedule.block_length, mega_factorize=1,
+        mega_solve=3)
     assert kc.DEVICE_LAUNCHES == {
         "getrf_with_inverses": h.schedule.block_length}
     assert h.factor_tiles.is_cuda
@@ -304,9 +309,9 @@ def test_nd_slice_on_cuda_counts_launches(cuda):
     # one grouped factorization, whose every group launched K1's kernel
     # once for its diagonal tiles; one grouped solve plus two refinement
     # solves; no chain kernel
-    assert kc.LAUNCHES == {"getrf_with_inverses": ng, "mega_factorize": 0,
-                           "mega_solve": 0, "mega_factorize_groups": 1,
-                           "mega_solve_groups": 3}
+    assert kc.LAUNCHES == _counts(getrf_with_inverses=ng,
+                                  mega_factorize_groups=1,
+                                  mega_solve_groups=3)
     assert h.perf.kernels["engine"] == "mega_group"
     assert h.perf.kernels["solve_engine"] == "mega_group"
     assert h.perf.kernels["gstrf_residual"] < 1e-5
@@ -328,11 +333,11 @@ def test_nb256_slice_on_cuda_counts_launches(cuda, ordering):
     grouped = ordering == "nd"
     steps = (h._factorizer.tables.host["ngroups"] if grouped
              else h.schedule.block_length)
-    assert kc.LAUNCHES == {"getrf_with_inverses": steps,
-                           "mega_factorize": int(not grouped),
-                           "mega_solve": 3 * int(not grouped),
-                           "mega_factorize_groups": int(grouped),
-                           "mega_solve_groups": 3 * int(grouped)}
+    assert kc.LAUNCHES == _counts(getrf_with_inverses=steps,
+                                  mega_factorize=int(not grouped),
+                                  mega_solve=3 * int(not grouped),
+                                  mega_factorize_groups=int(grouped),
+                                  mega_solve_groups=3 * int(grouped))
     assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 5 * steps}
     assert h.perf.kernels["gstrf_residual"] < 1e-5
     assert residual_norm(a.to_scipy(), x, b) < 1e-10
@@ -461,9 +466,107 @@ def test_update_values_then_gstrf_on_cuda(cuda):
     kc.reset_launch_counts()
     pt.gstrf(h)
     ng = h._factorizer.tables.host["ngroups"]
-    assert kc.LAUNCHES == {"getrf_with_inverses": ng, "mega_factorize": 0,
-                           "mega_solve": 0, "mega_factorize_groups": 1,
-                           "mega_solve_groups": 0}
+    assert kc.LAUNCHES == _counts(getrf_with_inverses=ng,
+                                  mega_factorize_groups=1)
     assert h.perf.kernels["gstrf_residual"] < 1e-5
     b = s2 @ np.ones(a.n)
     assert residual_norm(h.a_origin, pt.gstrs(h, b), b) < 1e-10
+
+
+# ---- the compressed store: P6 (slot kernels) and P2 (Newton inverses)
+
+def _compressed_store(nb, dtype, device):
+    from pangulu_tpu_torch.compressed import CompressedTiles
+
+    h = pt.init(poisson2d(12 if nb <= 128 else 20),
+                pt.InitOptions(nb=nb, dtype=dtype, ordering="nd",
+                               device="cpu"))
+    return CompressedTiles(h.blocked, h.reordering.reordered, device=device)
+
+
+@pytest.mark.parametrize("dtype", ["r32", "r64"])
+@pytest.mark.parametrize("nb", [16, 100, 256])     # u16, u16, u32 slots
+def test_slot_kernels_bit_exact(cuda, dtype, nb):
+    """P6 against its plain version bit for bit, both directions, every
+    tile of the store with the scratch tile (cap 0) at both ends."""
+    st = _compressed_store(nb, dtype, cuda)
+    assert st.idx.dtype == (torch.uint32 if nb == 256 else torch.uint16)
+    nt = st.num_tiles
+    ids = kt.Indices.build(np.r_[nt, np.arange(nt)[::-1], nt], cuda)
+    args = (st.values, st.idx, st.off, st.cap, ids)
+    got = kc.decompress_tiles(*args, nb)
+    assert torch.equal(got, kt.decompress_tiles(*args, nb))
+    assert not got[0].any() and not got[-1].any()
+    back = {f: torch.full_like(st.values, 5.0) for f in ("k", "p")}
+    kc.compress_tiles(back["k"], st.idx, st.off, st.cap, ids, got)
+    kt.compress_tiles(back["p"], st.idx, st.off, st.cap, ids, got)
+    torch.cuda.synchronize()
+    assert torch.equal(back["k"], back["p"])
+    s = st.scratch_slot
+    assert torch.equal(back["k"][:s], st.values[:s])
+    assert (back["k"][s:] == 5.0).all()       # sentinel slots untouched
+
+
+@pytest.mark.parametrize("nb", [8, 100, 128, 256])
+def test_newton_kernel(cuda, nb):
+    """P2 against its plain versions, a tiny pivot included: f64 within
+    1e-12 and f32 within the f32 contract's 1e-5, both relative to the
+    largest entry.  True f32 at every nb and on the tiny-pivot tile too:
+    the f32 kernel's error against the plain f64 inverse (relative to its
+    largest entry) is at most 2x the plain f32 version's, or one f32 eps
+    where both sit within an ulp or two (at nb=8 the kernel read 8.5e-8
+    against 2 x 3.1e-8 on an H100)."""
+    rng = np.random.default_rng(nb)
+    a = rng.standard_normal((16, nb, nb)) + nb * np.eye(nb)
+    a[1] = tiny_pivot_tile(nb, nb // 2, rng)
+    f64 = kt.getrf_with_inverses(torch.as_tensor(a, device=cuda))[0]
+    for f, rel in ((f64, 1e-12), (f64.float(), 1e-5)):
+        for g, r in zip(kc.newton_inverses(f), kt.newton_inverses(f)):
+            torch.testing.assert_close(g, r, rtol=rel,
+                                       atol=rel * float(r.abs().max()))
+    f32 = f64.float()
+    tol = kt.DEFAULT_TOL[torch.float32]
+    eps = torch.finfo(torch.float32).eps
+    for g, p, r in zip(kc.newton_inverses(f32), kt.newton_inverses(f32),
+                       kt.newton_inverses(f32.double(), tol)):
+        ek = float((g.double() - r).abs().max() / r.abs().max())
+        ep = float((p.double() - r).abs().max() / r.abs().max())
+        assert ek <= max(2 * ep, eps), (ek, ep)
+
+
+@pytest.mark.parametrize("dtype", ["r32", "r64"])
+def test_compressed_path_on_cuda_counts_launches(cuda, dtype):
+    """init -> gstrf -> gstrs with tile_storage="compressed" on the card:
+    exact launch counts, the factors of the plain version on the CPU,
+    and then a checkpoint reloaded on the card (P6, then P2)."""
+    import tempfile
+
+    from pangulu_tpu_torch.io import load_factor, save_factor
+    from pangulu_tpu_torch.testing import compressed_launches
+
+    a = poisson2d(16)
+    b = a.to_scipy() @ np.ones(a.n)
+    opts = dict(nb=16, dtype=dtype, ordering="nd",
+                tile_storage="compressed")
+    kc.reset_launch_counts()
+    h = pt.init(a, pt.InitOptions(device="cuda", **opts))
+    pt.gstrf(h)
+    x = pt.gstrs(h, b, refine=0)
+    assert kc.LAUNCHES == _counts(**compressed_launches(
+        h.schedule, factorizations=1, solves=1))
+    hc = pt.init(a, pt.InitOptions(device="cpu", **opts))
+    pt.gstrf(hc)
+    tol = TOL[torch.float64 if dtype == "r64" else torch.float32]
+    np.testing.assert_allclose(h.factor_tiles.to_dense(),
+                               hc.factor_tiles.to_dense(), **tol)
+    assert residual_norm(a.to_scipy(), pt.gstrs(h, b), b) < (
+        1e-12 if dtype == "r64" else 1e-10)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_factor(h, f"{tmp}/f.npz")
+        h2 = load_factor(f"{tmp}/f.npz", device="cuda")
+    kc.reset_launch_counts()
+    x2 = pt.gstrs(h2, b, refine=0)
+    assert kc.LAUNCHES == _counts(**compressed_launches(
+        h.schedule, solves=1, reloads=1))
+    np.testing.assert_allclose(x2, x, rtol=1e-4 if dtype == "r32" else 1e-10,
+                               atol=1e-5 if dtype == "r32" else 1e-10)

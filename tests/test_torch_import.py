@@ -31,7 +31,7 @@ for m in pkgutil.walk_packages(pangulu_tpu_torch.__path__,
                                "pangulu_tpu_torch."):
     importlib.import_module(m.name)
 for m in ("pangulu_tpu_torch.io.mmio", "pangulu_tpu_torch.cli",
-          "pangulu_tpu_torch.__main__"):
+          "pangulu_tpu_torch.__main__", "pangulu_tpu_torch.compressed"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pangulu_tpu",
@@ -59,6 +59,27 @@ def test_cuda_device_without_gpu_raises():
 
 def test_default_device_is_cuda():
     assert InitOptions().device == "cuda"
+
+
+@pytest.mark.parametrize("engine", ["LUFactorizer", "TriangularSolver",
+                                    "CompressedLU"])
+def test_engines_default_to_cuda(monkeypatch, engine):
+    """The engines a user may build directly run on the card unless asked
+    for the CPU: without device= and without a GPU they raise, naming
+    device='cpu'."""
+    from pangulu_tpu_torch.compressed import CompressedLU
+    from pangulu_tpu_torch.numeric import LUFactorizer
+    from pangulu_tpu_torch.sptrsv import TriangularSolver
+
+    h = init(poisson2d(4), InitOptions(nb=4, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = {"LUFactorizer": lambda: LUFactorizer(h.blocked, h.schedule),
+            "TriangularSolver": lambda: TriangularSolver(h.blocked,
+                                                         h.schedule),
+            "CompressedLU": lambda: CompressedLU(
+                h.blocked, h.schedule, h.reordering.reordered)}[engine]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
 
 
 def test_cuda_call_without_library_raises(monkeypatch, tmp_path):
@@ -163,7 +184,6 @@ def test_other_device_raises():
 
 @pytest.mark.parametrize("opts,item", [
     (dict(mesh_shape=(2, 2)), "M11"),
-    (dict(tile_storage="compressed"), "M9"),
     (dict(dtype="cr32"), "M8"),
     (dict(dtype="cr64"), "M8"),
     (dict(profile_dir="/nonexistent"), "not ported"),
