@@ -106,15 +106,42 @@ CUDA toolkit (nvcc).  It
      nb=128 nd r32 (store ratio, solve residual < 1e-10) and circuit(600,
      seed=2) nb=32 r64 (< 1e-6); its numbers go out as a
      {"compressed": ...} JSON line;
-  8. with --profile, also traces one rcm solve and prints, per phase,
+  8. runs the TPU probes' kernels (probes_phase; step 1 also fails if
+     one of their 21 instances spills): P5 scan_overlap in its four
+     modes and P4 scan_multi at Q = 1, 2, 4, 8 without and with the
+     products, at 128 and 256 steps on the probes' inputs
+     (testing.probe_inputs), and P3 newton_loop at G = 4 and 16, nb = 16
+     and 128, each against its plain version: float32 true f32 (the
+     kernel's error against the plain float64 version at most 2x the
+     plain float32 version's, relative to max |f64|, for P3 to each
+     row's max, or one f32 eps), P3's float64 within 1e-12 of each row's
+     max; the instances with 3xTF32 products (timed only) within 1e-4 of
+     max |f64| at 128 steps; with b = 0 (the products stay 0), every
+     instance with products bit-equal to the one without, at the
+     probes' own 4096 (P5) and 2048 (P4) steps, which checks their scan
+     part; then, with the launch counts zeroed before and read
+     after (each probe kernel launched at least once), the probes'
+     own path: pangulu_tpu_torch/tools/probe_{overlap,scan_multi,
+     newton_loop}.run at the probes' sizes (4096 and 2048 steps, G up to
+     16), which print their tables; those sizes are timed only (the
+     chain of products leaves float32's range); the plain versions
+     timed at the kernels line's sizes; a {"probes": ...} JSON line
+     (with each probe's one-SM bound);
+  9. with --profile, also traces one rcm solve and prints, per phase,
      each kernel's launches and device time, the host wall time and the
      device's idle share (K3's solve: exactly 2 launches of its sweep
      kernel);
-  9. prints the numbers of step 6 as one JSON line, then one JSON
+ 10. prints the numbers of step 6 as one JSON line, then one JSON
      line of per-kernel results, K1-K5 at nb=128 and again at nb=256
-     (named name@nb=256, its launches from the nb=256 paths), and P6
+     (named name@nb=256, its launches from the nb=256 paths), P6
      (decompress_tiles, compress_tiles) and P2 (newton_inverses), their
-     launches from the compressed path and the reloaded factor:
+     launches from the compressed path and the reloaded factor, and the
+     probes P5, P4, P3 (scan_overlap at mode both and 4096 steps,
+     scan_multi at Q = 8 with products and 2048 steps, both with DMMA
+     products, newton_loop at G = 16 on one CTA; launches from the
+     probes' path, none on the solver's), with max_rel_err, their
+     largest difference from the plain float32 version over max |plain
+     f64| (P3: each row's):
      time, launches, error, plain and library times, and the bound:
      the larger of the bytes over 3.35 TB/s and the operations over
      the H100 SXM's published peak for the units that run them: 495 /
@@ -123,11 +150,17 @@ CUDA toolkit (nvcc).  It
      DMMA in f64), 67 TFLOP/s f32 (34 f64) on the CUDA cores for the
      rest, K1's register-tile chains among them (P2's operations are
      those of two triangle inverses, not of its doubling's products);
-     the CUDA-core bound of K2 and K4 is kept in the details file.
+     the CUDA-core bound of K2 and K4 is kept in the details file; the
+     probes' products at 67 TFLOP/s (they run as DMMA on float64
+     copies); P3's bound is its function's, G unit-triangle inverses
+     (the members in and out, nb^3/3 flop each), not its doubling's
+     products.
      Before it, a {"retraced": ...} line names any phase whose trace
-     came back empty and was taken once more (only the nb=256 nd
-     solve's may be; any other empty trace fails); then the last line
-     {"ok": true, "device": {...}}.
+     was taken once more: the nb=256 nd solve's when it came back empty,
+     the gstrs_device call's when it showed fewer than its 4 K5
+     launches (the profiler loses the first kernels of some traces; the
+     second trace is checked as the first; any other empty trace
+     fails); then the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the package beside this file, it prints no result and exits 2.
@@ -154,12 +187,17 @@ SRC = "pangulu_tpu_torch/csrc/lu_kernels.cu"
 SOURCE = {"getrf_with_inverses": "pangulu_tpu_torch/csrc/tile_lu.cuh",
           "decompress_tiles": "pangulu_tpu_torch/csrc/compressed.cuh",
           "compress_tiles": "pangulu_tpu_torch/csrc/compressed.cuh",
-          "newton_inverses": "pangulu_tpu_torch/csrc/compressed.cuh"}
+          "newton_inverses": "pangulu_tpu_torch/csrc/compressed.cuh",
+          "scan_overlap": "pangulu_tpu_torch/csrc/probes.cuh",
+          "scan_multi": "pangulu_tpu_torch/csrc/probes.cuh",
+          "newton_loop": "pangulu_tpu_torch/csrc/probes.cuh"}
 # the dense store's kernels (each also at nb=256) and the compressed
 # store's (csrc/compressed.cuh)
 DENSE = ("getrf_with_inverses", "mega_factorize", "mega_solve",
          "mega_factorize_groups", "mega_solve_groups")
 COMPRESSED = ("decompress_tiles", "compress_tiles", "newton_inverses")
+# the TPU probes P5, P4, P3 (csrc/probes.cuh), on no path of the solver
+PROBES = ("scan_overlap", "scan_multi", "newton_loop")
 REPLACES = {
     "getrf_with_inverses": "pangulu_tpu/ops/kernels_pallas.py:599",
     "mega_factorize": "pangulu_tpu/ops/kernels_pallas.py:1187",
@@ -169,6 +207,9 @@ REPLACES = {
     "decompress_tiles": "tools/exp_scatter.py:73",
     "compress_tiles": "tools/exp_scatter.py:73",
     "newton_inverses": "tools/exp_batched_scan.py:87",
+    "scan_overlap": "tools/exp_overlap.py:64",
+    "scan_multi": "tools/exp_scan_multi.py:63",
+    "newton_loop": "tools/exp_batched_scan.py:123",
 }
 # Tolerances (the JAX package's own contract, ROADMAP.md "Tolerances",
 # tests/test_mega.py:31,82, tests/test_mega_group.py:66,140): rtol, atol.
@@ -198,6 +239,18 @@ PRODUCT_INSTANCES = 18
 # P6: decompress and compress for float and double, uint16 and uint32
 # positions; P2: newton for float and double
 COMPRESSED_INSTANCES = 10
+# P5: overlap_kernel in 4 modes, the 3 with products in float64 (DMMA)
+# and in 3xTF32; P4: scan_multi_kernel at Q = 1, 2, 4, 8, without
+# products, and with them in either type; P3: newton_loop_kernel for
+# float and double
+PROBE_INSTANCES = 21
+# SMs of an H100 SXM: a one-CTA probe's bound on one SM is the card's
+# operations bound times this (kept in the details file)
+SMS = 132
+# P4's and P5's 3xTF32 instances, timed only, are held within this of
+# max |plain f64| at 128 steps (they drift on the chain of products,
+# ~7e-6 there, against plain f32's ~2e-6: not true f32, by design)
+TF32X3_REL = 1e-4
 # K5's sweep kernel sits at the 64-register cap of 1024-thread blocks;
 # its spill bytes may not exceed these, by type and tile width (the
 # instance of 256 takes two passes of 128 rows; more spills have made it
@@ -228,14 +281,20 @@ def lu_inverse_flop(nb: int) -> int:
                + ((nb - k) + 2 * k * (nb - k)).sum())
 
 
+def unit_triangle_inverse_flop(nb: int) -> int:
+    """Operations of the inverse of one nb x nb unit-lower triangle,
+    whatever the algorithm: entry (i, j), i > j, is an inner product of
+    i - j terms."""
+    d = np.arange(1, nb)
+    return int((2 * d * (nb - d)).sum())
+
+
 def triangle_inverses_flop(nb: int) -> int:
     """Operations the function of P2 needs on one tile, whatever the
-    algorithm: the inverse of a unit-lower triangle (entry (i, j), i > j,
-    is an inner product of i - j terms) and that of an upper triangle (the
-    same, plus one scaling by D^-1 for each entry of the triangle)."""
-    d = np.arange(1, nb)
-    unit = int((2 * d * (nb - d)).sum())
-    return 2 * unit + nb * (nb + 1) // 2
+    algorithm: the inverse of a unit-lower triangle and that of an upper
+    triangle (the same, plus one scaling by D^-1 for each entry of the
+    triangle)."""
+    return 2 * unit_triangle_inverse_flop(nb) + nb * (nb + 1) // 2
 
 
 def k1_bound(nb: int, batch: int, dtype) -> dict:
@@ -307,10 +366,16 @@ def compare(name, got, ref, rtol, atol):
     return abs_err
 
 
-def rel_err(got, ref64) -> float:
+def rel_err(got, ref64, per_row: bool = False) -> float:
     """The largest error relative to the result's scale, max |got -
-    ref| / max |ref|, in float64."""
-    return float((got.double() - ref64).abs().max() / ref64.abs().max())
+    ref| / max |ref|, in float64; per_row: the scale of each row (the
+    last dimension) for that row's errors, so that rows of small entries
+    count as much as those of large ones."""
+    diff = (got.double() - ref64).abs()
+    if not per_row:
+        return float(diff.max() / ref64.abs().max())
+    scale = ref64.abs().amax(-1, keepdim=True).clamp_min(1e-300)
+    return float((diff / scale).max())
 
 
 def cuda_ms(fn, setup=lambda: None, reps=5, warmup=1) -> float:
@@ -389,18 +454,22 @@ def trace_once(fn, arg, pause: float = 0.0) -> tuple:
     return wall_ms, spans, kernels
 
 
-def profile(fn, setup=lambda: None, retry: str = "") -> dict:
+def profile(fn, setup=lambda: None, retry: str = "",
+            complete=lambda kernels: True) -> dict:
     """Trace one call of fn(setup()) after a warm-up: per kernel name its
     launches and device ms, the host wall ms of the call (launch to
     synchronise), the device's busy ms (union of kernel intervals) and
     its idle share of the wall time.  A trace with no device activity
-    fails, unless ``retry`` names the phase: then it is taken once more,
-    and the phase goes into RETRACED."""
+    fails, unless ``retry`` names the phase: then a trace with none, or
+    one whose kernels fail ``complete`` (the profiler loses the first
+    kernels of some traces), is taken once more, and the phase goes into
+    RETRACED; the caller checks the second trace as it would the
+    first."""
     fn(setup())
     wall_ms, spans, kernels = trace_once(fn, setup())
-    if not spans and retry:
-        print(f"  (the profiler recorded no device activity in {retry}; "
-              "tracing again)")
+    if retry and not (spans and complete(kernels)):
+        print(f"  (the profiler recorded {'no' if not spans else 'too few'}"
+              f" kernels in {retry}; tracing again)")
         RETRACED[retry] = 2
         wall_ms, spans, kernels = trace_once(fn, setup())
     if not spans:
@@ -678,9 +747,14 @@ def surface_phase(a, dev) -> dict:
           f" (< 5e-5, tests/test_device_solve.py)")
     if not max(out["device_residuals"]) < 5e-5:
         fail("gstrs_device's residual is too large")
-    p = profile(lambda _: gstrs_device(h, b4, refine=1))
-    sweeps = {n: k["launches"] for n, k in p["kernels"].items()
-              if "group_sweep_kernel" in n}
+    def sweeps_of(kernels):
+        return {n: k["launches"] for n, k in kernels.items()
+                if "group_sweep_kernel" in n}
+
+    p = profile(lambda _: gstrs_device(h, b4, refine=1),
+                retry="gstrs_device",
+                complete=lambda k: sum(sweeps_of(k).values()) == 4)
+    sweeps = sweeps_of(p["kernels"])
     print(f"  traced: {sweeps} (2 a solve_blocked call, 2 calls)")
     out["gstrs_device_trace"] = p
     print_profile({"gstrs_device(refine=1)": p})
@@ -1106,6 +1180,205 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
                            out["reload_launches"]["newton_inverses"]}
 
 
+def scan_flop(n: int, steps: int, chains: int) -> int:
+    """Operations of ``steps`` steps of the TPU probes' scan on ``chains``
+    n x n chains: at step k (mod n), a division for each of the n - 1 - k
+    rows below and a multiply and a subtract for each entry of the
+    trailing block."""
+    r = n - 1 - np.arange(steps) % n
+    return int(chains * (r + 2 * r * r).sum())
+
+
+def probe_bound(nbytes: float, flop: float, tc_flop: float,
+                tc_peak: float) -> tuple:
+    """bound() of a probe: bytes over 3.35 TB/s, its operations on the
+    CUDA cores (float32) and its products' on the tensor cores at
+    tc_peak; and beside it the one-SM bound in ms, the same with the
+    operations at a 132nd of those peaks (a probe's work runs on one
+    CTA), a computed number kept out of the kernels line."""
+    tb = nbytes / HBM_BYTES_S * 1e3
+    tf = max(flop / FLOP_S[torch.float32], tc_flop / tc_peak) * 1e3
+    return (dict(bound_ms=max(tb, tf),
+                 bound_by="bytes" if tb >= tf else "operations"),
+            max(tb, tf * SMS))
+
+
+def probes_phase(dev) -> tuple:
+    """The TPU probes P5, P4, P3 on the card: (1) each kernel against its
+    plain version (true f32; P3's per row, its f64 within 1e-12 per row;
+    the 3xTF32 instances within TF32X3_REL) and, with b = 0, the scan
+    part of every instance with products bit-equal to the scan alone, at
+    the probes' own step counts; (2) with the launch counts zeroed before
+    and read after, the probes' own path, the three tools' run() at the
+    probes' sizes, which print their tables; (3) the plain versions
+    timed at the kernels line's sizes.  Returns (details, kernel
+    entries, launches of the probes' path)."""
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+    from pangulu_tpu_torch.testing import newton_inputs, probe_inputs
+    from pangulu_tpu_torch.tools import (probe_newton_loop, probe_overlap,
+                                         probe_scan_multi)
+
+    eps = torch.finfo(torch.float32).eps
+    out, kern = {"true_f32": {}, "tf32x3": {}}, {}
+    # max |kernel - plain f32|, and over the scale of plain f64 (its
+    # largest entry; for P3 each row's: inverses reach ~1e17)
+    err = dict.fromkeys(PROBES, 0.0)
+    rel = dict.fromkeys(PROBES, 0.0)
+
+    def true_f32(name, label, got, p32, p64, per_row=False):
+        ek = rel_err(got, p64, per_row)
+        ep = rel_err(p32, p64, per_row)
+        ok = bool(torch.isfinite(got).all()) and ek <= max(2 * ep, eps)
+        print(f"  {label}: kernel {ek:.3e}, plain f32 {ep:.3e} (kernel <= "
+              f"2x plain) {'ok' if ok else 'FAIL'}")
+        out["true_f32"][label] = dict(kernel=ek, plain=ep)
+        err[name] = max(err[name],
+                        float((got.double() - p32.double()).abs().max()))
+        scale = p64.abs().amax(-1, keepdim=True) if per_row else \
+            p64.abs().max()
+        rel[name] = max(rel[name], float(
+            ((got.double() - p32.double()).abs() / scale).max()))
+        if not ok:
+            fail(f"{label}: less accurate than true f32")
+
+    print("probes (1): P5, P4, P3 against their plain versions (error "
+          "against the plain f64 version, relative to its largest entry; "
+          "P3: to each row's)")
+    a, b = (torch.as_tensor(x, device=dev) for x in probe_inputs(seed=0))
+    a64, b64 = a.double(), b.double()
+    for steps in (128, 256):
+        for mode in kt.OVERLAP_MODES:
+            true_f32("scan_overlap", f"P5 {mode} {steps} steps",
+                     kc.scan_overlap(a, b, mode, steps),
+                     kt.scan_overlap(a, b, mode, steps),
+                     kt.scan_overlap(a64, b64, mode, steps))
+        for q in kt.SCAN_CHAINS:
+            for wd in (False, True):
+                true_f32("scan_multi",
+                         f"P4 q={q} products={int(wd)} {steps} steps",
+                         kc.scan_multi(a, b, q, wd, steps),
+                         kt.scan_multi(a, b, q, wd, steps),
+                         kt.scan_multi(a64, b64, q, wd, steps))
+    # the 3xTF32 instances, timed only: a sanity bound, not true f32
+    s3 = 128
+    for label, got, p64 in (
+            *((f"P5 {m}", kc.scan_overlap(a, b, m, s3, products="tf32x3"),
+               kt.scan_overlap(a64, b64, m, s3))
+              for m in ("dots", "both", "split")),
+            *((f"P4 q={q}", kc.scan_multi(a, b, q, True, s3,
+                                          products="tf32x3"),
+               kt.scan_multi(a64, b64, q, True, s3))
+              for q in kt.SCAN_CHAINS)):
+        e = rel_err(got, p64)
+        out["tf32x3"][label] = e
+        ok = bool(torch.isfinite(got).all()) and e <= TF32X3_REL
+        print(f"  {label} 3xTF32 {s3} steps: {e:.3e} of max |plain f64| "
+              f"(<= {TF32X3_REL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{label} 3xTF32 disagrees with its plain version")
+    # with b = 0 the products stay 0: every instance with products returns
+    # its scan alone, the same bits as the instance without, at the
+    # probes' own step counts (the chains stay finite there)
+    zero = torch.zeros_like(b)
+    s5, s4 = probe_overlap.STEPS, probe_scan_multi.STEPS
+    scan = kc.scan_overlap(a, zero, "scan", s5)
+    if not torch.isfinite(scan).all():
+        fail(f"P5: the scan chain left float32's range at {s5} steps")
+    for m in ("both", "split"):
+        for pr in kc.PROBE_PRODUCTS:
+            if not torch.equal(kc.scan_overlap(a, zero, m, s5, products=pr),
+                               scan):
+                fail(f"P5 {m} {pr}: with b = 0, differs from scan")
+    print(f"  P5 both and split, f64 and 3xTF32, b = 0, {s5} steps: "
+          "bit-equal to scan")
+    for q in kt.SCAN_CHAINS:
+        alone = kc.scan_multi(a, zero, q, False, s4)
+        if not torch.isfinite(alone).all():
+            fail(f"P4 q={q}: a chain left float32's range at {s4} steps")
+        for pr in kc.PROBE_PRODUCTS:
+            if not torch.equal(kc.scan_multi(a, zero, q, True, s4,
+                                             products=pr), alone):
+                fail(f"P4 q={q} {pr}: with b = 0, differs from the "
+                     "chains alone")
+    print(f"  P4 q={kt.SCAN_CHAINS} with products, f64 and 3xTF32, b = 0, "
+          f"{s4} steps: bit-equal to the chains alone")
+    for g in (4, 16):
+        for nb in (16, 128):
+            lm = torch.as_tensor(newton_inputs(g, nb, seed=nb), device=dev)
+            st = kt.newton_steps(nb)
+            p64 = kt.newton_loop(lm.double(), st)
+            for blocks in (1, 4):
+                true_f32("newton_loop", f"P3 G={g} nb={nb} {blocks} CTA",
+                         kc.newton_loop(lm, st, blocks=blocks),
+                         kt.newton_loop(lm, st), p64, per_row=True)
+            e64 = rel_err(kc.newton_loop(lm.double(), st), p64, True)
+            print(f"  P3 G={g} nb={nb} f64: {e64:.3e} of each row's max "
+                  "|plain| (<= 1e-12)")
+            if not e64 <= 1e-12:
+                fail(f"P3 f64 disagrees with its plain version (G={g}, "
+                     f"nb={nb})")
+
+    print("probes (2): the probes' own path at their sizes, timed only")
+    kc.reset_launch_counts()
+    p5 = probe_overlap.run(reps=3)
+    p4 = probe_scan_multi.run(reps=3)
+    p3 = probe_newton_loop.run(reps=3)
+    torch.cuda.synchronize()
+    launches = {k: kc.LAUNCHES[k] for k in PROBES}
+    print(f"  launches: {launches}")
+    if not all(launches.values()):
+        fail(f"a probe kernel was not launched on the probes' path: "
+             f"{launches}")
+    out.update(overlap=p5, scan_multi=p4, newton_loop=p3)
+
+    print("probes (3): the plain versions at the kernels line's sizes")
+    nb = 128
+    q4 = max(kt.SCAN_CHAINS)
+    g3 = max(probe_newton_loop.GROUPS)
+    lm = torch.as_tensor(newton_inputs(g3, nb, seed=g3), device=dev)
+    st = kt.newton_steps(nb)
+    tile = nb * nb * 4
+    row4 = next(r for r in p4
+                if r["q"] == q4 and r["dot"] and r["products"] == "f64")
+    row3 = next(r for r in p3 if r["g"] == g3)
+    dmma = TC_FLOP_S[torch.float64]
+    b5, sm5 = probe_bound(3 * tile, scan_flop(nb, s5, 1), s5 * 2 * nb ** 3,
+                          dmma)
+    b4, sm4 = probe_bound(3 * tile, scan_flop(nb, s4, q4), s4 * 2 * nb ** 3,
+                          dmma)
+    # P3's function: G unit-lower triangle inverses, members in and out
+    b3, sm3 = probe_bound(2 * g3 * tile,
+                          g3 * unit_triangle_inverse_flop(nb), 0, dmma)
+    entries = {
+        "scan_overlap": dict(
+            ms=p5["one_cta"]["both"]["ms"],
+            plain_ms=cuda_ms(lambda _: kt.scan_overlap(a, b, "both", s5),
+                             reps=1),
+            library_ms=None, **b5),
+        "scan_multi": dict(
+            ms=row4["ms"],
+            plain_ms=cuda_ms(lambda _: kt.scan_multi(a, b, q4, True, s4),
+                             reps=1),
+            library_ms=None, **b4),
+        "newton_loop": dict(
+            ms=row3["loop_1cta_us"] / 1e3,
+            plain_ms=cuda_ms(lambda _: kt.newton_loop(lm, st), reps=3),
+            library_ms=row3["solve_triangular_us"] / 1e3, **b3),
+    }
+    one_sm = dict(scan_overlap=sm5, scan_multi=sm4, newton_loop=sm3)
+    for name, e in entries.items():
+        kern[name] = dict(max_abs_err=err[name], max_rel_err=rel[name], **e)
+        print(f"  {name}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.3f}"
+              f" ms, bound {e['bound_ms']:.3e} ms ({e['bound_by']}), one SM "
+              f"{one_sm[name]:.3e} ms, library "
+              + ("none" if e["library_ms"] is None
+                 else f"{e['library_ms']:.4f} ms (solve_triangular)"))
+    out["kernels"] = kern
+    out["one_sm_bound_ms"] = one_sm
+    return out, kern, launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1213,6 +1486,18 @@ def main() -> int:
         fail(f"compressed store: expected {COMPRESSED_INSTANCES} instances "
              f"without spills; ptxas says {comp_ptx}")
     detail["compressed_ptxas"] = comp_ptx
+    probe_ptx = {n: i for n, i in ptx.items() if re.search(
+        r"plu\d+(overlap|scan_multi|newton_loop)_kernel", n)}
+    print("ptxas: the probes' kernels (P5 overlap<mode>, P4 scan_multi<Q, "
+          "products>, P3 newton_loop<type>)")
+    for name, info in sorted(probe_ptx.items()):
+        print(f"  {name}: {info.get('registers')} registers, "
+              f"{info.get('spill_bytes')} spill bytes")
+    if len(probe_ptx) != PROBE_INSTANCES or any(
+            i.get("spill_bytes") != 0 for i in probe_ptx.values()):
+        fail(f"probes: expected {PROBE_INSTANCES} instances without spills; "
+             f"ptxas says {probe_ptx}")
+    detail["probe_ptxas"] = probe_ptx
 
     # ---- K1 ------------------------------------------------------------
     print("K1 getrf_with_inverses against its plain version")
@@ -1750,6 +2035,13 @@ def main() -> int:
     print(json.dumps({"compressed": {k: v for k, v in comp.items()
                                      if k != "trace"}}))
 
+    # ---- the TPU probes P5, P4, P3 -------------------------------------
+    probes, probe_kernels, probe_launches = probes_phase(dev)
+    detail["probes"] = probes
+    kernels.update(probe_kernels)
+    print(json.dumps({"probes": {k: v for k, v in probes.items()
+                                 if k != "true_f32"}}))
+
     launches = dict(rcm_launches)
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]
     launches["mega_solve_groups"] = nd_launches["mega_solve_groups"]
@@ -1757,12 +2049,14 @@ def main() -> int:
     # blocked step in lu_kernels.cu
     launches.update({f"{n}@nb=256": v for n, v in launches256.items()})
     launches.update(comp_launches)
+    launches.update(probe_launches)
     out = {"kernels": [
         dict(name=n, route="cuda",
              source=SOURCE.get(n, SRC) if "@" not in n else SRC,
              replaces=REPLACES[n.split("@")[0]], launches=launches[n],
              **kernels[n])
-        for n in (*DENSE, *(f"{r}@nb=256" for r in DENSE), *COMPRESSED)]}
+        for n in (*DENSE, *(f"{r}@nb=256" for r in DENSE), *COMPRESSED,
+                  *PROBES)]}
     detail["kernels"] = out["kernels"]
     detail["seconds_after_build_start"] = time.perf_counter() - t_start
     od = ROOT / "pangulu_tpu_torch" / "_build"

@@ -144,17 +144,19 @@ cudaError_t stage_slots(bool to_dense, T* values, const void* idx,
 template <typename T>
 using NewtonWindow = Window<T, 64, 64, 2, 2>;
 
-// C (OP) A·B for nb x nb tiles, window by window; ends with a barrier
-// after the last store, so the block may read C next.
-template <StoreOp OP, typename T>
+// C (OP) A·B for nb x nb tiles, window W by window, by the whole block
+// (BAR = 0) or by the product warps of a block whose other warps do
+// other work meanwhile (named barrier BAR, tile_gemm.cuh gemm_sync; the
+// probes of probes.cuh); ends with a barrier of those threads after
+// the last store, so they may read C next.
+template <StoreOp OP, typename T, class W = NewtonWindow<T>, int BAR = 0>
 __device__ void newton_product(const T* a, const T* b, T* c, int nb,
                                T* smem) {
-  using W = NewtonWindow<T>;
-  const int nw = (nb + W::BM - 1) / W::BM;
-  for (int w = 0; w < nw * nw; ++w)
-    tile_gemm<W, OP>(tile_of(a, nb), tile_of(b, nb), tile_of(c, nb),
-                     w / nw * W::BM, w % nw * W::BN, smem);
-  __syncthreads();
+  const int nr = (nb + W::BM - 1) / W::BM, nc = (nb + W::BN - 1) / W::BN;
+  for (int w = 0; w < nr * nc; ++w)
+    tile_gemm<W, OP, BAR>(tile_of(a, nb), tile_of(b, nb), tile_of(c, nb),
+                          w / nc * W::BM, w % nc * W::BN, smem);
+  gemm_sync<BAR>();
 }
 
 // Block (b, m): L^-1 (m = 0) or U^-1 (m = 1) of the factored tile f + b

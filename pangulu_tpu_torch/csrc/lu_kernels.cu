@@ -152,11 +152,16 @@
 // P6 decompress_tiles / compress_tiles and P2 newton_inverses
 //   The compressed tile store's kernels, in compressed.cuh (its note
 //   gives their bounds and designs).
+//
+// P5 scan_overlap, P4 scan_multi and P3 newton_loop
+//   The TPU compiler probes, on no path of the solver, in probes.cuh
+//   (its note gives their questions, bounds and designs).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "compressed.cuh"
+#include "probes.cuh"
 #include "tile_gemm.cuh"
 #include "tile_lu.cuh"
 
@@ -1009,7 +1014,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 8; }
+int plu_kernels_abi() { return 9; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1136,5 +1141,40 @@ PLU_STAGE_SLOTS(plu_stage_slots_f64, double)
   }
 PLU_NEWTON_INVERSES(plu_newton_inverses_f32, float)
 PLU_NEWTON_INVERSES(plu_newton_inverses_f64, double)
+
+// P5: mode 0 scan, 1 dots, 2 both, 3 split (plu::ProbeMode); products
+// 0 float64 (DMMA), 1 3xTF32 (plu::ProbeProducts; scan takes 0); work
+// holds 3 tiles of the products' type a copy.
+int plu_scan_overlap_f32(int dev, int mode, int products, const float* a,
+                         const float* b, float* out, void* work, int copies,
+                         int n, int steps, void* st) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return e;
+  return plu::scan_overlap(mode, products, a, b, out, work, copies, n, steps,
+                           PLU_STREAM(st));
+}
+
+// P4: q in {1, 2, 4, 8}; products as for P5 (0 without the dot); work
+// holds 3 tiles a copy, mem q - 2 chains of 128 x 128 a copy.
+int plu_scan_multi_f32(int dev, int q, int with_dot, int products,
+                       const float* a, const float* b, float* out, void* work,
+                       float* mem, int copies, int n, int steps, void* st) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return e;
+  return plu::scan_multi(q, with_dot != 0, products, a, b, out, work, mem,
+                         copies, n, steps, PLU_STREAM(st));
+}
+
+// P3: work holds 4 f64 tiles a block.
+#define PLU_NEWTON_LOOP(NAME, T)                                              \
+  int NAME(int dev, const T* lm, T* out, double* work, int g, int nb,        \
+           int steps, int blocks, void* st) {                                \
+    cudaError_t e = cudaSetDevice(dev);                                      \
+    if (e != cudaSuccess) return e;                                          \
+    return plu::newton_loop(lm, out, work, g, nb, steps, blocks,             \
+                            PLU_STREAM(st));                                 \
+  }
+PLU_NEWTON_LOOP(plu_newton_loop_f32, float)
+PLU_NEWTON_LOOP(plu_newton_loop_f64, double)
 
 }  // extern "C"

@@ -300,9 +300,22 @@ __device__ __forceinline__ void stage(T* dst, int ld, const T* src, int lds,
   }
 }
 
+// The barrier of a product's threads: the whole block (BAR = 0), or,
+// for a block whose other warps do other work at the same time (the
+// probes of probes.cuh), named barrier BAR of the kGemmThreads threads
+// of the block's first kGemmWarps warps.
+template <int BAR>
+__device__ __forceinline__ void gemm_sync() {
+  if constexpr (BAR == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"n"(BAR), "n"(kGemmThreads)
+                 : "memory");
+}
+
 // acc += A·B over the window W at (r0, c0), k over A.cols (= B.rows);
-// smem holds W::kSmemBytes.  Ends with a barrier.
-template <class W, typename TA, typename TB>
+// smem holds W::kSmemBytes.  Ends with a barrier (gemm_sync<BAR>).
+template <class W, int BAR = 0, typename TA, typename TB>
 __device__ void tile_gemm_acc(const Mat<TA>& A, const Mat<TB>& B, int r0,
                               int c0, typename W::Acc& acc,
                               typename W::T* smem) {
@@ -331,7 +344,7 @@ __device__ void tile_gemm_acc(const Mat<TA>& A, const Mat<TB>& B, int r0,
     // slice s has landed for every thread, and every read of slice
     // s - 1 is done, so its buffer takes slice s + 1
     cp_async_wait_all();
-    __syncthreads();
+    gemm_sync<BAR>();
     if (s + 1 < nk) load(s + 1);
     const T* sa = smem + (s & 1) * W::STAGE;
     const T* sb = sa + W::BM * W::LDA;
@@ -351,7 +364,7 @@ __device__ void tile_gemm_acc(const Mat<TA>& A, const Mat<TB>& B, int r0,
         for (int n = 0; n < W::NF; ++n) Mt::step(acc.v[m][n], a[m], b[n]);
     }
   }
-  __syncthreads();  // the last slice's reads are done
+  gemm_sync<BAR>();  // the last slice's reads are done
 }
 
 template <typename T>
@@ -442,14 +455,14 @@ __device__ void tile_store(const Mat<typename W::T>& C, int r0, int c0,
       }
 }
 
-// The window W at (r0, c0) of C (OP) A·B.
-template <class W, StoreOp OP, typename TA, typename TB>
+// The window W at (r0, c0) of C (OP) A·B; BAR as for tile_gemm_acc.
+template <class W, StoreOp OP, int BAR = 0, typename TA, typename TB>
 __device__ void tile_gemm(const Mat<TA>& A, const Mat<TB>& B,
                           const Mat<typename W::T>& C, int r0, int c0,
                           typename W::T* smem) {
   typename W::Acc acc;
   acc.zero();
-  tile_gemm_acc<W>(A, B, r0, c0, acc, smem);
+  tile_gemm_acc<W, BAR>(A, B, r0, c0, acc, smem);
   tile_store<W, OP>(C, r0, c0, acc);
 }
 

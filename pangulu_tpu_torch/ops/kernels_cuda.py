@@ -1,5 +1,6 @@
 """Wrappers of the hand-written CUDA kernels (``csrc/lu_kernels.cu``,
-with the compressed store's in ``csrc/compressed.cuh``).
+with the compressed store's in ``csrc/compressed.cuh`` and the TPU
+probes' in ``csrc/probes.cuh``).
 
 Each wrapper takes the same arguments as its plain version in
 :mod:`pangulu_tpu_torch.ops.kernels_torch`:
@@ -28,12 +29,13 @@ from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
                                                  check_nb)
 from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 8
+_ABI = 9
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
 # wrapper call of K1, K2, K3, K4, K5, P6 (decompress_tiles,
-# compress_tiles) or P2 (newton_inverses) that launched, plus, for K1,
+# compress_tiles), P2 (newton_inverses) or the probes P5 (scan_overlap),
+# P4 (scan_multi) and P3 (newton_loop) that launched, plus, for K1,
 # every diagonal step that K2's level loop or K4's group loop launches
 # (K1's kernel; the C entries count them).  A K1 launch at 128 < nb <=
 # 256 is the blocked step's five device launches, counted as one.  An
@@ -42,7 +44,8 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0,
             "mega_factorize_groups": 0, "mega_solve_groups": 0,
             "decompress_tiles": 0, "compress_tiles": 0,
-            "newton_inverses": 0}
+            "newton_inverses": 0, "scan_overlap": 0, "scan_multi": 0,
+            "newton_loop": 0}
 
 # K1's device launches, as the C entries report them: one a K1 launch up
 # to nb = 128, five above (the blocked step).  Zeroed with LAUNCHES.
@@ -107,6 +110,14 @@ def library() -> build.KernelLibrary:
         fn = getattr(lib, f"plu_newton_inverses_{s}")
         fn.restype = i
         fn.argtypes = [i, p, p, p, p, i, i, i, d, p]
+        fn = getattr(lib, f"plu_newton_loop_{s}")
+        fn.restype = i
+        fn.argtypes = [i, p, p, p, i, i, i, i, p]
+    lib.plu_scan_overlap_f32.restype = i
+    lib.plu_scan_overlap_f32.argtypes = [i, i, i, p, p, p, p, i, i, i, p]
+    lib.plu_scan_multi_f32.restype = i
+    lib.plu_scan_multi_f32.argtypes = [i, i, i, i, p, p, p, p, p, i, i, i,
+                                       p]
     lib.plu_grid_sync_probe.restype = i
     lib.plu_grid_sync_probe.argtypes = [i, i, i, p, p]
     _library = kl
@@ -593,3 +604,135 @@ def newton_inverses(f: torch.Tensor, tol: float | None = None):
               kt.newton_steps(nb), float(tol), _stream(f.device))
         LAUNCHES["newton_inverses"] += 1
     return linv, uinv
+
+
+# ------------------------------------------------ the TPU probes P3-P5
+
+# P4's and P5's kernels hold a 128 x 128 register tile a chain
+# (csrc/probes.cuh); a smaller tile is zero-padded into it.
+PROBE_MAX_NB = 128
+_OVERLAP_MODE = {m: i for i, m in enumerate(kt.OVERLAP_MODES)}
+# P4's and P5's product types (csrc/probes.cuh ProbeProducts): "f64",
+# DMMA on float64 copies, true f32 on the probes' chains; "tf32x3", the
+# solver's float products, which drift on them (timed only)
+PROBE_PRODUCTS = {"f64": (0, torch.float64), "tf32x3": (1, torch.float32)}
+
+
+def _probe_nb(a, b, steps) -> int:
+    """Check P4's and P5's inputs on the card; returns nb."""
+    kt.check_probe_inputs(a, b, steps)
+    if a.dtype != torch.float32:
+        raise TypeError(f"the probe kernels take float32, got {a.dtype}")
+    nb = a.shape[-1]
+    if not 1 <= nb <= PROBE_MAX_NB:
+        raise ValueError(f"the probe kernels take 1 <= nb <= "
+                         f"{PROBE_MAX_NB}, got nb={nb}")
+    for name, t in (("a", a), ("b", b)):
+        _check_tensor(name, t, torch.float32, a.shape, a.device)
+    return nb
+
+
+def _check_probe_options(copies: int, products: str, with_dot: bool):
+    """Check copies and products; returns the products' code."""
+    if copies < 1:
+        raise ValueError(f"copies must be >= 1, got {copies}")
+    if products not in PROBE_PRODUCTS:
+        raise ValueError(f"products must be one of "
+                         f"{tuple(PROBE_PRODUCTS)}, got {products!r}")
+    if products != "f64" and not with_dot:
+        raise ValueError("products other than 'f64' need the products "
+                         "(mode scan, or with_dot=False, has none)")
+    return PROBE_PRODUCTS[products][0]
+
+
+def _probe_work(copies: int, nb: int, products: str,
+                device) -> torch.Tensor:
+    """P4's and P5's product workspace: a and acc, acc' in the
+    products' type, 3 tiles a copy."""
+    return torch.empty((copies, 3, nb, nb),
+                       dtype=PROBE_PRODUCTS[products][1], device=device)
+
+
+def _copies_of(r: torch.Tensor, copies: int) -> torch.Tensor:
+    return r if copies == 1 else r.expand(copies, *r.shape).clone()
+
+
+def scan_overlap(a: torch.Tensor, b: torch.Tensor, mode: str, steps: int,
+                 copies: int = 1, products: str = "f64") -> torch.Tensor:
+    """P5: :func:`kernels_torch.scan_overlap` of ``a``, ``b`` [nb, nb]
+    float32, nb <= 128; with ``copies`` > 1, that many identical copies
+    [copies, nb, nb], one CTA each, in one launch.  Mode "split" runs
+    "both" with the scan and the products on separate warps.  The
+    products run in float64 and are rounded to float32 once, or with
+    ``products="tf32x3"`` as the solver's float products (less accurate
+    than float32 on this chain: for timing)."""
+    if mode not in _OVERLAP_MODE:
+        raise ValueError(f"mode must be one of {kt.OVERLAP_MODES}, got "
+                         f"{mode!r}")
+    code = _check_probe_options(copies, products, mode != "scan")
+    if not _on_cuda(a):
+        return _copies_of(kt.scan_overlap(a, b, mode, steps), copies)
+    nb = _probe_nb(a, b, steps)
+    out = torch.empty((copies, nb, nb), dtype=a.dtype, device=a.device)
+    work = _probe_work(copies, nb, products, a.device)
+    _call(library().lib.plu_scan_overlap_f32, a.device.index,
+          _OVERLAP_MODE[mode], code, a.data_ptr(), b.data_ptr(),
+          out.data_ptr(), work.data_ptr(), copies, nb, steps,
+          _stream(a.device))
+    LAUNCHES["scan_overlap"] += 1
+    return out[0] if copies == 1 else out
+
+
+def scan_multi(a: torch.Tensor, b: torch.Tensor, q: int, with_dot: bool,
+               steps: int, copies: int = 1,
+               products: str = "f64") -> torch.Tensor:
+    """P4: :func:`kernels_torch.scan_multi` of ``a``, ``b`` [nb, nb]
+    float32, nb <= 128, q in (1, 2, 4, 8); copies and products as for
+    :func:`scan_overlap`.  Chain 0 lives in registers, chain 1 in
+    shared memory, the rest in a workspace in global memory (L2)."""
+    if q not in kt.SCAN_CHAINS:
+        raise ValueError(f"q must be one of {kt.SCAN_CHAINS}, got {q}")
+    code = _check_probe_options(copies, products, with_dot)
+    if not _on_cuda(a):
+        return _copies_of(kt.scan_multi(a, b, q, with_dot, steps), copies)
+    nb = _probe_nb(a, b, steps)
+    dev = a.device
+    out = torch.empty((copies, nb, nb), dtype=a.dtype, device=dev)
+    work = _probe_work(copies, nb, products, dev)
+    # chains 2 to q - 1, zero-padded to 128 x 128
+    mem = torch.empty((copies, max(q - 2, 0), PROBE_MAX_NB, PROBE_MAX_NB),
+                      dtype=a.dtype, device=dev)
+    _call(library().lib.plu_scan_multi_f32, dev.index, q, int(with_dot),
+          code, a.data_ptr(), b.data_ptr(), out.data_ptr(), work.data_ptr(),
+          mem.data_ptr(), copies, nb, steps, _stream(dev))
+    LAUNCHES["scan_multi"] += 1
+    return out[0] if copies == 1 else out
+
+
+def newton_loop(lm: torch.Tensor, steps: int, blocks: int = 1):
+    """P3: :func:`kernels_torch.newton_loop` of ``lm`` [G, nb, nb] as
+    given, by ``blocks`` CTAs (1 by default), each walking G / blocks
+    members in turn; float32 or float64 members, products in float64."""
+    if blocks < 1:
+        raise ValueError(f"blocks must be >= 1, got {blocks}")
+    if not _on_cuda(lm):
+        return kt.newton_loop(lm, steps)
+    s = _dtype_of(lm)
+    if lm.dim() != 3 or lm.shape[-1] != lm.shape[-2]:
+        raise ValueError(f"expected [G, nb, nb], got {tuple(lm.shape)}")
+    g, nb = lm.shape[0], lm.shape[-1]
+    check_nb(nb)
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+    _check_tensor("lm", lm, lm.dtype, lm.shape, lm.device)
+    out = torch.empty_like(lm)
+    if g:
+        blocks = min(blocks, g)
+        # L, X, the next X and L X a CTA: the products run in float64
+        work = torch.empty((blocks, 4, nb, nb), dtype=torch.float64,
+                           device=lm.device)
+        _call(getattr(library().lib, f"plu_newton_loop_{s}"),
+              lm.device.index, lm.data_ptr(), out.data_ptr(),
+              work.data_ptr(), g, nb, steps, blocks, _stream(lm.device))
+        LAUNCHES["newton_loop"] += 1
+    return out

@@ -21,7 +21,13 @@ semantics of the JAX package's Pallas kernels
     diagonal tiles by Newton–Schulz doubling
     (``tools/exp_batched_scan.py`` batched_newton, and
     ``pangulu_tpu/ops/kernels_jax.py`` unit_lower_inv_newton /
-    upper_inv_newton).
+    upper_inv_newton);
+  * the TPU probes that lie on no path of the solver, each the function
+    its probe computes: :func:`scan_overlap` (``tools/exp_overlap.py``
+    run, P5: a scan chain beside a chain of products),
+    :func:`scan_multi` (``tools/exp_scan_multi.py`` run, P4: Q scan
+    chains, optionally beside one chain of products) and
+    :func:`newton_loop` (``tools/exp_batched_scan.py`` newton_loop, P3).
 
 These run on any device.  The CPU tests hold them against the JAX
 package; ``chip_smoke.py`` holds the CUDA kernels
@@ -424,9 +430,11 @@ def newton_steps(nb: int) -> int:
     return max((nb - 1).bit_length() - 1, 0)
 
 
-def _newton(t: torch.Tensor, steps: int) -> torch.Tensor:
-    """X <- X (2I - T X) from X = 2I - T, ``steps`` times: for T = I + N
-    with N nilpotent, T X_k = I - N^(2^(k+1))."""
+def newton_loop(t: torch.Tensor, steps: int) -> torch.Tensor:
+    """X <- X (2I - T X) from X = 2I - T, ``steps`` times, on each
+    matrix of ``t`` [..., nb, nb] as given (P3,
+    ``tools/exp_batched_scan.py`` newton_loop): for T = I + N with N
+    nilpotent, T X_k = I - N^(2^(k+1))."""
     two = 2 * torch.eye(t.shape[-1], dtype=t.dtype, device=t.device)
     x = two - t
     for _ in range(steps):
@@ -440,7 +448,7 @@ def unit_lower_inv_newton(f: torch.Tensor) -> torch.Tensor:
     :func:`newton_steps` steps, not an approximation."""
     nb = f.shape[-1]
     eye = torch.eye(nb, dtype=f.dtype, device=f.device)
-    return _newton(torch.tril(f, -1) + eye, newton_steps(nb))
+    return newton_loop(torch.tril(f, -1) + eye, newton_steps(nb))
 
 
 def upper_inv_newton(f: torch.Tensor, tol: float) -> torch.Tensor:
@@ -453,8 +461,8 @@ def upper_inv_newton(f: torch.Tensor, tol: float) -> torch.Tensor:
     d = torch.where(d.abs() < tol, torch.full_like(d, tol), d)
     dinv = 1.0 / d
     eye = torch.eye(nb, dtype=f.dtype, device=f.device)
-    x = _newton(eye + torch.triu(f, 1) * dinv[..., :, None],
-                newton_steps(nb))
+    x = newton_loop(eye + torch.triu(f, 1) * dinv[..., :, None],
+                    newton_steps(nb))
     return x * dinv[..., None, :]
 
 
@@ -465,3 +473,104 @@ def newton_inverses(f: torch.Tensor, tol: float | None = None):
     if tol is None:
         tol = DEFAULT_TOL[f.dtype]
     return unit_lower_inv_newton(f), upper_inv_newton(f, tol)
+
+
+# ------------------------------------------------ the TPU probes P4, P5
+
+# The probes' tiny-pivot tolerance (tools/exp_overlap.py:27,
+# tools/exp_scan_multi.py:24), whatever the dtype.
+PROBE_TOL = 1e-8
+
+# P5's modes: the probe's three, and "split", the same function as
+# "both", which the CUDA kernel runs on warp-specialized warps.
+OVERLAP_MODES = ("scan", "dots", "both", "split")
+
+# P4's chain counts (tools/exp_scan_multi.py main).
+SCAN_CHAINS = (1, 2, 4, 8)
+
+
+def fma_f32(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """c + a * b for float32 tensors rounded once, as a fused
+    multiply-add rounds.  The product is exact in float64; the sum is
+    rounded to odd there (to nearest, then one step toward the exact sum
+    when that lands on an even mantissa), and rounding that to float32
+    is the correct rounding of the exact sum (53 bits >= 24 + 2)."""
+    c, p = c.double(), a.double() * b.double()
+    s = c + p
+    bb = s - c
+    err = (c - (s - bb)) + (p - bb)            # s + err == c + p exactly
+    bits = s.view(torch.int64)
+    fix = (err != 0) & ((bits & 1) == 0)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(fix, bits + step, bits).view(torch.float64).float()
+
+
+def probe_scan_step(f: torch.Tensor, k: int, tol: float = PROBE_TOL):
+    """One step of the TPU probes' masked rank-1 scan
+    (``tools/exp_overlap.py:27-43``, ``tools/exp_scan_multi.py:24-39``)
+    on ``f`` [nb, nb] at pivot ``k``: f[i, j] -= (f[i, k] / p) f[k, j]
+    for i > k and j > k, p = f[k, k] with |p| < tol -> +tol.  The
+    multipliers are not stored: row k, column k and everything above or
+    left of them stay.  In float32 the update is one fused multiply-add
+    (:func:`fma_f32`), as the JAX probe computes it on the CPU (XLA
+    contracts it) and the CUDA kernels do; in float64 the product and
+    the difference round apart."""
+    nb = f.shape[-1]
+    after = torch.arange(nb, device=f.device) > k
+    piv = f[k, k]
+    safe = torch.where(piv.abs() < tol, torch.full_like(piv, tol), piv)
+    lcol = torch.where(after, f[:, k] / safe, 0)[:, None]
+    urow = torch.where(after, f[k, :], 0)[None, :]
+    if f.dtype == torch.float32:
+        return fma_f32(f, -lcol, urow)
+    return f - lcol * urow
+
+
+def check_probe_inputs(a: torch.Tensor, b: torch.Tensor,
+                       steps: int) -> None:
+    """a and b of one shape [nb, nb], and steps >= 0."""
+    if a.dim() != 2 or a.shape[0] != a.shape[1] or b.shape != a.shape:
+        raise ValueError(f"expected a and b of one shape [nb, nb], got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+
+
+def scan_multi(a: torch.Tensor, b: torch.Tensor, q: int, with_dot: bool,
+               steps: int) -> torch.Tensor:
+    """P4 (``tools/exp_scan_multi.py`` run): the chains f_i = a + i, i <
+    q, each through ``steps`` steps of :func:`probe_scan_step` at k =
+    step mod nb, and, with ``with_dot``, acc <- a · acc from acc = b in
+    the same steps; returns ((f_0 + f_1) + ...) + acc."""
+    check_probe_inputs(a, b, steps)
+    if q not in SCAN_CHAINS:
+        raise ValueError(f"q must be one of {SCAN_CHAINS}, got {q}")
+    nb = a.shape[-1]
+    fs = [a + float(i) for i in range(q)]
+    acc = b
+    for s in range(steps):
+        fs = [probe_scan_step(f, s % nb) for f in fs]
+        if with_dot:
+            acc = torch.matmul(a, acc)
+    r = fs[0]
+    for f in fs[1:]:
+        r = r + f
+    return r + acc
+
+
+def scan_overlap(a: torch.Tensor, b: torch.Tensor, mode: str,
+                 steps: int) -> torch.Tensor:
+    """P5 (``tools/exp_overlap.py`` run): f = a through ``steps`` steps
+    of :func:`probe_scan_step` (modes "scan", "both", "split") and acc
+    <- a · acc from acc = b (modes "dots", "both", "split"); returns f +
+    acc.  "split" is "both": only the CUDA kernel runs it differently."""
+    if mode not in OVERLAP_MODES:
+        raise ValueError(f"mode must be one of {OVERLAP_MODES}, got "
+                         f"{mode!r}")
+    check_probe_inputs(a, b, steps)
+    if mode == "dots":
+        acc = b
+        for _ in range(steps):
+            acc = torch.matmul(a, acc)
+        return a + acc
+    return scan_multi(a, b, 1, mode != "scan", steps)

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` share: for K1 (the diagonal step), tiles whose pivots
 are exactly zero at a chosen step, and the bound that holds K1's blocked
 step (128 < nb <= 256) against the rank-1 plain version; for the
-compressed store, the launches its engine makes."""
+compressed store, the launches its engine makes; for the TPU probes P3,
+P4 and P5, their inputs."""
 
 from __future__ import annotations
 
@@ -72,3 +73,24 @@ def compressed_launches(schedule, factorizations: int = 0, solves: int = 0,
                                  + reloads),
             "compress_tiles": factorizations * stage,
             "newton_inverses": reloads}
+
+
+def probe_inputs(seed: int = 0, nb: int = 128):
+    """The inputs of the TPU probes P4 and P5 (tools/exp_scan_multi.py
+    and tools/exp_overlap.py main), drawn with numpy: a = I + 0.01 z and
+    b = 0.01 z, float32 [nb, nb], one standard normal z for both (the
+    probes draw a and b from one key).  a's spectral radius is ~1.1 at
+    nb = 128 (1.104 for seed 0), so the chain of products a^s b reaches
+    ~5e9 at s = 256 and leaves float32's range long before the probes'
+    2048 and 4096 steps."""
+    z = np.random.default_rng(seed).standard_normal((nb, nb))
+    z = z.astype(np.float32)
+    a = np.eye(nb, dtype=np.float32) + np.float32(0.01) * z
+    return a, np.float32(0.01) * z
+
+
+def newton_inputs(g: int, nb: int, seed: int = 0) -> np.ndarray:
+    """P3's input (tools/exp_batched_scan.py main): g unit lower
+    triangles I + tril(z, -1), float32 [g, nb, nb], z standard normal."""
+    z = np.random.default_rng(seed).standard_normal((g, nb, nb))
+    return (np.tril(z, -1) + np.eye(nb)).astype(np.float32)

@@ -14,6 +14,15 @@ are summed in another order).  K1's blocked step (128 < nb <= 256)
 against the rank-1 plain version: f32 factor 3e-5, inverses 2e-4, the
 JAX package's bound for its blocked LU (tests/test_pallas.py:79-99);
 against its plain twin (getrf_with_inverses_blocked) the f32 contract.
+The probes P5, P4 and P3 (csrc/probes.cuh) in float32: true f32, the
+kernel's error against the plain float64 version (relative to its
+largest entry; for P3 to each row's, since its inverses span ~1e17) at
+most 2x the plain float32 version's, or one f32 eps where both are that
+close; P3 in float64 within 1e-12 of each row's largest entry.  With b =
+0 the products stay 0, so every P4/P5 instance with products must return
+the bits of the one without: that holds their scan part, which the
+products' values would hide.  The 3xTF32 instances (timed only) within
+1e-4 of the largest f64 entry.
 """
 
 import numpy as np
@@ -27,6 +36,7 @@ from pangulu_tpu_torch.models import (poisson2d, poisson3d,
 from pangulu_tpu_torch.ops import kernels_cuda as kc
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.testing import (BLOCKED_TOL, blocked_tiny_pivot_tile,
+                                       newton_inputs, probe_inputs,
                                        tiny_pivot_tile)
 from pangulu_tpu_torch.utils.perf import residual_norm
 
@@ -570,3 +580,156 @@ def test_compressed_path_on_cuda_counts_launches(cuda, dtype):
         h.schedule, solves=1, reloads=1))
     np.testing.assert_allclose(x2, x, rtol=1e-4 if dtype == "r32" else 1e-10,
                                atol=1e-5 if dtype == "r32" else 1e-10)
+
+
+def _rel(got, p64, per_row=False) -> float:
+    """max |got - p64| over max |p64|, or over each row's max |p64|."""
+    scale = (p64.abs().amax(-1, keepdim=True) if per_row
+             else p64.abs().max())
+    return float(((got.double() - p64).abs() / scale).max())
+
+
+def _true_f32(got, p32, p64, per_row=False) -> None:
+    """The kernel's error against the plain f64 version at most 2x the
+    plain f32 version's (both relative to max |f64|, or to each row's),
+    or one f32 eps."""
+    ek, ep = _rel(got, p64, per_row), _rel(p32, p64, per_row)
+    assert torch.isfinite(got).all()
+    assert ek <= max(2 * ep, torch.finfo(torch.float32).eps), (ek, ep)
+
+
+def _probe_tensors(cuda, seed, nb=128):
+    return (torch.as_tensor(x, device=cuda)
+            for x in probe_inputs(seed=seed, nb=nb))
+
+
+@pytest.mark.parametrize("steps", [0, 37, 128, 256])
+@pytest.mark.parametrize("mode", ["scan", "dots", "both", "split"])
+def test_scan_overlap_kernel(cuda, mode, steps):
+    """P5 in each mode; 37 steps stop inside a pass."""
+    a, b = _probe_tensors(cuda, steps)
+    kc.reset_launch_counts()
+    got = kc.scan_overlap(a, b, mode, steps)
+    assert kc.LAUNCHES == _counts(scan_overlap=1)
+    _true_f32(got, kt.scan_overlap(a, b, mode, steps),
+              kt.scan_overlap(a.double(), b.double(), mode, steps))
+
+
+@pytest.mark.parametrize("nb,steps", [(48, 300), (128, 300), (128, 4096)])
+def test_scan_overlap_scan_parts_agree(cuda, nb, steps):
+    """With b = 0 the products stay 0, so "both" and "split", with either
+    products, return their scan alone: the same bits as "scan", which is
+    the plain f32 scan to within true f32 (at 300 steps); copies repeat
+    the problem.  4096 steps: the probe's own count."""
+    a, _ = _probe_tensors(cuda, nb, nb)
+    zero = torch.zeros_like(a)
+    scan = kc.scan_overlap(a, zero, "scan", steps)
+    assert torch.isfinite(scan).all()
+    for mode in ("both", "split"):
+        for products in kc.PROBE_PRODUCTS:
+            assert torch.equal(kc.scan_overlap(a, zero, mode, steps,
+                                               products=products), scan)
+    if steps == 300:
+        _true_f32(scan, kt.scan_overlap(a, zero, "scan", steps),
+                  kt.scan_overlap(a.double(), zero.double(), "scan", steps))
+    many = kc.scan_overlap(a, zero, "split", steps, copies=3)
+    assert many.shape == (3, nb, nb) and all(torch.equal(m, scan)
+                                             for m in many)
+
+
+@pytest.mark.parametrize("steps", [128, 256])
+@pytest.mark.parametrize("with_dot", [False, True])
+@pytest.mark.parametrize("q", [1, 2, 4, 8])
+def test_scan_multi_kernel(cuda, q, with_dot, steps):
+    """P4: chain 0 in registers, chain 1 in shared memory, the rest in
+    global memory."""
+    a, b = _probe_tensors(cuda, q)
+    kc.reset_launch_counts()
+    got = kc.scan_multi(a, b, q, with_dot, steps)
+    assert kc.LAUNCHES == _counts(scan_multi=1)
+    _true_f32(got, kt.scan_multi(a, b, q, with_dot, steps),
+              kt.scan_multi(a.double(), b.double(), q, with_dot, steps))
+
+
+@pytest.mark.parametrize("steps", [300, 2048])
+@pytest.mark.parametrize("q", [1, 2, 4, 8])
+def test_scan_multi_scan_parts_agree(cuda, q, steps):
+    """With b = 0 the products stay 0, so P4 with products, of either
+    type, returns the bits of its chains alone: this holds the chains of
+    the instances with products (chain 1 in shared memory next to the
+    product stages, chains 2 to q - 1 in global memory) at the probe's
+    own 2048 steps, which the products' values would hide."""
+    a, _ = _probe_tensors(cuda, q)
+    zero = torch.zeros_like(a)
+    alone = kc.scan_multi(a, zero, q, False, steps)
+    assert torch.isfinite(alone).all()
+    for products in kc.PROBE_PRODUCTS:
+        assert torch.equal(kc.scan_multi(a, zero, q, True, steps,
+                                         products=products), alone)
+
+
+@pytest.mark.parametrize("case", ["dots", "both", "split", 1, 2, 4, 8])
+def test_probe_tf32x3_products(cuda, case):
+    """The 3xTF32 instances (the solver's float products, timed beside
+    the f64 ones) at 128 steps: within 1e-4 of max |plain f64| (they
+    drift on the chain a^s b, ~7e-6 on an H100, against plain f32's
+    ~2e-6, so not true f32)."""
+    a, b = _probe_tensors(cuda, 128)
+    if isinstance(case, str):
+        got = kc.scan_overlap(a, b, case, 128, products="tf32x3")
+        p64 = kt.scan_overlap(a.double(), b.double(), case, 128)
+    else:
+        got = kc.scan_multi(a, b, case, True, 128, products="tf32x3")
+        p64 = kt.scan_multi(a.double(), b.double(), case, True, 128)
+    assert torch.isfinite(got).all()
+    assert _rel(got, p64) <= 1e-4
+
+
+def test_scan_multi_kernel_small_tile_copies(cuda):
+    """nb = 40 (zero padding in registers, in shared memory and in the L2
+    chains), 3 copies, a step count inside a pass."""
+    a, b = _probe_tensors(cuda, 40, 40)
+    got = kc.scan_multi(a, b, 8, True, 100, copies=3)
+    assert got.shape == (3, 40, 40)
+    assert all(torch.equal(g, got[0]) for g in got)
+    _true_f32(got[0], kt.scan_multi(a, b, 8, True, 100),
+              kt.scan_multi(a.double(), b.double(), 8, True, 100))
+
+
+@pytest.mark.parametrize("blocks", [1, 4])
+@pytest.mark.parametrize("g,nb", [(4, 16), (16, 128), (5, 100)])
+def test_newton_loop_kernel(cuda, g, nb, blocks):
+    """P3 on the probe's unit lower triangles at its steps: f32 true f32,
+    f64 within 1e-12 of the plain f64 version, both relative to each
+    row's largest entry (the inverses span ~1e17, so the rows of small
+    entries count too)."""
+    lm = torch.as_tensor(newton_inputs(g, nb, seed=nb), device=cuda)
+    steps = kt.newton_steps(nb)
+    kc.reset_launch_counts()
+    got = kc.newton_loop(lm, steps, blocks=blocks)
+    assert kc.LAUNCHES == _counts(newton_loop=1)
+    p64 = kt.newton_loop(lm.double(), steps)
+    _true_f32(got, kt.newton_loop(lm, steps), p64, per_row=True)
+    g64 = kc.newton_loop(lm.double(), steps, blocks=blocks)
+    assert _rel(g64, p64, per_row=True) <= 1e-12
+
+
+def test_newton_kernel_on_unit_triangles(cuda):
+    """P2 (newton_inverses) in float32 on P3's unit lower triangles at
+    nb = 128, whose inverses reach ~1e13-1e17: true f32, relative to the
+    largest entry and to each row's.  An open accuracy fault (ROADMAP.md
+    R1, PERF.md section 7): P2's float products are 3xTF32, which
+    truncate the same way in every product of the doubling, and this
+    test fails on an H100 (8.018e-06 of max |f64| against the plain
+    f32 version's 2.918e-06, G = 4) until R1 replaces them."""
+    lm = torch.as_tensor(newton_inputs(4, 128, seed=128), device=cuda)
+    tol = kt.DEFAULT_TOL[torch.float32]
+    got = kc.newton_inverses(lm)[0]
+    p32 = kt.newton_inverses(lm)[0]
+    p64 = kt.newton_inverses(lm.double(), tol)[0]
+    assert torch.isfinite(got).all()
+    eps = torch.finfo(torch.float32).eps
+    readings = {scale: (_rel(got, p64, row), _rel(p32, p64, row))
+                for scale, row in (("max", False), ("row", True))}
+    assert all(ek <= max(2 * ep, eps) for ek, ep in readings.values()), \
+        readings

@@ -1,7 +1,8 @@
 """The port imports without JAX, and never falls back silently.
 
-- Importing every module of pangulu_tpu_torch loads no jax module and
-  nothing of the JAX package (checked in a fresh interpreter, since this
+- Importing every module of pangulu_tpu_torch, and the probes of
+  pangulu_tpu_torch/tools for P3-P5, loads no jax module and nothing of
+  the JAX package (checked in a fresh interpreter, since this
   test process has JAX loaded by conftest.py), and needs neither triton
   nor nvcc.
 - device="cuda" without a GPU raises; a CUDA-tensor kernel call that
@@ -30,6 +31,9 @@ import pangulu_tpu_torch
 for m in pkgutil.walk_packages(pangulu_tpu_torch.__path__,
                                "pangulu_tpu_torch."):
     importlib.import_module(m.name)
+# the H100 probes of the TPU probes P3-P5 (tools/ is no package)
+for m in ("probe_overlap", "probe_scan_multi", "probe_newton_loop"):
+    importlib.import_module("pangulu_tpu_torch.tools." + m)
 for m in ("pangulu_tpu_torch.io.mmio", "pangulu_tpu_torch.cli",
           "pangulu_tpu_torch.__main__", "pangulu_tpu_torch.compressed"):
     assert m in sys.modules, m
