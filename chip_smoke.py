@@ -12,16 +12,19 @@ CUDA toolkit (nvcc).  It
      K3's and K5's sweep kernels at tile widths 128 and 256 (K5's may
      spill at most K5_SPILL_BYTES) and of the float and double
      instances of K2's and K4's product kernels (panels for bands 128
-     and 256 wide) and of K1's blocked step (no float instance may
-     spill);
+     and 256 wide; no float instance may spill) and of K1's cluster
+     kernel for 128 < nb <= 256 (lu_cluster_kernel, float and double:
+     neither may spill);
   2. holds each kernel against its plain PyTorch version on the same
      CUDA tensors, printing max errors and CUDA-event times beside the
      plain version's: K1 getrf_with_inverses at nb = 10, 16, 64, 128
      and on tiles whose pivot is zero mid-elimination (f32, f64); K1's
-     blocked step at nb = 129, 200, 256, and on tiles with a zero pivot
-     in each diagonal block, against its plain twin
-     (getrf_with_inverses_blocked) at the f32 contract and the rank-1
-     plain version at the blocked-LU bound (BLOCKED_TOL); K1 timed per
+     cluster kernel at nb = 129, 200, 255, 256, and on tiles with zero
+     pivots in the first and in later panels, against its plain twin
+     (getrf_with_inverses_blocked, panels of 32) at the f32 contract and
+     the rank-1 plain version at the blocked-LU bound (BLOCKED_TOL), one
+     device launch a K1 launch, and true f32 at nb=256 (the f32 kernel's
+     error against the f64 twin at most 2x the f32 twin's); K1 timed per
      launch over many back-to-back launches at batch 1, 5, 16 and 132,
      at nb=128 and nb=256, beside torch.linalg.lu_factor_ex(pivot=False)
      as a yardstick;
@@ -59,7 +62,7 @@ CUDA toolkit (nvcc).  It
      K5's cooperative grid and blocks per SM are printed; then drives
      both paths again at nb=256 (exactly K1 = 128 and 34 by the
      schedules, K2 = K4 = 1, K3 = K5 = 3, and K1's device launches
-     exactly five a K1 launch, the blocked step's; the same residual
+     exactly one a K1 launch, the cluster kernel's; the same residual
      limits; ms per factorization and per solve) and traces one
      factorization and one solve of each: every kernel's launches and
      device ms, and K1's share of the factorization's device ms;
@@ -96,13 +99,17 @@ CUDA toolkit (nvcc).  It
      factorization; P6 against its plain version bit for bit (float and
      double, uint16 and uint32 positions, the TPU probe's one-tile case
      of 1024 slots at nb=128, scratch tiles in the batch); P2 against its
-     plain version (the path's 256 diagonal tiles at nb=128, 32 tiles at
-     nb=256: f64 within 1e-12, f32 <= 2x the plain f32 error against
-     plain f64); P6 per launch over the widest level's update tiles and
-     P2 per launch at batch 256, each beside its bound, its plain
-     version and one PyTorch call (zero_ + scatter_, gather,
-     solve_triangular); save_factor -> load_factor -> gstrs with exact
-     counts (one P6 launch for the diagonal tiles, one P2); poisson2d(256)
+     plain twin (triangle_inverses: the path's 256 diagonal tiles at
+     nb=128, 32 tiles at nb=256: f64 within 1e-12, f32 within 1e-5) and
+     true f32 against the JAX package's method (the f32 kernel's error
+     against the plain f64 doubling <= 2x the plain f32 doubling's, on
+     those tiles and, by max and by row, on P3's unit triangles); P6 per
+     launch over the widest level's update tiles and P2 per launch at
+     batch 256, each beside its bound, its plain version and one
+     PyTorch call (zero_ + scatter_, gather, solve_triangular);
+     save_factor -> load_factor -> gstrs with exact counts (one P6
+     launch for the diagonal tiles, one P2) and the peak device bytes
+     of the reload (max_memory_allocated); poisson2d(256)
      nb=128 nd r32 (store ratio, solve residual < 1e-10) and circuit(600,
      seed=2) nb=32 r64 (< 1e-6); its numbers go out as a
      {"compressed": ...} JSON line;
@@ -146,7 +153,7 @@ CUDA toolkit (nvcc).  It
      the larger of the bytes over 3.35 TB/s and the operations over
      the H100 SXM's published peak for the units that run them: 495 /
      3 TFLOP/s (3xTF32 on tensor cores) for K2's and K4's f32
-     products and for the products of K1's blocked step (67 TFLOP/s
+     products and for the products of K1's cluster kernel (67 TFLOP/s
      DMMA in f64), 67 TFLOP/s f32 (34 f64) on the CUDA cores for the
      rest, K1's register-tile chains among them (P2's operations are
      those of two triangle inverses, not of its doubling's products);
@@ -156,7 +163,8 @@ CUDA toolkit (nvcc).  It
      (the members in and out, nb^3/3 flop each), not its doubling's
      products.
      Before it, a {"retraced": ...} line names any phase whose trace
-     was taken once more: the nb=256 nd solve's when it came back empty,
+     was taken once more: the nb=128 nd solve's when it showed fewer
+     than its 2 K5 launches, the nb=256 nd solve's when it came back empty,
      the gstrs_device call's when it showed fewer than its 4 K5
      launches (the profiler loses the first kernels of some traces; the
      second trace is checked as the first; any other empty trace
@@ -225,20 +233,19 @@ FLOP_S = {torch.float32: 67e12, torch.float64: 34e12}
 # The same sheet's tensor-core peaks, for the products' own bound:
 # 3xTF32 is three TF32 passes (495 TFLOP/s / 3), DMMA 67 TFLOP/s.
 TC_FLOP_S = {torch.float32: 495e12 / 3, torch.float64: 67e12}
-# K1's blocked step for 128 < nb <= 256 is held to the rank-1 plain
+# K1's cluster kernel for 128 < nb <= 256 is held to the rank-1 plain
 # version at pangulu_tpu_torch.testing.BLOCKED_TOL (the JAX package's
 # bound for its blocked LU against the scan), and to its plain twin
 # (getrf_with_inverses_blocked) at TOL_F32 / TOL_F64.
 # K2's and K4's product kernels (csrc/lu_kernels.cu), one instance each
-# for float and double (panels: one for bands 128 wide, one for 256),
-# and those of K1's blocked step
+# for float and double (panels: one for bands 128 wide, one for 256)
 PRODUCT_KERNELS = ("panel_kernel", "schur_kernel", "group_panel_kernel",
-                   "group_schur_kernel", "lu_panels_kernel",
-                   "lu_update_kernel", "lu_inverse_kernel")
-PRODUCT_INSTANCES = 18
+                   "group_schur_kernel")
+PRODUCT_INSTANCES = 12
 # P6: decompress and compress for float and double, uint16 and uint32
-# positions; P2: newton for float and double
-COMPRESSED_INSTANCES = 10
+# positions; P2: triangle_inverses for float and double, register tiles
+# of 32, 64 and 128, and the products of its off-diagonal block above 128
+COMPRESSED_INSTANCES = 16
 # P5: overlap_kernel in 4 modes, the 3 with products in float64 (DMMA)
 # and in 3xTF32; P4: scan_multi_kernel at Q = 1, 2, 4, 8, without
 # products, and with them in either type; P3: newton_loop_kernel for
@@ -300,15 +307,16 @@ def triangle_inverses_flop(nb: int) -> int:
 def k1_bound(nb: int, batch: int, dtype) -> dict:
     """K1's bound on batch tiles of nb: the tile read and its factor and
     two inverses written; lu_inverse_flop(nb) operations a tile.  Up to
-    nb = 128 all run on the CUDA cores.  Above, the blocked step runs
-    K1's body on the two diagonal blocks (128 and nb - 128) on the CUDA
-    cores and the rest of the operations as products on tensor cores."""
+    nb = 128 all run on the CUDA cores.  Above, the cluster kernel runs
+    the 32 x 32 diagonal blocks of its panels on the CUDA cores and the
+    rest of the operations as products on tensor cores."""
     elt = torch.tensor([], dtype=dtype).element_size()
     nbytes = 4 * batch * nb * nb * elt
     flop = batch * lu_inverse_flop(nb)
     if nb <= 128:
         return bound(nbytes, flop, dtype)
-    chains = batch * (lu_inverse_flop(128) + lu_inverse_flop(nb - 128))
+    chains = batch * sum(lu_inverse_flop(min(32, nb - k0))
+                         for k0 in range(0, nb, 32))
     return bound(nbytes, chains, dtype, tc_flop=flop - chains)
 
 
@@ -852,7 +860,7 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
     from pangulu_tpu_torch.ops import kernels_cuda as kc
     from pangulu_tpu_torch.ops import kernels_torch as kt
     from pangulu_tpu_torch.ops.kernels_torch import Indices
-    from pangulu_tpu_torch.testing import compressed_launches
+    from pangulu_tpu_torch.testing import compressed_launches, newton_inputs
     from pangulu_tpu_torch.utils.perf import residual_norm
 
     # the path's tile width and its K1 launches (one a level), the
@@ -1053,8 +1061,10 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
                           **p6[f"{d}_bound"])
     del dense, buf, flat, svals
 
-    # (3) P2 against its plain version
-    print("compressed (3): P2 against its plain version")
+    # (3) P2 against its plain twin, and true f32 against the JAX
+    # package's method (the plain Newton doubling)
+    print("compressed (3): P2 against its plain twin (the sweeps) and "
+          "true f32 against the plain doubling")
     diag = Indices.build([lev.diag for lev in sch.levels], dev)
     st.values.copy_(v0)
     clu.factorize()
@@ -1064,28 +1074,47 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
         device=dev))[0]
     p2 = {}
     err32 = 0.0
+    tol32 = kt.DEFAULT_TOL[torch.float32]
     for label, f64 in ((f"nb={nb}, the path's {bl} diagonal tiles",
                         d128.double()), ("nb=256, 32 tiles", f256)):
-        for g, r, n in zip(kc.newton_inverses(f64), kt.newton_inverses(f64),
-                           ("L^-1", "U^-1")):
+        for g, r, n in zip(kc.newton_inverses(f64),
+                           kt.triangle_inverses(f64), ("L^-1", "U^-1")):
             e = rel_err(g, r)
-            print(f"  {label} f64 {n}: {e:.3e} of max |plain| (<= 1e-12)")
+            print(f"  {label} f64 {n}: {e:.3e} of max |twin| (<= 1e-12)")
             if not e <= 1e-12:
-                fail(f"P2 f64 disagrees with its plain version ({label})")
+                fail(f"P2 f64 disagrees with its plain twin ({label})")
         f32 = f64.float()
-        tol32 = kt.DEFAULT_TOL[torch.float32]
-        for g, p, r, n in zip(kc.newton_inverses(f32),
-                              kt.newton_inverses(f32),
-                              kt.newton_inverses(f32.double(), tol32),
-                              ("L^-1", "U^-1")):
-            ek, ep = rel_err(g, r), rel_err(p, r)
-            err32 = max(err32, float((g - p).abs().max()))
-            print(f"  {label} f32 {n} against the plain f64: kernel "
-                  f"{ek:.3e}, plain f32 {ep:.3e} (kernel <= 2x plain) "
+        for g, t, p, r, n in zip(kc.newton_inverses(f32),
+                                 kt.triangle_inverses(f32),
+                                 kt.newton_inverses(f32),
+                                 kt.newton_inverses(f32.double(), tol32),
+                                 ("L^-1", "U^-1")):
+            et, ek, ep = rel_err(g, t.double()), rel_err(g, r), rel_err(p, r)
+            err32 = max(err32, float((g - t).abs().max()))
+            print(f"  {label} f32 {n}: {et:.3e} of max |twin| (<= 1e-5); "
+                  f"against the plain f64 doubling: kernel {ek:.3e}, plain "
+                  f"f32 doubling {ep:.3e} (kernel <= 2x plain) "
                   f"{'ok' if ek <= 2 * ep else 'FAIL'}")
-            p2[f"{label} {n}"] = dict(kernel=ek, plain=ep)
+            p2[f"{label} {n}"] = dict(twin=et, kernel=ek, plain=ep)
+            if not et <= TOL_F32[0]:
+                fail(f"P2 f32 disagrees with its plain twin ({label})")
             if ek > 2 * ep:
                 fail(f"P2 f32 is less accurate than true f32 ({label})")
+    # P3's unit triangles, whose inverses reach ~1e17: by max and by row
+    lm = torch.as_tensor(newton_inputs(16, nb, seed=nb), device=dev)
+    got = kc.newton_inverses(lm)[0]
+    p32 = kt.newton_inverses(lm)[0]
+    p64 = kt.newton_inverses(lm.double(), tol32)[0]
+    for scale, row in (("max", False), ("row", True)):
+        ek, ep = rel_err(got, p64, row), rel_err(p32, p64, row)
+        print(f"  P3's 16 unit triangles, nb={nb}, f32 L^-1 by {scale}: "
+              f"kernel {ek:.3e}, plain f32 doubling {ep:.3e} (kernel <= 2x "
+              f"plain) {'ok' if ek <= 2 * ep else 'FAIL'}")
+        p2[f"P3 unit triangles by {scale}"] = dict(kernel=ek, plain=ep)
+        if ek > 2 * ep:
+            fail(f"P2 f32 is less accurate than true f32 on P3's unit "
+                 f"triangles (by {scale})")
+    del lm, got, p32, p64
     d32 = d128.contiguous()
     nb_, batch = nb, d32.shape[0]
     eye = torch.eye(nb_, device=dev).expand(2 * batch, nb_, nb_)
@@ -1097,11 +1126,11 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
                        (torch.triu(d32, 1) + torch.diag_embed(safe))
                        .transpose(-1, -2)]).contiguous()
     p2["ms"] = device_ms(lambda: kc.newton_inverses(d32), n=20)
-    p2["plain_ms"] = cuda_ms(lambda _: kt.newton_inverses(d32), reps=5)
+    p2["plain_ms"] = cuda_ms(lambda _: kt.triangle_inverses(d32), reps=3)
     p2["library_ms"] = device_ms(lambda: torch.linalg.solve_triangular(
         lower, eye, upper=False), n=20)
     # the factor read, L^-1 and U^-1 written; the operations the two
-    # triangle inverses need (not the doubling's dense products)
+    # triangle inverses need, whatever the method
     p2["bound"] = bound(3 * batch * nb_ * nb_ * 4,
                         batch * triangle_inverses_flop(nb_))
     p2["max_abs_err_f32"] = err32
@@ -1124,14 +1153,22 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
         save_factor(h, path)
         out["checkpoint_bytes"] = os.path.getsize(path)
         kc.reset_launch_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         h2 = load_factor(path, device=str(dev))
         x2 = gstrs(h2, b)
+        torch.cuda.synchronize()
+        out["reload_peak_bytes"] = torch.cuda.max_memory_allocated() - base
         out["reload_launches"] = expect_launches(
             "the reloaded compressed factor",
             compressed_launches(sch, solves=3, reloads=1))
     out["reload_solve_residual"] = residual_norm(s, x2, b)
-    print(f"  .npz {out['checkpoint_bytes']} bytes; solve residual "
-          f"{out['reload_solve_residual']:.3e} (< 1e-10)")
+    print(f"  .npz {out['checkpoint_bytes']} bytes; peak device bytes of "
+          f"load -> gstrs above what was allocated before: "
+          f"{out['reload_peak_bytes']} ({out['reload_peak_bytes'] / 2**20:.1f}"
+          f" MiB); solve residual {out['reload_solve_residual']:.3e} "
+          "(< 1e-10)")
     compare("reloaded solution against the first", torch.as_tensor(x2),
             torch.as_tensor(x), *TOL_SOLVE_F32)
     if not out["reload_solve_residual"] < 1e-10:
@@ -1429,8 +1466,9 @@ def main() -> int:
               "ptxas": ptx}
     kernels = {}
     dtypes = {"r32": torch.float32, "r64": torch.float64}
-    print("ptxas: K1's instances (getrf_inv_kernel<type, nb/32>), K3's "
-          "and K5's sweep kernels (<type, tile width>)")
+    print("ptxas: K1's instances (getrf_inv_kernel<type, nb/32>, "
+          "lu_cluster_kernel<type> above nb=128), K3's and K5's sweep "
+          "kernels (<type, tile width>)")
     k1_ptx, k5_ptx, prod_ptx = {}, {}, {}
     for name, info in ptx.items():
         lab = kernel_label(name)
@@ -1439,6 +1477,9 @@ def main() -> int:
         base, ty, arg = lab
         if base == "getrf_inv_kernel":
             label = f"getrf_inv_kernel<{ty}, nb<={32 * arg}>"
+            k1_ptx[label] = info
+        elif base == "lu_cluster_kernel":
+            label = f"lu_cluster_kernel<{ty}>"
             k1_ptx[label] = info
         elif base in ("solve_sweep_kernel", "group_sweep_kernel"):
             label = f"{base}<{ty}, {arg}>"
@@ -1451,9 +1492,9 @@ def main() -> int:
             continue
         print(f"  {label}: {info.get('registers')} registers, "
               f"{info.get('spill_bytes')} spill bytes")
-    if len(k1_ptx) != 6 or any(i.get("spill_bytes") != 0
+    if len(k1_ptx) != 8 or any(i.get("spill_bytes") != 0
                                for i in k1_ptx.values()):
-        fail(f"K1: expected 6 instances without spills, ptxas says "
+        fail(f"K1: expected 8 instances without spills, ptxas says "
              f"{k1_ptx}")
     if k5_ptx.keys() != K5_SPILL_BYTES.keys() or any(
             k5_ptx[k].get("spill_bytes", 1 << 30) > c
@@ -1463,8 +1504,8 @@ def main() -> int:
              f"bytes; ptxas says {k5_ptx}")
     detail["K1_ptxas"] = k1_ptx
     detail["K5_ptxas"] = {f"{t}<{w}>": i for (t, w), i in k5_ptx.items()}
-    print("ptxas: the product kernels of K2 and K4 and of K1's blocked "
-          "step (tensor cores: 3xTF32 for float, DMMA for double)")
+    print("ptxas: the product kernels of K2 and K4 (tensor cores: 3xTF32 "
+          "for float, DMMA for double)")
     for label, info in prod_ptx.items():
         print(f"  {label}: {info.get('registers')} registers, "
               f"{info.get('spill_bytes')} spill bytes")
@@ -1475,9 +1516,11 @@ def main() -> int:
              f"ones without spills; ptxas says {prod_ptx}")
     detail["product_ptxas"] = prod_ptx
     comp_ptx = {n: i for n, i in ptx.items() if re.search(
-        r"plu\d+(newton|decompress|compress)_kernel", n)}
+        r"plu\d+(triangle_inverses|triangle_products|decompress|compress)"
+        r"_kernel", n)}
     print("ptxas: the compressed store's kernels (P6 decompress/compress "
-          "<type, position type>, P2 newton<type>)")
+          "<type, position type>, P2 triangle_inverses<type, nb/32> and "
+          "triangle_products<type>)")
     for name, info in sorted(comp_ptx.items()):
         print(f"  {name}: {info.get('registers')} registers, "
               f"{info.get('spill_bytes')} spill bytes")
@@ -1518,20 +1561,27 @@ def main() -> int:
                                for n, g, r in zip(("f", "linv", "uinv"),
                                                   got, ref)])
         k1_err[dt] = err
-    print("K1 at 128 < nb <= 256 (the blocked step) against its plain twin "
-          "(getrf_with_inverses_blocked) and the rank-1 plain version")
+    print("K1 at 128 < nb <= 256 (the cluster kernel) against its plain "
+          "twin (getrf_with_inverses_blocked, panels of 32) and the rank-1 "
+          "plain version; one device launch a K1 launch")
     k1_err256 = {}
     for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
         cases = [(f"nb={nb}", rng.standard_normal((2, nb, nb))
-                  + nb * np.eye(nb)) for nb in (129, 200, 256)]
+                  + nb * np.eye(nb)) for nb in (129, 200, 255, 256)]
         cases += [(f"nb={nb}, zero pivots at steps {k1} and 128+{k2}",
                    blocked_tiny_pivot_tile(nb, k1, k2, rng))
-                  for nb, k1, k2 in ((256, 0, 127), (256, 64, 1),
-                                     (200, 127, 40))]
+                  for nb, k1, k2 in ((256, 0, 127), (256, 5, 1),
+                                     (200, 64, 40))]
         err = 0.0
         for label, tile in cases:
             a = torch.as_tensor(tile, dtype=dt, device=dev)
+            kc.reset_launch_counts()
             got = kc.getrf_with_inverses(a)
+            if (kc.LAUNCHES["getrf_with_inverses"],
+                    kc.DEVICE_LAUNCHES["getrf_with_inverses"]) != (1, 1):
+                fail(f"K1 {label}: {kc.LAUNCHES['getrf_with_inverses']} "
+                     f"launches, {kc.DEVICE_LAUNCHES} device launches; "
+                     "expected one of each")
             for n, g, r in zip(("f", "linv", "uinv"), got,
                                kt.getrf_with_inverses_blocked(a)):
                 compare(f"{dt} {label} {n} (twin)", g, r, *tol)
@@ -1541,8 +1591,25 @@ def main() -> int:
                                       kt.getrf_with_inverses(a),
                                       BLOCKED_TOL[dt])])
         k1_err256[dt] = err
+    # true f32 over the 8 panel updates of 3xTF32 products
+    a = torch.as_tensor(rng.standard_normal((4, 256, 256))
+                        + 256 * np.eye(256), device=dev)
+    ref = kt.getrf_with_inverses_blocked(a)
+    true256 = {}
+    for n, g, p, r in zip(("f", "linv", "uinv"),
+                          kc.getrf_with_inverses(a.float()),
+                          kt.getrf_with_inverses_blocked(a.float()), ref):
+        ek, ep = rel_err(g, r), rel_err(p, r)
+        true256[n] = dict(kernel=ek, plain=ep)
+        print(f"  true f32 at nb=256, {n} against the f64 twin: kernel "
+              f"{ek:.3e}, f32 twin {ep:.3e} (kernel <= 2x plain) "
+              f"{'ok' if ek <= 2 * ep else 'FAIL'}")
+        if ek > 2 * ep:
+            fail(f"K1 at nb=256: {n} less accurate than true f32")
+    detail["K1_nb256_true_f32"] = true256
     print("K1 per launch at nb=128 and nb=256 (back-to-back launches, "
-          "device time; nb=256 is the blocked step's five launches)")
+          "device time; one device launch each, the cluster kernel's at "
+          "nb=256)")
     k1 = {}
     for nb in (128, 256):
         for dt in (torch.float32, torch.float64):
@@ -1555,7 +1622,7 @@ def main() -> int:
                 row = dict(ms=ms, ms_per_tile=ms / batch, library_ms=lms,
                            **k1_bound(nb, batch, dt))
                 if batch == 1:
-                    # the kernel's own plain counterpart: the blocked
+                    # the kernel's own plain counterpart: the panel-32
                     # twin above 128; the rank-1 version beside it
                     row["plain_ms"] = cuda_ms(
                         lambda _: (kt.getrf_with_inverses if nb <= 128 else
@@ -1735,7 +1802,7 @@ def main() -> int:
                           "r32", "nd", true_f32=True),
     }
     detail["chain"], detail["groups"] = chain, groups
-    # nb=256: K1's blocked step, the 256-wide panel bands, K3 and K5 of
+    # nb=256: K1's cluster kernel, the 256-wide panel bands, K3 and K5 of
     # tile width 256; r64 on a smaller matrix
     u256 = kt.mega_uch(256)
     nb256 = {
@@ -1804,8 +1871,8 @@ def main() -> int:
         if launches != expect(h):
             fail(f"launch counts {launches}, expected {expect(h)}")
         # K1's device launches, as the C entries report them: one a K1
-        # launch up to nb = 128, the blocked step's five above
-        per_k1 = 1 if nb <= 128 else 5
+        # launch, the cluster kernel's above nb = 128
+        per_k1 = 1
         k1_dev = kc.DEVICE_LAUNCHES["getrf_with_inverses"]
         print(f"  K1's device launches: {k1_dev} ({per_k1} a K1 launch)")
         if k1_dev != per_k1 * launches["getrf_with_inverses"]:
@@ -1914,7 +1981,11 @@ def main() -> int:
     prof["nd gstrf"], nd["stages"] = stages(h, True)
     # one nd solve traced: K5 is one cooperative launch per sweep
     ts = h._trisolver
-    prof["nd gstrs"] = profile(lambda _: ts.solve_blocked(h.factor_tiles, xb))
+    prof["nd gstrs"] = profile(
+        lambda _: ts.solve_blocked(h.factor_tiles, xb), retry="nd gstrs",
+        complete=lambda kernels: sum(
+            k["launches"] for n, k in kernels.items()
+            if "group_sweep_kernel" in n) >= 2)
     print_profile({"nd gstrs": prof["nd gstrs"]})
     k5 = [(m[0], k["launches"]) for n, k in prof["nd gstrs"]["kernels"]
           .items() if (m := re.search(r"group_(sweep|solve_\w+)_kernel", n))]
@@ -1950,12 +2021,10 @@ def main() -> int:
     detail["profile"] = prof
 
     # ---- the paths at nb=256 -------------------------------------------
-    # one K1 launch is the blocked step's five device launches: K1's
-    # body (getrf_inv_kernel) twice, then once each stage kernel; drive()
+    # one K1 launch is one device launch of the cluster kernel; drive()
     # holds that count exactly (kernels_cuda.DEVICE_LAUNCHES), the traces
-    # below give the kernels' device ms
-    k1_kernels = ("getrf_inv_kernel", "lu_panels_kernel", "lu_update_kernel",
-                  "lu_inverse_kernel")
+    # below give its device ms
+    k1_kernels = ("lu_cluster_kernel",)
     launches256 = {}   # K1, K2, K3 from the rcm path, K4, K5 from nd
     for ordering, engine, expect in (
             ("rcm", "mega", lambda h: zero_but(
@@ -1992,7 +2061,7 @@ def main() -> int:
         res.update(trace=tr, k1_trace_launches={
             k: sum(v["launches"] for v in vs) for k, vs in k1.items()},
             k1_device_ms=k1_ms, k1_share=k1_ms / all_ms)
-        print(f"  K1's blocked step in the trace: {k1_ms:.3f} of "
+        print(f"  K1's cluster kernel in the trace: {k1_ms:.3f} of "
               f"{all_ms:.3f} device ms ({k1_ms / all_ms:.1%}), launches "
               f"{res['k1_trace_launches']} (counted: "
               f"{res['k1_device_launches']})")
@@ -2046,7 +2115,7 @@ def main() -> int:
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]
     launches["mega_solve_groups"] = nd_launches["mega_solve_groups"]
     # the nb=256 entries: K1's launches from the rcm path at nb=256, the
-    # blocked step in lu_kernels.cu
+    # cluster kernel in lu_kernels.cu
     launches.update({f"{n}@nb=256": v for n, v in launches256.items()})
     launches.update(comp_launches)
     launches.update(probe_launches)

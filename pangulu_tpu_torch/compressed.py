@@ -388,8 +388,12 @@ class CompressedLU:
         """The triangle inverses of every factored diagonal tile, from
         the store (a checkpoint-loaded executor; the factorization
         persists its own): the diagonal tiles staged dense in one batch,
-        then both inverses by Newton–Schulz doubling in one launch
-        (pangulu_tpu/compressed.py:367-401)."""
+        then both inverses in one launch of P2
+        (``kernels_cuda.newton_inverses``), the counterpart of the JAX
+        package's Newton–Schulz doubling (pangulu_tpu/compressed.py:
+        367-401), which computes the same function by Gauss–Jordan
+        sweeps in float64 (``kernels_torch.triangle_inverses``, also on
+        the CPU), with no workspace."""
         if self.inv_tiles is None:
             diag = Indices.build([lev.diag for lev in self.schedule.levels],
                                  self.device)

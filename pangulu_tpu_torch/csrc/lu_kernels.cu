@@ -14,19 +14,39 @@
 //   whose note gives the bound and the design: the tile in registers,
 //   one barrier per elimination step.  Instances by the register tile
 //   a thread holds (nb <= 32, 64, 128).
-//   For 128 < nb <= 256 a tile (256 KiB of f32 at 256: a whole SM's
-//   registers) does not fit one block's register tile.  The step is
-//   blocked instead, as the TPU kernel's _lu_blocked and the C
-//   reference's dense GETRF are: split at 128, K1's body on each
-//   diagonal block, the panels, the trailing update and the inverses'
-//   off-diagonal blocks as tensor-core products (tile_gemm.cuh) between
-//   them: five stream-ordered launches, counted as one K1 launch (see
-//   "K1, blocked" below).  Bound: still the two dependent chains of
-//   128 and nb - 128 steps, plus four product stages' latency.  A
-//   thread block cluster holding the whole tile (rows over 2 CTAs in
-//   f32, 4 in f64, the pivot row broadcast through distributed shared
-//   memory) is the follow-up, ROADMAP W4.
-//
+//   For 128 < nb <= 256 a tile (256 KiB of f32 at 256, 512 KiB of f64)
+//   fits neither one block's registers nor its 227 KB of shared memory.
+//   It goes to a thread block cluster instead (lu_cluster_kernel, one
+//   launch a batch): 2 CTAs a tile in float, 4 in double, each holding
+//   128 or 64 rows of the tile, padded to 256 x 256 with the identity,
+//   in shared memory.  The blocking is the TPU kernel's MXU mode
+//   (_lu_blocked, r = 32, kernels_pallas.py:261-300): per panel of 32
+//   columns one warp factors the diagonal block and inverts its
+//   triangles (diag_panel), then L21 = A21·U11^-1, U12 = L11^-1·A12 and
+//   A22 -= L21·U12 as 32-deep tensor-core products (tile_gemm.cuh's
+//   atoms: 3xTF32 for float, DMMA for double).  Both inverses form in
+//   the same launch by the blocked Gauss–Jordan that K1's body runs one
+//   column at a time: the rows below the panel carry L^-1's columns
+//   left of it, the columns right of it U^-1's rows above it, so one
+//   product per panel updates the trailing block and both inverses.
+//   The panel's rows go from their owner to the other CTAs through L2,
+//   with one cluster barrier a panel.
+//   Bound: by bytes 3.1e-04 ms (f32), by operations less (PERF.md §6);
+//   in fact the chain of 8 panels, each the diagonal warp's 32 dependent
+//   steps, then a cluster barrier, the copy of the panel's rows and three
+//   32-deep product stages with a few block barriers, in place of the
+//   512 block barriers of the two 128-step chains of the blocked step it
+//   replaced.  On an H100 (clock64 probes, PERF.md findings) a panel
+//   takes ~30K cycles in f32: the diagonal warp ~10K (f64 ~18K), the
+//   products and copies the rest; without the diagonal warp the kernel
+//   would run at lu_factor_ex's time.  Three designs of the diagonal
+//   warp measured slower: its two sweeps unrolled (their ~10^4
+//   instructions, run once a panel, were bound by their fetch), a
+//   backward Gauss–Jordan sweep for U11^-1 (32 more dependent steps),
+//   and a diagonal warp of its own with lookahead (a block of 288
+//   threads caps registers at 168).  A batch of 132 tiles in f64 runs
+//   in 4 waves of one CTA an SM.
+
 // K2 mega_factorize
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_factorize
 //   (_mega_kernel): the whole numeric factorization.
@@ -41,8 +61,8 @@
 //   Design: the TPU kernel ran everything in one launch because its
 //   grid is sequential and it hand-scheduled DMAs; here each level is
 //   three stream-ordered launches (the diagonal step, which is K1's
-//   kernel on one tile in place, then panels, then Schur; seven above
-//   nb = 128, where the diagonal step is K1's blocked five) read from
+//   kernel on one tile in place, then panels, then Schur; above nb =
+//   128 the diagonal step is K1's cluster launch) read from
 //   device-resident tables, driven by one host loop over host copies
 //   of the per-level counts, with no host synchronisation and no
 //   device-to-host read.  Stream order is the level barrier.  The
@@ -96,8 +116,8 @@
 //   TFLOP/s f32, 0.55 ms at 3xTF32.
 //   Design: per group three stream-ordered launches from one host loop
 //   over host copies of the counts, as K2: K1's kernel with one block per
-//   member (above nb = 128 each stage of K1's blocked step over all
-//   members at once; tile ids from gdiag, inverse slots from glev, so
+//   member (above nb = 128 one cluster per member; tile ids from
+//   gdiag, inverse slots from glev, so
 //   invs stays indexed by level), the panels (each tile times ITS
 //   member's inverse, nb / 32 bands a tile as in K2; the member is found
 //   from the panel offsets), and the Schur step.  Products on tensor cores
@@ -171,16 +191,19 @@ namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------- K1
 // Block b factors the n x n diagonal block at (off, off) of tile t =
-// (ids ? ids[b] : b) of ``a`` (nb x nb tiles) into the same place of
-// ``f`` (which may be ``a``: in place) and writes its inverses to the
-// same block of linv/uinv + i * inv_stride, i = (inv_ids ? inv_ids[b] :
-// b).  For nb <= 128 the block is the tile (off = 0, n = nb); the
-// blocked step for nb > 128 runs it on both diagonal blocks.  The
-// batched entry calls it with both tables nullptr; K2's diagonal step
-// with one block, ids = &diag_tab[k] and the level's slots of ``invs``;
-// K4's with one block per member, ids = the group's diagonal tiles and
-// inv_ids = their levels (slots of ``invs`` 2 * nb * nb apart).
-// CB = lu_cb(n) sizes the register tile (lu_kernel_for picks it).
+// (ids ? ids[b] : b) of ``a`` (nb x nb tiles, n <= 128) into the same
+// place of ``f`` (which may be ``a``: in place) and writes its inverses
+// to the same block of linv/uinv + i * inv_stride, i = (inv_ids ?
+// inv_ids[b] : b).  Every caller passes the whole tile (off = 0, n =
+// nb <= 128); with off and n as arguments the kernel compiles to the
+// instructions it had when an earlier blocked step factored diagonal
+// blocks with it, which ran ~1.6% faster on an H100 than with n = nb
+// folded in (chip_smoke.py's K1 timing, PERF.md).  The batched entry
+// calls it with both tables nullptr; K2's diagonal step with one block,
+// ids = &diag_tab[k] and the level's slots of ``invs``; K4's with one
+// block per member, ids = the group's diagonal tiles and inv_ids = their
+// levels (slots of ``invs`` 2 * nb * nb apart).  CB = lu_cb(n) sizes
+// the register tile (lu_kernel_for picks it).
 template <typename T, int CB>
 __global__ void __launch_bounds__(kLuThreads, 1)
     getrf_inv_kernel(const T* a, T* f, T* linv, T* uinv, size_t inv_stride,
@@ -201,7 +224,7 @@ template <typename T>
 using LuKernel = void (*)(const T*, T*, T*, T*, size_t, const int*,
                           const int*, int, int, int, T);
 
-// K1's instance for an n x n block, with its dynamic shared memory
+// K1's instance for tiles of n <= 128, with its dynamic shared memory
 // opted in.
 template <typename T>
 cudaError_t lu_kernel_for(int n, LuKernel<T>* kern) {
@@ -222,7 +245,7 @@ cudaError_t lu_kernel_for(int n, LuKernel<T>* kern) {
 // the output reads nothing but the same band of the tile: L·U^-1 by
 // rows, L^-1·U by columns; a band spans the tile, so the bands have
 // two widths: kSplit for nb <= 128, kMaxNb for nb <= 256.
-constexpr int kSplit = kLuMaxN;  // 128: K1's split of a larger tile
+constexpr int kSplit = kLuMaxN;  // 128: K1's largest register tile
 constexpr int kMaxNb = 256;
 constexpr int kBand = 32;
 constexpr int kQuad = 64;
@@ -299,111 +322,492 @@ __global__ void __launch_bounds__(kGemmThreads)
 }
 
 // ------------------------------------------- K1, blocked (nb > 128)
-// A tile of 128 < nb <= 256 is split at h = kSplit into [[A11, A12],
-// [A21, A22]] (A22 of h2 = nb - h) and factored in place by five
-// stream-ordered launches (DiagStep::run): K1's body on A11; the panels
-// (lu_panels_kernel); the trailing update and the inverses' first
-// products (lu_update_kernel); K1's body on A22; the inverses' second
-// products (lu_inverse_kernel).  kernels_torch.getrf_with_inverses_
-// blocked is the plain twin, step for step.  Each stage takes a batch:
-// blockIdx.y is the member, addressed as getrf_inv_kernel's blockIdx.x.
+// A tile of 128 < nb <= 256 is factored by one cluster of CL CTAs
+// (lu_cluster_kernel; the note at the top gives the design).  W, a
+// 256 x 256 working matrix padded with the identity, starts as the
+// tile; CTA c holds its rows [c RPC, (c + 1) RPC) in shared memory.  At
+// panel p (columns P = [k0, k0 + 32); D the columns before it, B those
+// after) W holds, off the finished blocks: in rows B, L^-1's columns D
+// and P (partial) and the trailing block; in columns B, U^-1's rows D
+// and P (partial).  Per panel:
+//   1. the owner of rows P, warp 0: F11, L11^-1 and U11^-1 of W[P, P]
+//      (diag_panel), which becomes L11^-1 below its diagonal and U11^-1
+//      on and above it;
+//   2. the owner copies its rows P into its R and into S, the same rows
+//      of UI in global memory (the final store overwrites them); after a
+//      cluster barrier the others load S into their R through L2 (read
+//      from the owner's shared memory they took ~14K cycles a panel in
+//      f64 on an H100, 4 CTAs reading one SM; through L2 ~2K, PERF.md).
+//      Every CTA splits U11^-1 off into U, leaves L11^-1 in R[:, P] and
+//      forms R = L11^-1·R off the panel's columns: [X_PD | L11^-1 |
+//      U12], L^-1's rows P and the factor's U12;
+//   3. the owner sets W[P, D] = X_PD and W[P, B] = 0 (U^-1's rows P
+//      start there);
+//   4. every CTA, its rows i outside P: a_i = W[i, P]·U11^-1 (rows D:
+//      U^-1's final W[D, P]; rows B: L21, to the factor, and W[i, P] =
+//      0, where L^-1's entries start); rows P: a_i = U11^-1's row;
+//   5. every CTA: W[i, j] -= a_i·R[:, j] for i in B (all j: L^-1's
+//      columns D and P, and the trailing update A22 -= L21·U12) and for
+//      i outside B, j in B (U^-1's columns B).
+// One cluster barrier a panel, and one before the final store, which
+// overwrites the rows of S that the last panel's readers load; no CTA
+// reads another's shared memory.  Panels past nb, all padding, are
+// skipped.  The plain twin is kernels_torch.getrf_with_inverses_blocked.
+// In exact arithmetic each step is that of K1's body, one panel at a
+// time.
 
-// Member blockIdx.y of a K1 batch: its tile and inverse slots.
+constexpr int kPanel = 32;
+constexpr int kClWarps = 8;
+constexpr int kClThreads = 32 * kClWarps;
+constexpr int kRowBuf = kPanel + 8;  // a row, its pivot and reciprocal
+
+// The cluster's shape and its shared memory (elements of T): W (its
+// rows, LDW apart: A fragments are free of bank conflicts at 4 mod 32
+// words), R (the panel's rows), A (each row's a_i), U (U11^-1), and two
+// broadcast rows of the diagonal warp.
 template <typename T>
-struct LuMember {
-  T *f, *linv, *uinv;
-  __device__ LuMember(T* tiles, T* linv0, T* uinv0, size_t inv_stride,
-                      const int* ids, const int* inv_ids, int nb) {
-    const int b = blockIdx.y;
-    f = tiles + (size_t)(ids ? ids[b] : b) * nb * nb;
-    const size_t slot = (size_t)(inv_ids ? inv_ids[b] : b) * inv_stride;
-    linv = linv0 + slot;
-    uinv = uinv0 + slot;
+struct LuCluster {
+  using Mt = Mma<T>;
+  static constexpr int CL = sizeof(T) == 4 ? 2 : 4;
+  static constexpr int RPC = kMaxNb / CL;
+  static constexpr int MW = RPC / kClWarps;  // rows a warp: one MMA row
+  static_assert(MW == Mt::M, "a warp's rows are one atom's");
+  static constexpr int LDW = kMaxNb + 4;
+  static constexpr int LDR = kMaxNb + Mt::PAD_B;
+  static constexpr int LDA = kPanel + Mt::PAD_A;
+  static constexpr int LDU = kPanel + Mt::PAD_B;
+  static constexpr size_t kW = (size_t)RPC * LDW, kR = kPanel * LDR,
+                          kA = (size_t)RPC * LDA, kU = kPanel * LDU;
+  static constexpr size_t kSmemBytes =
+      (kW + kR + kA + kU + 2 * kRowBuf) * sizeof(T);
+};
+
+// The split cluster barrier (.aligned: each warp reaches it converged).
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes of T: float4 or double2, taken apart and put together by
+// compile-time indices.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using V = float4;
+  static constexpr int N = 4;
+  __device__ static V make(const float* x) {
+    return make_float4(x[0], x[1], x[2], x[3]);
+  }
+  __device__ static void get(const V& v, float* x) {
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  }
+};
+template <>
+struct Vec16<double> {
+  using V = double2;
+  static constexpr int N = 2;
+  __device__ static V make(const double* x) { return make_double2(x[0], x[1]); }
+  __device__ static void get(const V& v, double* x) {
+    x[0] = v.x;
+    x[1] = v.y;
   }
 };
 
-// Block x < nbands: row band x of L21 <- A21·U11^-1; else column band
-// x - nbands of U12 <- L11^-1·A12 (both in place, as K2's panels).
-// nbands = ceil(h2 / 32).  Each block also zeroes its band of the
-// inverses' zero blocks: U^-1's lower-left, L^-1's upper-right.
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-    lu_panels_kernel(T* tiles, T* linv, T* uinv, size_t inv_stride,
-                     const int* ids, const int* inv_ids, int nb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const LuMember<T> m(tiles, linv, uinv, inv_stride, ids, inv_ids, nb);
-  constexpr int h = kSplit;
-  const int h2 = nb - h, nbands = (h2 + kBand - 1) / kBand;
-  const bool is_l = blockIdx.x < nbands;
-  const int b0 = (is_l ? blockIdx.x : blockIdx.x - nbands) * kBand;
-  const int bw = min(kBand, h2 - b0);
-  if (is_l) {
-    const Mat<T> a21 = block_of(m.f, nb, h, 0, h2, h);
-    tile_gemm<LBand<T, kSplit>, kStore>(a21, block_of(m.uinv, nb, 0, 0, h, h),
-                                        a21, b0, 0, smem);
-    for (int e = threadIdx.x; e < bw * h; e += kGemmThreads)
-      m.uinv[(size_t)(h + b0 + e / h) * nb + e % h] = T(0);
-  } else {
-    const Mat<T> a12 = block_of(m.f, nb, 0, h, h, h2);
-    tile_gemm<UBand<T, kSplit>, kStore>(block_of(m.linv, nb, 0, 0, h, h), a12,
-                                        a12, 0, b0, smem);
-    for (int e = threadIdx.x; e < h * bw; e += kGemmThreads)
-      m.linv[(size_t)(e / bw) * nb + h + b0 + e % bw] = T(0);
+template <typename T, int MF, int NF>
+__device__ __forceinline__ void zero_acc(T (&acc)[MF][NF][Mma<T>::NC]) {
+#pragma unroll
+  for (int m = 0; m < MF; ++m)
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int i = 0; i < Mma<T>::NC; ++i) acc[m][n][i] = T(0);
+}
+
+// acc += A·B for one warp: A rows [m0, m0 + MF M), k in [0, 32); B
+// columns [n0, n0 + NF N); row-major, in shared memory.
+template <typename T, int MF, int NF>
+__device__ __forceinline__ void warp_mma_k32(T (&acc)[MF][NF][Mma<T>::NC],
+                                             const T* A, int lda, int m0,
+                                             const T* B, int ldb, int n0) {
+  using Mt = Mma<T>;
+#pragma unroll
+  for (int kk = 0; kk < kPanel; kk += Mt::K) {
+    typename Mt::AFrag fa[MF];
+    typename Mt::BFrag fb[NF];
+#pragma unroll
+    for (int m = 0; m < MF; ++m) Mt::load_a(fa[m], A, lda, m0 + m * Mt::M, kk);
+#pragma unroll
+    for (int n = 0; n < NF; ++n) Mt::load_b(fb[n], B, ldb, kk, n0 + n * Mt::N);
+#pragma unroll
+    for (int m = 0; m < MF; ++m)
+#pragma unroll
+      for (int n = 0; n < NF; ++n) Mt::step(acc[m][n], fa[m], fb[n]);
   }
 }
 
-// 64 x 64 quadrant jobs, qd = ceil(h2 / 64): x < qd^2: A22 -= L21·U12;
-// then 2 qd of L^-1's lower-left block <- -L21·L11^-1 (W); then 2 qd of
-// U^-1's upper-right block <- -U11^-1·U12 (V).
+// x <- x rotated left by one place: x[i] = x[i + 1].
 template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-    lu_update_kernel(T* tiles, T* linv, T* uinv, size_t inv_stride,
-                     const int* ids, const int* inv_ids, int nb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const LuMember<T> m(tiles, linv, uinv, inv_stride, ids, inv_ids, nb);
-  constexpr int h = kSplit, hq = kSplit / kQuad;
-  const int h2 = nb - h, qd = (h2 + kQuad - 1) / kQuad;
-  const Mat<T> l21 = block_of(m.f, nb, h, 0, h2, h);
-  const Mat<T> u12 = block_of(m.f, nb, 0, h, h, h2);
-  int j = blockIdx.x;
-  if (j < qd * qd) {
-    tile_gemm<Quad<T>, kSubtract>(l21, u12, block_of(m.f, nb, h, h, h2, h2),
-                                  j / qd * kQuad, j % qd * kQuad, smem);
-  } else if ((j -= qd * qd) < qd * hq) {
-    tile_gemm<Quad<T>, kNegate>(l21, block_of(m.linv, nb, 0, 0, h, h),
-                                block_of(m.linv, nb, h, 0, h2, h),
-                                j / hq * kQuad, j % hq * kQuad, smem);
-  } else {
-    j -= qd * hq;
-    tile_gemm<Quad<T>, kNegate>(block_of(m.uinv, nb, 0, 0, h, h), u12,
-                                block_of(m.uinv, nb, 0, h, h, h2),
-                                j / qd * kQuad, j % qd * kQuad, smem);
-  }
+__device__ __forceinline__ void rotate_left(T (&x)[kPanel]) {
+  const T t = x[0];
+#pragma unroll
+  for (int i = 0; i + 1 < kPanel; ++i) x[i] = x[i + 1];
+  x[kPanel - 1] = t;
 }
 
-// Block x < h / 32: column band x of L^-1's lower-left block <-
-// L22^-1·W; else row band x - h / 32 of U^-1's upper-right block <-
-// V·U22^-1 (both in place: a band reads only itself).
+// Step 1, by one warp, in place on the 32 x 32 block at w (row stride
+// ldw, 16-byte aligned rows): F11, then L11^-1 below the diagonal and
+// U11^-1 on and above it.  L and U also go to the factor F (global,
+// row stride nb; rows and columns of the tile from k0, those < nb).
+//  - LU with L^-1 by forward Gauss–Jordan, K1's body on 32 columns:
+//    lane i holds row i.  Row k goes through shared memory (rowbuf: 2 x
+//    40 values, double-buffered so that one __syncwarp a step
+//    suffices), 16 bytes at a time, with its pivot and the pivot's
+//    reciprocal, which lane k formed during step k - 1 right after
+//    updating that entry first.  Every lane runs the same instructions,
+//    a row above k with a zero multiplier.  The steps are a loop: so
+//    that every index stays a compile-time one, lane i holds its row
+//    rotated, x[j] = column (k + j) mod 32 at step k, and lane k writes
+//    it in that order: column k is always x[0], the next pivot's x[1].
+//  - U^-1 by columns, once U is in w: lane j solves U y = e_j from the
+//    bottom up, y_i = (e_j[i] - sum_{m > i} U[i, m] y_m) / d_i, reading
+//    U as broadcasts and the 1 / d_i that lane i published.  No lane
+//    waits for another, so the 32 dependent steps of a backward
+//    Gauss–Jordan sweep (each a row through shared memory and a
+//    __syncwarp) become one lane's chain of 32 FMAs and quotients.
+// Measured on an H100 (clock64, PERF.md): ~10K cycles a panel in f32,
+// ~18K in f64.  Two sweeps of Gauss–Jordan steps took ~25K as loops
+// (11.6K the backward one) and 15K-23K unrolled, bound by the fetch of
+// their ~10^4 instructions, which run once a panel.
 template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-    lu_inverse_kernel(T* tiles, T* linv, T* uinv, size_t inv_stride,
-                      const int* ids, const int* inv_ids, int nb) {
+__device__ __forceinline__ void diag_panel(T* w, int ldw, T* rowbuf, T* F,
+                                           int k0, int nb, T tol) {
+  using Q = Vec16<T>;
+  constexpr int QP = kPanel / Q::N;  // 16-byte pieces of a row
+  const int lane = threadIdx.x & 31;
+  const bool in = k0 + lane < nb;
+  T* frow = F + (size_t)(k0 + lane) * nb + k0;
+  T x[kPanel];
+#pragma unroll
+  for (int q = 0; q < QP; ++q)
+    Q::get(reinterpret_cast<const typename Q::V*>(w + lane * ldw)[q],
+           x + q * Q::N);
+  T piv = safe_pivot(x[0], tol), rp = recip(piv);  // lane 0's
+  T dv = T(1);                                     // the lane's pivot
+#pragma unroll 1
+  for (int k = 0; k < kPanel; ++k) {
+    T* rb = rowbuf + (k & 1) * kRowBuf;
+    if (lane == k) {
+#pragma unroll
+      for (int q = 0; q < QP; ++q)
+        reinterpret_cast<typename Q::V*>(rb)[q] = Q::make(x + q * Q::N);
+      rb[kPanel] = piv;
+      rb[kPanel + 1] = rp;
+    }
+    __syncwarp();
+    T rv[kPanel];
+#pragma unroll
+    for (int q = 0; q < QP; ++q)
+      Q::get(reinterpret_cast<const typename Q::V*>(rb)[q], rv + q * Q::N);
+    const T pk = rb[kPanel];
+    const T l = quot(x[0], pk, rb[kPanel + 1]);
+    const T lm = lane > k ? l : T(0);
+    if (lane > k && in && k0 + k < nb) frow[k] = l;
+    x[1] -= lm * rv[1];  // the next pivot first (at k = 31, lm = 0)
+    piv = safe_pivot(x[1], tol);
+    rp = recip(piv);
+#pragma unroll
+    for (int j = 2; j < kPanel; ++j) x[j] -= lm * rv[j];
+    x[0] = lane > k ? -l : lane == k ? pk : x[0];
+    dv = lane == k ? pk : dv;
+    rotate_left(x);
+  }
+  // 32 rotations: x[j] is column j again; U's row to F, the row to w,
+  // 1 / d to rowbuf (its last reads were before step 31's __syncwarp)
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j)
+    if (j >= lane && in && k0 + j < nb) frow[j] = x[j];
+#pragma unroll
+  for (int q = 0; q < QP; ++q)
+    reinterpret_cast<typename Q::V*>(w + lane * ldw)[q] =
+        Q::make(x + q * Q::N);
+  rowbuf[lane] = recip(dv);
+  __syncwarp();
+  // y: e_j less the sums so far; y_m once row m is done, which then
+  // leaves the rows above (y_{m-1} first: the chain is one FMA and one
+  // quotient a row)
+  T y[kPanel];
+#pragma unroll
+  for (int i = 0; i < kPanel; ++i) y[i] = lane == i ? T(1) : T(0);
+#pragma unroll
+  for (int m = kPanel - 1; m >= 0; --m) {
+    y[m] = quot(y[m], w[m * ldw + m], rowbuf[m]);
+#pragma unroll
+    for (int i = m - 1; i >= 0; --i) y[i] -= w[i * ldw + m] * y[m];
+  }
+  __syncwarp();  // every read of U is done
+#pragma unroll
+  for (int i = 0; i < kPanel; ++i)
+    if (i <= lane) w[i * ldw + lane] = y[i];
+  __syncwarp();
+}
+
+// Cluster (CL CTAs along x) y: member y of the batch, its tile and
+// inverse slots addressed as getrf_inv_kernel's block.  Warp w takes
+// rows [w MW, (w + 1) MW) of the CTA's in the products; warp 0 of the
+// panel's owner factors its diagonal block.
+template <typename T>
+__global__ void __launch_bounds__(kClThreads, 1)
+    lu_cluster_kernel(const T* a, T* f, T* linv, T* uinv, size_t inv_stride,
+                      const int* ids, const int* inv_ids, int nb, T tol) {
+  using C = LuCluster<T>;
+  using Mt = Mma<T>;
+  using Q = Vec16<T>;
+  constexpr int QR = kMaxNb / Q::N;  // 16-byte pieces of a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const LuMember<T> m(tiles, linv, uinv, inv_stride, ids, inv_ids, nb);
-  constexpr int h = kSplit, nbands = kSplit / kBand;
-  const int h2 = nb - h;
-  if (blockIdx.x < nbands) {
-    const Mat<T> w = block_of(m.linv, nb, h, 0, h2, h);
-    tile_gemm<UBand<T, kSplit>, kStore>(block_of(m.linv, nb, h, h, h2, h2), w,
-                                        w, 0, blockIdx.x * kBand, smem);
+  T* W = reinterpret_cast<T*>(smem_raw);
+  T* R = W + C::kW;
+  T* Ab = R + C::kR;
+  T* Ui = Ab + C::kA;
+  T* rowbuf = Ui + C::kU;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int r0 = rank * C::RPC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const size_t nn = (size_t)nb * nb;
+  const size_t t = (size_t)(ids ? ids[b] : b) * nn;
+  const size_t slot = (size_t)(inv_ids ? inv_ids[b] : b) * inv_stride;
+  const T* A = a + t;
+  T* F = f + t;
+  T* LI = linv + slot;
+  T* UI = uinv + slot;
+  // W: this CTA's rows of the tile, zero outside it, all copies in
+  // flight at once; then the identity on the padding's diagonal
+  const bool vec = nb % Q::N == 0 && (size_t)A % 16 == 0;
+  const bool fvec = nb % Q::N == 0 && (size_t)F % 16 == 0;
+  if (vec) {
+    for (int e = threadIdx.x; e < C::RPC * QR; e += kClThreads) {
+      const int i = e / QR, j = e % QR * Q::N, gi = r0 + i;
+      const bool in = gi < nb && j < nb;
+      cp_async<16>(W + i * C::LDW + j, in ? A + (size_t)gi * nb + j : A, in);
+    }
   } else {
-    const Mat<T> v = block_of(m.uinv, nb, 0, h, h, h2);
-    tile_gemm<LBand<T, kSplit>, kStore>(v, block_of(m.uinv, nb, h, h, h2, h2),
-                                        v, (blockIdx.x - nbands) * kBand, 0,
-                                        smem);
+    for (int e = threadIdx.x; e < C::RPC * kMaxNb; e += kClThreads) {
+      const int i = e / kMaxNb, j = e % kMaxNb, gi = r0 + i;
+      const bool in = gi < nb && j < nb;
+      cp_async<sizeof(T)>(W + i * C::LDW + j,
+                          in ? A + (size_t)gi * nb + j : A, in);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  for (int i = threadIdx.x; i < C::RPC; i += kClThreads)
+    if (r0 + i >= nb) W[i * C::LDW + r0 + i] = T(1);
+  __syncthreads();
+  const int lw = warp * C::MW, gw = r0 + lw;  // the warp's first row
+  // S: the staging rows of the panel's rows P, UI's rows P (the final
+  // store below overwrites them); 16-byte pieces when rows allow
+  const bool svec = nb % Q::N == 0 && (size_t)UI % 16 == 0;
+  // panels that hold only padding change no row of the tile
+#pragma unroll 1
+  for (int k0 = 0; k0 < nb; k0 += kPanel) {
+    const int owner = k0 / C::RPC, lr = k0 - r0, kb = k0 + kPanel;
+    const bool mine = owner == rank;
+    T* S = UI + (size_t)k0 * nb;
+    if (mine) {
+      if (warp == 0)  // 1. the diagonal block
+        diag_panel(W + (size_t)lr * C::LDW + k0, C::LDW, rowbuf, F, k0, nb,
+                   tol);
+      __syncthreads();
+      // 2. the owner's rows P into its R and, their part inside the
+      // tile, into S
+      for (int e = threadIdx.x; e < kPanel * QR; e += kClThreads) {
+        const int i = e / QR, j = e % QR * Q::N;
+        const typename Q::V v = *reinterpret_cast<const typename Q::V*>(
+            W + (size_t)(lr + i) * C::LDW + j);
+        *reinterpret_cast<typename Q::V*>(R + i * C::LDR + j) = v;
+        if (k0 + i >= nb || j >= nb) continue;
+        if (svec) {
+          *reinterpret_cast<typename Q::V*>(S + (size_t)i * nb + j) = v;
+        } else {
+          T x[Q::N];
+          Q::get(v, x);
+#pragma unroll
+          for (int q = 0; q < Q::N; ++q)
+            if (j + q < nb) S[(size_t)i * nb + j + q] = x[q];
+        }
+      }
+    }
+    cluster_arrive();
+    cluster_wait();  // S holds the owner's rows P
+    if (!mine) {  // 2. the others load them from S (through L2 only);
+      // outside the tile they are the padding's identity
+      for (int e = threadIdx.x; e < kPanel * QR; e += kClThreads) {
+        const int i = e / QR, j = e % QR * Q::N;
+        T* d = R + i * C::LDR + j;
+        const T* s = S + (size_t)i * nb + j;
+        if (svec && k0 + i < nb && j < nb) {
+          cp_async<16>(d, s, true);
+        } else {
+#pragma unroll
+          for (int q = 0; q < Q::N; ++q)
+            d[q] = k0 + i < nb && j + q < nb ? __ldcg(s + q)
+                                             : T(k0 + i == j + q ? 1 : 0);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    // R: U11^-1 split off, L11^-1 left
+    for (int e = threadIdx.x; e < kPanel * kPanel; e += kClThreads) {
+      const int i = e / kPanel, j = e % kPanel;
+      T* p = R + i * C::LDR + k0 + j;
+      Ui[i * C::LDU + j] = j >= i ? *p : T(0);
+      if (j >= i) *p = T(j == i ? 1 : 0);
+    }
+    __syncthreads();
+    {  // R = L11^-1·R off the panel; warp w takes columns [32 w, 32 w + 32)
+      constexpr int MF = kPanel / Mt::M;
+      const int n0 = warp * kPanel;
+      if (n0 != k0) {
+        T acc[MF][4][Mt::NC];
+        zero_acc(acc);
+        warp_mma_k32<T, MF, 4>(acc, R + k0, C::LDR, 0, R, C::LDR, n0);
+        __syncwarp();  // the warp's reads of its columns are done
+#pragma unroll
+        for (int m = 0; m < MF; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int i = 0; i < Mt::NC; ++i) {
+              const int r = m * Mt::M + Mt::row(i);
+              const int j = n0 + n * Mt::N + Mt::col(i);
+              R[r * C::LDR + j] = acc[m][n][i];
+            }
+      }
+    }
+    __syncthreads();
+    if (mine) {  // 3. the owner's rows P: X_PD, then U^-1's zeros; U12
+      for (int e = threadIdx.x; e < kPanel * QR; e += kClThreads) {
+        const int i = e / QR, j = e % QR * Q::N;
+        if (j >= k0 && j < kb) continue;
+        T v[Q::N], z[Q::N];
+        Q::get(*reinterpret_cast<const typename Q::V*>(R + i * C::LDR + j),
+               v);
+#pragma unroll
+        for (int q = 0; q < Q::N; ++q) z[q] = T(0);
+        *reinterpret_cast<typename Q::V*>(W + (size_t)(lr + i) * C::LDW +
+                                          j) = Q::make(j < k0 ? v : z);
+        if (j >= kb && k0 + i < nb) {
+          T* fp = F + (size_t)(k0 + i) * nb + j;
+          if (fvec && j < nb) {
+            *reinterpret_cast<typename Q::V*>(fp) = Q::make(v);
+          } else {
+#pragma unroll
+            for (int q = 0; q < Q::N; ++q)
+              if (j + q < nb) fp[q] = v[q];
+          }
+        }
+      }
+    }
+    // 4. a_i for the warp's rows
+    if (gw >= k0 && gw < kb) {
+      for (int e = lane; e < C::MW * kPanel; e += 32) {
+        const int i = e / kPanel, j = e % kPanel;
+        Ab[(lw + i) * C::LDA + j] = Ui[(gw - k0 + i) * C::LDU + j];
+      }
+    } else {
+      T acc[1][4][Mt::NC];
+      zero_acc(acc);
+      warp_mma_k32<T, 1, 4>(acc, W + k0, C::LDW, lw, Ui, C::LDU, 0);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < Mt::NC; ++i) {
+          const int r = lw + Mt::row(i), j = n * Mt::N + Mt::col(i);
+          const T v = acc[0][n][i];
+          Ab[r * C::LDA + j] = v;
+          const int gi = r0 + r;
+          if (gi >= kb) {
+            W[(size_t)r * C::LDW + k0 + j] = T(0);
+            if (gi < nb && k0 + j < nb) F[(size_t)gi * nb + k0 + j] = v;
+          } else {
+            W[(size_t)r * C::LDW + k0 + j] = v;
+          }
+        }
+    }
+    __syncthreads();
+    // 5. W[i, j] -= a_i·R[:, j], 64 columns at a time; the warp's A
+    // fragments are loaded once
+    {
+      const bool below = gw >= kb;
+      typename Mt::AFrag fa[kPanel / Mt::K];
+#pragma unroll
+      for (int s = 0; s < kPanel / Mt::K; ++s)
+        Mt::load_a(fa[s], Ab, C::LDA, lw, s * Mt::K);
+#pragma unroll 1
+      for (int c0 = below ? 0 : kb / 64 * 64; c0 < kMaxNb; c0 += 64) {
+        T acc[8][Mt::NC];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int i = 0; i < Mt::NC; ++i) acc[n][i] = T(0);
+#pragma unroll
+        for (int s = 0; s < kPanel / Mt::K; ++s) {
+          typename Mt::BFrag fb[8];
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            Mt::load_b(fb[n], R, C::LDR, s * Mt::K, c0 + n * Mt::N);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) Mt::step(acc[n], fa[s], fb[n]);
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int i = 0; i < Mt::NC; ++i) {
+            const int r = lw + Mt::row(i), j = c0 + n * Mt::N + Mt::col(i);
+            if (below || j >= kb) W[(size_t)r * C::LDW + j] -= acc[n][i];
+          }
+      }
+    }
+    __syncthreads();
+  }
+  // L^-1 below W's diagonal (1 on it), U^-1 on and above it, once
+  // every CTA has loaded the last panel's S
+  cluster_arrive();
+  cluster_wait();
+  if (vec && ((size_t)LI | (size_t)UI) % 16 == 0) {
+    for (int e = threadIdx.x; e < C::RPC * QR; e += kClThreads) {
+      const int i = e / QR, j = e % QR * Q::N, gi = r0 + i;
+      if (gi >= nb || j >= nb) continue;
+      T w[Q::N], l[Q::N], u[Q::N];
+      Q::get(*reinterpret_cast<const typename Q::V*>(W + i * C::LDW + j), w);
+#pragma unroll
+      for (int q = 0; q < Q::N; ++q) {
+        l[q] = j + q < gi ? w[q] : T(j + q == gi ? 1 : 0);
+        u[q] = j + q >= gi ? w[q] : T(0);
+      }
+      *reinterpret_cast<typename Q::V*>(LI + (size_t)gi * nb + j) = Q::make(l);
+      *reinterpret_cast<typename Q::V*>(UI + (size_t)gi * nb + j) = Q::make(u);
+    }
+  } else {
+    for (int e = threadIdx.x; e < C::RPC * kMaxNb; e += kClThreads) {
+      const int i = e / kMaxNb, j = e % kMaxNb, gi = r0 + i;
+      if (gi < nb && j < nb) {
+        const T v = W[(size_t)i * C::LDW + j];
+        LI[(size_t)gi * nb + j] = j < gi ? v : T(j == gi ? 1 : 0);
+        UI[(size_t)gi * nb + j] = j >= gi ? v : T(0);
+      }
+    }
   }
 }
 
@@ -750,79 +1154,75 @@ cudaError_t products_for(P panel, S schur, size_t panel_smem,
       schur, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)schur_smem);
 }
 
-// K1 for tiles of one nb: its instances picked and opted in once
-// (init), then launched per batch (run), in one launch for nb <= 128,
-// in the five of the blocked step above it.
+// The cluster launch of lu_cluster_kernel for ``batch`` tiles.
+template <typename T>
+cudaLaunchConfig_t cluster_config(int batch, cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  using C = LuCluster<T>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C::CL, batch);
+  cfg.blockDim = dim3(kClThreads);
+  cfg.dynamicSmemBytes = C::kSmemBytes;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C::CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// K1 for tiles of one nb: its instance picked and opted in once (init),
+// then launched per batch (run): one device launch, K1's body up to nb
+// = 128, the cluster kernel above it.
 template <typename T>
 struct DiagStep {
-  int nb, h2;
-  LuKernel<T> lu, lu2;  // K1's body on the tile (or A11), and on A22
-  size_t smem, smem2;
+  int nb;
+  LuKernel<T> lu;  // K1's body, nb <= 128
+  size_t smem;
 
   cudaError_t init(int nb_) {
     nb = nb_;
-    h2 = nb - kSplit;
-    cudaError_t e = lu_kernel_for<T>(nb <= kSplit ? nb : kSplit, &lu);
-    smem = lu_smem_bytes<T>(nb <= kSplit ? nb : kSplit);
-    if (e != cudaSuccess || nb <= kSplit) return e;
-    if ((e = lu_kernel_for<T>(h2, &lu2)) != cudaSuccess) return e;
-    smem2 = lu_smem_bytes<T>(h2);
-    const size_t psm = panel_smem_bytes<T, kSplit>();
-    if ((e = products_for(lu_panels_kernel<T>, lu_update_kernel<T>, psm,
-                          schur_smem_bytes<T>())) != cudaSuccess)
+    if (nb <= kSplit) {
+      smem = lu_smem_bytes<T>(nb);
+      return lu_kernel_for<T>(nb, &lu);
+    }
+    cudaError_t e = cudaFuncSetAttribute(
+        lu_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)LuCluster<T>::kSmemBytes);
+    if (e != cudaSuccess) return e;
+    // a cluster of this shape must fit on the card at all
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config<T>(1, 0, &attr);
+    int clusters = 0;
+    if ((e = cudaOccupancyMaxActiveClusters(&clusters, lu_cluster_kernel<T>,
+                                            &cfg)) != cudaSuccess)
       return e;
-    return cudaFuncSetAttribute(lu_inverse_kernel<T>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)psm);
+    return clusters > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
   }
 
   // ``batch`` tiles (ids, inv_ids and inv_stride as getrf_inv_kernel)
-  // from a into f.  Above 128, a != f only from the batched entry
-  // (ids == nullptr: the batch is contiguous), which copies a to f
-  // first; every stage then runs in place.  counts[0] += 1 when the
-  // whole step was launched (one K1 launch), counts[1] += each device
-  // launch it made (1 up to nb = 128, 5 above).
+  // from a into f (in place when a == f).  counts[0] += 1 for the K1
+  // launch, counts[1] += its device launches (1).
   cudaError_t run(const T* a, T* f, T* linv, T* uinv, size_t inv_stride,
                   const int* ids, const int* inv_ids, int batch, T tol,
                   int* counts, cudaStream_t st) const {
     cudaError_t e;
-    auto launched = [counts]() {
-      const cudaError_t le = cudaGetLastError();
-      counts[1] += le == cudaSuccess;
-      return le;
-    };
     if (nb <= kSplit) {
       lu<<<batch, kLuThreads, smem, st>>>(a, f, linv, uinv, inv_stride, ids,
                                           inv_ids, nb, 0, nb, tol);
-      if ((e = launched()) != cudaSuccess) return e;
-      ++counts[0];
-      return cudaSuccess;
+      e = cudaGetLastError();
+    } else {
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg = cluster_config<T>(batch, st, &attr);
+      e = cudaLaunchKernelEx(&cfg, lu_cluster_kernel<T>, a, f, linv, uinv,
+                             inv_stride, ids, inv_ids, nb, tol);
+      if (e == cudaSuccess) e = cudaGetLastError();
     }
-    if (a != f &&
-        (e = cudaMemcpyAsync(f, a, sizeof(T) * batch * nb * nb,
-                             cudaMemcpyDeviceToDevice, st)) != cudaSuccess)
-      return e;
-    const int nbands = (h2 + kBand - 1) / kBand, qd = (h2 + kQuad - 1) / kQuad;
-    const size_t psm = panel_smem_bytes<T, kSplit>();
-    lu<<<batch, kLuThreads, smem, st>>>(f, f, linv, uinv, inv_stride, ids,
-                                        inv_ids, nb, 0, kSplit, tol);
-    if ((e = launched()) != cudaSuccess) return e;
-    lu_panels_kernel<T><<<dim3(2 * nbands, batch), kGemmThreads, psm, st>>>(
-        f, linv, uinv, inv_stride, ids, inv_ids, nb);
-    if ((e = launched()) != cudaSuccess) return e;
-    lu_update_kernel<T>
-        <<<dim3(qd * qd + 2 * qd * (kSplit / kQuad), batch), kGemmThreads,
-           schur_smem_bytes<T>(), st>>>(f, linv, uinv, inv_stride, ids,
-                                        inv_ids, nb);
-    if ((e = launched()) != cudaSuccess) return e;
-    lu2<<<batch, kLuThreads, smem2, st>>>(f, f, linv, uinv, inv_stride, ids,
-                                          inv_ids, nb, kSplit, h2, tol);
-    if ((e = launched()) != cudaSuccess) return e;
-    lu_inverse_kernel<T>
-        <<<dim3(2 * (kSplit / kBand), batch), kGemmThreads, psm, st>>>(
-            f, linv, uinv, inv_stride, ids, inv_ids, nb);
-    if ((e = launched()) != cudaSuccess) return e;
+    if (e != cudaSuccess) return e;
     ++counts[0];
+    ++counts[1];
     return cudaSuccess;
   }
 };
@@ -835,6 +1235,21 @@ int getrf_inv(const T* a, T* f, T* linv, T* uinv, int batch, int nb,
   if (e != cudaSuccess) return e;
   return diag.run(a, f, linv, uinv, (size_t)nb * nb, nullptr, nullptr, batch,
                   (T)tol, k1_launches, st);
+}
+
+// K1 in place on ``batch`` tiles ids of a tile store, their inverses
+// into invs ([levels, 2, nb, nb]) at slots inv_ids: K4's diagonal step
+// alone.
+template <typename T>
+int diag_step(T* tiles, T* invs, const int* ids, const int* inv_ids,
+              int batch, int nb, double tol, int* k1_launches,
+              cudaStream_t st) {
+  DiagStep<T> diag;
+  cudaError_t e = diag.init(nb);
+  if (e != cudaSuccess) return e;
+  const size_t nn = (size_t)nb * nb;
+  return diag.run(tiles, tiles, invs, invs + nn, 2 * nn, ids, inv_ids,
+                  batch, (T)tol, k1_launches, st);
 }
 
 // K2's and K4's panel kernels and their shared memory for tiles of nb:
@@ -1014,7 +1429,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 9; }
+int plu_kernels_abi() { return 10; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1049,6 +1464,19 @@ int plu_getrf_inv_f64(int dev, const double* a, double* f, double* linv,
   return plu::getrf_inv(a, f, linv, uinv, batch, nb, tol, k1_launches,
                         PLU_STREAM(st));
 }
+
+// K1 in place on the tiles ids of a store, inverses to invs slots
+// inv_ids (K4's diagonal step alone).
+#define PLU_DIAG_STEP(NAME, T)                                                \
+  int NAME(int dev, T* tiles, T* invs, const int* ids, const int* inv_ids,  \
+           int batch, int nb, double tol, int* k1_launches, void* st) {     \
+    cudaError_t e = cudaSetDevice(dev);                                      \
+    if (e != cudaSuccess) return e;                                          \
+    return plu::diag_step(tiles, invs, ids, inv_ids, batch, nb, tol,         \
+                          k1_launches, PLU_STREAM(st));                      \
+  }
+PLU_DIAG_STEP(plu_diag_step_f32, float)
+PLU_DIAG_STEP(plu_diag_step_f64, double)
 
 #define PLU_MEGA_FACTORIZE(NAME, T)                                           \
   int NAME(int dev, T* tiles, T* invs, const int* diag_tab, const int* lid,  \
@@ -1129,18 +1557,17 @@ PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f64, double)
 PLU_STAGE_SLOTS(plu_stage_slots_f32, float)
 PLU_STAGE_SLOTS(plu_stage_slots_f64, double)
 
-// P2: L^-1 and U^-1 of a batch of factored tiles; work holds 6 tiles a
-// member.
-#define PLU_NEWTON_INVERSES(NAME, T)                                          \
-  int NAME(int dev, const T* f, T* linv, T* uinv, T* work, int batch, int nb, \
-           int steps, double tol, void* st) {                                 \
-    cudaError_t e = cudaSetDevice(dev);                                       \
-    if (e != cudaSuccess) return e;                                           \
-    return plu::newton_inverses(f, linv, uinv, work, batch, nb, steps, tol,   \
-                                PLU_STREAM(st));                              \
+// P2: L^-1 and U^-1 of a batch of factored tiles.
+#define PLU_TRIANGLE_INVERSES(NAME, T)                                        \
+  int NAME(int dev, const T* f, T* linv, T* uinv, int batch, int nb,         \
+           double tol, void* st) {                                           \
+    cudaError_t e = cudaSetDevice(dev);                                      \
+    if (e != cudaSuccess) return e;                                          \
+    return plu::triangle_inverses(f, linv, uinv, batch, nb, tol,             \
+                                  PLU_STREAM(st));                           \
   }
-PLU_NEWTON_INVERSES(plu_newton_inverses_f32, float)
-PLU_NEWTON_INVERSES(plu_newton_inverses_f64, double)
+PLU_TRIANGLE_INVERSES(plu_triangle_inverses_f32, float)
+PLU_TRIANGLE_INVERSES(plu_triangle_inverses_f64, double)
 
 // P5: mode 0 scan, 1 dots, 2 both, 3 split (plu::ProbeMode); products
 // 0 float64 (DMMA), 1 3xTF32 (plu::ProbeProducts; scan takes 0); work

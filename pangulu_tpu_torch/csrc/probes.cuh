@@ -81,14 +81,15 @@
 // P3 newton_loop_kernel<S> (replaces tools/exp_batched_scan.py
 //   newton_loop): X = 2I - L, then `steps` times X <- X (2I - L X), for
 //   each of G matrices L as given, one CTA walking its members in turn
-//   (a grid of B CTAs, member m on CTA m mod B).  The products are P2's
-//   (compressed.cuh newton_product, 64 x 64 windows staged from L2), in
-//   float64 (DMMA) for float members too: with 3xTF32, P2's float
-//   products, the probe's unit triangles (inverse entries up to ~1e17)
-//   came to 2.7x the plain float32 version's error against float64 on
-//   the H100 (PERF.md), against true f32's 2x.  A CTA's workspace
-//   holds L, X, the next X and L X in float64.  The question: is one
-//   CTA walking several members cheaper than P2's CTA a member?
+//   (a grid of B CTAs, member m on CTA m mod B).  The products are
+//   those of P2's first design, a doubling (compressed.cuh
+//   newton_product, 64 x 64 windows staged from L2), in float64 (DMMA)
+//   for float members too: with 3xTF32 the probe's unit triangles
+//   (inverse entries up to ~1e17) came to 2.7x the plain float32
+//   version's error against float64 on the H100 (PERF.md), against
+//   true f32's 2x.  A CTA's workspace holds L, X, the next X and L X in
+//   float64.  The question: is one CTA walking several members cheaper
+//   than a CTA a member?  (Neither: P2 now runs a sweep instead.)
 //   Bound: bytes.  The function is the inverse of G unit lower
 //   triangles: G nb^2 values in and out (2.1 MB at G = 16, nb = 128,
 //   0.63 us at 3.35 TB/s), and G (nb^3 / 3) flop whatever the

@@ -29,7 +29,7 @@ from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
                                                  check_nb)
 from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 9
+_ABI = 10
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -37,18 +37,19 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # compress_tiles), P2 (newton_inverses) or the probes P5 (scan_overlap),
 # P4 (scan_multi) and P3 (newton_loop) that launched, plus, for K1,
 # every diagonal step that K2's level loop or K4's group loop launches
-# (K1's kernel; the C entries count them).  A K1 launch at 128 < nb <=
-# 256 is the blocked step's five device launches, counted as one.  An
-# empty batch launches nothing and counts nothing.  chip_smoke.py zeroes
-# the counts before it drives a path and reads them after.
+# (K1's kernel; the C entries count them), and each call of
+# testing.diag_step.  An empty batch launches nothing and counts
+# nothing.  chip_smoke.py zeroes the counts before it drives a path and
+# reads them after.
 LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0,
             "mega_factorize_groups": 0, "mega_solve_groups": 0,
             "decompress_tiles": 0, "compress_tiles": 0,
             "newton_inverses": 0, "scan_overlap": 0, "scan_multi": 0,
             "newton_loop": 0}
 
-# K1's device launches, as the C entries report them: one a K1 launch up
-# to nb = 128, five above (the blocked step).  Zeroed with LAUNCHES.
+# K1's device launches, as the C entries report them: one a K1 launch,
+# the register-tile kernel up to nb = 128 and the cluster kernel above.
+# Zeroed with LAUNCHES.
 DEVICE_LAUNCHES = {"getrf_with_inverses": 0}
 
 # The cooperative grid of the last K5 call: blocks of its forward and
@@ -107,9 +108,12 @@ def library() -> build.KernelLibrary:
         fn = getattr(lib, f"plu_stage_slots_{s}")
         fn.restype = i
         fn.argtypes = [i, i, p, p, i, p, p, p, i, i, p, p]
-        fn = getattr(lib, f"plu_newton_inverses_{s}")
+        fn = getattr(lib, f"plu_triangle_inverses_{s}")
         fn.restype = i
-        fn.argtypes = [i, p, p, p, p, i, i, i, d, p]
+        fn.argtypes = [i, p, p, p, i, i, d, p]
+        fn = getattr(lib, f"plu_diag_step_{s}")
+        fn.restype = i
+        fn.argtypes = [i, p, p, p, p, i, i, d, p, p]
         fn = getattr(lib, f"plu_newton_loop_{s}")
         fn.restype = i
         fn.argtypes = [i, p, p, p, i, i, i, i, p]
@@ -192,7 +196,8 @@ def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
     """K1: (f, L^-1, U^-1) of ``a`` ([nb, nb] or [B, nb, nb]); see
     :func:`kernels_torch.getrf_with_inverses`.  Above nb = 128 the card
     runs the blocked step of
-    :func:`kernels_torch.getrf_with_inverses_blocked`."""
+    :func:`kernels_torch.getrf_with_inverses_blocked` on a thread block
+    cluster, one launch for the batch."""
     if not _on_cuda(a):
         return kt.getrf_with_inverses(a, tol)
     s = _dtype_of(a)
@@ -581,11 +586,15 @@ def compress_tiles(values: torch.Tensor, idx: torch.Tensor, off: Indices,
 
 
 def newton_inverses(f: torch.Tensor, tol: float | None = None):
-    """P2: (L^-1, U^-1) of a batch [B, nb, nb] of factored diagonal tiles
-    by Newton–Schulz doubling, one launch for both; see
-    :func:`kernels_torch.newton_inverses`."""
+    """P2: (L^-1, U^-1) of a batch [B, nb, nb] of factored diagonal tiles,
+    the counterpart of the JAX package's batched Newton–Schulz inverses
+    (``tools/exp_batched_scan.py`` batched_newton, the reload path of
+    ``pangulu_tpu/compressed.py``).  It computes the same function by
+    Gauss–Jordan sweeps, as :func:`kernels_torch.triangle_inverses`
+    does (the plain version a CPU tensor goes to): one launch, a block
+    per tile and triangle, no workspace."""
     if not _on_cuda(f):
-        return kt.newton_inverses(f, tol)
+        return kt.triangle_inverses(f, tol)
     s = _dtype_of(f)
     if tol is None:
         tol = kt.DEFAULT_TOL[f.dtype]
@@ -596,12 +605,9 @@ def newton_inverses(f: torch.Tensor, tol: float | None = None):
     _check_tensor("f", f, f.dtype, f.shape, f.device)
     linv, uinv = torch.empty_like(f), torch.empty_like(f)
     if batch:
-        work = torch.empty((batch, 2, 3, nb, nb), dtype=f.dtype,
-                           device=f.device)
-        _call(getattr(library().lib, f"plu_newton_inverses_{s}"),
+        _call(getattr(library().lib, f"plu_triangle_inverses_{s}"),
               f.device.index, f.data_ptr(), linv.data_ptr(),
-              uinv.data_ptr(), work.data_ptr(), batch, nb,
-              kt.newton_steps(nb), float(tol), _stream(f.device))
+              uinv.data_ptr(), batch, nb, float(tol), _stream(f.device))
         LAUNCHES["newton_inverses"] += 1
     return linv, uinv
 

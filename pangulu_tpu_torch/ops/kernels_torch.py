@@ -17,11 +17,12 @@ semantics of the JAX package's Pallas kernels
   * :func:`decompress_tiles` / :func:`compress_tiles` — a batch of tiles
     of the compressed tile store to dense and back (the TPU probe
     ``tools/exp_scatter.py``'s scatter and gather modes);
-  * :func:`newton_inverses` — L^-1 and U^-1 of a batch of factored
-    diagonal tiles by Newton–Schulz doubling
-    (``tools/exp_batched_scan.py`` batched_newton, and
-    ``pangulu_tpu/ops/kernels_jax.py`` unit_lower_inv_newton /
-    upper_inv_newton);
+  * :func:`triangle_inverses` — L^-1 and U^-1 of a batch of factored
+    diagonal tiles by Gauss–Jordan sweeps, P2's kernel step for step;
+    :func:`newton_inverses` — the same function by Newton–Schulz
+    doubling, the JAX package's method (``tools/exp_batched_scan.py``
+    batched_newton, and ``pangulu_tpu/ops/kernels_jax.py``
+    unit_lower_inv_newton / upper_inv_newton);
   * the TPU probes that lie on no path of the solver, each the function
     its probe computes: :func:`scan_overlap` (``tools/exp_overlap.py``
     run, P5: a scan chain beside a chain of products),
@@ -59,14 +60,20 @@ DEFAULT_TOL = {torch.float32: 1e-8, torch.float64: 1e-16}
 
 # Largest tile the CUDA kernels take.  K1 keeps a tile of nb <= 128 in
 # registers (instances for nb <= 32, 64 and 128, csrc/tile_lu.cuh) and
-# runs 128 < nb <= 256 as a blocked step over two such diagonal blocks
+# factors 128 < nb <= 256 on a thread block cluster that holds the tile
+# in shared memory, in panels of LU_PANEL columns
 # (getrf_with_inverses_blocked is its plain twin); the products of K2
 # and K4 have shared-memory windows for nb <= 128 and for nb <= 256
 # (csrc/lu_kernels.cu).  nb > 256 is ROADMAP W4.
 MAX_NB = 256
 
-# K1's split of a tile above 128: the largest register tile.
+# K1's largest register tile: the blocked step takes the tiles above it,
+# and P2 (triangle_inverses) splits them there.
 LU_SPLIT = 128
+
+# Panel width of K1's blocked step: the TPU kernel's MXU mode
+# (pangulu_tpu/ops/kernels_pallas.py _lu_blocked, r = 32).
+LU_PANEL = 32
 
 # Schur-update chunk width of Schedule.mega_tables at nb <= 128.  It
 # sized the TPU kernel's VMEM buffer (pangulu_tpu/ops/kernels_pallas.py:
@@ -111,8 +118,8 @@ class KernelTables:
 def check_nb(nb: int) -> None:
     if nb > MAX_NB:
         raise ValueError(
-            f"nb={nb} exceeds the port's limit nb <= {MAX_NB} (K1 runs "
-            "nb > 128 as a blocked step over two 128-wide diagonal blocks "
+            f"nb={nb} exceeds the port's limit nb <= {MAX_NB} (K1 holds a "
+            "tile of nb > 128 in the shared memory of a cluster of CTAs, "
             "and the products' shared-memory windows stop at nb=256; nb > "
             "256 is ROADMAP W4)")
 
@@ -146,43 +153,56 @@ def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
 
 
 def getrf_with_inverses_blocked(a: torch.Tensor, tol: float | None = None,
-                                h: int = LU_SPLIT):
-    """(f, L^-1, U^-1) of ``a`` ([nb, nb] or [B, nb, nb], nb > h) by the
-    blocked right-looking step of the CUDA kernel for nb > 128: with
-    ``A = [[A11, A12], [A21, A22]]`` split at ``h``,
+                                r: int = LU_PANEL):
+    """(f, L^-1, U^-1) of ``a`` ([nb, nb] or [B, nb, nb]) by the blocked
+    right-looking step of the CUDA kernel for nb > 128 (the cluster
+    kernel of csrc/lu_kernels.cu), in panels of ``r`` columns.  At the
+    panel P = [k0, k1), with D the columns before it and B those after:
 
-      1. ``(F11, L11^-1, U11^-1)`` of A11 (:func:`getrf_with_inverses`);
-      2. ``L21 = A21·U11^-1``, ``U12 = L11^-1·A12``;
-      3. ``A22 -= L21·U12``, and ``(F22, L22^-1, U22^-1)`` of it;
-      4. ``L^-1 = [[L11^-1, 0], [L22^-1·(-L21·L11^-1), L22^-1]]``,
-         ``U^-1 = [[U11^-1, (-U11^-1·U12)·U22^-1], [0, U22^-1]]``.
+      1. ``(F11, L11^-1, U11^-1)`` of the trailing block's A11
+         (:func:`getrf_with_inverses`);
+      2. ``X[P, D] = L11^-1·X[P, D]`` and ``U12 = L11^-1·A12`` (the
+         panel's rows);
+      3. ``Y[D, P] = Y[D, P]·U11^-1`` and ``L21 = A21·U11^-1``;
+      4. ``X[B, :k1] -= L21·X[P, :k1]`` (X[B, P] starts at 0), ``A22 -=
+         L21·U12`` and ``Y[:k1, B] -= Y[:k1, P]·U12`` (Y[P, B] starts at
+         0),
 
-    In exact arithmetic it is :func:`getrf_with_inverses`, the reference
-    semantics: the same pivots, and the tiny-pivot rule applied at the
-    same step inside each diagonal block.  In floating point the
-    products' sums run in another order (the JAX package's blocked LU,
-    pangulu_tpu/ops/kernels_pallas.py:261-288, is held to the scan at
+    where X becomes L^-1 and Y U^-1: the blocked form of K1's in-place
+    Gauss–Jordan, which forms L^-1's columns and U^-1's rows as the LU
+    advances.  In exact arithmetic it is :func:`getrf_with_inverses`,
+    the reference semantics: the same pivots, and the tiny-pivot rule at
+    the same step.  In floating point the products' sums run in another
+    order (the JAX package's blocked LU at r = 32,
+    pangulu_tpu/ops/kernels_pallas.py:261-300, is held to the scan at
     factor 3e-5 and inverses 2e-4 in f32, tests/test_pallas.py:79-99).
     The kernel forms the products on tensor cores (3xTF32 for float,
     DMMA for double) in this order."""
     if tol is None:
         tol = DEFAULT_TOL[a.dtype]
     nb = a.shape[-1]
-    if not 0 < h < nb:
-        raise ValueError(f"split h={h} must lie inside nb={nb}")
-    a11, a12 = a[..., :h, :h], a[..., :h, h:]
-    a21, a22 = a[..., h:, :h], a[..., h:, h:]
-    f11, l11i, u11i = getrf_with_inverses(a11, tol)
-    l21 = a21 @ u11i
-    u12 = l11i @ a12
-    f22, l22i, u22i = getrf_with_inverses(a22 - l21 @ u12, tol)
-    f = torch.cat([torch.cat([f11, u12], -1), torch.cat([l21, f22], -1)], -2)
-    zl, zu = torch.zeros_like(a12), torch.zeros_like(a21)
-    linv = torch.cat([torch.cat([l11i, zl], -1),
-                      torch.cat([l22i @ -(l21 @ l11i), l22i], -1)], -2)
-    uinv = torch.cat([torch.cat([u11i, -(u11i @ u12) @ u22i], -1),
-                      torch.cat([zu, u22i], -1)], -2)
-    return f, linv, uinv
+    if not 0 < r < nb:
+        raise ValueError(f"panel width r={r} must split nb={nb}")
+    f = a.clone()
+    x, y = torch.zeros_like(f), torch.zeros_like(f)
+    for k0 in range(0, nb, r):
+        k1 = min(k0 + r, nb)
+        f11, l11i, u11i = getrf_with_inverses(f[..., k0:k1, k0:k1], tol)
+        xpd = l11i @ x[..., k0:k1, :k0]
+        u12 = l11i @ f[..., k0:k1, k1:]
+        ydp = y[..., :k0, k0:k1] @ u11i
+        l21 = f[..., k1:, k0:k1] @ u11i
+        f[..., k0:k1, k0:k1] = f11
+        f[..., k0:k1, k1:] = u12
+        f[..., k1:, k0:k1] = l21
+        x[..., k0:k1, :k0] = xpd
+        x[..., k0:k1, k0:k1] = l11i
+        y[..., :k0, k0:k1] = ydp
+        y[..., k0:k1, k0:k1] = u11i
+        x[..., k1:, :k1] -= l21 @ x[..., k0:k1, :k1]
+        f[..., k1:, k1:] -= l21 @ u12
+        y[..., :k1, k1:] -= y[..., :k1, k0:k1] @ u12
+    return f, x, y
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -469,10 +489,65 @@ def upper_inv_newton(f: torch.Tensor, tol: float) -> torch.Tensor:
 def newton_inverses(f: torch.Tensor, tol: float | None = None):
     """(L^-1, U^-1) of a batch [B, nb, nb] of factored diagonal tiles (L
     unit lower below the diagonal, U on and above it) by
-    :func:`unit_lower_inv_newton` and :func:`upper_inv_newton`."""
+    :func:`unit_lower_inv_newton` and :func:`upper_inv_newton`: the JAX
+    package's method, kept as the parity anchor and as the yardstick of
+    f32 accuracy (the CUDA kernel computes :func:`triangle_inverses`)."""
     if tol is None:
         tol = DEFAULT_TOL[f.dtype]
     return unit_lower_inv_newton(f), upper_inv_newton(f, tol)
+
+
+def _triangle_sweeps(f: torch.Tensor, tol: float):
+    """(L^-1, U^-1) of ``f`` [B, n, n] by the sweeps of P2's kernel, in
+    f's dtype: L^-1 by forward Gauss–Jordan with the multipliers
+    strict_lower(f) (step k: rows i > k, columns <= k, x_i -= l_ik x_k),
+    U^-1 by backward Gauss–Jordan on triu(f) with its diagonal by the
+    tiny-pivot rule (step k: row k divided by d_k, then eliminated from
+    the rows above)."""
+    n = f.shape[-1]
+    eye = torch.eye(n, dtype=f.dtype, device=f.device).expand_as(f)
+    x = eye.clone()
+    for k in range(n - 1):
+        x[:, k + 1:, :k + 1] -= f[:, k + 1:, k:k + 1] * x[:, k:k + 1, :k + 1]
+    d = torch.diagonal(f, dim1=-2, dim2=-1)
+    d = torch.where(d.abs() < tol, torch.full_like(d, tol), d)
+    h = eye.clone()
+    for k in reversed(range(n)):
+        h[:, k, k:] = h[:, k, k:] / d[:, k, None]
+        h[:, :k, k:] -= f[:, :k, k:k + 1] * h[:, k:k + 1, k:]
+    return x, h
+
+
+def triangle_inverses(f: torch.Tensor, tol: float | None = None):
+    """(L^-1, U^-1) of a batch [B, nb, nb] of factored diagonal tiles,
+    the function of :func:`newton_inverses`, as P2's CUDA kernel
+    computes it step for step: the sweeps of :func:`_triangle_sweeps` in
+    float64, rounded once to f's dtype.  Above nb = LU_SPLIT both
+    128-wide diagonal blocks go through the sweeps and the off-diagonal
+    block through two products in f's dtype:
+    ``L^-1[h:, :h] = L22^-1·(-L21·L11^-1)`` and ``U^-1[:h, h:] =
+    (-U11^-1·U12)·U22^-1``."""
+    if tol is None:
+        tol = DEFAULT_TOL[f.dtype]
+    if f.dim() != 3 or f.shape[-1] != f.shape[-2]:
+        raise ValueError(f"expected [B, nb, nb], got {tuple(f.shape)}")
+    nb = f.shape[-1]
+    h = min(nb, LU_SPLIT)
+
+    def sweeps(blk):
+        return [t.to(f.dtype) for t in _triangle_sweeps(blk.double(), tol)]
+
+    if nb <= h:
+        return tuple(sweeps(f))
+    linv, uinv = torch.zeros_like(f), torch.zeros_like(f)
+    for s0, s1 in ((0, h), (h, nb)):
+        linv[:, s0:s1, s0:s1], uinv[:, s0:s1, s0:s1] = sweeps(
+            f[:, s0:s1, s0:s1])
+    w = -(f[:, h:, :h] @ linv[:, :h, :h])
+    linv[:, h:, :h] = linv[:, h:, h:] @ w
+    v = -(uinv[:, :h, :h] @ f[:, :h, h:])
+    uinv[:, :h, h:] = v @ uinv[:, h:, h:]
+    return linv, uinv
 
 
 # ------------------------------------------------ the TPU probes P4, P5

@@ -1,16 +1,20 @@
 """Inputs, tolerances and counts that the port's tests and
 ``chip_smoke.py`` share: for K1 (the diagonal step), tiles whose pivots
-are exactly zero at a chosen step, and the bound that holds K1's blocked
-step (128 < nb <= 256) against the rank-1 plain version; for the
+are exactly zero at a chosen step, the bound that holds K1's blocked
+step (128 < nb <= 256) against the rank-1 plain version, and K4's
+diagonal step alone on tiles of a store (``diag_step``); for the
 compressed store, the launches its engine makes; for the TPU probes P3,
 P4 and P5, their inputs."""
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from pangulu_tpu_torch.ops.kernels_torch import LU_SPLIT
+from pangulu_tpu_torch.ops import kernels_cuda as kc
+from pangulu_tpu_torch.ops import kernels_torch as kt
 
 # K1's blocked step against the rank-1 plain version: (rtol, atol) of
 # the factor, L^-1 and U^-1.  In f32 the JAX package's bound for its
@@ -39,18 +43,98 @@ def tiny_pivot_tile(nb: int, k: int, rng) -> np.ndarray:
 
 
 def blocked_tiny_pivot_tile(nb: int, k1: int, k2: int, rng) -> np.ndarray:
-    """A tile of nb > LU_SPLIT whose pivots at step k1 of A11 and step
-    k2 of A22 (split at LU_SPLIT) are exactly 0 in the rank-1 scan and
-    in the blocked step alike: each diagonal block is a tiny_pivot_tile,
-    A12 = 0 (so A22 is never updated), and A21 is random except its
-    columns 0 and k1, which would meet U11^-1's 1/tol entries."""
-    h = LU_SPLIT
-    a = np.zeros((nb, nb))
-    a[:h, :h] = tiny_pivot_tile(h, k1, rng)
-    a[h:, h:] = tiny_pivot_tile(nb - h, k2, rng)
-    a[h:, :h] = rng.standard_normal((nb - h, h))
-    a[h:, [0, k1]] = 0.0
+    """A tile of nb > LU_SPLIT whose pivots at steps k1 and LU_SPLIT + k2
+    reach exactly 0 by elimination (or, at step 0, start there) in the
+    rank-1 scan and in K1's blocked step (panels of LU_PANEL) alike, so
+    that the tiny-pivot rule fires at the same steps.  The tile is
+    diagonally dominant.  Every product that meets row or column k of
+    such a step meets exact values, so no order of summation rounds the
+    pivot away from 0:
+
+    - k = 0: row and column 0 are zero (tiny_pivot_tile);
+    - k inside its panel (k0 < k < k0 + LU_PANEL, k0 = k - k % LU_PANEL):
+      that panel's rows and columns are zero left of and above it, so
+      the earlier panels leave it as it is; then, as tiny_pivot_tile
+      does at step 0, row k and column k copy row k0 and column k0
+      around a[k0, k0] = 1 and step k0 zeroes the pivot; columns k0 and
+      k are zero below the panel (they would meet U11^-1's 1/tol
+      entries);
+    - k at a panel's start: row and column j = k - LU_PANEL (the
+      previous panel's start) and k are zero but for a[j, j] = a[j, k] =
+      a[k, j] = a[k, k] = 1, so that step j zeroes the pivot as exact
+      products of 0 and 1 in either blocking.
+
+    The two steps must lie in different panels, not next to each
+    other."""
+    r = kt.LU_PANEL
+    ks = (k1, kt.LU_SPLIT + k2)
+    panels = [{k // r - 1, k // r} if k and k % r == 0 else {k // r}
+              for k in ks]
+    if panels[0] & panels[1]:
+        raise ValueError(f"steps {ks} are too close")
+    a = rng.standard_normal((nb, nb)) + nb * np.eye(nb)
+    for k in ks:
+        k0 = k - k % r
+        if k % r:
+            a[k0:k0 + r, :k0] = 0.0
+            a[:k0, k0:k0 + r] = 0.0
+    for k in ks:
+        k0 = k - k % r
+        if k == 0:
+            a[0, :] = 0.0
+            a[:, 0] = 0.0
+        elif k % r:
+            a[k0, k0] = 1.0
+            a[k, :] = a[k0, :]
+            a[:, k] = a[:, k0]
+            a[k0 + r:, [k0, k]] = 0.0
+        else:
+            j = k - r
+            a[[j, k], :] = 0.0
+            a[:, [j, k]] = 0.0
+            a[j, j] = a[j, k] = a[k, j] = a[k, k] = 1.0
     return a
+
+
+def diag_step(tiles: torch.Tensor, ids, invs: torch.Tensor, inv_ids,
+              tol: float | None = None) -> None:
+    """K1 as K4's diagonal step runs it, alone (the C entry
+    ``plu_diag_step``), for tests of members at ids that are not
+    contiguous: the tiles ``ids`` of the store ``tiles`` [nt, nb, nb]
+    factored IN PLACE, their (L^-1, U^-1) into ``invs[inv_ids]``
+    ([levels, 2, nb, nb]).  ``ids`` and ``inv_ids`` are distinct int32
+    tensors on the store's device.  A launch counts as a K1 launch.  On
+    the CPU the plain version, :func:`kernels_torch.getrf_with_inverses`."""
+    if tol is None:
+        tol = kt.DEFAULT_TOL[tiles.dtype]
+    if not kc._on_cuda(tiles):
+        i, j = ids.long(), inv_ids.long()
+        f, linv, uinv = kt.getrf_with_inverses(tiles[i], tol)
+        tiles[i] = f
+        invs[j, 0], invs[j, 1] = linv, uinv
+        return
+    s = kc._dtype_of(tiles)
+    dev = tiles.device
+    nt, nb = tiles.shape[0], tiles.shape[-1]
+    kt.check_nb(nb)
+    kc._check_tensor("tiles", tiles, tiles.dtype, (nt, nb, nb), dev)
+    kc._check_tensor("invs", invs, tiles.dtype, (invs.shape[0], 2, nb, nb),
+                     dev)
+    batch = len(ids)
+    for name, t, hi in (("ids", ids, nt - 1),
+                        ("inv_ids", inv_ids, invs.shape[0] - 1)):
+        kc._check_tensor(name, t, torch.int32, (batch,), dev)
+        host = t.cpu().numpy()
+        kc._check_table(name, host, 0, hi)
+        if len(np.unique(host)) != batch:
+            raise ValueError(f"{name} repeat")
+    if batch:
+        k1 = (ctypes.c_int * 2)()
+        kc._call(getattr(kc.library().lib, f"plu_diag_step_{s}"), dev.index,
+                 tiles.data_ptr(), invs.data_ptr(), ids.data_ptr(),
+                 inv_ids.data_ptr(), batch, nb, float(tol), k1,
+                 kc._stream(dev))
+        kc._count_k1(k1)
 
 
 def compressed_launches(schedule, factorizations: int = 0, solves: int = 0,

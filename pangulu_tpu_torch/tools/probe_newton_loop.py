@@ -16,9 +16,10 @@ between CUDA events, median of --reps) of
     members in turn (float32 members, float64 products on DMMA);
   * the same on 4 CTAs (members m, m + 4, ... on CTA m);
   * P2, newton_inverses (csrc/compressed.cuh), on the same tiles in
-    float64: a CTA a member and triangle, its products on DMMA as P3's;
-    its L^-1 is P3's result, its U^-1 CTAs run beside them;
-  * P2 on the float32 tiles (3xTF32 products);
+    float64: a CTA a member and triangle, a Gauss–Jordan sweep on a
+    register tile (no longer a doubling); its L^-1 is P3's result, its
+    U^-1 CTAs run beside them;
+  * P2 on the float32 tiles (the same sweep in float64, rounded once);
   * torch.linalg.solve_triangular(unitriangular=True) on the G members,
 
 in us per call and per member, and last one JSON line

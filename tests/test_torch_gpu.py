@@ -36,8 +36,8 @@ from pangulu_tpu_torch.models import (poisson2d, poisson3d,
 from pangulu_tpu_torch.ops import kernels_cuda as kc
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.testing import (BLOCKED_TOL, blocked_tiny_pivot_tile,
-                                       newton_inputs, probe_inputs,
-                                       tiny_pivot_tile)
+                                       diag_step, newton_inputs,
+                                       probe_inputs, tiny_pivot_tile)
 from pangulu_tpu_torch.utils.perf import residual_norm
 
 pytestmark = pytest.mark.gpu
@@ -90,7 +90,8 @@ def test_getrf_tiny_pivot_kernel(cuda, dtype, nb, where):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("batch", [1, 3])
-# A22 of 1, 72 and 128 rows: register tiles of 32, 128 and 128
+# one panel of 1 column past the first 128, a ragged last panel, the
+# full tile
 @pytest.mark.parametrize("nb", [129, 200, 256])
 def test_getrf_blocked_kernel(cuda, dtype, nb, batch):
     """K1 at 128 < nb <= 256 (the blocked step): its plain twin at the
@@ -100,9 +101,9 @@ def test_getrf_blocked_kernel(cuda, dtype, nb, batch):
                         + nb * np.eye(nb), dtype=dtype, device=cuda)
     kc.reset_launch_counts()
     got = kc.getrf_with_inverses(a)
-    # one K1 launch, the blocked step's five device launches
+    # one K1 launch, one device launch (the cluster kernel)
     assert kc.LAUNCHES["getrf_with_inverses"] == 1
-    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 5}
+    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 1}
     for g, r in zip(got, kt.getrf_with_inverses_blocked(a)):
         torch.testing.assert_close(g, r, **TOL[dtype])
     for g, r, (rtol, atol) in zip(got, kt.getrf_with_inverses(a),
@@ -111,8 +112,37 @@ def test_getrf_blocked_kernel(cuda, dtype, nb, batch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch", [1, 5])
+@pytest.mark.parametrize("nb", [129, 200, 255, 256])
+def test_cluster_kernel_on_store_ids(cuda, dtype, nb, batch):
+    """K1's cluster kernel as K4's diagonal step runs it: members at
+    non-contiguous ids of a store, factored in place, their inverses to
+    non-contiguous slots; the other tiles untouched; its plain twin at
+    the f32 contract; one device launch."""
+    rng = np.random.default_rng(nb + batch)
+    tiles = torch.as_tensor(rng.standard_normal((12, nb, nb))
+                            + nb * np.eye(nb), dtype=dtype, device=cuda)
+    before = tiles.clone()
+    ids = [7, 2, 10, 0, 5][:batch]
+    slots = [3, 0, 4, 1, 2][:batch]
+    invs = torch.zeros((5, 2, nb, nb), dtype=dtype, device=cuda)
+    kc.reset_launch_counts()
+    diag_step(tiles, torch.tensor(ids, dtype=torch.int32, device=cuda), invs,
+              torch.tensor(slots, dtype=torch.int32, device=cuda))
+    assert kc.LAUNCHES["getrf_with_inverses"] == 1
+    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 1}
+    want = kt.getrf_with_inverses_blocked(before[ids])
+    for g, r in zip((tiles[ids], invs[slots, 0], invs[slots, 1]), want):
+        torch.testing.assert_close(g, r, **TOL[dtype])
+    rest = [i for i in range(12) if i not in ids]
+    assert torch.equal(tiles[rest], before[rest])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+# zero pivots reached inside a panel (127, 129, 168, 255) and at a
+# panel's start (64), at step 0, and twice in the first two panels
 @pytest.mark.parametrize("nb,k1,k2", [(256, 0, 127), (256, 64, 1),
-                                      (200, 127, 40)])
+                                      (200, 127, 40), (256, 5, 1)])
 def test_getrf_blocked_tiny_pivot_kernel(cuda, dtype, nb, k1, k2):
     """A zero pivot in each diagonal block becomes +tol at the same step
     as in the rank-1 scan, and the result matches both plain versions."""
@@ -331,7 +361,7 @@ def test_nd_slice_on_cuda_counts_launches(cuda):
 @pytest.mark.parametrize("ordering", ["rcm", "nd"])
 def test_nb256_slice_on_cuda_counts_launches(cuda, ordering):
     """init -> gstrf -> gstrs at nb=256: K1 once a level (chain) or a
-    group, each call one K1 launch of five device launches, and the
+    group, each call one K1 launch of one device launch, and the
     residual bounds of nb=128."""
     a = poisson3d(12)
     b = a.to_scipy() @ np.ones(a.n)
@@ -348,7 +378,7 @@ def test_nb256_slice_on_cuda_counts_launches(cuda, ordering):
                                   mega_solve=3 * int(not grouped),
                                   mega_factorize_groups=int(grouped),
                                   mega_solve_groups=3 * int(grouped))
-    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 5 * steps}
+    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": steps}
     assert h.perf.kernels["gstrf_residual"] < 1e-5
     assert residual_norm(a.to_scipy(), x, b) < 1e-10
 
@@ -519,9 +549,11 @@ def test_slot_kernels_bit_exact(cuda, dtype, nb):
 
 @pytest.mark.parametrize("nb", [8, 100, 128, 256])
 def test_newton_kernel(cuda, nb):
-    """P2 against its plain versions, a tiny pivot included: f64 within
-    1e-12 and f32 within the f32 contract's 1e-5, both relative to the
-    largest entry.  True f32 at every nb and on the tiny-pivot tile too:
+    """P2 against its plain twin (triangle_inverses, the sweeps), a tiny
+    pivot included: f64 within 1e-12 and f32 within the f32 contract's
+    1e-5, both relative to the largest entry.  True f32 at every nb and
+    on the tiny-pivot tile too, against the JAX package's method (the
+    plain Newton doubling, newton_inverses):
     the f32 kernel's error against the plain f64 inverse (relative to its
     largest entry) is at most 2x the plain f32 version's, or one f32 eps
     where both sit within an ulp or two (at nb=8 the kernel read 8.5e-8
@@ -531,7 +563,7 @@ def test_newton_kernel(cuda, nb):
     a[1] = tiny_pivot_tile(nb, nb // 2, rng)
     f64 = kt.getrf_with_inverses(torch.as_tensor(a, device=cuda))[0]
     for f, rel in ((f64, 1e-12), (f64.float(), 1e-5)):
-        for g, r in zip(kc.newton_inverses(f), kt.newton_inverses(f)):
+        for g, r in zip(kc.newton_inverses(f), kt.triangle_inverses(f)):
             torch.testing.assert_close(g, r, rtol=rel,
                                        atol=rel * float(r.abs().max()))
     f32 = f64.float()
@@ -717,11 +749,11 @@ def test_newton_loop_kernel(cuda, g, nb, blocks):
 def test_newton_kernel_on_unit_triangles(cuda):
     """P2 (newton_inverses) in float32 on P3's unit lower triangles at
     nb = 128, whose inverses reach ~1e13-1e17: true f32, relative to the
-    largest entry and to each row's.  An open accuracy fault (ROADMAP.md
-    R1, PERF.md section 7): P2's float products are 3xTF32, which
-    truncate the same way in every product of the doubling, and this
-    test fails on an H100 (8.018e-06 of max |f64| against the plain
-    f32 version's 2.918e-06, G = 4) until R1 replaces them."""
+    largest entry and to each row's.  The doubling P2 ran until its
+    redesign failed here on an H100 (8.018e-06 of max |f64| against the
+    plain f32 version's 2.918e-06, G = 4: the 3xTF32 errors of its chain
+    of products added up); the sweeps, in float64 and rounded once,
+    leave only the rounding of the store."""
     lm = torch.as_tensor(newton_inputs(4, 128, seed=128), device=cuda)
     tol = kt.DEFAULT_TOL[torch.float32]
     got = kc.newton_inverses(lm)[0]

@@ -212,21 +212,26 @@ def test_gstrs_device_nb256(case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nb", [129, 200, 256])
 def test_getrf_blocked_matches_rank1(nb, dtype):
-    """A batch of a random tile and a tile with a zero pivot in each
-    diagonal block: the blocked step's (f, L^-1, U^-1) are the rank-1
-    scan's, and the tiny-pivot rule fires at the same two steps."""
+    """A batch of a random tile and two tiles with two zero pivots each,
+    reached by elimination, one at k1 (at a panel's start, 64, or inside
+    the first panel, 5) and one past the first 128 steps: the blocked
+    step's (f, L^-1, U^-1) are the rank-1 scan's, and the tiny-pivot
+    rule fires at the same steps."""
     rng = np.random.default_rng(nb)
-    k1, k2 = 64, (nb - kt.LU_SPLIT) // 2
-    a = torch.as_tensor(np.stack([
-        rng.standard_normal((nb, nb)) + nb * np.eye(nb),
-        blocked_tiny_pivot_tile(nb, k1, k2, rng)]), dtype=dtype)
+    k1s, k2 = (64, 5), (nb - kt.LU_SPLIT) // 2
+    a = torch.as_tensor(np.stack(
+        [rng.standard_normal((nb, nb)) + nb * np.eye(nb)]
+        + [blocked_tiny_pivot_tile(nb, k1, k2, rng) for k1 in k1s]),
+        dtype=dtype)
     got = kt.getrf_with_inverses_blocked(a)
     ref = kt.getrf_with_inverses(a)
     for g, r, (rtol, atol) in zip(got, ref, BLOCKED_TOL[dtype]):
         torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
     tol = float(torch.tensor(kt.DEFAULT_TOL[dtype], dtype=dtype))
     k = kt.LU_SPLIT + k2
-    assert float(got[0][1, k1, k1]) == tol and float(got[0][1, k, k]) == tol
+    for m, k1 in enumerate(k1s, 1):
+        assert float(got[0][m, k1, k1]) == tol
+        assert float(got[0][m, k, k]) == tol
     # the packed factor reconstructs A, and L^-1 inverts L
     f = got[0].double()
     eye = torch.eye(nb, dtype=torch.float64)
@@ -239,7 +244,7 @@ def test_getrf_blocked_matches_rank1(nb, dtype):
 
 def test_blocked_split_must_lie_inside():
     with pytest.raises(ValueError, match="split"):
-        kt.getrf_with_inverses_blocked(torch.eye(128))
+        kt.getrf_with_inverses_blocked(torch.eye(128), r=128)
 
 
 def test_cpu_wrapper_takes_the_plain_version_at_nb256():
