@@ -85,7 +85,7 @@ CUDA toolkit (nvcc).  It
      within 1e-10 of splu's with its sign, cond1_est between exact/3 and
      exact (dense f64);
   7. drives tile_storage="compressed" (compressed_phase; step 1 also
-     fails if one of the ten P6/P2 instances spills): init -> gstrf ->
+     fails if one of the 16 P6/P2 instances spills): init -> gstrf ->
      gstrs on poisson3d(32), nb=128, nd, r32 with the launch counts
      zeroed before and read after (exactly K1 = 256 and
      the P6 decompress and compress launches the level structure
@@ -96,15 +96,21 @@ CUDA toolkit (nvcc).  It
      the true-f32 rule (error against the plain f64 factorization <= 2x
      the plain f32 one's), ms per factorization and per solve (CUDA
      events) beside the dense nd engines' of step 4, one traced
-     factorization; P6 against its plain version bit for bit (float and
-     double, uint16 and uint32 positions, the TPU probe's one-tile case
+     factorization and P6's device ms in it, the factorization once more
+     with P6's plain versions in the wrappers' place (its factored
+     values must be the kernel path's bit for bit); P6 against its
+     plain version bit for bit (float and double, uint16 and uint32
+     positions, the TPU probe's one-tile case
      of 1024 slots at nb=128, scratch tiles in the batch); P2 against its
      plain twin (triangle_inverses: the path's 256 diagonal tiles at
      nb=128, 32 tiles at nb=256: f64 within 1e-12, f32 within 1e-5) and
      true f32 against the JAX package's method (the f32 kernel's error
      against the plain f64 doubling <= 2x the plain f32 doubling's, on
      those tiles and, by max and by row, on P3's unit triangles); P6 per
-     launch over the widest level's update tiles and P2 per launch at
+     launch at three batches of the path (pangulu_tpu_torch/tools/
+     probe_p6.py p6_batches: (a) the one-tile launch of the largest cap,
+     (b) a launch of the median size, (c) the widest level's update
+     tiles; the kernels line takes (c)) and P2 per launch at
      batch 256, each beside its bound, its plain version and one
      PyTorch call (zero_ + scatter_, gather, solve_triangular);
      save_factor -> load_factor -> gstrs with exact counts (one P6
@@ -820,21 +826,6 @@ def surface_phase(a, dev) -> dict:
     return out
 
 
-def slot_library_inputs(st, ids, dense=None):
-    """For the tiles ``ids`` of store ``st``: the flat positions (tile of
-    the batch * nb^2 + in-tile position) and slot values of their real
-    slots, for the library yardsticks of P6."""
-    from pangulu_tpu_torch.ops import kernels_torch as kt
-
-    pos, live = kt.slot_ranges(st.off, st.cap, ids)
-    p = pos[live]
-    ix = kt.slot_positions(st.idx, p)
-    keep = ix < st.nb * st.nb
-    row = torch.arange(len(ids), device=p.device)[:, None].expand_as(pos)
-    flat = (row[live] * st.nb * st.nb + ix)[keep]
-    return flat, st.values[p[keep]]
-
-
 def compressed_phase(dev, nd: dict, a) -> tuple:
     """tile_storage="compressed" on the card: (1) init -> gstrf -> gstrs
     on poisson3d(32), nb=128, nd, r32 with exact launch counts, its
@@ -861,6 +852,8 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
     from pangulu_tpu_torch.ops import kernels_torch as kt
     from pangulu_tpu_torch.ops.kernels_torch import Indices
     from pangulu_tpu_torch.testing import compressed_launches, newton_inputs
+    from pangulu_tpu_torch.tools.probe_p6 import (measure_batch, p6_batches,
+                                                   p6_in_trace, print_batch)
     from pangulu_tpu_torch.utils.perf import residual_norm
 
     # the path's tile width and its K1 launches (one a level), the
@@ -948,6 +941,36 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
                    setup=lambda: st.values.copy_(v0))
     out["trace"] = prof
     print_profile({"compressed gstrf": prof})
+    out["trace_p6"] = tp6 = p6_in_trace(prof["kernels"])
+    print(f"  P6 in that trace: {tp6['device_ms']:.3f} device ms of "
+          f"{prof['busy_ms']:.3f} busy (decompress "
+          f"{tp6['decompress']['launches']} launches, "
+          f"{tp6['decompress']['device_ms']:.3f} ms; compress "
+          f"{tp6['compress']['launches']} launches, "
+          f"{tp6['compress']['device_ms']:.3f} ms)")
+    # the same factorization with P6's plain versions in the wrappers'
+    # place (K1 and the products are the same launches on the same
+    # card): the factored values must be the kernel path's, bit for bit
+    st.values.copy_(v0)
+    clu.factorize()
+    kernel_values = st.values.clone()
+    st.values.copy_(v0)
+    wrappers = kc.decompress_tiles, kc.compress_tiles
+    try:
+        kc.decompress_tiles = lambda *a: kt.decompress_tiles(*a).contiguous()
+        kc.compress_tiles = kt.compress_tiles
+        clu.factorize()
+    finally:
+        kc.decompress_tiles, kc.compress_tiles = wrappers
+    torch.cuda.synchronize()
+    out["factor_bit_equal_plain_p6"] = torch.equal(st.values, kernel_values)
+    print("  factored with P6's plain versions: values "
+          f"{'bit-equal' if out['factor_bit_equal_plain_p6'] else 'DIFFER'}"
+          " to the kernel path's")
+    if not out["factor_bit_equal_plain_p6"]:
+        fail("the compressed factorization with the hand P6 differs from "
+             "the one with the plain P6")
+    del kernel_values
     comp = torch.as_tensor(st.to_dense(), device=dev)
     nt, bl = h.blocked.num_tiles, sch.block_length
     t0 = h.blocked.device_tiles(dev)
@@ -1013,53 +1036,28 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
                 fail(f"P6 disagrees with its plain version ({label}, {dt})")
     del st256, h256, cases
 
-    # P6 per launch over one level's tiles: the level with the most
-    # update destinations
-    levels = clu._level_tables()
-    k = max(range(bl), key=lambda i: len(levels[i][3]))
-    ids = levels[k][3]
-    nbt, esz, isz = len(ids), st.values.element_size(), st.idx.element_size()
-    caps = int(st.cap.host[ids.host].sum())
+    # P6 per launch at three batches of the path: (a) the one-tile launch
+    # of the largest cap, (b) a launch of the median size, (c) the widest
+    # level's update tiles (pangulu_tpu_torch/tools/probe_p6.py)
     st.values.copy_(v0)
-    dense = kc.decompress_tiles(st.values, st.idx, st.off, st.cap, ids, nb)
-    flat, svals = slot_library_inputs(st, ids)
-    buf = dense.new_empty(dense.numel())
-    p6 = dict(level=k, tiles=nbt, slots=caps)
-    p6["decompress_ms"] = device_ms(lambda: kc.decompress_tiles(
-        st.values, st.idx, st.off, st.cap, ids, nb), n=50)
-    p6["decompress_plain_ms"] = cuda_ms(lambda _: kt.decompress_tiles(
-        st.values, st.idx, st.off, st.cap, ids, nb), reps=5)
-    p6["decompress_library_ms"] = device_ms(
-        lambda: buf.zero_().scatter_(0, flat, svals), n=50)
-    p6["compress_ms"] = device_ms(lambda: kc.compress_tiles(
-        st.values, st.idx, st.off, st.cap, ids, dense), n=50)
-    p6["compress_plain_ms"] = cuda_ms(lambda _: kt.compress_tiles(
-        st.values, st.idx, st.off, st.cap, ids, dense), reps=5)
-    p6["compress_library_ms"] = device_ms(
-        lambda: torch.gather(dense.reshape(-1), 0, flat), n=50)
-    meta = 3 * 4 * nbt                       # ids, off and cap reads
-    p6["decompress_bound"] = bound(caps * (esz + isz) + nbt * nb * nb * esz
-                                   + meta, 0)
-    p6["compress_bound"] = bound(caps * (isz + 2 * esz) + meta, 0)
+    out["p6"] = p6 = {}
+    for key, ids in p6_batches(clu).items():
+        p6[key] = measure_batch(sys.modules[__name__], st, ids)
+        print_batch(f"({key})", p6[key])
     if not torch.equal(st.values, v0):
-        fail("compressing a level's own tiles changed the store")
-    print(f"  P6 per launch, level {k} ({nbt} update destinations, {caps} "
-          f"slots): decompress {p6['decompress_ms']:.4f} ms (bound "
-          f"{p6['decompress_bound']['bound_ms']:.4f}, plain "
-          f"{p6['decompress_plain_ms']:.3f}, zero_ + scatter_ "
-          f"{p6['decompress_library_ms']:.4f}); compress "
-          f"{p6['compress_ms']:.4f} ms (bound "
-          f"{p6['compress_bound']['bound_ms']:.4f}, plain "
-          f"{p6['compress_plain_ms']:.3f}, gather "
-          f"{p6['compress_library_ms']:.4f})")
-    out["p6"] = p6
+        fail("compressing a batch's own tiles changed the store")
     for name, d in (("decompress_tiles", "decompress"),
                     ("compress_tiles", "compress")):
-        kern[name] = dict(max_abs_err=0.0, ms=p6[f"{d}_ms"],
-                          plain_ms=p6[f"{d}_plain_ms"],
-                          library_ms=p6[f"{d}_library_ms"],
-                          **p6[f"{d}_bound"])
-    del dense, buf, flat, svals
+        kern[name] = dict(max_abs_err=0.0, ms=p6["c"][f"{d}_ms"],
+                          plain_ms=p6["c"][f"{d}_plain_ms"],
+                          library_ms=p6["c"][f"{d}_library_ms"],
+                          **p6["c"][f"{d}_bound"],
+                          batches={k: dict(
+                              tiles=m["tiles"], slots=m["slots"],
+                              ms=m[f"{d}_ms"], plain_ms=m[f"{d}_plain_ms"],
+                              library_ms=m[f"{d}_library_ms"],
+                              bound_ms=m[f"{d}_bound"]["bound_ms"])
+                              for k, m in p6.items()})
 
     # (3) P2 against its plain twin, and true f32 against the JAX
     # package's method (the plain Newton doubling)

@@ -15,19 +15,39 @@
 //   engine does both as XLA gathers and scatters in its level loop
 //   (pangulu_tpu/compressed.py:240-258, _compressed_factorize gather and
 //   scatter) and in its solve (:295-303).
-//   Bound on an H100: bytes.  Decompress writes each dense tile (nb^2
-//   values) and reads the tile's cap slots (value and position);
+//   Bound on an H100: bytes.  Decompress reads a tile's cap slots
+//   (value and position) and writes its nb^2 dense values once;
 //   compress reads cap positions and the cap dense values they name and
 //   writes cap slots.  No arithmetic.
-//   Design: one block of kSlotThreads threads per tile of the batch.
-//   Decompress zeroes the tile with 16-byte stores, takes a barrier,
-//   then writes each slot's value at its position; compress reads them
-//   back.  A block loops over its tile's own cap, not the store's capmax
-//   (16,384 at nb = 128 on poisson3d(32) nd, where most tiles hold far
-//   fewer).  Consecutive threads take consecutive slots, so the slot
-//   reads are coalesced, and a tile's positions ascend, so the dense
-//   accesses of a warp fall in few rows.  The real ids of a batch are
-//   distinct (the wrapper checks), so no slot is written by two blocks.
+//   What the first design lost: one block of 256 threads a tile, so a
+//   batch of B tiles ran on B SMs (the compressed path's median batch is
+//   8 tiles of 132 SMs, and a one-tile launch walked up to 64 slots a
+//   thread on one SM); one slot in flight a thread (no pointer was
+//   __restrict__, so each iteration's store could alias the next load);
+//   and decompress wrote every dense line twice (zeros, a barrier, then
+//   the slots).
+//   Design: decompress block (b, j) builds rows [j R, (j + 1) R) of
+//   dense tile b in shared memory: it zeroes them, finds the range of
+//   the tile's slots whose positions fall in those rows (a tile's
+//   positions ascend strictly, which the wrapper checks once a store)
+//   by a block-wide search of two rounds of loads (slot_range; a tile
+//   of at most kSlotDirect slots is read whole instead), scatters the
+//   range's slots of those rows into shared memory and writes the rows
+//   out with 16-byte stores, so each dense byte is written once.
+//   Compress block (b, j) takes slots [j S, (j + 1) S) of tile b;
+//   blocks past the tile's cap exit at once.  Both walk their rows or
+//   slots grid-stride, so any grid is right.  A thread takes kSlotGroup
+//   consecutive slots at once (one vector load of their values and one
+//   of their positions where the group is aligned and whole; a range's
+//   ragged head and tail slot by slot), every load before the stores.
+//   The wrapper picks R and S (kernels_cuda.stage_geometry) so that the
+//   grid holds a few blocks an SM where the batch allows.  The real ids
+//   of a batch are distinct (the wrapper checks), so no slot is written
+//   by two blocks.
+//   Where it stands: near the byte bound on a wide batch; a small
+//   launch takes ~3 us, the launch and its chain of dependent loads
+//   (ids, then offset and cap, then positions, then values or dense
+//   values), whatever its size.
 //
 // P2 triangle_inverses_kernel
 //   Replaces tools/exp_batched_scan.py batched_newton (the TPU probe of
@@ -75,82 +95,245 @@
 namespace plu {
 
 constexpr int kSlotThreads = 256;
+// consecutive slots a thread takes at once
+constexpr int kSlotGroup = 4;
+// the position of a slot outside the range a thread works on
+constexpr unsigned kNoSlot = 0xFFFFFFFFu;
+// shared memory of a decompress block at most (the rows it builds)
+constexpr size_t kSlotChunkBytes = 48 * 1024;
+// blocks along a grid's second dimension at most
+constexpr int kSlotGridY = 65535;
+// a decompress block reads a tile of at most this many slots whole,
+// keeping those of its rows, rather than searching them (two rounds of
+// loads saved on the small tiles of most launches)
+constexpr int kSlotDirect = 2 * kSlotGroup * kSlotThreads;
 
-// Block b: the dense nb x nb tile ids[b] of the store into dense + b *
-// nb^2.
+// kSlotGroup values or positions from p (kSlotGroup-aligned slots of an
+// array whose start is 16-byte aligned) by vector loads, and back.
+__device__ __forceinline__ void load_group(const float* __restrict__ p,
+                                           float (&v)[kSlotGroup]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void load_group(const double* __restrict__ p,
+                                           double (&v)[kSlotGroup]) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+}
+__device__ __forceinline__ void load_group(const uint16_t* __restrict__ p,
+                                           unsigned (&v)[kSlotGroup]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = q.x & 0xFFFFu, v[1] = q.x >> 16, v[2] = q.y & 0xFFFFu,
+  v[3] = q.y >> 16;
+}
+__device__ __forceinline__ void load_group(const uint32_t* __restrict__ p,
+                                           unsigned (&v)[kSlotGroup]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void store_group(float* __restrict__ p,
+                                            const float (&v)[kSlotGroup]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_group(double* __restrict__ p,
+                                            const double (&v)[kSlotGroup]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+// Whether the slot arrays take load_group and store_group.
 template <typename T, typename I>
-__global__ void __launch_bounds__(kSlotThreads)
-    decompress_kernel(const T* values, const I* idx, const int* off,
-                      const int* cap, const int* ids, int nb, T* dense) {
-  const size_t nn = (size_t)nb * nb;
-  const int t = ids[blockIdx.x];
-  T* d = dense + blockIdx.x * nn;
-  constexpr int V = 16 / sizeof(T);
-  if (nn % V == 0) {  // then every tile starts 16-byte aligned
-    uint4* d4 = reinterpret_cast<uint4*>(d);
-    for (size_t e = threadIdx.x; e < nn / V; e += kSlotThreads)
-      d4[e] = make_uint4(0, 0, 0, 0);
-  } else {
-    for (size_t e = threadIdx.x; e < nn; e += kSlotThreads) d[e] = T(0);
-  }
-  __syncthreads();
-  const size_t o = (size_t)off[t];
-  const int c = cap[t];
-  for (int s = threadIdx.x; s < c; s += kSlotThreads) {
-    const size_t p = idx[o + s];
-    if (p < nn) d[p] = values[o + s];
+__device__ __forceinline__ bool groups_aligned(const T* values,
+                                               const I* idx) {
+  return reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(idx) % (kSlotGroup * sizeof(I)) == 0;
+}
+
+// The first slots s0 and s1 of a tile's c strictly ascending positions
+// pos[0, c) at or above p0 and at or above p1, by the whole block in two
+// rounds of loads.  Round 1: thread i reads the sample at slot i * step
+// (step = ceil(c / kSlotThreads)); the k samples below p are the first k,
+// so the first slot at or above p lies in ((k - 1) step, min(k step, c)]
+// (0 when k = 0).  Round 2 counts that bucket's positions below p (one
+// pass while c <= kSlotThreads^2).  Its barriers also order what the
+// block wrote to shared memory before it.
+template <typename I>
+__device__ __forceinline__ void slot_range(const I* __restrict__ pos, int c,
+                                           unsigned p0, unsigned p1,
+                                           int& s0, int& s1) {
+  const int step = (c + kSlotThreads - 1) / kSlotThreads;
+  const int s = threadIdx.x * step;
+  const bool in = s < c;
+  const unsigned v = in ? (unsigned)pos[s] : 0u;
+  const int k0 = __syncthreads_count(in && v < p0);
+  const int k1 = __syncthreads_count(in && v < p1);
+  const int a0 = k0 ? (k0 - 1) * step + 1 : 0;
+  const int a1 = k1 ? (k1 - 1) * step + 1 : 0;
+  const int e0 = k0 ? min(k0 * step, c) : 0;
+  const int e1 = k1 ? min(k1 * step, c) : 0;
+  const int len = max(e0 - a0, e1 - a1);
+  s0 = a0, s1 = a1;
+  for (int r = 0; r < len; r += kSlotThreads) {
+    const int i = r + threadIdx.x;
+    const bool q0 = a0 + i < e0 && (unsigned)pos[a0 + i] < p0;
+    const bool q1 = a1 + i < e1 && (unsigned)pos[a1 + i] < p1;
+    s0 += __syncthreads_count(q0);
+    s1 += __syncthreads_count(q1);
   }
 }
 
-// Block b: the real slots of tile ids[b] from the dense tile dense + b *
-// nb^2; sentinel slots are not written.
+// Block (b, j): rows [j rows, (j + 1) rows) of the dense nb x nb tile
+// ids[b] of the store into dense + b * nb^2, and every gridDim.y-th such
+// chunk after it.  Shared memory: rows * nb values (16-byte rounded).
 template <typename T, typename I>
 __global__ void __launch_bounds__(kSlotThreads)
-    compress_kernel(T* values, const I* idx, const int* off, const int* cap,
-                    const int* ids, int nb, const T* dense) {
-  const size_t nn = (size_t)nb * nb;
+    decompress_kernel(const T* __restrict__ values, const I* __restrict__ idx,
+                      const int* __restrict__ off, const int* __restrict__ cap,
+                      const int* __restrict__ ids, int nb, int rows,
+                      T* __restrict__ dense) {
+  extern __shared__ uint4 chunk4[];
+  T* chunk = reinterpret_cast<T*>(chunk4);
   const int t = ids[blockIdx.x];
-  const T* d = dense + blockIdx.x * nn;
-  const size_t o = (size_t)off[t];
+  const long long o = off[t];
   const int c = cap[t];
-  for (int s = threadIdx.x; s < c; s += kSlotThreads) {
-    const size_t p = idx[o + s];
-    if (p < nn) values[o + s] = d[p];
+  const bool vec = groups_aligned(values, idx);
+  T* tile = dense + (size_t)blockIdx.x * nb * nb;
+  for (int r0 = blockIdx.y * rows; r0 < nb; r0 += gridDim.y * rows) {
+    const int n = (min(r0 + rows, nb) - r0) * nb;  // the chunk's values
+    const unsigned p0 = (unsigned)r0 * nb, p1 = p0 + n;
+    const int words = (n * (int)sizeof(T) + 15) / 16;
+    for (int e = threadIdx.x; e < words; e += kSlotThreads)
+      chunk4[e] = make_uint4(0, 0, 0, 0);
+    int s0 = 0, s1 = c;
+    if (c > kSlotDirect)
+      slot_range(idx + o, c, p0, p1, s0, s1);  // its barriers follow the zeros
+    else
+      __syncthreads();
+    const long long lo = o + s0, hi = o + s1;
+#pragma unroll 2
+    for (long long g = (lo & ~(long long)(kSlotGroup - 1)) +
+                       kSlotGroup * threadIdx.x;
+         g < hi; g += kSlotGroup * kSlotThreads) {
+      unsigned p[kSlotGroup];
+      T v[kSlotGroup];
+      if (vec && g >= lo && g + kSlotGroup <= hi) {
+        load_group(idx + g, p);
+        load_group(values + g, v);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kSlotGroup; ++k) {
+          const bool in = g + k >= lo && g + k < hi;
+          p[k] = in ? (unsigned)idx[g + k] : kNoSlot;
+          v[k] = in ? values[g + k] : T(0);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kSlotGroup; ++k)  // the slots of its rows
+        if (p[k] - p0 < (unsigned)n) chunk[p[k] - p0] = v[k];
+    }
+    __syncthreads();
+    T* d = tile + p0;
+    if (reinterpret_cast<uintptr_t>(d) % 16 == 0 &&
+        n * sizeof(T) % 16 == 0) {
+      uint4* d4 = reinterpret_cast<uint4*>(d);
+      for (int e = threadIdx.x; e < words; e += kSlotThreads)
+        d4[e] = chunk4[e];
+    } else {
+      for (int e = threadIdx.x; e < n; e += kSlotThreads) d[e] = chunk[e];
+    }
+    __syncthreads();  // before the next chunk's zeros
   }
+}
+
+// Block (b, j): slots [j span, (j + 1) span) of tile ids[b], and every
+// gridDim.y-th such range after it, from the dense tile dense + b *
+// nb^2; sentinel slots (position >= nb^2) are not written.
+template <typename T, typename I>
+__global__ void __launch_bounds__(kSlotThreads)
+    compress_kernel(T* __restrict__ values, const I* __restrict__ idx,
+                    const int* __restrict__ off, const int* __restrict__ cap,
+                    const int* __restrict__ ids, int nb, int span,
+                    const T* __restrict__ dense) {
+  const int t = ids[blockIdx.x];
+  const int c = cap[t];
+  const long long o = off[t];
+  const unsigned nn = (unsigned)nb * nb;
+  const T* d = dense + (size_t)blockIdx.x * nn;
+  const bool vec = groups_aligned(values, idx);
+  for (long long s0 = (long long)blockIdx.y * span; s0 < c;
+       s0 += (long long)gridDim.y * span) {
+    const long long lo = o + s0, hi = o + min(s0 + span, (long long)c);
+    for (long long g = (lo & ~(long long)(kSlotGroup - 1)) +
+                       kSlotGroup * threadIdx.x;
+         g < hi; g += kSlotGroup * kSlotThreads) {
+      unsigned p[kSlotGroup];
+      const bool whole = vec && g >= lo && g + kSlotGroup <= hi;
+      if (whole) {
+        load_group(idx + g, p);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kSlotGroup; ++k)
+          p[k] = g + k >= lo && g + k < hi ? (unsigned)idx[g + k] : kNoSlot;
+      }
+      T v[kSlotGroup];
+      bool all = whole;
+#pragma unroll
+      for (int k = 0; k < kSlotGroup; ++k) {
+        v[k] = p[k] < nn ? d[p[k]] : T(0);
+        all = all && p[k] < nn;
+      }
+      if (all) {
+        store_group(values + g, v);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kSlotGroup; ++k)
+          if (p[k] < nn) values[g + k] = v[k];
+      }
+    }
+  }
+}
+
+template <typename T, typename I>
+cudaError_t stage_slots_of(bool to_dense, T* values, const I* idx,
+                           const int* off, const int* cap, const int* ids,
+                           int batch, int nb, int rows, int chunks, int span,
+                           int spans, T* dense, cudaStream_t st) {
+  if (to_dense) {
+    const size_t smem = ((size_t)rows * nb * sizeof(T) + 15) / 16 * 16;
+    decompress_kernel<T, I><<<dim3(batch, chunks), kSlotThreads, smem, st>>>(
+        values, idx, off, cap, ids, nb, rows, dense);
+  } else {
+    compress_kernel<T, I><<<dim3(batch, spans), kSlotThreads, 0, st>>>(
+        values, idx, off, cap, ids, nb, span, dense);
+  }
+  return cudaGetLastError();
 }
 
 // Decompress (to_dense) or compress a batch of tiles; idx_bytes is the
-// width of a slot position, 2 or 4.
+// width of a slot position, 2 or 4.  The grid (kernels_cuda.
+// stage_geometry): decompress (batch, chunks) blocks of rows rows,
+// compress (batch, spans) blocks of span slots.
 template <typename T>
 cudaError_t stage_slots(bool to_dense, T* values, const void* idx,
                         int idx_bytes, const int* off, const int* cap,
-                        const int* ids, int batch, int nb, T* dense,
+                        const int* ids, int batch, int nb, int rows,
+                        int chunks, int span, int spans, T* dense,
                         cudaStream_t st) {
   if (batch == 0) return cudaSuccess;
-  if (idx_bytes == 2) {
-    const auto* ix = static_cast<const uint16_t*>(idx);
-    if (to_dense)
-      decompress_kernel<T, uint16_t>
-          <<<batch, kSlotThreads, 0, st>>>(values, ix, off, cap, ids, nb,
-                                           dense);
-    else
-      compress_kernel<T, uint16_t>
-          <<<batch, kSlotThreads, 0, st>>>(values, ix, off, cap, ids, nb,
-                                           dense);
-  } else if (idx_bytes == 4) {
-    const auto* ix = static_cast<const uint32_t*>(idx);
-    if (to_dense)
-      decompress_kernel<T, uint32_t>
-          <<<batch, kSlotThreads, 0, st>>>(values, ix, off, cap, ids, nb,
-                                           dense);
-    else
-      compress_kernel<T, uint32_t>
-          <<<batch, kSlotThreads, 0, st>>>(values, ix, off, cap, ids, nb,
-                                           dense);
-  } else {
+  if (batch < 0 || nb < 1 || rows < 1 || chunks < 1 ||
+      chunks > kSlotGridY || (size_t)rows * nb * sizeof(T) > kSlotChunkBytes ||
+      span < 1 || spans < 1 || spans > kSlotGridY)
     return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (idx_bytes == 2)
+    return stage_slots_of(to_dense, values, static_cast<const uint16_t*>(idx),
+                          off, cap, ids, batch, nb, rows, chunks, span, spans,
+                          dense, st);
+  if (idx_bytes == 4)
+    return stage_slots_of(to_dense, values, static_cast<const uint32_t*>(idx),
+                          off, cap, ids, batch, nb, rows, chunks, span, spans,
+                          dense, st);
+  return cudaErrorInvalidValue;
 }
 
 // A 64 x 64 product window (4 warps of 32 x 32): the Newton steps of

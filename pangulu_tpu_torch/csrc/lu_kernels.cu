@@ -1429,7 +1429,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 10; }
+int plu_kernels_abi() { return 11; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1544,15 +1544,17 @@ PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f32, float)
 PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f64, double)
 
 // P6: the tiles ids of the compressed store to dense (to_dense = 1) or
-// back (0); idx_bytes is the width of a slot position (2 or 4).
+// back (0); idx_bytes is the width of a slot position (2 or 4); the grid
+// as plu::stage_slots takes it.
 #define PLU_STAGE_SLOTS(NAME, T)                                              \
   int NAME(int dev, int to_dense, T* values, const void* idx, int idx_bytes, \
            const int* off, const int* cap, const int* ids, int batch, int nb, \
-           T* dense, void* st) {                                              \
+           int rows, int chunks, int span, int spans, T* dense, void* st) {   \
     cudaError_t e = cudaSetDevice(dev);                                       \
     if (e != cudaSuccess) return e;                                           \
     return plu::stage_slots(to_dense != 0, values, idx, idx_bytes, off, cap,  \
-                            ids, batch, nb, dense, PLU_STREAM(st));           \
+                            ids, batch, nb, rows, chunks, span, spans, dense, \
+                            PLU_STREAM(st));                                  \
   }
 PLU_STAGE_SLOTS(plu_stage_slots_f32, float)
 PLU_STAGE_SLOTS(plu_stage_slots_f64, double)

@@ -19,6 +19,7 @@ CUDA error, and adds to :data:`LAUNCHES` the launches it made.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -29,7 +30,7 @@ from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
                                                  check_nb)
 from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 10
+_ABI = 11
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -107,7 +108,7 @@ def library() -> build.KernelLibrary:
         fn.argtypes = [i, p, p, i, p, p] + [p] * 6 + [i] * 6 + [p, p]
         fn = getattr(lib, f"plu_stage_slots_{s}")
         fn.restype = i
-        fn.argtypes = [i, i, p, p, i, p, p, p, i, i, p, p]
+        fn.argtypes = [i, i, p, p, i, p, p, p] + [i] * 6 + [p, p]
         fn = getattr(lib, f"plu_triangle_inverses_{s}")
         fn.restype = i
         fn.argtypes = [i, p, p, p, i, i, d, p]
@@ -496,11 +497,117 @@ def mega_solve_groups(x: torch.Tensor, tiles: torch.Tensor,
 
 _IDX_BYTES = {torch.uint16: 2, torch.uint32: 4}
 
+# P6's launch geometry (csrc/compressed.cuh): threads a block, slots a
+# thread takes at once, the largest tile a decompress block reads whole
+# (larger ones it searches), the shared memory a decompress block may
+# use for its rows, the blocks an SM a decompress and a compress grid
+# should hold where the batch allows (chosen by probe_p6.py --sweep on
+# an H100: fewer, larger blocks for decompress, whose rows each block
+# writes from shared memory), the largest slot span of a compress block
+# in units of SLOT_GROUP * SLOT_THREADS, and the largest second grid
+# dimension.
+SLOT_THREADS = 256
+SLOT_GROUP = 4
+SLOT_DIRECT = 2 * SLOT_GROUP * SLOT_THREADS
+SLOT_CHUNK_BYTES = 32768
+SLOT_DECOMPRESS_PER_SM = 4
+SLOT_COMPRESS_PER_SM = 6
+SLOT_SPAN_UNITS = 16
+SLOT_GRID_Y = 65535
+# pairs of neighbouring slots the order check holds at once
+_ORDER_CHUNK = 1 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class StageGeometry:
+    """P6's grid for one batch: decompress takes (batch, chunks) blocks
+    of ``rows`` rows of a tile, compress (batch, spans) blocks of
+    ``span`` slots of a tile.  Both kernels walk further chunks or spans
+    grid-stride, so any grid is right; this one only sets the speed."""
+
+    rows: int
+    chunks: int
+    span: int
+    spans: int
+
+
+def stage_geometry(nb: int, elem_bytes: int, caps, sms: int
+                   ) -> StageGeometry:
+    """P6's grid for a batch of tiles with slot counts ``caps`` (the
+    scratch tile's 0 included) at tile width ``nb``, values of
+    ``elem_bytes`` bytes, on a card of ``sms`` SMs: rows and slot spans
+    as few as keep the grid near SLOT_DECOMPRESS_PER_SM and
+    SLOT_COMPRESS_PER_SM blocks an SM, so a small batch spreads each
+    tile over many blocks and a large one gives each block more work.
+    A batch whose tiles decompress reads whole (at most SLOT_DIRECT
+    slots) gets half the decompress blocks: each of a tile's blocks
+    reads all its slots.  A decompress block's rows fit
+    SLOT_CHUNK_BYTES, chunks of one tile are as even as may be, a span is
+    a whole number of thread groups."""
+    caps = np.asarray(caps, dtype=np.int64)
+    batch = len(caps)
+    target = SLOT_DECOMPRESS_PER_SM * sms
+    if caps.max(initial=0) <= SLOT_DIRECT:
+        target = max(1, target // 2)
+    rows = max(1, min(nb, SLOT_CHUNK_BYTES // (nb * elem_bytes),
+                      -(-nb * batch // target)))
+    chunks = -(-nb // rows)
+    rows = -(-nb // chunks)
+    unit = SLOT_GROUP * SLOT_THREADS
+    span = unit * max(1, min(SLOT_SPAN_UNITS, -(-int(caps.sum()) // (
+        unit * SLOT_COMPRESS_PER_SM * sms))))
+    spans = min(max(1, -(-int(caps.max(initial=0)) // span)), SLOT_GRID_Y)
+    return StageGeometry(rows=rows, chunks=chunks, span=span, spans=spans)
+
+
+def check_slot_order(idx: torch.Tensor, off: Indices, cap: Indices,
+                     nb: int) -> None:
+    """Raise ValueError naming the first tile whose slot positions do not
+    ascend strictly: decompress finds a block's slots by searching them.
+    A sentinel position (>= nb^2) may only follow the tile's real ones.
+    The neighbouring pairs are compared where ``idx`` lies, _ORDER_CHUNK
+    at a time, with one read back at the end."""
+    nn = nb * nb
+    o = off.host[:-1].astype(np.int64)
+    pairs = np.maximum(cap.host[:-1].astype(np.int64) - 1, 0)
+    first = np.cumsum(pairs) - pairs        # each tile's first pair
+    total = int(pairs.sum())
+    cuts = np.unique(np.r_[0, np.searchsorted(
+        first, np.arange(_ORDER_CHUNK, total, _ORDER_CHUNK), "right") - 1,
+        len(o)])
+    dev = idx.device
+    found = []
+    for t0, t1 in zip(cuts[:-1], cuts[1:]):
+        n = int(pairs[t0:t1].sum())
+        if n == 0:
+            continue
+        base = torch.as_tensor(o[t0:t1] - (first[t0:t1] - first[t0]),
+                               device=dev)
+        s = torch.repeat_interleave(
+            base, torch.as_tensor(pairs[t0:t1], device=dev),
+            output_size=n) + torch.arange(n, device=dev)
+        p, q = kt.slot_positions(idx, s), kt.slot_positions(idx, s + 1)
+        bad = ~((q > p) & (p < nn) | (p >= nn) & (q >= nn))
+        found.append((t0, t1, bad.any(), bad.int().argmax()))
+    if not found:
+        return
+    flags = torch.stack([f[2] for f in found]).cpu().numpy()
+    if not flags.any():
+        return
+    t0, t1, _, k = found[int(flags.argmax())]
+    tile = t0 + int(np.searchsorted(first[t0:t1] - first[t0], int(k),
+                                    "right")) - 1
+    raise ValueError(f"tile {tile}: its slot positions do not ascend "
+                     "strictly (the compressed store keeps each tile's "
+                     "positions in ascending order)")
+
 
 def _check_slots(values, idx, off: Indices, cap: Indices, nb: int):
-    """The store's arrays, and (once a store) its host tables: every
-    tile's slot range inside ``values``, the scratch tile empty, the slot
-    offsets within int32.  Returns the number of tiles nt."""
+    """The store's arrays, and (once a store) its host tables and slot
+    order: every tile's slot range inside ``values``, the scratch tile
+    empty, the slot offsets within int32, each tile's positions
+    ascending (:func:`check_slot_order`).  Returns the number of tiles
+    nt."""
     dev = values.device
     if values.dim() != 1 or not values.is_contiguous():
         raise ValueError("values must be a contiguous 1-D tensor")
@@ -515,7 +622,7 @@ def _check_slots(values, idx, off: Indices, cap: Indices, nb: int):
     nt = len(off) - 1
     for name, ix in (("off", off), ("cap", cap)):
         _check_tensor(name, ix.dev, torch.int32, (nt + 1,), dev)
-    key = ("store", values.numel(), id(cap))
+    key = ("store", values.numel(), id(cap), id(idx), nb)
     if key not in off.checked:
         o, c = off.host.astype(np.int64), cap.host.astype(np.int64)
         if len(c) != nt + 1 or c[nt] != 0 or (c < 0).any() or (o < 0).any() \
@@ -523,6 +630,7 @@ def _check_slots(values, idx, off: Indices, cap: Indices, nb: int):
                 or values.numel() >= 2 ** 31:
             raise ValueError("off/cap name slot ranges outside values, or "
                              "the scratch tile has slots")
+        check_slot_order(idx, off, cap, nb)
         off.checked.add(key)
     return nt
 
@@ -540,13 +648,29 @@ def _check_ids(ids: Indices, nt: int, device) -> None:
         ids.checked.add(key)
 
 
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
+
+
 def _stage_slots(to_dense, values, idx, off, cap, ids, nb, dense):
-    lib = library().lib
     dev = values.device
+    key = (id(cap), nb, values.element_size())
+    geo = ids.geometry.get(key)
+    if geo is None:
+        geo = ids.geometry[key] = stage_geometry(
+            nb, values.element_size(), cap.host[ids.host], _sm_count(dev))
+    lib = library().lib
     _call(getattr(lib, f"plu_stage_slots_{_dtype_of(values)}"), dev.index,
           int(to_dense), values.data_ptr(), idx.data_ptr(),
           _IDX_BYTES[idx.dtype], off.dev.data_ptr(), cap.dev.data_ptr(),
-          ids.dev.data_ptr(), len(ids), nb, dense.data_ptr(), _stream(dev))
+          ids.dev.data_ptr(), len(ids), nb, geo.rows, geo.chunks, geo.span,
+          geo.spans, dense.data_ptr(), _stream(dev))
 
 
 def decompress_tiles(values: torch.Tensor, idx: torch.Tensor, off: Indices,

@@ -377,11 +377,13 @@ def mega_solve(x: torch.Tensor, tiles: torch.Tensor, invs: torch.Tensor,
 class Indices:
     """int32 indices on the host and the same on a device, shipped once.
     The plain versions read ``dev``; the CUDA wrappers check ``host``
-    once for each store they index (``checked`` holds what was)."""
+    once for each store they index (``checked`` holds what was) and
+    keep the launch geometry they derive from it in ``geometry``."""
 
     host: np.ndarray
     dev: torch.Tensor
     checked: set = dataclasses.field(default_factory=set)
+    geometry: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def build(cls, a, device) -> "Indices":

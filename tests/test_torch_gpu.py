@@ -515,36 +515,74 @@ def test_update_values_then_gstrf_on_cuda(cuda):
 
 # ---- the compressed store: P6 (slot kernels) and P2 (Newton inverses)
 
-def _compressed_store(nb, dtype, device):
+def _compressed_store(nb, dtype, device, gen=None):
     from pangulu_tpu_torch.compressed import CompressedTiles
 
-    h = pt.init(poisson2d(12 if nb <= 128 else 20),
-                pt.InitOptions(nb=nb, dtype=dtype, ordering="nd",
-                               device="cpu"))
+    a = gen() if gen else poisson2d(12 if nb <= 128 else 20)
+    h = pt.init(a, pt.InitOptions(nb=nb, dtype=dtype, ordering="nd",
+                                  device="cpu"))
     return CompressedTiles(h.blocked, h.reordering.reordered, device=device)
 
 
-@pytest.mark.parametrize("dtype", ["r32", "r64"])
-@pytest.mark.parametrize("nb", [16, 100, 256])     # u16, u16, u32 slots
-def test_slot_kernels_bit_exact(cuda, dtype, nb):
-    """P6 against its plain version bit for bit, both directions, every
-    tile of the store with the scratch tile (cap 0) at both ends."""
-    st = _compressed_store(nb, dtype, cuda)
-    assert st.idx.dtype == (torch.uint32 if nb == 256 else torch.uint16)
+def _slot_batch(st, batch, sms):
+    """The tile ids of a P6 batch: every tile with the scratch tile at
+    both ends ("ends") or also mid-batch ("mid"), the tile of the largest
+    cap alone ("largest"), or every tile and the scratch tile repeated
+    until the batch holds more than ``sms`` x the blocks a tile gets
+    ("wide")."""
     nt = st.num_tiles
-    ids = kt.Indices.build(np.r_[nt, np.arange(nt)[::-1], nt], cuda)
+    tiles = np.arange(nt)[::-1]
+    if batch == "ends":
+        return np.r_[nt, tiles, nt]
+    if batch == "mid":
+        return np.r_[tiles[:nt // 2], nt, nt, tiles[nt // 2:], nt]
+    if batch == "largest":
+        return np.array([int(np.argmax(st.host_cap))])
+    ids = np.r_[tiles, nt]
+    esz = st.values.element_size()
+    while True:
+        cap = np.append(st.host_cap, 0)[ids]
+        chunks = kc.stage_geometry(st.nb, esz, cap, sms).chunks
+        if len(ids) > sms * chunks:
+            return ids
+        ids = np.r_[ids, np.full(len(ids), nt)]
+
+
+@pytest.mark.parametrize("batch", ["ends", "mid", "largest", "wide"])
+@pytest.mark.parametrize("dtype", ["r32", "r64"])
+# u16 slots (odd nb = 5 and 10 take the unaligned dense stores), u32 at 256
+@pytest.mark.parametrize("nb", [5, 10, 16, 100, 128, 256])
+def test_slot_kernels_bit_exact(cuda, dtype, nb, batch):
+    """P6 against its plain version bit for bit, both directions, on
+    random slot values: every tile of the store with the scratch tile
+    (cap 0) at both ends or also mid-batch, the tile of the largest cap
+    alone (at nb=128 poisson3d(16)'s, a full 16,384-slot tile), and a
+    batch wider than the card's SMs times the blocks a tile gets."""
+    gen = (lambda: poisson3d(16)) if nb == 128 else None
+    st = _compressed_store(nb, dtype, cuda, gen)
+    assert st.idx.dtype == (torch.uint32 if nb == 256 else torch.uint16)
+    rng = np.random.default_rng(nb)
+    st.values = torch.as_tensor(rng.standard_normal(st.values.numel()),
+                                dtype=st.values.dtype, device=cuda)
+    nt = st.num_tiles
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    host = _slot_batch(st, batch, sms)
+    ids = kt.Indices.build(host, cuda)
     args = (st.values, st.idx, st.off, st.cap, ids)
     got = kc.decompress_tiles(*args, nb)
     assert torch.equal(got, kt.decompress_tiles(*args, nb))
-    assert not got[0].any() and not got[-1].any()
+    assert not got[torch.as_tensor(host == nt, device=cuda)].any()
     back = {f: torch.full_like(st.values, 5.0) for f in ("k", "p")}
     kc.compress_tiles(back["k"], st.idx, st.off, st.cap, ids, got)
     kt.compress_tiles(back["p"], st.idx, st.off, st.cap, ids, got)
     torch.cuda.synchronize()
     assert torch.equal(back["k"], back["p"])
-    s = st.scratch_slot
-    assert torch.equal(back["k"][:s], st.values[:s])
-    assert (back["k"][s:] == 5.0).all()       # sentinel slots untouched
+    named = np.zeros(st.values.numel(), dtype=bool)
+    for t in host[host != nt]:
+        named[st.host_off[t]:st.host_off[t] + st.host_cap[t]] = True
+    named = torch.as_tensor(named, device=cuda)
+    assert torch.equal(back["k"][named], st.values[named])
+    assert (back["k"][~named] == 5.0).all()   # other slots untouched
 
 
 @pytest.mark.parametrize("nb", [8, 100, 128, 256])
