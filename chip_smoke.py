@@ -120,26 +120,30 @@ CUDA toolkit (nvcc).  It
      seed=2) nb=32 r64 (< 1e-6); its numbers go out as a
      {"compressed": ...} JSON line;
   8. runs the TPU probes' kernels (probes_phase; step 1 also fails if
-     one of their 21 instances spills): P5 scan_overlap in its four
+     one of their 20 instances spills): P5 scan_overlap in its four
      modes and P4 scan_multi at Q = 1, 2, 4, 8 without and with the
-     products, at 128 and 256 steps on the probes' inputs
-     (testing.probe_inputs), and P3 newton_loop at G = 4 and 16, nb = 16
-     and 128, each against its plain version: float32 true f32 (the
-     kernel's error against the plain float64 version at most 2x the
-     plain float32 version's, relative to max |f64|, for P3 to each
-     row's max, or one f32 eps), P3's float64 within 1e-12 of each row's
-     max; the instances with 3xTF32 products (timed only) within 1e-4 of
-     max |f64| at 128 steps; with b = 0 (the products stay 0), every
-     instance with products bit-equal to the one without, at the
-     probes' own 4096 (P5) and 2048 (P4) steps, which checks their scan
-     part; then, with the launch counts zeroed before and read
-     after (each probe kernel launched at least once), the probes'
-     own path: pangulu_tpu_torch/tools/probe_{overlap,scan_multi,
-     newton_loop}.run at the probes' sizes (4096 and 2048 steps, G up to
-     16), which print their tables; those sizes are timed only (the
-     chain of products leaves float32's range); the plain versions
-     timed at the kernels line's sizes; a {"probes": ...} JSON line
-     (with each probe's one-SM bound);
+     products (on clusters of 8 and 16 CTAs), at 128 and 256 steps on the
+     probes' inputs (testing.probe_inputs), P4 with 3 copies at n = 100,
+     and P3 newton_loop at G = 4 and 16, nb = 16, 100 and 128, on unit
+     triangles and on a batch with a general member
+     (testing.newton_mixed_inputs), at the probe's steps and at 0 and 2,
+     on clusters of 4, 8 and 16 CTAs, each against its plain version:
+     float32 true f32 (the kernel's error against the plain float64
+     version at most 2x the plain float32 version's, relative to max
+     |f64|, for P3 to each row's max, or one f32 eps), P3's float64
+     within 1e-12 of each row's max; the instances with 3xTF32 products
+     (timed only) within 1e-4 of max |f64| at 128 steps; with b = 0 (the
+     products stay 0), every instance with products bit-equal to the one
+     without, at the probes' own 4096 (P5) and 2048 (P4) steps, which
+     checks their scan part; then, with the launch counts zeroed before
+     and read after (each probe kernel launched at least once), the
+     probes' own path: pangulu_tpu_torch/tools/probe_{overlap,
+     scan_multi,newton_loop}.run at the probes' sizes (4096 and 2048
+     steps, G up to 16), which print their tables and time one cluster
+     barrier at each cluster size beside a grid barrier; those sizes are
+     timed only (the chain of products leaves float32's range); the
+     plain versions timed at the kernels line's sizes; a {"probes": ...}
+     JSON line (with each probe's bound on the SMs it runs on);
   9. with --profile, also traces one rcm solve and prints, per phase,
      each kernel's launches and device time, the host wall time and the
      device's idle share (K3's solve: exactly 2 launches of its sweep
@@ -151,8 +155,10 @@ CUDA toolkit (nvcc).  It
      launches from the compressed path and the reloaded factor, and the
      probes P5, P4, P3 (scan_overlap at mode both and 4096 steps,
      scan_multi at Q = 8 with products and 2048 steps, both with DMMA
-     products, newton_loop at G = 16 on one CTA; launches from the
-     probes' path, none on the solver's), with max_rel_err, their
+     products, P4's on its default cluster, kernels_cuda.SCAN_CLUSTER;
+     newton_loop at G = 16 on clusters of kernels_cuda.NEWTON_CLUSTER;
+     launches from the probes' path, none on the solver's), with
+     max_rel_err, their
      largest difference from the plain float32 version over max |plain
      f64| (P3: each row's):
      time, launches, error, plain and library times, and the bound:
@@ -253,10 +259,10 @@ PRODUCT_INSTANCES = 12
 # of 32, 64 and 128, and the products of its off-diagonal block above 128
 COMPRESSED_INSTANCES = 16
 # P5: overlap_kernel in 4 modes, the 3 with products in float64 (DMMA)
-# and in 3xTF32; P4: scan_multi_kernel at Q = 1, 2, 4, 8, without
-# products, and with them in either type; P3: newton_loop_kernel for
-# float and double
-PROBE_INSTANCES = 21
+# and in 3xTF32; P4: scan_multi_kernel<C, P> without products (C = 0),
+# and with them in either type on clusters of 4, 8, 16; P3:
+# newton_loop_kernel<type, C> for float and double, C = 4, 8, 16
+PROBE_INSTANCES = 20
 # SMs of an H100 SXM: a one-CTA probe's bound on one SM is the card's
 # operations bound times this (kept in the details file)
 SMS = 132
@@ -1225,17 +1231,18 @@ def scan_flop(n: int, steps: int, chains: int) -> int:
 
 
 def probe_bound(nbytes: float, flop: float, tc_flop: float,
-                tc_peak: float) -> tuple:
+                tc_peak: float, sms: int) -> tuple:
     """bound() of a probe: bytes over 3.35 TB/s, its operations on the
     CUDA cores (float32) and its products' on the tensor cores at
-    tc_peak; and beside it the one-SM bound in ms, the same with the
-    operations at a 132nd of those peaks (a probe's work runs on one
-    CTA), a computed number kept out of the kernels line."""
+    tc_peak; and beside it the bound on the ``sms`` SMs its kernel runs
+    the work on (P5 one CTA, P4's products one cluster, P3 a cluster a
+    member), the same with the operations at sms / 132 of those peaks, a
+    computed number kept out of the kernels line."""
     tb = nbytes / HBM_BYTES_S * 1e3
     tf = max(flop / FLOP_S[torch.float32], tc_flop / tc_peak) * 1e3
     return (dict(bound_ms=max(tb, tf),
                  bound_by="bytes" if tb >= tf else "operations"),
-            max(tb, tf * SMS))
+            max(tb, tf * SMS / min(sms, SMS)))
 
 
 def probes_phase(dev) -> tuple:
@@ -1243,14 +1250,16 @@ def probes_phase(dev) -> tuple:
     plain version (true f32; P3's per row, its f64 within 1e-12 per row;
     the 3xTF32 instances within TF32X3_REL) and, with b = 0, the scan
     part of every instance with products bit-equal to the scan alone, at
-    the probes' own step counts; (2) with the launch counts zeroed before
-    and read after, the probes' own path, the three tools' run() at the
-    probes' sizes, which print their tables; (3) the plain versions
-    timed at the kernels line's sizes.  Returns (details, kernel
-    entries, launches of the probes' path)."""
+    the probes' own step counts; P4 and P3 at each cluster size the card
+    takes; (2) with the launch counts zeroed before and read after, the
+    probes' own path, the three tools' run() at the probes' sizes, which
+    print their tables; (3) the plain versions timed at the kernels
+    line's sizes.  Returns (details, kernel entries, launches of the
+    probes' path)."""
     from pangulu_tpu_torch.ops import kernels_cuda as kc
     from pangulu_tpu_torch.ops import kernels_torch as kt
-    from pangulu_tpu_torch.testing import newton_inputs, probe_inputs
+    from pangulu_tpu_torch.testing import (newton_inputs, newton_mixed_inputs,
+                                           probe_inputs)
     from pangulu_tpu_torch.tools import (probe_newton_loop, probe_overlap,
                                          probe_scan_multi)
 
@@ -1261,12 +1270,13 @@ def probes_phase(dev) -> tuple:
     err = dict.fromkeys(PROBES, 0.0)
     rel = dict.fromkeys(PROBES, 0.0)
 
-    def true_f32(name, label, got, p32, p64, per_row=False):
+    def true_f32(name, label, got, p32, p64, per_row=False, show=True):
         ek = rel_err(got, p64, per_row)
         ep = rel_err(p32, p64, per_row)
         ok = bool(torch.isfinite(got).all()) and ek <= max(2 * ep, eps)
-        print(f"  {label}: kernel {ek:.3e}, plain f32 {ep:.3e} (kernel <= "
-              f"2x plain) {'ok' if ok else 'FAIL'}")
+        if show or not ok:
+            print(f"  {label}: kernel {ek:.3e}, plain f32 {ep:.3e} (kernel "
+                  f"<= 2x plain) {'ok' if ok else 'FAIL'}")
         out["true_f32"][label] = dict(kernel=ek, plain=ep)
         err[name] = max(err[name],
                         float((got.double() - p32.double()).abs().max()))
@@ -1282,6 +1292,7 @@ def probes_phase(dev) -> tuple:
           "P3: to each row's)")
     a, b = (torch.as_tensor(x, device=dev) for x in probe_inputs(seed=0))
     a64, b64 = a.double(), b.double()
+    clusters = probe_scan_multi.CLUSTERS
     for steps in (128, 256):
         for mode in kt.OVERLAP_MODES:
             true_f32("scan_overlap", f"P5 {mode} {steps} steps",
@@ -1289,22 +1300,35 @@ def probes_phase(dev) -> tuple:
                      kt.scan_overlap(a, b, mode, steps),
                      kt.scan_overlap(a64, b64, mode, steps))
         for q in kt.SCAN_CHAINS:
-            for wd in (False, True):
+            for wd, c in ((False, kc.SCAN_CLUSTER),
+                          *((True, c) for c in clusters)):
                 true_f32("scan_multi",
-                         f"P4 q={q} products={int(wd)} {steps} steps",
-                         kc.scan_multi(a, b, q, wd, steps),
+                         f"P4 q={q} products={int(wd)}"
+                         + (f" C={c}" if wd else "") + f" {steps} steps",
+                         kc.scan_multi(a, b, q, wd, steps, cluster=c),
                          kt.scan_multi(a, b, q, wd, steps),
                          kt.scan_multi(a64, b64, q, wd, steps))
+    # copies: each its own chains and cluster, on a tile of 100
+    a1, b1 = (torch.as_tensor(x, device=dev)
+              for x in probe_inputs(seed=1, nb=100))
+    many = kc.scan_multi(a1, b1, 8, True, 128, copies=3)
+    if many.shape != (3, 100, 100) or not all(torch.equal(m, many[0])
+                                              for m in many):
+        fail("P4 copies=3, n=100: the copies differ")
+    true_f32("scan_multi", "P4 q=8 products=1 copies=3 n=100 128 steps",
+             many[0], kt.scan_multi(a1, b1, 8, True, 128),
+             kt.scan_multi(a1.double(), b1.double(), 8, True, 128))
     # the 3xTF32 instances, timed only: a sanity bound, not true f32
     s3 = 128
     for label, got, p64 in (
             *((f"P5 {m}", kc.scan_overlap(a, b, m, s3, products="tf32x3"),
                kt.scan_overlap(a64, b64, m, s3))
               for m in ("dots", "both", "split")),
-            *((f"P4 q={q}", kc.scan_multi(a, b, q, True, s3,
-                                          products="tf32x3"),
+            *((f"P4 q={q} C={c}", kc.scan_multi(a, b, q, True, s3,
+                                                products="tf32x3",
+                                                cluster=c),
                kt.scan_multi(a64, b64, q, True, s3))
-              for q in kt.SCAN_CHAINS)):
+              for q in kt.SCAN_CHAINS for c in clusters)):
         e = rel_err(got, p64)
         out["tf32x3"][label] = e
         ok = bool(torch.isfinite(got).all()) and e <= TF32X3_REL
@@ -1332,27 +1356,46 @@ def probes_phase(dev) -> tuple:
         if not torch.isfinite(alone).all():
             fail(f"P4 q={q}: a chain left float32's range at {s4} steps")
         for pr in kc.PROBE_PRODUCTS:
-            if not torch.equal(kc.scan_multi(a, zero, q, True, s4,
-                                             products=pr), alone):
-                fail(f"P4 q={q} {pr}: with b = 0, differs from the "
-                     "chains alone")
-    print(f"  P4 q={kt.SCAN_CHAINS} with products, f64 and 3xTF32, b = 0, "
-          f"{s4} steps: bit-equal to the chains alone")
+            for c in clusters:
+                if not torch.equal(kc.scan_multi(a, zero, q, True, s4,
+                                                 products=pr, cluster=c),
+                                   alone):
+                    fail(f"P4 q={q} {pr} C={c}: with b = 0, differs from "
+                         "the chains alone")
+    print(f"  P4 q={kt.SCAN_CHAINS} with products, f64 and 3xTF32, C = "
+          f"{clusters}, b = 0, {s4} steps: bit-equal to the chains alone")
+    # P3: unit triangles and a batch with a general member, the probe's
+    # steps and two truncated counts, at each cluster size; a line for
+    # each batch with its worst readings (every failure prints its own)
     for g in (4, 16):
-        for nb in (16, 128):
-            lm = torch.as_tensor(newton_inputs(g, nb, seed=nb), device=dev)
-            st = kt.newton_steps(nb)
-            p64 = kt.newton_loop(lm.double(), st)
-            for blocks in (1, 4):
-                true_f32("newton_loop", f"P3 G={g} nb={nb} {blocks} CTA",
-                         kc.newton_loop(lm, st, blocks=blocks),
-                         kt.newton_loop(lm, st), p64, per_row=True)
-            e64 = rel_err(kc.newton_loop(lm.double(), st), p64, True)
-            print(f"  P3 G={g} nb={nb} f64: {e64:.3e} of each row's max "
-                  "|plain| (<= 1e-12)")
-            if not e64 <= 1e-12:
-                fail(f"P3 f64 disagrees with its plain version (G={g}, "
-                     f"nb={nb})")
+        for nb in (16, 100, 128):
+            for mixed in (False, True):
+                inputs = newton_mixed_inputs if mixed else newton_inputs
+                lm = torch.as_tensor(inputs(g, nb, seed=nb), device=dev)
+                kind = "mixed" if mixed else "triangles"
+                counts = (kt.newton_steps(nb), 0, 2)
+                worst = dict(kernel=0.0, plain=0.0, f64=0.0)
+                for st in counts:
+                    p64 = kt.newton_loop(lm.double(), st)
+                    p32 = kt.newton_loop(lm, st)
+                    for c in probe_newton_loop.CLUSTERS:
+                        label = f"P3 G={g} nb={nb} {kind} steps={st} C={c}"
+                        true_f32("newton_loop", label,
+                                 kc.newton_loop(lm, st, blocks=c), p32, p64,
+                                 per_row=True, show=False)
+                        e64 = rel_err(kc.newton_loop(lm.double(), st,
+                                                     blocks=c), p64, True)
+                        out["true_f32"][label]["f64"] = e64
+                        for k, v in out["true_f32"][label].items():
+                            worst[k] = max(worst[k], v)
+                        if not e64 <= 1e-12:
+                            fail(f"{label}: f64 {e64:.3e} of each row's max "
+                                 "|plain f64|, above 1e-12")
+                print(f"  P3 G={g} nb={nb} {kind}, steps {counts}, C "
+                      f"{probe_newton_loop.CLUSTERS}: worst f32 kernel "
+                      f"{worst['kernel']:.3e} (plain f32 up to "
+                      f"{worst['plain']:.3e}, kernel <= 2x plain each), "
+                      f"f64 {worst['f64']:.3e} (<= 1e-12) of each row's max")
 
     print("probes (2): the probes' own path at their sizes, timed only")
     kc.reset_launch_counts()
@@ -1374,17 +1417,19 @@ def probes_phase(dev) -> tuple:
     lm = torch.as_tensor(newton_inputs(g3, nb, seed=g3), device=dev)
     st = kt.newton_steps(nb)
     tile = nb * nb * 4
-    row4 = next(r for r in p4
-                if r["q"] == q4 and r["dot"] and r["products"] == "f64")
-    row3 = next(r for r in p3 if r["g"] == g3)
+    row4 = next(r for r in p4["rows"]
+                if r["q"] == q4 and r["dot"] and r["products"] == "f64"
+                and r["cluster"] == kc.SCAN_CLUSTER)
+    row3 = next(r for r in p3["rows"] if r["g"] == g3)
     dmma = TC_FLOP_S[torch.float64]
     b5, sm5 = probe_bound(3 * tile, scan_flop(nb, s5, 1), s5 * 2 * nb ** 3,
-                          dmma)
+                          dmma, 1)
     b4, sm4 = probe_bound(3 * tile, scan_flop(nb, s4, q4), s4 * 2 * nb ** 3,
-                          dmma)
+                          dmma, kc.SCAN_CLUSTER)
     # P3's function: G unit-lower triangle inverses, members in and out
     b3, sm3 = probe_bound(2 * g3 * tile,
-                          g3 * unit_triangle_inverse_flop(nb), 0, dmma)
+                          g3 * unit_triangle_inverse_flop(nb), 0, dmma,
+                          g3 * kc.NEWTON_CLUSTER)
     entries = {
         "scan_overlap": dict(
             ms=p5["one_cta"]["both"]["ms"],
@@ -1397,20 +1442,20 @@ def probes_phase(dev) -> tuple:
                              reps=1),
             library_ms=None, **b4),
         "newton_loop": dict(
-            ms=row3["loop_1cta_us"] / 1e3,
+            ms=row3[f"cluster{kc.NEWTON_CLUSTER}_us"] / 1e3,
             plain_ms=cuda_ms(lambda _: kt.newton_loop(lm, st), reps=3),
             library_ms=row3["solve_triangular_us"] / 1e3, **b3),
     }
-    one_sm = dict(scan_overlap=sm5, scan_multi=sm4, newton_loop=sm3)
+    on_sms = dict(scan_overlap=sm5, scan_multi=sm4, newton_loop=sm3)
     for name, e in entries.items():
         kern[name] = dict(max_abs_err=err[name], max_rel_err=rel[name], **e)
         print(f"  {name}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.3f}"
-              f" ms, bound {e['bound_ms']:.3e} ms ({e['bound_by']}), one SM "
-              f"{one_sm[name]:.3e} ms, library "
+              f" ms, bound {e['bound_ms']:.3e} ms ({e['bound_by']}), on its "
+              f"SMs {on_sms[name]:.3e} ms, library "
               + ("none" if e["library_ms"] is None
                  else f"{e['library_ms']:.4f} ms (solve_triangular)"))
     out["kernels"] = kern
-    out["one_sm_bound_ms"] = one_sm
+    out["sm_bound_ms"] = on_sms
     return out, kern, launches
 
 

@@ -1429,7 +1429,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 11; }
+int plu_kernels_abi() { return 12; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1583,27 +1583,38 @@ int plu_scan_overlap_f32(int dev, int mode, int products, const float* a,
                            PLU_STREAM(st));
 }
 
-// P4: q in {1, 2, 4, 8}; products as for P5 (0 without the dot); work
-// holds 3 tiles a copy, mem q - 2 chains of 128 x 128 a copy.
+// P4: q >= 1 chains; products as for P5 (0 without the dot) on a
+// cluster of `cluster` CTAs (4, 8, 16); work holds q + 1 tiles of n x n
+// a copy, done `copies` counters that are 0 (and are 0 again after).
 int plu_scan_multi_f32(int dev, int q, int with_dot, int products,
-                       const float* a, const float* b, float* out, void* work,
-                       float* mem, int copies, int n, int steps, void* st) {
+                       int cluster, const float* a, const float* b,
+                       float* out, float* work, int* done, int copies, int n,
+                       int steps, void* st) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return e;
-  return plu::scan_multi(q, with_dot != 0, products, a, b, out, work, mem,
-                         copies, n, steps, PLU_STREAM(st));
+  return plu::scan_multi(q, with_dot != 0, products, cluster, a, b, out,
+                         work, done, copies, n, steps, PLU_STREAM(st));
 }
 
-// P3: work holds 4 f64 tiles a block.
+// P3: g members of nb <= 128, a cluster of `cluster` CTAs (4, 8, 16)
+// each; ws holds 3 float64 128 x 128 matrices a member.
 #define PLU_NEWTON_LOOP(NAME, T)                                              \
-  int NAME(int dev, const T* lm, T* out, double* work, int g, int nb,        \
-           int steps, int blocks, void* st) {                                \
+  int NAME(int dev, const T* lm, T* out, double* ws, int g, int nb,          \
+           int steps, int cluster, void* st) {                               \
     cudaError_t e = cudaSetDevice(dev);                                      \
     if (e != cudaSuccess) return e;                                          \
-    return plu::newton_loop(lm, out, work, g, nb, steps, blocks,             \
+    return plu::newton_loop(lm, out, ws, g, nb, steps, cluster,              \
                             PLU_STREAM(st));                                 \
   }
 PLU_NEWTON_LOOP(plu_newton_loop_f32, float)
 PLU_NEWTON_LOOP(plu_newton_loop_f64, double)
+
+// ``iters`` cluster barriers on one cluster of 2 <= c <= 16 CTAs: the
+// floor of a dependent step of P4's and P3's kernels; on no path.
+int plu_cluster_sync_probe(int dev, int c, int iters, void* st) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return e;
+  return plu::cluster_sync_probe(c, iters, PLU_STREAM(st));
+}
 
 }  // extern "C"

@@ -30,7 +30,7 @@ from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
                                                  check_nb)
 from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 11
+_ABI = 12
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -121,8 +121,10 @@ def library() -> build.KernelLibrary:
     lib.plu_scan_overlap_f32.restype = i
     lib.plu_scan_overlap_f32.argtypes = [i, i, i, p, p, p, p, i, i, i, p]
     lib.plu_scan_multi_f32.restype = i
-    lib.plu_scan_multi_f32.argtypes = [i, i, i, i, p, p, p, p, p, i, i, i,
-                                       p]
+    lib.plu_scan_multi_f32.argtypes = [i, i, i, i, i, p, p, p, p, p, i, i,
+                                       i, p]
+    lib.plu_cluster_sync_probe.restype = i
+    lib.plu_cluster_sync_probe.argtypes = [i, i, i, p]
     lib.plu_grid_sync_probe.restype = i
     lib.plu_grid_sync_probe.argtypes = [i, i, i, p, p]
     _library = kl
@@ -738,9 +740,18 @@ def newton_inverses(f: torch.Tensor, tol: float | None = None):
 
 # ------------------------------------------------ the TPU probes P3-P5
 
-# P4's and P5's kernels hold a 128 x 128 register tile a chain
-# (csrc/probes.cuh); a smaller tile is zero-padded into it.
+# P4's and P5's kernels hold a 128 x 128 register tile a chain, P3's
+# kernel a member padded to 128 x 128 (csrc/probes.cuh).
 PROBE_MAX_NB = 128
+# The thread block clusters of P4's products and P3's members
+# (csrc/probes.cuh ClusterBlocks): C CTAs hold a 128 x 128 matrix in
+# 4 x (C / 4) blocks.  The defaults: P4's products on 16, P3's members
+# on 4 (PERF.md).  The card refuses P4's float64 products on 4.
+CLUSTER_SIZES = (4, 8, 16)
+SCAN_CLUSTER = 16
+NEWTON_CLUSTER = 4
+# the largest grid.y of a launch (P4's copies, P3's members)
+MAX_GRID_Y = 65535
 _OVERLAP_MODE = {m: i for i, m in enumerate(kt.OVERLAP_MODES)}
 # P4's and P5's product types (csrc/probes.cuh ProbeProducts): "f64",
 # DMMA on float64 copies, true f32 on the probes' chains; "tf32x3", the
@@ -813,38 +824,69 @@ def scan_overlap(a: torch.Tensor, b: torch.Tensor, mode: str, steps: int,
     return out[0] if copies == 1 else out
 
 
+def _check_cluster(cluster: int) -> int:
+    """Check a cluster size of P4's or P3's kernel; returns it."""
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"the cluster size must be one of "
+                         f"{CLUSTER_SIZES}, got {cluster}")
+    return cluster
+
+
 def scan_multi(a: torch.Tensor, b: torch.Tensor, q: int, with_dot: bool,
-               steps: int, copies: int = 1,
-               products: str = "f64") -> torch.Tensor:
+               steps: int, copies: int = 1, products: str = "f64",
+               cluster: int = SCAN_CLUSTER) -> torch.Tensor:
     """P4: :func:`kernels_torch.scan_multi` of ``a``, ``b`` [nb, nb]
     float32, nb <= 128, q in (1, 2, 4, 8); copies and products as for
-    :func:`scan_overlap`.  Chain 0 lives in registers, chain 1 in
-    shared memory, the rest in a workspace in global memory (L2)."""
+    :func:`scan_overlap`.  One launch: each chain on a CTA of its own (in
+    registers), the chain of products on a thread block cluster of
+    ``cluster`` CTAs (acc in their shared memory), the parts summed in
+    the plain version's order by the CTA that finishes last."""
     if q not in kt.SCAN_CHAINS:
         raise ValueError(f"q must be one of {kt.SCAN_CHAINS}, got {q}")
     code = _check_probe_options(copies, products, with_dot)
+    _check_cluster(cluster)
     if not _on_cuda(a):
         return _copies_of(kt.scan_multi(a, b, q, with_dot, steps), copies)
     nb = _probe_nb(a, b, steps)
     dev = a.device
+    if copies > MAX_GRID_Y:
+        raise ValueError(f"copies must be <= {MAX_GRID_Y}, got {copies}")
     out = torch.empty((copies, nb, nb), dtype=a.dtype, device=dev)
-    work = _probe_work(copies, nb, products, dev)
-    # chains 2 to q - 1, zero-padded to 128 x 128
-    mem = torch.empty((copies, max(q - 2, 0), PROBE_MAX_NB, PROBE_MAX_NB),
-                      dtype=a.dtype, device=dev)
+    # the chains, then acc rounded to float32, a copy
+    work = torch.empty((copies, q + 1, nb, nb), dtype=a.dtype, device=dev)
     _call(library().lib.plu_scan_multi_f32, dev.index, q, int(with_dot),
-          code, a.data_ptr(), b.data_ptr(), out.data_ptr(), work.data_ptr(),
-          mem.data_ptr(), copies, nb, steps, _stream(dev))
+          code, cluster, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+          work.data_ptr(), _done_counters(dev, copies).data_ptr(), copies,
+          nb, steps, _stream(dev))
     LAUNCHES["scan_multi"] += 1
     return out[0] if copies == 1 else out
 
 
-def newton_loop(lm: torch.Tensor, steps: int, blocks: int = 1):
+# P4's completion counters by device, one a copy: zeroed when made, and
+# left at 0 by every launch (the CTA that finishes a copy last resets
+# its counter), so a call allocates and clears nothing.  Launches on one
+# stream take them in turn.
+_DONE: dict = {}
+
+
+def _done_counters(dev, copies: int) -> torch.Tensor:
+    done = _DONE.get(dev)
+    if done is None or done.numel() < copies:
+        done = torch.zeros(max(copies, 64), dtype=torch.int32, device=dev)
+        _DONE[dev] = done
+    return done
+
+
+def newton_loop(lm: torch.Tensor, steps: int, blocks: int = NEWTON_CLUSTER):
     """P3: :func:`kernels_torch.newton_loop` of ``lm`` [G, nb, nb] as
-    given, by ``blocks`` CTAs (1 by default), each walking G / blocks
-    members in turn; float32 or float64 members, products in float64."""
+    given; float32 or float64 members, products in float64.  One launch:
+    each member on a thread block cluster of ``blocks`` CTAs (one of
+    CLUSTER_SIZES on the card), nb <= 128."""
     if blocks < 1:
         raise ValueError(f"blocks must be >= 1, got {blocks}")
+    if blocks > max(CLUSTER_SIZES):
+        raise ValueError(f"blocks (a cluster size) must be <= "
+                         f"{max(CLUSTER_SIZES)}, got {blocks}")
     if not _on_cuda(lm):
         return kt.newton_loop(lm, steps)
     s = _dtype_of(lm)
@@ -852,17 +894,33 @@ def newton_loop(lm: torch.Tensor, steps: int, blocks: int = 1):
         raise ValueError(f"expected [G, nb, nb], got {tuple(lm.shape)}")
     g, nb = lm.shape[0], lm.shape[-1]
     check_nb(nb)
+    if nb > PROBE_MAX_NB:
+        raise ValueError(f"newton_loop's kernel takes nb <= {PROBE_MAX_NB} "
+                         f"(the probe's 128), got nb={nb}")
+    if g > MAX_GRID_Y:
+        raise ValueError(f"newton_loop's kernel takes G <= {MAX_GRID_Y}, "
+                         f"got {g}")
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
+    _check_cluster(blocks)
     _check_tensor("lm", lm, lm.dtype, lm.shape, lm.device)
     out = torch.empty_like(lm)
     if g:
-        blocks = min(blocks, g)
-        # L, X, the next X and L X a CTA: the products run in float64
-        work = torch.empty((blocks, 4, nb, nb), dtype=torch.float64,
-                           device=lm.device)
+        # X (by step parity) and Y of each member in float64, through
+        # which a cluster's CTAs pass their blocks (L2-resident)
+        ws = torch.empty((g, 3, PROBE_MAX_NB, PROBE_MAX_NB),
+                         dtype=torch.float64, device=lm.device)
         _call(getattr(library().lib, f"plu_newton_loop_{s}"),
-              lm.device.index, lm.data_ptr(), out.data_ptr(),
-              work.data_ptr(), g, nb, steps, blocks, _stream(lm.device))
+              lm.device.index, lm.data_ptr(), out.data_ptr(), ws.data_ptr(),
+              g, nb, steps, blocks, _stream(lm.device))
         LAUNCHES["newton_loop"] += 1
     return out
+
+
+def cluster_sync_probe(device, cluster: int, iters: int) -> None:
+    """Launch ``iters`` cluster barriers on one cluster of ``cluster``
+    CTAs (2 to 16) of P4's and P3's size, on the current stream: the
+    floor of a dependent step of their kernels.  On no path."""
+    device = torch.device(device)
+    _call(library().lib.plu_cluster_sync_probe, device.index, cluster,
+          iters, _stream(device))

@@ -178,3 +178,15 @@ def newton_inputs(g: int, nb: int, seed: int = 0) -> np.ndarray:
     triangles I + tril(z, -1), float32 [g, nb, nb], z standard normal."""
     z = np.random.default_rng(seed).standard_normal((g, nb, nb))
     return (np.tril(z, -1) + np.eye(nb)).astype(np.float32)
+
+
+def newton_mixed_inputs(g: int, nb: int, seed: int = 0) -> np.ndarray:
+    """newton_inputs with member 1 (g >= 2) a general matrix I + E, E
+    dense with ||E|| ~ 0.6 (0.3 z / sqrt(nb)): no triangle, so P3's
+    kernel takes full products for it and the triangles' skip for the
+    others, in one launch; X <- X (2I - L X) converges on it (the
+    spectral radius of (I - L)^2 is below 1)."""
+    lm = newton_inputs(g, nb, seed)
+    z = np.random.default_rng(seed + 1).standard_normal((nb, nb))
+    lm[1] = (np.eye(nb) + 0.3 / np.sqrt(nb) * z).astype(np.float32)
+    return lm

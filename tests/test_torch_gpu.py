@@ -37,7 +37,8 @@ from pangulu_tpu_torch.ops import kernels_cuda as kc
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.testing import (BLOCKED_TOL, blocked_tiny_pivot_tile,
                                        diag_step, newton_inputs,
-                                       probe_inputs, tiny_pivot_tile)
+                                       newton_mixed_inputs, probe_inputs,
+                                       tiny_pivot_tile)
 from pangulu_tpu_torch.utils.perf import residual_norm
 
 pytestmark = pytest.mark.gpu
@@ -711,8 +712,7 @@ def test_scan_overlap_scan_parts_agree(cuda, nb, steps):
 @pytest.mark.parametrize("with_dot", [False, True])
 @pytest.mark.parametrize("q", [1, 2, 4, 8])
 def test_scan_multi_kernel(cuda, q, with_dot, steps):
-    """P4: chain 0 in registers, chain 1 in shared memory, the rest in
-    global memory."""
+    """P4: each chain on a CTA of its own, the products on a cluster."""
     a, b = _probe_tensors(cuda, q)
     kc.reset_launch_counts()
     got = kc.scan_multi(a, b, q, with_dot, steps)
@@ -725,10 +725,9 @@ def test_scan_multi_kernel(cuda, q, with_dot, steps):
 @pytest.mark.parametrize("q", [1, 2, 4, 8])
 def test_scan_multi_scan_parts_agree(cuda, q, steps):
     """With b = 0 the products stay 0, so P4 with products, of either
-    type, returns the bits of its chains alone: this holds the chains of
-    the instances with products (chain 1 in shared memory next to the
-    product stages, chains 2 to q - 1 in global memory) at the probe's
-    own 2048 steps, which the products' values would hide."""
+    type, returns the bits of its chains alone: this holds the chains and
+    the final sum of the instances with products at the probe's own 2048
+    steps, which the products' values would hide."""
     a, _ = _probe_tensors(cuda, q)
     zero = torch.zeros_like(a)
     alone = kc.scan_multi(a, zero, q, False, steps)
@@ -756,8 +755,9 @@ def test_probe_tf32x3_products(cuda, case):
 
 
 def test_scan_multi_kernel_small_tile_copies(cuda):
-    """nb = 40 (zero padding in registers, in shared memory and in the L2
-    chains), 3 copies, a step count inside a pass."""
+    """nb = 40 (zero padding in the chains' registers and in the
+    products' blocks), 3 copies (each its own chains and cluster), a step
+    count inside a pass."""
     a, b = _probe_tensors(cuda, 40, 40)
     got = kc.scan_multi(a, b, 8, True, 100, copies=3)
     assert got.shape == (3, 40, 40)
@@ -766,15 +766,20 @@ def test_scan_multi_kernel_small_tile_copies(cuda):
               kt.scan_multi(a.double(), b.double(), 8, True, 100))
 
 
-@pytest.mark.parametrize("blocks", [1, 4])
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("steps", [None, 0, 1, 2])
+@pytest.mark.parametrize("blocks", [4, 8, 16])
 @pytest.mark.parametrize("g,nb", [(4, 16), (16, 128), (5, 100)])
-def test_newton_loop_kernel(cuda, g, nb, blocks):
-    """P3 on the probe's unit lower triangles at its steps: f32 true f32,
-    f64 within 1e-12 of the plain f64 version, both relative to each
-    row's largest entry (the inverses span ~1e17, so the rows of small
-    entries count too)."""
-    lm = torch.as_tensor(newton_inputs(g, nb, seed=nb), device=cuda)
-    steps = kt.newton_steps(nb)
+def test_newton_loop_kernel(cuda, g, nb, blocks, steps, mixed):
+    """P3, a thread block cluster of ``blocks`` CTAs a member, on the
+    probe's unit lower triangles (mixed: member 1 a general matrix, which
+    takes full products beside the triangles' skip) at the probe's steps
+    (None) and truncated counts: f32 true f32, f64 within 1e-12 of the
+    plain f64 version, both relative to each row's largest entry (the
+    inverses span ~1e17, so the rows of small entries count too)."""
+    inputs = newton_mixed_inputs if mixed else newton_inputs
+    lm = torch.as_tensor(inputs(g, nb, seed=nb), device=cuda)
+    steps = kt.newton_steps(nb) if steps is None else steps
     kc.reset_launch_counts()
     got = kc.newton_loop(lm, steps, blocks=blocks)
     assert kc.LAUNCHES == _counts(newton_loop=1)
@@ -782,6 +787,44 @@ def test_newton_loop_kernel(cuda, g, nb, blocks):
     _true_f32(got, kt.newton_loop(lm, steps), p64, per_row=True)
     g64 = kc.newton_loop(lm.double(), steps, blocks=blocks)
     assert _rel(g64, p64, per_row=True) <= 1e-12
+
+
+def test_newton_loop_refused_cluster(cuda):
+    """Cluster sizes the kernel does not take (2: not 4 row blocks; 32:
+    above the card's 16) raise before a launch, and count none."""
+    lm = torch.as_tensor(newton_inputs(2, 128), device=cuda)
+    kc.reset_launch_counts()
+    with pytest.raises(ValueError, match="cluster size must be one of"):
+        kc.newton_loop(lm, 2, blocks=2)
+    with pytest.raises(ValueError, match="must be <= 16"):
+        kc.newton_loop(lm, 2, blocks=32)
+    assert kc.LAUNCHES == _counts()
+
+
+def test_scan_multi_refused_cluster(cuda):
+    """P4's float64 products on a cluster of 4 CTAs need 236,544 bytes of
+    shared memory a CTA: refused, no launch counted; their 3xTF32
+    instance (121,344 bytes) runs there, and the next launch is
+    unaffected."""
+    a, b = _probe_tensors(cuda, 4)
+    kc.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="plu_scan_multi_f32"):
+        kc.scan_multi(a, b, 2, True, 16, cluster=4)
+    assert kc.LAUNCHES == _counts()
+    got = kc.scan_multi(a, b, 2, True, 128, products="tf32x3", cluster=4)
+    assert _rel(got, kt.scan_multi(a.double(), b.double(), 2, True,
+                                   128)) <= 1e-4
+    _true_f32(kc.scan_multi(a, b, 2, True, 128),
+              kt.scan_multi(a, b, 2, True, 128),
+              kt.scan_multi(a.double(), b.double(), 2, True, 128))
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+def test_cluster_sync_probe(cuda, cluster):
+    """The cluster barrier of P4's and P3's kernels launches and ends on
+    clusters of 2 to 16 CTAs."""
+    kc.cluster_sync_probe(cuda, cluster, 100)
+    torch.cuda.synchronize()
 
 
 def test_newton_kernel_on_unit_triangles(cuda):

@@ -32,7 +32,8 @@ for m in pkgutil.walk_packages(pangulu_tpu_torch.__path__,
                                "pangulu_tpu_torch."):
     importlib.import_module(m.name)
 # the H100 probes of the TPU probes P3-P5 (tools/ is no package)
-for m in ("probe_overlap", "probe_scan_multi", "probe_newton_loop"):
+for m in ("probe_overlap", "probe_scan_multi", "probe_newton_loop",
+          "probe_clusters"):
     importlib.import_module("pangulu_tpu_torch.tools." + m)
 for m in ("pangulu_tpu_torch.io.mmio", "pangulu_tpu_torch.cli",
           "pangulu_tpu_torch.__main__", "pangulu_tpu_torch.compressed"):

@@ -12,7 +12,8 @@ Tolerances (errors are max |port - probe|, relative to max |probe|):
   * with the chain of products: rtol 1e-4 (torch's and XLA's float32
     matrix products sum in other orders, over up to 256 dependent
     products);
-  * P3: 1e-5 (float32 products of the probe's unit lower triangles);
+  * P3: 1e-5 (float32 products of the probe's unit lower triangles, and
+    of a general member), at the probe's steps and at truncated counts;
   * ``fma_f32`` against exact rational arithmetic: correctly rounded.
 The JAX probes run in interpret mode on the CPU: P4 and P5 by
 themselves, P3 by a monkeypatched ``pallas_call``.  They read their step
@@ -32,7 +33,8 @@ import torch
 
 from pangulu_tpu_torch.ops import kernels_cuda
 from pangulu_tpu_torch.ops import kernels_torch as kt
-from pangulu_tpu_torch.testing import newton_inputs, probe_inputs
+from pangulu_tpu_torch.testing import (newton_inputs, newton_mixed_inputs,
+                                       probe_inputs)
 
 SCAN_TOL = (1e-5, 1e-5)   # rtol (of max |probe|), atol
 DOT_RTOL = 1e-4
@@ -114,6 +116,28 @@ def test_newton_loop_matches_tpu_probe(monkeypatch, g, nb):
         _close(got, np.linalg.inv(lm.astype(np.float64)), NEWTON_TOL)
 
 
+@pytest.mark.parametrize("g,nb,steps,mixed", [
+    (4, 16, 0, False), (4, 16, 1, False), (4, 16, 2, False),
+    (2, 128, 2, False), (4, 16, 2, True), (2, 128, 2, True)])
+def test_newton_loop_truncated_matches_tpu_probe(monkeypatch, g, nb, steps,
+                                                 mixed):
+    """P3 below the steps that make it the inverse (0: X = 2I - L; the
+    truncated series), and on a batch whose member 1 is a general matrix
+    (testing.newton_mixed_inputs): the function of every steps and every
+    member, which the CUDA kernel's triangle skip must not change."""
+    import tools.exp_batched_scan as probe
+
+    real = probe.pl.pallas_call
+    monkeypatch.setattr(probe.pl, "pallas_call", lambda *a, **kw: real(
+        *a, **{**kw, "interpret": True}))
+    lm = (newton_mixed_inputs if mixed else newton_inputs)(g, nb, seed=nb)
+    want = probe.newton_loop(jnp.asarray(lm), g=g, nb=nb, steps=steps)
+    got = kt.newton_loop(torch.from_numpy(lm), steps)
+    _close(got, want, NEWTON_TOL)
+    if mixed:
+        assert np.triu(lm[1], 1).any() and not np.triu(lm[0], 1).any()
+
+
 def test_fma_f32_rounds_once():
     """fma_f32 is the correctly rounded c + a b on random operands and on
     cases where rounding the product first and the sum next differs."""
@@ -186,6 +210,26 @@ def test_probe_wrappers_reject_bad_input(monkeypatch):
         nl(torch.eye(512)[None], 2)
     with pytest.raises(ValueError, match="blocks must be >= 1"):
         nl(torch.eye(4)[None], 2, blocks=0)
+
+
+def test_probe_cluster_sizes_checked(monkeypatch):
+    """P4's and P3's cluster sizes: one of CLUSTER_SIZES (a 128 x 128
+    matrix in 4 x C / 4 blocks), checked before any launch; P3's blocks
+    (its cluster size) at most 16 on either device, and its kernel takes
+    nb <= 128 only."""
+    a, b = (torch.from_numpy(x) for x in probe_inputs(nb=16))
+    lm = torch.from_numpy(newton_inputs(2, 16))
+    with pytest.raises(ValueError, match="cluster size must be one of"):
+        kernels_cuda.scan_multi(a, b, 2, True, 4, cluster=3)
+    with pytest.raises(ValueError, match="must be <= 16"):
+        kernels_cuda.newton_loop(lm, 2, blocks=17)
+    monkeypatch.setattr(kernels_cuda, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(kernels_cuda, "library",
+                        lambda: pytest.fail("reached the kernel launch"))
+    with pytest.raises(ValueError, match="cluster size must be one of"):
+        kernels_cuda.newton_loop(lm, 2, blocks=3)
+    with pytest.raises(ValueError, match="nb <= 128"):
+        kernels_cuda.newton_loop(torch.eye(200)[None], 2)
 
 
 @pytest.mark.parametrize("copies", [1, 3])
