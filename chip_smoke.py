@@ -9,8 +9,10 @@ CUDA toolkit (nvcc).  It
   1. prints the card's name and power limit and builds the CUDA
      kernels from pangulu_tpu_torch/csrc (timed), printing what ptxas
      says of K1's instances (registers, spills: none may spill), of
-     K3's and K5's sweep kernels at tile widths 128 and 256 (K5's may
-     spill at most K5_SPILL_BYTES) and of the float and double
+     K3's and K5's one-block sweep kernels at tile width 128 (K5's may
+     spill at most K5_SPILL_BYTES), of their 6 thread block cluster
+     kernels above nb = 128 (csrc/solve_clusters.cuh: at most
+     CLUSTER_SWEEP_SPILL_BYTES each) and of the float and double
      instances of K2's and K4's product kernels (panels for bands 128
      and 256 wide; no float instance may spill) and of K1's cluster
      kernel for 128 < nb <= 256 (lu_cluster_kernel, float and double:
@@ -63,9 +65,12 @@ CUDA toolkit (nvcc).  It
      both paths again at nb=256 (exactly K1 = 128 and 34 by the
      schedules, K2 = K4 = 1, K3 = K5 = 3, and K1's device launches
      exactly one a K1 launch, the cluster kernel's; the same residual
-     limits; ms per factorization and per solve) and traces one
-     factorization and one solve of each: every kernel's launches and
-     device ms, and K1's share of the factorization's device ms;
+     limits; ms per factorization and per solve; the cluster size and
+     grid of K3's or K5's sweeps, which must run on clusters) and traces
+     one factorization and one solve of each: every kernel's launches
+     and device ms, K1's share of the factorization's device ms, and
+     the solve exactly 2 launches of solve_cluster_kernel (rcm) or
+     group_cluster_kernel (nd) and no other sweep kernel;
   5. solves the reference's config 1, trefethen(20) nb=10 r64, and
      poisson2d(24) nb=16 nd r64 on the grouped path;
   6. drives the rest of the public surface on the nd path of
@@ -175,12 +180,14 @@ CUDA toolkit (nvcc).  It
      (the members in and out, nb^3/3 flop each), not its doubling's
      products.
      Before it, a {"retraced": ...} line names any phase whose trace
-     was taken once more: the nb=128 nd solve's when it showed fewer
-     than its 2 K5 launches, the nb=256 nd solve's when it came back empty,
-     the gstrs_device call's when it showed fewer than its 4 K5
-     launches (the profiler loses the first kernels of some traces; the
-     second trace is checked as the first; any other empty trace
-     fails); then the last line {"ok": true, "device": {...}}.
+     was taken again (up to 3 more times), with its number of traces:
+     the nb=128 nd solve's when it showed fewer than its 2 K5 launches,
+     the nb=256 rcm and nd solves' when they showed fewer than their 2
+     cluster kernel launches, the gstrs_device call's when it showed
+     fewer than its 4 K5 launches (the profiler loses the first kernels
+     of some traces; the last trace is checked as the first; any other
+     empty trace fails); then the last line {"ok": true, "device":
+     {...}}.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the package beside this file, it prints no result and exits 2.
@@ -211,6 +218,10 @@ SOURCE = {"getrf_with_inverses": "pangulu_tpu_torch/csrc/tile_lu.cuh",
           "scan_overlap": "pangulu_tpu_torch/csrc/probes.cuh",
           "scan_multi": "pangulu_tpu_torch/csrc/probes.cuh",
           "newton_loop": "pangulu_tpu_torch/csrc/probes.cuh"}
+# above nb = 128 K3's and K5's kernels are thread block clusters of their
+# own (their launch in SRC); K1's cluster kernel is in SRC
+SOURCE_256 = {"mega_solve": "pangulu_tpu_torch/csrc/solve_clusters.cuh",
+              "mega_solve_groups": "pangulu_tpu_torch/csrc/solve_clusters.cuh"}
 # the dense store's kernels (each also at nb=256) and the compressed
 # store's (csrc/compressed.cuh)
 DENSE = ("getrf_with_inverses", "mega_factorize", "mega_solve",
@@ -271,11 +282,18 @@ SMS = 132
 # ~7e-6 there, against plain f32's ~2e-6: not true f32, by design)
 TF32X3_REL = 1e-4
 # K5's sweep kernel sits at the 64-register cap of 1024-thread blocks;
-# its spill bytes may not exceed these, by type and tile width (the
-# instance of 256 takes two passes of 128 rows; more spills have made it
+# its spill bytes may not exceed these, by type (tile width 128: above,
+# the cluster kernels below take the tiles; more spills have made it
 # slower every time at 128)
-K5_SPILL_BYTES = {("float", 128): 12, ("double", 128): 148,
-                  ("float", 256): 80, ("double", 256): 172}
+K5_SPILL_BYTES = {("float", 128): 12, ("double", 128): 148}
+# K3's and K5's cluster kernels for 128 < nb <= 256 (csrc/
+# solve_clusters.cuh): solve_cluster_kernel<type, 16> and
+# group_cluster_kernel<type, 4> and <type, 2> for float and double; their
+# spill bytes may not exceed these, by type (K5's double instance on
+# clusters of 2 sits at the 64-register cap of 1024-thread CTAs, as the
+# one-block kernel does)
+CLUSTER_SWEEP_INSTANCES = 6
+CLUSTER_SWEEP_SPILL_BYTES = {"float": 0, "double": 148}
 
 
 def bound(nbytes: float, flop: float, dtype=torch.float32,
@@ -362,6 +380,16 @@ def kernel_label(name: str):
         return None
     return (m[1], dict(f="float", d="double")[m[2]],
             int(m[3]) if m[3] else None)
+
+
+def sweep_label(name: str):
+    """(kernel, "float" or "double", cluster size) of a mangled K3 or K5
+    cluster kernel name, or None for any other name."""
+    m = re.search(r"plu\d+(solve_cluster_kernel|group_cluster_kernel)I([fd])"
+                  r"Li(\d+)EE", name)
+    if not m:
+        return None
+    return m[1], dict(f="float", d="double")[m[2]], int(m[3])
 
 
 def fail(msg: str) -> None:
@@ -482,15 +510,17 @@ def profile(fn, setup=lambda: None, retry: str = "",
     its idle share of the wall time.  A trace with no device activity
     fails, unless ``retry`` names the phase: then a trace with none, or
     one whose kernels fail ``complete`` (the profiler loses the first
-    kernels of some traces), is taken once more, and the phase goes into
-    RETRACED; the caller checks the second trace as it would the
-    first."""
+    kernels of some traces, twice in a row once), is taken again, up to
+    3 more times, and the phase goes into RETRACED with the number of
+    traces; the caller checks the last trace as it would the first."""
     fn(setup())
     wall_ms, spans, kernels = trace_once(fn, setup())
-    if retry and not (spans and complete(kernels)):
+    for n in range(2, 5):
+        if not retry or (spans and complete(kernels)):
+            break
         print(f"  (the profiler recorded {'no' if not spans else 'too few'}"
               f" kernels in {retry}; tracing again)")
-        RETRACED[retry] = 2
+        RETRACED[retry] = n
         wall_ms, spans, kernels = trace_once(fn, setup())
     if not spans:
         fail("the profiler saw no device activity")
@@ -1543,8 +1573,26 @@ def main() -> int:
             k5_ptx[k].get("spill_bytes", 1 << 30) > c
             for k, c in K5_SPILL_BYTES.items()):
         fail(f"K5: expected group_sweep_kernel for float and double at "
-             f"widths 128 and 256, spilling at most {K5_SPILL_BYTES} "
+             f"width 128, spilling at most {K5_SPILL_BYTES} "
              f"bytes; ptxas says {k5_ptx}")
+    print("ptxas: K3's and K5's cluster kernels above nb=128 "
+          "(solve_cluster_kernel<type, C>, group_cluster_kernel<type, C>)")
+    sweep_ptx = {}
+    for name, info in ptx.items():
+        lab = sweep_label(name)
+        if lab:
+            label = f"{lab[0]}<{lab[1]}, {lab[2]}>"
+            sweep_ptx[label] = dict(info, type=lab[1])
+            print(f"  {label}: {info.get('registers')} registers, "
+                  f"{info.get('spill_bytes')} spill bytes")
+    if len(sweep_ptx) != CLUSTER_SWEEP_INSTANCES or any(
+            i.get("spill_bytes", 1 << 30)
+            > CLUSTER_SWEEP_SPILL_BYTES[i["type"]]
+            for i in sweep_ptx.values()):
+        fail(f"K3/K5 cluster kernels: expected {CLUSTER_SWEEP_INSTANCES} "
+             f"instances spilling at most {CLUSTER_SWEEP_SPILL_BYTES} bytes; "
+             f"ptxas says {sweep_ptx}")
+    detail["cluster_sweep_ptxas"] = sweep_ptx
     detail["K1_ptxas"] = k1_ptx
     detail["K5_ptxas"] = {f"{t}<{w}>": i for (t, w), i in k5_ptx.items()}
     print("ptxas: the product kernels of K2 and K4 (tensor cores: 3xTF32 "
@@ -2088,14 +2136,45 @@ def main() -> int:
         if ordering == "nd":
             res.update(groups=fac.tables.host["ngroups"],
                        solve_groups=ts.tables.host["ngroups"])
-        # one factorization and one solve of its factors, traced apart
+        # the sweeps' thread block clusters: the grid of the path's last
+        # solve (its last refinement round)
+        sweep = "mega_solve" if ordering == "rcm" else "mega_solve_groups"
+        res["sweep_grid"] = dict(kc.GRID[sweep])
+        g = res["sweep_grid"]
+        print(f"  {'K3' if ordering == 'rcm' else 'K5'} at nb=256 (1 rhs): "
+              f"clusters of {g['cluster']} CTAs, {g['forward']} CTAs "
+              f"forward, {g['backward']} backward, {g['clusters_fit']} "
+              "clusters fit on the card")
+        if g["cluster"] == 1 or g["forward"] % g["cluster"]:
+            fail(f"the nb=256 {ordering} solve did not run on clusters: {g}")
+        # the sweeps sum each row in one order: two solves, the same bits
+        if not torch.equal(ts.solve_blocked(h.factor_tiles, xb),
+                           ts.solve_blocked(h.factor_tiles, xb)):
+            fail(f"two nb=256 {ordering} solves of one input differ")
+        print("  two solves of one input: the same bits")
+        # one factorization and one solve of its factors, traced apart;
+        # the solve is 2 launches of the sweep's cluster kernel
+        kern = ("solve_cluster_kernel" if ordering == "rcm"
+                else "group_cluster_kernel")
+
+        def sweeps_in(kernels):
+            return [(n.split("<")[0].split("::")[-1], k["launches"])
+                    for n, k in kernels.items() if "_kernel<" in n and (
+                        "sweep_kernel" in n or "cluster_kernel" in n)
+                    and "lu_cluster" not in n]
+
         tr = {f"nb=256 {ordering} gstrf": profile(
                   lambda t: fac.factorize(t, sync=False), setup=tiles_of(h)),
               f"nb=256 {ordering} gstrs": profile(
                   lambda _: ts.solve_blocked(h.factor_tiles, xb),
-                  retry=(f"nb=256 {ordering} gstrs" if ordering == "nd"
-                         else ""))}
+                  retry=f"nb=256 {ordering} gstrs",
+                  complete=lambda kernels: sweeps_in(kernels) == [(kern, 2)])}
         print_profile(tr)
+        if sweeps_in(tr[f"nb=256 {ordering} gstrs"]["kernels"]) != [(kern,
+                                                                       2)]:
+            fail(f"one nb=256 {ordering} solve made the sweep launches "
+                 f"{sweeps_in(tr[f'nb=256 {ordering} gstrs']['kernels'])}, "
+                 f"expected 2 of {kern} and no other")
         fk = tr[f"nb=256 {ordering} gstrf"]["kernels"]
         k1 = {k: [v for n, v in fk.items()
                   if n.split("<")[0].endswith("::" + k)] for k in k1_kernels}
@@ -2164,7 +2243,8 @@ def main() -> int:
     launches.update(probe_launches)
     out = {"kernels": [
         dict(name=n, route="cuda",
-             source=SOURCE.get(n, SRC) if "@" not in n else SRC,
+             source=(SOURCE.get(n, SRC) if "@" not in n
+                     else SOURCE_256.get(n.split("@")[0], SRC)),
              replaces=REPLACES[n.split("@")[0]], launches=launches[n],
              **kernels[n])
         for n in (*DENSE, *(f"{r}@nb=256" for r in DENSE), *COMPRESSED,

@@ -102,6 +102,11 @@
 //   measured 1.1 us on the H100 (PERF.md), so per-segment ready flags
 //   (the reference's synchronisation-free SpTRSV) would not pay: per
 //   level the two dependent tile products cost more than the barrier.
+//   That is the design up to nb = 128.  Above, one block a level
+//   streamed a 256-row inverse and tile through one SM (~24 us a
+//   level), so the sweep runs on thread block clusters instead, each
+//   CTA a slice of every matrix's rows (solve_clusters.cuh, whose note
+//   gives the design).
 //
 // K4 mega_factorize_groups
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_factorize_groups
@@ -167,7 +172,9 @@
 //   item's entry rows into shared memory at once; loading the next
 //   step's descriptors while a step runs, into registers or by cp.async
 //   into shared memory.  Each early load added registers at the cap,
-//   and the spills cost more than the latency it hid.
+//   and the spills cost more than the latency it hid.  Above nb = 128
+//   an item's rows go over a thread block cluster instead
+//   (solve_clusters.cuh).
 //
 // P6 decompress_tiles / compress_tiles and P2 newton_inverses
 //   The compressed tile store's kernels, in compressed.cuh (its note
@@ -827,9 +834,9 @@ __device__ __forceinline__ T warp_sum(T v) {
 // blocks wrote it before the last grid barrier, and L1 is not coherent.
 // A warp's rows (kSplit / 32 warps = 4 a pass) are summed together, so
 // that the loads of all of them, and with SUB the old values of out,
-// are in flight at once.  Tiles of NB = 256 take two passes of 128 rows
-// with the registers of one.  With XG, xs is x in global memory, read
-// through L2 by each lane (no shared copy, no barrier before the sum).
+// are in flight at once.  The one instance, NB = 128, takes one pass.
+// With XG, xs is x in global memory, read through L2 by each lane (no
+// shared copy, no barrier before the sum).
 template <typename T, int NB, bool SUB, bool XG = false>
 __device__ void tile_matvec(const T* M, const T* xs, T* out, int nb) {
   constexpr int kWarps = kSolveThreads / 32, kRows = kSplit / kWarps;
@@ -875,7 +882,7 @@ __device__ void tile_matvec(const T* M, const T* xs, T* out, int nb) {
 // there only, while the panel rows of a level are distinct and never k
 // (Schedule.mega_solve_tables), so no two blocks touch one value
 // between two barriers: no atomics, the same result on every run.  One
-// instance a tile width NB >= nb: 128 and 256.
+// instance, NB = 128 (above, solve_clusters.cuh).
 template <typename T, int NB>
 __global__ void __launch_bounds__(kSolveThreads)
     solve_sweep_kernel(T* src, T* dst, int nrhs, const T* tiles,
@@ -1047,8 +1054,6 @@ __device__ __forceinline__ void rows_dot(const T* M, const T* x, int nb,
 // v = xs[seg] - sum_e T_e · xd[k_e] over entries ent[e0:e1] = (tile,
 // k_e), summed in registers in entry order, one warp per row; then
 // xd[seg] = inv · v (through shared v) if d.inv, else xs[seg] = v.
-// Tiles of NB = 256 take two passes of 128 rows, each over all the
-// entries, with the registers of one (tile_matvec).
 template <typename T, int NB>
 __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
                            int4 d, const int2* ent, int nb, T* v) {
@@ -1099,8 +1104,8 @@ __device__ void group_item(T* xs, T* xd, const T* tiles, const T* inv,
 // barriers: no atomics, one sum order, the same bits on every run.
 // Before the barrier that ends step s, the grid asks L2 for step s+1's
 // tiles and inverses (read-only for the whole solve; a bulk prefetch
-// each): only x has to wait for the barrier.  One instance a tile width
-// NB >= nb: 128 and 256.
+// each): only x has to wait for the barrier.  One instance, NB = 128
+// (above, solve_clusters.cuh).
 template <typename T, int NB>
 __global__ void __launch_bounds__(kSolveThreads)
     group_sweep_kernel(T* src, T* dst, int nrhs, const T* tiles,
@@ -1139,6 +1144,13 @@ __global__ void __launch_bounds__(kSolveThreads)
     grid.sync();
   }
 }
+
+}  // namespace plu
+
+// K3 and K5 at tile width 256, on thread block clusters
+#include "solve_clusters.cuh"
+
+namespace plu {
 
 // ------------------------------------------------------ host launchers
 
@@ -1308,36 +1320,51 @@ int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
   return cudaSuccess;
 }
 
-// One sweep: h_n (host copy of cnt) sizes the grid to the widest
-// level's item count, capped at what fits on the card.
+// One sweep: up to nb = 128 one cooperative launch whose grid h_n (host
+// copy of cnt) sizes to the widest level's item count, capped at what
+// fits on the card; above, K3's cluster kernel (solve_cluster_sweep).
+// grid[0] receives the blocks launched, grid[1] the blocks an SM holds
+// (nb <= 128) or the clusters that fit (above).
 template <typename T>
 int sweep(T* src, T* dst, int nrhs, const T* tiles, const T* invs, int slot,
           const int* ids, const int* rows, const int* cnt, const int* h_n,
-          int bl, int w, int nb, int descending, cudaStream_t st) {
+          int bl, int w, int nb, int descending, int* grid, cudaStream_t st) {
+  if (nb > kSplit)
+    return solve_cluster_sweep(
+        SolveSweep<T>{src, dst, nrhs, tiles, invs, slot, ids, rows, cnt, bl,
+                      w, nb, descending},
+        grid, st);
   int widest = 1;
   for (int k = 0; k < bl; ++k) widest = h_n[k] > widest ? h_n[k] : widest;
   void* args[] = {&src,  &dst, &nrhs, &tiles, &invs, &slot,      &ids,
                   &rows, &cnt, &bl,   &w,     &nb,   &descending};
-  int blocks;
-  return launch_cooperative(nb <= kSplit ? solve_sweep_kernel<T, kSplit>
-                                         : solve_sweep_kernel<T, kMaxNb>,
-                            widest * nrhs, args, st, &blocks);
+  return launch_cooperative(solve_sweep_kernel<T, kSplit>, widest * nrhs,
+                            args, st, &grid[0], &grid[1]);
 }
 
 // x: the right-hand sides on entry, the solution on exit; y: scratch of
 // x's shape that holds the forward sweep's result (the backward sweep
-// reads it and writes x).
+// reads it and writes x).  grid[0], grid[1]: the blocks of the forward
+// and backward launch; grid[2]: the blocks an SM holds, or above nb =
+// 128 the clusters that fit; grid[3]: the CTAs a cluster (1 up to nb =
+// 128).
 template <typename T>
 int mega_solve(T* x, T* y, int nrhs, const T* tiles, const T* invs,
                const int* lid, const int* lrow, const int* ucid,
                const int* ucrow, const int* nl, const int* nuc,
                const int* h_nl, const int* h_nuc, int bl, int w, int nb,
-               cudaStream_t st) {
+               int* grid, cudaStream_t st) {
+  int g[2];
   int e = sweep(x, y, nrhs, tiles, invs, 0, lid, lrow, nl, h_nl, bl, w, nb,
-                0, st);
+                0, g, st);
   if (e != cudaSuccess) return e;
-  return sweep(y, x, nrhs, tiles, invs, 1, ucid, ucrow, nuc, h_nuc, bl, w,
-               nb, 1, st);
+  grid[0] = g[0];
+  grid[2] = g[1];
+  grid[3] = nb > kSplit ? kSolveCluster : 1;
+  e = sweep(y, x, nrhs, tiles, invs, 1, ucid, ucrow, nuc, h_nuc, bl, w, nb,
+            1, g, st);
+  grid[1] = g[0];
+  return e;
 }
 
 template <typename T>
@@ -1386,38 +1413,59 @@ int mega_factorize_groups(T* tiles, T* invs, const int* gdiag,
   return cudaSuccess;
 }
 
-// One sweep of K5: nsteps steps of at most ``width`` items (host
-// values) size the grid, capped at what fits on the card.
+// One sweep of K5: up to nb = 128 one cooperative launch whose grid
+// nsteps steps of at most ``width`` items (host values) size, capped at
+// what fits on the card; above, K5's cluster kernel on clusters of
+// `cluster` CTAs (group_cluster_sweep, bar its barrier's counters).
+// grid as for sweep.
 template <typename T>
 int group_sweep(T* src, T* dst, int nrhs, const T* tiles, const T* invs,
                 int slot, const int* step, const int* item, const int* ent,
-                int nsteps, int width, int bl, int nb, cudaStream_t st,
-                int* blocks, int* per_sm) {
+                int nsteps, int width, int bl, int nb, int cluster,
+                unsigned* bar, int* grid, cudaStream_t st) {
   const int2* step2 = reinterpret_cast<const int2*>(step);
   const int4* item4 = reinterpret_cast<const int4*>(item);
   const int2* ent2 = reinterpret_cast<const int2*>(ent);
+  if (nb > kSplit)
+    return group_cluster_sweep(
+        GroupSweep<T>{src, dst, nrhs, tiles, invs, slot, step2, item4, ent2,
+                      nsteps, bl, nb},
+        width, cluster, bar, grid, st);
   void* args[] = {&src,  &dst,   &nrhs, &tiles,  &invs, &slot,
                   &step2, &item4, &ent2, &nsteps, &bl,   &nb};
-  return launch_cooperative(nb <= kSplit ? group_sweep_kernel<T, kSplit>
-                                         : group_sweep_kernel<T, kMaxNb>,
-                            width * nrhs, args, st, blocks, per_sm);
+  return launch_cooperative(group_sweep_kernel<T, kSplit>, width * nrhs,
+                            args, st, &grid[0], &grid[1]);
 }
 
 // x: the right-hand sides on entry, the solution on exit; y: scratch of
 // x's shape that holds the forward sweep's result (the backward sweep
-// reads it and writes x).  grid[0], grid[1]: the blocks of the forward
-// and backward launch; grid[2]: the blocks an SM holds.
+// reads it and writes x).  grid as for mega_solve.
 template <typename T>
 int mega_solve_groups(T* x, T* y, int nrhs, const T* tiles, const T* invs,
                       const int* fstep, const int* fitem, const int* fent,
                       const int* bstep, const int* bitem, const int* bent,
                       int fsteps, int fwidth, int bsteps, int bwidth, int bl,
-                      int nb, int* grid, cudaStream_t st) {
+                      int nb, unsigned* bar, int* grid, cudaStream_t st) {
+  int cluster = 1;  // above nb = 128, one size for both sweeps
+  if (nb > kSplit) {
+    int dev, sms;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    cluster = group_cluster_size(fwidth > bwidth ? fwidth : bwidth, nrhs, sms);
+  }
+  int g[2];
   int e = group_sweep(x, y, nrhs, tiles, invs, 0, fstep, fitem, fent, fsteps,
-                      fwidth, bl, nb, st, &grid[0], &grid[2]);
+                      fwidth, bl, nb, cluster, bar, g, st);
   if (e != cudaSuccess) return e;
-  return group_sweep(y, x, nrhs, tiles, invs, 1, bstep, bitem, bent, bsteps,
-                     bwidth, bl, nb, st, &grid[1], nullptr);
+  grid[0] = g[0];
+  grid[2] = g[1];
+  grid[3] = cluster;
+  e = group_sweep(y, x, nrhs, tiles, invs, 1, bstep, bitem, bent, bsteps,
+                  bwidth, bl, nb, cluster, bar, g, st);
+  grid[1] = g[0];
+  return e;
 }
 
 }  // namespace plu
@@ -1429,7 +1477,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 12; }
+int plu_kernels_abi() { return 13; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1494,16 +1542,18 @@ PLU_DIAG_STEP(plu_diag_step_f64, double)
 PLU_MEGA_FACTORIZE(plu_mega_factorize_f32, float)
 PLU_MEGA_FACTORIZE(plu_mega_factorize_f64, double)
 
+// K3; grid as plu::mega_solve fills it.
 #define PLU_MEGA_SOLVE(NAME, T)                                               \
   int NAME(int dev, T* x, T* y, int nrhs, const T* tiles, const T* invs,     \
            const int* lid, const int* lrow, const int* ucid,                 \
            const int* ucrow, const int* nl, const int* nuc,                  \
            const int* h_nl, const int* h_nuc, int bl, int w, int nb,         \
-           void* st) {                                                       \
+           int* grid, void* st) {                                            \
     cudaError_t e = cudaSetDevice(dev);                                      \
     if (e != cudaSuccess) return e;                                          \
     return plu::mega_solve(x, y, nrhs, tiles, invs, lid, lrow, ucid, ucrow,  \
-                           nl, nuc, h_nl, h_nuc, bl, w, nb, PLU_STREAM(st)); \
+                           nl, nuc, h_nl, h_nuc, bl, w, nb, grid,            \
+                           PLU_STREAM(st));                                  \
   }
 PLU_MEGA_SOLVE(plu_mega_solve_f32, float)
 PLU_MEGA_SOLVE(plu_mega_solve_f64, double)
@@ -1527,17 +1577,19 @@ PLU_MEGA_SOLVE(plu_mega_solve_f64, double)
 PLU_MEGA_FACTORIZE_GROUPS(plu_mega_factorize_groups_f32, float)
 PLU_MEGA_FACTORIZE_GROUPS(plu_mega_factorize_groups_f64, double)
 
+// K5: bar, two unsigned counters of the stream st's own, the first 0
+// (each launch leaves it so; used above nb = 128); grid as for K3.
 #define PLU_MEGA_SOLVE_GROUPS(NAME, T)                                        \
   int NAME(int dev, T* x, T* y, int nrhs, const T* tiles, const T* invs,     \
            const int* fstep, const int* fitem, const int* fent,              \
            const int* bstep, const int* bitem, const int* bent, int fsteps,  \
-           int fwidth, int bsteps, int bwidth, int bl, int nb, int* grid,    \
-           void* st) {                                                       \
+           int fwidth, int bsteps, int bwidth, int bl, int nb, unsigned* bar, \
+           int* grid, void* st) {                                            \
     cudaError_t e = cudaSetDevice(dev);                                      \
     if (e != cudaSuccess) return e;                                          \
     return plu::mega_solve_groups(x, y, nrhs, tiles, invs, fstep, fitem,     \
                                   fent, bstep, bitem, bent, fsteps, fwidth,  \
-                                  bsteps, bwidth, bl, nb, grid,              \
+                                  bsteps, bwidth, bl, nb, bar, grid,         \
                                   PLU_STREAM(st));                           \
   }
 PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f32, float)

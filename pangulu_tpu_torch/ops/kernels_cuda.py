@@ -30,7 +30,7 @@ from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
                                                  check_nb)
 from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 12
+_ABI = 13
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -53,8 +53,12 @@ LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0,
 # Zeroed with LAUNCHES.
 DEVICE_LAUNCHES = {"getrf_with_inverses": 0}
 
-# The cooperative grid of the last K5 call: blocks of its forward and
-# backward launch, and the blocks an SM holds (the occupancy query).
+# The grid of the last K3 and K5 call ("mega_solve",
+# "mega_solve_groups"): blocks (CTAs) of its forward and backward
+# launch, the cluster size (1: the one-block kernels of nb <= 128; above,
+# thread block clusters, csrc/solve_clusters.cuh), and what the
+# occupancy query said fits: blocks an SM (nb <= 128) or clusters
+# (above).
 GRID: dict = {}
 
 _library: build.KernelLibrary | None = None
@@ -98,14 +102,14 @@ def library() -> build.KernelLibrary:
         fn = getattr(lib, f"plu_mega_solve_{s}")
         fn.restype = i
         fn.argtypes = ([i, p, p, i, p, p] + [p] * 4 + [p] * 4
-                       + [i] * 3 + [p])
+                       + [i] * 3 + [p, p])
         fn = getattr(lib, f"plu_mega_factorize_groups_{s}")
         fn.restype = i
         fn.argtypes = ([i, p, p] + [p] * 8 + [p] * 3 + [p] * 5
                        + [i] * 8 + [d, p, p])
         fn = getattr(lib, f"plu_mega_solve_groups_{s}")
         fn.restype = i
-        fn.argtypes = [i, p, p, i, p, p] + [p] * 6 + [i] * 6 + [p, p]
+        fn.argtypes = [i, p, p, i, p, p] + [p] * 6 + [i] * 6 + [p, p, p]
         fn = getattr(lib, f"plu_stage_slots_{s}")
         fn.restype = i
         fn.argtypes = [i, i, p, p, i, p, p, p] + [i] * 6 + [p, p]
@@ -272,11 +276,35 @@ def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,
     return tiles, invs
 
 
+# K5's grid barrier counters above nb = 128 (csrc/solve_clusters.cuh
+# grid_barrier), a pair a (device, stream): zeroed when made, on the
+# stream, and left at 0 arrivals by every launch, so that launches on one
+# stream take them in turn and two streams share nothing.
+_BARRIER: dict = {}
+
+
+def _barrier(dev) -> torch.Tensor:
+    key = (dev.index, _stream(dev))
+    bar = _BARRIER.get(key)
+    if bar is None:
+        bar = _BARRIER[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return bar
+
+
+def _grid(grid) -> dict:
+    """GRID's entry from a C entry's grid array."""
+    return dict(forward=grid[0], backward=grid[1], cluster=grid[3],
+                **{"clusters_fit" if grid[3] > 1 else "blocks_per_sm":
+                   grid[2]})
+
+
 def mega_solve(x: torch.Tensor, tiles: torch.Tensor, invs: torch.Tensor,
                tables: KernelTables, *, nb: int, bl: int) -> torch.Tensor:
     """K3: solve LU x = b for ``x`` [nrhs, bl+1, nb]; returns a new
-    tensor.  Two cooperative launches, one per sweep, counted as one
-    launch of K3.  See :func:`kernels_torch.mega_solve`."""
+    tensor.  Two launches, one per sweep, counted as one launch of K3:
+    up to nb = 128 cooperative ones, above on thread block clusters; the
+    grid of the last call is in ``GRID["mega_solve"]``.  See
+    :func:`kernels_torch.mega_solve`."""
     if not _on_cuda(x):
         return kt.mega_solve(x, tiles, invs, tables, nb=nb, bl=bl)
     s = _dtype_of(x)
@@ -304,10 +332,12 @@ def mega_solve(x: torch.Tensor, tiles: torch.Tensor, invs: torch.Tensor,
     if nrhs:
         lib = library().lib
         fwd = torch.empty_like(out)   # the forward sweep's result
+        grid = (ctypes.c_int * 4)()
         _call(getattr(lib, f"plu_mega_solve_{s}"), dev.index,
               out.data_ptr(), fwd.data_ptr(), nrhs, tiles.data_ptr(),
               invs.data_ptr(), *(t.data_ptr() for t in tabs), _ptr(nl),
-              _ptr(nuc), bl, w, nb, _stream(dev))
+              _ptr(nuc), bl, w, nb, grid, _stream(dev))
+        GRID["mega_solve"] = _grid(grid)
         LAUNCHES["mega_solve"] += 1
     return out
 
@@ -461,9 +491,12 @@ def mega_solve_groups(x: torch.Tensor, tiles: torch.Tensor,
                       invs: torch.Tensor, tables: KernelTables, *,
                       nb: int, bl: int) -> torch.Tensor:
     """K5: solve LU x = b over super-level groups for ``x``
-    [nrhs, bl+1, nb]; returns a new tensor.  Two cooperative launches,
-    one per sweep, counted as one launch of K5; the grid of the last
-    call is in ``GRID["mega_solve_groups"]``.  See
+    [nrhs, bl+1, nb]; returns a new tensor.  Two launches, one per
+    sweep, counted as one launch of K5: up to nb = 128 cooperative ones,
+    above on thread block clusters with a grid barrier between steps,
+    whose counters are the stream's own (two calls on two streams share
+    nothing); the grid of the last call is in
+    ``GRID["mega_solve_groups"]``.  See
     :func:`kernels_torch.mega_solve_groups`."""
     if not _on_cuda(x):
         return kt.mega_solve_groups(x, tiles, invs, tables, nb=nb, bl=bl)
@@ -480,7 +513,7 @@ def mega_solve_groups(x: torch.Tensor, tiles: torch.Tensor,
     if nrhs:
         lib = library().lib
         fwd = torch.empty_like(out)   # the forward sweep's result
-        grid = (ctypes.c_int * 3)()
+        grid = (ctypes.c_int * 4)()
         _call(getattr(lib, f"plu_mega_solve_groups_{s}"), dev.index,
               out.data_ptr(), fwd.data_ptr(), nrhs, tiles.data_ptr(),
               invs.data_ptr(),
@@ -488,9 +521,8 @@ def mega_solve_groups(x: torch.Tensor, tiles: torch.Tensor,
                 for k in _STEP_KEYS),
               *(v for sw in ("l", "uc")
                 for v in (len(host[f"{sw}_step"]) - 1, host[f"{sw}_width"])),
-              bl, nb, grid, _stream(dev))
-        GRID["mega_solve_groups"] = dict(forward=grid[0], backward=grid[1],
-                                         blocks_per_sm=grid[2])
+              bl, nb, _barrier(dev).data_ptr(), grid, _stream(dev))
+        GRID["mega_solve_groups"] = _grid(grid)
         LAUNCHES["mega_solve_groups"] += 1
     return out
 

@@ -2,8 +2,7 @@
 """Probe of K5's design (csrc/lu_kernels.cu ``group_sweep_kernel``) on
 one NVIDIA GPU.  From the root of the repository:
 
-    python3 pangulu_tpu_torch/tools/probe_solve_groups.py [--nb 128|256]
-        [--out F]
+    python3 pangulu_tpu_torch/tools/probe_solve_groups.py [--out F]
 
 Each source variant (VARIANTS: the shipped ``csrc/`` with one textual
 edit, all built at once as ``probe_products.py`` builds its own) runs
@@ -19,9 +18,8 @@ shipped bundled one bit for bit, the cooperative grid, and from one
 traced solve the device busy ms, host wall ms and idle share; and per
 variant ptxas's registers and spills of ``group_sweep_kernel``.  It
 prints the card's name and power limit, a line per pair, then one JSON
-line.  --nb 256 runs the same at nb=256 (the instance of NB = 256,
-two passes of 128 rows an item) for the variants of NB256, which weigh
-its register pressure, on the bundled schedule only.
+line.  Above nb = 128, K5 runs on thread block clusters: its probe is
+``probe_solve_sweeps.py``.
 """
 
 from __future__ import annotations
@@ -84,26 +82,8 @@ VARIANTS = {
           "        const T val = old[q] - warp_sum(acc[q]);",
           "        const T val = (lane == 0 ? __ldcg(row + i) : T(0)) -\n"
           "                      warp_sum(acc[q]);")]),
-    "one_pass": (
-        "an item's rows in one pass (NB / 32 rows a warp: 8 at NB = 256) "
-        "in place of passes of 128 rows",
-        [("lu_kernels.cu",
-          "  constexpr int kWarps = kSolveThreads / 32, kRows = kSplit / kWarps;\n"
-          "  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;\n"
-          "  T* row = xs + (size_t)d.x * nb;\n"
-          "#pragma unroll 1\n"
-          "  for (int i0 = 0; i0 < NB; i0 += kSplit) {",
-          "  constexpr int kWarps = kSolveThreads / 32, kRows = NB / kWarps;\n"
-          "  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;\n"
-          "  T* row = xs + (size_t)d.x * nb;\n"
-          "#pragma unroll 1\n"
-          "  for (int i0 = 0; i0 < NB; i0 += NB) {")]),
 }
 SCHEDULES = ("bundled", "two_phase")
-# at nb=256: the shipped sources and the register-pressure variants, on
-# the kernel's own schedule
-NB256 = (("shipped", "old_after_sum", "one_pass", "threads512"),
-         ("bundled",))
 ROUNDS = 5
 CALLS = 20   # back-to-back solves a timing
 
@@ -139,11 +119,10 @@ def two_phase_steps(h: dict, sweep: str, bl: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--nb", type=int, default=128, choices=(128, 256))
     ap.add_argument("--out", help="also write the results here")
     args = ap.parse_args()
-    nb = args.nb
-    names, scheds = (tuple(VARIANTS), SCHEDULES) if nb == 128 else NB256
+    nb = 128
+    names, scheds = tuple(VARIANTS), SCHEDULES
     if not torch.cuda.is_available():
         print("probe_solve_groups: no CUDA device", file=sys.stderr)
         return 2

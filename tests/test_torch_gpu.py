@@ -337,6 +337,110 @@ def test_mega_solve_groups_many_rhs(cuda, dtype, nrhs):
     assert torch.equal(got[:, bl], x[:, bl])   # scratch segment untouched
 
 
+def _cluster_sweep_case(cuda, gen, nb, dtype, ordering, nrhs):
+    """A factored store at 128 < nb <= 256, its solve tables and
+    right-hand sides (scratch segment 0), for K3's or K5's cluster
+    sweeps."""
+    h = pt.init(gen(), pt.InitOptions(nb=nb, dtype=dtype, ordering=ordering,
+                                      device="cuda"))
+    nt, bl, sch = h.blocked.num_tiles, h.schedule.block_length, h.schedule
+    t0 = h.blocked.device_tiles(cuda)
+    kw = dict(nb=nb, bl=bl, tol=kt.DEFAULT_TOL[t0.dtype])
+    if ordering == "nd":
+        ftab = kt.KernelTables.build(
+            sch.group_mega_tables(nt, uch=kt.mega_uch(nb)), cuda)
+        stab = kt.KernelTables.build(sch.group_solve_tables(nt), cuda)
+        tk, ik = kc.mega_factorize_groups(t0, ftab, **kw)
+    else:
+        ftab = kt.KernelTables.build(sch.mega_tables(nt, uch=kt.mega_uch(nb)),
+                                     cuda)
+        stab = kt.KernelTables.build(sch.mega_solve_tables(nt), cuda)
+        tk, ik = kc.mega_factorize(t0, ftab, **kw)
+    x = torch.as_tensor(np.random.default_rng(nb).standard_normal(
+        (nrhs, bl + 1, nb)), dtype=t0.dtype, device=cuda)
+    x[:, bl] = 0
+    return tk, ik, stab, x, dict(nb=nb, bl=bl)
+
+
+@pytest.mark.parametrize("nrhs", [1, 4])
+@pytest.mark.parametrize("dtype", ["r32", "r64"])
+@pytest.mark.parametrize("nb", [129, 200, 256])
+# poisson3d(20): levels of up to 2 panel tiles (nb=200 rcm: 40 levels);
+# random_unsymmetric: up to 7 (nb=129), past what a stage holds
+@pytest.mark.parametrize("gen", [lambda: poisson3d(20),
+                                 lambda: random_unsymmetric(1200, 0.004,
+                                                            seed=5)],
+                         ids=["poisson3d", "random"])
+def test_cluster_solve_sweeps(cuda, gen, nb, dtype, nrhs):
+    """K3 above nb = 128 on thread block clusters: the plain version's
+    result at the solve tolerances; every row summed in one order, so a
+    second run gives the same bits; the scratch segment untouched; 2
+    device launches of clusters of 16 CTAs."""
+    tk, ik, stab, x, kw = _cluster_sweep_case(cuda, gen, nb, dtype, "rcm",
+                                              nrhs)
+    ref = kt.mega_solve(x, tk, ik, stab, **kw)
+    stol = (dict(rtol=1e-4, atol=1e-5) if dtype == "r32"
+            else TOL[torch.float64])
+    got = kc.mega_solve(x, tk, ik, stab, **kw)
+    grid = kc.GRID["mega_solve"]
+    assert grid["cluster"] == 16
+    assert grid["forward"] == grid["backward"] == 16 * min(
+        nrhs, grid["clusters_fit"])
+    torch.testing.assert_close(got, ref, **stol)
+    assert torch.equal(got[:, kw["bl"]], x[:, kw["bl"]])
+    assert torch.equal(got, kc.mega_solve(x, tk, ik, stab, **kw))
+
+
+@pytest.mark.parametrize("nrhs", [1, 4, 64])
+@pytest.mark.parametrize("dtype", ["r32", "r64"])
+@pytest.mark.parametrize("nb", [129, 200, 256])
+def test_cluster_group_sweeps(cuda, nb, dtype, nrhs):
+    """K5 above nb = 128 on thread block clusters (poisson3d(20) nd,
+    items of up to 7 entries): the plain version's result at the solve
+    tolerances, the same bits on a second run, the scratch segment
+    untouched; clusters of 4 CTAs while the widest step holds fewer
+    than two (item, RHS) pairs an SM, else of 2 (64 RHS: always 2)."""
+    tk, ik, stab, x, kw = _cluster_sweep_case(
+        cuda, lambda: poisson3d(20), nb, dtype, "nd", nrhs)
+    ref = kt.mega_solve_groups(x, tk, ik, stab, **kw)
+    stol = (dict(rtol=1e-4, atol=1e-5) if dtype == "r32"
+            else TOL[torch.float64])
+    got = kc.mega_solve_groups(x, tk, ik, stab, **kw)
+    grid = kc.GRID["mega_solve_groups"]
+    host, _ = kc.solve_steps_view(stab, kw["bl"], tk.shape[0] - 1, cuda)
+    width = max(host["l_width"], host["uc_width"])
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert grid["cluster"] == (4 if width * nrhs < 2 * sms else 2)
+    if nrhs == 64:
+        assert grid["cluster"] == 2
+    assert 0 < grid["forward"] <= grid["cluster"] * grid["clusters_fit"]
+    torch.testing.assert_close(got, ref, **stol)
+    assert torch.equal(got[:, kw["bl"]], x[:, kw["bl"]])
+    assert torch.equal(got, kc.mega_solve_groups(x, tk, ik, stab, **kw))
+
+
+@pytest.mark.parametrize("ordering", ["rcm", "nd"])
+def test_cluster_sweeps_on_two_streams(cuda, ordering):
+    """Two nb=256 solves of other right-hand sides on two streams at
+    once: K5's grid barrier has counters of its own a stream, so each
+    gives the bits it gives alone."""
+    tk, ik, stab, x, kw = _cluster_sweep_case(
+        cuda, lambda: poisson3d(20), 256, "r32", ordering, 1)
+    solve = kc.mega_solve if ordering == "rcm" else kc.mega_solve_groups
+    xs = [x, x.flip(2).contiguous()]
+    alone = [solve(v, tk, ik, stab, **kw) for v in xs]
+    streams = [torch.cuda.Stream(cuda) for _ in xs]
+    for _ in range(20):
+        torch.cuda.synchronize(cuda)
+        got = []
+        for st, v in zip(streams, xs):
+            with torch.cuda.stream(st):
+                got.append(solve(v, tk, ik, stab, **kw))
+        torch.cuda.synchronize(cuda)
+        for g, a in zip(got, alone):
+            assert torch.equal(g, a)
+
+
 def test_nd_slice_on_cuda_counts_launches(cuda):
     a = poisson2d(12)
     b = a.to_scipy() @ np.ones(a.n)
