@@ -126,9 +126,10 @@ CUDA toolkit (nvcc).  It
      {"compressed": ...} JSON line;
   8. runs the TPU probes' kernels (probes_phase; step 1 also fails if
      one of their 20 instances spills): P5 scan_overlap in its four
-     modes and P4 scan_multi at Q = 1, 2, 4, 8 without and with the
-     products (on clusters of 8 and 16 CTAs), at 128 and 256 steps on the
-     probes' inputs (testing.probe_inputs), P4 with 3 copies at n = 100,
+     modes (acc's column strips over 16 CTAs) and P4 scan_multi at Q =
+     1, 2, 4, 8 without and with the products (on clusters of 8 and 16
+     CTAs), at 128 and 256 steps on the probes' inputs
+     (testing.probe_inputs), P4 and P5 (split) with 3 copies at n = 100,
      and P3 newton_loop at G = 4 and 16, nb = 16, 100 and 128, on unit
      triangles and on a batch with a general member
      (testing.newton_mixed_inputs), at the probe's steps and at 0 and 2,
@@ -274,8 +275,8 @@ COMPRESSED_INSTANCES = 16
 # and with them in either type on clusters of 4, 8, 16; P3:
 # newton_loop_kernel<type, C> for float and double, C = 4, 8, 16
 PROBE_INSTANCES = 20
-# SMs of an H100 SXM: a one-CTA probe's bound on one SM is the card's
-# operations bound times this (kept in the details file)
+# SMs of an H100 SXM: a probe's bound on the s SMs it runs on is the
+# card's operations bound times this / s (kept in the details file)
 SMS = 132
 # P4's and P5's 3xTF32 instances, timed only, are held within this of
 # max |plain f64| at 128 steps (they drift on the chain of products,
@@ -1265,9 +1266,10 @@ def probe_bound(nbytes: float, flop: float, tc_flop: float,
     """bound() of a probe: bytes over 3.35 TB/s, its operations on the
     CUDA cores (float32) and its products' on the tensor cores at
     tc_peak; and beside it the bound on the ``sms`` SMs its kernel runs
-    the work on (P5 one CTA, P4's products one cluster, P3 a cluster a
-    member), the same with the operations at sms / 132 of those peaks, a
-    computed number kept out of the kernels line."""
+    the work on (P5's products 16 CTAs, a column strip each; P4's one
+    cluster; P3 a cluster a member), the same with the operations at
+    sms / 132 of those peaks, a computed number kept out of the kernels
+    line."""
     tb = nbytes / HBM_BYTES_S * 1e3
     tf = max(flop / FLOP_S[torch.float32], tc_flop / tc_peak) * 1e3
     return (dict(bound_ms=max(tb, tf),
@@ -1348,6 +1350,13 @@ def probes_phase(dev) -> tuple:
     true_f32("scan_multi", "P4 q=8 products=1 copies=3 n=100 128 steps",
              many[0], kt.scan_multi(a1, b1, 8, True, 128),
              kt.scan_multi(a1.double(), b1.double(), 8, True, 128))
+    many = kc.scan_overlap(a1, b1, "split", 128, copies=3)
+    if many.shape != (3, 100, 100) or not all(torch.equal(m, many[0])
+                                              for m in many):
+        fail("P5 copies=3, n=100: the copies differ")
+    true_f32("scan_overlap", "P5 split copies=3 n=100 128 steps", many[0],
+             kt.scan_overlap(a1, b1, "split", 128),
+             kt.scan_overlap(a1.double(), b1.double(), "split", 128))
     # the 3xTF32 instances, timed only: a sanity bound, not true f32
     s3 = 128
     for label, got, p64 in (
@@ -1452,8 +1461,9 @@ def probes_phase(dev) -> tuple:
                 and r["cluster"] == kc.SCAN_CLUSTER)
     row3 = next(r for r in p3["rows"] if r["g"] == g3)
     dmma = TC_FLOP_S[torch.float64]
+    # P5's products run on acc's 16 column strips, a CTA (an SM) each
     b5, sm5 = probe_bound(3 * tile, scan_flop(nb, s5, 1), s5 * 2 * nb ** 3,
-                          dmma, 1)
+                          dmma, probe_overlap.STRIPS)
     b4, sm4 = probe_bound(3 * tile, scan_flop(nb, s4, q4), s4 * 2 * nb ** 3,
                           dmma, kc.SCAN_CLUSTER)
     # P3's function: G unit-lower triangle inverses, members in and out
@@ -1462,7 +1472,7 @@ def probes_phase(dev) -> tuple:
                           g3 * kc.NEWTON_CLUSTER)
     entries = {
         "scan_overlap": dict(
-            ms=p5["one_cta"]["both"]["ms"],
+            ms=p5["column_strips"]["both"]["ms"],
             plain_ms=cuda_ms(lambda _: kt.scan_overlap(a, b, "both", s5),
                              reps=1),
             library_ms=None, **b5),

@@ -1477,7 +1477,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 13; }
+int plu_kernels_abi() { return 14; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1624,15 +1624,16 @@ PLU_TRIANGLE_INVERSES(plu_triangle_inverses_f32, float)
 PLU_TRIANGLE_INVERSES(plu_triangle_inverses_f64, double)
 
 // P5: mode 0 scan, 1 dots, 2 both, 3 split (plu::ProbeMode); products
-// 0 float64 (DMMA), 1 3xTF32 (plu::ProbeProducts; scan takes 0); work
-// holds 3 tiles of the products' type a copy.
+// 0 float64 (DMMA), 1 3xTF32 (plu::ProbeProducts; scan takes 0); modes
+// both and split: part holds an n x n float tile a copy, done `copies`
+// counters that are 0 (and are 0 again after).
 int plu_scan_overlap_f32(int dev, int mode, int products, const float* a,
-                         const float* b, float* out, void* work, int copies,
-                         int n, int steps, void* st) {
+                         const float* b, float* out, float* part, int* done,
+                         int copies, int n, int steps, void* st) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return e;
-  return plu::scan_overlap(mode, products, a, b, out, work, copies, n, steps,
-                           PLU_STREAM(st));
+  return plu::scan_overlap(mode, products, a, b, out, part, done, copies, n,
+                           steps, PLU_STREAM(st));
 }
 
 // P4: q >= 1 chains; products as for P5 (0 without the dot) on a

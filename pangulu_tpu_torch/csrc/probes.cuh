@@ -21,9 +21,9 @@
 // The products' types (P5, P4): acc <- a · acc from acc = b, one a step,
 // on the tensor cores (tile_gemm.cuh's atoms), on copies of a and acc
 // of the product type P:
-//   * P = double (the default, "f64"): DMMA (mma.sync f64: m8n8k4 in
-//     P5, MmaF64's m16n8k8 in P4) on float64 copies; the result is
-//     rounded to float32 once, at the end.
+//   * P = double (the default, "f64"): DMMA (mma.sync f64 m16n8k8,
+//     MmaF64 below) on float64 copies; the result is rounded to float32
+//     once, at the end.
 //     At least as accurate as float32 (the probes' Precision.HIGHEST):
 //     the instance the checks hold to true f32.
 //   * P = float ("tf32x3"): 3xTF32, the solver's float products (K2,
@@ -34,25 +34,59 @@
 //     3.9x the plain float32 chain's error against float64 after 128
 //     products on the H100 (PERF.md), against the 2x of true f32.
 //
-// P5 overlap_kernel<MODE, P> (replaces tools/exp_overlap.py run)
-//   One copy of the problem a CTA.  The chain in registers; the
-//   products (compressed.cuh newton_product, 32 x 32 windows staged from
-//   a workspace in global memory, L2-resident: a, then acc and acc', 3
-//   tiles of P a copy) on four warps.  kProbeScan: the scan's 8 warps;
-//   kProbeDots: the product's 4 warps; kProbeBoth and kProbeSplit: both,
-//   12 warps, the product on warps 0-3 (their barriers inside a product
-//   are named barrier 1), the scan on warps 4-11.  kProbeSplit takes
-//   one CTA barrier a step, so a product and a scan step run side by
-//   side (t ~ max); kProbeBoth takes two, the scan step between the
-//   first and the second and the product after the second, so they run
-//   in turn (t ~ sum), as the probe's one loop body asks.  Output f +
-//   acc.  The probe's question: does the scan hide under the products?
+// P5 overlap_kernel<MODE, P> (replaces tools/exp_overlap.py run,
+//   :63-72): f = a through `steps` scan steps (unless kProbeDots) and
+//   acc = a^steps · b (unless kProbeScan); out = f + acc (kProbeDots: a
+//   + acc; kProbeScan: f + b).
 //   Bound on an H100: operations.  4096 products of 2 * 128^3 flop are
-//   1.72e10 flop: 0.256 ms at 67 TFLOP/s (DMMA) on the whole card, 34
-//   ms on one SM (3xTF32: 0.104 and 13.7 ms at 495/3 TFLOP/s); the
-//   scan's updates are ~4.5e7 flop (32 passes), 0.67 us at 67 TFLOP/s,
-//   88 us on one SM, but its 4096 dependent steps bound it by latency:
-//   a barrier, a shared read, a shuffle and a division a step.
+//   1.72e10 flop: 0.2564 ms at 67 TFLOP/s (DMMA) on the whole card,
+//   2.115 ms on the 16 SMs this layout runs them on (3xTF32: 0.859 ms
+//   there at 495/3 TFLOP/s); the scan's updates are ~4.5e7 flop (32
+//   passes), but its 4096 dependent steps bound it by latency (~244 ns
+//   a step: a barrier, a shared read, a shuffle and a division).
+//   Layout: acc's columns over CTAs.  Column j of a^s · b depends only
+//   on column j of b, so a CTA that owns whole columns of acc and holds
+//   all of a needs nothing from any other CTA for the whole chain.  A
+//   copy is (n + 7) / 8 product CTAs (16 at n = 128); CTA j owns acc's
+//   columns 8j ... 8j + 7 (one MmaF64 or Mma<float> atom wide), loads a
+//   (in P, 128 x 132: 135,168 bytes of double) and b's strip once, and
+//   runs the chain on its strip from shared memory, the strip twice (by
+//   step parity: one barrier a step), on 4 warps of 32 rows each, one to
+//   an SM sub-partition.  Nothing of acc leaves the CTA until the end.
+//   A step is bound by its shared-memory reads, not by DMMA (clock64 and
+//   timing-only edits, PERF.md PR 14: all of a and the strip, ~160 KB, in
+//   ~1,900 cycles; the MMAs alone ~1,300): so each warp keeps the A
+//   fragments of k's first chunks in registers for the whole chain, 8 of
+//   16 in mode dots, 4 beside the scan (strip_reg_chunks), and reads the
+//   rest a step (dots 4.37 -> 3.69 ms, the same bits).
+//   P4's 2D blocks (PR 12) need, for block (i, j) of a · acc, all of
+//   acc's column strip j from 4 owners: a copy through distributed
+//   shared memory and a cluster barrier every step (2.67 us a step);
+//   whole columns need neither.  The scan is K1's layout (scan_loop
+//   below), on the SM of CTA 0: kProbeScan, one CTA of the 8 scan
+//   warps; kProbeBoth and kProbeSplit, CTA 0 holds the scan's 8 warps
+//   beside strip 0's 4 product warps (warps 0-3 products, 4-11 scan):
+//   kProbeSplit takes one CTA barrier a step, so a product and a scan
+//   step run side by side (t ~ max), kProbeBoth two, the scan step
+//   between the first and the second and the product after the second,
+//   so they run in turn (t ~ sum), as the probe's one loop body asks.
+//   CTAs 1 ... of those modes run only their products: a launch has one
+//   block shape, and one CTA an SM either way (shared memory), so their
+//   scan warps return at once and their product warps take a named
+//   barrier of their own.  The sum: each CTA writes its part (f, or its
+//   strip of acc rounded once to float) to global memory, and the CTA
+//   that arrives last (a completion counter of the call's own behind
+//   __threadfence, reset by that CTA) adds out = f + acc, one addition
+//   an element, in the plain version's order; no CTA waits on another.
+//   Measured and dropped (pangulu_tpu_torch/tools/probe_overlap.py
+//   --edits; PERF.md PR 14): 8 product warps of 16 rows (no faster: the
+//   same bytes a step); 2 CTAs a strip in a cluster of 2, 64 rows each,
+//   the strip's halves exchanged through distributed shared memory
+//   (dots 5.5 ms: a cluster barrier a step); 2 or 4 accumulators an
+//   atom over k (no faster: not the MMAs' latency); 16-byte fragment
+//   loads, k's pairs side by side and the strip transposed (dots 5.3
+//   ms: the loads' bytes stay, and the transposed stores conflict);
+//   more chunks in registers (spills).
 //
 // P4 scan_multi_kernel<C, P> (replaces tools/exp_scan_multi.py run)
 //   Q chains f_i = a + i through `steps` scan steps and (C > 0) acc <-
@@ -138,7 +172,6 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "compressed.cuh"
 #include "tile_gemm.cuh"
 #include "tile_lu.cuh"
 
@@ -153,19 +186,6 @@ constexpr int kChainCols = kProbeNb / 32;          // columns a thread holds
 constexpr float kProbeTol = 1e-8f;
 
 enum ProbeMode { kProbeScan, kProbeDots, kProbeBoth, kProbeSplit };
-
-template <int MODE>
-__host__ __device__ constexpr int probe_threads() {
-  return MODE == kProbeScan   ? 32 * kScanWarps
-         : MODE == kProbeDots ? kGemmThreads
-                             : kGemmThreads + 32 * kScanWarps;
-}
-
-// P5's product window, 32 x 32 (warp tiles of 16 x 16) of type P: the
-// product warps share a block of 384 threads, 168 registers a thread,
-// with the scan's.
-template <typename P>
-using ProbeWindow = Window<P, 32, 32, 2, 2>;
 
 struct ChainTile {
   float v[kChainRows][kChainCols];
@@ -222,149 +242,6 @@ __device__ __forceinline__ void scan_loop(ChainTile& f, float* bcast, int n,
         if (MODE == kProbeBoth) __syncthreads();
       }
     }
-  }
-}
-
-// One copy (block blockIdx.x) of P5: the chain f = a through `steps`
-// scan steps (unless kProbeDots) and acc <- a · acc from acc = b (unless
-// kProbeScan) in products of type P; out = f + acc.  The product warps
-// and the scan warps take the same number of CTA barriers: one a step
-// (two in kProbeBoth) and one after the last.  Shared memory: the row
-// buffers, the product windows' stages.  work: a, then acc and acc', of
-// type P (3 tiles a copy).
-template <int MODE, typename P>
-__device__ __forceinline__ void probe_body(const float* a, const float* b,
-                                           float* out, P* work, int n,
-                                           int steps) {
-  constexpr bool SCAN = MODE != kProbeDots, DOT = MODE != kProbeScan;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* bcast = reinterpret_cast<float*>(smem_raw);
-  P* stages = reinterpret_cast<P*>(SCAN ? bcast + 2 * kProbeNb : bcast);
-  const size_t nn = (size_t)n * n;
-  out += blockIdx.x * nn;
-  P* ap = work + blockIdx.x * 3 * nn;
-  P* acc = ap + nn;
-  const P* accf = acc + (steps & 1) * nn;  // the last product
-  const int warp = threadIdx.x >> 5, tx = threadIdx.x & 31;
-  if (DOT && warp < kGemmWarps) {
-    constexpr int BAR = SCAN ? 1 : 0;
-    for (size_t e = threadIdx.x; e < nn; e += kGemmThreads) {
-      ap[e] = a[e];
-      acc[e] = b[e];
-    }
-    for (int s = 0; s < steps; ++s) {
-      __syncthreads();
-      if (MODE == kProbeBoth) __syncthreads();
-      newton_product<kStore, P, ProbeWindow<P>, BAR>(
-          ap, acc + (s & 1) * nn, acc + ((s + 1) & 1) * nn, n, stages);
-    }
-    __syncthreads();
-    if (!SCAN)
-      for (size_t e = threadIdx.x; e < nn; e += kGemmThreads)
-        out[e] = a[e] + float(accf[e]);
-    return;
-  }
-  if (!SCAN) return;
-  const int sw = warp - (DOT ? kGemmWarps : 0);
-  ChainTile f;
-#pragma unroll
-  for (int i = 0; i < kChainRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kChainCols; ++j) {
-      const int r = sw + kScanWarps * i, c = tx + 32 * j;
-      f.v[i][j] = r < n && c < n ? a[(size_t)r * n + c] : 0.f;
-    }
-  scan_loop<MODE>(f, bcast, n, steps, sw, tx);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kChainRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kChainCols; ++j) {
-      const int r = sw + kScanWarps * i, c = tx + 32 * j;
-      if (r >= n || c >= n) continue;
-      const size_t e = (size_t)r * n + c;
-      out[e] = f.v[i][j] + (DOT ? float(accf[e]) : b[e]);
-    }
-}
-
-// Dynamic shared memory of a P5 block.
-template <int MODE, typename P>
-constexpr size_t probe_smem_bytes() {
-  return (MODE == kProbeDots ? 0 : 2 * kProbeNb * sizeof(float)) +
-         (MODE == kProbeScan ? 0 : ProbeWindow<P>::kSmemBytes);
-}
-
-// The kernel's launch with its dynamic shared memory opted in.
-template <class K, class... Args>
-cudaError_t launch_probe(K kernel, int copies, int threads, size_t smem,
-                         cudaStream_t st, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<copies, threads, smem, st>>>(args...);
-  return cudaGetLastError();
-}
-
-// P5: one copy of the probe's problem a block.
-template <int MODE, typename P>
-__global__ void __launch_bounds__(probe_threads<MODE>(), 1)
-    overlap_kernel(const float* a, const float* b, float* out, P* work,
-                   int n, int steps) {
-  probe_body<MODE, P>(a, b, out, work, n, steps);
-}
-
-// The products' type of a probe launch: 0 float64 (DMMA), 1 float
-// (3xTF32).
-enum ProbeProducts { kProductsF64, kProductsTf32x3 };
-
-template <int MODE, typename P>
-cudaError_t launch_overlap(const float* a, const float* b, float* out,
-                           void* work, int copies, int n, int steps,
-                           cudaStream_t st) {
-  return launch_probe(overlap_kernel<MODE, P>, copies, probe_threads<MODE>(),
-                      probe_smem_bytes<MODE, P>(), st, a, b, out,
-                      static_cast<P*>(work), n, steps);
-}
-
-template <int MODE>
-cudaError_t launch_overlap(int products, const float* a, const float* b,
-                           float* out, void* work, int copies, int n,
-                           int steps, cudaStream_t st) {
-  switch (products) {
-    case kProductsF64:
-      return launch_overlap<MODE, double>(a, b, out, work, copies, n, steps,
-                                          st);
-    case kProductsTf32x3:
-      return launch_overlap<MODE, float>(a, b, out, work, copies, n, steps,
-                                         st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// P5 in mode (ProbeMode) on `copies` blocks, its products of type
-// `products` (ProbeProducts; the scan mode has none and takes only
-// kProductsF64); work: 3 tiles of that type a copy.
-inline cudaError_t scan_overlap(int mode, int products, const float* a,
-                                const float* b, float* out, void* work,
-                                int copies, int n, int steps,
-                                cudaStream_t st) {
-  switch (mode) {
-    case kProbeScan:
-      if (products != kProductsF64) return cudaErrorInvalidValue;
-      return launch_overlap<kProbeScan, double>(a, b, out, work, copies, n,
-                                                steps, st);
-    case kProbeDots:
-      return launch_overlap<kProbeDots>(products, a, b, out, work, copies, n,
-                                        steps, st);
-    case kProbeBoth:
-      return launch_overlap<kProbeBoth>(products, a, b, out, work, copies, n,
-                                        steps, st);
-    case kProbeSplit:
-      return launch_overlap<kProbeSplit>(products, a, b, out, work, copies,
-                                         n, steps, st);
-    default:
-      return cudaErrorInvalidValue;
   }
 }
 
@@ -607,6 +484,308 @@ inline cudaLaunchConfig_t cluster_launch(dim3 grid, int c, size_t smem,
     cfg.numAttrs = 1;
   }
   return cfg;
+}
+
+// ------------------------------------------------------------------ P5
+
+// The products' type of a probe launch: 0 float64 (DMMA), 1 float
+// (3xTF32).
+enum ProbeProducts { kProductsF64, kProductsTf32x3 };
+
+// acc's columns a P5 product CTA owns (one atom wide: MmaF64::N,
+// Mma<float>::N), and its product warps, one to an SM sub-partition.
+constexpr int kStripCols = 8;
+constexpr int kStripWarps = kGemmWarps;
+constexpr int kStripThreads = 32 * kStripWarps;
+
+template <int MODE>
+__host__ __device__ constexpr int probe_threads() {
+  return MODE == kProbeScan   ? 32 * kScanWarps
+         : MODE == kProbeDots ? kStripThreads
+                             : kStripThreads + 32 * kScanWarps;
+}
+
+// A P5 product CTA's shared memory (elements of P): all of a (k along a
+// row) and acc's strip twice (by step parity); TM rows of the strip a
+// warp.  Strip rows of 12 doubles put each half-warp's B fragment loads
+// (t, g) on distinct bank pairs, rows of 8 floats each warp's on
+// distinct banks (8t + g); a's rows take the atoms' PAD_A.
+template <typename P>
+struct StripLayout {
+  using Mt = typename ClusterMma<P>::type;
+  static constexpr int TM = kProbeNb / kStripWarps, MF = TM / Mt::M;
+  static_assert(MF * Mt::M == TM && Mt::N == kStripCols, "whole atoms");
+  static constexpr int LDA = kProbeNb + Mt::PAD_A;
+  static constexpr int LDB = kStripCols + (sizeof(P) == 8 ? 4 : 0);
+  static constexpr size_t kA = (size_t)kProbeNb * LDA;
+  static constexpr size_t kB = (size_t)kProbeNb * LDB;
+  static constexpr size_t kSmemBytes = (kA + 2 * kB) * sizeof(P);
+};
+
+// k's chunks of 8 whose A fragments each product warp holds in
+// registers for the whole chain, read once from global memory; the
+// others are read from shared memory every step, and those reads bound
+// a step (PERF.md PR 14).  As many as the CTA's registers leave: 255 a
+// thread in a block of 128 (dots), 168 in one of 384 (the scan's warps
+// beside; 16 registers a chunk).
+template <int MODE>
+__host__ __device__ constexpr int strip_reg_chunks() {
+  return MODE == kProbeDots ? 8 : 4;
+}
+
+// This warp's A fragments of chunks 0 ... RK - 1 (RK = 0: none, the
+// first design, which tools/probe_overlap.py's regs0 times).
+template <typename P, int RK>
+struct StripRegs {
+  typename StripLayout<P>::Mt::AFrag f[RK][StripLayout<P>::MF];
+};
+template <typename P>
+struct StripRegs<P, 0> {};
+
+// Element i of an A fragment: the value (float64), or its TF32 split
+// (3xTF32).
+__device__ __forceinline__ void frag_set(MmaF64::AFrag& f, int i, double x) {
+  f.v[i] = x;
+}
+__device__ __forceinline__ void frag_set(Mma<float>::AFrag& f, int i,
+                                         float x) {
+  split_tf32(x, f.big[i], f.small[i]);
+}
+
+// This warp's fragments of a (n x n, zero outside) in chunks 0 ... RK - 1:
+// element i of atom m at row m0 + 16 m + g + 8 (i % 2), column 8 q + t +
+// 4 (i / 2), as Mt::load_a reads them.
+template <typename P, int RK>
+__device__ __forceinline__ void strip_regs_load(StripRegs<P, RK>& ar,
+                                                const float* a, int n) {
+  if constexpr (RK > 0) {
+    using L = StripLayout<P>;
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const int m0 = (threadIdx.x >> 5) * L::TM;
+#pragma unroll
+    for (int q = 0; q < RK; ++q)
+#pragma unroll
+      for (int m = 0; m < L::MF; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = m0 + m * 16 + g + 8 * (i & 1);
+          const int c = 8 * q + t + 4 * (i >> 1);
+          frag_set(ar.f[q][m], i,
+                   r < n && c < n ? P(a[(size_t)r * n + c]) : P(0));
+        }
+  }
+}
+
+// nxt = a · cur on a strip: warp w forms rows [w TM, (w + 1) TM), MF
+// atoms of 16 x 8 over k = 0 ... 127 in order, A's fragments from ar
+// (chunks below RK) or from shared memory, B's from shared memory.
+template <typename P, int RK>
+__device__ __forceinline__ void strip_product(const StripRegs<P, RK>& ar,
+                                              const P* As, const P* cur,
+                                              P* nxt) {
+  using L = StripLayout<P>;
+  using Mt = typename L::Mt;
+  const int m0 = (threadIdx.x >> 5) * L::TM;
+  P v[L::MF][Mt::NC];
+#pragma unroll
+  for (int m = 0; m < L::MF; ++m)
+#pragma unroll
+    for (int i = 0; i < Mt::NC; ++i) v[m][i] = P(0);
+  if constexpr (RK > 0) {
+#pragma unroll
+    for (int q = 0; q < RK; ++q) {
+      typename Mt::BFrag fb;
+      Mt::load_b(fb, cur, L::LDB, q * Mt::K, 0);
+#pragma unroll
+      for (int m = 0; m < L::MF; ++m) Mt::step(v[m], ar.f[q][m], fb);
+    }
+  }
+#pragma unroll 4
+  for (int k = RK * Mt::K; k < kProbeNb; k += Mt::K) {
+    typename Mt::AFrag fa[L::MF];
+    typename Mt::BFrag fb;
+#pragma unroll
+    for (int m = 0; m < L::MF; ++m)
+      Mt::load_a(fa[m], As, L::LDA, m0 + m * Mt::M, k);
+    Mt::load_b(fb, cur, L::LDB, k, 0);
+#pragma unroll
+    for (int m = 0; m < L::MF; ++m) Mt::step(v[m], fa[m], fb);
+  }
+#pragma unroll
+  for (int m = 0; m < L::MF; ++m)
+#pragma unroll
+    for (int i = 0; i < Mt::NC; i += 2)
+      store_pair(nxt + (m0 + m * Mt::M + Mt::row(i)) * L::LDB + Mt::col(i),
+                 v[m][i], v[m][i + 1]);
+}
+
+// The product warps' barrier: the whole CTA where the scan's warps
+// share it (CTA 0 of kProbeBoth and kProbeSplit), else named barrier 1
+// of the product warps alone.
+__device__ __forceinline__ void strip_sync(bool whole) {
+  if (whole)
+    __syncthreads();
+  else
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kStripThreads) : "memory");
+}
+
+// P5, copy blockIdx.y, CTA blockIdx.x = j: strip j's products (unless
+// kProbeScan) and, on CTA 0, the scan (unless kProbeDots).  With both:
+// part, acc rounded to float (n x n a copy); done, a completion counter
+// a copy, 0 before the launch and after it.
+template <int MODE, typename P>
+__global__ void __launch_bounds__(probe_threads<MODE>(), 1)
+    overlap_kernel(const float* a, const float* b, float* out, float* part,
+                   int* done, int n, int steps) {
+  using L = StripLayout<P>;
+  constexpr bool SCAN = MODE != kProbeDots, DOT = MODE != kProbeScan;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last;
+  const int warp = threadIdx.x >> 5, tx = threadIdx.x & 31;
+  const int strips = (n + kStripCols - 1) / kStripCols;
+  const size_t nn = (size_t)n * n;
+  out += blockIdx.y * nn;
+  const int j = blockIdx.x;                    // the strip of the products
+  const bool scan_cta = SCAN && j == 0;        // the CTA of the scan
+  const bool whole = SCAN && DOT && scan_cta;  // both on barrier 0
+  if (SCAN && warp >= (DOT ? kStripWarps : 0)) {
+    if (!scan_cta) return;
+    const int sw = warp - (DOT ? kStripWarps : 0);
+    ChainTile f;
+#pragma unroll
+    for (int i = 0; i < kChainRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kChainCols; ++c) {
+        const int r = sw + kScanWarps * i, cc = tx + 32 * c;
+        f.v[i][c] = r < n && cc < n ? a[(size_t)r * n + cc] : 0.f;
+      }
+    scan_loop<MODE>(f, reinterpret_cast<float*>(smem_raw), n, steps, sw,
+                    tx);
+    __syncthreads();  // the products' last step is stored
+#pragma unroll
+    for (int i = 0; i < kChainRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kChainCols; ++c) {
+        const int r = sw + kScanWarps * i, cc = tx + 32 * c;
+        if (r >= n || cc >= n) continue;
+        const size_t e = (size_t)r * n + cc;
+        out[e] = DOT ? f.v[i][c] : f.v[i][c] + b[e];
+      }
+    if (DOT) {
+      __threadfence();
+      __syncthreads();  // f is out before the products' arrival
+    }
+    return;
+  }
+  // the products of strip j: a and b's strip, in P, zero outside n x n
+  P* As = reinterpret_cast<P*>(smem_raw +
+                               (SCAN ? 2 * kProbeNb * sizeof(float) : 0));
+  P* acc[2] = {As + L::kA, As + L::kA + L::kB};
+  const int c0 = j * kStripCols;
+  for (int e = threadIdx.x; e < kProbeNb * kProbeNb; e += kStripThreads) {
+    const int r = e / kProbeNb, c = e % kProbeNb;
+    As[r * L::LDA + c] = r < n && c < n ? P(a[(size_t)r * n + c]) : P(0);
+  }
+  for (int e = threadIdx.x; e < kProbeNb * kStripCols; e += kStripThreads) {
+    const int r = e / kStripCols, c = c0 + e % kStripCols;
+    acc[0][r * L::LDB + c - c0] =
+        r < n && c < n ? P(b[(size_t)r * n + c]) : P(0);
+  }
+  StripRegs<P, strip_reg_chunks<MODE>()> ar;
+  strip_regs_load(ar, a, n);
+  for (int s = 0; s < steps; ++s) {
+    strip_sync(whole);
+    if (MODE == kProbeBoth && whole) strip_sync(whole);
+    strip_product(ar, As, acc[s & 1], acc[(s + 1) & 1]);
+  }
+  strip_sync(whole);  // the last step is stored
+  const P* fin = acc[steps & 1];
+  float* dst = SCAN ? part + blockIdx.y * nn : out;
+  for (int e = threadIdx.x; e < kProbeNb * kStripCols; e += kStripThreads) {
+    const int r = e / kStripCols, c = c0 + e % kStripCols;
+    if (r >= n || c >= n) continue;
+    const size_t g = (size_t)r * n + c;
+    const float v = float(fin[r * L::LDB + c - c0]);
+    dst[g] = SCAN ? v : a[g] + v;
+  }
+  if (!SCAN) return;
+  // the CTA that arrives last sums the copy: out = f + acc
+  __threadfence();
+  strip_sync(whole);  // in CTA 0 with the scan warps: f is out
+  if (threadIdx.x == 0)
+    last = atomicAdd(done + blockIdx.y, 1) == strips - 1;
+  strip_sync(false);
+  if (!last) return;
+  __threadfence();
+  const float* pt = part + blockIdx.y * nn;
+  for (size_t e = threadIdx.x; e < nn; e += kStripThreads)
+    out[e] = __ldcg(out + e) + __ldcg(pt + e);
+  if (threadIdx.x == 0) done[blockIdx.y] = 0;
+}
+
+template <int MODE, typename P>
+cudaError_t launch_overlap(const float* a, const float* b, float* out,
+                           float* part, int* done, int copies, int n,
+                           int steps, cudaStream_t st) {
+  const int strips = (n + kStripCols - 1) / kStripCols;
+  const size_t smem =
+      (MODE == kProbeDots ? 0 : 2 * kProbeNb * sizeof(float)) +
+      (MODE == kProbeScan ? 0 : StripLayout<P>::kSmemBytes);
+  cudaError_t e = cudaFuncSetAttribute(
+      overlap_kernel<MODE, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  overlap_kernel<MODE, P><<<dim3(MODE == kProbeScan ? 1 : strips, copies),
+                            probe_threads<MODE>(), smem, st>>>(
+      a, b, out, part, done, n, steps);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_overlap(int products, const float* a, const float* b,
+                           float* out, float* part, int* done, int copies,
+                           int n, int steps, cudaStream_t st) {
+  switch (products) {
+    case kProductsF64:
+      return launch_overlap<MODE, double>(a, b, out, part, done, copies, n,
+                                          steps, st);
+    case kProductsTf32x3:
+      return launch_overlap<MODE, float>(a, b, out, part, done, copies, n,
+                                         steps, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// P5 in mode (ProbeMode) on `copies` copies, its products of type
+// `products` (ProbeProducts; the scan mode has none and takes only
+// kProductsF64).  Modes both and split: part holds an n x n float tile
+// a copy, done `copies` counters that are 0 (and are 0 again after).
+inline cudaError_t scan_overlap(int mode, int products, const float* a,
+                                const float* b, float* out, float* part,
+                                int* done, int copies, int n, int steps,
+                                cudaStream_t st) {
+  if (n < 1 || n > kProbeNb || steps < 0 || copies < 1 || copies > 65535)
+    return cudaErrorInvalidValue;
+  if ((mode == kProbeBoth || mode == kProbeSplit) && (!part || !done))
+    return cudaErrorInvalidValue;
+  switch (mode) {
+    case kProbeScan:
+      if (products != kProductsF64) return cudaErrorInvalidValue;
+      return launch_overlap<kProbeScan, double>(a, b, out, part, done,
+                                                copies, n, steps, st);
+    case kProbeDots:
+      return launch_overlap<kProbeDots>(products, a, b, out, part, done,
+                                        copies, n, steps, st);
+    case kProbeBoth:
+      return launch_overlap<kProbeBoth>(products, a, b, out, part, done,
+                                        copies, n, steps, st);
+    case kProbeSplit:
+      return launch_overlap<kProbeSplit>(products, a, b, out, part, done,
+                                         copies, n, steps, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ------------------------------------------------------------------ P4

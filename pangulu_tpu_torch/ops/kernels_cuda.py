@@ -30,7 +30,7 @@ from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
                                                  check_nb)
 from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 13
+_ABI = 14
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -123,7 +123,8 @@ def library() -> build.KernelLibrary:
         fn.restype = i
         fn.argtypes = [i, p, p, p, i, i, i, i, p]
     lib.plu_scan_overlap_f32.restype = i
-    lib.plu_scan_overlap_f32.argtypes = [i, i, i, p, p, p, p, i, i, i, p]
+    lib.plu_scan_overlap_f32.argtypes = [i, i, i, p, p, p, p, p, i, i, i,
+                                         p]
     lib.plu_scan_multi_f32.restype = i
     lib.plu_scan_multi_f32.argtypes = [i, i, i, i, i, p, p, p, p, p, i, i,
                                        i, p]
@@ -782,13 +783,13 @@ PROBE_MAX_NB = 128
 CLUSTER_SIZES = (4, 8, 16)
 SCAN_CLUSTER = 16
 NEWTON_CLUSTER = 4
-# the largest grid.y of a launch (P4's copies, P3's members)
+# the largest grid.y of a launch (P5's and P4's copies, P3's members)
 MAX_GRID_Y = 65535
 _OVERLAP_MODE = {m: i for i, m in enumerate(kt.OVERLAP_MODES)}
 # P4's and P5's product types (csrc/probes.cuh ProbeProducts): "f64",
 # DMMA on float64 copies, true f32 on the probes' chains; "tf32x3", the
 # solver's float products, which drift on them (timed only)
-PROBE_PRODUCTS = {"f64": (0, torch.float64), "tf32x3": (1, torch.float32)}
+PROBE_PRODUCTS = {"f64": 0, "tf32x3": 1}
 
 
 def _probe_nb(a, b, steps) -> int:
@@ -815,15 +816,7 @@ def _check_probe_options(copies: int, products: str, with_dot: bool):
     if products != "f64" and not with_dot:
         raise ValueError("products other than 'f64' need the products "
                          "(mode scan, or with_dot=False, has none)")
-    return PROBE_PRODUCTS[products][0]
-
-
-def _probe_work(copies: int, nb: int, products: str,
-                device) -> torch.Tensor:
-    """P4's and P5's product workspace: a and acc, acc' in the
-    products' type, 3 tiles a copy."""
-    return torch.empty((copies, 3, nb, nb),
-                       dtype=PROBE_PRODUCTS[products][1], device=device)
+    return PROBE_PRODUCTS[products]
 
 
 def _copies_of(r: torch.Tensor, copies: int) -> torch.Tensor:
@@ -834,9 +827,11 @@ def scan_overlap(a: torch.Tensor, b: torch.Tensor, mode: str, steps: int,
                  copies: int = 1, products: str = "f64") -> torch.Tensor:
     """P5: :func:`kernels_torch.scan_overlap` of ``a``, ``b`` [nb, nb]
     float32, nb <= 128; with ``copies`` > 1, that many identical copies
-    [copies, nb, nb], one CTA each, in one launch.  Mode "split" runs
-    "both" with the scan and the products on separate warps.  The
-    products run in float64 and are rounded to float32 once, or with
+    [copies, nb, nb] in one launch.  acc's 8-column strips over CTAs,
+    ceil(nb / 8) a copy, each holding all of ``a``; the scan on CTA 0
+    beside strip 0's products.  Mode "split" runs "both" with the
+    scan and the products on separate warps.  The products run in
+    float64 and are rounded to float32 once, or with
     ``products="tf32x3"`` as the solver's float products (less accurate
     than float32 on this chain: for timing)."""
     if mode not in _OVERLAP_MODE:
@@ -846,12 +841,22 @@ def scan_overlap(a: torch.Tensor, b: torch.Tensor, mode: str, steps: int,
     if not _on_cuda(a):
         return _copies_of(kt.scan_overlap(a, b, mode, steps), copies)
     nb = _probe_nb(a, b, steps)
-    out = torch.empty((copies, nb, nb), dtype=a.dtype, device=a.device)
-    work = _probe_work(copies, nb, products, a.device)
-    _call(library().lib.plu_scan_overlap_f32, a.device.index,
+    if copies > MAX_GRID_Y:
+        raise ValueError(f"copies must be <= {MAX_GRID_Y}, got {copies}")
+    dev = a.device
+    out = torch.empty((copies, nb, nb), dtype=a.dtype, device=dev)
+    part = done = None
+    if mode in ("both", "split"):
+        # acc rounded to float32, and a completion counter, a copy; the
+        # counters are the call's own, so that launches on two streams
+        # share nothing
+        part = torch.empty((copies, nb, nb), dtype=a.dtype, device=dev)
+        done = torch.zeros(copies, dtype=torch.int32, device=dev)
+    _call(library().lib.plu_scan_overlap_f32, dev.index,
           _OVERLAP_MODE[mode], code, a.data_ptr(), b.data_ptr(),
-          out.data_ptr(), work.data_ptr(), copies, nb, steps,
-          _stream(a.device))
+          out.data_ptr(), None if part is None else part.data_ptr(),
+          None if done is None else done.data_ptr(), copies, nb, steps,
+          _stream(dev))
     LAUNCHES["scan_overlap"] += 1
     return out[0] if copies == 1 else out
 

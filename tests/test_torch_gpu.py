@@ -812,6 +812,46 @@ def test_scan_overlap_scan_parts_agree(cuda, nb, steps):
                                              for m in many)
 
 
+@pytest.mark.parametrize("products", ["f64", "tf32x3"])
+def test_scan_overlap_two_streams_at_once(cuda, products):
+    """Two P5 "split" calls in flight at once on two streams, each held
+    to its plain version: each call sums its copies behind completion
+    counters of its own, so neither sees the other's arrivals."""
+    runs = [tuple(_probe_tensors(cuda, seed, nb))
+            for seed, nb in ((21, 128), (22, 100))]
+    streams = [torch.cuda.Stream(cuda) for _ in runs]
+    got = []
+    for (a, b), s in zip(runs, streams):
+        s.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(2_000_000)  # both launches queue first
+            got.append(kc.scan_overlap(a, b, "split", 256, copies=4,
+                                       products=products))
+    torch.cuda.synchronize()
+    for (a, b), g in zip(runs, got):
+        assert all(torch.equal(m, g[0]) for m in g)
+        p64 = kt.scan_overlap(a.double(), b.double(), "split", 256)
+        if products == "f64":
+            _true_f32(g[0], kt.scan_overlap(a, b, "split", 256), p64)
+        else:
+            assert torch.isfinite(g[0]).all() and _rel(g[0], p64) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["dots", "both", "split"])
+def test_scan_overlap_many_copies(cuda, mode):
+    """copies = 10: 160 product CTAs, more than the card holds at once
+    (one an SM), so later CTAs start after earlier ones end; every copy
+    is the first, which is the plain version's to within true f32."""
+    a, b = _probe_tensors(cuda, 10)
+    kc.reset_launch_counts()
+    many = kc.scan_overlap(a, b, mode, 128, copies=10)
+    assert kc.LAUNCHES == _counts(scan_overlap=1)
+    assert many.shape == (10, 128, 128)
+    assert all(torch.equal(m, many[0]) for m in many)
+    _true_f32(many[0], kt.scan_overlap(a, b, mode, 128),
+              kt.scan_overlap(a.double(), b.double(), mode, 128))
+
+
 @pytest.mark.parametrize("steps", [128, 256])
 @pytest.mark.parametrize("with_dot", [False, True])
 @pytest.mark.parametrize("q", [1, 2, 4, 8])
