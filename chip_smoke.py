@@ -124,7 +124,24 @@ CUDA toolkit (nvcc).  It
      nb=128 nd r32 (store ratio, solve residual < 1e-10) and circuit(600,
      seed=2) nb=32 r64 (< 1e-6); its numbers go out as a
      {"compressed": ...} JSON line;
-  8. runs the TPU probes' kernels (probes_phase; step 1 also fails if
+  8. drives the complex types through the real 2x2 embedding
+     (complex_phase) on poisson3d(32) with imaginary parts
+     (testing.with_imaginary_parts: +1 on the diagonal, 0.1 U(-1, 1) on
+     the stored off-diagonal entries, seed 0), nb=128: r32 on the real
+     part alone and then cr32, with rcm (K1, K2, K3; K1 = the embedded
+     block_length, 512) and with nd (K1 batched, K4, K5), their ms per
+     factorization and per solve side by side with the time and flop
+     ratios; cr64 rcm (the double instances of K1, K2, K3); cr32 nd
+     compressed on poisson3d(24) with imaginary parts, then
+     save_factor -> load_factor -> gstrs (P6, P2).  Each run with the
+     launch counts zeroed before and read after (exact), the residual
+     ||b - A x|| / ||b|| in complex128 against A in the working precision
+     (< 1e-10 for cr32 after the default 2 refinement rounds, < 1e-12
+     for cr64), two factorizations of one store bit-identical, ms per
+     factorization and per solve (CUDA events, median of 7), one traced
+     factorization of each dense run (K1's share); a {"complex": ...}
+     JSON line;
+  9. runs the TPU probes' kernels (probes_phase; step 1 also fails if
      one of their 20 instances spills): P5 scan_overlap in its four
      modes (acc's column strips over 16 CTAs) and P4 scan_multi at Q =
      1, 2, 4, 8 without and with the products (on clusters of 8 and 16
@@ -150,11 +167,11 @@ CUDA toolkit (nvcc).  It
      timed only (the chain of products leaves float32's range); the
      plain versions timed at the kernels line's sizes; a {"probes": ...}
      JSON line (with each probe's bound on the SMs it runs on);
-  9. with --profile, also traces one rcm solve and prints, per phase,
+ 10. with --profile, also traces one rcm solve and prints, per phase,
      each kernel's launches and device time, the host wall time and the
      device's idle share (K3's solve: exactly 2 launches of its sweep
      kernel);
- 10. prints the numbers of step 6 as one JSON line, then one JSON
+ 11. prints the numbers of step 6 as one JSON line, then one JSON
      line of per-kernel results, K1-K5 at nb=128 and again at nb=256
      (named name@nb=256, its launches from the nb=256 paths), P6
      (decompress_tiles, compress_tiles) and P2 (newton_inverses), their
@@ -1252,6 +1269,234 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
                            out["reload_launches"]["newton_inverses"]}
 
 
+def complex_phase(dev, nx: int = 32, nx_small: int = 24,
+                  nb: int = 128) -> dict:
+    """cr32 and cr64 through the real 2x2 embedding on the card, on
+    poisson3d(nx) with imaginary parts (testing.with_imaginary_parts:
+    +1 on the diagonal, 0.1 U(-1, 1) on every stored off-diagonal entry,
+    seed 0), nb=128: cr32 rcm (K1, K2, K3) and cr32 nd (K1, K4, K5), each
+    after r32 on the real part alone at the same nb and ordering, their
+    time ratios printed beside the flop ratios; cr64 rcm (K1's and K2's,
+    K3's double instances); cr32 nd in the compressed store on
+    poisson3d(nx_small) with imaginary parts (P6, K1; after save_factor
+    -> load_factor, P6 and P2).  Each run: init -> gstrf -> gstrs with
+    the launch counts zeroed before and read after, exactly the
+    schedule's (K1 = the embedded block_length or group count; the
+    solve 3 calls after the default 2 refinement rounds of cr32, 1 for
+    cr64); the residual ||b - A x|| / ||b|| in complex128 on the host,
+    A in the working precision (rounded to complex64 for cr32, as the
+    r32 phases' A is exact in float32), below 1e-10 for cr32 and 1e-12
+    for cr64; two factorizations of one store bit-identical; the median
+    ms per factorization and per solve (CUDA events); one traced
+    factorization of each dense run (K1's share).  Returns its numbers;
+    any failure raises."""
+    import os
+    import tempfile
+
+    from pangulu_tpu_torch import InitOptions, gstrf, gstrs, init
+    from pangulu_tpu_torch.io import load_factor, save_factor
+    from pangulu_tpu_torch.models import poisson3d
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.sparse import VALUE_DTYPES, complex_embed_rhs
+    from pangulu_tpu_torch.testing import (compressed_launches,
+                                           with_imaginary_parts)
+    from pangulu_tpu_torch.utils.perf import residual_norm
+
+    out = {}
+
+    def counts(what, want):
+        want = {k: want.get(k, 0) for k in kc.LAUNCHES}
+        got = dict(kc.LAUNCHES)
+        print(f"  launches: {got}")
+        if got != want:
+            fail(f"{what}: launch counts {got}, expected {want}")
+        return got
+
+    def run(label, a, dtype, ordering, engine, expect, limit,
+            compressed=False):
+        """One run as the docstring says; returns (handle, its numbers,
+        the working-precision system (A, b, x))."""
+        cdt = np.dtype(VALUE_DTYPES[dtype])
+        cplx = cdt.kind == "c"
+        aw = a.to_scipy().astype(cdt)
+        acc = np.complex128 if cplx else np.float64
+        b = aw.astype(acc) @ np.full(a.n, 1 + 1j if cplx else 1.0, acc)
+        print(f"complex: init -> gstrf -> gstrs, {label}, nb={nb}, {dtype}, "
+              f"{ordering}" + (", tile_storage='compressed'" if compressed
+                               else "") + f", {dev}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kc.reset_launch_counts()
+        t0 = time.perf_counter()
+        h = init(a, InitOptions(nb=nb, dtype=dtype, ordering=ordering,
+                                device=str(dev), tile_storage=(
+                                    "compressed" if compressed else "dense")))
+        init_s = time.perf_counter() - t0
+        gstrf(h)
+        x = gstrs(h, b)
+        launches = counts(f"{label} {dtype} {ordering}", expect(h))
+        k1_dev = kc.DEVICE_LAUNCHES["getrf_with_inverses"]
+        if k1_dev != launches["getrf_with_inverses"]:
+            fail(f"K1 made {k1_dev} device launches in "
+                 f"{launches['getrf_with_inverses']} launches, expected one "
+                 "each")
+        res = residual_norm(aw, x, b)
+        eng = h.perf.kernels.get("engine")
+        print(f"  engine {eng}, n {h.blocked.n}, block_length "
+              f"{h.schedule.block_length}, tiles {h.blocked.num_tiles}; "
+              f"init {init_s:.3f} s (host); residual ||b - A x|| / ||b|| = "
+              f"{res:.3e} (< {limit:g})")
+        if (x.shape != (a.n,) or x.dtype != np.dtype(acc)
+                or not np.isfinite(x).all()):
+            fail(f"{label} {dtype}: solution of shape {x.shape}, type "
+                 f"{x.dtype}, expected ({a.n},) {np.dtype(acc)}, finite")
+        if engine and eng != engine:
+            fail(f"{label} {dtype} {ordering} took the {eng} engine, "
+                 f"expected {engine}")
+        if not res < limit:
+            fail(f"{label} {dtype} {ordering}: residual too large")
+        wdt = h.blocked.dtype
+        br = (complex_embed_rhs(b) if cplx else b).astype(wdt)
+        sch, bl = h.schedule, h.schedule.block_length
+        fac = h._factorizer
+        if compressed:
+            # the store refilled with A before each factorization
+            st = h.factor_tiles
+            st.refill(h.reordering.reordered)
+            v0 = st.values.clone()
+
+            def setup():
+                return None
+
+            def factor(_):
+                st.values.copy_(v0)
+                fac.factorize()
+                return st.values
+
+            xb = torch.zeros((bl + 1, nb, 1), dtype=st.values.dtype,
+                             device=dev)
+            xb[:bl].view(-1)[:h.blocked.n] = torch.as_tensor(
+                h.reordering.transform_b(br), device=dev)
+            solve = fac.solve_blocked
+        else:
+            ts = h._trisolver
+
+            def setup():
+                return h.blocked.device_tiles(dev)
+
+            def factor(tiles):
+                return fac.factorize(tiles, sync=False)
+
+            def solve(xb):
+                return ts.solve_blocked(h.factor_tiles, xb)
+
+            xb = ts.blockify_rhs(h.reordering.transform_b(br))
+        first = factor(setup()).clone()
+        same = torch.equal(first, factor(setup()))
+        del first
+        print(f"  two factorizations of one store: "
+              f"{'the same bits' if same else 'DIFFER'}")
+        if not same:
+            fail(f"{label} {dtype} {ordering}: two factorizations of one "
+                 "store differ")
+        fms = cuda_ms(factor, setup=setup, reps=7)
+        sms = cuda_ms(lambda _: solve(xb), reps=7)
+        flops = sch.flop_estimate()
+        print(f"  {fms:.3f} ms per factorization, {sms:.3f} ms per solve "
+              f"(CUDA events, median of 7); {flops:.3e} flop (dense-tile "
+              "model)")
+        num = dict(n=h.blocked.n, bl=bl, tiles=h.blocked.num_tiles,
+                   engine=eng, launches=launches, k1_device_launches=k1_dev,
+                   residual=res, init_host_s=init_s,
+                   ms_per_factorization=fms, ms_per_solve=sms, flops=flops)
+        if not compressed:
+            tr = profile(factor, setup=setup)
+            k1_ms = sum(k["device_ms"] for n, k in tr["kernels"].items()
+                        if "getrf_inv_kernel" in n or "lu_cluster_kernel" in n)
+            num.update(trace=tr, k1_device_ms=k1_ms,
+                       k1_share=k1_ms / tr["busy_ms"])
+            print(f"  one factorization traced: busy {tr['busy_ms']:.3f} of "
+                  f"{tr['wall_ms']:.3f} wall ms, K1 {k1_ms:.3f} device ms "
+                  f"({k1_ms / tr['busy_ms']:.1%} of busy)")
+        return h, num, (aw, b, x)
+
+    def chain(h):
+        return dict(getrf_with_inverses=h.schedule.block_length,
+                    mega_factorize=1, mega_solve=3 if h.blocked.dtype
+                    == np.float32 else 1)
+
+    def groups(h):
+        return dict(getrf_with_inverses=h._factorizer.tables.host["ngroups"],
+                    mega_factorize_groups=1, mega_solve_groups=3)
+
+    real = poisson3d(nx)
+    cplx = with_imaginary_parts(real)
+    label = f"poisson3d({nx})"
+    for ordering, engine, expect in (("rcm", "mega", chain),
+                                     ("nd", "mega_group", groups)):
+        pair = {}
+        for dtype, a in (("r32", real), ("cr32", cplx)):
+            h, pair[dtype], _ = run(
+                label + (" with imaginary parts" if dtype == "cr32"
+                         else " (the real part)"),
+                a, dtype, ordering, engine, expect, 1e-10)
+            if ordering == "nd":
+                pair[dtype]["groups"] = h._factorizer.tables.host["ngroups"]
+            del h
+        r, c = pair["r32"], pair["cr32"]
+        ratio = {k: c[k] / r[k] for k in ("ms_per_factorization",
+                                          "ms_per_solve", "flops", "bl",
+                                          "tiles")}
+        print(f"  cr32 against r32 on the real part, {ordering} nb={nb}: "
+              f"factorization {c['ms_per_factorization']:.3f} / "
+              f"{r['ms_per_factorization']:.3f} ms = "
+              f"{ratio['ms_per_factorization']:.3f}x, solve "
+              f"{c['ms_per_solve']:.3f} / {r['ms_per_solve']:.3f} ms = "
+              f"{ratio['ms_per_solve']:.3f}x; flop {ratio['flops']:.3f}x "
+              f"(a native complex kernel's: 4x the real flop, so the "
+              f"embedding does {ratio['flops'] / 4:.3f}x of that); "
+              f"block_length {ratio['bl']:.0f}x, tiles "
+              f"{ratio['tiles']:.3f}x")
+        out[ordering] = dict(r32=pair["r32"], cr32=pair["cr32"], ratio=ratio)
+
+    # cr64: K1's and K2's (K7's and K6's) and K3's double instances
+    h, out["cr64_rcm"], _ = run(label + " with imaginary parts", cplx,
+                                "cr64", "rcm", "mega", chain, 1e-12)
+    del h
+
+    # the compressed store, saved and loaded
+    small = with_imaginary_parts(poisson3d(nx_small))
+    h, comp, (aw, b, x) = run(
+        f"poisson3d({nx_small}) with imaginary parts", small, "cr32", "nd",
+        None, lambda h: compressed_launches(h.schedule, factorizations=1,
+                                            solves=3), 1e-10, compressed=True)
+    print("complex: save_factor -> load_factor -> gstrs (cr32, compressed)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "complex.npz")
+        save_factor(h, path)
+        comp["checkpoint_bytes"] = os.path.getsize(path)
+        kc.reset_launch_counts()
+        h2 = load_factor(path, device=str(dev))
+        x2 = gstrs(h2, b)
+        comp["reload_launches"] = counts(
+            "the reloaded complex factor",
+            compressed_launches(h.schedule, solves=3, reloads=1))
+    comp["reload_residual"] = residual_norm(aw, x2, b)
+    print(f"  complex_embed {h2.complex_embed}; residual "
+          f"{comp['reload_residual']:.3e} (< 1e-10)")
+    if h2.complex_embed != np.complex64 or x2.dtype != np.complex128:
+        fail("the reloaded factor lost its complex type")
+    compare("reloaded solution against the first",
+            torch.as_tensor(complex_embed_rhs(x2)),
+            torch.as_tensor(complex_embed_rhs(x)), *TOL_SOLVE_F32)
+    if not comp["reload_residual"] < 1e-10:
+        fail("the reloaded complex factor's residual is too large")
+    out["cr32_nd_compressed"] = comp
+    del h, h2
+    torch.cuda.empty_cache()
+    return out
+
+
 def scan_flop(n: int, steps: int, chains: int) -> int:
     """Operations of ``steps`` steps of the TPU probes' scan on ``chains``
     n x n chains: at step k (mod n), a division for each of the n - 1 - k
@@ -2235,6 +2480,16 @@ def main() -> int:
     kernels.update(comp_kernels)
     print(json.dumps({"compressed": {k: v for k, v in comp.items()
                                      if k != "trace"}}))
+
+    # ---- the complex types, through the real 2x2 embedding ------------
+    cplx = complex_phase(dev)
+    detail["complex"] = cplx
+
+    def untraced(d):
+        return {k: untraced(v) if isinstance(v, dict) else v
+                for k, v in d.items() if k != "trace"}
+
+    print(json.dumps({"complex": untraced(cplx)}))
 
     # ---- the TPU probes P5, P4, P3 -------------------------------------
     probes, probe_kernels, probe_launches = probes_phase(dev)

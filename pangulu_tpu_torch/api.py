@@ -21,6 +21,12 @@ hand-written CUDA kernels and raises when there is no GPU;
 for.  ``tile_storage="compressed"`` keeps the factors in O(fill) slot
 lists (:mod:`pangulu_tpu_torch.compressed`).  Options this port does not
 implement yet raise ``NotImplementedError`` naming their ROADMAP.md item.
+
+The complex types (``dtype="cr32"|"cr64"``) are solved through their
+real 2x2 embedding (:func:`pangulu_tpu_torch.sparse.complex_embed_matrix`)
+on the real engines, float32 for cr32 and float64 for cr64, on every
+device: ``init`` embeds the matrix, ``gstrs`` embeds the right-hand side
+and folds the solution back.
 """
 
 from __future__ import annotations
@@ -40,7 +46,9 @@ from pangulu_tpu_torch.ops.kernels_torch import check_nb
 from pangulu_tpu_torch.reorder import Reordering, reorder
 from pangulu_tpu_torch.schedule import Schedule, build_schedule
 from pangulu_tpu_torch.sparse import (VALUE_DTYPES, CscMatrix,
-                                      add_diagonal_elements)
+                                      add_diagonal_elements,
+                                      complex_embed_matrix,
+                                      complex_embed_rhs, complex_unembed_x)
 from pangulu_tpu_torch.sptrsv import TriangularSolver
 from pangulu_tpu_torch.symbolic import SymbolicResult, symbolic
 from pangulu_tpu_torch.utils.log import config_banner, get_logger
@@ -58,7 +66,7 @@ class InitOptions:
     PANGULU_FLAGS promoted to runtime options)."""
 
     nb: int = 128                # block size (<= 256 in this port)
-    dtype: str = "r64"           # r32 | r64 (cr32/cr64: ROADMAP M8)
+    dtype: str = "r64"           # r32 | r64 | cr32 | cr64
     mc64: bool = True            # -DPANGULU_MC64
     ordering: str = "auto"       # METIS analogue: mindeg|rcm|nd|natural|auto
     symbolic_mode: str = "auto"  # scalar | block | auto
@@ -71,12 +79,12 @@ class InitOptions:
     tile_storage: str = "dense"  # "dense" tiles, or "compressed": O(fill)
                                  # slot lists (compressed.py)
     profile_dir: Optional[str] = None  # profiler traces: not ported
+    complex_mode: str = "auto"   # cr32/cr64: "embed" (real 2x2
+                                 # embedding) or "auto" (= embed on every
+                                 # device); "native" is ROADMAP Queue 1
+                                 # item 4 (not ported yet)
 
     def resolve_dtype(self):
-        if self.dtype in ("cr32", "cr64"):
-            raise NotImplementedError(
-                f"dtype={self.dtype!r}: complex types are ROADMAP M8 "
-                "(not ported yet)")
         if self.dtype not in VALUE_DTYPES:
             raise ValueError(
                 f"dtype must be one of {sorted(VALUE_DTYPES)}, got "
@@ -99,6 +107,17 @@ class InitOptions:
             raise NotImplementedError(
                 "profile_dir: profiler traces of the numeric phase are "
                 "not ported yet (ROADMAP M6)")
+        if self.complex_mode not in ("auto", "embed", "native"):
+            raise ValueError("complex_mode must be native|embed|auto, got "
+                             f"{self.complex_mode!r}")
+        if self.complex_mode == "native" and self.dtype in ("cr32", "cr64"):
+            # the JAX package runs native complex arithmetic on its XLA
+            # fused/levels/segmented engines only, never on a kernel
+            raise NotImplementedError(
+                "complex_mode='native': native complex arithmetic runs on "
+                "the fused/levels engines, ROADMAP Queue 1 item 4 (not "
+                "ported yet); complex types are solved through the real "
+                "2x2 embedding ('embed', the default)")
 
 
 @dataclasses.dataclass
@@ -107,7 +126,8 @@ class Handle:
     src/pangulu_common.h:374-379)."""
 
     opts: InitOptions
-    a_origin: sp.csc_matrix            # working matrix (residual checks)
+    a_origin: sp.csc_matrix            # working matrix (residual checks;
+                                       # the real embedding of a complex one)
     reordering: Reordering
     symbolic_result: SymbolicResult
     blocked: BlockedMatrix
@@ -116,6 +136,8 @@ class Handle:
     device: torch.device = torch.device("cpu")
     # after gstrf: the device tiles, or the CompressedTiles store
     factor_tiles: object = None
+    complex_embed: object = None       # the complex dtype when the handle
+                                       # solves its real 2x2 embedding
     _factorizer: object = None
     _trisolver: object = None
     _device_transforms: object = None  # gstrs_device permutation state
@@ -137,6 +159,13 @@ def init(a, opts: InitOptions | None = None) -> Handle:
     if not isinstance(a, CscMatrix):
         a = CscMatrix.from_scipy(sp.csc_matrix(a))
     a = a.astype(dtype)
+    complex_embed = None
+    if np.dtype(dtype).kind == "c":
+        # solve the interleaved real system (2n x 2n); gstrs embeds the
+        # rhs and folds the solution back (pangulu_tpu/api.py:144-150)
+        complex_embed = np.dtype(dtype)
+        a = complex_embed_matrix(a)
+        dtype = a.values.dtype
     a_origin = a.to_scipy().copy()
     perf = PerfCounters()
 
@@ -194,6 +223,7 @@ def init(a, opts: InitOptions | None = None) -> Handle:
     return Handle(
         opts=opts, a_origin=a_origin, reordering=ro, symbolic_result=symb,
         blocked=blocked, schedule=schedule, perf=perf, device=device,
+        complex_embed=complex_embed,
     )
 
 
@@ -311,10 +341,33 @@ def gstrs(handle: Handle, b: np.ndarray, refine: int | None = None,
 
     ``trans``: solve ``A^T x = b`` from the SAME factors (A^T = U^T L^T;
     no reference equivalent — SuperLU-style surface), refined against
-    A^T."""
+    A^T.
+
+    On a complex handle ``b`` is taken as complex, and x comes back in
+    the complex type of ``b``'s precision and the handle's, whichever is
+    wider (complex64 for a complex64 ``b`` on cr32); the refinement's
+    residuals are those of the embedded system against ``b`` at that
+    precision."""
     if handle.factor_tiles is None:
         raise RuntimeError("gstrs called before gstrf (reference aborts "
                            "the same way)")
+    if handle.complex_embed is not None:
+        # complex rhs -> interleaved real rhs; solve the embedded real
+        # system; fold back (pangulu_tpu/api.py:463-477).  Transpose:
+        # emb(A)^T = emb(A^H), so A^T x = b is solved as
+        # A^H conj(x) = conj(b).
+        emb = handle.complex_embed
+        b_in = np.asarray(b)
+        cdt = np.result_type(b_in.dtype, emb)
+        bc = b_in.astype(cdt)
+        br = complex_embed_rhs(np.conj(bc) if trans else bc)
+        handle.complex_embed = None
+        try:
+            xr = gstrs(handle, br, refine=refine, trans=trans)
+        finally:
+            handle.complex_embed = emb
+        x = complex_unembed_x(xr, cdt)
+        return np.conj(x) if trans else x
     if _compressed(handle):
         if trans:
             raise NotImplementedError(
@@ -368,10 +421,10 @@ def gstrs_device(handle: Handle, b: torch.Tensor,
     if handle.factor_tiles is None:
         raise RuntimeError("gstrs called before gstrf (reference aborts "
                            "the same way)")
-    if _compressed(handle):
+    if _compressed(handle) or handle.complex_embed is not None:
         raise NotImplementedError(
-            "gstrs_device supports the dense tile store (not compressed "
-            "factors), as in the JAX package")
+            "gstrs_device supports the dense tile store (not "
+            "compressed/complex-embedded factors), as in the JAX package")
     if not isinstance(b, torch.Tensor) or b.device != handle.device:
         raise ValueError(f"gstrs_device takes a tensor on {handle.device}, "
                          f"got {type(b).__name__}"
@@ -457,6 +510,8 @@ def update_values(handle: Handle, a_new) -> None:
     if not isinstance(a_new, CscMatrix):
         a_new = CscMatrix.from_scipy(sp.csc_matrix(a_new))
     a_new = a_new.astype(dtype)
+    if handle.complex_embed is not None:
+        a_new = complex_embed_matrix(a_new)
     a_origin = a_new.to_scipy().copy()
     a_new = add_diagonal_elements(a_new)
     with handle.perf.phase("update_values"):
@@ -513,6 +568,9 @@ def factor_diagnostics(handle: Handle) -> dict:
 
     if handle.factor_tiles is None:
         raise RuntimeError("factor_diagnostics requires gstrf first")
+    if handle.complex_embed is not None:
+        raise NotImplementedError(
+            "factor_diagnostics currently supports real dtypes")
     if _compressed(handle):
         # its condition estimate needs the transpose solve
         raise NotImplementedError(

@@ -21,8 +21,6 @@ def _unported(args) -> str | None:
     or None."""
     if args.mesh:
         return "--mesh: multi-device execution is ROADMAP M11"
-    if args.dtype in ("cr32", "cr64"):
-        return f"--dtype {args.dtype}: complex types are ROADMAP M8"
     if args.profile_dir:
         return ("--profile-dir: profiler traces of the numeric phase are "
                 "ROADMAP M6")
@@ -83,7 +81,8 @@ def main(argv=None) -> int:
     from pangulu_tpu_torch.api import InitOptions, finalize, gstrf, gstrs, init
     from pangulu_tpu_torch.io.checkpoint import load_factor, save_factor
     from pangulu_tpu_torch.io.mmio import generated_rhs, read_matrix, read_rhs
-    from pangulu_tpu_torch.sparse import VALUE_DTYPES, CscMatrix
+    from pangulu_tpu_torch.sparse import (VALUE_DTYPES, CscMatrix,
+                                          complex_unembed_matrix)
     from pangulu_tpu_torch.utils.perf import (device_memory_stats,
                                               host_rss_bytes, residual_norm)
 
@@ -97,12 +96,16 @@ def main(argv=None) -> int:
         # must not override it (a saved r32 factor would otherwise read
         # the rhs as r64)
         dtype = VALUE_DTYPES[handle.opts.dtype]
-        a = CscMatrix.from_scipy(handle.a_origin)
+        # a complex handle's a_origin is its 2n x 2n real embedding: the
+        # rhs and the residual belong to the complex system
+        a = CscMatrix.from_scipy(
+            handle.a_origin if handle.complex_embed is None else
+            complex_unembed_matrix(handle.a_origin, handle.complex_embed))
     else:
         dtype = VALUE_DTYPES[args.dtype]
         try:
             a = read_matrix(args.file, dtype=dtype)
-        except (OSError, ValueError, NotImplementedError) as e:
+        except (OSError, ValueError) as e:
             print(f"error reading matrix {args.file!r}: {e}",
                   file=sys.stderr)
             return 2

@@ -9,8 +9,9 @@ package are solved by the port; :func:`save_factor` writes the same
 format.  Both stores cross: dense tiles (``factor_tiles``) and the
 compressed store's slot lists (``comp_values``, ``comp_idx``,
 ``comp_off``, ``comp_cap``, ``comp_capmax``, ``comp_nnz``;
-pangulu_tpu/io/checkpoint.py:32-46, 123-153).  Complex embedding is
-ROADMAP M8.
+pangulu_tpu/io/checkpoint.py:32-46, 123-153).  A complex handle's
+checkpoint holds its real embedding and names the complex type in
+``complex_embed`` (pangulu_tpu/io/checkpoint.py:56-57, 119, 149).
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ def save_factor(handle, path) -> None:
         opts_dtype=handle.opts.dtype,
         opts_backend="auto",
         opts_refine=handle.opts.refine,
-        complex_embed="",
+        complex_embed=(str(np.dtype(handle.complex_embed))
+                       if handle.complex_embed is not None else ""),
         bcolptr=b.bcolptr, browidx=b.browidx,
         brownnzptr=b.brownnzptr, bcolidx=b.bcolidx,
         tile_of_csr=b.tile_of_csr,
@@ -88,9 +90,13 @@ def handle_from_arrays(z, device="cuda"):
                else "dense")
     if storage not in ("dense", "compressed"):
         raise ValueError(f"unknown factor_storage {storage!r}")
-    if "complex_embed" in z and str(z["complex_embed"]):
-        raise NotImplementedError("complex checkpoints are ROADMAP M8 "
-                                  "(not ported yet)")
+    emb = str(z["complex_embed"]) if "complex_embed" in z else ""
+    if np.dtype(str(z["dtype"])).kind == "c":
+        raise NotImplementedError(
+            "native complex factors (complex tiles, the JAX package's "
+            "complex_mode='native'): native complex arithmetic is ROADMAP "
+            "Queue 1 item 4 (not ported yet); factors of the real 2x2 "
+            "embedding load")
     n = int(z["n"])
     nb = int(z["nb"])
     bl = int(z["block_length"])
@@ -144,6 +150,7 @@ def handle_from_arrays(z, device="cuda"):
         opts=opts, a_origin=a_origin, reordering=reordering,
         symbolic_result=None, blocked=blocked, schedule=schedule, perf=perf,
         device=dev, factor_tiles=factor_tiles, _factorizer=factorizer,
+        complex_embed=np.dtype(emb) if emb else None,
     )
 
 

@@ -4,8 +4,9 @@ Counterpart of the reference's format-conversion component
 (``pangulu_conversion.c``) and origin-matrix helpers
 (``pangulu_memory.c:34-84``, ``pangulu_utils.c:23-105``).  Everything
 here is host-side numpy: the device never sees scalar CSC — it sees
-dense block tiles produced by :mod:`pangulu_tpu_torch.blocks`.  Only the
-real value types are carried (complex embedding is a later slice).
+dense block tiles produced by :mod:`pangulu_tpu_torch.blocks`.  The
+complex value types are solved through their real 2x2 embedding
+(:func:`complex_embed_matrix`): the kernels see real tiles only.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ IDX_DTYPE = np.int32
 VALUE_DTYPES = {
     "r32": np.float32,
     "r64": np.float64,
+    "cr32": np.complex64,
+    "cr64": np.complex128,
 }
 
 
@@ -117,6 +120,66 @@ def add_diagonal_elements(a: CscMatrix, fill_value=1e-8) -> CscMatrix:
         [coo.data, np.full(len(need), fill_value, dtype=a.values.dtype)])
     return CscMatrix.from_scipy(
         sp.csc_matrix((data2, (rows2, cols2)), shape=(a.n, a.n)))
+
+
+def complex_embed_matrix(a: CscMatrix) -> CscMatrix:
+    """Real 2x2 embedding of a complex matrix, INTERLEAVED so structure
+    and bandwidth are preserved (row/col 2i = Re_i, 2i+1 = Im_i):
+
+        each entry a_ij -> [[Re, -Im], [Im, Re]]
+
+    Solving the embedded real system is the complex solve; it is how
+    cr32/cr64 reach the real kernels (the tensor cores have no complex
+    datapath; pangulu_tpu/sparse.py:134-171)."""
+    s = a.to_scipy().tocoo()
+    rdt = s.data.real.dtype
+    re, im = s.data.real, s.data.imag
+    # All 4 real components of every stored entry, exact zeros included:
+    # the embedded pattern must not depend on the values, or a
+    # pure-real complex matrix would embed to fewer entries and a later
+    # update_values with imaginary parts would see another pattern.
+    row2 = np.concatenate([2 * s.row, 2 * s.row + 1,
+                           2 * s.row, 2 * s.row + 1])
+    col2 = np.concatenate([2 * s.col, 2 * s.col,
+                           2 * s.col + 1, 2 * s.col + 1])
+    dat2 = np.concatenate([re, im, -im, re]).astype(rdt)
+    emb = sp.csc_matrix((dat2, (row2, col2)),
+                        shape=(2 * s.shape[0], 2 * s.shape[1]))
+    if emb.nnz != 4 * s.nnz:
+        # not an assert (it must survive `python -O`): the COO->CSC
+        # constructor sums duplicates, so a matrix carrying duplicate
+        # (row, col) entries shrinks here
+        raise ValueError(
+            "complex embed changed the stored-entry count "
+            f"({emb.nnz} != 4*{s.nnz}); the input matrix likely carries "
+            "duplicate (row, col) entries — canonicalize it first "
+            "(e.g. sum_duplicates on the scipy matrix)")
+    return CscMatrix.from_scipy(emb)
+
+
+def complex_embed_rhs(b: np.ndarray) -> np.ndarray:
+    """[n(,k)] complex -> [2n(,k)] real interleaved (Re_i, Im_i)."""
+    b = np.asarray(b)
+    out = np.empty((2 * b.shape[0],) + b.shape[1:], dtype=b.real.dtype)
+    out[0::2] = b.real
+    out[1::2] = b.imag
+    return out
+
+
+def complex_unembed_x(x: np.ndarray, cdtype) -> np.ndarray:
+    """Inverse of :func:`complex_embed_rhs`."""
+    x = np.asarray(x)
+    return (x[0::2] + 1j * x[1::2]).astype(cdtype)
+
+
+def complex_unembed_matrix(emb, cdtype) -> sp.csc_matrix:
+    """Inverse of :func:`complex_embed_matrix`: the n x n complex matrix
+    of a 2n x 2n interleaved real embedding (entry (i, j) = emb[2i, 2j]
+    + 1j * emb[2i+1, 2j])."""
+    s = sp.csc_matrix(emb)
+    re = sp.csc_matrix(s[0::2, 0::2])
+    im = sp.csc_matrix(s[1::2, 0::2])
+    return sp.csc_matrix((re + 1j * im).astype(cdtype))
 
 
 def symmetrize_pattern(a: CscMatrix) -> sp.csc_matrix:

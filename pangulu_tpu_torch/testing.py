@@ -4,7 +4,8 @@ are exactly zero at a chosen step, the bound that holds K1's blocked
 step (128 < nb <= 256) against the rank-1 plain version, and K4's
 diagonal step alone on tiles of a store (``diag_step``); for the
 compressed store, the launches its engine makes; for the TPU probes P3,
-P4 and P5, their inputs."""
+P4 and P5, their inputs; for the complex types, a damped operator with
+imaginary parts."""
 
 from __future__ import annotations
 
@@ -157,6 +158,25 @@ def compressed_launches(schedule, factorizations: int = 0, solves: int = 0,
                                  + reloads),
             "compress_tiles": factorizations * stage,
             "newton_inverses": reloads}
+
+
+def with_imaginary_parts(a, seed: int = 0):
+    """``a`` (a real CscMatrix) as a complex128 CscMatrix of the same
+    pattern: imaginary part +1 on the diagonal and 0.1 U(-1, 1) on every
+    stored off-diagonal entry, drawn from ``np.random.default_rng(seed)``
+    in storage order.  On a Poisson stencil this is a damped
+    frequency-domain (Helmholtz-type) operator, strictly diagonally
+    dominant in modulus (|6 + 1i| = 6.08 against at most 6 x 1.005 in
+    3D), so the unpivoted factorization is stable."""
+    from pangulu_tpu_torch.sparse import IDX_DTYPE, CscMatrix
+
+    cols = np.repeat(np.arange(a.n, dtype=IDX_DTYPE), np.diff(a.colptr))
+    off = a.rowidx != cols
+    im = np.ones(len(a.values))
+    im[off] = 0.1 * np.random.default_rng(seed).uniform(-1.0, 1.0,
+                                                        int(off.sum()))
+    return CscMatrix(a.n, a.colptr.copy(), a.rowidx.copy(),
+                     a.values.astype(np.float64) + 1j * im)
 
 
 def probe_inputs(seed: int = 0, nb: int = 128):

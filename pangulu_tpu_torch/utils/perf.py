@@ -156,13 +156,15 @@ def host_rss_bytes() -> int:
 
 
 def residual_norm(a_scipy, x: np.ndarray, b: np.ndarray) -> float:
-    """Relative residual ||Ax - b||_2 / ||b||_2, accumulated in float64
-    (reference: examples/example.c:304-364 uses Kahan summation)."""
+    """Relative residual ||Ax - b||_2 / ||b||_2, accumulated in float64,
+    complex128 for a complex system (reference: examples/example.c:
+    304-364 uses Kahan summation)."""
     x = np.asarray(x)
     b = np.asarray(b)
-    r = (a_scipy.astype(np.float64) @ x.astype(np.float64)
-         - b.astype(np.float64))
-    denom = np.linalg.norm(b.astype(np.float64))
+    acc = (np.complex128 if any(np.iscomplexobj(v) for v in (a_scipy, x, b))
+           else np.float64)
+    r = a_scipy.astype(acc) @ x.astype(acc) - b.astype(acc)
+    denom = np.linalg.norm(b.astype(acc))
     return float(np.linalg.norm(r) / (denom if denom else 1.0))
 
 

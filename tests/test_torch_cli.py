@@ -98,8 +98,6 @@ def test_cli_bad_file_exits_2(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "2,2"], "M11"),
-    (["--dtype", "cr32"], "M8"),
-    (["--dtype", "cr64"], "M8"),
     (["--profile-dir", "prof"], "M6"),
 ])
 def test_cli_unported_flags_name_their_item(tmp_path, capsys, flags, item):
@@ -110,6 +108,32 @@ def test_cli_unported_flags_name_their_item(tmp_path, capsys, flags, item):
     assert rc != 0
     err = capsys.readouterr().err
     assert item in err and "ROADMAP" in err
+
+
+@pytest.mark.parametrize("dtype,limit", [("cr32", 1e-6), ("cr64", 1e-12)])
+def test_cli_complex_dtype_solves(tmp_path, capsys, dtype, limit):
+    """--dtype cr32|cr64 solves the complex system through its real 2x2
+    embedding, its rhs read from a text file of complex values and the
+    printed residual the complex system's; the JAX CLI solves the same
+    system (its rhs from .npy: its text reader takes real values only).
+    The rhs is read in the working type, so cr32's x is complex64 and its
+    residual ~1e-7 in both packages."""
+    from pangulu_tpu_torch.testing import with_imaginary_parts
+
+    a = with_imaginary_parts(poisson2d(7))
+    mtx = tmp_path / "c.mtx"
+    write_matrix(mtx, a)
+    b = np.asarray(a.to_scipy() @ (1.0 + 1j * np.arange(a.n)))
+    np.savetxt(tmp_path / "c.txt", b)
+    np.save(tmp_path / "c.npy", b)
+    args = ["-f", str(mtx), "-nb", "16", "--dtype", dtype, "--check"]
+    assert cli.main(args + ["-r", str(tmp_path / "c.txt"), "--device",
+                            "cpu"]) == 0
+    res = _residual(capsys.readouterr().out)
+    assert jcli.main(args + ["-r", str(tmp_path / "c.npy"), "--platform",
+                             "cpu"]) == 0
+    res_j = _residual(capsys.readouterr().out)
+    assert res < limit and res_j < limit
 
 
 def test_python_m_runs_the_cli(tmp_path):

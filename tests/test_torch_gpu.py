@@ -618,6 +618,61 @@ def test_update_values_then_gstrf_on_cuda(cuda):
     assert residual_norm(h.a_origin, pt.gstrs(h, b), b) < 1e-10
 
 
+# ---- complex types, through the real 2x2 embedding
+
+@pytest.mark.parametrize("storage", ["dense", "compressed"])
+@pytest.mark.parametrize("ordering", ["rcm", "nd"])
+@pytest.mark.parametrize("dtype", ["cr32", "cr64"])
+def test_complex_on_cuda(cuda, dtype, ordering, storage):
+    """cr32 and cr64 on the card: the embedded store factored by the
+    kernels (K1 with K2 or K4; P6 in the compressed store) equals the
+    CPU twins' factorization of the same store at the kernels'
+    tolerances, with exact launch counts; the unrefined solves (K3, K5
+    or the compressed engine's) equal the CPU path's; the refined
+    residual, against A in the working precision, meets the slice's
+    bound (cr32 1e-10 after 2 rounds, cr64 1e-12)."""
+    from pangulu_tpu_torch.testing import (compressed_launches,
+                                           with_imaginary_parts)
+
+    a = with_imaginary_parts(poisson2d(12))
+    opts = dict(nb=16, dtype=dtype, ordering=ordering, tile_storage=storage)
+    kc.reset_launch_counts()
+    hc = pt.init(a, pt.InitOptions(device="cuda", **opts))
+    pt.gstrf(hc)
+    b = a.to_scipy() @ (np.ones(a.n) + 1j * np.arange(a.n))
+    x = pt.gstrs(hc, b)
+    f32 = dtype == "cr32"
+    solves = 3 if f32 else 1
+    sch = hc.schedule
+    if storage == "compressed":
+        want = compressed_launches(sch, factorizations=1, solves=solves)
+    elif hc._factorizer.dispatch == "mega":
+        want = dict(getrf_with_inverses=sch.block_length, mega_factorize=1,
+                    mega_solve=solves)
+    else:
+        want = dict(getrf_with_inverses=hc._factorizer.tables.host["ngroups"],
+                    mega_factorize_groups=1, mega_solve_groups=solves)
+    assert kc.LAUNCHES == _counts(**want)
+    hh = pt.init(a, pt.InitOptions(device="cpu", **opts))
+    pt.gstrf(hh)
+    if storage == "compressed":
+        got, ref = (torch.as_tensor(h.factor_tiles.to_dense())
+                    for h in (hc, hh))
+    else:
+        got, ref = hc.factor_tiles.cpu(), hh.factor_tiles
+    grouped = storage == "compressed" or hc._factorizer.dispatch != "mega"
+    tol = (TOL[torch.float64] if not f32 else
+           dict(rtol=2e-4, atol=2e-4) if grouped else TOL[torch.float32])
+    torch.testing.assert_close(got, ref, **tol)
+    stol = (dict(rtol=1e-4, atol=1e-5) if f32
+            else dict(rtol=1e-10, atol=1e-10))
+    np.testing.assert_allclose(pt.gstrs(hc, b, refine=0),
+                               pt.gstrs(hh, b, refine=0), **stol)
+    assert x.dtype == np.complex128 and np.isfinite(x).all()
+    aw = a.to_scipy().astype(hc.complex_embed)
+    assert residual_norm(aw, x, b) < (1e-10 if f32 else 1e-12)
+
+
 # ---- the compressed store: P6 (slot kernels) and P2 (Newton inverses)
 
 def _compressed_store(nb, dtype, device, gen=None):

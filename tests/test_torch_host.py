@@ -15,7 +15,7 @@ import pangulu_tpu_torch.models as ptm
 import pangulu_tpu.models as pjm
 from pangulu_tpu.api import InitOptions as JOpts, init as jinit
 from pangulu_tpu.ops.kernels_pallas import mega_uch
-from pangulu_tpu_torch.ops.kernels_torch import MEGA_UCH
+from pangulu_tpu_torch.ops.kernels_torch import mega_uch as port_uch
 from pangulu_tpu_torch.sparse import CscMatrix as TCsc
 from pangulu_tpu.sparse import CscMatrix as JCsc
 
@@ -58,7 +58,10 @@ def _tables_eq(prefix, ta, tb):
 def _compare(pa, ja, nb, ordering, dtype):
     hp = pt.init(pa, pt.InitOptions(nb=nb, dtype=dtype, ordering=ordering,
                                     device="cpu"))
-    hj = jinit(ja, JOpts(nb=nb, dtype=dtype, ordering=ordering))
+    # complex types: the JAX package's real 2x2 embedding, the port's
+    # only complex mode (real types ignore complex_mode)
+    hj = jinit(ja, JOpts(nb=nb, dtype=dtype, ordering=ordering,
+                         complex_mode="embed"))
     # generators, MC64 permutation + scalings, fill-reducing ordering
     _eq("a_origin", hp.a_origin.toarray(), hj.a_origin.toarray())
     for f in ("row_scale", "col_scale", "colperm", "perm"):
@@ -91,8 +94,8 @@ def _compare(pa, ja, nb, ordering, dtype):
             _eq(f"level.{f}", getattr(lp, f), getattr(lj, f))
     # kernel tables, padding included
     nt = bp.num_tiles
-    assert MEGA_UCH == mega_uch(nb)
-    _tables_eq("mega_tables", cp.mega_tables(nt, uch=MEGA_UCH),
+    assert port_uch(nb) == mega_uch(nb)
+    _tables_eq("mega_tables", cp.mega_tables(nt, uch=port_uch(nb)),
                cj.mega_tables(nt, uch=mega_uch(nb)))
     _tables_eq("mega_solve_tables", cp.mega_solve_tables(nt),
                cj.mega_solve_tables(nt))

@@ -189,8 +189,8 @@ def test_other_device_raises():
 
 @pytest.mark.parametrize("opts,item", [
     (dict(mesh_shape=(2, 2)), "M11"),
-    (dict(dtype="cr32"), "M8"),
-    (dict(dtype="cr64"), "M8"),
+    (dict(dtype="cr32", complex_mode="native"), "Queue 1 item 4"),
+    (dict(dtype="cr64", complex_mode="native"), "Queue 1 item 4"),
     (dict(profile_dir="/nonexistent"), "not ported"),
 ])
 def test_unported_options_raise(opts, item):

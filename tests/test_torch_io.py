@@ -179,13 +179,17 @@ def test_lid_eight_byte_payload(tmp_path, dtype, want):
     assert_same_csc(got, jio.read_matrix(path, dtype=dtype))
 
 
-def test_lid_sixteen_byte_payload_names_m8(tmp_path):
+def test_lid_sixteen_byte_payload_reads_complex128(tmp_path):
+    """A 16-byte payload is complex128, read as the JAX reader reads it."""
     s = poisson2d(4).to_scipy().tocsr().astype(np.complex128)
+    s.data = s.data * (1.0 - 0.5j)
     path = tmp_path / "c.lid"
     path.write_bytes(_lid_bytes(s.shape[0], s.shape[1], s.indptr,
                                 s.indices, s.data))
-    with pytest.raises(NotImplementedError, match="M8"):
-        tio.read_matrix(path)
+    got = tio.read_matrix(path)
+    assert got.values.dtype == np.complex128
+    assert_same_csc(got, jio.read_matrix(path))
+    assert_same_csc(got, CscMatrix.from_scipy(s))
 
 
 @pytest.mark.parametrize("cut", [10, 30])
