@@ -43,7 +43,8 @@ CUDA toolkit (nvcc).  It
      and nb=256) the f32 kernel's error against the plain f64
      factorization of the same store must be at most 2x the f32 plain
      version's (true f32), and the f64 kernel must agree with that
-     plain f64 one to 1e-12;
+     plain f64 one to 1e-12 (its factorization is timed there beside its
+     bound at the DMMA rate: K6, K2's double instance, and K4's);
   3. drives the rcm path, init -> gstrf -> gstrs on poisson3d(32) with
      nb=128, r32, device="cuda", with every launch count zeroed before
      and read after (exactly K1 = block_length, K2 = 1, K3 = 3, K4 =
@@ -90,8 +91,10 @@ CUDA toolkit (nvcc).  It
      within 1e-10 of splu's with its sign, cond1_est between exact/3 and
      exact (dense f64);
   7. drives tile_storage="compressed" (compressed_phase; step 1 also
-     fails if one of the 16 P6/P2 instances spills): init -> gstrf ->
-     gstrs on poisson3d(32), nb=128, nd, r32 with the launch counts
+     fails if one of the 16 P6/P2 instances spills): init, CompressedLU
+     built as gstrf builds it off the panel route (gstrf takes PanelLU
+     here, step 7b), its factorization and gstrs on poisson3d(32),
+     nb=128, nd, r32 with the launch counts
      zeroed before and read after (exactly K1 = 256 and
      the P6 decompress and compress launches the level structure
      implies, testing.compressed_launches), gstrf residual < 1e-5, solve
@@ -121,9 +124,29 @@ CUDA toolkit (nvcc).  It
      save_factor -> load_factor -> gstrs with exact counts (one P6
      launch for the diagonal tiles, one P2) and the peak device bytes
      of the reload (max_memory_allocated); poisson2d(256)
-     nb=128 nd r32 (store ratio, solve residual < 1e-10) and circuit(600,
-     seed=2) nb=32 r64 (< 1e-6); its numbers go out as a
-     {"compressed": ...} JSON line;
+     nb=128 nd r32 (the panel route; store ratio, solve residual <
+     1e-10) and circuit(600, seed=2) nb=32 r64 (CompressedLU; < 1e-6),
+     each with its engine; its numbers go out as a {"compressed": ...}
+     JSON line;
+ 7b. drives the out-of-core panel driver (panel_phase; the compressed
+     route at r32 and nb 128 or 256 on the card: K2 once a panel cross,
+     K1 inside it, P6 for the cross and for each out-update chunk):
+     init -> gstrf -> gstrs on poisson3d(32), nb=128, nd, r32, the
+     default budget, with exact launches (testing.panel_launches), gstrf
+     residual < 1e-5, solve residual < 1e-10, its panel count, the gstrf
+     peak of max_memory_allocated, the factors against the dense K4
+     factors (2e-4) and under the true-f32 rule, two factorizations of
+     one store bit-identical, ms per factorization and per solve (CUDA
+     events, median of 7) beside CompressedLU's and the dense nd
+     engines', one traced factorization (K1's, K2's products' and P6's
+     device ms); save_factor -> load_factor -> gstrs (P6, P2, exact
+     counts); gstrf again under PANGULU_OOC_PANEL_GB=0.0625 (width 30,
+     9 panels) and PANGULU_OOC_CROSS_GB=0.125 (the width halved), each
+     store within 2e-4 of the single panel's; update_values -> gstrf
+     (the same store refilled); nb=256 under PANGULU_OOC_PANEL_GB=0.25
+     (u32 positions, at least 3 panels); poisson3d(48) at the default
+     budget with the host seconds of init and of the store's build; a
+     {"panel": ...} JSON line;
   8. drives the complex types through the real 2x2 embedding
      (complex_phase) on poisson3d(32) with imaginary parts
      (testing.with_imaginary_parts: +1 on the diagonal, 0.1 U(-1, 1) on
@@ -131,8 +154,10 @@ CUDA toolkit (nvcc).  It
      part alone and then cr32, with rcm (K1, K2, K3; K1 = the embedded
      block_length, 512) and with nd (K1 batched, K4, K5), their ms per
      factorization and per solve side by side with the time and flop
-     ratios; cr64 rcm (the double instances of K1, K2, K3); cr32 nd
-     compressed on poisson3d(24) with imaginary parts, then
+     ratios, each dense factorization beside its bound; cr64 rcm (the
+     double instances of K1, K2, K3); cr32 nd compressed (the panel
+     route, testing.panel_launches) on poisson3d(24) with imaginary
+     parts, then
      save_factor -> load_factor -> gstrs (P6, P2).  Each run with the
      launch counts zeroed before and read after (exact), the residual
      ||b - A x|| / ||b|| in complex128 against A in the working precision
@@ -175,7 +200,9 @@ CUDA toolkit (nvcc).  It
      line of per-kernel results, K1-K5 at nb=128 and again at nb=256
      (named name@nb=256, its launches from the nb=256 paths), P6
      (decompress_tiles, compress_tiles) and P2 (newton_inverses), their
-     launches from the compressed path and the reloaded factor, and the
+     launches from the compressed path and the reloaded factor (K1, K2
+     and P6 also with "panel_launches", those of step 7b's main path),
+     and the
      probes P5, P4, P3 (scan_overlap at mode both and 4096 steps,
      scan_multi at Q = 8 with products and 2048 steps, both with DMMA
      products, P4's on its default cluster, kernels_cuda.SCAN_CLUSTER;
@@ -893,12 +920,16 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
     and nb=256; (4) save_factor -> load_factor -> gstrs with exact counts
     (P6 on the diagonal tiles, then P2); (5) poisson2d(256) nb=128 nd r32
     and circuit(600) nb=32 r64.  ``a`` is poisson3d(32) on the card.
-    Returns (details, kernel entries, launches of the main-path runs)."""
+    (1) builds CompressedLU itself, as gstrf builds it off the panel
+    route (panel_phase drives that route on this matrix).  Returns
+    (details, kernel entries, launches of the main-path runs, the dense
+    K4 factors and the plain f32 and f64 ones of (1)'s store)."""
     import os
     import tempfile
 
     from pangulu_tpu_torch import InitOptions, gstrf, gstrs, init
-    from pangulu_tpu_torch.compressed import CompressedTiles
+    from pangulu_tpu_torch.blocks import gather_factor
+    from pangulu_tpu_torch.compressed import CompressedLU, CompressedTiles
     from pangulu_tpu_torch.io import load_factor, save_factor
     from pangulu_tpu_torch.models import circuit, poisson2d, poisson3d
     from pangulu_tpu_torch.numeric import LUFactorizer
@@ -908,7 +939,8 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
     from pangulu_tpu_torch.testing import compressed_launches, newton_inputs
     from pangulu_tpu_torch.tools.probe_p6 import (measure_batch, p6_batches,
                                                    p6_in_trace, print_batch)
-    from pangulu_tpu_torch.utils.perf import residual_norm
+    from pangulu_tpu_torch.utils.perf import (factorization_residual,
+                                              residual_norm)
 
     # the path's tile width and its K1 launches (one a level), the
     # poisson2d grid of (5) and the poisson3d grid of P6's nb=256 store
@@ -932,20 +964,28 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
     torch.cuda.empty_cache()
     kc.reset_launch_counts()
     h = init(a, InitOptions(nb=nb, dtype="r32", ordering="nd",
-                            tile_storage="compressed", check=True,
-                            device=str(dev)))
+                            tile_storage="compressed", device=str(dev)))
+    # gstrf takes PanelLU at r32 and nb=128 on the card (panel_phase
+    # drives that route): CompressedLU is built here as gstrf builds it
+    # elsewhere, so that its counts and P6's history stay comparable
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    gstrf(h)
+    clu = CompressedLU(h.blocked, h.schedule, h.reordering.reordered,
+                       perf=h.perf, device=dev)
+    h._factorizer = clu
+    h.factor_tiles = h._comp_store = clu.factorize()
     torch.cuda.synchronize()
     out["gstrf_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    # the gstrf check (api.gstrf with check=True)
+    out["gstrf_residual"] = factorization_residual(
+        h.reordering.reordered.to_scipy(),
+        *gather_factor(h.blocked, h.factor_tiles.to_dense()))
     x = gstrs(h, b)
-    sch, st, clu = h.schedule, h.factor_tiles, h._factorizer
+    sch, st = h.schedule, h.factor_tiles
     want = compressed_launches(sch, factorizations=1, solves=3)
     if want["getrf_with_inverses"] != nlevels:
         fail(f"the schedule should have {nlevels} levels")
     out["launches"] = expect_launches("the compressed path", want)
-    out["gstrf_residual"] = h.perf.kernels["gstrf_residual"]
     out["solve_residual"] = residual_norm(s, x, b)
     print(f"  gstrf residual {out['gstrf_residual']:.3e} (< 1e-5), solve "
           f"residual after refine {out['solve_residual']:.3e} (< 1e-10)")
@@ -1044,6 +1084,9 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
             kfac[:nt], *TOL_GROUP_F32)
     if errs["compressed"] > 2 * errs["plain_f32"]:
         fail("the compressed factors are less accurate than true f32")
+    # the dense K4 factors and the plain versions' of this store, for
+    # panel_phase's factors of the same matrix
+    refs = dict(dense_k4=kfac[:nt], plain_f32=p32[:nt], plain_f64=r64[:nt])
     del comp, t0, p32, r64, kfac, fac
     torch.cuda.empty_cache()
 
@@ -1248,12 +1291,17 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
         sm = hm.factor_tiles
         res = dict(n=m.n, bl=hm.schedule.block_length,
                    tiles=hm.blocked.num_tiles,
+                   engine=hm.perf.kernels["engine"],
+                   panels=hm.perf.kernels.get("panels"),
                    store_bytes=sm.compressed_bytes,
                    dense_bytes=sm.dense_bytes,
                    init_gstrf_host_s=t1 - t0, gstrs_host_s=t2 - t1,
                    solve_residual=residual_norm(m.to_scipy(), xm, bm))
         out[key] = res
-        print(f"  {res['bl']} levels, store {sm.compressed_bytes / 2**20:.3f}"
+        print(f"  engine {res['engine']}" + (
+            f" ({res['panels']} panels)" if res["panels"] else "")
+            + f", {res['bl']} levels, store "
+            f"{sm.compressed_bytes / 2**20:.3f}"
               f" MiB against {sm.dense_bytes / 2**20:.3f} MiB dense "
               f"({sm.dense_bytes / sm.compressed_bytes:.3f}x); init + gstrf "
               f"{res['init_gstrf_host_s']:.3f} s, gstrs "
@@ -1266,7 +1314,334 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
     return out, kern, {"decompress_tiles": out["launches"]["decompress_tiles"],
                        "compress_tiles": out["launches"]["compress_tiles"],
                        "newton_inverses":
-                           out["reload_launches"]["newton_inverses"]}
+                           out["reload_launches"]["newton_inverses"]}, refs
+
+
+def panel_phase(dev, nd: dict, comp: dict, refs: dict, nx: int = 32,
+                nx_large: int = 48) -> tuple:
+    """The out-of-core panel driver (outofcore.PanelLU), which gstrf
+    takes for tile_storage="compressed" at r32 and nb 128 or 256 on the
+    card: K2 once a panel cross (K1 inside it), P6 for the cross and for
+    each out-update chunk.  On poisson3d(nx), nb=128, nd, r32: (a) init
+    -> gstrf -> gstrs at the default budget with exact launches
+    (testing.panel_launches), the repo's r32 residual limits, the peak
+    max_memory_allocated of gstrf, the factors against the dense K4
+    factors (2e-4) and under the true-f32 rule (``refs``, from
+    compressed_phase's store of the same matrix), two factorizations of
+    one store bit-equal, ms per factorization and per solve beside
+    CompressedLU's (``comp``) and the dense nd engines' (``nd``), one
+    traced factorization (K1's, K2's and P6's device ms); (b)
+    save_factor -> load_factor -> gstrs (P6, then P2); (c) gstrf again
+    under PANGULU_OOC_PANEL_GB=0.0625 (width 30, 9 panels) and under
+    PANGULU_OOC_CROSS_GB=0.125 (2048 tiles: the width halved), each store
+    against (a)'s at 2e-4; (d) update_values -> gstrf -> gstrs; then (e)
+    nb=256 under PANGULU_OOC_PANEL_GB=0.25 (u32 positions, 4 panels) and
+    (f) poisson3d(nx_large) at the default budget with the host seconds
+    of init and of the store's build.  Returns (its numbers, the
+    launches of (a))."""
+    import contextlib
+    import os
+    import tempfile
+
+    from pangulu_tpu_torch import (InitOptions, gstrf, gstrs, init,
+                                   update_values)
+    from pangulu_tpu_torch.io import load_factor, save_factor
+    from pangulu_tpu_torch.models import poisson3d
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.outofcore import PanelLU
+    from pangulu_tpu_torch.testing import compressed_launches, panel_launches
+    from pangulu_tpu_torch.tools.probe_p6 import p6_in_trace
+    from pangulu_tpu_torch.utils.perf import residual_norm
+
+    nb = 128
+    out = {}
+
+    @contextlib.contextmanager
+    def env(**kv):
+        old = {k: os.environ.get(k) for k in kv}
+        os.environ.update(kv)
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def counts(what, want):
+        want = {k: want.get(k, 0) for k in kc.LAUNCHES}
+        got = dict(kc.LAUNCHES)
+        print(f"  launches: {got}")
+        if got != want:
+            fail(f"{what}: launch counts {got}, expected {want}")
+        return got
+
+    def route(label, h, s, b, solves=3, check=True):
+        """gstrf -> gstrs on the handle (a refactorization refills its
+        store) with the counts zeroed before and read after; the
+        numbers of the run."""
+        print(f"panel: gstrf -> gstrs, {label}, {dev}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kc.reset_launch_counts()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pre = h.perf.phase_time.get("preprocess", 0.0)
+        t0 = time.perf_counter()
+        gstrf(h)
+        torch.cuda.synchronize()
+        gstrf_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        x = gstrs(h, b)
+        plu = h._factorizer
+        if not isinstance(plu, PanelLU) or h.perf.kernels["engine"] != \
+                "panel":
+            fail(f"{label}: gstrf did not take the panel engine")
+        launches = counts(label, panel_launches(plu, solves=solves))
+        k1_dev = kc.DEVICE_LAUNCHES["getrf_with_inverses"]
+        if k1_dev != launches["getrf_with_inverses"]:
+            fail(f"{label}: K1 made {k1_dev} device launches in "
+                 f"{launches['getrf_with_inverses']} launches")
+        chunks = sum(len(plu._pass(*c).chunks) for c in plu.panel_cols)
+        res = dict(panels=len(plu.panel_cols), panel_width=plu.panel_width,
+                   panel_cols=[(int(c0), int(c1))
+                               for c0, c1 in plu.panel_cols],
+                   out_chunks=chunks,
+                   launches=launches, gstrf_peak_bytes=peak,
+                   gstrf_host_s=gstrf_s,
+                   store_build_host_s=h.perf.phase_time["preprocess"] - pre,
+                   solve_residual=residual_norm(s, x, b),
+                   idx_dtype=str(plu.store.idx.dtype))
+        print(f"  {res['panels']} panels (width {res['panel_width']}): "
+              f"{res['panel_cols']}; {chunks} out-update chunks; gstrf peak "
+              f"device bytes {peak / 2**20:.3f} MiB (max_memory_allocated "
+              f"above what was allocated before); gstrf {gstrf_s:.3f} s "
+              f"host, of it the store's build {res['store_build_host_s']:.3f}"
+              f" s; positions {res['idx_dtype']}")
+        if check:
+            res["gstrf_residual"] = h.perf.kernels["gstrf_residual"]
+            print(f"  gstrf residual {res['gstrf_residual']:.3e} (< 1e-5)")
+            if not res["gstrf_residual"] < 1e-5:
+                fail(f"{label}: gstrf residual too large")
+        print(f"  solve residual after refine {res['solve_residual']:.3e} "
+              "(< 1e-10)")
+        if x.shape != (s.shape[0],) or not np.isfinite(x).all():
+            fail(f"{label}: the solution has the wrong shape or non-finite "
+                 "values")
+        if not res["solve_residual"] < 1e-10:
+            fail(f"{label}: solve residual too large")
+        return plu, x, res
+
+    def timings(plu, a3, xb):
+        """ms per factorization and per solve (CUDA events, median of 7),
+        the store refilled before each factorization."""
+        st = plu.store
+        st.refill(a3)
+        v0 = st.values.clone()
+        fms = cuda_ms(lambda _: plu.factorize(),
+                      setup=lambda: st.values.copy_(v0), reps=7)
+        sms = cuda_ms(lambda _: plu.solve_blocked(xb), reps=7)
+        return fms, sms, v0
+
+    def blocked_rhs(h, b):
+        bl = h.schedule.block_length
+        xb = torch.zeros((bl + 1, h.blocked.nb, 1), dtype=torch.float32,
+                         device=dev)
+        xb[:bl].view(-1)[:h.blocked.n] = torch.as_tensor(
+            h.reordering.transform_b(b.astype(np.float32)), device=dev)
+        return xb
+
+    a = poisson3d(nx)
+    s = a.to_scipy()
+    b = s @ np.ones(a.n)
+
+    # (a) the public route at the default budget
+    kc.reset_launch_counts()
+    t0 = time.perf_counter()
+    h = init(a, InitOptions(nb=nb, dtype="r32", ordering="nd",
+                            tile_storage="compressed", check=True,
+                            device=str(dev)))
+    init_s = time.perf_counter() - t0
+    plu, x, main = route(f"poisson3d({nx}), nb={nb}, r32, nd, "
+                         "tile_storage='compressed', the default budget",
+                         h, s, b)
+    main["init_host_s"] = init_s
+    if main["launches"]["mega_factorize"] != main["panels"]:
+        fail("K2 was not launched once a panel")
+    st, a3, nt = plu.store, h.reordering.reordered, h.blocked.num_tiles
+    got = torch.as_tensor(st.to_dense(), device=dev)[:nt]
+    compare("panel factors against the dense K4 factors", got,
+            refs["dense_k4"], *TOL_GROUP_F32)
+    ek = rel_err(got, refs["plain_f64"])
+    ep = rel_err(refs["plain_f32"], refs["plain_f64"])
+    main["true_f32"] = dict(panel=ek, plain_f32=ep)
+    print(f"  true f32, factors against the plain f64 version: panel "
+          f"{ek:.3e}, plain f32 {ep:.3e} (panel <= 2x plain)")
+    if ek > 2 * ep:
+        fail("the panel factors are less accurate than true f32")
+    del got
+    xb = blocked_rhs(h, b)
+    fms, sms, v0 = timings(plu, a3, xb)
+    st.values.copy_(v0)
+    first = plu.factorize().values.clone()
+    st.values.copy_(v0)
+    main["bit_equal"] = torch.equal(plu.factorize().values, first)
+    print(f"  two factorizations of one store: "
+          f"{'the same bits' if main['bit_equal'] else 'DIFFER'}")
+    if not main["bit_equal"]:
+        fail("two panel factorizations of one store differ")
+    single = first
+    main.update(ms_per_factorization=fms, ms_per_solve=sms)
+    print(f"  {fms:.3f} ms per factorization, {sms:.3f} ms per solve (CUDA "
+          f"events, median of 7); CompressedLU in this run "
+          f"{comp['ms_per_factorization']:.3f} and {comp['ms_per_solve']:.3f}"
+          f" (its gstrf peak {comp['gstrf_peak_bytes'] / 2**20:.3f} MiB), "
+          f"the dense nd engines {nd['ms_per_factorization']:.3f} and "
+          f"{nd['ms_per_solve']:.3f}")
+    prof = profile(lambda _: plu.factorize(),
+                   setup=lambda: st.values.copy_(v0))
+    print_profile({"panel gstrf": prof})
+    kern = prof["kernels"]
+    main["trace"] = dict(
+        prof, p6=p6_in_trace(kern),
+        k1_device_ms=sum(k["device_ms"] for n, k in kern.items()
+                         if "getrf_inv_kernel" in n),
+        k2_products_device_ms=sum(
+            k["device_ms"] for n, k in kern.items()
+            if n.split("<")[0].split("::")[-1] in ("panel_kernel",
+                                                   "schur_kernel")))
+    tr = main["trace"]
+    print(f"  in that trace: K1 {tr['k1_device_ms']:.3f} device ms, K2's "
+          f"products {tr['k2_products_device_ms']:.3f}, P6 "
+          f"{tr['p6']['device_ms']:.3f} ({tr['p6']['decompress']['launches']}"
+          f" + {tr['p6']['compress']['launches']} launches) of "
+          f"{prof['busy_ms']:.3f} busy and {prof['wall_ms']:.3f} wall ms")
+    out["default"] = main
+
+    # (b) a checkpoint of the panel-factored store, reloaded on the card
+    print("panel: save_factor -> load_factor -> gstrs")
+    st.values.copy_(single)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "panel.npz")
+        save_factor(h, path)
+        kc.reset_launch_counts()
+        h2 = load_factor(path, device=str(dev))
+        x2 = gstrs(h2, b)
+        out["reload_launches"] = counts(
+            "the reloaded panel factor",
+            compressed_launches(h.schedule, solves=3, reloads=1))
+    out["reload_solve_residual"] = residual_norm(s, x2, b)
+    print(f"  solve residual {out['reload_solve_residual']:.3e} (< 1e-10)")
+    compare("reloaded solution against the first", torch.as_tensor(x2),
+            torch.as_tensor(x), *TOL_SOLVE_F32)
+    if not out["reload_solve_residual"] < 1e-10:
+        fail("the reloaded panel factor's solve residual is too large")
+    del h2, x2
+
+    # (c) split budgets: the width from PANGULU_OOC_PANEL_GB, then the
+    # halving against the measured cross.  factorize() reads the cross
+    # budget from the environment at each call, so the timings and the
+    # repeated factorization run inside the same environment, and the
+    # panels they factored are checked against the route's.
+    for key, kv, want in (
+            ("panel_gb", dict(PANGULU_OOC_PANEL_GB="0.0625"), (30, 9)),
+            ("cross_gb", dict(PANGULU_OOC_CROSS_GB="0.125"), None)):
+        with env(**kv):
+            plu, _, res = route(f"poisson3d({nx}), nb={nb}, nd, {kv}", h, s,
+                                b)
+            if want and (res["panel_width"], res["panels"]) != want:
+                fail(f"{kv}: width {res['panel_width']} in {res['panels']} "
+                     f"panels, expected {want}")
+            if want is None and not (res["panels"] > 1 and max(
+                    c1 - c0 for c0, c1 in res["panel_cols"])
+                    < res["panel_width"]):
+                fail(f"{kv}: the width was not halved")
+            res["store_max_abs_err"] = compare(
+                f"the store of {res['panels']} panels against one panel's",
+                plu.store.values, single, 2e-4, 2e-4)
+            res["ms_per_factorization"], _, v1 = timings(plu, a3, xb)
+            timed_cols = [(int(c0), int(c1)) for c0, c1 in plu.panel_cols]
+            plu.store.values.copy_(v1)
+            once = plu.factorize().values.clone()
+            plu.store.values.copy_(v1)
+            res["bit_equal"] = torch.equal(plu.factorize().values, once)
+            del once, v1
+        if timed_cols != res["panel_cols"]:
+            fail(f"{kv}: timed {len(timed_cols)} panels {timed_cols}, the "
+                 f"route factored {res['panel_cols']}")
+        print(f"  {res['ms_per_factorization']:.3f} ms per factorization "
+              f"(CUDA events, median of 7, {len(timed_cols)} panels); two "
+              f"factorizations of one store ({res['out_chunks']} out-update "
+              f"chunks): {'the same bits' if res['bit_equal'] else 'DIFFER'}")
+        if not res["bit_equal"]:
+            fail(f"{kv}: two panel factorizations of one store differ")
+        out[key] = res
+
+    # (d) a refactorization through update_values
+    rng = np.random.default_rng(7)
+    s2 = s.copy()
+    s2.data = s2.data * (1.0 + 0.1 * rng.uniform(-1.0, 1.0, s2.nnz))
+    update_values(h, s2)
+    store = h._comp_store
+    # A in the working precision, as update_values keeps it
+    s2w = s2.astype(np.float32).astype(np.float64)
+    _, _, out["refactorization"] = route(
+        f"update_values -> gstrf -> gstrs, poisson3d({nx})", h, s2w,
+        s2w @ np.ones(a.n))
+    if h._comp_store is not store:
+        fail("the refactorization did not refill the store")
+    del h, plu, st, v0, single, first, xb
+    torch.cuda.empty_cache()
+
+    # (e) nb=256: u32 positions, at least 3 panels
+    h = init(a, InitOptions(nb=256, dtype="r32", ordering="nd",
+                            tile_storage="compressed", check=True,
+                            device=str(dev)))
+    with env(PANGULU_OOC_PANEL_GB="0.25"):
+        plu, _, res = route(f"poisson3d({nx}), nb=256, nd, "
+                            "PANGULU_OOC_PANEL_GB=0.25", h, s, b)
+        if res["panels"] < 3 or res["idx_dtype"] != "torch.uint32":
+            fail("nb=256: expected at least 3 panels and u32 positions")
+        res["ms_per_factorization"], res["ms_per_solve"], _ = timings(
+            plu, h.reordering.reordered, blocked_rhs(h, b))
+    if len(plu.panel_cols) != res["panels"]:
+        fail(f"nb=256: timed {len(plu.panel_cols)} panels, the route "
+             f"factored {res['panels']}")
+    print(f"  {res['ms_per_factorization']:.3f} ms per factorization, "
+          f"{res['ms_per_solve']:.3f} ms per solve (CUDA events, median of "
+          "7)")
+    out["nb256"] = res
+    del h, plu
+    torch.cuda.empty_cache()
+
+    # (f) a larger grid at the default budget (no gstrf check: its dense
+    # factor on the host would take tens of GB)
+    al = poisson3d(nx_large)
+    sl = al.to_scipy()
+    bl_ = sl @ np.ones(al.n)
+    t0 = time.perf_counter()
+    h = init(al, InitOptions(nb=nb, dtype="r32", ordering="nd",
+                             tile_storage="compressed", device=str(dev)))
+    init_s = time.perf_counter() - t0
+    plu, _, res = route(f"poisson3d({nx_large}), nb={nb}, nd, the default "
+                        "budget", h, sl, bl_, check=False)
+    res.update(init_host_s=init_s, n=al.n, bl=h.schedule.block_length,
+               tiles=h.blocked.num_tiles,
+               store_bytes=plu.store.compressed_bytes,
+               dense_bytes=plu.store.dense_bytes,
+               flops=h.schedule.flop_estimate())
+    res["ms_per_factorization"], res["ms_per_solve"], _ = timings(
+        plu, h.reordering.reordered, blocked_rhs(h, bl_))
+    print(f"  init {init_s:.3f} s host; {res['bl']} levels, {res['tiles']} "
+          f"tiles, store {res['store_bytes'] / 2**20:.3f} MiB against "
+          f"{res['dense_bytes'] / 2**20:.3f} MiB dense; "
+          f"{res['ms_per_factorization']:.3f} ms per factorization, "
+          f"{res['ms_per_solve']:.3f} ms per solve (CUDA events, median of 7)")
+    out[f"p3d{nx_large}"] = res
+    del h, plu
+    torch.cuda.empty_cache()
+    return out, main["launches"]
 
 
 def complex_phase(dev, nx: int = 32, nx_small: int = 24,
@@ -1278,8 +1653,9 @@ def complex_phase(dev, nx: int = 32, nx_small: int = 24,
     after r32 on the real part alone at the same nb and ordering, their
     time ratios printed beside the flop ratios; cr64 rcm (K1's and K2's,
     K3's double instances); cr32 nd in the compressed store on
-    poisson3d(nx_small) with imaginary parts (P6, K1; after save_factor
-    -> load_factor, P6 and P2).  Each run: init -> gstrf -> gstrs with
+    poisson3d(nx_small) with imaginary parts (the panel route: K2 and K1
+    on each panel cross, P6; after save_factor -> load_factor, P6 and
+    P2).  Each run: init -> gstrf -> gstrs with
     the launch counts zeroed before and read after, exactly the
     schedule's (K1 = the embedded block_length or group count; the
     solve 3 calls after the default 2 refinement rounds of cr32, 1 for
@@ -1299,6 +1675,7 @@ def complex_phase(dev, nx: int = 32, nx_small: int = 24,
     from pangulu_tpu_torch.ops import kernels_cuda as kc
     from pangulu_tpu_torch.sparse import VALUE_DTYPES, complex_embed_rhs
     from pangulu_tpu_torch.testing import (compressed_launches,
+                                           panel_launches,
                                            with_imaginary_parts)
     from pangulu_tpu_torch.utils.perf import residual_norm
 
@@ -1410,6 +1787,15 @@ def complex_phase(dev, nx: int = 32, nx_small: int = 24,
                    residual=res, init_host_s=init_s,
                    ms_per_factorization=fms, ms_per_solve=sms, flops=flops)
         if not compressed:
+            # K2's or K4's bound on this store: every tile read and
+            # written once, the inverses written, the products at the
+            # tensor cores' rate (3xTF32, or DMMA for cr64)
+            fb = bound(2 * (h.blocked.num_tiles + bl) * nb * nb
+                       * np.dtype(wdt).itemsize, flops,
+                       h.blocked.torch_dtype, TC_FLOP_S)
+            num["factor_bound"] = fb
+            print(f"  factorization bound {fb['bound_ms']:.4f} ms "
+                  f"({fb['bound_by']}), {fb['bound_ms'] / fms:.2%} of it")
             tr = profile(factor, setup=setup)
             k1_ms = sum(k["device_ms"] for n, k in tr["kernels"].items()
                         if "getrf_inv_kernel" in n or "lu_cluster_kernel" in n)
@@ -1468,8 +1854,9 @@ def complex_phase(dev, nx: int = 32, nx_small: int = 24,
     small = with_imaginary_parts(poisson3d(nx_small))
     h, comp, (aw, b, x) = run(
         f"poisson3d({nx_small}) with imaginary parts", small, "cr32", "nd",
-        None, lambda h: compressed_launches(h.schedule, factorizations=1,
-                                            solves=3), 1e-10, compressed=True)
+        "panel", lambda h: panel_launches(h._factorizer, solves=3), 1e-10,
+        compressed=True)
+    comp["panels"] = len(h._factorizer.panel_cols)
     print("complex: save_factor -> load_factor -> gstrs (cr32, compressed)")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "complex.npz")
@@ -2052,6 +2439,18 @@ def main() -> int:
                 compare("f64 kernel tiles", tk64[:nt], t64[:nt], *TOL_F64),
                 compare("f64 kernel invs", ik64, i64, *TOL_F64)))
             del tk64, ik64
+            # the f64 kernel's time (K6, K2's double instance; K4's on
+            # nd) beside its bound: every tile read and written once,
+            # the inverses written, the products at the DMMA rate
+            f64_ms = cuda_ms(lambda t: fk(t, ftab, **kw64), setup=t0.double)
+            f64_bound = bound(2 * (nt + bl) * nb * nb * 8,
+                              sch.flop_estimate(), torch.float64, TC_FLOP_S)
+            f32_vs_f64.update(f64_factor_ms=f64_ms, f64_factor_bound=f64_bound)
+            print(f"  f64 kernel factorization: {f64_ms:.3f} ms (CUDA "
+                  f"events, median of 5), bound "
+                  f"{f64_bound['bound_ms']:.4f} ms "
+                  f"({f64_bound['bound_by']}), "
+                  f"{f64_bound['bound_ms'] / f64_ms:.2%} of it")
             for part, got, ref, r64 in (("tiles", tk[:nt], tp[:nt], t64[:nt]),
                                         ("invs", ik, ip, i64)):
                 ek, ep = rel_err(got, r64), rel_err(ref, r64)
@@ -2474,21 +2873,27 @@ def main() -> int:
                                   if k != "cli_stdout"}}))
 
     # ---- the compressed store ------------------------------------------
-    comp, comp_kernels, comp_launches = compressed_phase(dev, nd,
-                                                         poisson3d(32))
+    comp, comp_kernels, comp_launches, refs = compressed_phase(
+        dev, nd, poisson3d(32))
     detail["compressed"] = comp
     kernels.update(comp_kernels)
     print(json.dumps({"compressed": {k: v for k, v in comp.items()
                                      if k != "trace"}}))
 
-    # ---- the complex types, through the real 2x2 embedding ------------
-    cplx = complex_phase(dev)
-    detail["complex"] = cplx
-
     def untraced(d):
         return {k: untraced(v) if isinstance(v, dict) else v
                 for k, v in d.items() if k != "trace"}
 
+    # ---- the out-of-core panel driver (the compressed route) ----------
+    panel, panel_path = panel_phase(dev, nd, comp, refs)
+    del refs
+    torch.cuda.empty_cache()
+    detail["panel"] = panel
+    print(json.dumps({"panel": untraced(panel)}))
+
+    # ---- the complex types, through the real 2x2 embedding ------------
+    cplx = complex_phase(dev)
+    detail["complex"] = cplx
     print(json.dumps({"complex": untraced(cplx)}))
 
     # ---- the TPU probes P5, P4, P3 -------------------------------------
@@ -2514,6 +2919,12 @@ def main() -> int:
              **kernels[n])
         for n in (*DENSE, *(f"{r}@nb=256" for r in DENSE), *COMPRESSED,
                   *PROBES)]}
+    # the panel route's launches (its main path, panel_phase (a)) beside
+    # the kernels it runs
+    for k in out["kernels"]:
+        if k["name"] in ("getrf_with_inverses", "mega_factorize",
+                         "decompress_tiles", "compress_tiles"):
+            k["panel_launches"] = panel_path[k["name"]]
     detail["kernels"] = out["kernels"]
     detail["seconds_after_build_start"] = time.perf_counter() - t_start
     od = ROOT / "pangulu_tpu_torch" / "_build"

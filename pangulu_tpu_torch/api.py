@@ -43,6 +43,7 @@ from pangulu_tpu_torch.blocks import (BlockedMatrix, gather_factor,
 from pangulu_tpu_torch.compressed import CompressedLU, CompressedTiles
 from pangulu_tpu_torch.numeric import LUFactorizer
 from pangulu_tpu_torch.ops.kernels_torch import check_nb
+from pangulu_tpu_torch.outofcore import PanelLU
 from pangulu_tpu_torch.reorder import Reordering, reorder
 from pangulu_tpu_torch.schedule import Schedule, build_schedule
 from pangulu_tpu_torch.sparse import (VALUE_DTYPES, CscMatrix,
@@ -260,21 +261,44 @@ def _compressed(handle: Handle) -> bool:
     return isinstance(handle.factor_tiles, CompressedTiles)
 
 
+def _takes_panel_lu(handle: Handle) -> bool:
+    """The JAX package's rule for the out-of-core panel driver
+    (pangulu_tpu/api.py:297-313, there a TPU with the Pallas backend):
+    the handle on a CUDA device, its working type float32 (cr32's
+    embedded real system included) and nb 128 or 256."""
+    return (handle.device.type == "cuda"
+            and np.dtype(handle.blocked.dtype) == np.float32
+            and handle.opts.nb in (128, 256))
+
+
 def gstrf(handle: Handle) -> None:
     """Numeric factorization (reference: pangulu_gstrf, pangulu.c:211).
 
     With ``tile_storage="compressed"`` the factors stay in the O(fill)
-    store and :class:`~pangulu_tpu_torch.compressed.CompressedLU` runs
-    the level loop over it.  (The JAX package takes its out-of-core
-    ``PanelLU`` there on a TPU at f32 and nb in {128, 256}, ROADMAP M10,
-    and this executor everywhere else.)"""
+    store.  On a CUDA device at float32 (r32, or cr32's embedded system)
+    and nb 128 or 256, :class:`~pangulu_tpu_torch.outofcore.PanelLU`
+    factors it panel by panel, K2 on each panel's cross (the JAX
+    package's route on a TPU); everywhere else
+    :class:`~pangulu_tpu_torch.compressed.CompressedLU` runs its level
+    loop over the store.  A later ``gstrf`` of the same pattern
+    (``update_values``) refills the same store."""
     if handle.opts.tile_storage == "compressed":
-        log.info("engine: compressed (each level staged dense, then "
-                 "written back)")
-        handle._factorizer = CompressedLU(
-            handle.blocked, handle.schedule, handle.reordering.reordered,
-            perf=handle.perf, device=handle.device, tol=handle.opts.tol,
-            store=handle._comp_store)
+        if _takes_panel_lu(handle):
+            log.info("engine: panel out-of-core (compressed store, K2 on "
+                     "each panel cross)")
+            handle._factorizer = PanelLU(
+                handle.blocked, handle.schedule,
+                handle.reordering.reordered, perf=handle.perf,
+                device=handle.device, tol=handle.opts.tol,
+                store=handle._comp_store)
+        else:
+            log.info("engine: compressed (each level staged dense, then "
+                     "written back)")
+            handle._factorizer = CompressedLU(
+                handle.blocked, handle.schedule,
+                handle.reordering.reordered, perf=handle.perf,
+                device=handle.device, tol=handle.opts.tol,
+                store=handle._comp_store)
         handle.factor_tiles = handle._factorizer.factorize()
         # the store's structure serves a same-pattern refactorization
         # (update_values + gstrf): O(nnz) refill, no fill walk

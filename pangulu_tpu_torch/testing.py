@@ -3,9 +3,9 @@
 are exactly zero at a chosen step, the bound that holds K1's blocked
 step (128 < nb <= 256) against the rank-1 plain version, and K4's
 diagonal step alone on tiles of a store (``diag_step``); for the
-compressed store, the launches its engine makes; for the TPU probes P3,
-P4 and P5, their inputs; for the complex types, a damped operator with
-imaginary parts."""
+compressed store, the launches its engines make (``CompressedLU``,
+``PanelLU``); for the TPU probes P3, P4 and P5, their inputs; for the
+complex types, a damped operator with imaginary parts."""
 
 from __future__ import annotations
 
@@ -140,7 +140,7 @@ def diag_step(tiles: torch.Tensor, ids, invs: torch.Tensor, inv_ids,
 
 def compressed_launches(schedule, factorizations: int = 0, solves: int = 0,
                         reloads: int = 0) -> dict:
-    """The kernel launches of ``CompressedLU`` (the keys of
+    """The kernel launches of ``CompressedLU`` only (the keys of
     ``kernels_cuda.LAUNCHES`` it uses) for that many factorizations,
     solves (one ``solve_blocked`` call each) and first solves of a
     reloaded store, from the level structure: a factorization launches
@@ -148,7 +148,9 @@ def compressed_launches(schedule, factorizations: int = 0, solves: int = 0,
     and each non-empty L panel, U panel and update batch; a solve
     decompresses each non-empty L panel (forward) and U column panel
     (backward); a reloaded store first decompresses its diagonal tiles
-    in one batch and forms their inverses in one P2 launch."""
+    in one batch and forms their inverses in one P2 launch.  The public
+    route on the card factors at float32 and nb 128 or 256 with
+    ``PanelLU``, whose launches :func:`panel_launches` gives."""
     lv = schedule.levels
     stage = sum(1 + (len(v.lpanel) > 0) + (len(v.upanel) > 0)
                 + (len(v.upd_dst) > 0) for v in lv)
@@ -158,6 +160,24 @@ def compressed_launches(schedule, factorizations: int = 0, solves: int = 0,
                                  + reloads),
             "compress_tiles": factorizations * stage,
             "newton_inverses": reloads}
+
+
+def panel_launches(plu, solves: int = 0, reloads: int = 0) -> dict:
+    """The kernel launches of ``PanelLU``'s last factorization
+    (``plu.panel_cols`` and each panel's out-update chunks), then that
+    many solves and first solves of a reloaded store
+    (:func:`compressed_launches`, whose solve the store's solve is): K2
+    once a panel, K1 once a level (inside K2), P6 decompress once a panel
+    (its cross) and once an out-update chunk (its destinations), P6
+    compress the same."""
+    steps = sum(1 + len(plu._pass(c0, c1).chunks)
+                for c0, c1 in plu.panel_cols)
+    out = compressed_launches(plu.schedule, solves=solves, reloads=reloads)
+    out.update(mega_factorize=len(plu.panel_cols),
+               getrf_with_inverses=sum(c1 - c0 for c0, c1 in plu.panel_cols),
+               decompress_tiles=out["decompress_tiles"] + steps,
+               compress_tiles=steps)
+    return out
 
 
 def with_imaginary_parts(a, seed: int = 0):

@@ -812,6 +812,93 @@ def test_compressed_path_on_cuda_counts_launches(cuda, dtype):
                                atol=1e-5 if dtype == "r32" else 1e-10)
 
 
+# ---- the out-of-core panel driver: K2 a panel cross, P6 staging
+
+PANEL_CASES = {
+    # poisson2d(24) nb=16 rcm in panels of 5, chunks of 8 updates
+    "poisson2d24_nb16": (lambda: poisson2d(24), 16, "rcm", 5, 8),
+    # poisson3d(16) nb=128 nd in panels of 8 (4 panels)
+    "poisson3d16_nb128_nd": (lambda: poisson3d(16), 128, "nd", 8, 2048),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PANEL_CASES))
+def test_panel_lu_on_cuda_matches_cpu(cuda, case):
+    """PanelLU on the card (K2 once a panel cross, P6 for the cross and
+    each out-update chunk) against its CPU twins on the same store and
+    panels: the factored store and the inverses at the f32 contract,
+    the launches exactly testing.panel_launches, two factorizations of
+    one store the same bits, and the solve (CompressedLU's on the
+    store) against the CPU's."""
+    from pangulu_tpu_torch.outofcore import PanelLU
+    from pangulu_tpu_torch.testing import panel_launches
+
+    gen, nb, ordering, w, out_chunk = PANEL_CASES[case]
+    a = gen()
+    h = pt.init(a, pt.InitOptions(nb=nb, dtype="r32", ordering=ordering,
+                                  device="cpu"))
+    args = (h.blocked, h.schedule, h.reordering.reordered)
+    kw = dict(panel_width=w, out_chunk=out_chunk)
+    ref = PanelLU(*args, device="cpu", **kw)
+    ref.factorize()
+    plu = PanelLU(*args, device="cuda", **kw)
+    v0 = plu.store.values.clone()
+    kc.reset_launch_counts()
+    plu.factorize()
+    torch.cuda.synchronize()
+    assert plu.panel_cols == ref.panel_cols and len(plu.panel_cols) > 1
+    assert kc.LAUNCHES == _counts(**panel_launches(plu))
+    assert sum(len(plu._pass(*c).chunks) for c in plu.panel_cols) > 0
+    np.testing.assert_allclose(plu.store.to_dense(), ref.store.to_dense(),
+                               **TOL[torch.float32])
+    torch.testing.assert_close(plu.inv_tiles.cpu(), ref.inv_tiles,
+                               **TOL[torch.float32])
+    first = plu.store.values.clone()
+    plu.store.values.copy_(v0)
+    plu.factorize()
+    assert torch.equal(plu.store.values, first)
+    b = a.to_scipy() @ np.ones(a.n)
+    bt = h.reordering.transform_b(b.astype(np.float32))
+    np.testing.assert_allclose(plu.solve(bt), ref.solve(bt), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("nb", [128, 256])
+def test_panel_route_on_cuda_counts_launches(cuda, nb):
+    """init -> gstrf -> gstrs with tile_storage="compressed" at r32 and
+    nb 128 or 256 on the card takes PanelLU (one panel at the default
+    budget): exact launches, the repo's r32 residual limits; a
+    checkpoint of its store reloads on the card (P6, then P2)."""
+    import tempfile
+
+    from pangulu_tpu_torch.io import load_factor, save_factor
+    from pangulu_tpu_torch.outofcore import PanelLU
+    from pangulu_tpu_torch.testing import compressed_launches, panel_launches
+
+    a = poisson3d(12)
+    b = a.to_scipy() @ np.ones(a.n)
+    kc.reset_launch_counts()
+    h = pt.init(a, pt.InitOptions(nb=nb, dtype="r32", ordering="nd",
+                                  device="cuda", tile_storage="compressed",
+                                  check=True))
+    pt.gstrf(h)
+    x = pt.gstrs(h, b)
+    assert isinstance(h._factorizer, PanelLU)
+    assert h.perf.kernels["engine"] == "panel"
+    assert h._factorizer.panel_cols == [(0, h.schedule.block_length)]
+    assert kc.LAUNCHES == _counts(**panel_launches(h._factorizer, solves=3))
+    assert h.perf.kernels["gstrf_residual"] < 1e-5
+    assert residual_norm(a.to_scipy(), x, b) < 1e-10
+    with tempfile.TemporaryDirectory() as tmp:
+        save_factor(h, f"{tmp}/f.npz")
+        h2 = load_factor(f"{tmp}/f.npz", device="cuda")
+    kc.reset_launch_counts()
+    x2 = pt.gstrs(h2, b)
+    assert kc.LAUNCHES == _counts(**compressed_launches(
+        h.schedule, solves=3, reloads=1))
+    np.testing.assert_allclose(x2, x, rtol=1e-4, atol=1e-5)
+
+
 def _rel(got, p64, per_row=False) -> float:
     """max |got - p64| over max |p64|, or over each row's max |p64|."""
     scale = (p64.abs().amax(-1, keepdim=True) if per_row

@@ -36,7 +36,8 @@ for m in ("probe_overlap", "probe_scan_multi", "probe_newton_loop",
           "probe_clusters"):
     importlib.import_module("pangulu_tpu_torch.tools." + m)
 for m in ("pangulu_tpu_torch.io.mmio", "pangulu_tpu_torch.cli",
-          "pangulu_tpu_torch.__main__", "pangulu_tpu_torch.compressed"):
+          "pangulu_tpu_torch.__main__", "pangulu_tpu_torch.compressed",
+          "pangulu_tpu_torch.outofcore"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pangulu_tpu",
@@ -67,13 +68,14 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("engine", ["LUFactorizer", "TriangularSolver",
-                                    "CompressedLU"])
+                                    "CompressedLU", "PanelLU"])
 def test_engines_default_to_cuda(monkeypatch, engine):
     """The engines a user may build directly run on the card unless asked
     for the CPU: without device= and without a GPU they raise, naming
     device='cpu'."""
     from pangulu_tpu_torch.compressed import CompressedLU
     from pangulu_tpu_torch.numeric import LUFactorizer
+    from pangulu_tpu_torch.outofcore import PanelLU
     from pangulu_tpu_torch.sptrsv import TriangularSolver
 
     h = init(poisson2d(4), InitOptions(nb=4, device="cpu"))
@@ -82,6 +84,8 @@ def test_engines_default_to_cuda(monkeypatch, engine):
             "TriangularSolver": lambda: TriangularSolver(h.blocked,
                                                          h.schedule),
             "CompressedLU": lambda: CompressedLU(
+                h.blocked, h.schedule, h.reordering.reordered),
+            "PanelLU": lambda: PanelLU(
                 h.blocked, h.schedule, h.reordering.reordered)}[engine]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
