@@ -166,6 +166,27 @@ CUDA toolkit (nvcc).  It
      factorization and per solve (CUDA events, median of 7), one traced
      factorization of each dense run (K1's share); a {"complex": ...}
      JSON line;
+ 8b. drives the multi-device engine (dist_phase; pangulu_tpu_torch/
+     parallel): (a) in this process the collective engine on a 1 x 1
+     grid (force_collective) on poisson3d(32), nb=128, r32, rcm and nd:
+     exactly one K1 launch a distributed group (256 rcm, 90 nd), the
+     distributed gstrf check < 1e-5, an unrefined distributed solve <
+     1e-5, two factorizations the same bits, the factors within the f32
+     tile tolerance of K2's (rcm) and K4's (nd), its wall ms per
+     factorization beside theirs; (b) four ranks on a 2 x 2 grid, all on
+     this card, joined by gloo (pangulu_tpu_torch/tools/
+     run_multiprocess.py; the library built in step 1 first): poisson3d
+     (32) nb=128 r32 rcm and nd, and poisson3d(16) nb=128 r64 nd, each
+     init -> gstrf(check) -> gstrs of 1 and 3 RHS -> 1 timed
+     factorization and solve -> update_values -> gstrf -> gstrs on
+     every rank: K1 launches (and device launches) on every rank equal
+     to the groups, gstrf residuals < 1e-5 (r32) or 1e-12 (r64), refined
+     solve residuals < 1e-10 or 1e-12, two factorizations of a rank the
+     same bits, every rank the same x and tables' digest, the 2 x 2 r32
+     factors within the f32 tile tolerance of (a)'s (bit-identical or
+     not, printed); ms per factorization and per solve, all-reduces and
+     MiB a factorization and rank (four ranks sharing one card over
+     host-staged gloo: not a scaling result); a {"dist": ...} JSON line;
   9. runs the TPU probes' kernels (probes_phase; step 1 also fails if
      one of their 20 instances spills): P5 scan_overlap in its four
      modes (acc's column strips over 16 CTAs) and P4 scan_multi at Q =
@@ -198,7 +219,8 @@ CUDA toolkit (nvcc).  It
      kernel);
  11. prints the numbers of step 6 as one JSON line, then one JSON
      line of per-kernel results, K1-K5 at nb=128 and again at nb=256
-     (named name@nb=256, its launches from the nb=256 paths), P6
+     (named name@nb=256, its launches from the nb=256 paths; K1 also
+     with "dist_launches", a rank's in each case of step 8b (b)), P6
      (decompress_tiles, compress_tiles) and P2 (newton_inverses), their
      launches from the compressed path and the reloaded factor (K1, K2
      and P6 also with "panel_launches", those of step 7b's main path),
@@ -1909,6 +1931,222 @@ def probe_bound(nbytes: float, flop: float, tc_flop: float,
             max(tb, tf * SMS / min(sms, SMS)))
 
 
+# the multi-device phase: the case specs of its 2 x 2 run on one card
+DIST_CASES = ("p3d32_rcm:poisson3d:32:r32:rcm:128",
+              "p3d32_nd:poisson3d:32:r32:nd:128",
+              "p3d16_r64_nd:poisson3d:16:r64:nd:128")
+
+
+def dist_phase(dev, nx: int = 32, nb: int = 128, cases=DIST_CASES,
+               reps: int = 1) -> dict:
+    """The multi-device engine (pangulu_tpu_torch.parallel) on the card.
+    (a) In this process, the collective engine on a 1 x 1 grid
+    (force_collective: every all-reduce the identity) on poisson3d(nx),
+    nb, r32, rcm and nd: exactly one K1 launch (and device launch) a
+    distributed group, the distributed gstrf check (factor_check_vector)
+    < 1e-5, an unrefined distributed solve's residual < 1e-5, two
+    factorizations the same bits, the factors within the f32 tile
+    tolerance of the single-device engines' (K2 rcm, K4 nd), and its wall
+    ms per factorization (call to synchronise, median of 5) beside
+    theirs.  (b) Four ranks on a 2 x 2 grid, all on this card and joined
+    by gloo, through pangulu_tpu_torch/tools/run_multiprocess.py (the
+    kernels built before: the ranks load the library): each case
+    (``cases``) runs init -> gstrf(check) -> gstrs of 1 and 3 RHS ->
+    ``reps`` timed factorizations and solves -> update_values -> gstrf
+    -> gstrs on every rank, each rank with its own launch counts zeroed
+    before its gstrf and read after: K1 launches and device launches on
+    every rank equal to the distributed groups, gstrf residuals < 1e-5
+    (r32) or 1e-12 (r64), refined solve residuals < 1e-10 (r32, 2
+    rounds) or 1e-12 (r64), two factorizations of one rank the same
+    bits, every rank the same x and the same tables' digest; the 2 x 2
+    factors, assembled from the shards, within the f32 tile tolerance of
+    (a)'s (whether they are the same bits is printed).  Its numbers (ms
+    per factorization and per solve, the all-reduces and MiB of one
+    factorization, per rank) are four ranks sharing one card over
+    host-staged gloo: not a scaling result.  Returns its numbers; any
+    failure (any rank's) raises."""
+    import shutil
+    import tempfile
+
+    from pangulu_tpu_torch import InitOptions, init
+    from pangulu_tpu_torch.models import poisson3d
+    from pangulu_tpu_torch.numeric import LUFactorizer
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.parallel.dist_numeric import DistributedLU
+    from pangulu_tpu_torch.parallel.dist_sptrsv import \
+        DistributedTriangularSolver
+    from pangulu_tpu_torch.parallel.mesh import Grid
+    from pangulu_tpu_torch.utils.perf import residual_norm
+
+    out = {"note": "four ranks share one card over host-staged gloo; not "
+                   "a scaling result"}
+
+    def wall_ms(fn, n=5):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    # ---- (a) the collective engine on one rank ---------------------------
+    a = poisson3d(nx)
+    b = a.to_scipy() @ np.ones(a.n)
+    one = {}
+    for ordering in ("rcm", "nd"):
+        print(f"dist (a): the collective engine on a 1 x 1 grid, "
+              f"poisson3d({nx}), nb={nb}, r32, {ordering}, {dev.type}")
+        h = init(a, InitOptions(nb=nb, dtype="r32", ordering=ordering,
+                                device=str(dev)))
+        kc.reset_launch_counts()
+        d = DistributedLU(h.blocked, h.schedule, Grid.single(dev),
+                          force_collective=True)
+        tiles = d.factorize().clone()
+        launches = (kc.LAUNCHES["getrf_with_inverses"],
+                    kc.DEVICE_LAUNCHES["getrf_with_inverses"])
+        print(f"  {d.groups} groups; K1 launches {launches[0]}, device "
+              f"launches {launches[1]}")
+        if launches != (d.groups, d.groups):
+            fail(f"1x1 collective {ordering}: K1 launches {launches}, "
+                 f"expected {d.groups} of each")
+        if not torch.equal(d.factorize(), tiles):
+            fail(f"1x1 collective {ordering}: two factorizations differ")
+        w = d.factor_check_vector()
+        a1 = np.asarray(h.reordering.reordered.to_scipy() @ np.ones(a.n))
+        fres = float(np.linalg.norm(w - a1) / np.linalg.norm(a1))
+        dts = DistributedTriangularSolver(h.blocked, h.schedule, d.layout,
+                                          d.grid, d.diag)
+        x = h.reordering.transform_x(dts.solve(
+            tiles, h.reordering.transform_b(b.astype(np.float32))))
+        sres = residual_norm(a.to_scipy(), x, b)
+        print(f"  gstrf check {fres:.3e} (< 1e-5), unrefined solve "
+              f"residual {sres:.3e} (< 1e-5)")
+        if not (fres < 1e-5 and sres < 1e-5):
+            fail(f"1x1 collective {ordering}: residuals {fres}, {sres}")
+        mega = LUFactorizer(h.blocked, h.schedule, device=dev)
+        tol = TOL_GROUP_F32 if mega.dispatch == "mega_group" else TOL_F32
+        nt = h.blocked.num_tiles
+        err = compare(f"1x1 collective against {mega.dispatch}",
+                      tiles[:nt], mega.factorize()[:nt], *tol)
+        coll_ms = wall_ms(lambda: d.factorize())
+        mega_ms = wall_ms(lambda: mega.factorize())
+        solve_ms = wall_ms(lambda: dts.solve(
+            tiles, h.reordering.transform_b(b.astype(np.float32))))
+        print(f"  wall ms per factorization: collective 1x1 {coll_ms:.3f}, "
+              f"{mega.dispatch} {mega_ms:.3f}; distributed solve (1x1) "
+              f"{solve_ms:.3f}")
+        one[ordering] = dict(
+            groups=d.groups, k1_launches=launches[0], gstrf_residual=fres,
+            solve_residual_unrefined=sres, max_abs_err_vs_single=err,
+            single_engine=mega.dispatch, ms_per_factorization=coll_ms,
+            single_ms_per_factorization=mega_ms, ms_per_solve=solve_ms,
+            tiles=tiles[:nt].cpu().numpy())
+        del h, d, dts, mega, tiles
+        torch.cuda.empty_cache()
+
+    # ---- (b) four ranks, one card, gloo ----------------------------------
+    build_dir = ROOT / "pangulu_tpu_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="dist_", dir=build_dir))
+    try:
+        cmd = [sys.executable, str(ROOT / "pangulu_tpu_torch" / "tools"
+                                   / "run_multiprocess.py"),
+               "-np", "4", "--mesh", "2,2", "--device", dev.type,
+               "--backend", "gloo", "--out", str(tmp), "--reps", str(reps),
+               "--timeout", "400"]
+        for c in cases:
+            cmd += ["--case", c]
+        print("dist (b): 4 ranks on a 2 x 2 grid, all on this card, gloo: "
+              + ", ".join(cases))
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=450)
+        out["ranks_wall_s"] = time.perf_counter() - t0
+        print(f"  {res.stdout.strip()} ({out['ranks_wall_s']:.1f} s)")
+        if res.returncode != 0:
+            fail(f"run_multiprocess failed ({res.returncode}):\n"
+                 f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+        for spec in cases:
+            label, _, _, dtype, ordering, _ = spec.split(":")
+            rk = [dict(np.load(tmp / f"{label}_rank{r}.npz"))
+                  for r in range(4)]
+            r0 = rk[0]
+            groups = int(r0["groups"])
+            f64 = dtype == "r64"
+            flimit, slimit = (1e-12, 1e-12) if f64 else (1e-5, 1e-10)
+            k1 = [(int(r["k1_launches"]), int(r["k1_device_launches"]))
+                  for r in rk]
+            print(f"  {label}: {groups} groups, K1 (launches, device "
+                  f"launches) per rank {k1}")
+            if any(v != (groups, groups) for v in k1):
+                fail(f"{label}: K1 launches {k1}, expected {groups} of "
+                     "each on every rank")
+            for i, r in enumerate(rk):
+                for k, lim in (("gstrf_residual", flimit),
+                               ("gstrf_residual2", flimit),
+                               ("res1", slimit), ("res3", slimit),
+                               ("res2", slimit)):
+                    if not float(r[k]) < lim:
+                        fail(f"{label} rank {i}: {k} {float(r[k])} not "
+                             f"below {lim}")
+                if not bool(r["same_bits"]):
+                    fail(f"{label} rank {i}: two factorizations differ")
+                for k in ("x1", "x3", "x2", "digest"):
+                    if not np.array_equal(r[k], r0[k]):
+                        fail(f"{label} rank {i}: {k} differs from rank 0's")
+                if int(r["dist_reuse"]) != 1:
+                    fail(f"{label} rank {i}: the refactorization rebuilt "
+                         "the tables")
+            sh = np.stack([r["shard"] for r in rk])
+            nt = int(r0["num_tiles"])
+            full = np.zeros((nt,) + sh.shape[2:], sh.dtype)
+            full[:] = sh[r0["tile_owner_r"].astype(np.int64) * 2
+                         + r0["tile_owner_c"], r0["tile_slot"]]
+            row = dict(
+                groups=groups, k1_launches_per_rank=k1[0][0],
+                all_reduces_per_factorization=int(r0["comm_all_reduces"]),
+                mib_per_factorization=int(r0["comm_bytes"]) / 2 ** 20,
+                ms_per_factorization=float(np.median(
+                    [np.median(r["factor_ms"]) for r in rk])),
+                numeric_ms=float(np.median(
+                    [np.median(r["numeric_ms"]) for r in rk])),
+                ms_per_solve=float(np.median(
+                    [np.median(r["solve_ms"]) for r in rk])),
+                gstrf_residual=float(r0["gstrf_residual"]),
+                solve_residual=float(r0["res1"]),
+                solve_residual_3rhs=float(r0["res3"]),
+                refactor_solve_residual=float(r0["res2"]))
+            if label.startswith(f"p3d{nx}_") and dtype == "r32":
+                ref = one[ordering]["tiles"]
+                tol = TOL_GROUP_F32 if ordering == "nd" else TOL_F32
+                row["max_abs_err_vs_1x1"] = compare(
+                    f"{label}: 2x2 factors against the 1x1 collective "
+                    "engine's", torch.as_tensor(full), torch.as_tensor(ref),
+                    *tol)
+                row["bit_identical_to_1x1"] = bool(np.array_equal(full,
+                                                                  ref))
+                print(f"  {label}: the 2x2 factors are "
+                      f"{'' if row['bit_identical_to_1x1'] else 'not '}"
+                      "the 1x1 collective engine's bits")
+            print(f"  {label}: {row['ms_per_factorization']:.1f} ms per "
+                  f"factorization (numeric {row['numeric_ms']:.1f}), "
+                  f"{row['ms_per_solve']:.1f} ms per solve (unrefined), "
+                  f"{row['all_reduces_per_factorization']} all-reduces and "
+                  f"{row['mib_per_factorization']:.2f} MiB per "
+                  f"factorization a rank; residuals gstrf "
+                  f"{row['gstrf_residual']:.2e}, solve "
+                  f"{row['solve_residual']:.2e}")
+            out[label] = row
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for ordering, v in one.items():
+        v.pop("tiles")
+        out[f"1x1_{ordering}"] = v
+    return out
+
+
 def probes_phase(dev) -> tuple:
     """The TPU probes P5, P4, P3 on the card: (1) each kernel against its
     plain version (true f32; P3's per row, its f64 within 1e-12 per row;
@@ -2896,6 +3134,11 @@ def main() -> int:
     detail["complex"] = cplx
     print(json.dumps({"complex": untraced(cplx)}))
 
+    # ---- the multi-device engine: 1 x 1, and 2 x 2 ranks on this card ---
+    dist_res = dist_phase(dev)
+    detail["dist"] = dist_res
+    print(json.dumps({"dist": dist_res}))
+
     # ---- the TPU probes P5, P4, P3 -------------------------------------
     probes, probe_kernels, probe_launches = probes_phase(dev)
     detail["probes"] = probes
@@ -2919,8 +3162,12 @@ def main() -> int:
              **kernels[n])
         for n in (*DENSE, *(f"{r}@nb=256" for r in DENSE), *COMPRESSED,
                   *PROBES)]}
-    # the panel route's launches (its main path, panel_phase (a)) beside
-    # the kernels it runs
+    # K1's launches a rank on the multi-device paths (dist_phase (b)),
+    # and the panel route's (its main path, panel_phase (a)) beside the
+    # kernels it runs
+    out["kernels"][0]["dist_launches"] = {
+        lab: v["k1_launches_per_rank"] for lab, v in dist_res.items()
+        if isinstance(v, dict) and "k1_launches_per_rank" in v}
     for k in out["kernels"]:
         if k["name"] in ("getrf_with_inverses", "mega_factorize",
                          "decompress_tiles", "compress_tiles"):

@@ -14,7 +14,9 @@ and the JAX package's single-device surface for real types:
 The main path is ported: MC64 + fill-reducing ordering, symbolic
 analysis, the dense tile store (or, with ``tile_storage="compressed"``,
 the O(fill) compressed store of :mod:`pangulu_tpu_torch.compressed`),
-the factorization engines and the matmul-only block triangular solve.
+the factorization engines and the matmul-only block triangular solve,
+on one device or, with ``mesh_shape``, over a grid of
+``torch.distributed`` ranks (:mod:`pangulu_tpu_torch.parallel`).
 On ``device="cuda"`` their kernels are CUDA C++ built at first use
 (``ops/build.py``); on ``device="cpu"`` their plain PyTorch versions
 run.

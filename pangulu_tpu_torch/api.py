@@ -22,6 +22,12 @@ for.  ``tile_storage="compressed"`` keeps the factors in O(fill) slot
 lists (:mod:`pangulu_tpu_torch.compressed`).  Options this port does not
 implement yet raise ``NotImplementedError`` naming their ROADMAP.md item.
 
+``mesh_shape=(p, q)`` (or ``"auto"``) runs gstrf and gstrs over a p x q
+grid of ranks of a ``torch.distributed`` job, one process a rank, every
+rank making the same calls (:mod:`pangulu_tpu_torch.parallel`, which
+says how to start one): the factors stay sharded block-cyclically, and
+a handle of p·q > 1 holds its rank's shard only.
+
 The complex types (``dtype="cr32"|"cr64"``) are solved through their
 real 2x2 embedding (:func:`pangulu_tpu_torch.sparse.complex_embed_matrix`)
 on the real engines, float32 for cr32 and float64 for cr64, on every
@@ -44,6 +50,9 @@ from pangulu_tpu_torch.compressed import CompressedLU, CompressedTiles
 from pangulu_tpu_torch.numeric import LUFactorizer
 from pangulu_tpu_torch.ops.kernels_torch import check_nb
 from pangulu_tpu_torch.outofcore import PanelLU
+from pangulu_tpu_torch.parallel.dist_numeric import DistributedLU
+from pangulu_tpu_torch.parallel.dist_sptrsv import DistributedTriangularSolver
+from pangulu_tpu_torch.parallel.mesh import make_grid
 from pangulu_tpu_torch.reorder import Reordering, reorder
 from pangulu_tpu_torch.schedule import Schedule, build_schedule
 from pangulu_tpu_torch.sparse import (VALUE_DTYPES, CscMatrix,
@@ -76,7 +85,8 @@ class InitOptions:
     refine: int = -1             # iterative-refinement rounds in gstrs;
                                  # -1 = auto (2 for r32, 0 for r64)
     device: str = "cuda"         # "cuda" (hand kernels) or "cpu" (plain)
-    mesh_shape: Optional[tuple] = None  # multi-device: ROADMAP M11
+    mesh_shape: Optional[tuple] = None  # (p, q) or "auto": a grid of the
+                                        # ranks of a torch.distributed job
     tile_storage: str = "dense"  # "dense" tiles, or "compressed": O(fill)
                                  # slot lists (compressed.py)
     profile_dir: Optional[str] = None  # profiler traces: not ported
@@ -97,13 +107,19 @@ class InitOptions:
         return resolve_device(self.device)
 
     def check_supported(self) -> None:
-        if self.mesh_shape is not None:
-            raise NotImplementedError(
-                "mesh_shape: multi-device execution is ROADMAP M11 (not "
-                "ported yet)")
         if self.tile_storage not in ("dense", "compressed"):
             raise ValueError(f"tile_storage must be 'dense' or "
                              f"'compressed', got {self.tile_storage!r}")
+        if self.mesh_shape is not None:
+            if self.mesh_shape != "auto" and not (
+                    len(tuple(self.mesh_shape)) == 2
+                    and all(int(v) >= 1 for v in self.mesh_shape)):
+                raise ValueError("mesh_shape must be (p, q) or 'auto', got "
+                                 f"{self.mesh_shape!r}")
+            if self.tile_storage == "compressed":
+                # as the JAX package (pangulu_tpu/api.py:292-296)
+                raise ValueError("tile_storage='compressed' is single-device "
+                                 "(use dense tiles on a grid of ranks)")
         if self.profile_dir is not None:
             raise NotImplementedError(
                 "profile_dir: profiler traces of the numeric phase are "
@@ -135,6 +151,7 @@ class Handle:
     schedule: Schedule
     perf: PerfCounters
     device: torch.device = torch.device("cpu")
+    grid: object = None                # parallel.mesh.Grid with mesh_shape
     # after gstrf: the device tiles, or the CompressedTiles store
     factor_tiles: object = None
     complex_embed: object = None       # the complex dtype when the handle
@@ -145,6 +162,14 @@ class Handle:
     _a3_rows_dev: object = None        # gstrs_device residual state
     _comp_store: object = None         # compressed store, reused by
                                        # update_values + gstrf
+    _dist: object = None               # DistributedLU: its tables are kept
+                                       # by update_values + gstrf
+
+
+def _multi_rank(handle: Handle) -> bool:
+    """A handle factored over a grid of more than one rank: it holds
+    only its rank's shard of the factors."""
+    return handle._dist is not None and handle._dist.single is None
 
 
 def init(a, opts: InitOptions | None = None) -> Handle:
@@ -153,7 +178,14 @@ def init(a, opts: InitOptions | None = None) -> Handle:
     opts = opts or InitOptions()
     opts.check_supported()
     dtype = opts.resolve_dtype()
-    device = opts.resolve_device()
+    grid = None
+    if opts.mesh_shape is not None:
+        # a collective: every rank builds its grid here, in step
+        grid = make_grid(opts.mesh_shape, opts.device)
+        opts.mesh_shape = (grid.p, grid.q)
+        device = grid.device
+    else:
+        device = opts.resolve_device()
     if opts.nb <= 0:
         opts.nb = 128
     check_nb(opts.nb)
@@ -224,7 +256,7 @@ def init(a, opts: InitOptions | None = None) -> Handle:
     return Handle(
         opts=opts, a_origin=a_origin, reordering=ro, symbolic_result=symb,
         blocked=blocked, schedule=schedule, perf=perf, device=device,
-        complex_embed=complex_embed,
+        grid=grid, complex_embed=complex_embed,
     )
 
 
@@ -281,8 +313,28 @@ def gstrf(handle: Handle) -> None:
     package's route on a TPU); everywhere else
     :class:`~pangulu_tpu_torch.compressed.CompressedLU` runs its level
     loop over the store.  A later ``gstrf`` of the same pattern
-    (``update_values``) refills the same store."""
-    if handle.opts.tile_storage == "compressed":
+    (``update_values``) refills the same store.
+
+    On a grid of ranks (``mesh_shape``),
+    :class:`~pangulu_tpu_torch.parallel.dist_numeric.DistributedLU`
+    factors the block-cyclic shards (a 1 x 1 grid: the single-device
+    engines); a refactorization after ``update_values`` keeps its tables
+    and re-scatters the shards (pangulu_tpu/api.py:334-363,764).  With
+    ``check`` the residual comes from the distributed
+    ``factor_check_vector``, without a gather."""
+    if handle.grid is not None:
+        dist = handle._dist
+        if dist is not None and dist.blocked is handle.blocked:
+            handle.perf.kernels["dist_reuse"] = (
+                handle.perf.kernels.get("dist_reuse", 0) + 1)
+            log.info("distributed refactorize: reusing the tables")
+        else:
+            dist = DistributedLU(handle.blocked, handle.schedule, handle.grid,
+                                 perf=handle.perf, tol=handle.opts.tol)
+            handle._dist = dist
+        handle.factor_tiles = dist.factorize()
+        handle._factorizer = dist.single
+    elif handle.opts.tile_storage == "compressed":
         if _takes_panel_lu(handle):
             log.info("engine: panel out-of-core (compressed store, K2 on "
                      "each panel cross)")
@@ -318,11 +370,17 @@ def gstrf(handle: Handle) -> None:
     handle._trisolver = None
     log.info(handle.perf.summary())
     if handle.opts.check:
-        tiles = (handle.factor_tiles.to_dense() if _compressed(handle)
-                 else handle.factor_tiles.cpu().numpy())
-        lmat, umat = gather_factor(handle.blocked, tiles)
-        res = factorization_residual(
-            handle.reordering.reordered.to_scipy(), lmat, umat)
+        a3 = handle.reordering.reordered.to_scipy()
+        if _multi_rank(handle):
+            w = handle._dist.factor_check_vector()
+            a1 = np.asarray(a3 @ np.ones(handle.blocked.n))
+            res = float(np.linalg.norm(w.astype(np.float64) - a1)
+                        / (float(np.linalg.norm(a1)) or 1.0))
+        else:
+            tiles = (handle.factor_tiles.to_dense() if _compressed(handle)
+                     else handle.factor_tiles.cpu().numpy())
+            lmat, umat = gather_factor(handle.blocked, tiles)
+            res = factorization_residual(a3, lmat, umat)
         log.info("gstrf check ||L(U*1)-A*1||/||A*1|| = %.3e", res)
         handle.perf.kernels["gstrf_residual"] = res
 
@@ -330,8 +388,13 @@ def gstrf(handle: Handle) -> None:
 def _ensure_trisolver(handle: Handle) -> TriangularSolver:
     """The handle's cached solver, built at first use on the inverses
     the factorization persisted (recomputed from the packed factors when
-    there are none, e.g. a checkpoint-loaded handle)."""
-    if handle._trisolver is None:
+    there are none, e.g. a checkpoint-loaded handle); on a grid of
+    ranks, the distributed solver."""
+    if handle._trisolver is None and _multi_rank(handle):
+        handle._trisolver = DistributedTriangularSolver(
+            handle.blocked, handle.schedule, handle._dist.layout,
+            handle.grid, handle._dist.diag, perf=handle.perf)
+    elif handle._trisolver is None:
         inv_tiles = getattr(handle._factorizer, "inv_tiles", None)
         handle._trisolver = TriangularSolver(
             handle.blocked, handle.schedule, perf=handle.perf,
@@ -375,6 +438,11 @@ def gstrs(handle: Handle, b: np.ndarray, refine: int | None = None,
     if handle.factor_tiles is None:
         raise RuntimeError("gstrs called before gstrf (reference aborts "
                            "the same way)")
+    if trans and _multi_rank(handle):
+        raise NotImplementedError(
+            "transpose solve requires the single-device dense-tile path "
+            "(not factors distributed over a grid of ranks), as in the JAX "
+            "package")
     if handle.complex_embed is not None:
         # complex rhs -> interleaved real rhs; solve the embedded real
         # system; fold back (pangulu_tpu/api.py:463-477).  Transpose:
@@ -445,10 +513,12 @@ def gstrs_device(handle: Handle, b: torch.Tensor,
     if handle.factor_tiles is None:
         raise RuntimeError("gstrs called before gstrf (reference aborts "
                            "the same way)")
-    if _compressed(handle) or handle.complex_embed is not None:
+    if (_compressed(handle) or handle.complex_embed is not None
+            or _multi_rank(handle)):
         raise NotImplementedError(
-            "gstrs_device supports the dense tile store (not "
-            "compressed/complex-embedded factors), as in the JAX package")
+            "gstrs_device supports the single-device dense tile store (not "
+            "compressed/complex-embedded factors or factors distributed "
+            "over a grid of ranks), as in the JAX package")
     if not isinstance(b, torch.Tensor) or b.device != handle.device:
         raise ValueError(f"gstrs_device takes a tensor on {handle.device}, "
                          f"got {type(b).__name__}"
@@ -551,7 +621,9 @@ def update_values(handle: Handle, a_new) -> None:
         refill_values(handle.blocked, a3)
     handle.a_origin = a_origin
     # numeric state goes; the analysis is reused (the permutation state
-    # of gstrs_device depends on the pattern and the scalings only)
+    # of gstrs_device depends on the pattern and the scalings only), and
+    # so are the distributed tables (handle._dist), which depend on the
+    # pattern only
     handle.factor_tiles = None
     handle._factorizer = None
     handle._trisolver = None
@@ -592,6 +664,10 @@ def factor_diagnostics(handle: Handle) -> dict:
 
     if handle.factor_tiles is None:
         raise RuntimeError("factor_diagnostics requires gstrf first")
+    if _multi_rank(handle):
+        raise NotImplementedError(
+            "factor_diagnostics needs the whole factor, and a handle on a "
+            "grid of ranks holds only its rank's shard")
     if handle.complex_embed is not None:
         raise NotImplementedError(
             "factor_diagnostics currently supports real dtypes")
@@ -642,6 +718,7 @@ def finalize(handle: Handle) -> None:
     handle._device_transforms = None
     handle._a3_rows_dev = None
     handle._comp_store = None
+    handle._dist = None
 
 
 def spsolve(a, b, **options):

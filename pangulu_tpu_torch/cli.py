@@ -8,19 +8,40 @@
 ``--device cuda`` (the default) runs the hand-written CUDA kernels,
 ``--device cpu`` their plain PyTorch versions.  The options the port
 does not implement yet exit with code 2 and name their ROADMAP.md item.
+
+``--mesh p,q|auto`` factors and solves over a grid of ranks, one
+process a rank, and needs a launcher that starts them (outside one it
+exits 2)::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m pangulu_tpu_torch -f matrix.mtx --mesh 2,2 --dist-backend gloo
+
+Every rank runs the same program; only rank 0 prints.  The backend
+defaults to ``nccl`` with ``--device cuda`` (one rank a card) and
+``gloo`` with ``--device cpu``; several ranks on one card take
+``--dist-backend gloo``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
+
+LAUNCHER = ("python -m torch.distributed.run --standalone --nproc-per-node "
+            "N -m pangulu_tpu_torch ... --mesh p,q")
+
+
+def _under_launcher() -> bool:
+    """True when a launcher (torchrun) gave this process its rank."""
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE",
+                                         "MASTER_ADDR", "MASTER_PORT"))
 
 
 def _unported(args) -> str | None:
     """Why the port refuses one of these options (its ROADMAP.md item),
     or None."""
-    if args.mesh:
-        return "--mesh: multi-device execution is ROADMAP M11"
     if args.profile_dir:
         return ("--profile-dir: profiler traces of the numeric phase are "
                 "ROADMAP M6")
@@ -50,8 +71,11 @@ def main(argv=None) -> int:
                     help="run the gstrf residual check (reference "
                          "-DPANGULU_PERF)")
     ap.add_argument("--mesh", default=None,
-                    help="p,q mesh shape for multi-device runs (ROADMAP "
-                         "M11, not ported yet)")
+                    help="p,q grid of ranks (or auto) for a run under a "
+                         "launcher: " + LAUNCHER)
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend with --mesh (default: "
+                         "nccl with --device cuda, gloo with --device cpu)")
     ap.add_argument("--refine", type=int, default=-1,
                     help="iterative-refinement rounds in gstrs "
                          "(-1 = auto: 2 for r32)")
@@ -77,7 +101,40 @@ def main(argv=None) -> int:
         print(f"pangulu_tpu_torch: {why} (not ported yet)",
               file=sys.stderr)
         return 2
+    if args.mesh and not _under_launcher():
+        print("pangulu_tpu_torch: --mesh runs one process a rank and needs "
+              f"a launcher to start them: {LAUNCHER}", file=sys.stderr)
+        return 2
+    if args.mesh and args.load_factor:
+        print("pangulu_tpu_torch: --load-factor reads a whole factor, and "
+              "--mesh factors over a grid of ranks: give one of them",
+              file=sys.stderr)
+        return 2
+    if not args.mesh:
+        return _run(args, primary=True)
+    from pangulu_tpu_torch.parallel import multihost
 
+    backend = args.dist_backend or ("nccl" if args.device == "cuda"
+                                    else "gloo")
+    multihost.distributed_init(backend, strict=True)
+    try:
+        return _run(args, primary=multihost.is_primary())
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _run(args, primary: bool) -> int:
+    """The run itself, on every rank; only ``primary`` prints and
+    writes."""
+    if primary:
+        return _solve(args, primary)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return _solve(args, primary)
+
+
+def _solve(args, primary: bool) -> int:
     from pangulu_tpu_torch.api import InitOptions, finalize, gstrf, gstrs, init
     from pangulu_tpu_torch.io.checkpoint import load_factor, save_factor
     from pangulu_tpu_torch.io.mmio import generated_rhs, read_matrix, read_rhs
@@ -109,15 +166,23 @@ def main(argv=None) -> int:
             print(f"error reading matrix {args.file!r}: {e}",
                   file=sys.stderr)
             return 2
+        mesh = None
+        if args.mesh:
+            mesh = ("auto" if args.mesh == "auto"
+                    else tuple(int(v) for v in args.mesh.split(",")))
         opts = InitOptions(nb=args.nb, dtype=args.dtype,
                            mc64=not args.no_mc64, ordering=args.ordering,
                            symbolic_mode=args.symbolic, check=args.check,
                            refine=args.refine, device=args.device,
-                           tile_storage=args.tile_storage)
+                           tile_storage=args.tile_storage, mesh_shape=mesh)
         handle = init(a, opts)
         gstrf(handle)
-        if args.save_factor:
-            save_factor(handle, args.save_factor)
+        if args.save_factor and primary:
+            try:
+                save_factor(handle, args.save_factor)
+            except NotImplementedError as e:
+                print(f"pangulu_tpu_torch: {e}", file=sys.stderr)
+                return 2
     b = (read_rhs(args.rhs, a.n, dtype) if args.rhs
          else generated_rhs(a))
     x = gstrs(handle, b)

@@ -29,6 +29,11 @@ def save_factor(handle, path) -> None:
     if handle.factor_tiles is None:
         raise RuntimeError("save_factor requires a factorized handle "
                            "(call gstrf first)")
+    dist = getattr(handle, "_dist", None)
+    if dist is not None and dist.single is None:
+        raise NotImplementedError(
+            "save_factor needs the whole factor, and a handle on a grid of "
+            f"{dist.p} x {dist.q} ranks holds only its rank's shard")
     b = handle.blocked
     ro = handle.reordering
     rr = ro.reordered

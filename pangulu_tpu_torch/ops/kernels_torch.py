@@ -23,6 +23,11 @@ semantics of the JAX package's Pallas kernels
     doubling, the JAX package's method (``tools/exp_batched_scan.py``
     batched_newton, and ``pangulu_tpu/ops/kernels_jax.py``
     unit_lower_inv_newton / upper_inv_newton);
+  * :func:`trsv_lower_unit` / :func:`trsv_upper` — the diagonal-tile
+    solves of the distributed solve (``pangulu_tpu/ops/kernels_jax.py:
+    116-140``, XLA there, no Pallas kernel), as
+    ``torch.linalg.solve_triangular``; :func:`true_f32_matmul` keeps
+    ``torch.matmul`` in full float32 around the distributed engines;
   * the TPU probes that lie on no path of the solver, each the function
     its probe computes: :func:`scan_overlap` (``tools/exp_overlap.py``
     run, P5: a scan chain beside a chain of products),
@@ -46,6 +51,7 @@ use three TF32 terms instead (3xTF32, ``csrc/tile_gemm.cuh``), which
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -550,6 +556,43 @@ def triangle_inverses(f: torch.Tensor, tol: float | None = None):
     v = -(uinv[:, :h, :h] @ f[:, :h, h:])
     uinv[:, :h, h:] = v @ uinv[:, h:, h:]
     return linv, uinv
+
+
+# ------------------------------------- the distributed engines' helpers
+
+
+def trsv_lower_unit(diag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Forward substitution with the unit lower triangle of ``diag``
+    ([..., nb, nb]; ``x`` [..., nb, nrhs]).  Reference in-block sptrsv:
+    pangulu_platform_0100000.c:466-486."""
+    return torch.linalg.solve_triangular(diag, x, upper=False,
+                                         unitriangular=True)
+
+
+def trsv_upper(diag: torch.Tensor, x: torch.Tensor,
+               tol: float | None = None) -> torch.Tensor:
+    """Backward substitution with the upper triangle of ``diag``, a
+    diagonal entry with |d| < tol taken as +tol (the tiny-pivot rule,
+    pangulu_platform_0100000.c:488-506)."""
+    if tol is None:
+        tol = DEFAULT_TOL[diag.dtype]
+    d = torch.diagonal(diag, dim1=-2, dim2=-1)
+    safe = torch.where(d.abs() < tol, torch.full_like(d, tol), d)
+    return torch.linalg.solve_triangular(diag + torch.diag_embed(safe - d),
+                                         x, upper=True)
+
+
+@contextlib.contextmanager
+def true_f32_matmul():
+    """``torch.matmul`` in full float32 on a CUDA device inside the
+    block (TF32 off, and restored after), as the JAX package runs its
+    distributed engines under ``default_matmul_precision("highest")``."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 # ------------------------------------------------ the TPU probes P4, P5

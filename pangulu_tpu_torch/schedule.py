@@ -643,3 +643,45 @@ def bucket(n: int) -> int:
     if n <= 0:
         return 0
     return 1 << (n - 1).bit_length()
+
+
+def waste_aware_runs(sig: list, weights: tuple, lam: float) -> list:
+    """Split a per-group signature sequence into contiguous runs
+    minimizing the total padded cost: each run is padded to its
+    elementwise-max signature, costing ``len(run) * dot(weights,
+    max_sig)``, plus ``lam`` per run.  Returns ``[[start,
+    end_exclusive, max_sig], ...]``, the runs of
+    ``pangulu_tpu.schedule.waste_aware_runs`` (pangulu_tpu/schedule.py:
+    774) exactly.
+
+    The same dynamic programme, with its inner loop over the run's
+    start ``j`` in numpy: the run maxima over ``sig[j:i]`` for every
+    ``j`` are one ``np.maximum.accumulate`` over the reversed prefix,
+    and the costs are summed in the reference's order, so ties resolve
+    alike (the first strict minimum from ``j = i - 1`` down)."""
+    n = len(sig)
+    if n == 0:
+        return []
+    s = np.asarray(sig, dtype=np.int64).reshape(n, -1)
+    w = [float(x) for x in weights]
+    best = np.full(n + 1, np.inf)
+    best[0] = 0.0
+    cut = np.zeros(n + 1, dtype=np.int64)
+    for i in range(1, n + 1):
+        # mx[t]: the maxima of sig[i - 1 - t : i], run start j = i - 1 - t
+        mx = np.maximum.accumulate(s[i - 1::-1], axis=0).astype(np.float64)
+        vol = 0.0
+        for d, wd in enumerate(w):
+            vol = vol + wd * mx[:, d]
+        j = np.arange(i - 1, -1, -1)
+        c = best[j] + (i - j) * vol + lam
+        t = int(np.argmin(c))
+        best[i], cut[i] = c[t], j[t]
+    runs = []
+    i = n
+    while i > 0:
+        j = int(cut[i])
+        runs.append([j, i, tuple(max(vals) for vals in zip(*sig[j:i]))])
+        i = j
+    runs.reverse()
+    return runs

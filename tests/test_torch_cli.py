@@ -96,18 +96,24 @@ def test_cli_bad_file_exits_2(tmp_path, capsys):
         assert "error reading matrix" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2,2"], "M11"),
-    (["--profile-dir", "prof"], "M6"),
+@pytest.mark.parametrize("flags,words", [
+    # --mesh runs under a launcher only (tests/test_torch_dist.py runs it
+    # under one)
+    (["--mesh", "2,2"], ("torch.distributed.run", "--nproc-per-node")),
+    (["--profile-dir", "prof"], ("M6", "ROADMAP")),
 ])
-def test_cli_unported_flags_name_their_item(tmp_path, capsys, flags, item):
-    """Options the port does not have yet exit non-zero and name their
-    ROADMAP.md item, before any file is read."""
+def test_cli_unported_flags_name_their_item(tmp_path, capsys, monkeypatch,
+                                            flags, words):
+    """Options the port does not have yet exit 2 and name their
+    ROADMAP.md item, and --mesh outside a launcher exits 2 naming the
+    launcher, before any file is read."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     rc = cli.main(["-f", str(tmp_path / "never_read.mtx"), "--device",
                    "cpu"] + flags)
-    assert rc != 0
+    assert rc == 2
     err = capsys.readouterr().err
-    assert item in err and "ROADMAP" in err
+    assert all(w in err for w in words)
 
 
 @pytest.mark.parametrize("dtype,limit", [("cr32", 1e-6), ("cr64", 1e-12)])

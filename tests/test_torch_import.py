@@ -1,13 +1,16 @@
 """The port imports without JAX, and never falls back silently.
 
-- Importing every module of pangulu_tpu_torch, and the probes of
-  pangulu_tpu_torch/tools for P3-P5, loads no jax module and nothing of
+- Importing every module of pangulu_tpu_torch (the multi-device
+  pangulu_tpu_torch.parallel among them), the probes of
+  pangulu_tpu_torch/tools for P3-P5 and its multi-process tools
+  run_multiprocess and probe_dist, loads no jax module and nothing of
   the JAX package (checked in a fresh interpreter, since this
   test process has JAX loaded by conftest.py), and needs neither triton
   nor nvcc.
 - device="cuda" without a GPU raises; a CUDA-tensor kernel call that
   cannot build its library raises; options the port does not implement
-  raise NotImplementedError; nb above the kernels' limit raises.
+  raise NotImplementedError, and mesh_shape without a process group
+  raises ValueError; nb above the kernels' limit raises.
 """
 
 import os
@@ -33,11 +36,14 @@ for m in pkgutil.walk_packages(pangulu_tpu_torch.__path__,
     importlib.import_module(m.name)
 # the H100 probes of the TPU probes P3-P5 (tools/ is no package)
 for m in ("probe_overlap", "probe_scan_multi", "probe_newton_loop",
-          "probe_clusters"):
+          "probe_clusters", "run_multiprocess", "probe_dist"):
     importlib.import_module("pangulu_tpu_torch.tools." + m)
 for m in ("pangulu_tpu_torch.io.mmio", "pangulu_tpu_torch.cli",
           "pangulu_tpu_torch.__main__", "pangulu_tpu_torch.compressed",
-          "pangulu_tpu_torch.outofcore"):
+          "pangulu_tpu_torch.outofcore", "pangulu_tpu_torch.parallel.mesh",
+          "pangulu_tpu_torch.parallel.multihost",
+          "pangulu_tpu_torch.parallel.dist_numeric",
+          "pangulu_tpu_torch.parallel.dist_sptrsv"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pangulu_tpu",
@@ -191,14 +197,17 @@ def test_other_device_raises():
         kernels_cuda.getrf_with_inverses(a)
 
 
-@pytest.mark.parametrize("opts,item", [
-    (dict(mesh_shape=(2, 2)), "M11"),
-    (dict(dtype="cr32", complex_mode="native"), "Queue 1 item 4"),
-    (dict(dtype="cr64", complex_mode="native"), "Queue 1 item 4"),
-    (dict(profile_dir="/nonexistent"), "not ported"),
+@pytest.mark.parametrize("opts,exc,item", [
+    # multi-device runs need a torch.distributed group of p·q ranks
+    (dict(mesh_shape=(2, 2)), ValueError, "no process group|none exists"),
+    (dict(dtype="cr32", complex_mode="native"), NotImplementedError,
+     "Queue 1 item 4"),
+    (dict(dtype="cr64", complex_mode="native"), NotImplementedError,
+     "Queue 1 item 4"),
+    (dict(profile_dir="/nonexistent"), NotImplementedError, "not ported"),
 ])
-def test_unported_options_raise(opts, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_options_raise(opts, exc, item):
+    with pytest.raises(exc, match=item):
         init(poisson2d(4), InitOptions(nb=4, device="cpu", **opts))
 
 
