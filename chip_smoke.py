@@ -213,6 +213,27 @@ CUDA toolkit (nvcc).  It
      timed only (the chain of products leaves float32's range); the
      plain versions timed at the kernels line's sizes; a {"probes": ...}
      JSON line (with each probe's bound on the SMs it runs on);
+ 9b. drives the fused and levels engines (xla_engines_phase; the JAX
+     package's XLA engines, the only ones above nb = 256 and for native
+     complex; step 1 also fails if a float instance of the 8 kernels of
+     K1 for wide tiles, csrc/wide_lu.cuh, spills): (a) K1 at nb = 288,
+     384 and 512, float and double, batch 1 and 4, against its plain
+     twin (the recursion with K1's own leaves) at the contract and the
+     rank-1 scan at BLOCKED_TOL, and with a zero pivot in each half of
+     the split; one K1 launch of 10 device launches a call; true f32 at
+     nb = 512; per launch device ms beside the bound, the twin and
+     lu_factor_ex; (b) init -> gstrf -> gstrs on poisson3d(32), nb=512,
+     r32, rcm and nd, dispatch auto: engine fused on backend cuda, K1
+     once a level (64) and no other kernel, gstrf residual on the card
+     < 1e-5, refined solve residual < 1e-10, ms per factorization and
+     per solve, one traced factorization each (K1's device ms and
+     share); (c) the same at r64 rcm (< 1e-12); (d) levels with
+     panel_solve="trsm" on (b)'s rcm store (within 1e-5 of fused, solve
+     < 1e-10), and gstrf at nb=384 nd (86 levels); (e)
+     complex_mode="native", cr32 and cr64, nb=128, nd, on poisson3d(24)
+     with imaginary parts: fused on backend torch, no hand kernel,
+     residuals < 1e-10 / 1e-12, within 1e-6 / 1e-9 of the embedding's
+     solution; an {"xla_engines": ...} JSON line;
  10. with --profile, also traces one rcm solve and prints, per phase,
      each kernel's launches and device time, the host wall time and the
      device's idle share (K3's solve: exactly 2 launches of its sweep
@@ -229,7 +250,10 @@ CUDA toolkit (nvcc).  It
      scan_multi at Q = 8 with products and 2048 steps, both with DMMA
      products, P4's on its default cluster, kernels_cuda.SCAN_CLUSTER;
      newton_loop at G = 16 on clusters of kernels_cuda.NEWTON_CLUSTER;
-     launches from the probes' path, none on the solver's), with
+     launches from the probes' path, none on the solver's), K1 at
+     nb = 512 and 384 (getrf_with_inverses@nb=512 and @nb=384, the
+     recursion of csrc/wide_lu.cuh; launches from step 9b's rcm path
+     at 512 and nd gstrf at 384), with
      max_rel_err, their
      largest difference from the plain float32 version over max |plain
      f64| (P3: each row's):
@@ -289,6 +313,8 @@ SOURCE = {"getrf_with_inverses": "pangulu_tpu_torch/csrc/tile_lu.cuh",
 # own (their launch in SRC); K1's cluster kernel is in SRC
 SOURCE_256 = {"mega_solve": "pangulu_tpu_torch/csrc/solve_clusters.cuh",
               "mega_solve_groups": "pangulu_tpu_torch/csrc/solve_clusters.cuh"}
+# above nb = 256 K1 is the recursion of csrc/wide_lu.cuh on its kernels
+SOURCE_WIDE = "pangulu_tpu_torch/csrc/wide_lu.cuh"
 # the dense store's kernels (each also at nb=256) and the compressed
 # store's (csrc/compressed.cuh)
 DENSE = ("getrf_with_inverses", "mega_factorize", "mega_solve",
@@ -341,6 +367,9 @@ COMPRESSED_INSTANCES = 16
 # and with them in either type on clusters of 4, 8, 16; P3:
 # newton_loop_kernel<type, C> for float and double, C = 4, 8, 16
 PROBE_INSTANCES = 20
+# K1 above nb = 256 (csrc/wide_lu.cuh): wide_gemm_kernel<type, op> for
+# float and double and the three store ops, wide_copy_kernel<type>
+WIDE_INSTANCES = 8
 # SMs of an H100 SXM: a probe's bound on the s SMs it runs on is the
 # card's operations bound times this / s (kept in the details file)
 SMS = 132
@@ -2369,6 +2398,368 @@ def probes_phase(dev) -> tuple:
     return out, kern, launches
 
 
+WIDE_NBS = (288, 384, 512)
+
+
+def factor_residual_device(h, tiles) -> float:
+    """||L(U 1) - A 1|| / ||A 1|| of the factored tiles of handle h, on
+    their device in float64 (utils.perf.factorization_residual without
+    the host gather of L and U): w = U·1 and v = L·w over the block
+    pattern, then v against A·1 on the host."""
+    b = h.blocked
+    nb, bl, nt = b.nb, b.block_length, b.num_tiles
+    dev = tiles.device
+    rows = torch.as_tensor(np.asarray(b.browidx, np.int64), device=dev)
+    cols = torch.as_tensor(np.repeat(np.arange(bl), np.diff(b.bcolptr)),
+                           device=dev)
+    t = tiles[:nt].to(torch.complex128 if tiles.dtype.is_complex
+                      else torch.float64)
+    up, lo, dg = rows < cols, rows > cols, rows == cols
+    w = torch.zeros((bl, nb), dtype=t.dtype, device=dev)
+    w.index_add_(0, rows[up], t[up].sum(-1))
+    w.index_add_(0, rows[dg], torch.triu(t[dg]).sum(-1))
+    v = torch.zeros_like(w)
+    v.index_add_(0, rows[lo], (t[lo] @ w[cols[lo]][..., None])[..., 0])
+    eye = torch.eye(nb, dtype=t.dtype, device=dev)
+    v.index_add_(0, rows[dg], ((torch.tril(t[dg], -1) + eye)
+                               @ w[cols[dg]][..., None])[..., 0])
+    a3 = h.reordering.reordered.to_scipy()
+    a1 = a3 @ np.ones(b.n)
+    lu1 = v.reshape(-1)[:b.n].cpu().numpy()
+    return float(np.linalg.norm(lu1 - a1) / (np.linalg.norm(a1) or 1.0))
+
+
+def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
+                      nx_c: int = 24, nb_c: int = 128,
+                      k1_nbs=WIDE_NBS) -> tuple:
+    """The fused and levels engines (numeric.py, sptrsv.py; the JAX
+    package's XLA engines) on the card, with K1 for tiles wider than 256
+    (csrc/wide_lu.cuh) as their diagonal step:
+
+      (a) K1 at each nb of k1_nbs, float and double, batch 1 and 4,
+          against its plain twin (kernels_torch.getrf_with_inverses_wide
+          with K1's own leaves, k1_leaf) at TOL_F32 / TOL_F64 and the
+          rank-1 scan at BLOCKED_TOL, and on a tile with a zero pivot in
+          each half of the split; one K1 launch and 10 device launches a
+          call; true f32 at the widest nb (the f32 kernel's error against
+          the f64 twin at most 2x the f32 twin's); per launch device ms
+          (median of 7) beside its bound, the twin's ms and
+          torch.linalg.lu_factor_ex(pivot=False);
+      (b) poisson3d(nx) at nb, r32, rcm and nd: init -> gstrf -> gstrs,
+          dispatch "auto": engine fused on backend cuda, exactly one K1
+          launch a level (10 device launches each) and no other kernel
+          launch, gstrf residual (on the card) < 1e-5, solve residual
+          after the default refinement < 1e-10; ms per factorization and
+          per solve (median of 5); one traced factorization of each (K1's
+          device ms and share, the rest: PyTorch's products, gathers and
+          scatters);
+      (c) the same at r64, rcm: residuals < 1e-12, ms per factorization;
+      (d) dispatch "levels" with panel_solve "trsm" on (b)'s rcm store:
+          its factor within 1e-5 of (b)'s (relative to the largest
+          entry), solve residual < 1e-10; and gstrf at nb_mid, nd
+          (residual < 1e-5, one K1 launch a level);
+      (e) complex_mode "native", cr32 and cr64, nb_c, nd, on
+          poisson3d(nx_c) with imaginary parts: engine fused on backend
+          torch, no hand-kernel launch, residuals (A in the working
+          precision) < 1e-10 (cr32) and 1e-12 (cr64), the solution within
+          1e-6 (cr32) and 1e-9 (cr64) of the real 2x2 embedding's on the
+          same inputs; ms per factorization.
+
+    Returns (its numbers, the kernels-line entries of K1 at nb and
+    nb_mid, their launches on the path).  Any failure raises."""
+    from pangulu_tpu_torch import InitOptions, gstrf, gstrs, init
+    from pangulu_tpu_torch.models import poisson3d
+    from pangulu_tpu_torch.numeric import LUFactorizer
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+    from pangulu_tpu_torch.sptrsv import TriangularSolver
+    from pangulu_tpu_torch.testing import (BLOCKED_TOL, with_imaginary_parts,
+                                           wide_tiny_pivot_tile)
+    from pangulu_tpu_torch.utils.perf import residual_norm
+
+    out, entries, launches = {"K1": {}}, {}, {}
+    rng = np.random.default_rng(18)
+
+    def twin(a):
+        return kt.getrf_with_inverses_wide(a, leaf=kt.k1_leaf)
+
+    def k1_counts(what, calls):
+        got = (kc.LAUNCHES["getrf_with_inverses"],
+               kc.DEVICE_LAUNCHES["getrf_with_inverses"])
+        if got != (calls, 10 * calls) or any(
+                v for k, v in kc.LAUNCHES.items()
+                if k != "getrf_with_inverses"):
+            fail(f"{what}: launches {dict(kc.LAUNCHES)}, K1 device "
+                 f"launches {got[1]}; expected K1 {calls} (10 device "
+                 "launches each) and no other kernel")
+
+    # ---- (a) K1 for wide tiles against its twin ------------------------
+    print("xla engines (a): K1 for nb > 256 (csrc/wide_lu.cuh) against its "
+          "plain twin (the recursion with K1's leaves) and the rank-1 scan")
+    for w in k1_nbs:
+        row = {}
+        for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+            err = 0.0
+            for batch in (1, 4):
+                a = torch.as_tensor(rng.standard_normal((batch, w, w))
+                                    + w * np.eye(w), dtype=dt, device=dev)
+                kc.reset_launch_counts()
+                got = kc.getrf_with_inverses(a)
+                k1_counts(f"K1 nb={w} {dt} batch {batch}", 1)
+                for n, g, r in zip(("f", "linv", "uinv"), got, twin(a)):
+                    err = max(err, compare(f"{dt} nb={w} batch {batch} {n} "
+                                           "(twin)", g, r, *tol))
+                for n, g, r, t in zip(("f", "linv", "uinv"), got,
+                                      kt.getrf_with_inverses(a),
+                                      BLOCKED_TOL[dt]):
+                    compare(f"{dt} nb={w} batch {batch} {n} (rank-1)", g, r,
+                            *t)
+            a = torch.as_tensor(wide_tiny_pivot_tile(w, rng), dtype=dt,
+                                device=dev)
+            got = kc.getrf_with_inverses(a)
+            m1 = kt.wide_split(w)
+            tolv = float(torch.tensor(kt.DEFAULT_TOL[dt], dtype=dt))
+            if not (float(got[0][0, 0]) == float(got[0][m1, m1]) == tolv):
+                fail(f"K1 nb={w} {dt}: the zero pivots at 0 and {m1} did "
+                     "not become +tol")
+            for n, g, r in zip(("f", "linv", "uinv"), got, twin(a)):
+                compare(f"{dt} nb={w} zero pivots at 0 and {m1} {n}", g, r,
+                        *tol)
+            row[str(dt)] = dict(max_abs_err=err)
+        out["K1"][w] = row
+    w = max(k1_nbs)
+    a = torch.as_tensor(rng.standard_normal((4, w, w)) + w * np.eye(w),
+                        device=dev)
+    ref = twin(a)
+    true = {}
+    for n, g, p, r in zip(("f", "linv", "uinv"),
+                          kc.getrf_with_inverses(a.float()),
+                          twin(a.float()), ref):
+        ek, ep = rel_err(g, r), rel_err(p, r)
+        true[n] = dict(kernel=ek, plain=ep)
+        print(f"  true f32 at nb={w}, {n} against the f64 twin: kernel "
+              f"{ek:.3e}, f32 twin {ep:.3e} (kernel <= 2x plain) "
+              f"{'ok' if ek <= 2 * ep else 'FAIL'}")
+        if ek > 2 * ep:
+            fail(f"K1 at nb={w}: {n} less accurate than true f32")
+    out["K1_true_f32"] = true
+    print("  K1 per launch (back-to-back launches, device time, median of "
+          "7) beside its bound, its twin and lu_factor_ex(pivot=False)")
+    for w in k1_nbs:
+        for dt in (torch.float32, torch.float64):
+            for batch in (1, 4):
+                a = torch.as_tensor(rng.standard_normal((batch, w, w))
+                                    + w * np.eye(w), dtype=dt, device=dev)
+                ms = device_ms(lambda: kc.getrf_with_inverses(a), n=20,
+                               reps=7)
+                lms = device_ms(lambda: torch.linalg.lu_factor_ex(
+                    a, pivot=False), n=20, reps=7)
+                r = dict(ms=ms, ms_per_tile=ms / batch, library_ms=lms,
+                         **k1_bound(w, batch, dt))
+                if batch == 1:
+                    r["plain_ms"] = cuda_ms(lambda _: twin(a), reps=3)
+                print(f"  nb={w} {dt} batch {batch}: kernel {ms:.4f} ms, "
+                      f"bound {r['bound_ms']:.3e} ms ({r['bound_by']}), "
+                      f"lu_factor_ex {lms:.4f} ms"
+                      + (f", twin {r['plain_ms']:.3f} ms" if batch == 1
+                         else ""))
+                out["K1"][w][f"{dt}_batch{batch}"] = r
+
+    def entry(w):
+        one = out["K1"][w]["torch.float32_batch1"]
+        return dict(max_abs_err=out["K1"][w]["torch.float32"]["max_abs_err"],
+                    ms=one["ms"], plain_ms=one["plain_ms"],
+                    library_ms=one["library_ms"], bound_ms=one["bound_ms"],
+                    bound_by=one["bound_by"])
+
+    # ---- (b), (c) the fused engine at nb ----------------------------------
+    a = poisson3d(nx)
+    s = a.to_scipy()
+    b = s @ np.ones(a.n)
+
+    def path(dtype, ordering, limit, label, n_solve_ms=True):
+        print(f"xla engines {label}: init -> gstrf -> gstrs, poisson3d({nx}) "
+              f"nb={nb} {dtype} {ordering}, dispatch auto, {dev}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        h = init(a, InitOptions(nb=nb, dtype=dtype, ordering=ordering,
+                                device=str(dev)))
+        kc.reset_launch_counts()
+        gstrf(h)
+        x = gstrs(h, b)
+        bl = h.schedule.block_length
+        k1_counts(f"{label} {dtype} {ordering}", bl)
+        launched = dict(kc.LAUNCHES)
+        k1_dev = kc.DEVICE_LAUNCHES["getrf_with_inverses"]
+        eng, be = h.perf.kernels["engine"], h.perf.kernels["backend"]
+        fres = factor_residual_device(h, h.factor_tiles)
+        res = residual_norm(s, x, b)
+        print(f"  engine {eng}, backend {be}, solve engine "
+              f"{h._trisolver.dispatch}; block_length {bl}, tiles "
+              f"{h.blocked.num_tiles}, fused_overhead "
+              f"{h.schedule.fused_overhead():.2f}; gstrf residual "
+              f"{fres:.3e} (< {limit[0]:g}), solve residual {res:.3e} "
+              f"(< {limit[1]:g})")
+        if (eng, be, h._trisolver.dispatch) != ("fused", "cuda", "fused"):
+            fail(f"{label}: engine {eng} on backend {be}, expected fused "
+                 "on cuda")
+        if not (fres < limit[0] and res < limit[1]):
+            fail(f"{label} {dtype} {ordering}: residual too large")
+        if x.shape != (a.n,) or not np.isfinite(x).all():
+            fail(f"{label}: solution of shape {x.shape}, not finite")
+        fac, ts = h._factorizer, h._trisolver
+
+        def setup():
+            return h.blocked.device_tiles(dev)
+
+        def factor(t):
+            return fac.factorize(t, sync=False)
+
+        fms = cuda_ms(factor, setup=setup, reps=5)
+        xb = ts.blockify_rhs(h.reordering.transform_b(
+            b.astype(h.blocked.dtype)))
+        num = dict(n=a.n, bl=bl, tiles=h.blocked.num_tiles,
+                   fused_overhead=h.schedule.fused_overhead(),
+                   flops=h.schedule.flop_estimate(),
+                   launches=launched, k1_device_launches=k1_dev,
+                   gstrf_residual=fres, residual=res,
+                   ms_per_factorization=fms)
+        msg = f"  {fms:.3f} ms per factorization"
+        if n_solve_ms:
+            num["ms_per_solve"] = cuda_ms(
+                lambda _: ts.solve_blocked(h.factor_tiles, xb), reps=5)
+            msg += f", {num['ms_per_solve']:.3f} ms per solve"
+        print(msg + " (CUDA events, median of 5)")
+        return h, num, factor, setup
+
+    def traced(num, factor, setup):
+        tr = profile(factor, setup=setup)
+        k1 = {n: k for n, k in tr["kernels"].items()
+              if any(s in n for s in ("lu_cluster_kernel", "getrf_inv_kernel",
+                                      "wide_gemm_kernel",
+                                      "wide_copy_kernel"))}
+        k1_ms = sum(k["device_ms"] for k in k1.values())
+        rest = tr["busy_ms"] - k1_ms
+        num.update(trace=tr, k1_device_ms=k1_ms,
+                   k1_share=k1_ms / tr["busy_ms"], other_device_ms=rest)
+        print(f"  one factorization traced: wall {tr['wall_ms']:.3f} ms, "
+              f"busy {tr['busy_ms']:.3f} ms (idle share "
+              f"{tr['idle_share']:.3f}); K1 {k1_ms:.3f} device ms "
+              f"({k1_ms / tr['busy_ms']:.1%} of busy, "
+              f"{sum(k['launches'] for k in k1.values())} launches); the "
+              f"rest (PyTorch's products, gathers, scatters) {rest:.3f}")
+        for name, k in sorted(tr["kernels"].items(),
+                              key=lambda kv: -kv[1]["device_ms"])[:8]:
+            print(f"    {name[:90]}: {k['launches']} launches, "
+                  f"{k['device_ms']:.3f} device ms")
+
+    for ordering in ("rcm", "nd"):
+        h, num, factor, setup = path("r32", ordering, (1e-5, 1e-10), "(b)")
+        traced(num, factor, setup)
+        out[f"r32_{ordering}"] = num
+        if ordering == "rcm":
+            launches[f"getrf_with_inverses@nb={nb}"] = num["launches"][
+                "getrf_with_inverses"]
+            rcm = h
+        else:
+            del h
+    h64, out["r64_rcm"], _, _ = path("r64", "rcm", (1e-12, 1e-12), "(c)",
+                                     n_solve_ms=False)
+    del h64
+
+    # ---- (d) levels with trsm panel solves; nb_mid ----------------------
+    print(f"xla engines (d): dispatch levels, panel_solve trsm, nb={nb} r32 "
+          "rcm, on (b)'s store")
+    kc.reset_launch_counts()
+    lev = LUFactorizer(rcm.blocked, rcm.schedule, device=dev,
+                       panel_solve="trsm")
+    tiles = lev.factorize()
+    k1_counts("(d) levels", rcm.schedule.block_length)
+    if lev.dispatch != "levels":
+        fail(f"panel_solve='trsm' took {lev.dispatch}, expected levels")
+    nt = rcm.blocked.num_tiles
+    dif = rel_err(tiles[:nt], rcm.factor_tiles[:nt].double())
+    rcm._factorizer, rcm.factor_tiles = lev, tiles
+    rcm._trisolver = TriangularSolver(rcm.blocked, rcm.schedule, device=dev,
+                                      dispatch="levels")
+    x = gstrs(rcm, b)
+    res = residual_norm(s, x, b)
+    lms = cuda_ms(lambda t: lev.factorize(t, sync=False),
+                  setup=lambda: rcm.blocked.device_tiles(dev), reps=5)
+    print(f"  factor against fused: {dif:.3e} (< 1e-5); solve residual "
+          f"{res:.3e} (< 1e-10); {lms:.3f} ms per factorization")
+    if not (dif < 1e-5 and res < 1e-10):
+        fail("levels/trsm disagrees with fused or its residual is too large")
+    out["levels_trsm"] = dict(factor_rel_err=dif, residual=res,
+                              ms_per_factorization=lms)
+    del rcm, lev, tiles
+    print(f"xla engines (d): gstrf at nb={nb_mid}, r32, nd")
+    torch.cuda.empty_cache()
+    h = init(a, InitOptions(nb=nb_mid, dtype="r32", ordering="nd",
+                            device=str(dev)))
+    kc.reset_launch_counts()
+    gstrf(h)
+    bl = h.schedule.block_length
+    k1_counts(f"nb={nb_mid} nd", bl)
+    fres = factor_residual_device(h, h.factor_tiles)
+    fms = cuda_ms(lambda t: h._factorizer.factorize(t, sync=False),
+                  setup=lambda: h.blocked.device_tiles(dev), reps=5)
+    print(f"  engine {h.perf.kernels['engine']}, block_length {bl}, tiles "
+          f"{h.blocked.num_tiles}; gstrf residual {fres:.3e} (< 1e-5); "
+          f"{fms:.3f} ms per factorization")
+    if h.perf.kernels["engine"] != "fused" or not fres < 1e-5:
+        fail(f"nb={nb_mid} nd: engine or residual")
+    out[f"r32_nd_nb{nb_mid}"] = dict(bl=bl, tiles=h.blocked.num_tiles,
+                                     gstrf_residual=fres,
+                                     ms_per_factorization=fms)
+    launches[f"getrf_with_inverses@nb={nb_mid}"] = bl
+    del h
+
+    # ---- (e) native complex ----------------------------------------------
+    ca = with_imaginary_parts(poisson3d(nx_c))
+    for dtype, limit, agree in (("cr32", 1e-10, 1e-6), ("cr64", 1e-12, 1e-9)):
+        print(f"xla engines (e): complex_mode native, poisson3d({nx_c}) with "
+              f"imaginary parts, nb={nb_c}, {dtype}, nd")
+        torch.cuda.empty_cache()
+        cdt = np.complex64 if dtype == "cr32" else np.complex128
+        aw = ca.to_scipy().astype(cdt).astype(np.complex128)
+        bc = aw @ np.full(ca.n, 1 + 1j)
+        kc.reset_launch_counts()
+        h = init(ca, InitOptions(nb=nb_c, dtype=dtype, ordering="nd",
+                                 device=str(dev), complex_mode="native"))
+        gstrf(h)
+        x = gstrs(h, bc)
+        if any(kc.LAUNCHES.values()):
+            fail(f"native {dtype} launched {dict(kc.LAUNCHES)}: no hand "
+                 "kernel takes complex tiles")
+        eng, be = h.perf.kernels["engine"], h.perf.kernels["backend"]
+        res = residual_norm(aw, x, bc)
+        he = init(ca, InitOptions(nb=nb_c, dtype=dtype, ordering="nd",
+                                  device=str(dev), complex_mode="embed"))
+        gstrf(he)
+        xe = gstrs(he, bc)
+        agr = float(np.abs(x - xe).max() / np.abs(xe).max())
+        # host-bound (thousands of small PyTorch launches a level): one
+        # timed factorization after the one above
+        fms = cuda_ms(lambda t: h._factorizer.factorize(t, sync=False),
+                      setup=lambda: h.blocked.device_tiles(dev), reps=1,
+                      warmup=0)
+        print(f"  engine {eng}, backend {be}; residual {res:.3e} (< "
+              f"{limit:g}); against the embedding {agr:.3e} (< {agree:g}); "
+              f"{fms:.3f} ms per factorization (CUDA events, one)")
+        if (eng, be) != ("fused", "torch") or not (res < limit
+                                                   and agr < agree):
+            fail(f"native {dtype}: engine {eng}/{be}, residual or agreement")
+        out[f"native_{dtype}"] = dict(bl=h.schedule.block_length,
+                                      residual=res, against_embed=agr,
+                                      ms_per_factorization=fms)
+        del h, he
+    for w in (nb, nb_mid):
+        entries[f"getrf_with_inverses@nb={w}"] = entry(w)
+    torch.cuda.empty_cache()
+    return out, entries, launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2512,6 +2903,19 @@ def main() -> int:
         fail(f"probes: expected {PROBE_INSTANCES} instances without spills; "
              f"ptxas says {probe_ptx}")
     detail["probe_ptxas"] = probe_ptx
+    wide_ptx = {n: i for n, i in ptx.items()
+                if re.search(r"plu\d+wide_(gemm|copy)_kernel", n)}
+    print("ptxas: K1's kernels for nb > 256 (wide_gemm<type, store op>, "
+          "wide_copy<type>; csrc/wide_lu.cuh)")
+    for name, info in sorted(wide_ptx.items()):
+        print(f"  {name}: {info.get('registers')} registers, "
+              f"{info.get('spill_bytes')} spill bytes")
+    if len(wide_ptx) != WIDE_INSTANCES or any(
+            i.get("spill_bytes") != 0 for n, i in wide_ptx.items()
+            if re.search(r"wide_\w+_kernelIf", n)):
+        fail(f"K1 for nb > 256: expected {WIDE_INSTANCES} instances, the "
+             f"float ones without spills; ptxas says {wide_ptx}")
+    detail["wide_ptxas"] = wide_ptx
 
     # ---- K1 ------------------------------------------------------------
     print("K1 getrf_with_inverses against its plain version")
@@ -3146,6 +3550,12 @@ def main() -> int:
     print(json.dumps({"probes": {k: v for k, v in probes.items()
                                  if k != "true_f32"}}))
 
+    # ---- the fused and levels engines, K1 for wide tiles, native complex
+    xla, xla_kernels, xla_launches = xla_engines_phase(dev)
+    detail["xla_engines"] = xla
+    kernels.update(xla_kernels)
+    print(json.dumps({"xla_engines": untraced(xla)}))
+
     launches = dict(rcm_launches)
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]
     launches["mega_solve_groups"] = nd_launches["mega_solve_groups"]
@@ -3154,14 +3564,17 @@ def main() -> int:
     launches.update({f"{n}@nb=256": v for n, v in launches256.items()})
     launches.update(comp_launches)
     launches.update(probe_launches)
+    launches.update(xla_launches)
+    wide = tuple(xla_launches)
     out = {"kernels": [
         dict(name=n, route="cuda",
              source=(SOURCE.get(n, SRC) if "@" not in n
+                     else SOURCE_WIDE if n in wide
                      else SOURCE_256.get(n.split("@")[0], SRC)),
              replaces=REPLACES[n.split("@")[0]], launches=launches[n],
              **kernels[n])
         for n in (*DENSE, *(f"{r}@nb=256" for r in DENSE), *COMPRESSED,
-                  *PROBES)]}
+                  *PROBES, *wide)]}
     # K1's launches a rank on the multi-device paths (dist_phase (b)),
     # and the panel route's (its main path, panel_phase (a)) beside the
     # kernels it runs

@@ -32,7 +32,12 @@ The complex types (``dtype="cr32"|"cr64"``) are solved through their
 real 2x2 embedding (:func:`pangulu_tpu_torch.sparse.complex_embed_matrix`)
 on the real engines, float32 for cr32 and float64 for cr64, on every
 device: ``init`` embeds the matrix, ``gstrs`` embeds the right-hand side
-and folds the solution back.
+and folds the solution back.  ``complex_mode="native"`` keeps complex
+tiles instead, on the fused engine with the ``"torch"`` backend.
+
+Tiles of nb > 256 run on the fused engine, whose diagonal step is K1
+for wide tiles on the card (``backend``: "auto", "cuda" or "torch",
+:mod:`pangulu_tpu_torch.ops.interface`).
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ from pangulu_tpu_torch.blocks import (BlockedMatrix, gather_factor,
                                       refill_values, tile_matrix)
 from pangulu_tpu_torch.compressed import CompressedLU, CompressedTiles
 from pangulu_tpu_torch.numeric import LUFactorizer
-from pangulu_tpu_torch.ops.kernels_torch import check_nb
+from pangulu_tpu_torch.ops.interface import BACKENDS
+from pangulu_tpu_torch.ops.kernels_torch import MAX_NB
 from pangulu_tpu_torch.outofcore import PanelLU
 from pangulu_tpu_torch.parallel.dist_numeric import DistributedLU
 from pangulu_tpu_torch.parallel.dist_sptrsv import DistributedTriangularSolver
@@ -75,11 +81,14 @@ class InitOptions:
     include/pangulu_interface_common.h:3-12, plus the compile-time
     PANGULU_FLAGS promoted to runtime options)."""
 
-    nb: int = 128                # block size (<= 256 in this port)
+    nb: int = 128                # block size (above 256: dense tiles on
+                                 # one device, the fused engine)
     dtype: str = "r64"           # r32 | r64 | cr32 | cr64
     mc64: bool = True            # -DPANGULU_MC64
     ordering: str = "auto"       # METIS analogue: mindeg|rcm|nd|natural|auto
     symbolic_mode: str = "auto"  # scalar | block | auto
+    backend: str = "auto"        # kernel backend of the fused/levels
+                                 # engines: cuda | torch | auto
     tol: Optional[float] = None  # tiny-pivot substitution threshold
     check: bool = False          # -DPANGULU_PERF residual check
     refine: int = -1             # iterative-refinement rounds in gstrs;
@@ -91,9 +100,9 @@ class InitOptions:
                                  # slot lists (compressed.py)
     profile_dir: Optional[str] = None  # profiler traces: not ported
     complex_mode: str = "auto"   # cr32/cr64: "embed" (real 2x2
-                                 # embedding) or "auto" (= embed on every
-                                 # device); "native" is ROADMAP Queue 1
-                                 # item 4 (not ported yet)
+                                 # embedding), "native" (complex tiles,
+                                 # the fused engine) or "auto" (= embed
+                                 # on every device)
 
     def resolve_dtype(self):
         if self.dtype not in VALUE_DTYPES:
@@ -127,14 +136,31 @@ class InitOptions:
         if self.complex_mode not in ("auto", "embed", "native"):
             raise ValueError("complex_mode must be native|embed|auto, got "
                              f"{self.complex_mode!r}")
-        if self.complex_mode == "native" and self.dtype in ("cr32", "cr64"):
-            # the JAX package runs native complex arithmetic on its XLA
-            # fused/levels/segmented engines only, never on a kernel
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {list(BACKENDS)}, "
+                             f"got {self.backend!r}")
+        elsewhere = ("tile_storage='compressed'"
+                     if self.tile_storage == "compressed"
+                     else "mesh_shape" if self.mesh_shape is not None
+                     else None)
+        if elsewhere and self.nb > MAX_NB:
             raise NotImplementedError(
-                "complex_mode='native': native complex arithmetic runs on "
-                "the fused/levels engines, ROADMAP Queue 1 item 4 (not "
-                "ported yet); complex types are solved through the real "
-                "2x2 embedding ('embed', the default)")
+                f"nb={self.nb} > {MAX_NB} with {elsewhere}: tiles that wide "
+                "run on dense tiles on one device (the fused engine); the "
+                "compressed store, the panel driver and the multi-device "
+                "engine at nb > 256 are ROADMAP Queue 1 item 5")
+        if elsewhere and self.native_complex():
+            raise NotImplementedError(
+                f"complex_mode='native' with {elsewhere}: native complex "
+                "tiles run on dense tiles on one device (the fused engine); "
+                "the compressed store, the panel driver and the "
+                "multi-device engine take the real 2x2 embedding "
+                "('embed'); native complex there is ROADMAP Queue 1 item 6")
+
+    def native_complex(self) -> bool:
+        """A complex dtype solved with complex tiles (not embedded)."""
+        return self.complex_mode == "native" and self.dtype in ("cr32",
+                                                                "cr64")
 
 
 @dataclasses.dataclass
@@ -188,12 +214,11 @@ def init(a, opts: InitOptions | None = None) -> Handle:
         device = opts.resolve_device()
     if opts.nb <= 0:
         opts.nb = 128
-    check_nb(opts.nb)
     if not isinstance(a, CscMatrix):
         a = CscMatrix.from_scipy(sp.csc_matrix(a))
     a = a.astype(dtype)
     complex_embed = None
-    if np.dtype(dtype).kind == "c":
+    if np.dtype(dtype).kind == "c" and not opts.native_complex():
         # solve the interleaved real system (2n x 2n); gstrs embeds the
         # rhs and folds the solution back (pangulu_tpu/api.py:144-150)
         complex_embed = np.dtype(dtype)
@@ -293,6 +318,12 @@ def _compressed(handle: Handle) -> bool:
     return isinstance(handle.factor_tiles, CompressedTiles)
 
 
+def _complex(handle: Handle) -> bool:
+    """A complex handle: embedded, or with native complex tiles."""
+    return (handle.complex_embed is not None
+            or np.dtype(handle.blocked.dtype).kind == "c")
+
+
 def _takes_panel_lu(handle: Handle) -> bool:
     """The JAX package's rule for the out-of-core panel driver
     (pangulu_tpu/api.py:297-313, there a TPU with the Pallas backend):
@@ -363,7 +394,8 @@ def gstrf(handle: Handle) -> None:
     else:
         handle._factorizer = LUFactorizer(
             handle.blocked, handle.schedule, perf=handle.perf,
-            device=handle.device, tol=handle.opts.tol)
+            device=handle.device, tol=handle.opts.tol,
+            backend=handle.opts.backend)
         handle.factor_tiles = handle._factorizer.factorize()
     # drop any cached solver: it holds the previous factorization's
     # triangle inverses
@@ -398,7 +430,8 @@ def _ensure_trisolver(handle: Handle) -> TriangularSolver:
         inv_tiles = getattr(handle._factorizer, "inv_tiles", None)
         handle._trisolver = TriangularSolver(
             handle.blocked, handle.schedule, perf=handle.perf,
-            device=handle.device, inv_tiles=inv_tiles)
+            device=handle.device, inv_tiles=inv_tiles,
+            backend=handle.opts.backend)
     return handle._trisolver
 
 
@@ -434,7 +467,8 @@ def gstrs(handle: Handle, b: np.ndarray, refine: int | None = None,
     the complex type of ``b``'s precision and the handle's, whichever is
     wider (complex64 for a complex64 ``b`` on cr32); the refinement's
     residuals are those of the embedded system against ``b`` at that
-    precision."""
+    precision, or, with native complex tiles, complex128 residuals of A
+    (pangulu_tpu/api.py:510-539), 2 rounds by default for cr32."""
     if handle.factor_tiles is None:
         raise RuntimeError("gstrs called before gstrf (reference aborts "
                            "the same way)")
@@ -467,20 +501,24 @@ def gstrs(handle: Handle, b: np.ndarray, refine: int | None = None,
                 "compressed factors), as in the JAX package")
     else:
         _ensure_trisolver(handle)
-    work_dtype = handle.blocked.dtype
+    work_dtype = np.dtype(handle.blocked.dtype)
     b_in = np.asarray(b)
+    native = work_dtype.kind == "c"
+    if native:
+        b_in = b_in.astype(np.result_type(b_in.dtype, work_dtype))
     b = b_in.astype(work_dtype)
     if refine is None:
         refine = handle.opts.refine
-    if refine is None or refine < 0:  # auto
-        refine = 2 if np.dtype(work_dtype) == np.float32 else 0
+    if refine is None or refine < 0:  # auto: 2 for r32 and cr32
+        refine = 2 if work_dtype in (np.float32, np.complex64) else 0
     x = _solve_once(handle, b, trans=trans)
     if refine:
-        a64 = handle.a_origin.astype(np.float64)
+        acc = np.complex128 if native else np.float64
+        a64 = handle.a_origin.astype(acc)
         if trans:
             a64 = a64.T.tocsc()
-        x64 = x.astype(np.float64)
-        b64 = b_in.astype(np.float64)
+        x64 = x.astype(acc)
+        b64 = b_in.astype(acc)
         prev = None
         for _ in range(refine):
             r = b64 - a64 @ x64
@@ -492,10 +530,10 @@ def gstrs(handle: Handle, b: np.ndarray, refine: int | None = None,
                 break
             prev = rn
             dx = _solve_once(handle, r.astype(work_dtype), trans=trans)
-            x64 = x64 + dx.astype(np.float64)
-        return (x64.astype(b_in.dtype) if b_in.dtype.kind == "f"
+            x64 = x64 + dx.astype(acc)
+        return (x64.astype(b_in.dtype) if native or b_in.dtype.kind == "f"
                 else x64)
-    return x.astype(b_in.dtype) if b_in.dtype.kind == "f" else x
+    return x.astype(b_in.dtype) if native or b_in.dtype.kind == "f" else x
 
 
 def gstrs_device(handle: Handle, b: torch.Tensor,
@@ -513,12 +551,11 @@ def gstrs_device(handle: Handle, b: torch.Tensor,
     if handle.factor_tiles is None:
         raise RuntimeError("gstrs called before gstrf (reference aborts "
                            "the same way)")
-    if (_compressed(handle) or handle.complex_embed is not None
-            or _multi_rank(handle)):
+    if (_compressed(handle) or _complex(handle) or _multi_rank(handle)):
         raise NotImplementedError(
             "gstrs_device supports the single-device dense tile store (not "
-            "compressed/complex-embedded factors or factors distributed "
-            "over a grid of ranks), as in the JAX package")
+            "compressed/complex-embedded/native complex factors or factors "
+            "distributed over a grid of ranks), as in the JAX package")
     if not isinstance(b, torch.Tensor) or b.device != handle.device:
         raise ValueError(f"gstrs_device takes a tensor on {handle.device}, "
                          f"got {type(b).__name__}"
@@ -668,7 +705,7 @@ def factor_diagnostics(handle: Handle) -> dict:
         raise NotImplementedError(
             "factor_diagnostics needs the whole factor, and a handle on a "
             "grid of ranks holds only its rank's shard")
-    if handle.complex_embed is not None:
+    if _complex(handle):
         raise NotImplementedError(
             "factor_diagnostics currently supports real dtypes")
     if _compressed(handle):

@@ -6,7 +6,11 @@
                                 [--dtype r32] [--check] [--device cpu]
 
 ``--device cuda`` (the default) runs the hand-written CUDA kernels,
-``--device cpu`` their plain PyTorch versions.  The options the port
+``--device cpu`` their plain PyTorch versions.  ``-nb`` above 256 runs
+the fused engine (K1 for wide tiles on the card); ``--backend`` picks
+its block kernels (``cuda``: K1 for the diagonal step, ``torch``:
+PyTorch ops throughout), ``--complex-mode native`` complex tiles for
+cr32/cr64.  The options the port
 does not implement yet exit with code 2 and name their ROADMAP.md item.
 
 ``--mesh p,q|auto`` factors and solves over a grid of ranks, one
@@ -63,6 +67,16 @@ def main(argv=None) -> int:
                     choices=["auto", "mindeg", "rcm", "nd", "natural"])
     ap.add_argument("--symbolic", default="auto",
                     choices=["auto", "scalar", "block"])
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "cuda", "torch"],
+                    help="block kernels of the fused/levels engines (nb > "
+                         "256, native complex): cuda = K1 for the diagonal "
+                         "step, torch = PyTorch ops; auto = cuda for real "
+                         "tiles on a CUDA device")
+    ap.add_argument("--complex-mode", default="auto",
+                    choices=["auto", "embed", "native"],
+                    help="cr32/cr64: the real 2x2 embedding (embed, and "
+                         "auto) or complex tiles (native)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda: the hand-written kernels (the default); "
                          "cpu: their plain PyTorch versions")
@@ -174,8 +188,14 @@ def _solve(args, primary: bool) -> int:
                            mc64=not args.no_mc64, ordering=args.ordering,
                            symbolic_mode=args.symbolic, check=args.check,
                            refine=args.refine, device=args.device,
-                           tile_storage=args.tile_storage, mesh_shape=mesh)
-        handle = init(a, opts)
+                           tile_storage=args.tile_storage, mesh_shape=mesh,
+                           backend=args.backend,
+                           complex_mode=args.complex_mode)
+        try:
+            handle = init(a, opts)
+        except NotImplementedError as e:
+            print(f"pangulu_tpu_torch: {e}", file=sys.stderr)
+            return 2
         gstrf(handle)
         if args.save_factor and primary:
             try:

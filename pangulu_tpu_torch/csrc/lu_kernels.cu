@@ -5,7 +5,8 @@
 //
 // Every entry runs on the caller's stream, allocates nothing, never
 // synchronises, and returns the first CUDA error (cudaGetLastError after
-// each launch), 0 on success.  Tiles are row-major nb x nb, nb <= 256.
+// each launch), 0 on success.  Tiles are row-major nb x nb, nb <= 256,
+// except K1's, which takes wider tiles (wide_lu.cuh).
 //
 // K1 getrf_with_inverses
 //   Replaces pangulu_tpu/ops/kernels_pallas.py getrf_with_inverses
@@ -1471,13 +1472,16 @@ int mega_solve_groups(T* x, T* y, int nrhs, const T* tiles, const T* invs,
 }  // namespace plu
 
 // ------------------------------------------------------ C interface
+// K1 for tiles wider than 256, on the kernels above
+#include "wide_lu.cuh"
+
 #define PLU_STREAM(s) reinterpret_cast<cudaStream_t>(s)
 
 extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 14; }
+int plu_kernels_abi() { return 15; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1511,6 +1515,23 @@ int plu_getrf_inv_f64(int dev, const double* a, double* f, double* linv,
   if (e != cudaSuccess) return e;
   return plu::getrf_inv(a, f, linv, uinv, batch, nb, tol, k1_launches,
                         PLU_STREAM(st));
+}
+
+// K1 on tiles of nb > 256 (wide_lu.cuh): ``work`` holds batch *
+// plu_wide_work_elems(nb) elements.
+#define PLU_GETRF_INV_WIDE(NAME, T)                                           \
+  int NAME(int dev, const T* a, T* f, T* linv, T* uinv, T* work, int batch, \
+           int nb, double tol, int* k1_launches, void* st) {                 \
+    cudaError_t e = cudaSetDevice(dev);                                      \
+    if (e != cudaSuccess) return e;                                          \
+    return plu::getrf_inv_wide(a, f, linv, uinv, work, batch, nb, tol,      \
+                               k1_launches, PLU_STREAM(st));                 \
+  }
+PLU_GETRF_INV_WIDE(plu_getrf_inv_wide_f32, float)
+PLU_GETRF_INV_WIDE(plu_getrf_inv_wide_f64, double)
+
+long long plu_wide_work_elems(int nb) {
+  return (long long)plu::wide_work_elems(nb);
 }
 
 // K1 in place on the tiles ids of a store, inverses to invs slots

@@ -11,7 +11,9 @@ compressed store's slot lists (``comp_values``, ``comp_idx``,
 ``comp_off``, ``comp_cap``, ``comp_capmax``, ``comp_nnz``;
 pangulu_tpu/io/checkpoint.py:32-46, 123-153).  A complex handle's
 checkpoint holds its real embedding and names the complex type in
-``complex_embed`` (pangulu_tpu/io/checkpoint.py:56-57, 119, 149).
+``complex_embed`` (pangulu_tpu/io/checkpoint.py:56-57, 119, 149), or,
+with native complex tiles (``complex_mode="native"``), complex tiles of
+the complex system.  Dense factors of any nb cross.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from pangulu_tpu_torch.ops.kernels_torch import MAX_NB
 
 _FORMAT_VERSION = 2
 
@@ -96,14 +100,15 @@ def handle_from_arrays(z, device="cuda"):
     if storage not in ("dense", "compressed"):
         raise ValueError(f"unknown factor_storage {storage!r}")
     emb = str(z["complex_embed"]) if "complex_embed" in z else ""
-    if np.dtype(str(z["dtype"])).kind == "c":
-        raise NotImplementedError(
-            "native complex factors (complex tiles, the JAX package's "
-            "complex_mode='native'): native complex arithmetic is ROADMAP "
-            "Queue 1 item 4 (not ported yet); factors of the real 2x2 "
-            "embedding load")
+    native = np.dtype(str(z["dtype"])).kind == "c"
     n = int(z["n"])
     nb = int(z["nb"])
+    if storage == "compressed" and (native or nb > MAX_NB):
+        raise NotImplementedError(
+            "compressed factors of native complex tiles or of nb > "
+            f"{MAX_NB}: the compressed store takes real tiles of nb <= "
+            f"{MAX_NB} (ROADMAP Queue 1 items 5 and 6); dense factors of "
+            "either load")
     bl = int(z["block_length"])
     num_tiles = int(z["num_tiles"])
     bcolptr, browidx = z["bcolptr"], z["browidx"]
@@ -133,7 +138,8 @@ def handle_from_arrays(z, device="cuda"):
         shape=(n, n))
     opts = InitOptions(nb=nb, dtype=str(z["opts_dtype"]),
                        refine=int(z["opts_refine"]), device=str(device),
-                       tile_storage=storage)
+                       tile_storage=storage,
+                       complex_mode="native" if native else "auto")
     dev = opts.resolve_device()
     schedule = build_schedule(blocked)
     perf = PerfCounters()

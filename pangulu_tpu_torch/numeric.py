@@ -2,9 +2,9 @@
 
 Counterpart of the reference's DAG scheduler + compute threads
 (``pangulu_numeric.c:256-1080``) and of ``pangulu_tpu.numeric``'s
-``"mega"`` and ``"mega_group"`` dispatches: the whole elimination runs
-as one call of an engine in :mod:`ops.kernels_cuda` — the hand-written
-CUDA kernel on a CUDA device, its plain PyTorch version on the CPU:
+engines.  Two run as one call of an engine in :mod:`ops.kernels_cuda`
+(the hand-written CUDA kernel on a CUDA device, its plain PyTorch
+version on the CPU), for real tiles of nb <= 256:
 
   * ``"mega"``: :func:`~ops.kernels_cuda.mega_factorize`, one level
     after the other (the chain; what RCM bands need);
@@ -12,23 +12,44 @@ CUDA kernel on a CUDA device, its plain PyTorch version on the CPU:
     one super-level group of independent columns per step (what
     nested-dissection schedules compress to).
 
-``dispatch="auto"`` picks by the JAX package's rule
-(``pangulu_tpu/numeric.py:485-501``), for f32 and f64 alike.  Both
-engines persist each level's triangle inverses (``inv_tiles
-[bl, 2, nb, nb]``, indexed by level) for the matmul-only solve.
+Both persist each level's triangle inverses (``inv_tiles [bl, 2, nb,
+nb]``, indexed by level) for the matmul-only solve.  Two more walk the
+levels on the host, as the JAX package's XLA engines do
+(``pangulu_tpu/numeric.py:47-96, 252-283``), with the block kernels of a
+:class:`~ops.interface.KernelBackend` (K1 on the card for the diagonal
+step, PyTorch ops for the rest), for any nb and value type:
 
-The other engines of the JAX package (``fused``, ``levels``,
-``segmented``, the dd engines) are not ported; see ROADMAP.md.
+  * ``"fused"``: per level, (f, L^-1, U^-1) of the diagonal tile, the
+    panels as products with the inverses, ``L = A·U^-1`` and ``U =
+    L^-1·A``, and the Schur update ``dst -= L·U``;
+  * ``"levels"``: the same, or with ``panel_solve="trsm"`` the panels
+    as triangular solves (``tstrf`` / ``gessm``).
+
+They run each level's real entries, which the host tables count: the
+JAX package pads every level to one shape so that one XLA trace serves
+them all, which eager PyTorch does not need, so its ``"segmented"``
+engine (bounded padding) has no counterpart.  They persist no inverses,
+as in the JAX package.
+
+``dispatch="auto"`` picks by the JAX package's rule
+(``pangulu_tpu/numeric.py:324-369``): ``levels`` for
+``panel_solve="trsm"``; the mega engines for real tiles of nb <= 256
+unless ``backend="torch"`` is asked for (the JAX package's mega engines
+need its Pallas backend), ``mega_group`` when super-level groups pay;
+else ``fused``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pangulu_tpu_torch.blocks import BlockedMatrix
 from pangulu_tpu_torch.ops import kernels_cuda
-from pangulu_tpu_torch.ops.kernels_torch import (DEFAULT_TOL, KernelTables,
-                                                 mega_uch)
+from pangulu_tpu_torch.ops.interface import KernelBackend, get_backend
+from pangulu_tpu_torch.ops.kernels_torch import (DEFAULT_TOL, MAX_NB,
+                                                 KernelTables, mega_uch,
+                                                 true_f32_matmul)
 from pangulu_tpu_torch.schedule import Schedule, build_schedule
 from pangulu_tpu_torch.utils.log import get_logger
 from pangulu_tpu_torch.utils.perf import (PerfCounters, device_sync,
@@ -36,7 +57,13 @@ from pangulu_tpu_torch.utils.perf import (PerfCounters, device_sync,
 
 log = get_logger()
 
-DISPATCHES = ("auto", "mega", "mega_group")
+MEGA_ENGINES = ("mega", "mega_group")
+LEVEL_ENGINES = ("fused", "levels")
+DISPATCHES = ("auto",) + MEGA_ENGINES + LEVEL_ENGINES
+
+# Padded / real Schur work above which the JAX package leaves its fused
+# engine for the segmented one (pangulu_tpu/numeric.py:301).
+FUSED_OVERHEAD_LIMIT = 6.0
 
 
 def groups_worthwhile(schedule: Schedule, gmax: int) -> bool:
@@ -48,23 +75,94 @@ def groups_worthwhile(schedule: Schedule, gmax: int) -> bool:
     return schedule.block_length >= 1.5 * ng
 
 
-def pick_engine(dispatch: str, schedule: Schedule, gmax: int):
+def mega_ineligible(nb: int, dtype: torch.dtype, backend: str) -> str:
+    """Why the mega engines do not apply to tiles of ``nb`` and
+    ``dtype`` with the backend asked for ("" when they do)."""
+    why = []
+    if dtype.is_complex:
+        why.append(f"dtype={dtype} is complex (K2-K5 take float32 and "
+                   "float64)")
+    if nb > MAX_NB:
+        why.append(f"nb={nb} > {MAX_NB} (K2-K5 stop there)")
+    if backend == "torch":
+        why.append("backend='torch' asked for")
+    return ", ".join(why)
+
+
+def pick_engine(dispatch: str, schedule: Schedule, gmax: int, *,
+                dtype: torch.dtype = torch.float32, backend: str = "auto",
+                panel_solve: str = "inv"):
     """(engine, reason) for ``dispatch`` in :data:`DISPATCHES`."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"dispatch must be one of {DISPATCHES}, got "
                          f"{dispatch!r}")
+    nb = schedule.nb
+    if dispatch in MEGA_ENGINES and (dtype.is_complex or nb > MAX_NB):
+        raise ValueError(f"dispatch={dispatch!r} runs K2-K5, which take "
+                         f"real tiles of nb <= {MAX_NB}; got nb={nb}, "
+                         f"{dtype}")
     if dispatch != "auto":
         return dispatch, "asked for"
-    if groups_worthwhile(schedule, gmax):
-        return "mega_group", "the schedule compresses into super-level groups"
-    return "mega", "chain schedule (super-level groups would not pay)"
+    if panel_solve == "trsm":
+        return "levels", "trsm panel solves need per-level dispatch"
+    why_not = mega_ineligible(nb, dtype, backend)
+    if not why_not:
+        if groups_worthwhile(schedule, gmax):
+            return ("mega_group",
+                    "the schedule compresses into super-level groups")
+        return "mega", "chain schedule (super-level groups would not pay)"
+    reason = f"mega ineligible: {why_not}"
+    overhead = schedule.fused_overhead()
+    if overhead > FUSED_OVERHEAD_LIMIT:
+        reason += (f"; the JAX package would take segmented (fused_overhead "
+                   f"{overhead:.2f} > {FUSED_OVERHEAD_LIMIT}), the port pads "
+                   "nothing")
+    return "fused", reason
+
+
+def resolve_backend(backend, nb: int, dtype: torch.dtype, tol, device):
+    """A :class:`KernelBackend` from a name or a backend."""
+    if isinstance(backend, KernelBackend):
+        return backend
+    return get_backend(backend, nb=nb, dtype=dtype, tol=tol, device=device)
+
+
+class LevelTables:
+    """Per level of a schedule, its entries as slices of flat int64
+    index tensors on the device (shipped once), with the offsets on the
+    host: what the fused and levels engines and solves read."""
+
+    def __init__(self, schedule: Schedule, fields, device):
+        levels = schedule.levels
+        self.diag = [int(lev.diag) for lev in levels]
+        self.k = [int(lev.k) for lev in levels]
+        self.off, self.dev = {}, {}
+        for f in fields:
+            parts = [np.asarray(getattr(lev, f), np.int64) for lev in levels]
+            self.off[f] = np.cumsum([0] + [len(p) for p in parts])
+            self.dev[f] = torch.as_tensor(
+                np.concatenate(parts) if parts else np.zeros(0, np.int64),
+                device=device)
+
+    def of(self, field: str, i: int) -> torch.Tensor:
+        """Level i's entries of ``field``."""
+        off = self.off[field]
+        return self.dev[field][int(off[i]):int(off[i + 1])]
+
+    def count(self, field: str, i: int) -> int:
+        off = self.off[field]
+        return int(off[i + 1] - off[i])
 
 
 class LUFactorizer:
     """Runs gstrf on a blocked matrix (reference: pangulu_gstrf,
     pangulu.c:211) on ``device`` with the engine ``dispatch`` picks.
     ``device="cuda"`` (the default) runs the hand kernels and raises
-    without a GPU; ``device="cpu"`` the plain versions."""
+    without a GPU; ``device="cpu"`` the plain versions.  ``backend``
+    ("auto", "cuda", "torch" or a :class:`KernelBackend`) gives the
+    fused and levels engines their block kernels; ``panel_solve`` is
+    "inv" (products with the inverses) or "trsm" (triangular solves, the
+    levels engine)."""
 
     # Most members of one group; wider super-levels split (members stay
     # independent).  The JAX package's value, kept for table parity.
@@ -73,32 +171,77 @@ class LUFactorizer:
     def __init__(self, blocked: BlockedMatrix,
                  schedule: Schedule | None = None,
                  perf: PerfCounters | None = None, device="cuda",
-                 tol: float | None = None, dispatch: str = "auto"):
+                 tol: float | None = None, dispatch: str = "auto",
+                 backend="auto", panel_solve: str = "inv"):
         self.blocked = blocked
         self.schedule = schedule or build_schedule(blocked)
         self.perf = perf or PerfCounters()
         self.device = resolve_device(device)
-        self.tol = (tol if tol is not None
-                    else DEFAULT_TOL[blocked.torch_dtype])
-        self.dispatch, why = pick_engine(dispatch, self.schedule,
-                                         self.GROUP_GMAX)
+        dtype = blocked.torch_dtype
+        self.tol = tol if tol is not None else DEFAULT_TOL[dtype]
+        if panel_solve not in ("inv", "trsm"):
+            raise ValueError("panel_solve must be 'inv' or 'trsm'")
+        self.panel_solve = panel_solve
+        self.backend = resolve_backend(backend, blocked.nb, dtype, tol,
+                                       self.device)
+        self.dispatch, why = pick_engine(
+            dispatch, self.schedule, self.GROUP_GMAX, dtype=dtype,
+            backend=self.backend.name if isinstance(
+                backend, KernelBackend) else backend,
+            panel_solve=panel_solve)
         nt = blocked.num_tiles
-        uch = mega_uch(blocked.nb)
-        # ship the tables to the device once; the engines read their
-        # loop counts from the host copies
-        if self.dispatch == "mega_group":
-            tables = self.schedule.group_mega_tables(
-                nt, uch=uch, gmax=self.GROUP_GMAX)
-            why += (f"; {self.schedule.block_length} levels -> "
-                    f"{tables['ngroups']} groups (gmax={tables['gmax']})")
+        self.tables = self.levels = None
+        if self.dispatch in LEVEL_ENGINES:
+            why += f"; backend {self.backend.name}"
+            self.levels = LevelTables(
+                self.schedule, ("lpanel", "upanel", "upd_dst", "upd_l",
+                                "upd_u"), self.device)
         else:
-            tables = self.schedule.mega_tables(nt, uch=uch)
+            # ship the tables to the device once; the engines read their
+            # loop counts from the host copies
+            uch = mega_uch(blocked.nb)
+            if self.dispatch == "mega_group":
+                tables = self.schedule.group_mega_tables(
+                    nt, uch=uch, gmax=self.GROUP_GMAX)
+                why += (f"; {self.schedule.block_length} levels -> "
+                        f"{tables['ngroups']} groups (gmax={tables['gmax']})")
+            else:
+                tables = self.schedule.mega_tables(nt, uch=uch)
+            self.tables = KernelTables.build(tables, self.device)
         log.info("engine: %s (%s)", self.dispatch, why)
-        self.tables = KernelTables.build(tables, self.device)
-        self.inv_tiles = None  # [bl, 2, nb, nb] after factorize()
+        self.inv_tiles = None  # [bl, 2, nb, nb] after a mega factorize()
 
     def _group_worthwhile(self) -> bool:
         return groups_worthwhile(self.schedule, self.GROUP_GMAX)
+
+    def _factorize_levels(self, tiles: torch.Tensor) -> None:
+        """The fused and levels engines on ``tiles``, in place: per
+        level the diagonal step (``backend.diag_factor_invert``), the
+        panels, the Schur update (pangulu_tpu/numeric.py:47-96,
+        252-283).  A level's update destinations are distinct, so the
+        scatter is a gather, a subtraction and a store."""
+        be, t = self.backend, self.levels
+        trsm = self.dispatch == "levels" and self.panel_solve == "trsm"
+        with true_f32_matmul():
+            for i, d in enumerate(t.diag):
+                f, linv, uinv = be.diag_factor_invert(tiles[d], self.tol)
+                tiles[d] = f
+                nl, nu = t.count("lpanel", i), t.count("upanel", i)
+                if nl:
+                    lids = t.of("lpanel", i)
+                    lblk = (be.tstrf(f, tiles[lids]) if trsm
+                            else tiles[lids] @ uinv)
+                    tiles[lids] = lblk
+                if nu:
+                    uids = t.of("upanel", i)
+                    ublk = (be.gessm(f, tiles[uids]) if trsm
+                            else linv @ tiles[uids])
+                    tiles[uids] = ublk
+                if nl and nu and t.count("upd_dst", i):
+                    dst = t.of("upd_dst", i)
+                    tiles[dst] = be.ssssm(tiles[dst],
+                                          lblk[t.of("upd_l", i)],
+                                          ublk[t.of("upd_u", i)])
 
     def factorize(self, tiles: torch.Tensor | None = None,
                   sync: bool = True) -> torch.Tensor:
@@ -112,13 +255,16 @@ class LUFactorizer:
             with self.perf.phase("preprocess"):
                 tiles = self.blocked.device_tiles(self.device)
                 device_sync(self.device)
-        engine = (kernels_cuda.mega_factorize_groups
-                  if self.dispatch == "mega_group"
-                  else kernels_cuda.mega_factorize)
         with self.perf.phase("numeric"):
-            tiles, self.inv_tiles = engine(
-                tiles, self.tables, nb=self.blocked.nb, tol=self.tol,
-                bl=self.schedule.block_length)
+            if self.dispatch in LEVEL_ENGINES:
+                self._factorize_levels(tiles)
+            else:
+                engine = (kernels_cuda.mega_factorize_groups
+                          if self.dispatch == "mega_group"
+                          else kernels_cuda.mega_factorize)
+                tiles, self.inv_tiles = engine(
+                    tiles, self.tables, nb=self.blocked.nb, tol=self.tol,
+                    bl=self.schedule.block_length)
             if sync:
                 device_sync(self.device)
         self.perf.add_flops(self.schedule.flop_estimate())
@@ -129,4 +275,5 @@ class LUFactorizer:
             ssssm=self.schedule.n_ssssm,
         )
         self.perf.kernels["engine"] = self.dispatch
+        self.perf.kernels["backend"] = self.backend.name
         return tiles

@@ -30,7 +30,7 @@ from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
                                                  check_nb)
 from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 14
+_ABI = 15
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -49,8 +49,9 @@ LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0,
             "newton_loop": 0}
 
 # K1's device launches, as the C entries report them: one a K1 launch,
-# the register-tile kernel up to nb = 128 and the cluster kernel above.
-# Zeroed with LAUNCHES.
+# the register-tile kernel up to nb = 128 and the cluster kernel above,
+# up to nb = 256; above, each of the recursion's launches (10 at 256 <
+# nb <= 512, csrc/wide_lu.cuh).  Zeroed with LAUNCHES.
 DEVICE_LAUNCHES = {"getrf_with_inverses": 0}
 
 # The grid of the last K3 and K5 call ("mega_solve",
@@ -116,12 +117,17 @@ def library() -> build.KernelLibrary:
         fn = getattr(lib, f"plu_triangle_inverses_{s}")
         fn.restype = i
         fn.argtypes = [i, p, p, p, i, i, d, p]
+        fn = getattr(lib, f"plu_getrf_inv_wide_{s}")
+        fn.restype = i
+        fn.argtypes = [i, p, p, p, p, p, i, i, d, p, p]
         fn = getattr(lib, f"plu_diag_step_{s}")
         fn.restype = i
         fn.argtypes = [i, p, p, p, p, i, i, d, p, p]
         fn = getattr(lib, f"plu_newton_loop_{s}")
         fn.restype = i
         fn.argtypes = [i, p, p, p, i, i, i, i, p]
+    lib.plu_wide_work_elems.restype = ctypes.c_longlong
+    lib.plu_wide_work_elems.argtypes = [i]
     lib.plu_scan_overlap_f32.restype = i
     lib.plu_scan_overlap_f32.argtypes = [i, i, i, p, p, p, p, p, i, i, i,
                                          p]
@@ -205,9 +211,15 @@ def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
     :func:`kernels_torch.getrf_with_inverses`.  Above nb = 128 the card
     runs the blocked step of
     :func:`kernels_torch.getrf_with_inverses_blocked` on a thread block
-    cluster, one launch for the batch."""
+    cluster, one launch for the batch; above nb = 256 the recursion of
+    :func:`kernels_torch.getrf_with_inverses_wide` on those kernels
+    (csrc/wide_lu.cuh), counted as one launch, its device launches in
+    :data:`DEVICE_LAUNCHES`.  On the CPU a tile above nb = 256 goes to
+    that recursion with the rank-1 scan at its leaves."""
+    wide = a.shape[-1] > kt.MAX_NB
     if not _on_cuda(a):
-        return kt.getrf_with_inverses(a, tol)
+        return (kt.getrf_with_inverses_wide(a, tol) if wide
+                else kt.getrf_with_inverses(a, tol))
     s = _dtype_of(a)
     if tol is None:
         tol = kt.DEFAULT_TOL[a.dtype]
@@ -217,16 +229,23 @@ def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
         raise ValueError(f"expected [nb, nb] or [B, nb, nb], got "
                          f"{tuple(a.shape)}")
     nb = a3.shape[-1]
-    check_nb(nb)
     _check_tensor("a", a3, a.dtype, a3.shape, a.device)
     f, linv, uinv = (torch.empty_like(a3) for _ in range(3))
     if a3.shape[0]:
         lib = library().lib
         k1 = (ctypes.c_int * 2)()
-        _call(getattr(lib, f"plu_getrf_inv_{s}"), a.device.index,
-              a3.data_ptr(), f.data_ptr(), linv.data_ptr(),
-              uinv.data_ptr(), a3.shape[0], nb, float(tol), k1,
-              _stream(a.device))
+        if wide:
+            work = torch.empty(a3.shape[0] * lib.plu_wide_work_elems(nb),
+                               dtype=a.dtype, device=a.device)
+            _call(getattr(lib, f"plu_getrf_inv_wide_{s}"), a.device.index,
+                  a3.data_ptr(), f.data_ptr(), linv.data_ptr(),
+                  uinv.data_ptr(), work.data_ptr(), a3.shape[0], nb,
+                  float(tol), k1, _stream(a.device))
+        else:
+            _call(getattr(lib, f"plu_getrf_inv_{s}"), a.device.index,
+                  a3.data_ptr(), f.data_ptr(), linv.data_ptr(),
+                  uinv.data_ptr(), a3.shape[0], nb, float(tol), k1,
+                  _stream(a.device))
         _count_k1(k1)
     if single:
         return f[0], linv[0], uinv[0]

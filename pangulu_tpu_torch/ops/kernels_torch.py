@@ -61,16 +61,21 @@ from pangulu_tpu_torch.schedule import group_update_lists
 
 # The reference substitutes a tolerance for tiny diagonal pivots
 # (pangulu_common.h:133 PANGULU_TOL), scaled here by dtype as in
-# pangulu_tpu/ops/kernels_jax.py:33-38: |piv| < tol -> +tol.
-DEFAULT_TOL = {torch.float32: 1e-8, torch.float64: 1e-16}
+# pangulu_tpu/ops/kernels_jax.py:33-38: |piv| < tol -> +tol (for a
+# complex pivot, |piv| is its modulus and +tol is real).
+DEFAULT_TOL = {torch.float32: 1e-8, torch.float64: 1e-16,
+               torch.complex64: 1e-8, torch.complex128: 1e-16}
 
-# Largest tile the CUDA kernels take.  K1 keeps a tile of nb <= 128 in
-# registers (instances for nb <= 32, 64 and 128, csrc/tile_lu.cuh) and
-# factors 128 < nb <= 256 on a thread block cluster that holds the tile
-# in shared memory, in panels of LU_PANEL columns
-# (getrf_with_inverses_blocked is its plain twin); the products of K2
-# and K4 have shared-memory windows for nb <= 128 and for nb <= 256
-# (csrc/lu_kernels.cu).  nb > 256 is ROADMAP W4.
+# Largest tile of the CUDA kernels that keep a limit: K2-K5, P6 and P2.
+# K1 keeps a tile of nb <= 128 in registers (instances for nb <= 32, 64
+# and 128, csrc/tile_lu.cuh) and factors 128 < nb <= 256 on a thread
+# block cluster that holds the tile in shared memory, in panels of
+# LU_PANEL columns (getrf_with_inverses_blocked is its plain twin); the
+# products of K2 and K4 have shared-memory windows for nb <= 128 and for
+# nb <= 256 (csrc/lu_kernels.cu).  K1 takes wider tiles by a recursion
+# on halves of at most MAX_NB (getrf_with_inverses_wide, csrc/
+# wide_lu.cuh); the engines that run it there are the fused and levels
+# engines (numeric.py).
 MAX_NB = 256
 
 # K1's largest register tile: the blocked step takes the tiles above it,
@@ -122,12 +127,12 @@ class KernelTables:
 
 
 def check_nb(nb: int) -> None:
+    """The limit of the kernels that keep one (K2-K5, P6, P2)."""
     if nb > MAX_NB:
         raise ValueError(
-            f"nb={nb} exceeds the port's limit nb <= {MAX_NB} (K1 holds a "
-            "tile of nb > 128 in the shared memory of a cluster of CTAs, "
-            "and the products' shared-memory windows stop at nb=256; nb > "
-            "256 is ROADMAP W4)")
+            f"nb={nb} exceeds this kernel's limit nb <= {MAX_NB} (the "
+            "products' and sweeps' shared-memory windows stop at nb=256; "
+            "tiles wider than that run on the fused and levels engines)")
 
 
 def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
@@ -209,6 +214,66 @@ def getrf_with_inverses_blocked(a: torch.Tensor, tol: float | None = None,
         f[..., k1:, k1:] -= l21 @ u12
         y[..., :k1, k1:] -= y[..., :k1, k0:k1] @ u12
     return f, x, y
+
+
+def wide_split(m: int) -> int:
+    """Rows of the first half when a tile of ``m`` splits: the JAX
+    package's ``_split`` (pangulu_tpu/ops/kernels_jax.py:54-57, base 32),
+    about half, rounded up to a multiple of 32, and at most m - 32."""
+    base = 32
+    h = ((m + 1) // 2 + base - 1) // base * base
+    return min(h, m - base) if m - h < base and m > base else h
+
+
+def k1_leaf(a: torch.Tensor, tol: float):
+    """K1's own step on a tile of nb <= MAX_NB in floating point: the
+    rank-1 scan up to LU_SPLIT, the blocked step of panels of LU_PANEL
+    above (the plain twins of the register and the cluster kernel)."""
+    if a.shape[-1] <= LU_SPLIT:
+        return getrf_with_inverses(a, tol)
+    return getrf_with_inverses_blocked(a, tol)
+
+
+def getrf_with_inverses_wide(a: torch.Tensor, tol: float | None = None,
+                             leaf=getrf_with_inverses):
+    """(f, L^-1, U^-1) of ``a`` ([nb, nb] or [B, nb, nb]) for any nb, by
+    the recursive block step of the JAX package's XLA diagonal step
+    (pangulu_tpu/ops/kernels_jax.py:200-248): split at
+    ``wide_split(nb)``,
+
+      1. ``(F11, L11^-1, U11^-1)`` of A11 (recursively);
+      2. ``U12 = L11^-1·A12`` and ``L21 = A21·U11^-1``;
+      3. ``S22 = A22 - L21·U12``, and ``(F22, L22^-1, U22^-1)`` of it;
+      4. ``L^-1[2, 1] = -L22^-1·(L21·L11^-1)`` and ``U^-1[1, 2] =
+         -U11^-1·(U12·U22^-1)``,
+
+    with ``leaf(a, tol)`` on the blocks of at most MAX_NB (the JAX
+    package recurses to 32 and takes the Newton inverses there).  The
+    CUDA K1 for nb > MAX_NB runs these steps (csrc/wide_lu.cuh): its
+    leaves are K1's kernels for nb <= MAX_NB, whose plain twin is
+    :func:`k1_leaf`; the default leaf, the rank-1 scan, is the
+    reference semantics.  The tiny-pivot rule holds in every leaf."""
+    if tol is None:
+        tol = DEFAULT_TOL[a.dtype]
+    m = a.shape[-1]
+    if m <= MAX_NB:
+        return leaf(a, tol)
+    m1 = wide_split(m)
+    a11, a12 = a[..., :m1, :m1], a[..., :m1, m1:]
+    a21, a22 = a[..., m1:, :m1], a[..., m1:, m1:]
+    f11, li11, ui11 = getrf_with_inverses_wide(a11, tol, leaf)
+    u12 = li11 @ a12
+    l21 = a21 @ ui11
+    f22, li22, ui22 = getrf_with_inverses_wide(a22 - l21 @ u12, tol, leaf)
+    f = torch.cat([torch.cat([f11, u12], -1), torch.cat([l21, f22], -1)],
+                  -2)
+    z12 = torch.zeros_like(a12)
+    z21 = torch.zeros_like(a21)
+    linv = torch.cat([torch.cat([li11, z12], -1),
+                      torch.cat([-(li22 @ (l21 @ li11)), li22], -1)], -2)
+    uinv = torch.cat([torch.cat([ui11, -(ui11 @ (u12 @ ui22))], -1),
+                      torch.cat([z21, ui22], -1)], -2)
+    return f, linv, uinv
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

@@ -420,6 +420,15 @@ class Schedule:
                     ltab=ltab, uctab=uctab, ngroups=ngr, gmax=gmax,
                     row_w=w)
 
+    def fused_overhead(self) -> float:
+        """Padded / real work of the JAX package's fused engine's Schur
+        stage (pangulu_tpu/schedule.py:685-692), which pads every level
+        to the most updates of any; above 6 the JAX package takes its
+        segmented engine.  The port's engines pad nothing and log it."""
+        real = max(self.n_ssssm, 1)
+        padded = self.block_length * max(self.max_updates, 1)
+        return padded / real
+
     def flop_estimate(self) -> float:
         """Dense-tile flop model (counterpart of the reference's exact
         sparse flop counters, pangulu_kernel_interface.c:4-178 — this

@@ -1,19 +1,23 @@
 """Blocked sparse triangular solves (SpTRSV) — the gstrs path.
 
-Counterpart of ``pangulu_sptrsv.c`` and of
-``pangulu_tpu.sptrsv.TriangularSolver._solve_mega``: the forward sweep
-on L (unit diagonal), then the backward sweep on U, both as products
-with the per-level triangle inverses that the factorization persisted,
-in one call of an engine in :mod:`ops.kernels_cuda` (the hand-written
-CUDA kernel on a CUDA device, the plain version on the CPU):
+Counterpart of ``pangulu_sptrsv.c`` and of ``pangulu_tpu.sptrsv``: the
+forward sweep on L (unit diagonal), then the backward sweep on U.  For
+real tiles of nb <= 256 (the mega engines) both run as products with the
+per-level triangle inverses that the factorization persisted, in one
+call of an engine in :mod:`ops.kernels_cuda` (the hand-written CUDA
+kernel on a CUDA device, the plain version on the CPU):
 :func:`~ops.kernels_cuda.mega_solve` level by level (``"mega"``), or
 :func:`~ops.kernels_cuda.mega_solve_groups` over super-level groups
 (``"mega_group"``), picked by the factorizer's rule
 (``pangulu_tpu/sptrsv.py:371-386``) when ``dispatch="auto"``.  The
 inverses are indexed by level, so either factorization engine feeds
-either solve.  The transpose solve (:meth:`TriangularSolver.solve_trans`)
-runs as PyTorch ops, as its JAX counterpart runs in XLA outside any
-Pallas kernel.
+either solve.  Elsewhere (nb > 256, complex tiles, ``backend="torch"``)
+the ``"fused"`` and ``"levels"`` solves walk the levels on the host
+(``pangulu_tpu/sptrsv.py:35-78``): per level a triangular solve of the
+diagonal tile's segment (the backend's ``trsv_lower_unit`` /
+``trsv_upper``), then ``x[rows] -= tiles[ids]·x[k]`` for the column's
+panel, PyTorch ops as they are XLA in the JAX package.  The transpose
+solve (:meth:`TriangularSolver.solve_trans`) runs as PyTorch ops too.
 
 Multi-RHS is first-class: the kernel carries ``x`` as
 ``[nrhs, bl+1, nb]`` (the +1 segment is the scratch segment that padded
@@ -27,10 +31,13 @@ import numpy as np
 import torch
 
 from pangulu_tpu_torch.blocks import BlockedMatrix
-from pangulu_tpu_torch.numeric import (LUFactorizer, groups_worthwhile,
-                                       pick_engine)
+from pangulu_tpu_torch.numeric import (LEVEL_ENGINES, LevelTables,
+                                       LUFactorizer, groups_worthwhile,
+                                       pick_engine, resolve_backend)
 from pangulu_tpu_torch.ops import kernels_cuda
-from pangulu_tpu_torch.ops.kernels_torch import DEFAULT_TOL, KernelTables
+from pangulu_tpu_torch.ops.interface import KernelBackend
+from pangulu_tpu_torch.ops.kernels_torch import (DEFAULT_TOL, KernelTables,
+                                                 true_f32_matmul)
 from pangulu_tpu_torch.schedule import Schedule
 from pangulu_tpu_torch.utils.log import get_logger
 from pangulu_tpu_torch.utils.perf import (PerfCounters, device_sync,
@@ -46,7 +53,7 @@ class TriangularSolver:
     def __init__(self, blocked: BlockedMatrix, schedule: Schedule,
                  perf: PerfCounters | None = None, device="cuda",
                  inv_tiles: torch.Tensor | None = None,
-                 dispatch: str = "auto"):
+                 dispatch: str = "auto", backend="auto"):
         self.blocked = blocked
         self.schedule = schedule
         self.perf = perf or PerfCounters()
@@ -54,18 +61,30 @@ class TriangularSolver:
         # triangle inverses persisted by the factorization; recomputed
         # by _ensure_inverses for checkpoint-loaded factors
         self.inv_tiles = inv_tiles
-        self.dispatch, why = pick_engine(dispatch, schedule,
-                                         LUFactorizer.GROUP_GMAX)
+        dtype = blocked.torch_dtype
+        self.backend = resolve_backend(backend, blocked.nb, dtype, None,
+                                       self.device)
+        self.dispatch, why = pick_engine(
+            dispatch, schedule, LUFactorizer.GROUP_GMAX, dtype=dtype,
+            backend=self.backend.name if isinstance(
+                backend, KernelBackend) else backend)
         nt = blocked.num_tiles
-        if self.dispatch == "mega_group":
-            tables = schedule.group_solve_tables(
-                nt, gmax=LUFactorizer.GROUP_GMAX)
-            why += (f"; {schedule.block_length} levels -> "
-                    f"{tables['ngroups']} groups")
+        self.tables = self.levels = None
+        if self.dispatch in LEVEL_ENGINES:
+            why += f"; backend {self.backend.name}"
+            self.levels = LevelTables(
+                schedule, ("lpanel", "lrows", "ucolpanel", "ucolrows"),
+                self.device)
         else:
-            tables = schedule.mega_solve_tables(nt)
+            if self.dispatch == "mega_group":
+                tables = schedule.group_solve_tables(
+                    nt, gmax=LUFactorizer.GROUP_GMAX)
+                why += (f"; {schedule.block_length} levels -> "
+                        f"{tables['ngroups']} groups")
+            else:
+                tables = schedule.mega_solve_tables(nt)
+            self.tables = KernelTables.build(tables, self.device)
         log.info("solve engine: %s (%s)", self.dispatch, why)
-        self.tables = KernelTables.build(tables, self.device)
         self.perf.kernels["solve_engine"] = self.dispatch
         self._trans = None  # the transpose solve's tables, at first use
 
@@ -114,11 +133,38 @@ class TriangularSolver:
         self.inv_tiles = torch.stack([linv, uinv], dim=1).contiguous()
         return self.inv_tiles
 
+    def _solve_levels(self, tiles: torch.Tensor,
+                      xb: torch.Tensor) -> torch.Tensor:
+        """The fused and levels solves (pangulu_tpu/sptrsv.py:35-78): per
+        level, forward, x_k = L_kk^-1 x_k by substitution, then x[rows]
+        -= L[rows, k]·x_k over column k's panel below the diagonal;
+        backward, in reverse, the same with U_kk (the tiny-pivot rule on
+        its diagonal) and column k's tiles above it.  A level's rows are
+        distinct.  Returns a new tensor."""
+        be, t = self.backend, self.levels
+        x = xb.clone()
+        with true_f32_matmul():
+            for sweep, ids, rows, order in (
+                    (be.trsv_lower_unit, "lpanel", "lrows",
+                     range(len(t.k))),
+                    (be.trsv_upper, "ucolpanel", "ucolrows",
+                     reversed(range(len(t.k))))):
+                for i in order:
+                    k = t.k[i]
+                    xk = sweep(tiles[t.diag[i]], x[k])
+                    x[k] = xk
+                    if t.count(ids, i):
+                        r = t.of(rows, i)
+                        x[r] = be.spmv_sub(x[r], tiles[t.of(ids, i)], xk)
+        return x
+
     def solve_blocked(self, tiles: torch.Tensor,
                       xb: torch.Tensor) -> torch.Tensor:
         """Device-resident solve of an already blocked rhs
         ``[bl+1, nb, nrhs]`` (see :meth:`blockify_rhs`); returns the
         solution in the same layout without synchronising."""
+        if self.dispatch in LEVEL_ENGINES:
+            return self._solve_levels(tiles, xb)
         invs = self._ensure_inverses(tiles)
         xt = xb.permute(2, 0, 1).contiguous()      # [nrhs, bl+1, nb]
         engine = (kernels_cuda.mega_solve_groups

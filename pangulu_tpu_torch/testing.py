@@ -97,6 +97,21 @@ def blocked_tiny_pivot_tile(nb: int, k1: int, k2: int, rng) -> np.ndarray:
     return a
 
 
+def wide_tiny_pivot_tile(nb: int, rng) -> np.ndarray:
+    """A diagonally dominant tile of nb > MAX_NB whose pivots at step 0
+    and at the first step of the second half of K1's split
+    (``kernels_torch.wide_split(nb)``) are exactly 0, in the rank-1 scan
+    and in the recursion alike: A21 is zero, so S22 = A22 - L21·U12 is
+    A22 exactly, and row and column 0 of A11 and of A22 are zero."""
+    a = rng.standard_normal((nb, nb)) + nb * np.eye(nb)
+    m1 = kt.wide_split(nb)
+    a[m1:, :m1] = 0.0
+    for k in (0, m1):
+        a[k, k:] = 0.0
+        a[k:, k] = 0.0
+    return a
+
+
 def diag_step(tiles: torch.Tensor, ids, invs: torch.Tensor, inv_ids,
               tol: float | None = None) -> None:
     """K1 as K4's diagonal step runs it, alone (the C entry

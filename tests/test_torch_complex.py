@@ -288,17 +288,25 @@ def test_update_values_matches_jax(zero_imag):
 def test_unsupported_raise():
     """As in the JAX package (pangulu_tpu/api.py:568-573, 788-791):
     gstrs_device and factor_diagnostics refuse a complex-embedded handle;
-    complex_mode="native" names ROADMAP Queue 1 item 4, a bogus mode
-    raises naming complex_mode (tests/test_api_misc.py:39)."""
+    complex_mode="native" solves (tests/test_torch_native_complex.py),
+    but not on the compressed store or a mesh, which name ROADMAP Queue 1
+    item 6; a bogus mode raises naming complex_mode
+    (tests/test_api_misc.py:39)."""
     a, hp, _ = _handles("poisson2d6", "cr64", 8, "auto")
     with pytest.raises(NotImplementedError, match="complex-embedded"):
         pt.gstrs_device(hp, torch.ones(a.n, dtype=torch.complex128))
     with pytest.raises(NotImplementedError, match="real dtypes"):
         pt.factor_diagnostics(hp)
     for dtype in ("cr32", "cr64"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            pt.init(a, pt.InitOptions(nb=8, dtype=dtype, device="cpu",
+        h = pt.init(a, pt.InitOptions(nb=8, dtype=dtype, device="cpu",
                                       complex_mode="native"))
+        pt.gstrf(h)
+        b = _rhs(a)
+        assert residual_norm(a.to_scipy(), pt.gstrs(h, b), b) < 1e-6
+        for kw in (dict(tile_storage="compressed"), dict(mesh_shape=(1, 2))):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+                pt.init(a, pt.InitOptions(nb=8, dtype=dtype, device="cpu",
+                                          complex_mode="native", **kw))
     with pytest.raises(ValueError, match="complex_mode"):
         pt.init(a, pt.InitOptions(nb=8, dtype="cr64", device="cpu",
                                   complex_mode="bogus"))
@@ -453,7 +461,7 @@ def test_cli_load_factor_complex(tmp_path, capsys, writer):
     residual for the complex system, not its embedding (cli.py; JAX
     cli.py:97-104), whichever package saved it; the JAX CLI's own cr64
     checkpoint on the CPU holds native complex factors, which the port
-    refuses (exit 2) naming ROADMAP Queue 1 item 4."""
+    solves with complex tiles."""
     a, aj = _pair("poisson2d8")
     mtx = tmp_path / "c.mtx"
     tio.write_matrix(mtx, a)
@@ -472,9 +480,6 @@ def test_cli_load_factor_complex(tmp_path, capsys, writer):
     capsys.readouterr()
     rc = cli.main(["--load-factor", fpath, "--device", "cpu"])
     out = capsys.readouterr()
-    if writer == "jax native":
-        assert rc == 2 and "Queue 1 item 4" in out.err
-        return
     assert rc == 0
     line = [ln for ln in out.out.splitlines() if "solve residual" in ln][-1]
     assert float(line.split("=")[1]) < 1e-12

@@ -25,11 +25,15 @@ products' values would hide.  The 3xTF32 instances (timed only) within
 1e-4 of the largest f64 entry.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import pangulu_tpu_torch as pt
+import pangulu_tpu_torch.numeric
+import pangulu_tpu_torch.ops.interface
 from pangulu_tpu_torch.models import (poisson2d, poisson3d,
                                       random_unsymmetric, smallworld,
                                       trefethen)
@@ -38,7 +42,7 @@ from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.testing import (BLOCKED_TOL, blocked_tiny_pivot_tile,
                                        diag_step, newton_inputs,
                                        newton_mixed_inputs, probe_inputs,
-                                       tiny_pivot_tile)
+                                       tiny_pivot_tile, wide_tiny_pivot_tile)
 from pangulu_tpu_torch.utils.perf import residual_norm
 
 pytestmark = pytest.mark.gpu
@@ -158,6 +162,102 @@ def test_getrf_blocked_tiny_pivot_kernel(cuda, dtype, nb, k1, k2):
     for g, r, (rtol, atol) in zip(got, kt.getrf_with_inverses(a),
                                   BLOCKED_TOL[dtype]):
         torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch", [1, 3])
+# splits 160 + 128 (a register-tile leaf), 160 + 140, 192 + 192, 256 +
+# 256
+@pytest.mark.parametrize("nb", [288, 300, 384, 512])
+def test_getrf_wide_kernel(cuda, dtype, nb, batch):
+    """K1 above nb = 256 (csrc/wide_lu.cuh): its plain twin (the
+    recursion with K1's own leaves, kernels_torch.k1_leaf) at the f32
+    contract, the rank-1 scan at the blocked-LU bound; one K1 launch,
+    10 device launches."""
+    rng = np.random.default_rng(nb)
+    a = torch.as_tensor(rng.standard_normal((batch, nb, nb))
+                        + nb * np.eye(nb), dtype=dtype, device=cuda)
+    kc.reset_launch_counts()
+    got = kc.getrf_with_inverses(a)
+    assert kc.LAUNCHES["getrf_with_inverses"] == 1
+    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 10}
+    for g, r in zip(got, kt.getrf_with_inverses_wide(a, leaf=kt.k1_leaf)):
+        torch.testing.assert_close(g, r, **TOL[dtype])
+    for g, r, (rtol, atol) in zip(got, kt.getrf_with_inverses(a),
+                                  BLOCKED_TOL[dtype]):
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb", [288, 384, 512])
+def test_getrf_wide_tiny_pivot_kernel(cuda, dtype, nb):
+    """A zero pivot in each half of the split becomes +tol, and the
+    result matches the twin."""
+    a = torch.as_tensor(wide_tiny_pivot_tile(nb, np.random.default_rng(nb)),
+                        dtype=dtype, device=cuda)
+    got = kc.getrf_with_inverses(a)
+    tol = float(torch.tensor(kt.DEFAULT_TOL[dtype], dtype=dtype))
+    m1 = kt.wide_split(nb)
+    assert float(got[0][0, 0]) == tol and float(got[0][m1, m1]) == tol
+    for g, r in zip(got, kt.getrf_with_inverses_wide(a, leaf=kt.k1_leaf)):
+        torch.testing.assert_close(g, r, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["r32", "r64"])
+@pytest.mark.parametrize("ordering", ["rcm", "nd"])
+@pytest.mark.parametrize("nb", [384, 512])
+def test_wide_slice_on_cuda(cuda, nb, ordering, dtype):
+    """init -> gstrf -> gstrs at nb > 256 on the card: the fused engine on
+    backend cuda, one K1 launch (10 device launches) a level and no
+    other kernel; the factor within the f32 contract of the same engine
+    with K1's plain twin on the same store (1e-12 in f64), and the
+    refined solve's residual."""
+    a = poisson3d(14)
+    h = pt.init(a, pt.InitOptions(nb=nb, dtype=dtype, ordering=ordering,
+                                  device="cuda"))
+    kc.reset_launch_counts()
+    pt.gstrf(h)
+    b = a.to_scipy() @ np.ones(a.n)
+    x = pt.gstrs(h, b)
+    bl = h.schedule.block_length
+    assert kc.LAUNCHES == _counts(getrf_with_inverses=bl)
+    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 10 * bl}
+    assert (h.perf.kernels["engine"], h.perf.kernels["backend"]) == (
+        "fused", "cuda")
+    assert residual_norm(a.to_scipy(), x, b) < 1e-10
+    plain = pt.numeric.LUFactorizer(
+        h.blocked, h.schedule, device="cuda",
+        backend=dataclasses.replace(
+            pt.ops.interface.get_backend("cuda"),
+            diag_factor_invert=lambda t, tol: kt.getrf_with_inverses_wide(
+                t, tol, leaf=kt.k1_leaf)))
+    nt = h.blocked.num_tiles
+    torch.testing.assert_close(h.factor_tiles[:nt], plain.factorize()[:nt],
+                               **TOL[h.blocked.torch_dtype])
+
+
+@pytest.mark.parametrize("dtype", ["cr32", "cr64"])
+def test_native_complex_on_cuda(cuda, dtype):
+    """complex_mode="native" on the card: the fused engine on backend
+    torch (no hand kernel takes complex tiles), its solution within
+    1e-6 (cr32) / 1e-9 (cr64) of the embedding's."""
+    from pangulu_tpu_torch.testing import with_imaginary_parts
+
+    a = with_imaginary_parts(poisson2d(16))
+    b = a.to_scipy() @ (np.ones(a.n) + 1j)
+    xs = []
+    for mode in ("native", "embed"):
+        h = pt.init(a, pt.InitOptions(nb=32, dtype=dtype, ordering="nd",
+                                      device="cuda", complex_mode=mode))
+        kc.reset_launch_counts()
+        pt.gstrf(h)
+        xs.append(pt.gstrs(h, b))
+        if mode == "native":
+            assert not any(kc.LAUNCHES.values())
+            assert (h.perf.kernels["engine"], h.perf.kernels["backend"]) \
+                == ("fused", "torch")
+    tol = 1e-6 if dtype == "cr32" else 1e-9
+    np.testing.assert_allclose(xs[0], xs[1], rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("gen,nb,dtype,uch", [

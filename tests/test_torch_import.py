@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from pangulu_tpu_torch import InitOptions, init
+from pangulu_tpu_torch import InitOptions, gstrf, gstrs, init
 from pangulu_tpu_torch.models import poisson2d
 from pangulu_tpu_torch.ops import build, kernels_cuda
 
@@ -185,8 +185,10 @@ def test_kernel_path_rejects_unsupported_inputs(monkeypatch):
     _route_to_kernel_without_launching(monkeypatch)
     with pytest.raises(TypeError, match="float32 or float64"):
         kernels_cuda.getrf_with_inverses(torch.eye(4, dtype=torch.float16))
+    # K1 takes nb = 512 (the wide recursion); K2's limit stays at 256
     with pytest.raises(ValueError, match="nb <= 256"):
-        kernels_cuda.getrf_with_inverses(torch.eye(512))
+        kernels_cuda.mega_factorize(torch.zeros((2, 512, 512)), None,
+                                    nb=512, tol=1e-8, bl=1)
     with pytest.raises(ValueError, match="contiguous"):
         kernels_cuda.getrf_with_inverses(torch.eye(8)[:, ::2][:4])
 
@@ -200,10 +202,11 @@ def test_other_device_raises():
 @pytest.mark.parametrize("opts,exc,item", [
     # multi-device runs need a torch.distributed group of p·q ranks
     (dict(mesh_shape=(2, 2)), ValueError, "no process group|none exists"),
-    (dict(dtype="cr32", complex_mode="native"), NotImplementedError,
-     "Queue 1 item 4"),
-    (dict(dtype="cr64", complex_mode="native"), NotImplementedError,
-     "Queue 1 item 4"),
+    # native complex tiles run on one device's dense store only
+    (dict(dtype="cr32", complex_mode="native", tile_storage="compressed"),
+     NotImplementedError, "Queue 1 item 6"),
+    (dict(dtype="cr64", complex_mode="native", mesh_shape=(2, 2)),
+     NotImplementedError, "Queue 1 item 6"),
     (dict(profile_dir="/nonexistent"), NotImplementedError, "not ported"),
 ])
 def test_unported_options_raise(opts, exc, item):
@@ -211,9 +214,41 @@ def test_unported_options_raise(opts, exc, item):
         init(poisson2d(4), InitOptions(nb=4, device="cpu", **opts))
 
 
-def test_nb_above_limit_raises():
-    with pytest.raises(ValueError, match=r"nb <= 256.*ROADMAP W4"):
-        init(poisson2d(4), InitOptions(nb=512, device="cpu"))
+@pytest.mark.parametrize("opts", [dict(tile_storage="compressed"),
+                                  dict(mesh_shape=(2, 2))])
+def test_nb_above_limit_raises(opts):
+    """nb > 256 runs on one device's dense store; the compressed store
+    and a mesh keep the limit, naming their ROADMAP item."""
+    with pytest.raises(NotImplementedError, match=r"nb=512 > 256.*Queue 1 "
+                                                  r"item 5"):
+        init(poisson2d(4), InitOptions(nb=512, device="cpu", **opts))
+
+
+@pytest.mark.parametrize("dtype", ["r32", "r64"])
+def test_nb512_initialises_and_routes_to_fused(dtype):
+    """nb = 512 initialises, and gstrf takes the fused engine (the mega
+    engines stop at 256), with K1's plain version on the CPU."""
+    h = init(poisson2d(30), InitOptions(nb=512, dtype=dtype, device="cpu",
+                                        check=True))
+    gstrf(h)
+    assert h.perf.kernels["engine"] == "fused"
+    assert h.perf.kernels["backend"] == "torch"
+    assert h.perf.kernels["gstrf_residual"] < 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["cr32", "cr64"])
+def test_native_complex_initialises(dtype):
+    """complex_mode="native" keeps complex tiles and solves on the fused
+    engine with the torch backend."""
+    a = poisson2d(6)
+    h = init(a, InitOptions(nb=8, dtype=dtype, device="cpu",
+                            complex_mode="native"))
+    assert h.complex_embed is None and h.blocked.dtype.kind == "c"
+    gstrf(h)
+    assert h.perf.kernels["engine"] == "fused"
+    b = a.to_scipy() @ (np.ones(a.n) + 1j)
+    x = gstrs(h, b)
+    assert np.abs(x - (1 + 1j)).max() < 1e-5
 
 
 def test_native_rebuild_is_keyed_by_source(monkeypatch, tmp_path):
