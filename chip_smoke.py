@@ -215,16 +215,21 @@ CUDA toolkit (nvcc).  It
      JSON line (with each probe's bound on the SMs it runs on);
  9b. drives the fused and levels engines (xla_engines_phase; the JAX
      package's XLA engines, the only ones above nb = 256 and for native
-     complex; step 1 also fails if a float instance of the 8 kernels of
-     K1 for wide tiles, csrc/wide_lu.cuh, spills): (a) K1 at nb = 288,
-     384 and 512, float and double, batch 1 and 4, against its plain
-     twin (the recursion with K1's own leaves) at the contract and the
-     rank-1 scan at BLOCKED_TOL, and with a zero pivot in each half of
-     the split; one K1 launch of 10 device launches a call; true f32 at
-     nb = 512; per launch device ms beside the bound, the twin and
+     complex; step 1 also fails if a float instance of the 10 kernels of
+     K1 for wide tiles, csrc/wide_lu.cuh, spills): (a) K1's cluster
+     kernel's plan (CTAs, rows, shared memory, stripe) from the C side
+     against kernels_cuda.wide_plan at every nb up to 512, and the
+     clusters that fit; K1 at nb = 288, 384, 512 and 640, float and
+     double, batch 1 and 4, against its plain twin (kernels_torch.
+     k1_wide: the blocked step over the whole tile, on the leaves of the
+     recursion at 640) at the contract and the rank-1 scan at
+     BLOCKED_TOL, and with zero pivots at 0 and wide_split(nb); one K1
+     launch a call, of one device launch up to 512 (7 at 640); true f32
+     at nb = 512; per launch device ms beside the bound, the twin and
      lu_factor_ex; (b) init -> gstrf -> gstrs on poisson3d(32), nb=512,
      r32, rcm and nd, dispatch auto: engine fused on backend cuda, K1
-     once a level (64) and no other kernel, gstrf residual on the card
+     once a level (64, one device launch each) and no other kernel,
+     gstrf residual on the card
      < 1e-5, refined solve residual < 1e-10, ms per factorization and
      per solve, one traced factorization each (K1's device ms and
      share); (c) the same at r64 rcm (< 1e-12); (d) levels with
@@ -252,8 +257,8 @@ CUDA toolkit (nvcc).  It
      newton_loop at G = 16 on clusters of kernels_cuda.NEWTON_CLUSTER;
      launches from the probes' path, none on the solver's), K1 at
      nb = 512 and 384 (getrf_with_inverses@nb=512 and @nb=384, the
-     recursion of csrc/wide_lu.cuh; launches from step 9b's rcm path
-     at 512 and nd gstrf at 384), with
+     cluster kernel of csrc/wide_lu.cuh; launches from step 9b's rcm
+     path at 512 and nd gstrf at 384), with
      max_rel_err, their
      largest difference from the plain float32 version over max |plain
      f64| (P3: each row's):
@@ -288,6 +293,7 @@ Details go to pangulu_tpu_torch/_build/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import pathlib
 import re
@@ -313,7 +319,8 @@ SOURCE = {"getrf_with_inverses": "pangulu_tpu_torch/csrc/tile_lu.cuh",
 # own (their launch in SRC); K1's cluster kernel is in SRC
 SOURCE_256 = {"mega_solve": "pangulu_tpu_torch/csrc/solve_clusters.cuh",
               "mega_solve_groups": "pangulu_tpu_torch/csrc/solve_clusters.cuh"}
-# above nb = 256 K1 is the recursion of csrc/wide_lu.cuh on its kernels
+# above nb = 256 K1 is the cluster kernel of csrc/wide_lu.cuh (and a
+# recursion on it above 512)
 SOURCE_WIDE = "pangulu_tpu_torch/csrc/wide_lu.cuh"
 # the dense store's kernels (each also at nb=256) and the compressed
 # store's (csrc/compressed.cuh)
@@ -367,9 +374,10 @@ COMPRESSED_INSTANCES = 16
 # and with them in either type on clusters of 4, 8, 16; P3:
 # newton_loop_kernel<type, C> for float and double, C = 4, 8, 16
 PROBE_INSTANCES = 20
-# K1 above nb = 256 (csrc/wide_lu.cuh): wide_gemm_kernel<type, op> for
-# float and double and the three store ops, wide_copy_kernel<type>
-WIDE_INSTANCES = 8
+# K1 above nb = 256 (csrc/wide_lu.cuh): lu_wide_kernel<type, rows> for
+# float and double; above 512 wide_gemm_kernel<type, op> for float and
+# double and the three store ops, wide_copy_kernel<type>
+WIDE_INSTANCES = 10
 # SMs of an H100 SXM: a probe's bound on the s SMs it runs on is the
 # card's operations bound times this / s (kept in the details file)
 SMS = 132
@@ -2399,6 +2407,9 @@ def probes_phase(dev) -> tuple:
 
 
 WIDE_NBS = (288, 384, 512)
+# K1 above 512: the recursion on the cluster kernel's leaves (640 -> 320
+# + 320), checked in xla_engines_phase (a)
+WIDE_SPLIT_NB = 640
 
 
 def factor_residual_device(h, tiles) -> float:
@@ -2431,23 +2442,28 @@ def factor_residual_device(h, tiles) -> float:
 
 def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
                       nx_c: int = 24, nb_c: int = 128,
-                      k1_nbs=WIDE_NBS) -> tuple:
+                      k1_nbs=WIDE_NBS, split_nb=WIDE_SPLIT_NB) -> tuple:
     """The fused and levels engines (numeric.py, sptrsv.py; the JAX
     package's XLA engines) on the card, with K1 for tiles wider than 256
     (csrc/wide_lu.cuh) as their diagonal step:
 
-      (a) K1 at each nb of k1_nbs, float and double, batch 1 and 4,
-          against its plain twin (kernels_torch.getrf_with_inverses_wide
-          with K1's own leaves, k1_leaf) at TOL_F32 / TOL_F64 and the
-          rank-1 scan at BLOCKED_TOL, and on a tile with a zero pivot in
-          each half of the split; one K1 launch and 10 device launches a
-          call; true f32 at the widest nb (the f32 kernel's error against
-          the f64 twin at most 2x the f32 twin's); per launch device ms
-          (median of 7) beside its bound, the twin's ms and
-          torch.linalg.lu_factor_ex(pivot=False);
+      (a) the cluster kernel's plan from the C side (plu_wide_plan)
+          against kernels_cuda.wide_plan at every nb up to 512, both
+          types, and the clusters of the widest that fit at once; K1 at
+          each nb of k1_nbs and at split_nb, float and double, batch 1
+          and 4, against its plain twin (kernels_torch.k1_wide: the
+          blocked step over the whole tile up to 512, the recursion on
+          such leaves above) at TOL_F32 / TOL_F64 and the rank-1 scan at
+          BLOCKED_TOL, and on a tile with zero pivots at 0 and at
+          wide_split(nb); one K1 launch a call, of one device launch up
+          to 512 (7 at split_nb); true f32 at the widest nb of k1_nbs
+          (the f32 kernel's error against the f64 twin at most 2x the
+          f32 twin's); per launch device ms (median of 7) beside its
+          bound, the twin's ms and torch.linalg.lu_factor_ex(pivot=
+          False);
       (b) poisson3d(nx) at nb, r32, rcm and nd: init -> gstrf -> gstrs,
           dispatch "auto": engine fused on backend cuda, exactly one K1
-          launch a level (10 device launches each) and no other kernel
+          launch a level (one device launch each) and no other kernel
           launch, gstrf residual (on the card) < 1e-5, solve residual
           after the default refinement < 1e-10; ms per factorization and
           per solve (median of 5); one traced factorization of each (K1's
@@ -2480,23 +2496,47 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
     out, entries, launches = {"K1": {}}, {}, {}
     rng = np.random.default_rng(18)
 
-    def twin(a):
-        return kt.getrf_with_inverses_wide(a, leaf=kt.k1_leaf)
+    twin = kt.k1_wide
 
-    def k1_counts(what, calls):
+    def k1_counts(what, calls, w=nb):
+        each = 1 if w <= kt.WIDE_LEAF else 7
         got = (kc.LAUNCHES["getrf_with_inverses"],
                kc.DEVICE_LAUNCHES["getrf_with_inverses"])
-        if got != (calls, 10 * calls) or any(
+        if got != (calls, each * calls) or any(
                 v for k, v in kc.LAUNCHES.items()
                 if k != "getrf_with_inverses"):
             fail(f"{what}: launches {dict(kc.LAUNCHES)}, K1 device "
-                 f"launches {got[1]}; expected K1 {calls} (10 device "
-                 "launches each) and no other kernel")
+                 f"launches {got[1]}; expected K1 {calls} ({each} device "
+                 "launch(es) each) and no other kernel")
 
     # ---- (a) K1 for wide tiles against its twin ------------------------
     print("xla engines (a): K1 for nb > 256 (csrc/wide_lu.cuh) against its "
-          "plain twin (the recursion with K1's leaves) and the rank-1 scan")
-    for w in k1_nbs:
+          "plain twin (the blocked step; the recursion on its leaves above "
+          "512) and the rank-1 scan")
+    lib = kc.library().lib
+    plan = (ctypes.c_int * 4)()
+    fit = ctypes.c_int()
+    out["plan"] = {}
+    for dt in (torch.float32, torch.float64):
+        size = torch.empty((), dtype=dt).element_size()
+        for w in range(1, kt.WIDE_LEAF + 1):
+            want = kc.wide_plan(w, dt)
+            if lib.plu_wide_plan(w, size, plan) != 0 or tuple(plan) != (
+                    want["ctas"], want["rows"], want["smem"],
+                    want["stripe"]):
+                fail(f"K1's cluster plan at nb={w} {dt}: the C side says "
+                     f"{tuple(plan)}, kernels_cuda.wide_plan {want}")
+        s = "f32" if dt == torch.float32 else "f64"
+        if getattr(lib, f"plu_wide_fit_{s}")(dev.index, kt.WIDE_LEAF,
+                                             ctypes.byref(fit)) != 0:
+            fail(f"plu_wide_fit_{s} failed")
+        out["plan"][str(dt)] = dict(
+            **{str(w): kc.wide_plan(w, dt) for w in k1_nbs},
+            clusters_that_fit=fit.value)
+        print(f"  {dt}: plans agree at nb = 1..{kt.WIDE_LEAF}; at "
+              f"{kt.WIDE_LEAF} {kc.wide_plan(kt.WIDE_LEAF, dt)}, "
+              f"{fit.value} clusters fit at once")
+    for w in (*k1_nbs, split_nb):
         row = {}
         for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
             err = 0.0
@@ -2505,7 +2545,7 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
                                     + w * np.eye(w), dtype=dt, device=dev)
                 kc.reset_launch_counts()
                 got = kc.getrf_with_inverses(a)
-                k1_counts(f"K1 nb={w} {dt} batch {batch}", 1)
+                k1_counts(f"K1 nb={w} {dt} batch {batch}", 1, w)
                 for n, g, r in zip(("f", "linv", "uinv"), got, twin(a)):
                     err = max(err, compare(f"{dt} nb={w} batch {batch} {n} "
                                            "(twin)", g, r, *tol))
@@ -2545,7 +2585,7 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
     out["K1_true_f32"] = true
     print("  K1 per launch (back-to-back launches, device time, median of "
           "7) beside its bound, its twin and lu_factor_ex(pivot=False)")
-    for w in k1_nbs:
+    for w in (*k1_nbs, split_nb):
         for dt in (torch.float32, torch.float64):
             for batch in (1, 4):
                 a = torch.as_tensor(rng.standard_normal((batch, w, w))
@@ -2636,7 +2676,7 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
         tr = profile(factor, setup=setup)
         k1 = {n: k for n, k in tr["kernels"].items()
               if any(s in n for s in ("lu_cluster_kernel", "getrf_inv_kernel",
-                                      "wide_gemm_kernel",
+                                      "lu_wide_kernel", "wide_gemm_kernel",
                                       "wide_copy_kernel"))}
         k1_ms = sum(k["device_ms"] for k in k1.values())
         rest = tr["busy_ms"] - k1_ms
@@ -2904,15 +2944,16 @@ def main() -> int:
              f"ptxas says {probe_ptx}")
     detail["probe_ptxas"] = probe_ptx
     wide_ptx = {n: i for n, i in ptx.items()
-                if re.search(r"plu\d+wide_(gemm|copy)_kernel", n)}
-    print("ptxas: K1's kernels for nb > 256 (wide_gemm<type, store op>, "
-          "wide_copy<type>; csrc/wide_lu.cuh)")
+                if re.search(r"plu\d+(lu_wide|wide_gemm|wide_copy)_kernel",
+                             n)}
+    print("ptxas: K1's kernels for nb > 256 (lu_wide<type, rows>, "
+          "wide_gemm<type, store op>, wide_copy<type>; csrc/wide_lu.cuh)")
     for name, info in sorted(wide_ptx.items()):
         print(f"  {name}: {info.get('registers')} registers, "
               f"{info.get('spill_bytes')} spill bytes")
     if len(wide_ptx) != WIDE_INSTANCES or any(
             i.get("spill_bytes") != 0 for n, i in wide_ptx.items()
-            if re.search(r"wide_\w+_kernelIf", n)):
+            if re.search(r"(wide|gemm|copy)_kernelIf", n)):
         fail(f"K1 for nb > 256: expected {WIDE_INSTANCES} instances, the "
              f"float ones without spills; ptxas says {wide_ptx}")
     detail["wide_ptxas"] = wide_ptx

@@ -6,7 +6,8 @@
 // Every entry runs on the caller's stream, allocates nothing, never
 // synchronises, and returns the first CUDA error (cudaGetLastError after
 // each launch), 0 on success.  Tiles are row-major nb x nb, nb <= 256,
-// except K1's, which takes wider tiles (wide_lu.cuh).
+// except K1's, which takes wider tiles (wide_lu.cuh: one thread block
+// cluster launch up to nb = 512, a recursion on such launches above).
 //
 // K1 getrf_with_inverses
 //   Replaces pangulu_tpu/ops/kernels_pallas.py getrf_with_inverses
@@ -47,6 +48,10 @@
 //   and a diagonal warp of its own with lookahead (a block of 288
 //   threads caps registers at 168).  A batch of 132 tiles in f64 runs
 //   in 4 waves of one CTA an SM.
+//   Above nb = 256 (to 512) a tile goes to one cluster of ceil(nb / 32)
+//   CTAs of 32 rows each, the same panel step with the warps over
+//   columns and lookahead on the diagonal chain (wide_lu.cuh, whose
+//   note gives its design); wider tiles recurse on such launches.
 
 // K2 mega_factorize
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_factorize
@@ -473,7 +478,7 @@ __device__ __forceinline__ void rotate_left(T (&x)[kPanel]) {
 // Step 1, by one warp, in place on the 32 x 32 block at w (row stride
 // ldw, 16-byte aligned rows): F11, then L11^-1 below the diagonal and
 // U11^-1 on and above it.  L and U also go to the factor F (global,
-// row stride nb; rows and columns of the tile from k0, those < nb).
+// row stride ldf; rows and columns of the tile from k0, those < nb).
 //  - LU with L^-1 by forward Gauss–Jordan, K1's body on 32 columns:
 //    lane i holds row i.  Row k goes through shared memory (rowbuf: 2 x
 //    40 values, double-buffered so that one __syncwarp a step
@@ -496,12 +501,12 @@ __device__ __forceinline__ void rotate_left(T (&x)[kPanel]) {
 // their ~10^4 instructions, which run once a panel.
 template <typename T>
 __device__ __forceinline__ void diag_panel(T* w, int ldw, T* rowbuf, T* F,
-                                           int k0, int nb, T tol) {
+                                           int ldf, int k0, int nb, T tol) {
   using Q = Vec16<T>;
   constexpr int QP = kPanel / Q::N;  // 16-byte pieces of a row
   const int lane = threadIdx.x & 31;
   const bool in = k0 + lane < nb;
-  T* frow = F + (size_t)(k0 + lane) * nb + k0;
+  T* frow = F + (size_t)(k0 + lane) * ldf + k0;
   T x[kPanel];
 #pragma unroll
   for (int q = 0; q < QP; ++q)
@@ -632,8 +637,8 @@ __global__ void __launch_bounds__(kClThreads, 1)
     T* S = UI + (size_t)k0 * nb;
     if (mine) {
       if (warp == 0)  // 1. the diagonal block
-        diag_panel(W + (size_t)lr * C::LDW + k0, C::LDW, rowbuf, F, k0, nb,
-                   tol);
+        diag_panel(W + (size_t)lr * C::LDW + k0, C::LDW, rowbuf, F, nb, k0,
+                   nb, tol);
       __syncthreads();
       // 2. the owner's rows P into its R and, their part inside the
       // tile, into S
@@ -1472,7 +1477,8 @@ int mega_solve_groups(T* x, T* y, int nrhs, const T* tiles, const T* invs,
 }  // namespace plu
 
 // ------------------------------------------------------ C interface
-// K1 for tiles wider than 256, on the kernels above
+// K1 for tiles wider than 256: its cluster kernel up to 512, built on
+// diag_panel and the atoms above, and the recursion beyond
 #include "wide_lu.cuh"
 
 #define PLU_STREAM(s) reinterpret_cast<cudaStream_t>(s)
@@ -1481,7 +1487,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 15; }
+int plu_kernels_abi() { return 16; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1533,6 +1539,44 @@ PLU_GETRF_INV_WIDE(plu_getrf_inv_wide_f64, double)
 long long plu_wide_work_elems(int nb) {
   return (long long)plu::wide_work_elems(nb);
 }
+
+// The cluster kernel's plan for a tile of 1 <= nb <= 512 of elements of
+// elem_bytes (4 or 8): out[0..3] = CTAs a cluster, rows a CTA, dynamic
+// shared memory a CTA, columns of a warp's stripe (kernels_cuda.
+// wide_plan mirrors it).
+int plu_wide_plan(int nb, int elem_bytes, int* out) {
+  if (nb < 1 || nb > plu::kWideLeaf || (elem_bytes != 4 && elem_bytes != 8))
+    return cudaErrorInvalidValue;
+  const plu::WidePlan pl = elem_bytes == 4 ? plu::wide_plan<float>(nb)
+                                           : plu::wide_plan<double>(nb);
+  out[0] = pl.ctas;
+  out[1] = pl.rows;
+  out[2] = pl.smem;
+  out[3] = pl.stripe;
+  return cudaSuccess;
+}
+
+// The cluster kernel alone (lookahead 0, 1 or 2; clk: nullptr, or 16 *
+// plu_wide_clk_slots() device readings that receive the clock64 phases
+// of cluster 0), and clusters of a tile of nb that fit at once: a
+// measurement, on no path.
+int plu_wide_clk_slots() { return plu::kWideClk; }
+#define PLU_WIDE_PROBE(NAME, FIT, T)                                          \
+  int NAME(int dev, const T* a, T* f, T* linv, T* uinv, int batch, int nb,  \
+           double tol, int lookahead, long long* clk, void* st) {           \
+    cudaError_t e = cudaSetDevice(dev);                                      \
+    if (e != cudaSuccess) return e;                                          \
+    return plu::wide_probe(a, f, linv, uinv, batch, nb, tol, lookahead, clk, \
+                           PLU_STREAM(st));                                  \
+  }                                                                          \
+  int FIT(int dev, int nb, int* fit) {                                       \
+    cudaError_t e = cudaSetDevice(dev);                                      \
+    if (e != cudaSuccess) return e;                                          \
+    if (nb < 1 || nb > plu::kWideLeaf) return cudaErrorInvalidValue;         \
+    return plu::wide_fit<T>(plu::wide_plan<T>(nb).ctas, fit);                \
+  }
+PLU_WIDE_PROBE(plu_wide_probe_f32, plu_wide_fit_f32, float)
+PLU_WIDE_PROBE(plu_wide_probe_f64, plu_wide_fit_f64, double)
 
 // K1 in place on the tiles ids of a store, inverses to invs slots
 // inv_ids (K4's diagonal step alone).

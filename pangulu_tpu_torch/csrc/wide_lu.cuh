@@ -2,46 +2,74 @@
 //
 // Replaces pangulu_tpu/ops/kernels_pallas.py getrf_with_inverses
 // (_getrf_inv_kernel -> _lu_inverses, pallas_call at :605) for the tiles
-// the JAX package's fused and levels engines give it at nb = 384 or 512:
-// one [nb, nb] tile in, (f, L^-1, U^-1) out.  The TPU kernel holds the
-// whole tile in VMEM and scans it.  On the H100 a tile of 512 is 1 MiB
-// in float and 2 MiB in double; K1's cluster kernel for 128 < nb <= 256
-// (lu_cluster_kernel) keeps a 256-row working matrix and its panel rows
-// in the shared memory of 2 (float) or 4 (double) CTAs, and at 512 a
-// CTA would need its own rows and 128 KiB of panel rows in double, above
-// the 227 KB a block may take.  So a wide tile is factored by the
-// recursive block step of the JAX package's XLA diagonal step
-// (pangulu_tpu/ops/kernels_jax.py:200-248), split at wide_split (the JAX
-// _split: about half, a multiple of 32), on K1's own kernels:
-//   1. (F11, L11^-1, U11^-1) of A11: K1 (DiagStep) on a copy of A11, or
-//      recursively when A11 is wider than 256;
+// the JAX package's fused and levels engines give it above 256: one
+// [nb, nb] tile in, (f, L^-1, U^-1) out.  The TPU kernel holds the tile
+// in VMEM; its MXU mode (_lu_blocked, r = 32, :261) runs in panels of 32.
+//
+// Up to nb = kWideLeaf = 512 a call is one launch, lu_wide_kernel: a
+// thread block cluster a tile of the batch, ceil(nb / 32) CTAs of 32
+// rows each (9 at 288, 16 at 512: above 8, the card's non-portable
+// cluster sizes).  W, the tile padded with the identity to the cluster's
+// rows, lives in the CTAs' shared memory, each CTA its own rows.  The
+// step is K1's cluster kernel at nb = 256 (lu_cluster_kernel; its note
+// in lu_kernels.cu gives the blocked Gauss–Jordan) run over the whole
+// tile: per panel P of 32 columns the owner's warp factors the diagonal
+// block (diag_panel), every CTA forms a_i = W[i, P]·U11^-1 for its rows
+// and W[i, j] -= a_i·R[:, j], R = L11^-1·(the panel's rows).  What the
+// wider tile changes:
+//   - A CTA holds one panel's height of rows, so its 8 warps split
+//     columns.  The panel's rows go through L2: their owner writes them
+//     to staging rows (UI's rows P, which the final store overwrites),
+//     and each warp reads its own 32-column stripes of them straight
+//     into registers as tensor-core fragments, forms its stripe of R in
+//     a shared buffer of its own and updates its stripe of W.  No block
+//     barrier between stripes, and R never sits whole in a CTA: at 512
+//     in double it would take 128 KiB beside W's 129 KiB, over the 227
+//     KB a block may have.  No CTA reads another's shared memory.  (R
+//     formed once by the owner and staged measured slower: its product
+//     and 130 KB of stores a panel then sit on the chain; PERF.md.)
+//   - Lookahead: in the owner of panel p + 1, warps 0-3 update that
+//     panel's stripe first, 8 columns each, and meet at a named barrier;
+//     then warp 0 factors panel p + 1's diagonal block while the other
+//     warps finish panel p.  The rows of panel p + 1 go to staging as
+//     their stripes finish.  (Warp 0 alone on that stripe, warp 4 idle
+//     beside the diagonal warp, the other warps held until the stripe
+//     is done, and its loads issued at the cluster barrier all measured
+//     slower: tools/probe_k1_wide.py, PERF.md.  The lookahead modes
+//     stay a run-time argument: the float instance sits at 254 of 255
+//     registers, and the same kernel without the modes spilled.)
+//   - One cluster barrier a panel (its staging rows complete) and one
+//     before the final store.
+// Bound on an H100 at nb = 512 in float, batch 1: the tile read once
+// and f, L^-1 and U^-1 written once, 4 MiB, 1.3e-03 ms at 3.35 TB/s;
+// ~1.8e8 operations (lu_inverse_flop), 2.7e-03 ms at 67 TFLOP/s, less
+// on tensor cores.  In fact the chain of 16 panels, each the diagonal
+// warp's 32 dependent steps (~10K cycles in f32, ~18K in f64; PERF.md),
+// a cluster barrier, the diagonal block's load through L2, the a_i and
+// the stripe of panel p + 1; PERF.md gives the clock64 phases
+// (tools/probe_k1_wide.py).
+//
+// Above 512 the tile is factored by the recursive block step of the
+// JAX package's XLA diagonal step (pangulu_tpu/ops/kernels_jax.py:
+// 200-248), split at wide_split (the JAX _split: about half, a multiple
+// of 32), with the cluster kernel on the leaves of at most 512, read
+// and written in place as blocks of the tile:
+//   1. (F11, L11^-1, U11^-1) of A11: lu_wide_kernel on the block, or
+//      recursively when A11 is wider than 512;
 //   2. U12 = L11^-1·A12 and L21 = A21·U11^-1 (one launch, two products);
 //   3. S22 = A22 - L21·U12 into a scratch block (a copy, then a product);
-//   4. (F22, L22^-1, U22^-1) of S22: K1 in place on the scratch block;
+//   4. (F22, L22^-1, U22^-1) of S22, as step 1;
 //   5. Tl = L21·L11^-1 and Tu = U12·U22^-1, then L^-1[2, 1] = -L22^-1·Tl
 //      and U^-1[1, 2] = -U11^-1·Tu (two launches of two products).
 // The products are tile_gemm's 64 x 64 windows on tensor cores (3xTF32
-// for float, DMMA for double), as in K2's Schur stage; every operand is a
-// block of a row-major matrix with its own row stride, so no block is
-// copied for a product.  The leaves' results go to their blocks of f,
-// L^-1 and U^-1 with one copy launch, and the zero blocks of the two
-// inverses are written with the copy of A22.  The tiny-pivot rule holds
-// in each leaf, where K1 applies it.  At 256 < nb <= 512 a call is 10
-// device launches: 2 of K1, 1 copy in (A11), 1 of A22 with the zero
-// blocks, 2 out (the leaves' results), 4 of products; nb above 512
-// recurses once more.  A call counts as one K1 launch, its device
-// launches beside it.
+// for float, DMMA for double), as in K2's Schur stage, on strided
+// blocks.  L^-1's and U^-1's zero blocks are written with the copy of
+// A22.  A call counts as one K1 launch, its device launches beside it:
+// 1 up to 512, 7 from 513 to 1024.
 //
-// Bound on an H100 at nb = 512 in float, batch 1: the tile read once and
-// f, L^-1 and U^-1 written once, 4 MiB, 1.3e-03 ms at 3.35 TB/s; its
-// ~1.8e8 operations (lu_inverse_flop) 2.7e-03 ms at 67 TFLOP/s, less on
-// tensor cores.  In fact a chain of dependent launches: the two leaves'
-// cluster K1 (~0.13 ms each at 256, PERF.md) and six stages of products
-// that fill 16 of the 132 SMs each.  A one-launch K1 at 512 (a cluster
-// of 8 CTAs in float, the panel rows streamed in double) is ROADMAP W4.
-//
-// The plain twin is kernels_torch.getrf_with_inverses_wide with
-// kernels_torch.k1_leaf at the leaves.
+// The plain twin is kernels_torch.getrf_with_inverses_blocked up to 512
+// and kernels_torch.getrf_with_inverses_wide with those leaves above
+// (kernels_torch.k1_wide).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,6 +77,524 @@
 #include "tile_gemm.cuh"
 
 namespace plu {
+
+// ---------------------------------------------- the cluster kernel
+constexpr int kWideLeaf = 512;  // the widest tile one cluster takes
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideMaxCtas = 16;  // the card's largest cluster
+// lookahead on the main path (lu_wide_kernel's note): 2, warps 0-3
+// update the next panel's stripe before warp 0 factors its block; 1
+// (warp 0 alone) and 0 (none) only in measurements
+constexpr int kWideLookahead = 2;
+// clock64 readings a CTA of a timed launch: start, tile loaded, 8 a
+// panel (top, barrier passed, L11^-1 and U11^-1 loaded, a_i formed,
+// warp 0's stripes done, panel done, diagonal block start and end),
+// after the loop, end
+constexpr int kWideClkPanel = 8;
+constexpr int kWideClk = 4 + kWideClkPanel * (kWideLeaf / kPanel);
+
+// Rows a CTA holds, by type (kernels_cuda.WIDE_ROWS mirrors it).
+template <typename T>
+struct WideRows {
+  static constexpr int value = 32;
+};
+
+// The shared memory of a CTA (elements of T): W (its RPC rows of the
+// padded tile, ldw apart: np + 4 keeps A fragments free of bank
+// conflicts), L11^-1, the rows' a_i, a 32 x 32 stripe of R a warp (U11^-1
+// sits in warp 0's while the a_i form) and the diagonal warp's two
+// broadcast rows.
+template <typename T, int RPC>
+struct WideCluster {
+  using Mt = Mma<T>;
+  static_assert(RPC % kPanel == 0, "whole panels a CTA");
+  static constexpr int MF = RPC / Mt::M;     // MMA row blocks of the rows
+  static constexpr int PF = kPanel / Mt::M;  // and of a panel
+  static constexpr int KS = kPanel / Mt::K;  // k steps of a panel
+  static constexpr int BE = Mt::K / 4;  // B values a lane a (k step, n)
+  static constexpr int LDA = kPanel + Mt::PAD_A;  // L11^-1, a_i
+  static constexpr int LDS = kPanel + Mt::PAD_B;  // R's stripes, U11^-1
+  __host__ __device__ static constexpr int ldw(int np) { return np + 4; }
+  __host__ __device__ static constexpr size_t smem_bytes(int np) {
+    return ((size_t)RPC * ldw(np) + (size_t)(kPanel + RPC) * LDA +
+            (size_t)kWideWarps * kPanel * LDS + 2 * kRowBuf) *
+           sizeof(T);
+  }
+};
+
+// The launch's plan for a tile of n: CTAs a cluster, rows a CTA, dynamic
+// shared memory a CTA, columns of a warp's stripe.
+struct WidePlan {
+  int ctas, rows, smem, stripe;
+};
+template <typename T>
+WidePlan wide_plan(int n) {
+  constexpr int R = WideRows<T>::value;
+  const int cl = (n + R - 1) / R;
+  return {cl, R, (int)WideCluster<T, R>::smem_bytes(cl * R), kPanel};
+}
+
+// One launch: tiles of n x n at a + b * sa (row stride lda) into f,
+// linv, uinv + b * so (row stride ldo); f may not be a.
+template <typename T>
+struct WideTile {
+  const T* a;
+  T* f;
+  T* linv;
+  T* uinv;
+  size_t sa, so;
+  int lda, ldo, n;
+  T tol;
+  int lookahead;
+  long long* clk;  // kWideClk readings a CTA of cluster 0, or nullptr
+};
+
+// B fragments from a lane's values: rows t (and t + 4) of a k step.
+__device__ __forceinline__ void bfrag_of(Mma<float>::BFrag& f,
+                                         const float (&v)[2]) {
+  split_tf32(v[0], f.big[0], f.small[0]);
+  split_tf32(v[1], f.big[1], f.small[1]);
+}
+__device__ __forceinline__ void bfrag_of(Mma<double>::BFrag& f,
+                                         const double (&v)[1]) {
+  f.v = v[0];
+}
+
+// By one warp: the panel's staging rows S (row stride ld: the rows of
+// panel k0), columns [c, c + 8 NFW), as B fragments of the lane, through
+// L2; outside the tile, the padding's identity.
+template <typename T, int RPC, int NFW>
+__device__ __forceinline__ void load_stripe(
+    T (&v)[WideCluster<T, RPC>::KS][NFW][WideCluster<T, RPC>::BE],
+    const T* S, int ld, int k0, int c, int n) {
+  using C = WideCluster<T, RPC>;
+  using Mt = Mma<T>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < C::KS; ++kk)
+#pragma unroll
+    for (int nf = 0; nf < NFW; ++nf)
+#pragma unroll
+      for (int e = 0; e < C::BE; ++e) {
+        const int i = kk * Mt::K + (lane & 3) + 4 * e;
+        const int j = c + nf * Mt::N + (lane >> 2);
+        v[kk][nf][e] = k0 + i < n && j < n ? __ldcg(S + (size_t)i * ld + j)
+                                           : T(k0 + i == j ? 1 : 0);
+      }
+}
+
+// By one warp, columns [c, c + 8 NFW) of stripe s at panel p (its
+// first column k0): W[i, c..] -= a_i·R[:, c..] for the CTA's rows below
+// P, and right of P for the rest, with R = L11^-1·(the staging rows S),
+// or L11^-1 itself on stripe p, formed in the warp's buffer Rw; the
+// owner of P (mine, its rows at lr) makes its rows X_PD left of P
+// (L^-1's rows P) and 0 right of it (U^-1's rows P start there), with
+// U12 to the factor.
+template <typename T, int RPC, int NFW>
+__device__ __forceinline__ void wide_stripe(T* W, int ldw, const T* Lb,
+                                            const T* Ab, T* Rw, T* F,
+                                            const T* S, int ld, int r0,
+                                            int k0, int lr, bool mine, int s,
+                                            int p, int c, int n) {
+  using C = WideCluster<T, RPC>;
+  using Mt = Mma<T>;
+  constexpr int NW = NFW * Mt::N;  // columns
+  const int lane = threadIdx.x & 31, kb = k0 + kPanel;
+  if (s == p) {
+    for (int e = lane; e < kPanel * NW; e += 32)
+      Rw[e / NW * C::LDS + e % NW] = Lb[e / NW * C::LDA + c - k0 + e % NW];
+  } else {
+    T raw[C::KS][NFW][C::BE];
+    load_stripe<T, RPC, NFW>(raw, S, ld, k0, c, n);
+    T acc[C::PF][NFW][Mt::NC];
+#pragma unroll
+    for (int m = 0; m < C::PF; ++m)
+#pragma unroll
+      for (int nf = 0; nf < NFW; ++nf)
+#pragma unroll
+        for (int i = 0; i < Mt::NC; ++i) acc[m][nf][i] = T(0);
+#pragma unroll
+    for (int kk = 0; kk < C::KS; ++kk) {
+      typename Mt::AFrag fa[C::PF];
+      typename Mt::BFrag fb[NFW];
+#pragma unroll
+      for (int m = 0; m < C::PF; ++m)
+        Mt::load_a(fa[m], Lb, C::LDA, m * Mt::M, kk * Mt::K);
+#pragma unroll
+      for (int nf = 0; nf < NFW; ++nf) bfrag_of(fb[nf], raw[kk][nf]);
+#pragma unroll
+      for (int m = 0; m < C::PF; ++m)
+#pragma unroll
+        for (int nf = 0; nf < NFW; ++nf) Mt::step(acc[m][nf], fa[m], fb[nf]);
+    }
+#pragma unroll
+    for (int m = 0; m < C::PF; ++m)
+#pragma unroll
+      for (int nf = 0; nf < NFW; ++nf)
+#pragma unroll
+        for (int i = 0; i < Mt::NC; ++i) {
+          const int r = m * Mt::M + Mt::row(i);
+          const int j = nf * Mt::N + Mt::col(i);
+          const T v = acc[m][nf][i];
+          Rw[r * C::LDS + j] = v;
+          if (mine) {
+            W[(size_t)(lr + r) * ldw + c + j] = s < p ? v : T(0);
+            if (s > p && k0 + r < n && c + j < n)
+              F[(size_t)(k0 + r) * ld + c + j] = v;
+          }
+        }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int mf = 0; mf < C::MF; ++mf) {
+    if (r0 + mf * Mt::M < kb && s <= p) continue;
+    T u[NFW][Mt::NC];
+#pragma unroll
+    for (int nf = 0; nf < NFW; ++nf)
+#pragma unroll
+      for (int i = 0; i < Mt::NC; ++i) u[nf][i] = T(0);
+#pragma unroll
+    for (int kk = 0; kk < C::KS; ++kk) {
+      typename Mt::AFrag fa;
+      Mt::load_a(fa, Ab, C::LDA, mf * Mt::M, kk * Mt::K);
+#pragma unroll
+      for (int nf = 0; nf < NFW; ++nf) {
+        typename Mt::BFrag fb;
+        Mt::load_b(fb, Rw, C::LDS, kk * Mt::K, nf * Mt::N);
+        Mt::step(u[nf], fa, fb);
+      }
+    }
+#pragma unroll
+    for (int nf = 0; nf < NFW; ++nf)
+#pragma unroll
+      for (int i = 0; i < Mt::NC; ++i)
+        W[(size_t)(mf * Mt::M + Mt::row(i)) * ldw + c + nf * Mt::N +
+          Mt::col(i)] -= u[nf][i];
+  }
+  __syncwarp();
+}
+
+// By one warp: W's rows [lr, lr + 32), the rows of the panel at k0,
+// columns [c, c + 32) to their staging rows S (row stride ld); only the
+// tile's rows and columns (< n).
+template <typename T>
+__device__ __forceinline__ void stage_block(const T* W, int ldw, int lr,
+                                            T* S, int ld, int k0, int c,
+                                            int n) {
+  const int j = c + (threadIdx.x & 31);
+  if (j >= n) return;
+  for (int i = 0; i < kPanel && k0 + i < n; ++i)
+    S[(size_t)i * ld + j] = W[(size_t)(lr + i) * ldw + j];
+}
+
+// Cluster y: tile y of the batch; its gridDim.x CTAs of RPC rows each.
+template <typename T, int RPC>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    lu_wide_kernel(const WideTile<T> t) {
+  using C = WideCluster<T, RPC>;
+  using Mt = Mma<T>;
+  using Q = Vec16<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = t.n, ld = t.ldo;
+  const int np = gridDim.x * RPC, ldw = C::ldw(np);
+  T* W = reinterpret_cast<T*>(smem_raw);
+  T* Lb = W + (size_t)RPC * ldw;  // L11^-1: unit lower, 0 above
+  T* Ab = Lb + kPanel * C::LDA;   // a_i of the CTA's rows
+  T* Rs = Ab + RPC * C::LDA;      // the warps' stripes of R
+  T* rowbuf = Rs + kWideWarps * kPanel * C::LDS;
+  T* Ub = Rs;  // U11^-1 (0 below), until the stripes start
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int r0 = rank * RPC;
+  const int warp = threadIdx.x >> 5;
+  T* Rw = Rs + warp * kPanel * C::LDS;
+  const size_t b = blockIdx.y;
+  const T* A = t.a + b * t.sa;
+  T* F = t.f + b * t.so;
+  T* LI = t.linv + b * t.so;
+  T* UI = t.uinv + b * t.so;
+  long long* clk = t.clk && b == 0 && threadIdx.x == 0
+                       ? t.clk + (size_t)rank * kWideClk
+                       : nullptr;
+  const auto tick = [clk](int i) {
+    if (clk) clk[i] = clock64();
+  };
+  tick(0);
+  // W: this CTA's rows of the tile, zero outside it, all copies in
+  // flight at once; then the identity on the padding's diagonal
+  {
+    const int qr = np / Q::N;  // 16-byte pieces of a row
+    if (t.lda % Q::N == 0 && n % Q::N == 0 && (size_t)A % 16 == 0) {
+      for (int e = threadIdx.x; e < RPC * qr; e += kWideThreads) {
+        const int i = e / qr, j = e % qr * Q::N, gi = r0 + i;
+        const bool in = gi < n && j < n;
+        cp_async<16>(W + (size_t)i * ldw + j,
+                     in ? A + (size_t)gi * t.lda + j : A, in);
+      }
+    } else {
+      for (int e = threadIdx.x; e < RPC * np; e += kWideThreads) {
+        const int i = e / np, j = e % np, gi = r0 + i;
+        const bool in = gi < n && j < n;
+        cp_async<sizeof(T)>(W + (size_t)i * ldw + j,
+                            in ? A + (size_t)gi * t.lda + j : A, in);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    for (int i = threadIdx.x; i < RPC; i += kWideThreads)
+      if (r0 + i >= n) W[(size_t)i * ldw + r0 + i] = T(1);
+    __syncthreads();
+  }
+  tick(1);
+  const int npan = (n + kPanel - 1) / kPanel;
+  // panel 0: its diagonal block, then its rows to staging
+  if (rank == 0) {
+    if (warp == 0) {
+      tick(2 + 6);
+      diag_panel(W, ldw, rowbuf, F, ld, 0, n, t.tol);
+      tick(2 + 7);
+    }
+    __syncthreads();
+    for (int s = warp; s < npan; s += kWideWarps)
+      stage_block(W, ldw, 0, UI, ld, 0, s * kPanel, n);
+  }
+#pragma unroll 1
+  for (int p = 0; p < npan; ++p) {
+    const int k0 = p * kPanel, kb = k0 + kPanel, tk = 2 + kWideClkPanel * p;
+    const bool mine = k0 / RPC == rank;
+    const bool next = p + 1 < npan && kb / RPC == rank;  // owns panel p + 1
+    const int lr = k0 - r0, lr1 = kb - r0;
+    const T* S = UI + (size_t)k0 * ld;
+    T* S1 = UI + (size_t)kb * ld;
+    // This CTA's stripes: all with rows below P or P's rows, else those
+    // right of P; a warp's, in the order p + 1, ..., npan - 1, s_lo,
+    // ..., p: round robin over the 8 warps, or with lookahead in the
+    // owner of panel p + 1, stripe p + 1 to warps 0-3 or warp 0 (below)
+    // and the rest round robin over warps 1-7
+    const int s_lo = r0 + RPC > kb || mine ? 0 : p + 1;
+    const int cnt = npan - s_lo;
+    const bool la = t.lookahead && next;
+    const bool lead = la && warp == 0;  // stripe p + 1, then its block
+    const int q0 = warp;
+    const int dq = !la ? kWideWarps : warp == 0 ? cnt : kWideWarps - 1;
+    tick(tk);
+    cluster_arrive();
+    cluster_wait();  // panel p's staging rows are complete
+    tick(tk + 1);
+    // L11^-1 and U11^-1 from the staging rows' diagonal block (outside
+    // the tile: the padding's identity)
+    for (int e = threadIdx.x; e < kPanel * kPanel; e += kWideThreads) {
+      const int i = e / kPanel, j = e % kPanel;
+      const T v = k0 + i < n && k0 + j < n
+                      ? __ldcg(S + (size_t)i * ld + k0 + j)
+                      : T(i == j ? 1 : 0);
+      Lb[i * C::LDA + j] = j < i ? v : T(j == i ? 1 : 0);
+      Ub[i * C::LDS + j] = j >= i ? v : T(0);
+    }
+    __syncthreads();
+    tick(tk + 2);
+    // a_i of the CTA's rows: W[i, P]·U11^-1, rows P U11^-1's row; by
+    // (row block, 8 columns) pieces, kept in registers until every read
+    // of W[:, P] is done.  Rows below P: W[i, P] = 0 (L^-1's entries
+    // start there) and L21 to the factor; rows above: U^-1's W[i, P].
+    {
+      constexpr int PIECES = C::MF * 4;
+      constexpr int PW = (PIECES + kWideWarps - 1) / kWideWarps;
+      T acc[PW][Mt::NC];
+#pragma unroll
+      for (int q = 0; q < PW; ++q) {
+#pragma unroll
+        for (int i = 0; i < Mt::NC; ++i) acc[q][i] = T(0);
+        const int pc = warp + q * kWideWarps, mf = pc / 4, nf = pc % 4;
+        const int gr = r0 + mf * Mt::M;
+        if (pc >= PIECES || (gr >= k0 && gr < kb)) continue;
+#pragma unroll
+        for (int kk = 0; kk < C::KS; ++kk) {
+          typename Mt::AFrag fa;
+          typename Mt::BFrag fb;
+          Mt::load_a(fa, W + k0, ldw, mf * Mt::M, kk * Mt::K);
+          Mt::load_b(fb, Ub, C::LDS, kk * Mt::K, nf * Mt::N);
+          Mt::step(acc[q], fa, fb);
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < PW; ++q) {
+        const int pc = warp + q * kWideWarps, mf = pc / 4, nf = pc % 4;
+        if (pc >= PIECES) continue;
+#pragma unroll
+        for (int i = 0; i < Mt::NC; ++i) {
+          const int r = mf * Mt::M + Mt::row(i), j = nf * Mt::N + Mt::col(i);
+          const int gi = r0 + r;
+          T v = acc[q][i];
+          if (gi >= k0 && gi < kb) {
+            v = Ub[(gi - k0) * C::LDS + j];
+          } else if (gi >= kb) {
+            W[(size_t)r * ldw + k0 + j] = T(0);
+            if (gi < n && k0 + j < n) F[(size_t)gi * ld + k0 + j] = v;
+          } else {
+            W[(size_t)r * ldw + k0 + j] = v;
+          }
+          Ab[r * C::LDA + j] = v;
+        }
+      }
+      __syncthreads();
+    }
+    tick(tk + 3);
+    // The stripes (wide_stripe).  With lookahead 2, stripe p + 1 of its
+    // owner goes to warps 0-3 first, 8 columns each, joined by a named
+    // barrier of theirs (barrier 0 is __syncthreads) before warp 0
+    // factors the block; with 1, to warp 0 alone.
+    if (la && t.lookahead == 2 && warp < 4) {
+      wide_stripe<T, RPC, 1>(W, ldw, Lb, Ab, Rw, F, S, ld, r0, k0, lr, mine,
+                             p + 1, p, kb + warp * Mt::N, n);
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    }
+#pragma unroll 1
+    for (int q = q0; q < cnt; q += dq) {
+      int s = p + 1 + q;
+      if (s >= npan) s = s_lo + s - npan;
+      const int c = s * kPanel;
+      if (!lead || t.lookahead != 2)
+        wide_stripe<T, RPC, 4>(W, ldw, Lb, Ab, Rw, F, S, ld, r0, k0, lr,
+                               mine, s, p, c, n);
+      // panel p + 1's rows, done with panel p, to its staging rows; its
+      // diagonal block once factored
+      if (next && s != p + 1) stage_block(W, ldw, lr1, S1, ld, kb, c, n);
+      if (lead) {
+        tick(kWideClkPanel * (p + 1) + 2 + 6);
+        diag_panel(W + (size_t)lr1 * ldw + kb, ldw, rowbuf, F, ld, kb, n,
+                   t.tol);
+        tick(kWideClkPanel * (p + 1) + 2 + 7);
+        stage_block(W, ldw, lr1, S1, ld, kb, kb, n);
+      }
+      __syncwarp();  // Rw is free for the warp's next stripe
+    }
+    tick(tk + 4);
+    if (!t.lookahead) {
+      __syncthreads();
+      if (next && warp == 0) {
+        tick(kWideClkPanel * (p + 1) + 2 + 6);
+        diag_panel(W + (size_t)lr1 * ldw + kb, ldw, rowbuf, F, ld, kb, n,
+                   t.tol);
+        tick(kWideClkPanel * (p + 1) + 2 + 7);
+        stage_block(W, ldw, lr1, S1, ld, kb, kb, n);
+      }
+    }
+    tick(tk + 5);
+  }
+  // L^-1 below W's diagonal (1 on it), U^-1 on and above it, once every
+  // CTA has read the last staging rows
+  cluster_arrive();
+  cluster_wait();
+  tick(kWideClk - 2);
+  if (ld % Q::N == 0 && n % Q::N == 0 && ((size_t)LI | (size_t)UI) % 16 == 0) {
+    const int qr = np / Q::N;
+    for (int e = threadIdx.x; e < RPC * qr; e += kWideThreads) {
+      const int i = e / qr, j = e % qr * Q::N, gi = r0 + i;
+      if (gi >= n || j >= n) continue;
+      T w[Q::N], l[Q::N], u[Q::N];
+      Q::get(*reinterpret_cast<const typename Q::V*>(W + (size_t)i * ldw + j),
+             w);
+#pragma unroll
+      for (int q = 0; q < Q::N; ++q) {
+        l[q] = j + q < gi ? w[q] : T(j + q == gi ? 1 : 0);
+        u[q] = j + q >= gi ? w[q] : T(0);
+      }
+      *reinterpret_cast<typename Q::V*>(LI + (size_t)gi * ld + j) = Q::make(l);
+      *reinterpret_cast<typename Q::V*>(UI + (size_t)gi * ld + j) = Q::make(u);
+    }
+  } else {
+    for (int e = threadIdx.x; e < RPC * np; e += kWideThreads) {
+      const int i = e / np, j = e % np, gi = r0 + i;
+      if (gi < n && j < n) {
+        const T v = W[(size_t)i * ldw + j];
+        LI[(size_t)gi * ld + j] = j < gi ? v : T(j == gi ? 1 : 0);
+        UI[(size_t)gi * ld + j] = j >= gi ? v : T(0);
+      }
+    }
+  }
+  tick(kWideClk - 1);
+}
+
+// Per device and cluster size, the clusters of that shape that fit at
+// once plus 1 (0: not asked yet), by type; internal to this library, so
+// that each loaded copy of it opts its own kernels in.
+static int g_wide_fit[2][16][kWideMaxCtas + 1];
+
+// Clusters of the plan's shape that fit on the current device at once,
+// asked once a (device, cluster size) with the kernel opted in to its
+// largest shared memory and to non-portable cluster sizes; 0 when none.
+template <typename T>
+cudaError_t wide_fit(int ctas, int* fit) {
+  constexpr int R = WideRows<T>::value;
+  constexpr int kDevices = 16;
+  int(&known)[kDevices][kWideMaxCtas + 1] = g_wide_fit[sizeof(T) == 8];
+  auto kern = lu_wide_kernel<T, R>;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (ctas < 1 || ctas > kWideMaxCtas) return cudaErrorInvalidValue;
+  if (dev < kDevices && known[dev][ctas]) {
+    *fit = known[dev][ctas] - 1;
+    return cudaSuccess;
+  }
+  const int most = (int)WideCluster<T, R>::smem_bytes(kWideLeaf);
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           most);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3(ctas, 1);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = WideCluster<T, R>::smem_bytes(ctas * R);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ctas;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  *fit = 0;
+  e = cudaOccupancyMaxActiveClusters(fit, kern, &cfg);
+  if (e != cudaSuccess) return e;
+  if (dev < kDevices) known[dev][ctas] = *fit + 1;
+  return cudaSuccess;
+}
+
+// The cluster launch of lu_wide_kernel on ``batch`` tiles (clusters
+// beyond those that fit at once run in waves); raises no fallback: a
+// cluster of the plan's shape that does not fit at all is an error.
+template <typename T>
+cudaError_t wide_launch(const WideTile<T>& t, int batch, cudaStream_t st) {
+  constexpr int R = WideRows<T>::value;
+  if (t.n < 1 || t.n > kWideLeaf || batch < 1 || batch > 65535)
+    return cudaErrorInvalidValue;
+  const WidePlan pl = wide_plan<T>(t.n);
+  int fit;
+  cudaError_t e = wide_fit<T>(pl.ctas, &fit);
+  if (e != cudaSuccess) return e;
+  if (fit < 1) return cudaErrorLaunchOutOfResources;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3(pl.ctas, batch);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = pl.ctas;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, lu_wide_kernel<T, R>, t);
+  return e == cudaSuccess ? cudaGetLastError() : e;
+}
+
+// ---------------------------------------------- the recursion above 512
 
 // C (OP) A·B on every tile b of a batch: an operand is the block at p +
 // b * s (s: the batch stride, in elements) with row stride ld.
@@ -127,11 +673,11 @@ inline int wide_split(int m) {
   return h;
 }
 
-// Elements of scratch a tile of m needs: a leaf its three m x m blocks,
-// a split S22 and the two products Tl, Tu, beside the larger need of its
+// Elements of scratch a tile of m needs: none at a leaf; a split its
+// S22 and the two products Tl, Tu, beside the larger need of its
 // halves.
 inline size_t wide_work_elems(int m) {
-  if (m <= kMaxNb) return 3 * (size_t)m * m;
+  if (m <= kWideLeaf) return 0;
   const size_t m1 = wide_split(m), m2 = m - m1;
   const size_t half = wide_work_elems((int)m1) > wide_work_elems((int)m2)
                           ? wide_work_elems((int)m1)
@@ -195,42 +741,24 @@ struct WideLu {
 
   // (F, L^-1, U^-1) of the m x m block ``src`` (row stride lds, batch
   // stride ss) into the diagonal block at (o, o) of f, linv and uinv;
-  // ``top`` is the free scratch.  ``own``: src is a scratch block (lds ==
-  // m, ss == m * m), which a leaf factors in place.
-  cudaError_t run(const T* src, int lds, size_t ss, int m, int o, T* top,
-                  bool own) {
+  // ``top`` is the free scratch.
+  cudaError_t run(const T* src, int lds, size_t ss, int m, int o, T* top) {
     const size_t nn = (size_t)nb * nb;
     cudaError_t e;
-    if (m <= kMaxNb) {
-      const size_t mm = (size_t)m * m;
-      T* sa = own ? const_cast<T*>(src) : top;
-      T* sl = own ? top : sa + batch * mm;
-      T* su = sl + batch * mm;
-      if (!own) {
-        const WideCopy<T> in{src, sa, ss, mm, lds, m, m, m};
-        if ((e = copies(&in, 1)) != cudaSuccess) return e;
-      }
-      DiagStep<T> diag;
-      if ((e = diag.init(m)) != cudaSuccess) return e;
-      int k1[2] = {0, 0};
-      if ((e = diag.run(sa, sa, sl, su, mm, nullptr, nullptr, batch, tol, k1,
-                        st)) != cudaSuccess)
-        return e;
-      launches += k1[1];
-      const WideCopy<T> out[3] = {
-          {sa, at(f, o, o), mm, nn, m, nb, m, m},
-          {sl, at(linv, o, o), mm, nn, m, nb, m, m},
-          {su, at(uinv, o, o), mm, nn, m, nb, m, m}};
-      return copies(out, 3);
+    if (m <= kWideLeaf) {
+      const WideTile<T> leaf{src, at(f, o, o), at(linv, o, o),
+                             at(uinv, o, o), ss, nn, lds, nb, m, tol,
+                             kWideLookahead, nullptr};
+      if ((e = wide_launch(leaf, batch, st)) != cudaSuccess) return e;
+      return done();
     }
     const int m1 = wide_split(m), m2 = m - m1, p = o + m1;
     const size_t s22 = (size_t)m2 * m2, t = (size_t)m1 * m2;
-    T* sb = top;                    // S22, then L22's factor in place
+    T* sb = top;                    // S22
     T* tl = sb + batch * s22;       // L21·L11^-1 (m2 x m1)
     T* tu = tl + batch * t;         // U12·U22^-1 (m1 x m2)
     T* next = tu + batch * t;
-    if ((e = run(src, lds, ss, m1, o, next, false)) != cudaSuccess)
-      return e;
+    if ((e = run(src, lds, ss, m1, o, next)) != cudaSuccess) return e;
     const WideProduct<T> panels[2] = {
         // U12 = L11^-1·A12, L21 = A21·U11^-1
         {at(linv, o, o), src + m1, at(f, o, p), nn, ss, nn, nb, lds, nb, m1,
@@ -248,8 +776,7 @@ struct WideLu {
     const WideProduct<T> schur{at(f, p, o), at(f, o, p), sb, nn, nn, s22,
                                nb, nb, m2, m2, m2, m1};
     if ((e = products<kSubtract>(&schur, 1)) != cudaSuccess) return e;
-    if ((e = run(sb, m2, s22, m2, p, next, true)) != cudaSuccess)
-      return e;
+    if ((e = run(sb, m2, s22, m2, p, next)) != cudaSuccess) return e;
     const WideProduct<T> inner[2] = {
         // Tl = L21·L11^-1, Tu = U12·U22^-1
         {at(f, p, o), at(linv, o, o), tl, nn, nn, t, nb, nb, m1, m2, m1, m1},
@@ -274,11 +801,24 @@ int getrf_inv_wide(const T* a, T* f, T* linv, T* uinv, T* work, int batch,
                    int nb, double tol, int* counts, cudaStream_t st) {
   if (nb <= kMaxNb || a == f) return cudaErrorInvalidValue;
   WideLu<T> w{f, linv, uinv, work, nb, batch, (T)tol, st};
-  const cudaError_t e = w.run(a, nb, (size_t)nb * nb, nb, 0, work, false);
+  const cudaError_t e = w.run(a, nb, (size_t)nb * nb, nb, 0, work);
   if (e != cudaSuccess) return e;
   ++counts[0];
   counts[1] += w.launches;
   return cudaSuccess;
+}
+
+// lu_wide_kernel alone on ``batch`` tiles of 1 <= nb <= kWideLeaf, with
+// lookahead 0, 1 or 2 and, with clk (kWideMaxCtas * kWideClk device
+// readings), the clock64 phases of cluster 0: a measurement, on no path.
+template <typename T>
+int wide_probe(const T* a, T* f, T* linv, T* uinv, int batch, int nb,
+               double tol, int lookahead, long long* clk, cudaStream_t st) {
+  if (a == f) return cudaErrorInvalidValue;
+  const size_t nn = (size_t)nb * nb;
+  const WideTile<T> t{a, f, linv, uinv, nn, nn, nb, nb, nb, (T)tol,
+                      lookahead, clk};
+  return wide_launch(t, batch, st);
 }
 
 }  // namespace plu

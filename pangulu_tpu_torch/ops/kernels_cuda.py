@@ -30,7 +30,7 @@ from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
                                                  check_nb)
 from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 15
+_ABI = 16
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -49,9 +49,10 @@ LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0,
             "newton_loop": 0}
 
 # K1's device launches, as the C entries report them: one a K1 launch,
-# the register-tile kernel up to nb = 128 and the cluster kernel above,
-# up to nb = 256; above, each of the recursion's launches (10 at 256 <
-# nb <= 512, csrc/wide_lu.cuh).  Zeroed with LAUNCHES.
+# the register-tile kernel up to nb = 128 and a cluster kernel above, up
+# to nb = 512 (csrc/lu_kernels.cu lu_cluster_kernel to 256, csrc/
+# wide_lu.cuh lu_wide_kernel above); beyond, each of the recursion's
+# launches (7 at 512 < nb <= 1024).  Zeroed with LAUNCHES.
 DEVICE_LAUNCHES = {"getrf_with_inverses": 0}
 
 # The grid of the last K3 and K5 call ("mega_solve",
@@ -128,6 +129,17 @@ def library() -> build.KernelLibrary:
         fn.argtypes = [i, p, p, p, i, i, i, i, p]
     lib.plu_wide_work_elems.restype = ctypes.c_longlong
     lib.plu_wide_work_elems.argtypes = [i]
+    lib.plu_wide_plan.restype = i
+    lib.plu_wide_plan.argtypes = [i, i, p]
+    lib.plu_wide_clk_slots.restype = i
+    lib.plu_wide_clk_slots.argtypes = []
+    for s in _SUFFIX.values():
+        fn = getattr(lib, f"plu_wide_probe_{s}")
+        fn.restype = i
+        fn.argtypes = [i, p, p, p, p, i, i, d, i, p, p]
+        fn = getattr(lib, f"plu_wide_fit_{s}")
+        fn.restype = i
+        fn.argtypes = [i, i, p]
     lib.plu_scan_overlap_f32.restype = i
     lib.plu_scan_overlap_f32.argtypes = [i, i, i, p, p, p, p, p, i, i, i,
                                          p]
@@ -211,11 +223,17 @@ def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
     :func:`kernels_torch.getrf_with_inverses`.  Above nb = 128 the card
     runs the blocked step of
     :func:`kernels_torch.getrf_with_inverses_blocked` on a thread block
-    cluster, one launch for the batch; above nb = 256 the recursion of
-    :func:`kernels_torch.getrf_with_inverses_wide` on those kernels
-    (csrc/wide_lu.cuh), counted as one launch, its device launches in
-    :data:`DEVICE_LAUNCHES`.  On the CPU a tile above nb = 256 goes to
-    that recursion with the rank-1 scan at its leaves."""
+    cluster a tile, one launch for the batch: up to nb = 256 on 2 (f32)
+    or 4 (f64) CTAs, above on one CTA a panel's 32 rows (csrc/
+    wide_lu.cuh, :func:`wide_plan`), up to nb = 512.  Its bound there is
+    the chain of the diagonal warp's panels (16 at 512), not bytes or
+    operations (PERF.md).  Wider tiles take the recursion of
+    :func:`kernels_torch.k1_wide` on such launches, counted as one
+    launch, its device launches in :data:`DEVICE_LAUNCHES`.  If a cluster
+    of the plan's shape does not fit on the card, the call raises.  On
+    the CPU a tile above nb = 256 goes to
+    :func:`kernels_torch.getrf_with_inverses_wide` with the rank-1 scan
+    at its leaves (the reference semantics)."""
     wide = a.shape[-1] > kt.MAX_NB
     if not _on_cuda(a):
         return (kt.getrf_with_inverses_wide(a, tol) if wide
@@ -250,6 +268,38 @@ def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
     if single:
         return f[0], linv[0], uinv[0]
     return f, linv, uinv
+
+
+# Rows a CTA of K1's cluster kernel for wide tiles holds, in both types
+# (csrc/wide_lu.cuh WideRows), and the shapes that size its shared
+# memory: the MMA atoms' row pads (csrc/tile_gemm.cuh Mma<T>::PAD_A,
+# PAD_B), its warps and the diagonal warp's broadcast rows.
+WIDE_ROWS = 32
+_WIDE_PADS = {torch.float32: (4, 8), torch.float64: (4, 4)}
+_WIDE_WARPS = 8
+_ROW_BUF = kt.LU_PANEL + 8
+# Dynamic shared memory a block may have on an H100
+SMEM_PER_BLOCK = 232_448
+
+
+def wide_plan(nb: int, dtype) -> dict:
+    """The launch of K1's cluster kernel for a tile of 1 <= nb <= 512
+    (csrc/wide_lu.cuh wide_plan, which chip_smoke.py holds it to):
+    ``ctas`` a cluster (one a panel's rows), ``rows`` a CTA, ``smem``
+    bytes of dynamic shared memory a CTA (W's rows of the padded tile,
+    L11^-1, the rows' a_i, a 32-column stripe of R a warp, two broadcast
+    rows) and ``stripe``, the columns of R a warp forms at once."""
+    if not 1 <= nb <= kt.WIDE_LEAF:
+        raise ValueError(f"the cluster kernel takes 1 <= nb <= "
+                         f"{kt.WIDE_LEAF}, got nb={nb}")
+    rows, r = WIDE_ROWS, kt.LU_PANEL
+    ctas = -(-nb // rows)
+    pad_a, pad_b = _WIDE_PADS[dtype]
+    elems = (rows * (ctas * rows + 4) + (r + rows) * (r + pad_a)
+             + _WIDE_WARPS * r * (r + pad_b) + 2 * _ROW_BUF)
+    return dict(ctas=ctas, rows=rows,
+                smem=elems * torch.empty((), dtype=dtype).element_size(),
+                stripe=r)
 
 
 def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,

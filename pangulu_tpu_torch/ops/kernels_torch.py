@@ -72,11 +72,17 @@ DEFAULT_TOL = {torch.float32: 1e-8, torch.float64: 1e-16,
 # block cluster that holds the tile in shared memory, in panels of
 # LU_PANEL columns (getrf_with_inverses_blocked is its plain twin); the
 # products of K2 and K4 have shared-memory windows for nb <= 128 and for
-# nb <= 256 (csrc/lu_kernels.cu).  K1 takes wider tiles by a recursion
-# on halves of at most MAX_NB (getrf_with_inverses_wide, csrc/
-# wide_lu.cuh); the engines that run it there are the fused and levels
-# engines (numeric.py).
+# nb <= 256 (csrc/lu_kernels.cu).  K1 takes wider tiles: up to
+# WIDE_LEAF on one thread block cluster a tile, in the same panels
+# (getrf_with_inverses_blocked is its plain twin too), and above by a
+# recursion on halves of at most WIDE_LEAF (k1_wide, csrc/wide_lu.cuh);
+# the engines that run it there are the fused and levels engines
+# (numeric.py).
 MAX_NB = 256
+
+# The widest tile K1's cluster kernel for wide tiles takes in one launch
+# (csrc/wide_lu.cuh kWideLeaf).
+WIDE_LEAF = 512
 
 # K1's largest register tile: the blocked step takes the tiles above it,
 # and P2 (triangle_inverses) splits them there.
@@ -226,16 +232,24 @@ def wide_split(m: int) -> int:
 
 
 def k1_leaf(a: torch.Tensor, tol: float):
-    """K1's own step on a tile of nb <= MAX_NB in floating point: the
-    rank-1 scan up to LU_SPLIT, the blocked step of panels of LU_PANEL
-    above (the plain twins of the register and the cluster kernel)."""
+    """K1's own step on a tile in floating point: the rank-1 scan up to
+    LU_SPLIT, the blocked step of panels of LU_PANEL above (the plain
+    twins of the register and the cluster kernels)."""
     if a.shape[-1] <= LU_SPLIT:
         return getrf_with_inverses(a, tol)
     return getrf_with_inverses_blocked(a, tol)
 
 
+def k1_wide(a: torch.Tensor, tol: float | None = None):
+    """The plain twin of the CUDA K1 for nb > MAX_NB (csrc/wide_lu.cuh):
+    the blocked step over the whole tile up to WIDE_LEAF, the recursion
+    of :func:`getrf_with_inverses_wide` on such leaves above (at least
+    224 wide, so :func:`k1_leaf` takes the blocked step on each)."""
+    return getrf_with_inverses_wide(a, tol, leaf=k1_leaf, width=WIDE_LEAF)
+
+
 def getrf_with_inverses_wide(a: torch.Tensor, tol: float | None = None,
-                             leaf=getrf_with_inverses):
+                             leaf=getrf_with_inverses, width: int = MAX_NB):
     """(f, L^-1, U^-1) of ``a`` ([nb, nb] or [B, nb, nb]) for any nb, by
     the recursive block step of the JAX package's XLA diagonal step
     (pangulu_tpu/ops/kernels_jax.py:200-248): split at
@@ -247,24 +261,25 @@ def getrf_with_inverses_wide(a: torch.Tensor, tol: float | None = None,
       4. ``L^-1[2, 1] = -L22^-1·(L21·L11^-1)`` and ``U^-1[1, 2] =
          -U11^-1·(U12·U22^-1)``,
 
-    with ``leaf(a, tol)`` on the blocks of at most MAX_NB (the JAX
+    with ``leaf(a, tol)`` on the blocks of at most ``width`` (the JAX
     package recurses to 32 and takes the Newton inverses there).  The
-    CUDA K1 for nb > MAX_NB runs these steps (csrc/wide_lu.cuh): its
-    leaves are K1's kernels for nb <= MAX_NB, whose plain twin is
-    :func:`k1_leaf`; the default leaf, the rank-1 scan, is the
+    CUDA K1 for nb > MAX_NB runs these steps above WIDE_LEAF
+    (csrc/wide_lu.cuh), on leaves of at most WIDE_LEAF
+    (:func:`k1_wide`); the default leaf, the rank-1 scan, is the
     reference semantics.  The tiny-pivot rule holds in every leaf."""
     if tol is None:
         tol = DEFAULT_TOL[a.dtype]
     m = a.shape[-1]
-    if m <= MAX_NB:
+    if m <= width:
         return leaf(a, tol)
     m1 = wide_split(m)
     a11, a12 = a[..., :m1, :m1], a[..., :m1, m1:]
     a21, a22 = a[..., m1:, :m1], a[..., m1:, m1:]
-    f11, li11, ui11 = getrf_with_inverses_wide(a11, tol, leaf)
+    f11, li11, ui11 = getrf_with_inverses_wide(a11, tol, leaf, width)
     u12 = li11 @ a12
     l21 = a21 @ ui11
-    f22, li22, ui22 = getrf_with_inverses_wide(a22 - l21 @ u12, tol, leaf)
+    f22, li22, ui22 = getrf_with_inverses_wide(a22 - l21 @ u12, tol, leaf,
+                                               width)
     f = torch.cat([torch.cat([f11, u12], -1), torch.cat([l21, f22], -1)],
                   -2)
     z12 = torch.zeros_like(a12)

@@ -99,10 +99,11 @@ def blocked_tiny_pivot_tile(nb: int, k1: int, k2: int, rng) -> np.ndarray:
 
 def wide_tiny_pivot_tile(nb: int, rng) -> np.ndarray:
     """A diagonally dominant tile of nb > MAX_NB whose pivots at step 0
-    and at the first step of the second half of K1's split
-    (``kernels_torch.wide_split(nb)``) are exactly 0, in the rank-1 scan
-    and in the recursion alike: A21 is zero, so S22 = A22 - L21·U12 is
-    A22 exactly, and row and column 0 of A11 and of A22 are zero."""
+    and at step ``kernels_torch.wide_split(nb)`` (the first of the second
+    half of the recursion's split, a panel's start) are exactly 0, in the
+    rank-1 scan, the recursion and the blocked step alike: A21 is zero,
+    so S22 = A22 - L21·U12 and every panel's update of A22 are exact,
+    and row and column 0 of A11 and of A22 are zero."""
     a = rng.standard_normal((nb, nb)) + nb * np.eye(nb)
     m1 = kt.wide_split(nb)
     a[m1:, :m1] = 0.0

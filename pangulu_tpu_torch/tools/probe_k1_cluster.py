@@ -97,8 +97,8 @@ VARIANTS = {
          "  PLU_T(1);\n  const int lw = warp * C::MW, gw = r0 + lw;\n"),
         ("    T* S = UI + (size_t)k0 * nb;\n",
          "    T* S = UI + (size_t)k0 * nb;\n    PLU_T(2 + k0 / 4);\n"),
-        ("                   tol);\n      __syncthreads();\n",
-         "                   tol);\n      PLU_T(3 + k0 / 4);\n"
+        ("                   nb, tol);\n      __syncthreads();\n",
+         "                   nb, tol);\n      PLU_T(3 + k0 / 4);\n"
          "      __syncthreads();\n"),
         ("    cluster_arrive();\n    cluster_wait();  // S holds the owner's "
          "rows P\n",

@@ -25,6 +25,7 @@ products' values would hide.  The 3xTF32 instances (timed only) within
 1e-4 of the largest f64 entry.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -166,22 +167,24 @@ def test_getrf_blocked_tiny_pivot_kernel(cuda, dtype, nb, k1, k2):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("batch", [1, 3])
-# splits 160 + 128 (a register-tile leaf), 160 + 140, 192 + 192, 256 +
-# 256
-@pytest.mark.parametrize("nb", [288, 300, 384, 512])
+# clusters of 9, 10, 12 and 16 CTAs; 640 splits 320 + 320 over two such
+# launches
+@pytest.mark.parametrize("nb", [288, 300, 384, 512, 640])
 def test_getrf_wide_kernel(cuda, dtype, nb, batch):
-    """K1 above nb = 256 (csrc/wide_lu.cuh): its plain twin (the
-    recursion with K1's own leaves, kernels_torch.k1_leaf) at the f32
-    contract, the rank-1 scan at the blocked-LU bound; one K1 launch,
-    10 device launches."""
+    """K1 above nb = 256 (csrc/wide_lu.cuh): its plain twin
+    (kernels_torch.k1_wide: the blocked step over the whole tile up to
+    512, the recursion on such leaves above) at the f32 contract, the
+    rank-1 scan at the blocked-LU bound; one K1 launch, one device
+    launch up to 512 and 7 at 640."""
     rng = np.random.default_rng(nb)
     a = torch.as_tensor(rng.standard_normal((batch, nb, nb))
                         + nb * np.eye(nb), dtype=dtype, device=cuda)
     kc.reset_launch_counts()
     got = kc.getrf_with_inverses(a)
     assert kc.LAUNCHES["getrf_with_inverses"] == 1
-    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 10}
-    for g, r in zip(got, kt.getrf_with_inverses_wide(a, leaf=kt.k1_leaf)):
+    assert kc.DEVICE_LAUNCHES == {
+        "getrf_with_inverses": 1 if nb <= kt.WIDE_LEAF else 7}
+    for g, r in zip(got, kt.k1_wide(a)):
         torch.testing.assert_close(g, r, **TOL[dtype])
     for g, r, (rtol, atol) in zip(got, kt.getrf_with_inverses(a),
                                   BLOCKED_TOL[dtype]):
@@ -189,9 +192,9 @@ def test_getrf_wide_kernel(cuda, dtype, nb, batch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nb", [288, 384, 512])
+@pytest.mark.parametrize("nb", [288, 384, 512, 640])
 def test_getrf_wide_tiny_pivot_kernel(cuda, dtype, nb):
-    """A zero pivot in each half of the split becomes +tol, and the
+    """Zero pivots at step 0 and at wide_split(nb) become +tol, and the
     result matches the twin."""
     a = torch.as_tensor(wide_tiny_pivot_tile(nb, np.random.default_rng(nb)),
                         dtype=dtype, device=cuda)
@@ -199,8 +202,27 @@ def test_getrf_wide_tiny_pivot_kernel(cuda, dtype, nb):
     tol = float(torch.tensor(kt.DEFAULT_TOL[dtype], dtype=dtype))
     m1 = kt.wide_split(nb)
     assert float(got[0][0, 0]) == tol and float(got[0][m1, m1]) == tol
-    for g, r in zip(got, kt.getrf_with_inverses_wide(a, leaf=kt.k1_leaf)):
+    for g, r in zip(got, kt.k1_wide(a)):
         torch.testing.assert_close(g, r, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wide_plan_matches_the_c_side(cuda, dtype):
+    """kernels_cuda.wide_plan is the C side's plan (plu_wide_plan) at
+    every nb up to 512, and a cluster of its shape fits on the card."""
+    lib = kc.library().lib
+    size = torch.empty((), dtype=dtype).element_size()
+    out = (ctypes.c_int * 4)()
+    for nb in range(1, kt.WIDE_LEAF + 1):
+        assert lib.plu_wide_plan(nb, size, out) == 0
+        pl = kc.wide_plan(nb, dtype)
+        assert tuple(out) == (pl["ctas"], pl["rows"], pl["smem"],
+                              pl["stripe"])
+    fit = ctypes.c_int()
+    s = "f32" if dtype == torch.float32 else "f64"
+    assert getattr(lib, f"plu_wide_fit_{s}")(cuda.index, 512,
+                                               ctypes.byref(fit)) == 0
+    assert fit.value >= 1
 
 
 @pytest.mark.parametrize("dtype", ["r32", "r64"])
@@ -208,7 +230,7 @@ def test_getrf_wide_tiny_pivot_kernel(cuda, dtype, nb):
 @pytest.mark.parametrize("nb", [384, 512])
 def test_wide_slice_on_cuda(cuda, nb, ordering, dtype):
     """init -> gstrf -> gstrs at nb > 256 on the card: the fused engine on
-    backend cuda, one K1 launch (10 device launches) a level and no
+    backend cuda, one K1 launch (one device launch) a level and no
     other kernel; the factor within the f32 contract of the same engine
     with K1's plain twin on the same store (1e-12 in f64), and the
     refined solve's residual."""
@@ -221,7 +243,7 @@ def test_wide_slice_on_cuda(cuda, nb, ordering, dtype):
     x = pt.gstrs(h, b)
     bl = h.schedule.block_length
     assert kc.LAUNCHES == _counts(getrf_with_inverses=bl)
-    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 10 * bl}
+    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": bl}
     assert (h.perf.kernels["engine"], h.perf.kernels["backend"]) == (
         "fused", "cuda")
     assert residual_norm(a.to_scipy(), x, b) < 1e-10
@@ -229,8 +251,7 @@ def test_wide_slice_on_cuda(cuda, nb, ordering, dtype):
         h.blocked, h.schedule, device="cuda",
         backend=dataclasses.replace(
             pt.ops.interface.get_backend("cuda"),
-            diag_factor_invert=lambda t, tol: kt.getrf_with_inverses_wide(
-                t, tol, leaf=kt.k1_leaf)))
+            diag_factor_invert=kt.k1_wide))
     nt = h.blocked.num_tiles
     torch.testing.assert_close(h.factor_tiles[:nt], plain.factorize()[:nt],
                                **TOL[h.blocked.torch_dtype])

@@ -34,9 +34,11 @@ import pangulu_tpu_torch
 for m in pkgutil.walk_packages(pangulu_tpu_torch.__path__,
                                "pangulu_tpu_torch."):
     importlib.import_module(m.name)
-# the H100 probes of the TPU probes P3-P5 (tools/ is no package)
+# the H100 probes of the TPU probes P3-P5 and of K1 for wide tiles
+# (tools/ is no package)
 for m in ("probe_overlap", "probe_scan_multi", "probe_newton_loop",
-          "probe_clusters", "run_multiprocess", "probe_dist"):
+          "probe_clusters", "run_multiprocess", "probe_dist",
+          "probe_k1_wide"):
     importlib.import_module("pangulu_tpu_torch.tools." + m)
 for m in ("pangulu_tpu_torch.io.mmio", "pangulu_tpu_torch.cli",
           "pangulu_tpu_torch.__main__", "pangulu_tpu_torch.compressed",
