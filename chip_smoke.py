@@ -91,7 +91,7 @@ CUDA toolkit (nvcc).  It
      within 1e-10 of splu's with its sign, cond1_est between exact/3 and
      exact (dense f64);
   7. drives tile_storage="compressed" (compressed_phase; step 1 also
-     fails if one of the 16 P6/P2 instances spills): init, CompressedLU
+     fails if one of the 20 P6/P2 instances spills): init, CompressedLU
      built as gstrf builds it off the panel route (gstrf takes PanelLU
      here, step 7b), its factorization and gstrs on poisson3d(32),
      nb=128, nd, r32 with the launch counts
@@ -239,6 +239,30 @@ CUDA toolkit (nvcc).  It
      with imaginary parts: fused on backend torch, no hand kernel,
      residuals < 1e-10 / 1e-12, within 1e-6 / 1e-9 of the embedding's
      solution; an {"xla_engines": ...} JSON line;
+ 9c. drives the compressed store and the multi-device engine at nb >
+     256 and with native complex tiles (wide_native_stores_phase): (a)
+     P6 at nb = 288, 384, 512 on the widest level of poisson3d(32)'s rcm
+     store at that nb, float32, float64, complex64 and complex128 slots
+     (4-, 8- and 16-byte words), bit-equal to its plain versions, and
+     per launch at nb=512 beside its bound, the plain versions and
+     zero_ + scatter_ / gather; (b) P2 at nb = 384 and 512 (the sweeps on
+     128-wide leaves, one products launch a level of its tree) against
+     its twin (f64 1e-12, f32 1e-5), per launch beside solve_triangular;
+     (c) init -> gstrf -> gstrs with tile_storage="compressed" on
+     poisson3d(32), nb=512, r32 rcm and nd and r64 rcm (CompressedLU, K1
+     for wide tiles as its diagonal step): exact launch counts, one K1
+     device launch a level, gstrf residual on the card < 1e-5 (r64
+     1e-12), refined solve < 1e-10 (r64 1e-12), the factors within the
+     tile tolerance of the fused engine's, ms per factorization and per
+     solve, store bytes against dense, a traced r32 factorization of
+     each ordering (K1's and P6's device ms and share), save -> load ->
+     gstrs with one P2 launch; (d) complex_mode="native" compressed,
+     cr32 and cr64, poisson3d(16) with imaginary parts, nb=128, rcm: P6
+     on complex slots with exact counts, no K1 or P2, residuals < 1e-10
+     / 1e-12, a reload, and P6 per launch on complex128 slots; (e) 2 x 2
+     gloo ranks on this card: poisson3d(32) nb=512 r32 rcm and native
+     cr64 on poisson3d(16), launches, residuals, the same bits on every
+     rank; prints its seconds and a {"wide_native_stores": ...} line;
  10. with --profile, also traces one rcm solve and prints, per phase,
      each kernel's launches and device time, the host wall time and the
      device's idle share (K3's solve: exactly 2 launches of its sweep
@@ -258,7 +282,11 @@ CUDA toolkit (nvcc).  It
      launches from the probes' path, none on the solver's), K1 at
      nb = 512 and 384 (getrf_with_inverses@nb=512 and @nb=384, the
      cluster kernel of csrc/wide_lu.cuh; launches from step 9b's rcm
-     path at 512 and nd gstrf at 384), with
+     path at 512 and nd gstrf at 384, and at 512 also those of step
+     9c's compressed path), P6 at nb=512 (float32 slots, launches from
+     step 9c's compressed r32 rcm path) and at nb=128 on complex128
+     slots (step 9c (d)), P2 at nb=512 (launches from step 9c's
+     reload), with
      max_rel_err, their
      largest difference from the plain float32 version over max |plain
      f64| (P3: each row's):
@@ -365,10 +393,11 @@ TC_FLOP_S = {torch.float32: 495e12 / 3, torch.float64: 67e12}
 PRODUCT_KERNELS = ("panel_kernel", "schur_kernel", "group_panel_kernel",
                    "group_schur_kernel")
 PRODUCT_INSTANCES = 12
-# P6: decompress and compress for float and double, uint16 and uint32
+# P6: decompress and compress for slot words of 4, 8 and 16 bytes
+# (float32; float64 and complex64; complex128), uint16 and uint32
 # positions; P2: triangle_inverses for float and double, register tiles
-# of 32, 64 and 128, and the products of its off-diagonal block above 128
-COMPRESSED_INSTANCES = 16
+# of 32, 64 and 128, and the products of its tree's levels above 128
+COMPRESSED_INSTANCES = 20
 # P5: overlap_kernel in 4 modes, the 3 with products in float64 (DMMA)
 # and in 3xTF32; P4: scan_multi_kernel<C, P> without products (C = 0),
 # and with them in either type on clusters of 4, 8, 16; P3:
@@ -452,6 +481,20 @@ def k1_bound(nb: int, batch: int, dtype) -> dict:
     chains = batch * sum(lu_inverse_flop(min(32, nb - k0))
                          for k0 in range(0, nb, 32))
     return bound(nbytes, chains, dtype, tc_flop=flop - chains)
+
+
+def p2_bound(nb: int, batch: int, dtype) -> dict:
+    """P2's bound on batch factored tiles of nb: the factor read and
+    L^-1 and U^-1 written; triangle_inverses_flop(nb) operations a tile.
+    The sweeps of its 128-wide diagonal blocks run on the CUDA cores;
+    above nb = 128 the rest, the off-diagonal blocks of its tree of
+    halves, runs as products on tensor cores."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 3 * batch * nb * nb * elt
+    flop = batch * triangle_inverses_flop(nb)
+    sweeps = batch * sum(triangle_inverses_flop(min(128, nb - k0))
+                         for k0 in range(0, nb, 128))
+    return bound(nbytes, sweeps, dtype, tc_flop=flop - sweeps)
 
 
 def ptxas_by_kernel(log: str) -> dict:
@@ -1285,8 +1328,7 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
         lower, eye, upper=False), n=20)
     # the factor read, L^-1 and U^-1 written; the operations the two
     # triangle inverses need, whatever the method
-    p2["bound"] = bound(3 * batch * nb_ * nb_ * 4,
-                        batch * triangle_inverses_flop(nb_))
+    p2["bound"] = p2_bound(nb_, batch, torch.float32)
     p2["max_abs_err_f32"] = err32
     print(f"  P2 per launch, nb={nb}, batch {batch} (both triangles): "
           f"{p2['ms']:.4f} ms (bound {p2['bound']['bound_ms']:.4f}, "
@@ -1968,6 +2010,103 @@ def probe_bound(nbytes: float, flop: float, tc_flop: float,
             max(tb, tf * SMS / min(sms, SMS)))
 
 
+def run_ranks(dev, cases, reps: int = 1, np_: int = 4,
+              mesh: str = "2,2") -> pathlib.Path:
+    """Start pangulu_tpu_torch/tools/run_multiprocess.py: ``np_`` ranks on
+    a ``mesh`` grid, all on this card, joined by gloo, each running the
+    ``cases`` (the kernels built before: the ranks load the library).
+    Returns the directory of the ranks' records (the caller removes it);
+    fails if a rank failed."""
+    import tempfile
+
+    build_dir = ROOT / "pangulu_tpu_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="dist_", dir=build_dir))
+    cmd = [sys.executable, str(ROOT / "pangulu_tpu_torch" / "tools"
+                               / "run_multiprocess.py"),
+           "-np", str(np_), "--mesh", mesh, "--device", dev.type,
+           "--backend", "gloo", "--out", str(tmp), "--reps", str(reps),
+           "--timeout", "400"]
+    for c in cases:
+        cmd += ["--case", c]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=450)
+    print(f"  {res.stdout.strip()} ({time.perf_counter() - t0:.1f} s)")
+    if res.returncode != 0:
+        fail(f"run_multiprocess failed ({res.returncode}):\n"
+             f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+    return tmp
+
+
+def check_ranks(tmp: pathlib.Path, spec: str, np_: int = 4,
+                q: int = 2) -> tuple:
+    """The records of one case of run_ranks on every rank, checked: K1
+    launches and device launches on every rank equal to the distributed
+    groups (none for complex tiles, whose diagonal step is kernels_xla's),
+    gstrf residuals < 1e-5 (single precision) or 1e-12 (double), refined
+    solve residuals < 1e-10 or 1e-12, two factorizations of one rank the
+    same bits, every rank the same x and tables' digest, and the
+    refactorization on the kept tables.  Returns (its numbers, the
+    factors assembled from the shards)."""
+    label, dtype = spec.split(":")[0], spec.split(":")[3]
+    rk = [dict(np.load(tmp / f"{label}_rank{r}.npz")) for r in range(np_)]
+    r0 = rk[0]
+    groups = int(r0["groups"])
+    f64 = dtype in ("r64", "cr64")
+    native = spec.endswith(":native")
+    flimit, slimit = (1e-12, 1e-12) if f64 else (1e-5, 1e-10)
+    k1 = [(int(r["k1_launches"]), int(r["k1_device_launches"]))
+          for r in rk]
+    want = (0, 0) if native else (groups, groups)
+    print(f"  {label}: {groups} groups, K1 (launches, device launches) "
+          f"per rank {k1}")
+    if any(v != want for v in k1):
+        fail(f"{label}: K1 launches {k1}, expected {want} on every rank")
+    for i, r in enumerate(rk):
+        for k, lim in (("gstrf_residual", flimit),
+                       ("gstrf_residual2", flimit),
+                       ("res1", slimit), ("res3", slimit),
+                       ("res2", slimit)):
+            if not float(r[k]) < lim:
+                fail(f"{label} rank {i}: {k} {float(r[k])} not below {lim}")
+        if not bool(r["same_bits"]):
+            fail(f"{label} rank {i}: two factorizations differ")
+        for k in ("x1", "x3", "x2", "digest"):
+            if not np.array_equal(r[k], r0[k]):
+                fail(f"{label} rank {i}: {k} differs from rank 0's")
+        if int(r["dist_reuse"]) != 1:
+            fail(f"{label} rank {i}: the refactorization rebuilt the "
+                 "tables")
+    sh = np.stack([r["shard"] for r in rk])
+    nt = int(r0["num_tiles"])
+    full = np.zeros((nt,) + sh.shape[2:], sh.dtype)
+    full[:] = sh[r0["tile_owner_r"].astype(np.int64) * q
+                 + r0["tile_owner_c"], r0["tile_slot"]]
+    row = dict(
+        groups=groups, k1_launches_per_rank=k1[0][0],
+        all_reduces_per_factorization=int(r0["comm_all_reduces"]),
+        mib_per_factorization=int(r0["comm_bytes"]) / 2 ** 20,
+        ms_per_factorization=float(np.median(
+            [np.median(r["factor_ms"]) for r in rk])),
+        numeric_ms=float(np.median([np.median(r["numeric_ms"])
+                                    for r in rk])),
+        ms_per_solve=float(np.median([np.median(r["solve_ms"])
+                                      for r in rk])),
+        gstrf_residual=float(r0["gstrf_residual"]),
+        solve_residual=float(r0["res1"]),
+        solve_residual_3rhs=float(r0["res3"]),
+        refactor_solve_residual=float(r0["res2"]))
+    print(f"  {label}: {row['ms_per_factorization']:.1f} ms per "
+          f"factorization (numeric {row['numeric_ms']:.1f}), "
+          f"{row['ms_per_solve']:.1f} ms per solve (unrefined), "
+          f"{row['all_reduces_per_factorization']} all-reduces and "
+          f"{row['mib_per_factorization']:.2f} MiB per factorization a "
+          f"rank; residuals gstrf {row['gstrf_residual']:.2e}, solve "
+          f"{row['solve_residual']:.2e}")
+    return row, full
+
+
 # the multi-device phase: the case specs of its 2 x 2 run on one card
 DIST_CASES = ("p3d32_rcm:poisson3d:32:r32:rcm:128",
               "p3d32_nd:poisson3d:32:r32:nd:128",
@@ -2003,7 +2142,6 @@ def dist_phase(dev, nx: int = 32, nb: int = 128, cases=DIST_CASES,
     host-staged gloo: not a scaling result.  Returns its numbers; any
     failure (any rank's) raises."""
     import shutil
-    import tempfile
 
     from pangulu_tpu_torch import InitOptions, init
     from pangulu_tpu_torch.models import poisson3d
@@ -2084,77 +2222,15 @@ def dist_phase(dev, nx: int = 32, nb: int = 128, cases=DIST_CASES,
         torch.cuda.empty_cache()
 
     # ---- (b) four ranks, one card, gloo ----------------------------------
-    build_dir = ROOT / "pangulu_tpu_torch" / "_build"
-    build_dir.mkdir(parents=True, exist_ok=True)
-    tmp = pathlib.Path(tempfile.mkdtemp(prefix="dist_", dir=build_dir))
+    print("dist (b): 4 ranks on a 2 x 2 grid, all on this card, gloo: "
+          + ", ".join(cases))
+    t0 = time.perf_counter()
+    tmp = run_ranks(dev, cases, reps)
+    out["ranks_wall_s"] = time.perf_counter() - t0
     try:
-        cmd = [sys.executable, str(ROOT / "pangulu_tpu_torch" / "tools"
-                                   / "run_multiprocess.py"),
-               "-np", "4", "--mesh", "2,2", "--device", dev.type,
-               "--backend", "gloo", "--out", str(tmp), "--reps", str(reps),
-               "--timeout", "400"]
-        for c in cases:
-            cmd += ["--case", c]
-        print("dist (b): 4 ranks on a 2 x 2 grid, all on this card, gloo: "
-              + ", ".join(cases))
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                             timeout=450)
-        out["ranks_wall_s"] = time.perf_counter() - t0
-        print(f"  {res.stdout.strip()} ({out['ranks_wall_s']:.1f} s)")
-        if res.returncode != 0:
-            fail(f"run_multiprocess failed ({res.returncode}):\n"
-                 f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
         for spec in cases:
-            label, _, _, dtype, ordering, _ = spec.split(":")
-            rk = [dict(np.load(tmp / f"{label}_rank{r}.npz"))
-                  for r in range(4)]
-            r0 = rk[0]
-            groups = int(r0["groups"])
-            f64 = dtype == "r64"
-            flimit, slimit = (1e-12, 1e-12) if f64 else (1e-5, 1e-10)
-            k1 = [(int(r["k1_launches"]), int(r["k1_device_launches"]))
-                  for r in rk]
-            print(f"  {label}: {groups} groups, K1 (launches, device "
-                  f"launches) per rank {k1}")
-            if any(v != (groups, groups) for v in k1):
-                fail(f"{label}: K1 launches {k1}, expected {groups} of "
-                     "each on every rank")
-            for i, r in enumerate(rk):
-                for k, lim in (("gstrf_residual", flimit),
-                               ("gstrf_residual2", flimit),
-                               ("res1", slimit), ("res3", slimit),
-                               ("res2", slimit)):
-                    if not float(r[k]) < lim:
-                        fail(f"{label} rank {i}: {k} {float(r[k])} not "
-                             f"below {lim}")
-                if not bool(r["same_bits"]):
-                    fail(f"{label} rank {i}: two factorizations differ")
-                for k in ("x1", "x3", "x2", "digest"):
-                    if not np.array_equal(r[k], r0[k]):
-                        fail(f"{label} rank {i}: {k} differs from rank 0's")
-                if int(r["dist_reuse"]) != 1:
-                    fail(f"{label} rank {i}: the refactorization rebuilt "
-                         "the tables")
-            sh = np.stack([r["shard"] for r in rk])
-            nt = int(r0["num_tiles"])
-            full = np.zeros((nt,) + sh.shape[2:], sh.dtype)
-            full[:] = sh[r0["tile_owner_r"].astype(np.int64) * 2
-                         + r0["tile_owner_c"], r0["tile_slot"]]
-            row = dict(
-                groups=groups, k1_launches_per_rank=k1[0][0],
-                all_reduces_per_factorization=int(r0["comm_all_reduces"]),
-                mib_per_factorization=int(r0["comm_bytes"]) / 2 ** 20,
-                ms_per_factorization=float(np.median(
-                    [np.median(r["factor_ms"]) for r in rk])),
-                numeric_ms=float(np.median(
-                    [np.median(r["numeric_ms"]) for r in rk])),
-                ms_per_solve=float(np.median(
-                    [np.median(r["solve_ms"]) for r in rk])),
-                gstrf_residual=float(r0["gstrf_residual"]),
-                solve_residual=float(r0["res1"]),
-                solve_residual_3rhs=float(r0["res3"]),
-                refactor_solve_residual=float(r0["res2"]))
+            label, _, _, dtype, ordering = spec.split(":")[:5]
+            row, full = check_ranks(tmp, spec)
             if label.startswith(f"p3d{nx}_") and dtype == "r32":
                 ref = one[ordering]["tiles"]
                 tol = TOL_GROUP_F32 if ordering == "nd" else TOL_F32
@@ -2167,14 +2243,6 @@ def dist_phase(dev, nx: int = 32, nb: int = 128, cases=DIST_CASES,
                 print(f"  {label}: the 2x2 factors are "
                       f"{'' if row['bit_identical_to_1x1'] else 'not '}"
                       "the 1x1 collective engine's bits")
-            print(f"  {label}: {row['ms_per_factorization']:.1f} ms per "
-                  f"factorization (numeric {row['numeric_ms']:.1f}), "
-                  f"{row['ms_per_solve']:.1f} ms per solve (unrefined), "
-                  f"{row['all_reduces_per_factorization']} all-reduces and "
-                  f"{row['mib_per_factorization']:.2f} MiB per "
-                  f"factorization a rank; residuals gstrf "
-                  f"{row['gstrf_residual']:.2e}, solve "
-                  f"{row['solve_residual']:.2e}")
             out[label] = row
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2799,6 +2867,393 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
     torch.cuda.empty_cache()
     return out, entries, launches
 
+# the wide and native stores phase: its 2 x 2 ranks on one card (r32 at
+# nb=512, K1 for wide tiles on every rank; native cr64 tiles)
+WIDE_DIST_CASES = ("p3d32_nb512_rcm:poisson3d:32:r32:rcm:512",
+                   "p3d16_cr64n_rcm:poisson3d:16:cr64:rcm:128:native")
+
+
+def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
+                             p6_nbs=(288, 384, 512), p2_nbs=(384, 512),
+                             nx_c: int = 16, nb_c: int = 128,
+                             dist_cases=WIDE_DIST_CASES) -> tuple:
+    """The compressed store at nb > 256 and with native complex tiles,
+    and the multi-device engine at nb > 256 and with native complex
+    tiles, on the card:
+
+      (a) P6 at each nb of p6_nbs, float32, float64, complex64 and
+          complex128 slots (its 4-, 8- and 16-byte words), on the widest
+          level's update tiles of poisson3d(nx)'s rcm store at that nb,
+          random slot values: decompress and compress torch.equal to
+          their plain versions; at nb, float32 (the kernels line's) and
+          complex128 (the widest word), per launch device ms beside the
+          bound, the plain versions and zero_ + scatter_ / gather
+          (pangulu_tpu_torch/tools/probe_p6.py measure_batch; every slot
+          type: probe_p6.py --wide);
+      (b) P2 at each nb of p2_nbs on 64 factored diagonally dominant
+          tiles: float64 within 1e-12 and float32 within 1e-5 of its
+          plain twin (relative to the largest entry); per launch device
+          ms beside the bound, the twin and solve_triangular;
+      (c) init -> gstrf -> gstrs with tile_storage="compressed" on
+          poisson3d(nx), nb, r32 rcm and nd and r64 rcm (CompressedLU,
+          its diagonal step K1 for wide tiles): exact launch counts
+          (testing.compressed_launches; one K1 device launch a level),
+          gstrf residual on the card < 1e-5 (r64 1e-12), refined solve
+          residual < 1e-10 (r64 1e-12), the factors within the tile
+          tolerance of the fused engine's on the same matrix, ms per
+          factorization and per solve (CUDA events, median of 5), the
+          store's bytes against the dense store's, one traced
+          factorization of r32 rcm and nd (K1's and P6's device ms and
+          share); for r32 rcm save_factor -> load_factor -> gstrs with
+          exact counts (one P2 launch);
+      (d) complex_mode="native" on the compressed store, cr32 and cr64,
+          poisson3d(nx_c) with imaginary parts, nb_c, rcm: exact counts
+          (P6 on complex slots; no K1 and no P2: the diagonal step is
+          kernels_xla's, a reload inverts by the plain doubling),
+          residuals < 1e-10 / 1e-12 (A in the working precision) and
+          gstrf residuals < 1e-5 / 1e-12 in complex128, a reload's
+          solution, ms of the one factorization (perf's numeric phase)
+          and per solve; P6 per launch on the cr64 store's widest level;
+      (e) 2 x 2 ranks on this card over gloo (run_ranks, check_ranks):
+          dist_cases, poisson3d(nx) nb r32 rcm (K1 for wide tiles once a
+          group on every rank) and native cr64 on poisson3d(nx_c) (no
+          hand kernel), residuals, the same bits on every rank.
+
+    Returns (its numbers, kernels-line entries, their launches on the
+    paths (c) and (d)).  Any failure raises."""
+    import os
+    import shutil
+    import tempfile
+
+    from pangulu_tpu_torch import InitOptions, gstrf, gstrs, init
+    from pangulu_tpu_torch.compressed import CompressedLU
+    from pangulu_tpu_torch.io import load_factor, save_factor
+    from pangulu_tpu_torch.models import poisson3d
+    from pangulu_tpu_torch.numeric import LUFactorizer
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+    from pangulu_tpu_torch.ops.kernels_torch import Indices
+    from pangulu_tpu_torch.testing import (compressed_launches,
+                                           with_imaginary_parts)
+    from pangulu_tpu_torch.tools.probe_p6 import (SLOT_TYPES, measure_batch,
+                                                   p6_batches, p6_in_trace,
+                                                   print_batch, random_slots,
+                                                   wide_batch)
+    from pangulu_tpu_torch.utils.perf import residual_norm
+
+    t_phase = time.perf_counter()
+    cs = sys.modules[__name__]
+    out, entries, launches = {"p6": {}, "p2": {}}, {}, {}
+    rng = np.random.default_rng(20)
+
+    def expect(what, want):
+        want = {k: want.get(k, 0) for k in kc.LAUNCHES}
+        got = dict(kc.LAUNCHES)
+        if got != want:
+            fail(f"{what}: launch counts {got}, expected {want}")
+        return got
+
+    def step(label):
+        print(f"wide stores ({label}) at {time.perf_counter() - t_phase:.1f}"
+              " s")
+
+    def p6_entry(m, d, err=0.0):
+        return dict(max_abs_err=err, ms=m[f"{d}_ms"],
+                    plain_ms=m[f"{d}_plain_ms"],
+                    library_ms=m[f"{d}_library_ms"], **m[f"{d}_bound"])
+
+    # ---- (a) P6 at the wide tiles, every slot type ------------------------
+    step("a")
+    a = poisson3d(nx)
+    s = a.to_scipy()
+    b = s @ np.ones(a.n)
+    for w in p6_nbs:
+        clu, st, ids = wide_batch(nx, w, dev)
+        cap = int(st.cap.host[ids.host].max())
+        print(f"wide stores (a): P6 at nb={w}, poisson3d({nx}) rcm, the "
+              f"widest level's {len(ids)} update tiles (largest {cap} "
+              f"slots), every slot type")
+        for dt in SLOT_TYPES:
+            random_slots(st, dt, rng)
+            args = (st.values, st.idx, st.off, st.cap, ids)
+            got = kc.decompress_tiles(*args, w)
+            backs = [torch.full_like(st.values, 5.0) for _ in range(2)]
+            kc.compress_tiles(backs[0], st.idx, st.off, st.cap, ids, got)
+            kt.compress_tiles(backs[1], st.idx, st.off, st.cap, ids, got)
+            torch.cuda.synchronize()
+            live = backs[1] != 5.0
+            ok = (torch.equal(got, kt.decompress_tiles(*args, w))
+                  and torch.equal(backs[0], backs[1])
+                  and torch.equal(backs[0][live], st.values[live]))
+            print(f"  {dt} ({st.values.element_size()}-byte slots): "
+                  f"decompress and compress "
+                  f"{'bit-equal' if ok else 'DIFFER'} to the plain versions")
+            if not ok:
+                fail(f"P6 at nb={w} {dt} disagrees with its plain version")
+            out["p6"][f"nb{w}_{dt}"] = dict(tiles=len(ids), largest_cap=cap,
+                                            bit_equal=ok)
+            if w == nb and dt in (torch.float32, torch.complex128):
+                m = measure_batch(cs, st, ids)
+                print_batch(f"nb={w} {dt}", m)
+                out["p6"][f"nb{w}_{dt}"].update(m)
+            del got, backs
+        del clu, st
+        torch.cuda.empty_cache()
+    m = out["p6"][f"nb{nb}_{torch.float32}"]
+    for name, d in (("decompress_tiles", "decompress"),
+                    ("compress_tiles", "compress")):
+        entries[f"{name}@nb={nb}"] = p6_entry(m, d)
+
+    # ---- (b) P2 above nb = 256 ---------------------------------------------
+    step("b")
+    for w in p2_nbs:
+        batch = 64
+        print(f"wide stores (b): P2 at nb={w}, {batch} factored tiles, "
+              f"{kt.triangle_split(w)}-row halves over 128-wide leaves")
+        f64 = kt.getrf_with_inverses(torch.as_tensor(
+            rng.standard_normal((batch, w, w)) + w * np.eye(w),
+            device=dev))[0]
+        row = {}
+        for f, lim in ((f64, TOL_F64[0]), (f64.float(), TOL_F32[0])):
+            err = 0.0
+            for g, r, n in zip(kc.newton_inverses(f),
+                               kt.triangle_inverses(f), ("L^-1", "U^-1")):
+                e = rel_err(g, r.double())
+                err = max(err, float((g - r).abs().max()))
+                print(f"  {f.dtype} {n}: {e:.3e} of max |twin| (<= {lim:g})")
+                if not e <= lim:
+                    fail(f"P2 at nb={w} {f.dtype} disagrees with its twin")
+            row[str(f.dtype)] = dict(max_abs_err=err)
+        f32 = f64.float().contiguous()
+        eye = torch.eye(w, device=dev).expand(2 * batch, w, w)
+        dg = torch.diagonal(f32, dim1=-2, dim2=-1)
+        tol32 = kt.DEFAULT_TOL[torch.float32]
+        safe = torch.where(dg.abs() < tol32, torch.full_like(dg, tol32), dg)
+        lower = torch.cat([torch.tril(f32, -1) + eye[:batch],
+                           (torch.triu(f32, 1) + torch.diag_embed(safe))
+                           .transpose(-1, -2)]).contiguous()
+        row.update(
+            ms=device_ms(lambda: kc.newton_inverses(f32), n=10),
+            plain_ms=cuda_ms(lambda _: kt.triangle_inverses(f32), reps=3),
+            library_ms=device_ms(lambda: torch.linalg.solve_triangular(
+                lower, eye, upper=False), n=10),
+            **p2_bound(w, batch, torch.float32))
+        print(f"  per launch (f32, both triangles): {row['ms']:.4f} ms "
+              f"(bound {row['bound_ms']:.4f}, {row['bound_by']}), twin "
+              f"{row['plain_ms']:.3f}, solve_triangular on the stacked "
+              f"triangles {row['library_ms']:.4f}")
+        out["p2"][w] = row
+        del f64, f32, eye, lower
+        if w == nb:     # no path at another width: its numbers stay here
+            entries[f"newton_inverses@nb={w}"] = dict(
+                max_abs_err=row[str(torch.float32)]["max_abs_err"],
+                **{k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")})
+
+    # ---- (c) the compressed store at nb --------------------------------
+    def store_dense(st):
+        ids = Indices.build(np.arange(st.num_tiles + 1), dev)
+        return kt.decompress_tiles(st.values, st.idx, st.off, st.cap, ids,
+                                   st.nb)
+
+    step("c")
+    for dtype, ordering in (("r32", "rcm"), ("r32", "nd"), ("r64", "rcm")):
+        print(f"wide stores (c): init -> gstrf -> gstrs, poisson3d({nx}), "
+              f"nb={nb}, {dtype}, {ordering}, tile_storage='compressed'")
+        torch.cuda.empty_cache()
+        h = init(a, InitOptions(nb=nb, dtype=dtype, ordering=ordering,
+                                tile_storage="compressed", device=str(dev)))
+        kc.reset_launch_counts()
+        gstrf(h)
+        x = gstrs(h, b)
+        solves = 3 if dtype == "r32" else 1
+        sch, st, clu = h.schedule, h.factor_tiles, h._factorizer
+        bl = sch.block_length
+        got = expect(f"compressed nb={nb} {dtype} {ordering}",
+                     compressed_launches(sch, factorizations=1,
+                                         solves=solves))
+        k1_dev = kc.DEVICE_LAUNCHES["getrf_with_inverses"]
+        if k1_dev != bl or type(clu) is not CompressedLU:
+            fail(f"compressed nb={nb}: K1 device launches {k1_dev} (one a "
+                 f"level: {bl}), engine {type(clu).__name__}")
+        dense = store_dense(st)
+        fres = factor_residual_device(h, dense)
+        res = residual_norm(s, x, b)
+        limit = (1e-5, 1e-10) if dtype == "r32" else (1e-12, 1e-12)
+        fused = LUFactorizer(h.blocked, sch, device=dev)
+        ftiles = fused.factorize()
+        nt = h.blocked.num_tiles
+        tol = TOL_F32 if dtype == "r32" else TOL_F64
+        err = compare(f"compressed factors against the fused engine's "
+                      f"({fused.dispatch})", dense[:nt], ftiles[:nt], *tol)
+        del fused, ftiles
+        print(f"  {bl} levels, {nt} tiles; gstrf residual {fres:.3e} (< "
+              f"{limit[0]:g}), solve residual {res:.3e} (< {limit[1]:g}); "
+              f"store {st.compressed_bytes / 2**20:.1f} MiB against "
+              f"{st.dense_bytes / 2**20:.1f} MiB dense "
+              f"({st.dense_bytes / st.compressed_bytes:.2f}x)")
+        if not (fres < limit[0] and res < limit[1]):
+            fail(f"compressed nb={nb} {dtype} {ordering}: residuals")
+        if x.shape != (a.n,) or not np.isfinite(x).all():
+            fail("the compressed solution has the wrong shape or is not "
+                 "finite")
+        st.refill(h.reordering.reordered)
+        v0 = st.values.clone()
+        fms = cuda_ms(lambda _: clu.factorize(),
+                      setup=lambda: st.values.copy_(v0), reps=5)
+        wdt = np.float32 if dtype == "r32" else np.float64
+        xb = torch.zeros((bl + 1, nb, 1), dtype=st.values.dtype, device=dev)
+        xb[:bl].view(-1)[:a.n] = torch.as_tensor(
+            h.reordering.transform_b(b.astype(wdt)), device=dev)
+        sms = cuda_ms(lambda _: clu.solve_blocked(xb), reps=5)
+        print(f"  {fms:.3f} ms per factorization, {sms:.3f} ms per solve "
+              "(CUDA events, median of 5)")
+        row = dict(bl=bl, tiles=nt, launches=got, k1_device_launches=k1_dev,
+                   gstrf_residual=fres, solve_residual=res,
+                   max_abs_err_vs_fused=err,
+                   store_bytes=st.compressed_bytes,
+                   dense_bytes=st.dense_bytes, ms_per_factorization=fms,
+                   ms_per_solve=sms)
+        if dtype == "r32":
+            tr = profile(lambda _: clu.factorize(),
+                         setup=lambda: st.values.copy_(v0))
+            tp6 = p6_in_trace(tr["kernels"])
+            k1_ms = sum(k["device_ms"] for n, k in tr["kernels"].items()
+                        if "lu_wide_kernel" in n)
+            row.update(trace=tr, k1_device_ms=k1_ms, p6_device_ms=tp6[
+                "device_ms"], k1_share=k1_ms / tr["busy_ms"],
+                p6_share=tp6["device_ms"] / tr["busy_ms"])
+            print(f"  one factorization traced: wall {tr['wall_ms']:.3f} ms, "
+                  f"busy {tr['busy_ms']:.3f} (idle share "
+                  f"{tr['idle_share']:.3f}); K1 {k1_ms:.3f} device ms "
+                  f"({row['k1_share']:.1%}), P6 {tp6['device_ms']:.3f} "
+                  f"({row['p6_share']:.1%}: decompress "
+                  f"{tp6['decompress']['launches']}, compress "
+                  f"{tp6['compress']['launches']} launches)")
+            for name, k in sorted(tr["kernels"].items(),
+                                  key=lambda kv: -kv[1]["device_ms"])[:6]:
+                print(f"    {name[:90]}: {k['launches']} launches, "
+                      f"{k['device_ms']:.3f} device ms")
+        if (dtype, ordering) == ("r32", "rcm"):
+            launches.update({f"{n}@nb={nb}": got[n] for n in (
+                "decompress_tiles", "compress_tiles")})
+            launches[f"getrf_with_inverses@nb={nb} compressed"] = got[
+                "getrf_with_inverses"]
+            st.values.copy_(v0)
+            clu.factorize()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "wide.npz")
+                save_factor(h, path)
+                kc.reset_launch_counts()
+                h2 = load_factor(path, device=str(dev))
+                x2 = gstrs(h2, b)
+                row["reload_launches"] = expect(
+                    f"the reloaded nb={nb} store",
+                    compressed_launches(sch, solves=3, reloads=1))
+            row["reload_solve_residual"] = residual_norm(s, x2, b)
+            print(f"  save -> load -> gstrs: {row['reload_launches']}, "
+                  f"solve residual {row['reload_solve_residual']:.3e} "
+                  "(< 1e-10)")
+            if not row["reload_solve_residual"] < 1e-10:
+                fail(f"the reloaded nb={nb} store's solve residual")
+            launches[f"newton_inverses@nb={nb}"] = row["reload_launches"][
+                "newton_inverses"]
+            del h2
+        out[f"compressed_{dtype}_{ordering}"] = row
+        del h, st, clu, dense, v0, xb
+        torch.cuda.empty_cache()
+
+    # ---- (d) native complex tiles on the compressed store ---------------
+    step("d")
+    ca = with_imaginary_parts(poisson3d(nx_c))
+    for dtype in ("cr32", "cr64"):
+        print(f"wide stores (d): complex_mode native, tile_storage "
+              f"compressed, poisson3d({nx_c}) with imaginary parts, "
+              f"nb={nb_c}, {dtype}, rcm")
+        cdt = np.complex64 if dtype == "cr32" else np.complex128
+        aw = ca.to_scipy().astype(cdt).astype(np.complex128)
+        bc = aw @ np.full(ca.n, 1 + 1j)
+        h = init(ca, InitOptions(nb=nb_c, dtype=dtype, ordering="rcm",
+                                 tile_storage="compressed",
+                                 complex_mode="native", device=str(dev)))
+        kc.reset_launch_counts()
+        gstrf(h)
+        x = gstrs(h, bc)
+        solves = 3 if dtype == "cr32" else 1
+        sch, st, clu = h.schedule, h.factor_tiles, h._factorizer
+        got = expect(f"native {dtype} compressed", compressed_launches(
+            sch, factorizations=1, solves=solves, complex_tiles=True))
+        fres = factor_residual_device(h, store_dense(st))
+        res = residual_norm(aw, x, bc)
+        limit = (1e-5, 1e-10) if dtype == "cr32" else (1e-12, 1e-12)
+        print(f"  backend {h.perf.kernels['backend']}; launches {got}; "
+              f"gstrf residual {fres:.3e} (< {limit[0]:g}), solve residual "
+              f"{res:.3e} (< {limit[1]:g})")
+        if h.perf.kernels["backend"] != "torch" or not (
+                fres < limit[0] and res < limit[1]):
+            fail(f"native {dtype} compressed: backend or residuals")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "native.npz")
+            save_factor(h, path)
+            kc.reset_launch_counts()
+            h2 = load_factor(path, device=str(dev))
+            x2 = gstrs(h2, bc)
+            reload = expect(f"the reloaded native {dtype} store",
+                            compressed_launches(sch, solves=solves,
+                                                reloads=1,
+                                                complex_tiles=True))
+        rres = residual_norm(aw, x2, bc)
+        print(f"  save -> load -> gstrs (the plain doubling, no P2): "
+              f"{reload}, solve residual {rres:.3e}")
+        if not rres < limit[1]:
+            fail(f"the reloaded native {dtype} store's solve residual")
+        # host-bound (the diagonal step is PyTorch's small launches): the
+        # one factorization above, its level loop as perf's numeric phase
+        # times it (host clock, the device synced at its end)
+        fms = h.perf.phase_time["numeric"] * 1e3
+        bl = sch.block_length
+        xb = torch.zeros((bl + 1, nb_c, 1), dtype=st.values.dtype,
+                         device=dev)
+        xb[:bl].view(-1)[:ca.n] = torch.as_tensor(
+            h.reordering.transform_b(bc.astype(cdt)), device=dev)
+        sms = cuda_ms(lambda _: clu.solve_blocked(xb), reps=3)
+        print(f"  {fms:.3f} ms per factorization (the one above, host "
+              f"clock), {sms:.3f} ms per solve (CUDA events, median of 3)")
+        row = dict(bl=bl, launches=got, reload_launches=reload,
+                   gstrf_residual=fres, solve_residual=res,
+                   reload_solve_residual=rres, ms_per_factorization=fms,
+                   ms_per_solve=sms, store_bytes=st.compressed_bytes,
+                   dense_bytes=st.dense_bytes)
+        if dtype == "cr64":
+            m = measure_batch(cs, st, p6_batches(clu)["c"])
+            print_batch(f"nb={nb_c} complex128", m)
+            row["p6"] = m
+            for name, d in (("decompress_tiles", "decompress"),
+                            ("compress_tiles", "compress")):
+                n = f"{name}@nb={nb_c},complex128"
+                entries[n] = p6_entry(m, d)
+                launches[n] = got[name]
+        out[f"native_{dtype}"] = row
+        del h, h2, st, clu, xb
+        torch.cuda.empty_cache()
+
+    # ---- (e) 2 x 2 ranks on this card ---------------------------------
+    step("e")
+    print("wide stores (e): 4 ranks on a 2 x 2 grid, all on this card, "
+          "gloo: " + ", ".join(dist_cases))
+    t0 = time.perf_counter()
+    tmp = run_ranks(dev, dist_cases)
+    out["ranks_wall_s"] = time.perf_counter() - t0
+    try:
+        for spec in dist_cases:
+            out[spec.split(":")[0]] = check_ranks(tmp, spec)[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"wide stores: {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return out, entries, launches
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -2921,8 +3376,8 @@ def main() -> int:
         r"plu\d+(triangle_inverses|triangle_products|decompress|compress)"
         r"_kernel", n)}
     print("ptxas: the compressed store's kernels (P6 decompress/compress "
-          "<type, position type>, P2 triangle_inverses<type, nb/32> and "
-          "triangle_products<type>)")
+          "<slot word, position type>, P2 triangle_inverses<type, nb/32> "
+          "and triangle_products<type>)")
     for name, info in sorted(comp_ptx.items()):
         print(f"  {name}: {info.get('registers')} registers, "
               f"{info.get('spill_bytes')} spill bytes")
@@ -3597,6 +4052,12 @@ def main() -> int:
     kernels.update(xla_kernels)
     print(json.dumps({"xla_engines": untraced(xla)}))
 
+    # ---- the compressed store and the mesh at nb > 256, native complex
+    wide_st, wide_kernels, wide_launches = wide_native_stores_phase(dev)
+    detail["wide_native_stores"] = wide_st
+    kernels.update(wide_kernels)
+    print(json.dumps({"wide_native_stores": untraced(wide_st)}))
+
     launches = dict(rcm_launches)
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]
     launches["mega_solve_groups"] = nd_launches["mega_solve_groups"]
@@ -3606,16 +4067,22 @@ def main() -> int:
     launches.update(comp_launches)
     launches.update(probe_launches)
     launches.update(xla_launches)
+    launches.update(wide_launches)
     wide = tuple(xla_launches)
+    stores = tuple(wide_kernels)
+
+    def source(n):
+        base = n.split("@")[0]
+        if "@" not in n or base in COMPRESSED:
+            return SOURCE.get(base, SRC)
+        return SOURCE_WIDE if n in wide else SOURCE_256.get(base, SRC)
+
     out = {"kernels": [
-        dict(name=n, route="cuda",
-             source=(SOURCE.get(n, SRC) if "@" not in n
-                     else SOURCE_WIDE if n in wide
-                     else SOURCE_256.get(n.split("@")[0], SRC)),
+        dict(name=n, route="cuda", source=source(n),
              replaces=REPLACES[n.split("@")[0]], launches=launches[n],
              **kernels[n])
         for n in (*DENSE, *(f"{r}@nb=256" for r in DENSE), *COMPRESSED,
-                  *PROBES, *wide)]}
+                  *PROBES, *wide, *stores)]}
     # K1's launches a rank on the multi-device paths (dist_phase (b)),
     # and the panel route's (its main path, panel_phase (a)) beside the
     # kernels it runs
@@ -3626,6 +4093,10 @@ def main() -> int:
         if k["name"] in ("getrf_with_inverses", "mega_factorize",
                          "decompress_tiles", "compress_tiles"):
             k["panel_launches"] = panel_path[k["name"]]
+        if k["name"] == "getrf_with_inverses@nb=512":
+            # K1's launches on the compressed path at nb=512 as well
+            k["compressed_launches"] = launches[
+                "getrf_with_inverses@nb=512 compressed"]
     detail["kernels"] = out["kernels"]
     detail["seconds_after_build_start"] = time.perf_counter() - t_start
     od = ROOT / "pangulu_tpu_torch" / "_build"

@@ -33,10 +33,12 @@ real 2x2 embedding (:func:`pangulu_tpu_torch.sparse.complex_embed_matrix`)
 on the real engines, float32 for cr32 and float64 for cr64, on every
 device: ``init`` embeds the matrix, ``gstrs`` embeds the right-hand side
 and folds the solution back.  ``complex_mode="native"`` keeps complex
-tiles instead, on the fused engine with the ``"torch"`` backend.
+tiles instead: on the fused engine with the ``"torch"`` backend, on the
+compressed store (P6 moves complex slots) and on a grid of ranks.
 
-Tiles of nb > 256 run on the fused engine, whose diagonal step is K1
-for wide tiles on the card (``backend``: "auto", "cuda" or "torch",
+Tiles of nb > 256 run on the fused engine on dense tiles, on the
+compressed store and on a grid of ranks, each with K1 for wide tiles as
+its diagonal step on the card (``backend``: "auto", "cuda" or "torch",
 :mod:`pangulu_tpu_torch.ops.interface`).
 """
 
@@ -54,7 +56,6 @@ from pangulu_tpu_torch.blocks import (BlockedMatrix, gather_factor,
 from pangulu_tpu_torch.compressed import CompressedLU, CompressedTiles
 from pangulu_tpu_torch.numeric import LUFactorizer
 from pangulu_tpu_torch.ops.interface import BACKENDS
-from pangulu_tpu_torch.ops.kernels_torch import MAX_NB
 from pangulu_tpu_torch.outofcore import PanelLU
 from pangulu_tpu_torch.parallel.dist_numeric import DistributedLU
 from pangulu_tpu_torch.parallel.dist_sptrsv import DistributedTriangularSolver
@@ -81,8 +82,8 @@ class InitOptions:
     include/pangulu_interface_common.h:3-12, plus the compile-time
     PANGULU_FLAGS promoted to runtime options)."""
 
-    nb: int = 128                # block size (above 256: dense tiles on
-                                 # one device, the fused engine)
+    nb: int = 128                # block size (above 256 the dense tiles
+                                 # take the fused engine)
     dtype: str = "r64"           # r32 | r64 | cr32 | cr64
     mc64: bool = True            # -DPANGULU_MC64
     ordering: str = "auto"       # METIS analogue: mindeg|rcm|nd|natural|auto
@@ -100,9 +101,9 @@ class InitOptions:
                                  # slot lists (compressed.py)
     profile_dir: Optional[str] = None  # profiler traces: not ported
     complex_mode: str = "auto"   # cr32/cr64: "embed" (real 2x2
-                                 # embedding), "native" (complex tiles,
-                                 # the fused engine) or "auto" (= embed
-                                 # on every device)
+                                 # embedding), "native" (complex tiles:
+                                 # the fused engine on dense tiles) or
+                                 # "auto" (= embed on every device)
 
     def resolve_dtype(self):
         if self.dtype not in VALUE_DTYPES:
@@ -139,23 +140,6 @@ class InitOptions:
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {list(BACKENDS)}, "
                              f"got {self.backend!r}")
-        elsewhere = ("tile_storage='compressed'"
-                     if self.tile_storage == "compressed"
-                     else "mesh_shape" if self.mesh_shape is not None
-                     else None)
-        if elsewhere and self.nb > MAX_NB:
-            raise NotImplementedError(
-                f"nb={self.nb} > {MAX_NB} with {elsewhere}: tiles that wide "
-                "run on dense tiles on one device (the fused engine); the "
-                "compressed store, the panel driver and the multi-device "
-                "engine at nb > 256 are ROADMAP Queue 1 item 5")
-        if elsewhere and self.native_complex():
-            raise NotImplementedError(
-                f"complex_mode='native' with {elsewhere}: native complex "
-                "tiles run on dense tiles on one device (the fused engine); "
-                "the compressed store, the panel driver and the "
-                "multi-device engine take the real 2x2 embedding "
-                "('embed'); native complex there is ROADMAP Queue 1 item 6")
 
     def native_complex(self) -> bool:
         """A complex dtype solved with complex tiles (not embedded)."""
@@ -361,7 +345,8 @@ def gstrf(handle: Handle) -> None:
             log.info("distributed refactorize: reusing the tables")
         else:
             dist = DistributedLU(handle.blocked, handle.schedule, handle.grid,
-                                 perf=handle.perf, tol=handle.opts.tol)
+                                 perf=handle.perf, tol=handle.opts.tol,
+                                 backend=handle.opts.backend)
             handle._dist = dist
         handle.factor_tiles = dist.factorize()
         handle._factorizer = dist.single
@@ -381,7 +366,7 @@ def gstrf(handle: Handle) -> None:
                 handle.blocked, handle.schedule,
                 handle.reordering.reordered, perf=handle.perf,
                 device=handle.device, tol=handle.opts.tol,
-                store=handle._comp_store)
+                store=handle._comp_store, backend=handle.opts.backend)
         handle.factor_tiles = handle._factorizer.factorize()
         # the store's structure serves a same-pattern refactorization
         # (update_values + gstrf): O(nnz) refill, no fill walk
@@ -404,9 +389,13 @@ def gstrf(handle: Handle) -> None:
     if handle.opts.check:
         a3 = handle.reordering.reordered.to_scipy()
         if _multi_rank(handle):
+            # complex tiles keep their imaginary parts (the JAX package
+            # takes w as float64 here, pangulu_tpu/api.py:400-405, which
+            # drops them: its check then reads ~0.7 on exact factors)
             w = handle._dist.factor_check_vector()
             a1 = np.asarray(a3 @ np.ones(handle.blocked.n))
-            res = float(np.linalg.norm(w.astype(np.float64) - a1)
+            acc = np.complex128 if np.iscomplexobj(w) else np.float64
+            res = float(np.linalg.norm(w.astype(acc) - a1)
                         / (float(np.linalg.norm(a1)) or 1.0))
         else:
             tiles = (handle.factor_tiles.to_dense() if _compressed(handle)

@@ -5,14 +5,17 @@ nnz-capacity block storage (pangulu_storage.c:83-293, u16 in-block
 indices pangulu_common.h:54-65): device memory is O(fill-nnz), not
 O(tiles * nb^2).  Each tile stores only its exact scalar fill pattern
 (from the scalar symbolic analysis) as a list of in-tile positions
-(uint16 up to nb = 255, uint32 above) beside a list of values.
+(uint16 up to nb = 255, uint32 above, to nb = 65535 as in the JAX
+package) beside a list of values, real or complex.
 
 The products want dense operands, so :class:`CompressedLU` stages each
 elimination level's working set dense (the diagonal tile, the panels,
 the update destinations) with :func:`~ops.kernels_cuda.decompress_tiles`,
-runs the level's math on them (K1 on the diagonal tile, ``torch.matmul``
-in true f32 for the panels and the Schur updates, as the JAX package
-left them to XLA) and writes them back with
+runs the level's math on them (the diagonal step from its
+:class:`~ops.interface.KernelBackend`: K1 for real tiles on the card, at
+every nb, and ``kernels_xla`` for complex tiles and on the CPU;
+``torch.matmul`` in true f32 for the panels and the Schur updates, as
+the JAX package left them to XLA) and writes them back with
 :func:`~ops.kernels_cuda.compress_tiles`.  Dropping the positions outside
 the symbolic pattern loses nothing: such a position has a structurally
 zero factor in every product that could touch it, so its value is
@@ -32,7 +35,9 @@ import numpy as np
 import torch
 
 from pangulu_tpu_torch.blocks import BlockedMatrix
+from pangulu_tpu_torch.numeric import resolve_backend
 from pangulu_tpu_torch.ops import kernels_cuda
+from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.ops.kernels_torch import DEFAULT_TOL, Indices
 from pangulu_tpu_torch.schedule import Schedule, bucket, build_schedule
 from pangulu_tpu_torch.sparse import CscMatrix, symmetrize_pattern
@@ -93,7 +98,8 @@ class CompressedTiles:
         bl = blocked.block_length
         nn = nb * nb
         # in-tile positions (sentinel nb*nb): uint16 up to nb = 255,
-        # uint32 above (the port's nb <= 256)
+        # uint32 above, to nb = 65535 (pangulu_tpu/compressed.py:94-100)
+        kt.check_store_nb(nb)
         idx_dtype = np.uint16 if nn <= np.iinfo(np.uint16).max \
             else np.uint32
         li, lj = _scalar_fill_entries(a3)
@@ -263,12 +269,17 @@ def _rows(tab: np.ndarray, counts: np.ndarray, device, as_indices=True):
 class CompressedLU:
     """gstrf/gstrs executor over a :class:`CompressedTiles` store on
     ``device`` (``"cuda"``, the default: the hand kernels; ``"cpu"``: their
-    plain versions)."""
+    plain versions).  ``backend`` ("auto", "cuda", "torch" or a
+    :class:`~ops.interface.KernelBackend`) gives the diagonal step, as
+    the JAX package's engine takes ``backend.diag_factor_invert``
+    (pangulu_tpu/compressed.py:264): "auto" is K1 for real tiles on a
+    CUDA device and ``kernels_xla`` for complex tiles and on the CPU."""
 
     def __init__(self, blocked: BlockedMatrix, schedule: Schedule | None,
                  a3: CscMatrix, perf: PerfCounters | None = None,
-                 device="cuda", tol: float | None = None, store=None):
-        self._bind(blocked, schedule, perf, device, tol)
+                 device="cuda", tol: float | None = None, store=None,
+                 backend="auto"):
+        self._bind(blocked, schedule, perf, device, tol, backend)
         with self.perf.phase("preprocess"):
             if store is not None:      # refactorize: same pattern,
                 store.refill(a3)       # new values, O(nnz)
@@ -276,25 +287,27 @@ class CompressedLU:
             else:
                 self.store = CompressedTiles(blocked, a3, self.device)
 
-    def _bind(self, blocked, schedule, perf, device, tol) -> None:
+    def _bind(self, blocked, schedule, perf, device, tol, backend) -> None:
         self.blocked = blocked
         self.schedule = schedule or build_schedule(blocked)
         self.perf = perf or PerfCounters()
         self.device = resolve_device(device)
         self.tol = (tol if tol is not None
                     else DEFAULT_TOL[blocked.torch_dtype])
+        self.backend = resolve_backend(backend, blocked.nb,
+                                       blocked.torch_dtype, tol, self.device)
         self._levels = None
         self._solve_levels = None
         self.inv_tiles = None   # [bl, 2, nb, nb] by level
 
     @classmethod
     def from_store(cls, blocked, schedule, store: CompressedTiles,
-                   perf=None, tol=None) -> "CompressedLU":
+                   perf=None, tol=None, backend="auto") -> "CompressedLU":
         """A solve-ready executor over a saved, factored store
         (checkpoint load): the inverses are recomputed from its factored
         diagonal tiles at the first solve (:meth:`_ensure_inverses`)."""
         self = cls.__new__(cls)
-        self._bind(blocked, schedule, perf, store.device, tol)
+        self._bind(blocked, schedule, perf, store.device, tol, backend)
         self.store = store
         return self
 
@@ -347,9 +360,10 @@ class CompressedLU:
 
     def factorize(self) -> CompressedTiles:
         """Factor the store IN PLACE, level by level (pangulu_tpu/
-        compressed.py:227-283): the diagonal tile through K1, then the L
-        panel times U^-1, L^-1 times the U panel and the Schur updates,
-        each staged dense and written back.  Persists the inverses."""
+        compressed.py:227-283): the diagonal tile through the backend's
+        diagonal step (K1 on the card for real tiles), then the L panel
+        times U^-1, L^-1 times the U panel and the Schur updates, each
+        staged dense and written back.  Persists the inverses."""
         st = self.store
         bl, nb = self.schedule.block_length, st.nb
         levels = self._level_tables()
@@ -357,7 +371,7 @@ class CompressedLU:
                            device=self.device)
         with self.perf.phase("numeric"), true_f32():
             for k, (dg, lids, uids, dst, ul, uu) in enumerate(levels):
-                f, linv, uinv = kernels_cuda.getrf_with_inverses(
+                f, linv, uinv = self.backend.diag_factor_invert(
                     self._gather(dg), self.tol)
                 self._scatter(dg, f)
                 invs[k, 0], invs[k, 1] = linv[0], uinv[0]
@@ -382,24 +396,33 @@ class CompressedLU:
             ssssm=self.schedule.n_ssssm,
         )
         self.perf.kernels["engine"] = "compressed"
+        self.perf.kernels["backend"] = self.backend.name
         return st
 
     def _ensure_inverses(self) -> torch.Tensor:
         """The triangle inverses of every factored diagonal tile, from
         the store (a checkpoint-loaded executor; the factorization
         persists its own): the diagonal tiles staged dense in one batch,
-        then both inverses in one launch of P2
-        (``kernels_cuda.newton_inverses``), the counterpart of the JAX
-        package's Newton–Schulz doubling (pangulu_tpu/compressed.py:
-        367-401), which computes the same function by Gauss–Jordan
-        sweeps in float64 (``kernels_torch.triangle_inverses``, also on
-        the CPU), with no workspace."""
+        then both inverses.  Real tiles take one call of P2
+        (``kernels_cuda.newton_inverses``, at every nb), the counterpart
+        of the JAX package's Newton–Schulz doubling
+        (pangulu_tpu/compressed.py:367-401), which computes the same
+        function by Gauss–Jordan sweeps in float64
+        (``kernels_torch.triangle_inverses``, also on the CPU), with no
+        workspace.  Complex tiles take that doubling itself
+        (``kernels_torch.unit_lower_inv_newton`` and
+        ``upper_inv_newton`` over the batch), which the JAX package
+        computes in XLA behind no Pallas kernel."""
         if self.inv_tiles is None:
             diag = Indices.build([lev.diag for lev in self.schedule.levels],
                                  self.device)
             with true_f32():
-                linv, uinv = kernels_cuda.newton_inverses(
-                    self._gather(diag), self.tol)
+                d = self._gather(diag)
+                if d.is_complex():
+                    linv = kt.unit_lower_inv_newton(d)
+                    uinv = kt.upper_inv_newton(d, self.tol)
+                else:
+                    linv, uinv = kernels_cuda.newton_inverses(d, self.tol)
             self.inv_tiles = torch.stack([linv, uinv], dim=1)
         return self.inv_tiles
 

@@ -6,7 +6,8 @@
 // The store (pangulu_tpu_torch/compressed.py): values[s] holds in-tile
 // position idx[s] (row-major r * nb + c; uint16 for nb <= 255, uint32
 // above; a position >= nb * nb is a sentinel) of the tile t owning slots
-// [off[t], off[t] + cap[t]).  The scratch tile has cap 0.
+// [off[t], off[t] + cap[t]).  The scratch tile has cap 0.  A value is
+// float32, float64, complex64 or complex128.
 //
 // P6 decompress_kernel / compress_kernel
 //   Replace tools/exp_scatter.py run (the TPU probe that decompresses a
@@ -44,6 +45,9 @@
 //   grid holds a few blocks an SM where the batch allows.  The real ids
 //   of a batch are distinct (the wrapper checks), so no slot is written
 //   by two blocks.
+//   P6 moves values and computes nothing, so the kernels take a slot
+//   as a word of its width (SlotWord: 4 bytes for float32, 8 for
+//   float64 and complex64, 16 for complex128), not as a value type.
 //   Where it stands: near the byte bound on a wide batch; a small
 //   launch takes ~3 us, the launch and its chain of dependent loads
 //   (ids, then offset and cap, then positions, then values or dense
@@ -63,27 +67,35 @@
 //   adding along the chain).  An SM runs a substitution at register
 //   latency instead.
 //   Bound on an H100: by operations and bytes, nothing (the two inverses
-//   of a tile are 1.4e6 flop and 3 nb^2 values); in fact the chain of nb
-//   dependent steps of one block, as for K1 (tile_lu.cuh).
-//   Design: block (b, m) forms tile b's L^-1 (m = 0) or U^-1 (m = 1) with
-//   K1's own sweeps on a register tile (tile_lu.cuh): L^-1 by the
-//   forward Gauss–Jordan sweep without the LU update (the multipliers
-//   are the factor's own L), U^-1 by the backward sweep against U in
-//   shared memory (its diagonal by the tiny-pivot rule).  nb steps, one
-//   barrier each; no workspace.  Both types compute in double and round
-//   once at the store: the unit triangles of P3's probe have inverses
-//   near 1e17, on which an f32 sweep is no more accurate than the
-//   doubling it replaces, and the f64 register tile at nb = 128 is K7's
-//   (128 registers a thread).  Above nb = 128 the tile is split at 128:
-//   a block for each diagonal block's sweep, then a second launch for
-//   the off-diagonal block by two products on tensor cores
-//   (triangle_products_kernel, tile_gemm.cuh; in T: 3xTF32 for float),
-//   as K1's old blocked step formed it: L21^-1 = L22^-1·(-L21·L11^-1),
-//   U12^-1 = (-U11^-1·U12)·U22^-1.
+//   of a tile are 1.4e6 flop at nb = 128 and 3 nb^2 values); in fact the
+//   chain of nb dependent steps of one block, as for K1 (tile_lu.cuh).
+//   Design: block (b, m, z) forms the 128-wide diagonal block z (the last
+//   one narrower) of tile b's L^-1 (m = 0) or U^-1 (m = 1) with K1's own
+//   sweeps on a register tile (tile_lu.cuh): L^-1 by the forward
+//   Gauss–Jordan sweep without the LU update (the multipliers are the
+//   factor's own L), U^-1 by the backward sweep against U in shared
+//   memory (its diagonal by the tiny-pivot rule).  n steps, one barrier
+//   each; no workspace.  Both types compute in double and round once at
+//   the store: the unit triangles of P3's probe have inverses near 1e17,
+//   on which an f32 sweep is no more accurate than the doubling it
+//   replaces, and the f64 register tile at nb = 128 is K7's (128
+//   registers a thread).  Above nb = 128 the off-diagonal blocks form
+//   bottom-up over a tree of halves of the 128-wide blocks, one launch
+//   of triangle_products_kernel a level (1 at nb <= 256, 2 at 288-512):
+//   node (o, h1, h2) joins the complete inverses of its halves [o, o +
+//   h1) and [o + h1, o + h1 + h2) by two products on tensor cores
+//   (tile_gemm.cuh; in T: 3xTF32 for float, DMMA for double), as the
+//   JAX package's recursion forms its parent inverses
+//   (kernels_jax.py:200-248): L21^-1 = L22^-1·(-L21·L11^-1), U12^-1 =
+//   (-U11^-1·U12)·U22^-1.  The first product lands in the other
+//   triangle's zero block of the node (its shape), which the block then
+//   zeroes: still no workspace (kernels_torch.triangle_inverses is the
+//   same tree).
 //   What holds it back: the step's latency (a barrier, a shared read, a
 //   shuffle, the row's FMAs in f64, at half the f32 rate), and one block
 //   an SM at nb = 128 (the f64 tile takes the registers), so 2 B blocks
-//   run in ceil(2 B / 132) waves.
+//   run in ceil(2 B / 132) waves; above 256 a node's products run on one
+//   block of 4 warps (two 256-cubed products at the top of nb = 512).
 #pragma once
 
 #include <cstdint>
@@ -108,38 +120,66 @@ constexpr int kSlotGridY = 65535;
 // loads saved on the small tiles of most launches)
 constexpr int kSlotDirect = 2 * kSlotGroup * kSlotThreads;
 
-// kSlotGroup values or positions from p (kSlotGroup-aligned slots of an
-// array whose start is 16-byte aligned) by vector loads, and back.
-__device__ __forceinline__ void load_group(const float* __restrict__ p,
-                                           float (&v)[kSlotGroup]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
+// A slot's value as P6 moves it: a word of its width in bytes.
+template <int W>
+struct SlotWord;
+template <>
+struct SlotWord<4> {
+  using T = uint32_t;
+};
+template <>
+struct SlotWord<8> {
+  using T = uint2;
+};
+template <>
+struct SlotWord<16> {
+  using T = uint4;
+};
+
+// kSlotGroup slot words from p (kSlotGroup-aligned slots of an array
+// whose start is 16-byte aligned) by 16-byte loads, and back.
+__device__ __forceinline__ void load_group(const uint32_t* __restrict__ p,
+                                           uint32_t (&v)[kSlotGroup]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
   v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
 }
-__device__ __forceinline__ void load_group(const double* __restrict__ p,
-                                           double (&v)[kSlotGroup]) {
-  const double2 a = reinterpret_cast<const double2*>(p)[0];
-  const double2 b = reinterpret_cast<const double2*>(p)[1];
-  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+__device__ __forceinline__ void load_group(const uint2* __restrict__ p,
+                                           uint2 (&v)[kSlotGroup]) {
+  const uint4 a = reinterpret_cast<const uint4*>(p)[0];
+  const uint4 b = reinterpret_cast<const uint4*>(p)[1];
+  v[0] = make_uint2(a.x, a.y), v[1] = make_uint2(a.z, a.w);
+  v[2] = make_uint2(b.x, b.y), v[3] = make_uint2(b.z, b.w);
 }
-__device__ __forceinline__ void load_group(const uint16_t* __restrict__ p,
-                                           unsigned (&v)[kSlotGroup]) {
+__device__ __forceinline__ void load_group(const uint4* __restrict__ p,
+                                           uint4 (&v)[kSlotGroup]) {
+#pragma unroll
+  for (int k = 0; k < kSlotGroup; ++k) v[k] = p[k];
+}
+__device__ __forceinline__ void store_group(uint32_t* __restrict__ p,
+                                            const uint32_t (&v)[kSlotGroup]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_group(uint2* __restrict__ p,
+                                            const uint2 (&v)[kSlotGroup]) {
+  reinterpret_cast<uint4*>(p)[0] = make_uint4(v[0].x, v[0].y, v[1].x, v[1].y);
+  reinterpret_cast<uint4*>(p)[1] = make_uint4(v[2].x, v[2].y, v[3].x, v[3].y);
+}
+__device__ __forceinline__ void store_group(uint4* __restrict__ p,
+                                            const uint4 (&v)[kSlotGroup]) {
+#pragma unroll
+  for (int k = 0; k < kSlotGroup; ++k) p[k] = v[k];
+}
+// kSlotGroup positions from p, the same way.
+__device__ __forceinline__ void load_positions(const uint16_t* __restrict__ p,
+                                               unsigned (&v)[kSlotGroup]) {
   const uint2 q = *reinterpret_cast<const uint2*>(p);
   v[0] = q.x & 0xFFFFu, v[1] = q.x >> 16, v[2] = q.y & 0xFFFFu,
   v[3] = q.y >> 16;
 }
-__device__ __forceinline__ void load_group(const uint32_t* __restrict__ p,
-                                           unsigned (&v)[kSlotGroup]) {
+__device__ __forceinline__ void load_positions(const uint32_t* __restrict__ p,
+                                               unsigned (&v)[kSlotGroup]) {
   const uint4 q = *reinterpret_cast<const uint4*>(p);
   v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-}
-__device__ __forceinline__ void store_group(float* __restrict__ p,
-                                            const float (&v)[kSlotGroup]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store_group(double* __restrict__ p,
-                                            const double (&v)[kSlotGroup]) {
-  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
-  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
 }
 
 // Whether the slot arrays take load_group and store_group.
@@ -185,7 +225,8 @@ __device__ __forceinline__ void slot_range(const I* __restrict__ pos, int c,
 
 // Block (b, j): rows [j rows, (j + 1) rows) of the dense nb x nb tile
 // ids[b] of the store into dense + b * nb^2, and every gridDim.y-th such
-// chunk after it.  Shared memory: rows * nb values (16-byte rounded).
+// chunk after it.  Shared memory: rows * nb slot words (16-byte
+// rounded).  T is a SlotWord.
 template <typename T, typename I>
 __global__ void __launch_bounds__(kSlotThreads)
     decompress_kernel(const T* __restrict__ values, const I* __restrict__ idx,
@@ -218,14 +259,14 @@ __global__ void __launch_bounds__(kSlotThreads)
       unsigned p[kSlotGroup];
       T v[kSlotGroup];
       if (vec && g >= lo && g + kSlotGroup <= hi) {
-        load_group(idx + g, p);
+        load_positions(idx + g, p);
         load_group(values + g, v);
       } else {
 #pragma unroll
         for (int k = 0; k < kSlotGroup; ++k) {
           const bool in = g + k >= lo && g + k < hi;
           p[k] = in ? (unsigned)idx[g + k] : kNoSlot;
-          v[k] = in ? values[g + k] : T(0);
+          v[k] = in ? values[g + k] : T{};
         }
       }
 #pragma unroll
@@ -270,7 +311,7 @@ __global__ void __launch_bounds__(kSlotThreads)
       unsigned p[kSlotGroup];
       const bool whole = vec && g >= lo && g + kSlotGroup <= hi;
       if (whole) {
-        load_group(idx + g, p);
+        load_positions(idx + g, p);
       } else {
 #pragma unroll
         for (int k = 0; k < kSlotGroup; ++k)
@@ -280,7 +321,7 @@ __global__ void __launch_bounds__(kSlotThreads)
       bool all = whole;
 #pragma unroll
       for (int k = 0; k < kSlotGroup; ++k) {
-        v[k] = p[k] < nn ? d[p[k]] : T(0);
+        v[k] = p[k] < nn ? d[p[k]] : T{};
         all = all && p[k] < nn;
       }
       if (all) {
@@ -310,10 +351,11 @@ cudaError_t stage_slots_of(bool to_dense, T* values, const I* idx,
   return cudaGetLastError();
 }
 
-// Decompress (to_dense) or compress a batch of tiles; idx_bytes is the
-// width of a slot position, 2 or 4.  The grid (kernels_cuda.
-// stage_geometry): decompress (batch, chunks) blocks of rows rows,
-// compress (batch, spans) blocks of span slots.
+// Decompress (to_dense) or compress a batch of tiles of slot words T
+// (SlotWord: 4, 8 or 16 bytes); idx_bytes is the width of a slot
+// position, 2 or 4.  The grid (kernels_cuda.stage_geometry): decompress
+// (batch, chunks) blocks of rows rows, compress (batch, spans) blocks of
+// span slots.
 template <typename T>
 cudaError_t stage_slots(bool to_dense, T* values, const void* idx,
                         int idx_bytes, const int* off, const int* cap,
@@ -356,14 +398,6 @@ __device__ void newton_product(const T* a, const T* b, T* c, int nb,
   gemm_sync<BAR>();
 }
 
-// The products of P2's off-diagonal block above nb = 128: a 128-row
-// column band and a 128-column row band, each read and written in
-// place (a band of the output reads only the same band of it).
-template <typename T>
-using InvColBand = Window<T, kLuMaxN, 32, 4, 1>;
-template <typename T>
-using InvRowBand = Window<T, 32, kLuMaxN, 1, 4>;
-
 // L^-1 (upper = false) or U^-1 (upper = true) of the n x n diagonal
 // block at a (row stride ld, n <= 128) of a factored tile into out (the
 // same stride), computed in double and rounded once to T.  sF: 32 CB x
@@ -405,11 +439,11 @@ __device__ void triangle_inverse(const T* a, T* out, bool upper, int n,
   M.store(out, n, ld);
 }
 
-// Block (b, m, z): L^-1 (m = 0) or U^-1 (m = 1) of the factored tile f
-// + b * nb^2 into linv or uinv + b * nb^2: the whole tile (nb <= 128,
-// gridDim.z = 1), or above nb = 128 its diagonal block z (128 x 128,
-// then nb - 128), whose off-diagonal block triangle_products_kernel
-// forms next.  CB = lu_cb(min(nb, 128)).
+// Block (b, m, z): L^-1 (m = 0) or U^-1 (m = 1) of the diagonal block z
+// of the factored tile f + b * nb^2 (rows [128 z, min(128 z + 128, nb)):
+// the whole tile up to nb = 128) into linv or uinv + b * nb^2; above nb
+// = 128 triangle_products_kernel forms the off-diagonal blocks next.
+// CB = lu_cb(min(nb, 128)).
 template <typename T, int CB>
 __global__ void __launch_bounds__(kLuThreads, 1)
     triangle_inverses_kernel(const T* f, T* linv, T* uinv, int nb,
@@ -418,69 +452,88 @@ __global__ void __launch_bounds__(kLuThreads, 1)
   double* sF = reinterpret_cast<double*>(smem_raw);
   const size_t nn = (size_t)nb * nb;
   const bool upper = blockIdx.y == 1;
-  const int h = nb < kLuMaxN ? nb : kLuMaxN;
-  const int n = blockIdx.z == 0 ? h : nb - h;
-  const size_t d = blockIdx.z == 0 ? 0 : (size_t)h * (nb + 1);
+  const int o = blockIdx.z * kLuMaxN;
+  const int n = min(kLuMaxN, nb - o);
+  const size_t d = (size_t)o * (nb + 1);
   triangle_inverse<T, CB>(f + blockIdx.x * nn + d,
                           (upper ? uinv : linv) + blockIdx.x * nn + d, upper,
                           n, nb, tol, sF, sF + 32 * CB * kLuVec);
 }
 
-// Block (b, m), nb > 128, after triangle_inverses_kernel: the
-// off-diagonal blocks of tile b's L^-1 (m = 0) or U^-1 (m = 1) from its
-// diagonal blocks' inverses, by two products on tensor cores in T, and
-// the zero block.
+// C (OP) A·B over every window of C, by the whole block; ends with a
+// barrier after the last store, so that the block may read C next.
+template <StoreOp OP, typename T, typename TA, typename TB>
+__device__ void block_product(const Mat<TA>& a, const Mat<TB>& b,
+                              const Mat<T>& c, T* smem) {
+  using W = NewtonWindow<T>;
+  const int nr = (c.rows + W::BM - 1) / W::BM;
+  const int nc = (c.cols + W::BN - 1) / W::BN;
+  for (int w = 0; w < nr * nc; ++w)
+    tile_gemm<W, OP>(a, b, c, w / nc * W::BM, w % nc * W::BN, smem);
+  __syncthreads();
+}
+
+// Block (b, m, i), after the levels below: node i of level `level` >= 1
+// of P2's tree over the 128-wide diagonal blocks of tile b joins its
+// halves, rows [o, o + h1) and [o + h1, o + h1 + h2) with h1 = 128 ·
+// 2^(level - 1), o = 2 h1 i and h2 = min(h1, nb - o - h1) (no node where
+// h2 <= 0): m = 0 forms L^-1's block (o + h1, o) as L22^-1·(-L21·
+// L11^-1), m = 1 U^-1's block (o, o + h1) as (-U11^-1·U12)·U22^-1, each
+// by two products on tensor cores in T.  The first product goes to the
+// node's zero block of the other triangle (U^-1's (o + h1, o), L^-1's (o,
+// o + h1): the same shape), which the block zeroes after the second.
 template <typename T>
 __global__ void __launch_bounds__(kGemmThreads)
-    triangle_products_kernel(const T* f, T* linv, T* uinv, int nb) {
+    triangle_products_kernel(const T* f, T* linv, T* uinv, int nb,
+                             int level) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
+  const int h1 = kLuMaxN << (level - 1);
+  const int o = 2 * h1 * blockIdx.z, m = o + h1;
+  const int h2 = min(h1, nb - m);
+  if (h2 <= 0) return;
   const size_t nn = (size_t)nb * nb;
   const bool upper = blockIdx.y == 1;
   const T* a = f + blockIdx.x * nn;
   T* out = (upper ? uinv : linv) + blockIdx.x * nn;
-  const int h = kLuMaxN, h2 = nb - h;
-  // the zero block: U^-1's lower left, L^-1's upper right
-  for (int e = threadIdx.x; e < h * h2; e += kGemmThreads) {
-    if (upper)
-      out[(size_t)(h + e / h) * nb + e % h] = T(0);
-    else
-      out[(size_t)(e / h2) * nb + h + e % h2] = T(0);
-  }
-  const int qd = (h2 + 63) / 64, hq = h / 64;
+  T* other = (upper ? linv : uinv) + blockIdx.x * nn;
+  Mat<T> s;
   if (!upper) {
-    // W = -L21·L11^-1 into L^-1's lower left, then L22^-1·W there
-    const Mat<T> w = block_of(out, nb, h, 0, h2, h);
-    for (int j = 0; j < qd * hq; ++j)
-      tile_gemm<NewtonWindow<T>, kNegate>(
-          block_of(a, nb, h, 0, h2, h), block_of(out, nb, 0, 0, h, h), w,
-          j / hq * 64, j % hq * 64, smem);
-    __syncthreads();
-    for (int s = 0; s < h / 32; ++s)
-      tile_gemm<InvColBand<T>, kStore>(block_of(out, nb, h, h, h2, h2), w,
-                                       w, 0, s * 32, smem);
+    // S = -L21·L11^-1 (h2 x h1), then L^-1's block = L22^-1·S
+    s = block_of(other, nb, m, o, h2, h1);
+    block_product<kNegate>(block_of(a, nb, m, o, h2, h1),
+                           block_of(out, nb, o, o, h1, h1), s, smem);
+    block_product<kStore>(block_of(out, nb, m, m, h2, h2), s,
+                          block_of(out, nb, m, o, h2, h1), smem);
   } else {
-    // V = -U11^-1·U12 into U^-1's upper right, then V·U22^-1 there
-    const Mat<T> v = block_of(out, nb, 0, h, h, h2);
-    for (int j = 0; j < hq * qd; ++j)
-      tile_gemm<NewtonWindow<T>, kNegate>(
-          block_of(out, nb, 0, 0, h, h), block_of(a, nb, 0, h, h, h2), v,
-          j / qd * 64, j % qd * 64, smem);
-    __syncthreads();
-    for (int s = 0; s < h / 32; ++s)
-      tile_gemm<InvRowBand<T>, kStore>(v, block_of(out, nb, h, h, h2, h2),
-                                       v, s * 32, 0, smem);
+    // S = -U11^-1·U12 (h1 x h2), then U^-1's block = S·U22^-1
+    s = block_of(other, nb, o, m, h1, h2);
+    block_product<kNegate>(block_of(out, nb, o, o, h1, h1),
+                           block_of(a, nb, o, m, h1, h2), s, smem);
+    block_product<kStore>(s, block_of(out, nb, m, m, h2, h2),
+                          block_of(out, nb, o, m, h1, h2), smem);
   }
+  for (int e = threadIdx.x; e < s.rows * s.cols; e += kGemmThreads)
+    s.p[(size_t)(e / s.cols) * nb + e % s.cols] = T(0);
 }
 
-// L^-1 and U^-1 of a batch of factored tiles: one launch, a block per
-// tile and triangle (and diagonal block above nb = 128, where a second
-// launch forms the off-diagonal blocks).
+// Levels of P2's tree at nb: ceil(log2(ceil(nb / 128))).
+inline int triangle_tree_levels(int nb) {
+  int levels = 0;
+  while ((kLuMaxN << levels) < nb) ++levels;
+  return levels;
+}
+
+// L^-1 and U^-1 of a batch of factored tiles: one launch of the sweeps
+// (a block per tile, triangle and 128-wide diagonal block), then one
+// launch of the products a level of the tree above nb = 128.
 template <typename T>
 cudaError_t triangle_inverses(const T* f, T* linv, T* uinv, int batch,
                               int nb, double tol, cudaStream_t st) {
   if (batch == 0) return cudaSuccess;
+  if (batch < 0 || nb < 1) return cudaErrorInvalidValue;
   const int n = nb < kLuMaxN ? nb : kLuMaxN, cb = lu_cb(n);
+  const int leaves = (nb + kLuMaxN - 1) / kLuMaxN;
   void (*kern)(const T*, T*, T*, int, double) =
       cb == 1   ? triangle_inverses_kernel<T, 1>
       : cb == 2 ? triangle_inverses_kernel<T, 2>
@@ -489,19 +542,22 @@ cudaError_t triangle_inverses(const T* f, T* linv, T* uinv, int batch,
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(batch, 2, nb > kLuMaxN ? 2 : 1), kLuThreads, smem, st>>>(
-      f, linv, uinv, nb, tol);
-  if ((e = cudaGetLastError()) != cudaSuccess || nb <= kLuMaxN) return e;
-  size_t psm = NewtonWindow<T>::kSmemBytes;
-  if (InvColBand<T>::kSmemBytes > psm) psm = InvColBand<T>::kSmemBytes;
-  if (InvRowBand<T>::kSmemBytes > psm) psm = InvRowBand<T>::kSmemBytes;
+  kern<<<dim3(batch, 2, leaves), kLuThreads, smem, st>>>(f, linv, uinv, nb,
+                                                         tol);
+  if ((e = cudaGetLastError()) != cudaSuccess || leaves == 1) return e;
+  const int psm = (int)NewtonWindow<T>::kSmemBytes;
   if ((e = cudaFuncSetAttribute(triangle_products_kernel<T>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)psm)) != cudaSuccess)
+                                psm)) != cudaSuccess)
     return e;
-  triangle_products_kernel<T><<<dim3(batch, 2), kGemmThreads, psm, st>>>(
-      f, linv, uinv, nb);
-  return cudaGetLastError();
+  const int levels = triangle_tree_levels(nb);
+  for (int level = 1; level <= levels; ++level) {
+    const int nodes = (leaves + (1 << level) - 1) >> level;
+    triangle_products_kernel<T><<<dim3(batch, 2, nodes), kGemmThreads, psm,
+                                  st>>>(f, linv, uinv, nb, level);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace plu

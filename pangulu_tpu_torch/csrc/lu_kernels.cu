@@ -7,7 +7,9 @@
 // synchronises, and returns the first CUDA error (cudaGetLastError after
 // each launch), 0 on success.  Tiles are row-major nb x nb, nb <= 256,
 // except K1's, which takes wider tiles (wide_lu.cuh: one thread block
-// cluster launch up to nb = 512, a recursion on such launches above).
+// cluster launch up to nb = 512, a recursion on such launches above),
+// and the compressed store's P6 and P2 (compressed.cuh), which take any
+// nb their caller's checks allow.
 //
 // K1 getrf_with_inverses
 //   Replaces pangulu_tpu/ops/kernels_pallas.py getrf_with_inverses
@@ -1487,7 +1489,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 16; }
+int plu_kernels_abi() { return 17; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1661,8 +1663,10 @@ PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f32, float)
 PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f64, double)
 
 // P6: the tiles ids of the compressed store to dense (to_dense = 1) or
-// back (0); idx_bytes is the width of a slot position (2 or 4); the grid
-// as plu::stage_slots takes it.
+// back (0), an instance by the width of a slot's value in bytes (4:
+// float32; 8: float64, complex64; 16: complex128); idx_bytes is the
+// width of a slot position (2 or 4); the grid as plu::stage_slots takes
+// it.
 #define PLU_STAGE_SLOTS(NAME, T)                                              \
   int NAME(int dev, int to_dense, T* values, const void* idx, int idx_bytes, \
            const int* off, const int* cap, const int* ids, int batch, int nb, \
@@ -1673,10 +1677,12 @@ PLU_MEGA_SOLVE_GROUPS(plu_mega_solve_groups_f64, double)
                             ids, batch, nb, rows, chunks, span, spans, dense, \
                             PLU_STREAM(st));                                  \
   }
-PLU_STAGE_SLOTS(plu_stage_slots_f32, float)
-PLU_STAGE_SLOTS(plu_stage_slots_f64, double)
+PLU_STAGE_SLOTS(plu_stage_slots_4, plu::SlotWord<4>::T)
+PLU_STAGE_SLOTS(plu_stage_slots_8, plu::SlotWord<8>::T)
+PLU_STAGE_SLOTS(plu_stage_slots_16, plu::SlotWord<16>::T)
 
-// P2: L^-1 and U^-1 of a batch of factored tiles.
+// P2: L^-1 and U^-1 of a batch of factored tiles of any nb: 1 launch up
+// to nb = 128, 1 + triangle_tree_levels(nb) above.
 #define PLU_TRIANGLE_INVERSES(NAME, T)                                        \
   int NAME(int dev, const T* f, T* linv, T* uinv, int batch, int nb,         \
            double tol, void* st) {                                           \

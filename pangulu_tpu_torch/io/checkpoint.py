@@ -13,7 +13,8 @@ pangulu_tpu/io/checkpoint.py:32-46, 123-153).  A complex handle's
 checkpoint holds its real embedding and names the complex type in
 ``complex_embed`` (pangulu_tpu/io/checkpoint.py:56-57, 119, 149), or,
 with native complex tiles (``complex_mode="native"``), complex tiles of
-the complex system.  Dense factors of any nb cross.
+the complex system.  Factors of any nb cross, dense or compressed,
+real or native complex.
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 import torch
-
-from pangulu_tpu_torch.ops.kernels_torch import MAX_NB
 
 _FORMAT_VERSION = 2
 
@@ -103,12 +102,6 @@ def handle_from_arrays(z, device="cuda"):
     native = np.dtype(str(z["dtype"])).kind == "c"
     n = int(z["n"])
     nb = int(z["nb"])
-    if storage == "compressed" and (native or nb > MAX_NB):
-        raise NotImplementedError(
-            "compressed factors of native complex tiles or of nb > "
-            f"{MAX_NB}: the compressed store takes real tiles of nb <= "
-            f"{MAX_NB} (ROADMAP Queue 1 items 5 and 6); dense factors of "
-            "either load")
     bl = int(z["block_length"])
     num_tiles = int(z["num_tiles"])
     bcolptr, browidx = z["bcolptr"], z["browidx"]

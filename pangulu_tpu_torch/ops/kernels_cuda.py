@@ -27,10 +27,10 @@ import torch
 from pangulu_tpu_torch.ops import build
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
-                                                 check_nb)
+                                                 check_nb, check_store_nb)
 from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
 
-_ABI = 16
+_ABI = 17
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -112,9 +112,6 @@ def library() -> build.KernelLibrary:
         fn = getattr(lib, f"plu_mega_solve_groups_{s}")
         fn.restype = i
         fn.argtypes = [i, p, p, i, p, p] + [p] * 6 + [i] * 6 + [p, p, p]
-        fn = getattr(lib, f"plu_stage_slots_{s}")
-        fn.restype = i
-        fn.argtypes = [i, i, p, p, i, p, p, p] + [i] * 6 + [p, p]
         fn = getattr(lib, f"plu_triangle_inverses_{s}")
         fn.restype = i
         fn.argtypes = [i, p, p, p, i, i, d, p]
@@ -127,6 +124,10 @@ def library() -> build.KernelLibrary:
         fn = getattr(lib, f"plu_newton_loop_{s}")
         fn.restype = i
         fn.argtypes = [i, p, p, p, i, i, i, i, p]
+    for w in sorted(set(_SLOT_WORDS.values())):
+        fn = getattr(lib, f"plu_stage_slots_{w}")
+        fn.restype = i
+        fn.argtypes = [i, i, p, p, i, p, p, p] + [i] * 6 + [p, p]
     lib.plu_wide_work_elems.restype = ctypes.c_longlong
     lib.plu_wide_work_elems.argtypes = [i]
     lib.plu_wide_plan.restype = i
@@ -600,20 +601,27 @@ def mega_solve_groups(x: torch.Tensor, tiles: torch.Tensor,
 # ------------------------------------------------ the compressed store
 
 _IDX_BYTES = {torch.uint16: 2, torch.uint32: 4}
+# P6's instances by the bytes of a slot's value (csrc/compressed.cuh
+# SlotWord: it moves values and computes nothing): the value types of
+# the store and the C entry of each.
+_SLOT_WORDS = {torch.float32: 4, torch.float64: 8, torch.complex64: 8,
+               torch.complex128: 16}
 
 # P6's launch geometry (csrc/compressed.cuh): threads a block, slots a
 # thread takes at once, the largest tile a decompress block reads whole
-# (larger ones it searches), the shared memory a decompress block may
-# use for its rows, the blocks an SM a decompress and a compress grid
-# should hold where the batch allows (chosen by probe_p6.py --sweep on
-# an H100: fewer, larger blocks for decompress, whose rows each block
-# writes from shared memory), the largest slot span of a compress block
-# in units of SLOT_GROUP * SLOT_THREADS, and the largest second grid
-# dimension.
+# (larger ones it searches), the shared memory a decompress block should
+# use for its rows and the most it may (kSlotChunkBytes: at least one
+# row of the tile must fit), the blocks an SM a decompress and a
+# compress grid should hold where the batch allows (chosen by
+# probe_p6.py --sweep on an H100: fewer, larger blocks for decompress,
+# whose rows each block writes from shared memory), the largest slot
+# span of a compress block in units of SLOT_GROUP * SLOT_THREADS, and
+# the largest second grid dimension.
 SLOT_THREADS = 256
 SLOT_GROUP = 4
 SLOT_DIRECT = 2 * SLOT_GROUP * SLOT_THREADS
 SLOT_CHUNK_BYTES = 32768
+SLOT_CHUNK_LIMIT = 48 * 1024
 SLOT_DECOMPRESS_PER_SM = 4
 SLOT_COMPRESS_PER_SM = 6
 SLOT_SPAN_UNITS = 16
@@ -646,8 +654,16 @@ def stage_geometry(nb: int, elem_bytes: int, caps, sms: int
     A batch whose tiles decompress reads whole (at most SLOT_DIRECT
     slots) gets half the decompress blocks: each of a tile's blocks
     reads all its slots.  A decompress block's rows fit
-    SLOT_CHUNK_BYTES, chunks of one tile are as even as may be, a span is
-    a whole number of thread groups."""
+    SLOT_CHUNK_BYTES (one row at least, which must fit the kernel's
+    SLOT_CHUNK_LIMIT: else this raises), chunks of one tile are as even
+    as may be, a span is a whole number of thread groups."""
+    if nb * elem_bytes > SLOT_CHUNK_LIMIT:
+        raise ValueError(
+            f"P6 decompresses a tile in blocks of whole rows held in "
+            f"shared memory, at most {SLOT_CHUNK_LIMIT} bytes "
+            f"(kSlotChunkBytes); a row of nb={nb} values of {elem_bytes} "
+            f"bytes is {nb * elem_bytes} (nb <= "
+            f"{SLOT_CHUNK_LIMIT // elem_bytes} at this value size)")
     caps = np.asarray(caps, dtype=np.int64)
     batch = len(caps)
     target = SLOT_DECOMPRESS_PER_SM * sms
@@ -715,7 +731,10 @@ def _check_slots(values, idx, off: Indices, cap: Indices, nb: int):
     dev = values.device
     if values.dim() != 1 or not values.is_contiguous():
         raise ValueError("values must be a contiguous 1-D tensor")
-    _dtype_of(values)
+    if values.dtype not in _SLOT_WORDS:
+        raise TypeError(f"P6 takes float32, float64, complex64 or "
+                        f"complex128 values, got {values.dtype}")
+    check_store_nb(nb)
     if idx.dtype not in _IDX_BYTES:
         raise TypeError(f"slot positions are uint16 or uint32, got "
                         f"{idx.dtype}")
@@ -770,7 +789,8 @@ def _stage_slots(to_dense, values, idx, off, cap, ids, nb, dense):
         geo = ids.geometry[key] = stage_geometry(
             nb, values.element_size(), cap.host[ids.host], _sm_count(dev))
     lib = library().lib
-    _call(getattr(lib, f"plu_stage_slots_{_dtype_of(values)}"), dev.index,
+    _call(getattr(lib, f"plu_stage_slots_{_SLOT_WORDS[values.dtype]}"),
+          dev.index,
           int(to_dense), values.data_ptr(), idx.data_ptr(),
           _IDX_BYTES[idx.dtype], off.dev.data_ptr(), cap.dev.data_ptr(),
           ids.dev.data_ptr(), len(ids), nb, geo.rows, geo.chunks, geo.span,
@@ -779,11 +799,11 @@ def _stage_slots(to_dense, values, idx, off, cap, ids, nb, dense):
 
 def decompress_tiles(values: torch.Tensor, idx: torch.Tensor, off: Indices,
                      cap: Indices, ids: Indices, nb: int) -> torch.Tensor:
-    """P6: the dense [B, nb, nb] tiles ``ids`` of the compressed store;
-    see :func:`kernels_torch.decompress_tiles`."""
+    """P6: the dense [B, nb, nb] tiles ``ids`` of the compressed store
+    (real or complex values, any nb up to STORE_MAX_NB whose rows fit
+    :func:`stage_geometry`); see :func:`kernels_torch.decompress_tiles`."""
     if not _on_cuda(values):
         return kt.decompress_tiles(values, idx, off, cap, ids, nb)
-    check_nb(nb)
     nt = _check_slots(values, idx, off, cap, nb)
     _check_ids(ids, nt, values.device)
     dense = torch.empty((len(ids), nb, nb), dtype=values.dtype,
@@ -802,7 +822,6 @@ def compress_tiles(values: torch.Tensor, idx: torch.Tensor, off: Indices,
     if not _on_cuda(values):
         return kt.compress_tiles(values, idx, off, cap, ids, dense)
     nb = dense.shape[-1]
-    check_nb(nb)
     nt = _check_slots(values, idx, off, cap, nb)
     _check_ids(ids, nt, values.device)
     _check_tensor("dense", dense, values.dtype, (len(ids), nb, nb),
@@ -817,10 +836,17 @@ def newton_inverses(f: torch.Tensor, tol: float | None = None):
     """P2: (L^-1, U^-1) of a batch [B, nb, nb] of factored diagonal tiles,
     the counterpart of the JAX package's batched Newton–Schulz inverses
     (``tools/exp_batched_scan.py`` batched_newton, the reload path of
-    ``pangulu_tpu/compressed.py``).  It computes the same function by
-    Gauss–Jordan sweeps, as :func:`kernels_torch.triangle_inverses`
-    does (the plain version a CPU tensor goes to): one launch, a block
-    per tile and triangle, no workspace."""
+    ``pangulu_tpu/compressed.py``) for float32 and float64 tiles of any
+    nb up to STORE_MAX_NB.  It computes the same function by Gauss–Jordan
+    sweeps, as :func:`kernels_torch.triangle_inverses` does (the plain
+    version a CPU tensor goes to): one launch of the sweeps, a block per
+    tile, triangle and 128-wide diagonal block, then above nb = 128 one
+    launch of the products a level of its tree
+    (:func:`kernels_torch.triangle_split`), counted as one launch; no
+    workspace.  Complex tiles are not P2's: the compressed store inverts
+    them with :func:`kernels_torch.unit_lower_inv_newton` and
+    :func:`kernels_torch.upper_inv_newton`, as the JAX package does in
+    XLA."""
     if not _on_cuda(f):
         return kt.triangle_inverses(f, tol)
     s = _dtype_of(f)
@@ -829,7 +855,7 @@ def newton_inverses(f: torch.Tensor, tol: float | None = None):
     if f.dim() != 3 or f.shape[-1] != f.shape[-2]:
         raise ValueError(f"expected [B, nb, nb], got {tuple(f.shape)}")
     batch, nb = f.shape[0], f.shape[-1]
-    check_nb(nb)
+    check_store_nb(nb)
     _check_tensor("f", f, f.dtype, f.shape, f.device)
     linv, uinv = torch.empty_like(f), torch.empty_like(f)
     if batch:

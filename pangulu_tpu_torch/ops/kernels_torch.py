@@ -66,7 +66,7 @@ from pangulu_tpu_torch.schedule import group_update_lists
 DEFAULT_TOL = {torch.float32: 1e-8, torch.float64: 1e-16,
                torch.complex64: 1e-8, torch.complex128: 1e-16}
 
-# Largest tile of the CUDA kernels that keep a limit: K2-K5, P6 and P2.
+# Largest tile of the CUDA kernels that keep a limit: K2-K5.
 # K1 keeps a tile of nb <= 128 in registers (instances for nb <= 32, 64
 # and 128, csrc/tile_lu.cuh) and factors 128 < nb <= 256 on a thread
 # block cluster that holds the tile in shared memory, in panels of
@@ -77,15 +77,22 @@ DEFAULT_TOL = {torch.float32: 1e-8, torch.float64: 1e-16,
 # (getrf_with_inverses_blocked is its plain twin too), and above by a
 # recursion on halves of at most WIDE_LEAF (k1_wide, csrc/wide_lu.cuh);
 # the engines that run it there are the fused and levels engines
-# (numeric.py).
+# (numeric.py), the compressed store and the multi-device engine.  The
+# compressed store's kernels P6 and P2 take any nb up to STORE_MAX_NB.
 MAX_NB = 256
+
+# Widest tile of the compressed store: its in-tile positions are uint32
+# at most, with the sentinel nb*nb, and the JAX package takes nb <= 65535
+# there (pangulu_tpu/compressed.py:94-100), the reference's u16 block
+# indices' range (pangulu_common.h:54-65).
+STORE_MAX_NB = 65535
 
 # The widest tile K1's cluster kernel for wide tiles takes in one launch
 # (csrc/wide_lu.cuh kWideLeaf).
 WIDE_LEAF = 512
 
 # K1's largest register tile: the blocked step takes the tiles above it,
-# and P2 (triangle_inverses) splits them there.
+# and P2 (triangle_inverses) splits them into blocks of this width.
 LU_SPLIT = 128
 
 # Panel width of K1's blocked step: the TPU kernel's MXU mode
@@ -133,12 +140,21 @@ class KernelTables:
 
 
 def check_nb(nb: int) -> None:
-    """The limit of the kernels that keep one (K2-K5, P6, P2)."""
+    """The limit of K2-K5."""
     if nb > MAX_NB:
         raise ValueError(
             f"nb={nb} exceeds this kernel's limit nb <= {MAX_NB} (the "
             "products' and sweeps' shared-memory windows stop at nb=256; "
             "tiles wider than that run on the fused and levels engines)")
+
+
+def check_store_nb(nb: int) -> None:
+    """The limit of the compressed store and its kernels P6 and P2."""
+    if not 1 <= nb <= STORE_MAX_NB:
+        raise ValueError(
+            f"the compressed store takes 1 <= nb <= {STORE_MAX_NB} (its "
+            f"in-tile positions are uint32 with the sentinel nb*nb, as in "
+            f"the JAX package), got nb={nb}")
 
 
 def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
@@ -606,36 +622,48 @@ def _triangle_sweeps(f: torch.Tensor, tol: float):
     return x, h
 
 
+def triangle_split(m: int) -> int:
+    """Rows of the first half where P2's tree splits a block of m >
+    LU_SPLIT rows: half of its LU_SPLIT-wide blocks rounded up to a
+    power of two (128 for m <= 256, 256 for 256 < m <= 512), so that
+    every leaf is a LU_SPLIT-wide diagonal block (the last narrower) and
+    each level of the tree is one launch of the kernel's products."""
+    blocks = -(-m // LU_SPLIT)
+    return LU_SPLIT << ((blocks - 1).bit_length() - 1)
+
+
 def triangle_inverses(f: torch.Tensor, tol: float | None = None):
     """(L^-1, U^-1) of a batch [B, nb, nb] of factored diagonal tiles,
     the function of :func:`newton_inverses`, as P2's CUDA kernel
     computes it step for step: the sweeps of :func:`_triangle_sweeps` in
-    float64, rounded once to f's dtype.  Above nb = LU_SPLIT both
-    128-wide diagonal blocks go through the sweeps and the off-diagonal
-    block through two products in f's dtype:
-    ``L^-1[h:, :h] = L22^-1·(-L21·L11^-1)`` and ``U^-1[:h, h:] =
+    float64, rounded once to f's dtype, on each LU_SPLIT-wide diagonal
+    block, and above LU_SPLIT the off-diagonal blocks over the halves of
+    :func:`triangle_split`, bottom-up, by two products in f's dtype, as
+    the JAX package's recursion forms its parent inverses
+    (``kernels_xla.getrf_with_inverses``):
+    ``L^-1[2, 1] = L22^-1·(-L21·L11^-1)`` and ``U^-1[1, 2] =
     (-U11^-1·U12)·U22^-1``."""
     if tol is None:
         tol = DEFAULT_TOL[f.dtype]
     if f.dim() != 3 or f.shape[-1] != f.shape[-2]:
         raise ValueError(f"expected [B, nb, nb], got {tuple(f.shape)}")
-    nb = f.shape[-1]
-    h = min(nb, LU_SPLIT)
 
-    def sweeps(blk):
-        return [t.to(f.dtype) for t in _triangle_sweeps(blk.double(), tol)]
+    def inverses(a):
+        m = a.shape[-1]
+        if m <= LU_SPLIT:
+            return [t.to(f.dtype) for t in _triangle_sweeps(a.double(),
+                                                            tol)]
+        h = triangle_split(m)
+        l11, u11 = inverses(a[:, :h, :h])
+        l22, u22 = inverses(a[:, h:, h:])
+        linv, uinv = torch.zeros_like(a), torch.zeros_like(a)
+        linv[:, :h, :h], linv[:, h:, h:] = l11, l22
+        uinv[:, :h, :h], uinv[:, h:, h:] = u11, u22
+        linv[:, h:, :h] = l22 @ -(a[:, h:, :h] @ l11)
+        uinv[:, :h, h:] = -(u11 @ a[:, :h, h:]) @ u22
+        return linv, uinv
 
-    if nb <= h:
-        return tuple(sweeps(f))
-    linv, uinv = torch.zeros_like(f), torch.zeros_like(f)
-    for s0, s1 in ((0, h), (h, nb)):
-        linv[:, s0:s1, s0:s1], uinv[:, s0:s1, s0:s1] = sweeps(
-            f[:, s0:s1, s0:s1])
-    w = -(f[:, h:, :h] @ linv[:, :h, :h])
-    linv[:, h:, :h] = linv[:, h:, h:] @ w
-    v = -(uinv[:, :h, :h] @ f[:, :h, h:])
-    uinv[:, :h, h:] = v @ uinv[:, h:, h:]
-    return linv, uinv
+    return tuple(inverses(f))
 
 
 # ------------------------------------- the distributed engines' helpers

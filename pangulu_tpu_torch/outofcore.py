@@ -36,8 +36,9 @@ from pangulu_tpu_torch.blocks import BlockedMatrix
 from pangulu_tpu_torch.compressed import (CompressedLU, CompressedTiles,
                                           true_f32)
 from pangulu_tpu_torch.ops import kernels_cuda
-from pangulu_tpu_torch.ops.kernels_torch import (DEFAULT_TOL, Indices,
-                                                 KernelTables, mega_uch)
+from pangulu_tpu_torch.ops.kernels_torch import (DEFAULT_TOL, MAX_NB,
+                                                 Indices, KernelTables,
+                                                 mega_uch)
 from pangulu_tpu_torch.schedule import Level, Schedule, bucket, build_schedule
 from pangulu_tpu_torch.sparse import CscMatrix
 from pangulu_tpu_torch.utils.log import get_logger
@@ -109,6 +110,15 @@ class PanelLU:
                  a3: CscMatrix, perf: PerfCounters | None = None,
                  panel_width: int | None = None, out_chunk: int = 2048,
                  store=None, device="cuda", tol: float | None = None):
+        if blocked.nb > MAX_NB or blocked.torch_dtype.is_complex:
+            # api._takes_panel_lu never routes these here
+            raise ValueError(
+                f"PanelLU factors each panel cross with K2, which takes "
+                f"real tiles of nb <= {MAX_NB}; got nb={blocked.nb}, "
+                f"{blocked.torch_dtype}.  The JAX package takes this route "
+                "only at float32 and nb 128 or 256 (pangulu_tpu/api.py:"
+                "297-313); CompressedLU factors the compressed store at "
+                "every nb and for complex tiles")
         self.blocked = blocked
         self.schedule = schedule or build_schedule(blocked)
         self.perf = perf or PerfCounters()

@@ -10,8 +10,13 @@ blocks (i, j) with (i % p, j % q) = (r, c) in a local store of
 the same super-level groups (independent same-depth columns, at most
 :data:`DIST_GROUP_GMAX` a group).  For each group, on every rank:
 
-  1. K1 once on the group's diagonal tiles, one batched launch of
-     :func:`~pangulu_tpu_torch.ops.kernels_cuda.getrf_with_inverses`
+  1. the backend's diagonal step once on the group's diagonal tiles:
+     for real tiles on the card one batched launch of K1,
+     :func:`~pangulu_tpu_torch.ops.kernels_cuda.getrf_with_inverses`, at
+     every nb (its cluster kernel up to 512, the recursion above), for
+     complex tiles and on the CPU ``kernels_xla`` (the ``"torch"``
+     backend, :mod:`~pangulu_tpu_torch.ops.interface`), as the JAX
+     package's engine takes ``backend.diag_factor_invert``
      (the tiles came in by an all-reduce over the world to which only
      each tile's owner contributed; every rank factors them all,
      cheaper than a second broadcast); the owners keep the factors in
@@ -40,8 +45,10 @@ wave's ``index_add_`` adds once a destination and two factorizations
 give the same bits.
 
 A 1 x 1 grid delegates to the single-device
-:class:`~pangulu_tpu_torch.numeric.LUFactorizer` (K2 or K4) unless
-``force_collective``.  The double-float engine of the JAX package is not
+:class:`~pangulu_tpu_torch.numeric.LUFactorizer` (K2 or K4; the fused
+engine above nb = 256 and for complex tiles) unless
+``force_collective``.  Complex tiles cross the all-reduces as their real
+views (:meth:`~pangulu_tpu_torch.parallel.mesh.Grid.all_reduce`).  The double-float engine of the JAX package is not
 ported: f64 is native on the H100, and r64 runs K1's ``double`` instance
 and f64 products here.
 """
@@ -55,8 +62,7 @@ import numpy as np
 import torch
 
 from pangulu_tpu_torch.blocks import BlockedMatrix
-from pangulu_tpu_torch.numeric import LUFactorizer
-from pangulu_tpu_torch.ops import kernels_cuda
+from pangulu_tpu_torch.numeric import LUFactorizer, resolve_backend
 from pangulu_tpu_torch.ops.kernels_torch import DEFAULT_TOL, true_f32_matmul
 from pangulu_tpu_torch.parallel.mesh import Grid
 from pangulu_tpu_torch.parallel.multihost import (put_grid_sharded,
@@ -491,11 +497,14 @@ class DistributedLU:
     ``diag`` holds every level's factored diagonal tile on every rank
     (``[bl, nb, nb]``, rewritten in place by each factorization).
     ``comm`` holds the all-reduces of the last factorization and the
-    bytes they carried, this rank's."""
+    bytes they carried, this rank's.  ``backend`` ("auto", "cuda",
+    "torch" or a :class:`~pangulu_tpu_torch.ops.interface.KernelBackend`)
+    gives the diagonal step, and the 1 x 1 delegate's."""
 
     def __init__(self, blocked: BlockedMatrix, schedule: Schedule | None,
                  grid: Grid, perf: PerfCounters | None = None,
-                 tol: float | None = None, force_collective: bool = False):
+                 tol: float | None = None, force_collective: bool = False,
+                 backend="auto"):
         self.blocked = blocked
         self.schedule = schedule or build_schedule(blocked)
         self.grid = grid
@@ -504,6 +513,8 @@ class DistributedLU:
         self.perf = perf or PerfCounters()
         self.tol = (tol if tol is not None
                     else DEFAULT_TOL[blocked.torch_dtype])
+        self.backend = resolve_backend(backend, blocked.nb,
+                                       blocked.torch_dtype, tol, self.device)
         self.layout = build_layout(blocked, self.p, self.q)
         self.single = None
         self.tiles = None       # this rank's factored shard
@@ -514,7 +525,7 @@ class DistributedLU:
             # K4), as the reference with mpirun -np 1 runs its kernels
             self.single = LUFactorizer(blocked, self.schedule,
                                        perf=self.perf, device=self.device,
-                                       tol=tol)
+                                       tol=tol, backend=backend)
             self._segments = None
             return
         segments = level_tables(self.schedule, self.layout, self.perf)
@@ -566,7 +577,7 @@ class DistributedLU:
         for i, st in enumerate(steps):
             diag, work = pending
             work.wait()
-            f, linv, uinv = kernels_cuda.getrf_with_inverses(diag, self.tol)
+            f, linv, uinv = self.backend.diag_factor_invert(diag, self.tol)
             self.diag[st.km] = f
             if len(st.own_m):
                 tiles[st.own_slot] = f[st.own_m]
@@ -604,7 +615,8 @@ class DistributedLU:
         self.comm = {k: self.grid.counts[k] - before[k] for k in before}
         self.perf.add_flops(self.schedule.flop_estimate())
         self.perf.kernels.update(
-            engine="dist", dist_grid=f"{self.p}x{self.q}",
+            engine="dist", backend=self.backend.name,
+            dist_grid=f"{self.p}x{self.q}",
             dist_all_reduces=self.comm["all_reduces"],
             dist_mib=round(self.comm["bytes"] / 2 ** 20, 3))
         self.tiles = tiles
@@ -619,8 +631,9 @@ class DistributedLU:
         pangulu_tpu/parallel/dist_numeric.py:773-853): each rank sums its
         tiles' contributions and two all-reduces over the world make
         the intermediate and the final vector whole on every rank.
-        Returns w[:n] (the sums by block row use ``index_add_``, whose
-        order on a CUDA device varies in the last bits)."""
+        Returns w[:n], complex for complex tiles (the sums by block row
+        use ``index_add_``, whose order on a CUDA device varies in the
+        last bits)."""
         if self.single is not None:
             raise RuntimeError("single-device path: use gather_factor")
         if self.tiles is None:

@@ -28,7 +28,8 @@ factorization's groups of independent columns), on every rank:
      ``index_add_`` adds once a segment.
 
 The backward sweep walks the groups in reverse; a final all-reduce over
-the world makes x whole on every rank.  The double-float half of the JAX
+the world makes x whole on every rank.  With complex tiles x is complex,
+and its all-reduces sum the real views.  The double-float half of the JAX
 solver is not ported (f64 is native on the H100).
 """
 

@@ -85,11 +85,20 @@ class Grid:
         """Sum ``t`` in place over ``over`` (``"world"``, ``"row"`` or
         ``"col"``).  Returns something to ``wait()`` on before ``t`` is
         read (with ``async_op`` the collective may still be running;
-        ``t`` must not be written until then)."""
+        ``t`` must not be written until then).  A complex ``t`` is summed
+        as its real view (``torch.view_as_real``: the real and imaginary
+        parts side by side, each summed alone, which is the complex sum),
+        so that no backend has to take complex types; it must be
+        contiguous, as every tensor of a collective must."""
         if over not in ("world", "row", "col"):
             raise ValueError(f"over must be world, row or col, got {over!r}")
         if over not in self.groups:
             return _DONE
+        if t.is_complex():
+            if not t.is_contiguous():
+                raise ValueError("a complex tensor is all-reduced as its "
+                                 "real view, which needs it contiguous")
+            t = torch.view_as_real(t)
         self.counts["all_reduces"] += 1
         self.counts["bytes"] += t.numel() * t.element_size()
         work = dist.all_reduce(t, group=self.groups[over],

@@ -3,9 +3,11 @@
 are exactly zero at a chosen step, the bound that holds K1's blocked
 step (128 < nb <= 256) against the rank-1 plain version, and K4's
 diagonal step alone on tiles of a store (``diag_step``); for the
-compressed store, the launches its engines make (``CompressedLU``,
-``PanelLU``); for the TPU probes P3, P4 and P5, their inputs; for the
-complex types, a damped operator with imaginary parts."""
+compressed store, a store of a matrix at any nb and value type
+(``compressed_store``) and the launches its engines make
+(``CompressedLU``, ``PanelLU``); for the TPU probes P3, P4 and P5, their
+inputs; for the complex types, a damped operator with imaginary
+parts."""
 
 from __future__ import annotations
 
@@ -155,27 +157,46 @@ def diag_step(tiles: torch.Tensor, ids, invs: torch.Tensor, inv_ids,
 
 
 def compressed_launches(schedule, factorizations: int = 0, solves: int = 0,
-                        reloads: int = 0) -> dict:
+                        reloads: int = 0, complex_tiles: bool = False) -> dict:
     """The kernel launches of ``CompressedLU`` only (the keys of
     ``kernels_cuda.LAUNCHES`` it uses) for that many factorizations,
     solves (one ``solve_blocked`` call each) and first solves of a
     reloaded store, from the level structure: a factorization launches
-    K1 once a level and decompresses and compresses the diagonal tile
-    and each non-empty L panel, U panel and update batch; a solve
-    decompresses each non-empty L panel (forward) and U column panel
-    (backward); a reloaded store first decompresses its diagonal tiles
-    in one batch and forms their inverses in one P2 launch.  The public
-    route on the card factors at float32 and nb 128 or 256 with
+    K1 once a level (at every nb; none for complex tiles, whose
+    diagonal step is ``kernels_xla``'s) and decompresses and compresses
+    the diagonal tile and each non-empty L panel, U panel and update
+    batch; a solve decompresses each non-empty L panel (forward) and U
+    column panel (backward); a reloaded store first decompresses its
+    diagonal tiles in one batch and forms their inverses in one P2
+    launch (complex tiles: by the plain doubling, no launch).  The
+    public route on the card factors at float32 and nb 128 or 256 with
     ``PanelLU``, whose launches :func:`panel_launches` gives."""
     lv = schedule.levels
     stage = sum(1 + (len(v.lpanel) > 0) + (len(v.upanel) > 0)
                 + (len(v.upd_dst) > 0) for v in lv)
     panels = sum((len(v.lpanel) > 0) + (len(v.ucolpanel) > 0) for v in lv)
-    return {"getrf_with_inverses": factorizations * len(lv),
+    real = not complex_tiles
+    return {"getrf_with_inverses": factorizations * len(lv) * real,
             "decompress_tiles": (factorizations * stage + solves * panels
                                  + reloads),
             "compress_tiles": factorizations * stage,
-            "newton_inverses": reloads}
+            "newton_inverses": reloads * real}
+
+
+def compressed_store(a, nb: int, dtype: str = "r64", ordering: str = "rcm",
+                     device="cpu"):
+    """(handle, store): ``a`` through ``init`` on the CPU at ``nb`` and
+    ``dtype`` (a complex dtype keeps complex tiles, complex_mode
+    "native"), and the :class:`~pangulu_tpu_torch.compressed.
+    CompressedTiles` store of its reordered matrix on ``device`` (at nb
+    > 256 its positions are uint32)."""
+    from pangulu_tpu_torch import api
+    from pangulu_tpu_torch.compressed import CompressedTiles
+
+    h = api.init(a, api.InitOptions(nb=nb, dtype=dtype, ordering=ordering,
+                                    device="cpu", complex_mode="native"))
+    return h, CompressedTiles(h.blocked, h.reordering.reordered,
+                              device=device)
 
 
 def panel_launches(plu, solves: int = 0, reloads: int = 0) -> dict:

@@ -7,7 +7,7 @@ residuals of each.
 
     python3 pangulu_tpu_torch/tools/probe_dist.py --backends nccl,gloo \\
         [-np 4] [--mesh 2,2] [--device cuda] [--reps 3] [--out F.json] \\
-        [--case LABEL:MATRIX:SIZE:DTYPE:ORDERING:NB ...]
+        [--case LABEL:MATRIX:SIZE:DTYPE:ORDERING:NB[:COMPLEX_MODE] ...]
 
 With as many cards as ranks, each rank takes its own card
 (``cuda:{rank % device_count}``): nccl needs that and raises otherwise;
@@ -15,7 +15,8 @@ gloo runs either way.  The default cases are ``chip_smoke.py``'s
 multi-device cases (poisson3d(32) nb=128 r32 rcm and nd, poisson3d(16)
 nb=128 r64 nd).  Prints a table and one JSON line; exits 1 if a run
 fails or a case's factors differ between backends by more than the f32
-tile tolerance (1e-5 rcm, 2e-4 nd; 1e-12 for r64).
+tile tolerance (1e-5 rcm, 2e-4 nd; 1e-12 for r64 and cr64; complex
+factors compared as complex128).
 
     python3 pangulu_tpu_torch/tools/probe_dist.py allreduce -np 4 \\
         [--backend gloo] [--device cuda] [--out F.json]
@@ -207,11 +208,12 @@ def main(argv=None) -> int:
     for spec in cases:
         label, dtype, ordering = (spec.split(":")[i] for i in (0, 3, 4))
         row = {b: summary(runs[b][label]) for b in backends}
-        tol = 1e-12 if dtype == "r64" else (2e-4 if ordering == "nd"
-                                            else 1e-5)
-        ref = assemble(runs[backends[0]][label], q).astype(np.float64)
+        tol = 1e-12 if dtype in ("r64", "cr64") else (
+            2e-4 if ordering == "nd" else 1e-5)
+        wide = np.complex128 if dtype.startswith("c") else np.float64
+        ref = assemble(runs[backends[0]][label], q).astype(wide)
         for b in backends[1:]:
-            got = assemble(runs[b][label], q).astype(np.float64)
+            got = assemble(runs[b][label], q).astype(wide)
             diff = np.abs(got - ref)
             row[f"{b}_vs_{backends[0]}"] = dict(
                 max_abs_diff=float(diff.max()),

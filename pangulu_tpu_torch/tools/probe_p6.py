@@ -3,7 +3,7 @@
 NVIDIA GPU, for the package of this checkout or of another tree:
 
     python3 pangulu_tpu_torch/tools/probe_p6.py [--root DIR] [--reps 7]
-        [--out F] [--sweep]
+        [--out F] [--sweep] [--wide]
 
 On poisson3d(32), nb=128, nd, r32 with ``tile_storage="compressed"``
 (the compressed phase of chip_smoke.py) it
@@ -23,7 +23,10 @@ On poisson3d(32), nb=128, nd, r32 with ``tile_storage="compressed"``
   * traces one factorization with torch.profiler: P6's device ms and
     launches, the trace's busy and wall ms;
   * times a factorization and a solve (CUDA events, median of --reps)
-    and traces one solve (P6's device ms and launches, busy, wall).
+    and traces one solve (P6's device ms and launches, busy, wall);
+  * with --wide, times P6 at nb=512 on the widest rcm level's update
+    tiles of poisson3d(32) (:func:`wide_batch`) for each slot word:
+    float32, float64, complex64 and complex128 values drawn at random.
 
 The package is imported from DIR (default: this checkout), so an older
 tree unpacked with ``git archive`` is measured the same way; the timing
@@ -65,6 +68,34 @@ def p6_batches(clu) -> dict:
                   key=lambda ids: int(cap[ids.host].sum()))
     dst = [lev[3] for lev in levels if len(lev[3])]
     return {"a": a, "b": same[len(same) // 2], "c": max(dst, key=len)}
+
+
+# slot types of P6's words: 4, 8, 8 and 16 bytes
+SLOT_TYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
+
+
+def wide_batch(nx: int, nb: int, dev):
+    """(CompressedLU, its store, the widest level's update tiles) of
+    poisson3d(nx) at nb, rcm, built as r64 on the card: the batch P6
+    takes at nb > 256 with every slot type."""
+    from pangulu_tpu_torch import InitOptions, init
+    from pangulu_tpu_torch.compressed import CompressedLU
+    from pangulu_tpu_torch.models import poisson3d
+
+    h = init(poisson3d(nx), InitOptions(nb=nb, dtype="r64", ordering="rcm",
+                                        device="cpu"))
+    clu = CompressedLU(h.blocked, h.schedule, h.reordering.reordered,
+                       device=dev)
+    return clu, clu.store, p6_batches(clu)["c"]
+
+
+def random_slots(st, dtype, rng) -> None:
+    """Give store st standard normal slot values of dtype (and imaginary
+    parts for a complex dtype), on its device."""
+    v = rng.standard_normal(st.values.numel())
+    if dtype.is_complex:
+        v = v + 1j * rng.standard_normal(st.values.numel())
+    st.values = torch.as_tensor(v, dtype=dtype, device=st.values.device)
 
 
 def slot_library_inputs(st, ids):
@@ -218,6 +249,8 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="also time P6 under each geometry of SWEEP (this "
                          "checkout's wrappers only)")
+    ap.add_argument("--wide", action="store_true",
+                    help="also time P6 at nb=512 for every slot type")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_p6: no CUDA device", file=sys.stderr)
@@ -228,7 +261,8 @@ def main() -> int:
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    from pangulu_tpu_torch import InitOptions, gstrf, init
+    from pangulu_tpu_torch import InitOptions, init
+    from pangulu_tpu_torch.compressed import CompressedLU
     from pangulu_tpu_torch.models import poisson3d
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -240,8 +274,12 @@ def main() -> int:
     a = poisson3d(32)
     h = init(a, InitOptions(nb=NB, dtype="r32", ordering="nd",
                             tile_storage="compressed", device="cuda"))
-    gstrf(h)
-    clu, st = h._factorizer, h.factor_tiles
+    # gstrf takes PanelLU at r32 and nb=128 on the card: the level loop
+    # whose batches these are is CompressedLU's, built as gstrf builds it
+    # elsewhere (chip_smoke.py's compressed phase does the same)
+    clu = CompressedLU(h.blocked, h.schedule, h.reordering.reordered,
+                       device=dev)
+    st = clu.factorize()
     st.refill(h.reordering.reordered)       # the store before factoring
     v0 = st.values.clone()
     out = {"root": str(root), "card": card}
@@ -254,6 +292,18 @@ def main() -> int:
     out["batches"] = batches
     if args.sweep:
         out["sweep"] = sweep(cs, st, p6_batches(clu))
+    if args.wide:
+        wclu, wst, wids = wide_batch(32, 512, dev)
+        rng = np.random.default_rng(20)
+        out["wide"] = {}
+        print(f"probe_p6: nb=512, poisson3d(32) rcm, the widest level's "
+              f"{len(wids)} update tiles")
+        for dt in SLOT_TYPES:
+            random_slots(wst, dt, rng)
+            out["wide"][str(dt)] = measure_batch(cs, wst, wids)
+            print_batch(f"nb=512 {dt}", out["wide"][str(dt)])
+        del wclu, wst, wids
+        torch.cuda.empty_cache()
     prof = cs.profile(lambda _: clu.factorize(),
                       setup=lambda: st.values.copy_(v0))
     out["trace"] = dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],

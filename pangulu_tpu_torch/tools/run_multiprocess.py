@@ -11,10 +11,12 @@ README.md:145-153; the counterpart of the JAX package's
 The parent spawns N ranks joined by a ``file://`` rendezvous in a
 temporary directory (no port to clash with other jobs) and waits for
 them; it stops all of them as soon as one fails, prints the failed
-ranks' logs and exits 1.  A case ``LABEL:MATRIX:SIZE:DTYPE:ORDERING:NB``
-generates ``MATRIX(SIZE)`` (``pangulu_tpu_torch.models``; a complex
-DTYPE adds imaginary parts, ``testing.with_imaginary_parts``), and every
-rank runs, through the public API with ``mesh_shape``:
+ranks' logs and exits 1.  A case
+``LABEL:MATRIX:SIZE:DTYPE:ORDERING:NB[:COMPLEX_MODE]`` generates
+``MATRIX(SIZE)`` (``pangulu_tpu_torch.models``; a complex DTYPE adds
+imaginary parts, ``testing.with_imaginary_parts``, and takes the real
+2x2 embedding unless COMPLEX_MODE is ``native``), and every rank runs,
+through the public API with ``mesh_shape``:
 
   1. ``init`` -> ``gstrf`` (``check=True``: the distributed residual),
      with its K1 launches counted (``kernels_cuda.LAUNCHES``, the CUDA
@@ -53,9 +55,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 
 
 def parse_case(spec: str) -> dict:
-    label, matrix, size, dtype, ordering, nb = spec.split(":")
+    label, matrix, size, dtype, ordering, nb, *mode = spec.split(":")
+    if len(mode) > 1 or mode and mode[0] not in ("auto", "embed", "native"):
+        raise ValueError(f"case {spec!r}: LABEL:MATRIX:SIZE:DTYPE:ORDERING:"
+                         "NB[:auto|embed|native]")
     return dict(label=label, matrix=matrix, size=int(size), dtype=dtype,
-                ordering=ordering, nb=int(nb))
+                ordering=ordering, nb=int(nb),
+                complex_mode=mode[0] if mode else "auto")
 
 
 def _refusal(fn) -> str:
@@ -92,7 +98,8 @@ def run_case(case: dict, args, grid_shape, out: pathlib.Path) -> None:
     b3 = a @ x3_true
     opts = api.InitOptions(nb=case["nb"], dtype=case["dtype"],
                            ordering=case["ordering"], device=args.device,
-                           mesh_shape=grid_shape, check=True)
+                           mesh_shape=grid_shape, check=True,
+                           complex_mode=case["complex_mode"])
     h = api.init(a, opts)
     dev = h.device
     rec = {}
@@ -266,7 +273,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
     ap.add_argument("--case", action="append", required=True,
-                    help="LABEL:MATRIX:SIZE:DTYPE:ORDERING:NB")
+                    help="LABEL:MATRIX:SIZE:DTYPE:ORDERING:NB"
+                         "[:COMPLEX_MODE]")
     ap.add_argument("--reps", type=int, default=1,
                     help="timed factorizations and solves after the first")
     ap.add_argument("--out", required=True)

@@ -289,9 +289,9 @@ def test_unsupported_raise():
     """As in the JAX package (pangulu_tpu/api.py:568-573, 788-791):
     gstrs_device and factor_diagnostics refuse a complex-embedded handle;
     complex_mode="native" solves (tests/test_torch_native_complex.py),
-    but not on the compressed store or a mesh, which name ROADMAP Queue 1
-    item 6; a bogus mode raises naming complex_mode
-    (tests/test_api_misc.py:39)."""
+    on the compressed store too since ROADMAP Queue 1 item 6 closed (a
+    mesh raises here only for want of a process group); a bogus mode
+    raises naming complex_mode (tests/test_api_misc.py:39)."""
     a, hp, _ = _handles("poisson2d6", "cr64", 8, "auto")
     with pytest.raises(NotImplementedError, match="complex-embedded"):
         pt.gstrs_device(hp, torch.ones(a.n, dtype=torch.complex128))
@@ -303,10 +303,16 @@ def test_unsupported_raise():
         pt.gstrf(h)
         b = _rhs(a)
         assert residual_norm(a.to_scipy(), pt.gstrs(h, b), b) < 1e-6
-        for kw in (dict(tile_storage="compressed"), dict(mesh_shape=(1, 2))):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-                pt.init(a, pt.InitOptions(nb=8, dtype=dtype, device="cpu",
-                                          complex_mode="native", **kw))
+        hc = pt.init(a, pt.InitOptions(nb=8, dtype=dtype, device="cpu",
+                                       complex_mode="native",
+                                       tile_storage="compressed"))
+        pt.gstrf(hc)
+        assert hc.perf.kernels["engine"] == "compressed"
+        assert residual_norm(a.to_scipy(), pt.gstrs(hc, b), b) < 1e-6
+        with pytest.raises(ValueError, match="process group"):
+            pt.init(a, pt.InitOptions(nb=8, dtype=dtype, device="cpu",
+                                      complex_mode="native",
+                                      mesh_shape=(1, 2)))
     with pytest.raises(ValueError, match="complex_mode"):
         pt.init(a, pt.InitOptions(nb=8, dtype="cr64", device="cpu",
                                   complex_mode="bogus"))

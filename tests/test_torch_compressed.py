@@ -499,5 +499,11 @@ def test_newton_wrapper_rejects_bad_input(monkeypatch):
         kernels_cuda.newton_inverses(torch.eye(4))
     with pytest.raises(TypeError, match="float32 or float64"):
         kernels_cuda.newton_inverses(torch.eye(4, dtype=torch.float16)[None])
-    with pytest.raises(ValueError, match="nb <= 256"):
-        kernels_cuda.newton_inverses(torch.eye(512)[None])
+    with pytest.raises(TypeError, match="float32 or float64"):
+        kernels_cuda.newton_inverses(torch.eye(4, dtype=torch.complex64)[None])
+    # P2 takes any nb of the store (its tree above 128): the limit is the
+    # store's uint32 positions, beyond stage_geometry's for P6 (checked
+    # on a meta tensor: nothing is allocated)
+    with pytest.raises(ValueError, match="nb <= 65535"):
+        kernels_cuda.newton_inverses(torch.empty((1, 65536, 65536),
+                                                 device="meta"))

@@ -17,8 +17,14 @@ the JAX package's (pangulu_tpu.parallel), on the CPU.
   package's mesh factors (r64 1e-12, as tests/test_distributed.py:51-53;
   r32 1e-5, 2e-4 grouped); solves of 1 and 3 right-hand sides,
   ``factor_check_vector``, an ``update_values`` -> ``gstrf`` cycle on
-  the kept tables, cr64 through the embedding, two factorizations on a
-  rank bit-identical, every rank the same x.
+  the kept tables, cr64 through the embedding, r64 at nb = 288 (K1 for
+  wide tiles as the diagonal step on the card) on the 2 x 2 grid, cr64
+  with native complex tiles on the 1 x 2 grid (complex shards,
+  all-reduces of complex tensors, complex partial x), two
+  factorizations on a rank bit-identical, every rank the same x.  The
+  native complex gstrf check is taken in complex128 (the JAX package's
+  takes it in float64 and drops the imaginary parts: ~0.7 on exact
+  factors; an intended divergence).
 - The refusals: a mesh without a process group, a world size other than
   p·q, nccl with two ranks on one card, compressed tiles with a mesh,
   and (from the ranks) ``gstrs(trans=True)``, ``gstrs_device``,
@@ -65,18 +71,22 @@ from pangulu_tpu_torch.utils.perf import PerfCounters, residual_norm
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOOL = ROOT / "pangulu_tpu_torch" / "tools" / "run_multiprocess.py"
 
-# the two jobs: (ranks, grid, cases LABEL:MATRIX:SIZE:DTYPE:ORDERING:NB)
+# the two jobs: (ranks, grid, cases
+# LABEL:MATRIX:SIZE:DTYPE:ORDERING:NB[:COMPLEX_MODE])
 JOBS = {
     "2x2": (4, (2, 2), ["r64_nd:poisson2d:10:r64:nd:8",
                         "r32_rcm:poisson2d:12:r32:rcm:16",
-                        "cr64_rcm:poisson2d:7:cr64:rcm:8"]),
+                        "cr64_rcm:poisson2d:7:cr64:rcm:8",
+                        "r64_nb288:poisson2d:30:r64:rcm:288"]),
     "1x2": (2, (1, 2), ["r64_rcm:poisson2d:10:r64:rcm:8",
-                        "r32_nd:poisson2d:12:r32:nd:16"]),
+                        "r32_nd:poisson2d:12:r32:nd:16",
+                        "cr64n_rcm:poisson2d:7:cr64:rcm:8:native"]),
 }
 # (rtol, atol) of the factors against JAX's (tests/test_distributed.py:
 # 51-53; the mega tolerances for f32, grouped 2e-4)
 FACTOR_TOL = {"r64_nd": 1e-12, "r64_rcm": 1e-12, "cr64_rcm": 1e-12,
-              "r32_rcm": 1e-5, "r32_nd": 2e-4}
+              "r32_rcm": 1e-5, "r32_nd": 2e-4, "r64_nb288": 1e-12,
+              "cr64n_rcm": 1e-12}
 
 
 def _host(nx, nb, ordering, dtype="r64"):
@@ -148,14 +158,27 @@ def _case(label):
     for name, (_n, grid, cases) in JOBS.items():
         for c in cases:
             if c.split(":")[0] == label:
-                _, matrix, size, dtype, ordering, nb = c.split(":")
+                _, matrix, size, dtype, ordering, nb, *mode = c.split(":")
                 return name, grid, dict(matrix=matrix, size=int(size),
                                         dtype=dtype, ordering=ordering,
-                                        nb=int(nb))
+                                        nb=int(nb),
+                                        complex_mode=(mode or ["embed"])[0])
     raise KeyError(label)
 
 
 _JAX_REFS = {}
+
+
+def _matrix(c):
+    """A case's matrix as the ranks build it (scipy, float64 or, with
+    imaginary parts, complex128)."""
+    a = getattr(ptm, c["matrix"])(c["size"])
+    if c["dtype"].startswith("c"):
+        from pangulu_tpu_torch.testing import with_imaginary_parts
+
+        a = with_imaginary_parts(a, seed=0)
+    return a.to_scipy().astype(np.complex128 if c["dtype"].startswith("c")
+                               else np.float64)
 
 
 def _jax_ref(label):
@@ -164,15 +187,10 @@ def _jax_ref(label):
     if label in _JAX_REFS:
         return _JAX_REFS[label]
     _, grid, c = _case(label)
-    a = getattr(ptm, c["matrix"])(c["size"])
-    if c["dtype"].startswith("c"):
-        from pangulu_tpu_torch.testing import with_imaginary_parts
-
-        a = with_imaginary_parts(a, seed=0)
-    a = a.to_scipy().astype(np.complex128 if c["dtype"].startswith("c")
-                            else np.float64)
+    a = _matrix(c)
     h = jinit(a, JOpts(nb=c["nb"], dtype=c["dtype"], ordering=c["ordering"],
-                       mesh_shape=grid, check=True, complex_mode="embed"))
+                       mesh_shape=grid, check=True,
+                       complex_mode=c["complex_mode"]))
     jgstrf(h)
     x = jgstrs(h, a @ np.ones(a.shape[0]))
     ref = dict(tiles=np.asarray(h.factor_tiles), x=x, a=a,
@@ -406,7 +424,14 @@ def test_multiprocess_factors_match_jax(jobs, label):
         assert int(r["comm_all_reduces"]) == int(ranks[0]["comm_all_reduces"])
         assert int(r["groups"]) == ref["groups"]
         assert int(r["k1_launches"]) == 0   # CPU: the plain version
-    assert float(ref["gstrf_residual"]) < limit
+    if c["complex_mode"] == "native":
+        # the JAX package takes this check's w as float64
+        # (pangulu_tpu/api.py:400-405) and drops its imaginary part: ~0.7
+        # on these exact factors; the port's, in complex128, is above
+        assert got.dtype == np.complex128
+        assert float(ref["gstrf_residual"]) > 0.1
+    else:
+        assert float(ref["gstrf_residual"]) < limit
 
 
 @pytest.mark.parametrize("label", ALL_CASES)
@@ -431,14 +456,17 @@ def test_multiprocess_solves(jobs, label):
     assert int(r0["dist_reuse"]) == 1
 
 
-@pytest.mark.parametrize("label", ["r64_nd", "r64_rcm"])
+@pytest.mark.parametrize("label", ["r64_nd", "r64_rcm", "r64_nb288",
+                                   "cr64n_rcm"])
 def test_multiprocess_check_vector(jobs, label):
     """factor_check_vector, summed over the shards without a gather,
-    equals L(U·1) of the assembled factors."""
+    equals L(U·1) of the assembled factors (complex for native complex
+    tiles)."""
     name, grid, c = _case(label)
     ranks = jobs[name].ranks(label)
-    hp = pt.init(ptm.poisson2d(c["size"]), pt.InitOptions(
-        nb=c["nb"], dtype=c["dtype"], ordering=c["ordering"], device="cpu"))
+    hp = pt.init(_matrix(c), pt.InitOptions(
+        nb=c["nb"], dtype=c["dtype"], ordering=c["ordering"], device="cpu",
+        complex_mode=c["complex_mode"]))
     lmat, umat = gather_factor(hp.blocked, _assemble(ranks, grid[1]))
     want = lmat @ (umat @ np.ones(hp.blocked.n))
     for r in ranks:

@@ -43,7 +43,8 @@ from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.testing import (BLOCKED_TOL, blocked_tiny_pivot_tile,
                                        diag_step, newton_inputs,
                                        newton_mixed_inputs, probe_inputs,
-                                       tiny_pivot_tile, wide_tiny_pivot_tile)
+                                       tiny_pivot_tile, wide_tiny_pivot_tile,
+                                       with_imaginary_parts)
 from pangulu_tpu_torch.utils.perf import residual_norm
 
 pytestmark = pytest.mark.gpu
@@ -797,12 +798,12 @@ def test_complex_on_cuda(cuda, dtype, ordering, storage):
 # ---- the compressed store: P6 (slot kernels) and P2 (Newton inverses)
 
 def _compressed_store(nb, dtype, device, gen=None):
-    from pangulu_tpu_torch.compressed import CompressedTiles
+    from pangulu_tpu_torch.testing import compressed_store
 
     a = gen() if gen else poisson2d(12 if nb <= 128 else 20)
-    h = pt.init(a, pt.InitOptions(nb=nb, dtype=dtype, ordering="nd",
-                                  device="cpu"))
-    return CompressedTiles(h.blocked, h.reordering.reordered, device=device)
+    if dtype.startswith("c"):
+        a = with_imaginary_parts(a)
+    return compressed_store(a, nb, dtype, ordering="nd", device=device)[1]
 
 
 def _slot_batch(st, batch, sms):
@@ -810,7 +811,9 @@ def _slot_batch(st, batch, sms):
     both ends ("ends") or also mid-batch ("mid"), the tile of the largest
     cap alone ("largest"), or every tile and the scratch tile repeated
     until the batch holds more than ``sms`` x the blocks a tile gets
-    ("wide")."""
+    ("wide"), or, where the plain version's [batch, largest cap]
+    positions would pass 2 GiB first (nb = 512), more than ``sms``
+    tiles."""
     nt = st.num_tiles
     tiles = np.arange(nt)[::-1]
     if batch == "ends":
@@ -824,27 +827,36 @@ def _slot_batch(st, batch, sms):
     while True:
         cap = np.append(st.host_cap, 0)[ids]
         chunks = kc.stage_geometry(st.nb, esz, cap, sms).chunks
-        if len(ids) > sms * chunks:
+        if len(ids) > sms * chunks or (
+                len(ids) > sms and 2 * len(ids) * cap.max() * 8 > 2 ** 31):
             return ids
         ids = np.r_[ids, np.full(len(ids), nt)]
 
 
 @pytest.mark.parametrize("batch", ["ends", "mid", "largest", "wide"])
-@pytest.mark.parametrize("dtype", ["r32", "r64"])
-# u16 slots (odd nb = 5 and 10 take the unaligned dense stores), u32 at 256
-@pytest.mark.parametrize("nb", [5, 10, 16, 100, 128, 256])
+# slot words of 4 (r32), 8 (r64, cr32) and 16 bytes (cr64)
+@pytest.mark.parametrize("dtype", ["r32", "r64", "cr32", "cr64"])
+# u16 slots (odd nb = 5 and 10 take the unaligned dense stores), u32 from
+# 256; at 512 poisson3d(16)'s largest tile holds more than 65,536 slots,
+# so that slot_range's second round takes several passes
+@pytest.mark.parametrize("nb", [5, 10, 16, 100, 128, 256, 288, 512])
 def test_slot_kernels_bit_exact(cuda, dtype, nb, batch):
     """P6 against its plain version bit for bit, both directions, on
-    random slot values: every tile of the store with the scratch tile
-    (cap 0) at both ends or also mid-batch, the tile of the largest cap
-    alone (at nb=128 poisson3d(16)'s, a full 16,384-slot tile), and a
-    batch wider than the card's SMs times the blocks a tile gets."""
-    gen = (lambda: poisson3d(16)) if nb == 128 else None
+    random slot values (complex: random real and imaginary parts): every
+    tile of the store with the scratch tile (cap 0) at both ends or also
+    mid-batch, the tile of the largest cap alone (at nb=128
+    poisson3d(16)'s, a full 16,384-slot tile), and a batch wider than
+    the card's SMs times the blocks a tile gets."""
+    gen = (lambda: poisson3d(16)) if nb in (128, 512) else None
     st = _compressed_store(nb, dtype, cuda, gen)
-    assert st.idx.dtype == (torch.uint32 if nb == 256 else torch.uint16)
+    assert st.idx.dtype == (torch.uint32 if nb >= 256 else torch.uint16)
+    if nb == 512:
+        assert st.host_cap.max() > 256 * 256
     rng = np.random.default_rng(nb)
-    st.values = torch.as_tensor(rng.standard_normal(st.values.numel()),
-                                dtype=st.values.dtype, device=cuda)
+    v = rng.standard_normal(st.values.numel())
+    if st.values.is_complex():
+        v = v + 1j * rng.standard_normal(st.values.numel())
+    st.values = torch.as_tensor(v, dtype=st.values.dtype, device=cuda)
     nt = st.num_tiles
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     host = _slot_batch(st, batch, sms)
@@ -866,7 +878,9 @@ def test_slot_kernels_bit_exact(cuda, dtype, nb, batch):
     assert (back["k"][~named] == 5.0).all()   # other slots untouched
 
 
-@pytest.mark.parametrize("nb", [8, 100, 128, 256])
+# nb > 256: the sweeps on each 128-wide diagonal block, then one
+# products launch a level of the tree (2 at 288 to 512, 3 at 640)
+@pytest.mark.parametrize("nb", [8, 100, 128, 256, 288, 384, 512, 640])
 def test_newton_kernel(cuda, nb):
     """P2 against its plain twin (triangle_inverses, the sweeps), a tiny
     pivot included: f64 within 1e-12 and f32 within the f32 contract's
@@ -895,42 +909,57 @@ def test_newton_kernel(cuda, nb):
         assert ek <= max(2 * ep, eps), (ek, ep)
 
 
-@pytest.mark.parametrize("dtype", ["r32", "r64"])
-def test_compressed_path_on_cuda_counts_launches(cuda, dtype):
+# (dtype, nb): K1's register tile at 16, its cluster kernel for wide
+# tiles and P2's tree at 288; native complex tiles (P6's 16-byte slots,
+# kernels_xla's diagonal step, the plain doubling on reload)
+@pytest.mark.parametrize("dtype,nb", [("r32", 16), ("r64", 16),
+                                      ("r32", 288), ("r64", 288),
+                                      ("cr32", 16), ("cr64", 16)])
+def test_compressed_path_on_cuda_counts_launches(cuda, dtype, nb):
     """init -> gstrf -> gstrs with tile_storage="compressed" on the card:
-    exact launch counts, the factors of the plain version on the CPU,
-    and then a checkpoint reloaded on the card (P6, then P2)."""
+    exact launch counts, the factors of the plain version on the CPU
+    (real tiles: K1's plain version, backend "cuda"; complex: the same
+    kernels_xla step), and then a checkpoint reloaded on the card (P6,
+    then P2 for real tiles).  Complex tiles are native
+    (complex_mode="native"), the residual in complex128."""
     import tempfile
 
     from pangulu_tpu_torch.io import load_factor, save_factor
     from pangulu_tpu_torch.testing import compressed_launches
 
-    a = poisson2d(16)
-    b = a.to_scipy() @ np.ones(a.n)
-    opts = dict(nb=16, dtype=dtype, ordering="nd",
-                tile_storage="compressed")
+    cplx = dtype.startswith("c")
+    a = poisson2d(16 if nb <= 128 else 30)
+    if cplx:
+        a = with_imaginary_parts(a)
+    aw = a.to_scipy().astype(np.complex64 if dtype == "cr32" else
+                             np.complex128 if cplx else np.float64)
+    b = aw @ np.ones(a.n)
+    opts = dict(nb=nb, dtype=dtype, ordering="nd",
+                tile_storage="compressed", complex_mode="native")
     kc.reset_launch_counts()
     h = pt.init(a, pt.InitOptions(device="cuda", **opts))
     pt.gstrf(h)
     x = pt.gstrs(h, b, refine=0)
     assert kc.LAUNCHES == _counts(**compressed_launches(
-        h.schedule, factorizations=1, solves=1))
-    hc = pt.init(a, pt.InitOptions(device="cpu", **opts))
+        h.schedule, factorizations=1, solves=1, complex_tiles=cplx))
+    hc = pt.init(a, pt.InitOptions(device="cpu", backend="auto" if cplx
+                                   else "cuda", **opts))
     pt.gstrf(hc)
-    tol = TOL[torch.float64 if dtype == "r64" else torch.float32]
+    f32 = dtype in ("r32", "cr32")
+    tol = TOL[torch.float32 if f32 else torch.float64]
     np.testing.assert_allclose(h.factor_tiles.to_dense(),
                                hc.factor_tiles.to_dense(), **tol)
-    assert residual_norm(a.to_scipy(), pt.gstrs(h, b), b) < (
-        1e-12 if dtype == "r64" else 1e-10)
+    assert residual_norm(aw.astype(np.complex128 if cplx else np.float64),
+                         pt.gstrs(h, b), b) < (1e-10 if f32 else 1e-12)
     with tempfile.TemporaryDirectory() as tmp:
         save_factor(h, f"{tmp}/f.npz")
         h2 = load_factor(f"{tmp}/f.npz", device="cuda")
     kc.reset_launch_counts()
     x2 = pt.gstrs(h2, b, refine=0)
     assert kc.LAUNCHES == _counts(**compressed_launches(
-        h.schedule, solves=1, reloads=1))
-    np.testing.assert_allclose(x2, x, rtol=1e-4 if dtype == "r32" else 1e-10,
-                               atol=1e-5 if dtype == "r32" else 1e-10)
+        h.schedule, solves=1, reloads=1, complex_tiles=cplx))
+    np.testing.assert_allclose(x2, x, rtol=1e-4 if f32 else 1e-10,
+                               atol=1e-5 if f32 else 1e-10)
 
 
 # ---- the out-of-core panel driver: K2 a panel cross, P6 staging

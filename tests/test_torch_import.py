@@ -10,7 +10,9 @@
 - device="cuda" without a GPU raises; a CUDA-tensor kernel call that
   cannot build its library raises; options the port does not implement
   raise NotImplementedError, and mesh_shape without a process group
-  raises ValueError; nb above the kernels' limit raises.
+  raises ValueError; nb above K2-K5's limit raises in their wrappers,
+  and the compressed store and a mesh run at nb > 256 and with native
+  complex tiles.
 """
 
 import os
@@ -34,11 +36,11 @@ import pangulu_tpu_torch
 for m in pkgutil.walk_packages(pangulu_tpu_torch.__path__,
                                "pangulu_tpu_torch."):
     importlib.import_module(m.name)
-# the H100 probes of the TPU probes P3-P5 and of K1 for wide tiles
-# (tools/ is no package)
+# the H100 probes of the TPU probes P3-P5, of K1 for wide tiles and of
+# the compressed store's P6 and P2 (tools/ is no package)
 for m in ("probe_overlap", "probe_scan_multi", "probe_newton_loop",
           "probe_clusters", "run_multiprocess", "probe_dist",
-          "probe_k1_wide"):
+          "probe_k1_wide", "probe_p6", "probe_p2"):
     importlib.import_module("pangulu_tpu_torch.tools." + m)
 for m in ("pangulu_tpu_torch.io.mmio", "pangulu_tpu_torch.cli",
           "pangulu_tpu_torch.__main__", "pangulu_tpu_torch.compressed",
@@ -201,17 +203,36 @@ def test_other_device_raises():
         kernels_cuda.getrf_with_inverses(a)
 
 
+def _runs(opts, engine):
+    """init -> gstrf -> gstrs on poisson2d(6) with ``opts`` on the CPU:
+    the engine taken, and x = 1 (+1i for a complex dtype) to 1e-5."""
+    a = poisson2d(6)
+    h = init(a, InitOptions(device="cpu", **opts))
+    gstrf(h)
+    assert h.perf.kernels["engine"] == engine
+    x1 = np.ones(a.n) + (1j if opts.get("dtype", "r64")[0] == "c" else 0)
+    x = gstrs(h, a.to_scipy() @ x1)
+    assert np.abs(x - x1).max() < 1e-5
+
+
 @pytest.mark.parametrize("opts,exc,item", [
     # multi-device runs need a torch.distributed group of p·q ranks
     (dict(mesh_shape=(2, 2)), ValueError, "no process group|none exists"),
-    # native complex tiles run on one device's dense store only
+    # native complex tiles run on the compressed store (item 6 closed)
     (dict(dtype="cr32", complex_mode="native", tile_storage="compressed"),
-     NotImplementedError, "Queue 1 item 6"),
+     None, "compressed"),
+    # and on a mesh, which needs the process group all the same
     (dict(dtype="cr64", complex_mode="native", mesh_shape=(2, 2)),
-     NotImplementedError, "Queue 1 item 6"),
+     ValueError, "no process group|none exists"),
     (dict(profile_dir="/nonexistent"), NotImplementedError, "not ported"),
 ])
 def test_unported_options_raise(opts, exc, item):
+    """What the port does not run raises, naming why; the options that
+    raised until their ROADMAP item closed run (exc None: ``item`` is
+    the engine)."""
+    if exc is None:
+        _runs(dict(nb=4, **opts), item)
+        return
     with pytest.raises(exc, match=item):
         init(poisson2d(4), InitOptions(nb=4, device="cpu", **opts))
 
@@ -219,11 +240,15 @@ def test_unported_options_raise(opts, exc, item):
 @pytest.mark.parametrize("opts", [dict(tile_storage="compressed"),
                                   dict(mesh_shape=(2, 2))])
 def test_nb_above_limit_raises(opts):
-    """nb > 256 runs on one device's dense store; the compressed store
-    and a mesh keep the limit, naming their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=r"nb=512 > 256.*Queue 1 "
-                                                  r"item 5"):
-        init(poisson2d(4), InitOptions(nb=512, device="cpu", **opts))
+    """nb > 256 runs on every store since ROADMAP Queue 1 item 5 closed:
+    the compressed store factors and solves at nb = 512 (K1 for wide
+    tiles as its diagonal step on the card); a mesh at nb = 512 raises
+    only for want of a process group, as at any nb."""
+    if "mesh_shape" in opts:
+        with pytest.raises(ValueError, match="no process group|none exists"):
+            init(poisson2d(4), InitOptions(nb=512, device="cpu", **opts))
+        return
+    _runs(dict(nb=512, **opts), "compressed")
 
 
 @pytest.mark.parametrize("dtype", ["r32", "r64"])

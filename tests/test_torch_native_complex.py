@@ -165,17 +165,31 @@ def test_native_checkpoint_both_ways(tmp_path, writer, dtype):
 
 def test_native_refusals():
     """gstrs_device and factor_diagnostics refuse a native complex
-    handle, as the JAX package does; the compressed store and a mesh
-    with native complex raise naming ROADMAP Queue 1 item 6."""
+    handle, as the JAX package does.  The compressed store takes native
+    complex tiles since ROADMAP Queue 1 item 6 closed (its factors
+    within the contract of the dense engine's, the same solution), and a
+    mesh raises here only for want of a process group."""
     a, hp, _ = _native("rand80", "cr64", 16, "auto")
     with pytest.raises(NotImplementedError, match="native complex"):
         pt.gstrs_device(hp, torch.ones(a.n, dtype=torch.complex128))
     with pytest.raises(NotImplementedError, match="real dtypes"):
         pt.factor_diagnostics(hp)
-    for kw in (dict(tile_storage="compressed"), dict(mesh_shape=(1, 2))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            pt.init(a, pt.InitOptions(nb=16, dtype="cr64", device="cpu",
-                                      complex_mode="native", **kw))
+    hc = pt.init(a, pt.InitOptions(nb=16, dtype="cr64", device="cpu",
+                                   complex_mode="native",
+                                   tile_storage="compressed"))
+    pt.gstrf(hc)
+    nt = hp.blocked.num_tiles
+    np.testing.assert_allclose(hc.factor_tiles.to_dense()[:nt],
+                               hp.factor_tiles[:nt].numpy(),
+                               rtol=FACTOR_TOL["cr64"],
+                               atol=FACTOR_TOL["cr64"])
+    b = np.asarray(a.to_scipy() @ (np.ones(a.n) + 0.5j))
+    np.testing.assert_allclose(pt.gstrs(hc, b), pt.gstrs(hp, b),
+                               rtol=SOLVE_TOL["cr64"],
+                               atol=SOLVE_TOL["cr64"])
+    with pytest.raises(ValueError, match="process group"):
+        pt.init(a, pt.InitOptions(nb=16, dtype="cr64", device="cpu",
+                                  complex_mode="native", mesh_shape=(1, 2)))
 
 
 def test_cli_native(tmp_path, capsys):

@@ -9,8 +9,11 @@ block-wide two-round search for a chunk's slot range, the grid-stride
 walk over chunks and spans, and the groups of ``SLOT_GROUP`` slots a
 thread takes (whole groups by vector loads, a range's ragged head and
 tail slot by slot).  Here a numpy emulation of exactly that arithmetic
-runs on real stores (poisson2d(12-20) and poisson3d(8), nd, at nb 5,
-16, 100, 128 and 256), with batches that repeat the scratch tile (cap 0),
+runs on real stores (poisson2d(12-20), poisson3d(8) and poisson3d(16),
+nd, at nb 5, 16, 100, 128, 256, 288 and 512; at 512 a tile holds more
+than 65,536 slots, so that the search's second round takes several
+passes), with values of each slot width (float32, float64, complex64,
+complex128), with batches that repeat the scratch tile (cap 0),
 and checks that every dense position of every tile falls in exactly one
 block's chunk, every real slot is written by exactly one block (a
 searched range holds exactly its rows' slots), and that the emulated
@@ -31,12 +34,15 @@ from pangulu_tpu_torch.ops import kernels_cuda as kc
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.ops.kernels_torch import Indices
 
-# (id, generator, its argument, nb): u16 positions below nb = 256, u32 at
+# (id, generator, its argument, nb): u16 positions below nb = 256, u32
+# from 256
 STORES = [("poisson2d12_nb5", "poisson2d", 12, 5),
           ("poisson2d16_nb16", "poisson2d", 16, 16),
           ("poisson2d20_nb100", "poisson2d", 20, 100),
           ("poisson3d8_nb128", "poisson3d", 8, 128),
-          ("poisson3d8_nb256", "poisson3d", 8, 256)]
+          ("poisson3d8_nb256", "poisson3d", 8, 256),
+          ("poisson2d30_nb288", "poisson2d", 30, 288),
+          ("poisson3d16_nb512", "poisson3d", 16, 512)]
 SMS = 132       # an H100's SMs: the grid the card would get
 
 
@@ -191,14 +197,17 @@ def store(request):
 
 @pytest.mark.parametrize("sms", [SMS, 2])
 @pytest.mark.parametrize("batch", ["whole", "largest", "eight"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
 def test_emulated_kernels_partition_and_match_plain(store, batch, dtype,
                                                     sms):
     """At the grid an H100 gets and at that of a 2-SM card (larger rows
-    and spans a block)."""
+    and spans a block), for each slot width (a complex slot's imaginary
+    part is its value's negative)."""
     st = store
     values64 = st.values
-    st.values = values64.to(dtype)
+    st.values = (values64.to(dtype) if not dtype.is_complex
+                 else torch.complex(values64, -values64).to(dtype))
     try:
         ids = np.asarray(_batches(st)[batch], dtype=np.int64)
         ind = Indices.build(ids, "cpu")
@@ -262,12 +271,15 @@ def test_emulation_right_for_any_grid(direct):
             assert np.array_equal(got, plain.numpy())
 
 
-@pytest.mark.parametrize("c", [0, 1, 5, 255, 256, 257, 1000, 16384, 65536])
+# above 65,536 slots (a tile of nb > 256) the second round takes
+# several passes of the block
+@pytest.mark.parametrize("c", [0, 1, 5, 255, 256, 257, 1000, 16384, 65536,
+                               65537, 100000, 262144])
 def test_slot_range_finds_lower_bounds(c):
     """The two-round search against searchsorted on ascending positions
     of every density, for targets below, inside and above them."""
     rng = np.random.default_rng(c)
-    nn = 65536
+    nn = max(65536, c)
     pos = np.sort(rng.choice(nn, size=c, replace=False)).astype(np.int64)
     for p0 in (0, 1, 100, 4096, 30000, nn - 256, nn):
         for p1 in (p0, p0 + 1, p0 + 256, p0 + 7000, nn):
@@ -277,8 +289,8 @@ def test_slot_range_finds_lower_bounds(c):
                 tuple(np.searchsorted(pos, [p0, p1])), (p0, p1)
 
 
-@pytest.mark.parametrize("elem", [4, 8])
-@pytest.mark.parametrize("nb", [1, 5, 16, 100, 128, 255, 256])
+@pytest.mark.parametrize("elem", [4, 8, 16])
+@pytest.mark.parametrize("nb", [1, 5, 16, 100, 128, 255, 256, 288, 512])
 @pytest.mark.parametrize("batch", [1, 8, 256, 5000])
 def test_stage_geometry_bounds(nb, batch, elem):
     """The grid the C entry takes: a decompress block's rows fit its
