@@ -78,8 +78,8 @@ CUDA toolkit (nvcc).  It
      poisson3d(32), nb=128, r32, each part with the launch counts zeroed
      before and read after: (a) write_matrix to .mtx and .lid, both read
      back bit-equal, then `python -m pangulu_tpu_torch -f <the .mtx>
-     -nb 128 --dtype r32 --ordering nd --check` in a subprocess (exit 0,
-     residual < 1e-10); (b) gstrs(trans=True), ||A^T x - b||/||b|| <
+     -nb 128 --dtype r32 --ordering nd --check --profile-dir DIR` in a
+     subprocess (exit 0, residual < 1e-10, one trace file in DIR); (b) gstrs(trans=True), ||A^T x - b||/||b|| <
      1e-10 after refinement, no hand kernel launched, its time beside the
      forward solve's; (c) update_values with the values scaled by
      (1 + 0.1 u), then gstrf: exactly K1 = number of groups, K4 = 1,
@@ -263,11 +263,23 @@ CUDA toolkit (nvcc).  It
      gloo ranks on this card: poisson3d(32) nb=512 r32 rcm and native
      cr64 on poisson3d(16), launches, residuals, the same bits on every
      rank; prints its seconds and a {"wide_native_stores": ...} line;
- 10. with --profile, also traces one rcm solve and prints, per phase,
+ 10. drives the last public pieces (extras_phase, ~40 s): (a)
+     profile_dir on a gstrf of poisson3d(32) nb=128 nd r32 (plain,
+     traced, traced, plain: exact launch counts, one Chrome trace file
+     a traced call holding K1 and K4 kernel events, the same factor
+     bits, host ms of each); (b) the examples of pangulu_tpu_torch/
+     examples through main() on the card, with their asserts and exact
+     launch counts; (c) pangulu_tpu_torch/tools/demo_outofcore.py as a
+     subprocess on poisson3d(DEMO_NX) under --device-gib DEMO_GIB,
+     below its dense store (exit 0, several panels, peak allocation
+     below the cap and the dense bytes, residual < 1e-4); (d) K1 at
+     EXTRAS_SPLIT_NB = 1088, two levels of its recursion, against its
+     plain twin in f32 and f64; prints an {"extras": ...} line;
+ 11. with --profile, also traces one rcm solve and prints, per phase,
      each kernel's launches and device time, the host wall time and the
      device's idle share (K3's solve: exactly 2 launches of its sweep
      kernel);
- 11. prints the numbers of step 6 as one JSON line, then one JSON
+ 12. prints the numbers of step 6 as one JSON line, then one JSON
      line of per-kernel results, K1-K5 at nb=128 and again at nb=256
      (named name@nb=256, its launches from the nb=256 paths; K1 also
      with "dist_launches", a rank's in each case of step 8b (b)), P6
@@ -828,22 +840,28 @@ def surface_phase(a, dev) -> dict:
                 if not np.array_equal(getattr(m, f), getattr(a, f)):
                     fail(f"the .{ext} file read back another CSC ({f})")
         print(f"  .mtx and .lid read back bit-equal (n={a.n}, nnz={a.nnz})")
+        prof = os.path.join(tmp, "prof")
         cmd = [sys.executable, "-m", "pangulu_tpu_torch", "-f",
                paths["mtx"], "-nb", "128", "--dtype", "r32", "--ordering",
-               "nd", "--check"]
+               "nd", "--check", "--profile-dir", prof]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                              timeout=600, env=dict(os.environ,
                                                    PYTHONPATH=str(ROOT)))
         out["cli_wall_s"] = time.perf_counter() - t0
+        traces = list(pathlib.Path(prof).glob("*.pt.trace.json"))
     if res.returncode != 0:
         fail(f"the CLI exited {res.returncode}:\n{res.stdout[-3000:]}\n"
              f"{res.stderr[-3000:]}")
+    if len(traces) != 1:
+        fail(f"the CLI with --profile-dir wrote {len(traces)} trace files, "
+             "expected 1")
     line = [ln for ln in res.stdout.splitlines() if "solve residual" in ln]
     out["cli_residual"] = float(line[-1].split("=")[1]) if line else None
     out["cli_stdout"] = res.stdout
     print(f"  CLI: exit 0 in {out['cli_wall_s']:.3f} s (wall, process start "
-          f"to exit), solve residual {out['cli_residual']:.3e} (< 1e-10)")
+          f"to exit), solve residual {out['cli_residual']:.3e} (< 1e-10), "
+          f"one trace file in --profile-dir")
     if not (out["cli_residual"] is not None and out["cli_residual"] < 1e-10):
         fail("the CLI's solve residual is missing or too large")
 
@@ -3255,6 +3273,230 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
     return out, entries, launches
 
 
+# K1 two levels into its recursion: 1088 -> 544 + 544, each 544 -> 288
+# + 256 on the cluster kernel's leaves (extras_phase (d))
+EXTRAS_SPLIT_NB = 1088
+# extras_phase (c): the out-of-core demo under an allocator cap below the
+# matrix's dense tile store (1.32 GiB at poisson3d(48), the store 0.60),
+# the cross budget set outright: the 4 GiB reserve of
+# PanelLU._dense_budget_tiles exceeds the cap and would leave its floor
+# of 64 tiles.  poisson3d(48) is the smallest size with room below its
+# dense store for the store, the inverses and an update chunk's ~0.4 GiB
+# (peak 1.17 GiB at a 64 MiB cross on an H100; 1.09 GiB allocated when a
+# 128 MiB cross ran out under a 1.25 GiB cap)
+DEMO_NX = 48
+DEMO_GIB = 1.3
+DEMO_CROSS_GB = "0.0625"
+
+
+def extras_phase(dev, nx: int = 32, nb: int = 128, demo_nx: int = DEMO_NX,
+                 demo_gib: float = DEMO_GIB, demo_cross_gb=DEMO_CROSS_GB,
+                 split_nb: int = EXTRAS_SPLIT_NB) -> dict:
+    """The last public pieces of the JAX package, on the card:
+
+      (a) profile_dir: gstrf of poisson3d(nx) at nb, nd, r32 without
+          and with a torch.profiler trace (plain, traced, traced,
+          plain; host clock to a synchronise, ms each), the launch
+          counts exact (K1 = number of groups, K4 = 1) in each traced
+          run, exactly one Chrome trace file a traced gstrf that parses
+          as JSON and holds getrf_inv_kernel and group_schur_kernel
+          events (their presence only: the profiler loses kernels of
+          some traces), the factors the untraced run's bits;
+      (b) the examples (pangulu_tpu_torch/examples) through their
+          main(["--device", "cuda"]) at their own sizes, each with its
+          asserts and the exact launch counts of its engine (the chain
+          or group engine, or CompressedLU for the circuit, whose
+          residual must be below 1e-8);
+      (c) the out-of-core demo (pangulu_tpu_torch/tools/
+          demo_outofcore.py) as a subprocess on poisson3d(demo_nx) under
+          --device-gib demo_gib, below its dense store, with
+          PANGULU_OOC_CROSS_GB=demo_cross_gb: exit 0, more than one
+          panel, peak max_memory_allocated below the cap and the dense
+          store's bytes, residual < 1e-4;
+      (d) K1 at split_nb (> 1024: two levels of its recursion), one
+          tile in float32 and float64, against kernels_torch.k1_wide at
+          TOL_F32 / TOL_F64, one K1 launch, its device launches printed;
+          its device ms per launch (median of 5 runs of 10 back-to-back
+          launches) beside its bound, the twin's ms and
+          torch.linalg.lu_factor_ex(pivot=False)'s.
+
+    Returns its numbers; any failure raises."""
+    import os
+    import tempfile
+
+    from pangulu_tpu_torch import InitOptions, gstrf, init
+    from pangulu_tpu_torch.examples import (run_circuit_compressed,
+                                            run_refactorize, run_trefethen)
+    from pangulu_tpu_torch.models import poisson3d
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+    from pangulu_tpu_torch.testing import compressed_launches
+
+    out = {}
+    t_phase = time.perf_counter()
+
+    def zero_but(**counts):
+        return {k: counts.get(k, 0) for k in kc.LAUNCHES}
+
+    def expect(what, want):
+        got = dict(kc.LAUNCHES)
+        if got != want:
+            fail(f"{what}: launch counts {got}, expected {want}")
+
+    # ---- (a) profile_dir -------------------------------------------------
+    print(f"extras (a): gstrf with profile_dir, poisson3d({nx}) nb={nb} nd "
+          "r32 (plain, traced, traced, plain)")
+    h = init(poisson3d(nx), InitOptions(nb=nb, dtype="r32", ordering="nd",
+                                        device=dev.type))
+    runs = {"plain": [], "traced": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the first gstrf builds the engine's tables: untimed
+        for turn, kind in enumerate(("warm-up", "plain", "traced", "traced",
+                                     "plain")):
+            pdir = os.path.join(tmp, f"t{turn}")
+            h.opts.profile_dir = pdir if kind == "traced" else None
+            kc.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gstrf(h)
+            torch.cuda.synchronize()
+            if kind != "warm-up":
+                runs[kind].append((time.perf_counter() - t0) * 1e3)
+            ng = h._factorizer.tables.host["ngroups"]
+            expect(f"(a) {kind} gstrf", zero_but(
+                getrf_with_inverses=ng, mega_factorize_groups=1))
+            if turn == 0:
+                ref = h.factor_tiles.clone()
+            elif not torch.equal(h.factor_tiles, ref):
+                fail(f"(a) the {kind} gstrf changed the factor bits")
+            if kind != "traced":
+                continue
+            files = sorted(pathlib.Path(pdir).glob("*.pt.trace.json"))
+            if len(files) != 1:
+                fail(f"(a) {len(files)} trace files in {pdir}, expected 1")
+            events = json.loads(files[0].read_text())["traceEvents"]
+            names = [e.get("name", "") for e in events
+                     if e.get("cat") == "kernel"]
+            seen = {k: sum(k in n for n in names)
+                    for k in ("getrf_inv_kernel", "group_schur_kernel")}
+            print(f"  trace {files[0].name}: {files[0].stat().st_size} "
+                  f"bytes, {len(names)} kernel events, {seen}")
+            if not all(seen.values()):
+                fail(f"(a) the trace lacks a kernel: {seen}")
+            out.setdefault("trace_kernel_events", []).append(seen)
+    h.opts.profile_dir = None
+    out["gstrf_ms"] = runs
+    print(f"  gstrf host ms (to a synchronise): plain {runs['plain']}, "
+          f"traced {runs['traced']}")
+    del h, ref
+    torch.cuda.empty_cache()
+
+    # ---- (b) the examples ------------------------------------------------
+    def engine_counts(h, gstrfs, solves):
+        eng = h.perf.kernels["engine"]
+        if eng == "mega":
+            return zero_but(
+                getrf_with_inverses=gstrfs * h.schedule.block_length,
+                mega_factorize=gstrfs, mega_solve=solves)
+        if eng == "mega_group":
+            return zero_but(
+                getrf_with_inverses=(gstrfs
+                                     * h._factorizer.tables.host["ngroups"]),
+                mega_factorize_groups=gstrfs, mega_solve_groups=solves)
+        fail(f"(b) unexpected engine {eng}")
+
+    out["examples"] = {}
+    for mod, gstrfs, solves in ((run_trefethen, 1, 1),
+                                (run_refactorize, run_refactorize.STEPS,
+                                 run_refactorize.STEPS),
+                                (run_circuit_compressed, 1, 1)):
+        name = mod.__name__.rsplit(".", 1)[1]
+        print(f"extras (b): {name}.main(['--device', '{dev.type}'])")
+        kc.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = mod.main(["--device", dev.type])
+        wall = time.perf_counter() - t0
+        h = got["handle"]
+        if mod is run_circuit_compressed:
+            want = zero_but(**compressed_launches(h.schedule, gstrfs, solves))
+            if not got["residual"] < 1e-8:
+                fail(f"(b) {name}: residual {got['residual']:.3e}")
+        else:
+            want = engine_counts(h, gstrfs, solves)
+        expect(f"(b) {name}", want)
+        res = got["residual"]
+        out["examples"][name] = dict(
+            engine=h.perf.kernels.get("engine"), wall_s=wall,
+            residual=max(res) if isinstance(res, list) else res,
+            launches={k: v for k, v in want.items() if v})
+        print(f"  engine {out['examples'][name]['engine']}, residual "
+              f"{out['examples'][name]['residual']:.3e}, launches "
+              f"{out['examples'][name]['launches']}, {wall:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- (c) the out-of-core demo under a cap ----------------------------
+    print(f"extras (c): the out-of-core demo, poisson3d({demo_nx}), "
+          f"--device-gib {demo_gib}, PANGULU_OOC_CROSS_GB={demo_cross_gb}")
+    cmd = [sys.executable, str(ROOT / "pangulu_tpu_torch" / "tools" /
+                               "demo_outofcore.py"),
+           "--nx", str(demo_nx), "--device-gib", str(demo_gib)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               PANGULU_OOC_CROSS_GB=demo_cross_gb)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env=env)
+    wall = time.perf_counter() - t0
+    print("\n".join("  " + ln for ln in res.stdout.splitlines()[:-1]))
+    if res.returncode != 0:
+        fail(f"(c) the demo exited {res.returncode}:\n{res.stdout[-3000:]}"
+             f"\n{res.stderr[-3000:]}")
+    demo = json.loads(res.stdout.splitlines()[-1])["demo_outofcore"]
+    demo["wall_s"] = wall
+    cap = demo_gib * 2 ** 30
+    peak = demo["peak_allocated_bytes"]
+    print(f"  exit 0 in {wall:.1f} s: {demo['panels']} panels, peak "
+          f"{peak / 2 ** 30:.3f} GiB against the {demo_gib} GiB cap and the "
+          f"{demo['dense_bytes'] / 2 ** 30:.3f} GiB dense store, residual "
+          f"{demo['residual']:.3e}")
+    if not (demo["panels"] > 1 and peak < cap and peak < demo["dense_bytes"]
+            and demo["dense_bytes"] > cap and demo["residual"] < 1e-4):
+        fail(f"(c) the demo missed its checks: {demo}")
+    out["demo"] = demo
+
+    # ---- (d) K1 above 1024 ----------------------------------------------
+    print(f"extras (d): K1 at nb={split_nb} (two levels of its recursion) "
+          "against its plain twin kernels_torch.k1_wide")
+    rng = np.random.default_rng(21)
+    out["K1"] = {}
+    for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        a = torch.as_tensor(rng.standard_normal((1, split_nb, split_nb))
+                            + split_nb * np.eye(split_nb), dtype=dt,
+                            device=dev)
+        kc.reset_launch_counts()
+        got = kc.getrf_with_inverses(a)
+        torch.cuda.synchronize()
+        dl = kc.DEVICE_LAUNCHES["getrf_with_inverses"]
+        expect(f"(d) K1 nb={split_nb} {dt}",
+               zero_but(getrf_with_inverses=1))
+        err = max(compare(f"{dt} nb={split_nb} {n} (twin)", g, r, *tol)
+                  for n, g, r in zip(("f", "linv", "uinv"), got,
+                                     kt.k1_wide(a)))
+        ms = device_ms(lambda: kc.getrf_with_inverses(a), n=10, reps=5)
+        lms = device_ms(lambda: torch.linalg.lu_factor_ex(a, pivot=False),
+                        n=10, reps=5)
+        row = dict(max_abs_err=err, device_launches=dl, ms=ms,
+                   plain_ms=cuda_ms(lambda _: kt.k1_wide(a), reps=3),
+                   library_ms=lms, **k1_bound(split_nb, 1, dt))
+        print(f"  {dt}: one K1 launch, {dl} device launches; kernel "
+              f"{ms:.4f} ms, bound {row['bound_ms']:.3e} ms "
+              f"({row['bound_by']}), twin {row['plain_ms']:.3f} ms, "
+              f"lu_factor_ex {lms:.4f} ms")
+        out["K1"][str(dt)] = row
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"extras: {out['seconds']:.1f} s")
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4057,6 +4299,11 @@ def main() -> int:
     detail["wide_native_stores"] = wide_st
     kernels.update(wide_kernels)
     print(json.dumps({"wide_native_stores": untraced(wide_st)}))
+
+    # ---- profile_dir, the examples, the out-of-core demo, K1 above 1024
+    extras = extras_phase(dev)
+    detail["extras"] = extras
+    print(json.dumps({"extras": extras}))
 
     launches = dict(rcm_launches)
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]

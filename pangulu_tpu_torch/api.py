@@ -19,8 +19,8 @@ The device is explicit: ``device="cuda"`` (the default) runs the
 hand-written CUDA kernels and raises when there is no GPU;
 ``device="cpu"`` runs their plain PyTorch versions and must be asked
 for.  ``tile_storage="compressed"`` keeps the factors in O(fill) slot
-lists (:mod:`pangulu_tpu_torch.compressed`).  Options this port does not
-implement yet raise ``NotImplementedError`` naming their ROADMAP.md item.
+lists (:mod:`pangulu_tpu_torch.compressed`).  ``profile_dir`` writes a
+``torch.profiler`` trace of each gstrf's numeric phase there.
 
 ``mesh_shape=(p, q)`` (or ``"auto"``) runs gstrf and gstrs over a p x q
 grid of ranks of a ``torch.distributed`` job, one process a rank, every
@@ -44,6 +44,7 @@ its diagonal step on the card (``backend``: "auto", "cuda" or "torch",
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -71,7 +72,7 @@ from pangulu_tpu_torch.symbolic import SymbolicResult, symbolic
 from pangulu_tpu_torch.utils.log import config_banner, get_logger
 from pangulu_tpu_torch.utils.perf import (PerfCounters,
                                           factorization_residual,
-                                          resolve_device)
+                                          profile_trace, resolve_device)
 
 log = get_logger()
 
@@ -99,7 +100,8 @@ class InitOptions:
                                         # ranks of a torch.distributed job
     tile_storage: str = "dense"  # "dense" tiles, or "compressed": O(fill)
                                  # slot lists (compressed.py)
-    profile_dir: Optional[str] = None  # profiler traces: not ported
+    profile_dir: Optional[str] = None  # a torch.profiler trace of gstrf's
+                                       # numeric phase (Chrome JSON) here
     complex_mode: str = "auto"   # cr32/cr64: "embed" (real 2x2
                                  # embedding), "native" (complex tiles:
                                  # the fused engine on dense tiles) or
@@ -130,10 +132,6 @@ class InitOptions:
                 # as the JAX package (pangulu_tpu/api.py:292-296)
                 raise ValueError("tile_storage='compressed' is single-device "
                                  "(use dense tiles on a grid of ranks)")
-        if self.profile_dir is not None:
-            raise NotImplementedError(
-                "profile_dir: profiler traces of the numeric phase are "
-                "not ported yet (ROADMAP M6)")
         if self.complex_mode not in ("auto", "embed", "native"):
             raise ValueError("complex_mode must be native|embed|auto, got "
                              f"{self.complex_mode!r}")
@@ -336,55 +334,70 @@ def gstrf(handle: Handle) -> None:
     engines); a refactorization after ``update_values`` keeps its tables
     and re-scatters the shards (pangulu_tpu/api.py:334-363,764).  With
     ``check`` the residual comes from the distributed
-    ``factor_check_vector``, without a gather."""
-    if handle.grid is not None:
-        dist = handle._dist
-        if dist is not None and dist.blocked is handle.blocked:
-            handle.perf.kernels["dist_reuse"] = (
-                handle.perf.kernels.get("dist_reuse", 0) + 1)
-            log.info("distributed refactorize: reusing the tables")
+    ``factor_check_vector``, without a gather.
+
+    With ``profile_dir`` the numeric phase, on every route, runs under
+    :func:`~pangulu_tpu_torch.utils.perf.profile_trace`: one Chrome trace
+    JSON file a call (and a rank) in that directory, with the card's
+    kernels, where the JAX package writes an XPlane trace with
+    ``jax.profiler.trace`` (pangulu_tpu/api.py:287-292,372-374).  The
+    trace closes before the ``check`` residual, and also when the
+    factorization raises."""
+    trace = (profile_trace(handle.opts.profile_dir, handle.device,
+                           None if handle.grid is None else handle.grid.rank)
+             if handle.opts.profile_dir else contextlib.nullcontext())
+    with trace:
+        if handle.grid is not None:
+            dist = handle._dist
+            if dist is not None and dist.blocked is handle.blocked:
+                handle.perf.kernels["dist_reuse"] = (
+                    handle.perf.kernels.get("dist_reuse", 0) + 1)
+                log.info("distributed refactorize: reusing the tables")
+            else:
+                dist = DistributedLU(handle.blocked, handle.schedule,
+                                     handle.grid, perf=handle.perf,
+                                     tol=handle.opts.tol,
+                                     backend=handle.opts.backend)
+                handle._dist = dist
+            handle.factor_tiles = dist.factorize()
+            handle._factorizer = dist.single
+        elif handle.opts.tile_storage == "compressed":
+            if _takes_panel_lu(handle):
+                log.info("engine: panel out-of-core (compressed store, K2 "
+                         "on each panel cross)")
+                handle._factorizer = PanelLU(
+                    handle.blocked, handle.schedule,
+                    handle.reordering.reordered, perf=handle.perf,
+                    device=handle.device, tol=handle.opts.tol,
+                    store=handle._comp_store)
+            else:
+                log.info("engine: compressed (each level staged dense, "
+                         "then written back)")
+                handle._factorizer = CompressedLU(
+                    handle.blocked, handle.schedule,
+                    handle.reordering.reordered, perf=handle.perf,
+                    device=handle.device, tol=handle.opts.tol,
+                    store=handle._comp_store, backend=handle.opts.backend)
+            handle.factor_tiles = handle._factorizer.factorize()
+            # the store's structure serves a same-pattern refactorization
+            # (update_values + gstrf): O(nnz) refill, no fill walk
+            handle._comp_store = handle.factor_tiles
+            st = handle.factor_tiles
+            log.info("compressed tile store: %.1f MiB vs %.1f MiB dense "
+                     "(%.1fx)", st.compressed_bytes / 2 ** 20,
+                     st.dense_bytes / 2 ** 20,
+                     st.dense_bytes / max(st.compressed_bytes, 1))
         else:
-            dist = DistributedLU(handle.blocked, handle.schedule, handle.grid,
-                                 perf=handle.perf, tol=handle.opts.tol,
-                                 backend=handle.opts.backend)
-            handle._dist = dist
-        handle.factor_tiles = dist.factorize()
-        handle._factorizer = dist.single
-    elif handle.opts.tile_storage == "compressed":
-        if _takes_panel_lu(handle):
-            log.info("engine: panel out-of-core (compressed store, K2 on "
-                     "each panel cross)")
-            handle._factorizer = PanelLU(
-                handle.blocked, handle.schedule,
-                handle.reordering.reordered, perf=handle.perf,
+            handle._factorizer = LUFactorizer(
+                handle.blocked, handle.schedule, perf=handle.perf,
                 device=handle.device, tol=handle.opts.tol,
-                store=handle._comp_store)
-        else:
-            log.info("engine: compressed (each level staged dense, then "
-                     "written back)")
-            handle._factorizer = CompressedLU(
-                handle.blocked, handle.schedule,
-                handle.reordering.reordered, perf=handle.perf,
-                device=handle.device, tol=handle.opts.tol,
-                store=handle._comp_store, backend=handle.opts.backend)
-        handle.factor_tiles = handle._factorizer.factorize()
-        # the store's structure serves a same-pattern refactorization
-        # (update_values + gstrf): O(nnz) refill, no fill walk
-        handle._comp_store = handle.factor_tiles
-        st = handle.factor_tiles
-        log.info("compressed tile store: %.1f MiB vs %.1f MiB dense "
-                 "(%.1fx)", st.compressed_bytes / 2 ** 20,
-                 st.dense_bytes / 2 ** 20,
-                 st.dense_bytes / max(st.compressed_bytes, 1))
-    else:
-        handle._factorizer = LUFactorizer(
-            handle.blocked, handle.schedule, perf=handle.perf,
-            device=handle.device, tol=handle.opts.tol,
-            backend=handle.opts.backend)
-        handle.factor_tiles = handle._factorizer.factorize()
-    # drop any cached solver: it holds the previous factorization's
-    # triangle inverses
-    handle._trisolver = None
+                backend=handle.opts.backend)
+            handle.factor_tiles = handle._factorizer.factorize()
+        # drop any cached solver: it holds the previous factorization's
+        # triangle inverses
+        handle._trisolver = None
+    if handle.opts.profile_dir:
+        log.info("profiler trace written to %s", handle.opts.profile_dir)
     log.info(handle.perf.summary())
     if handle.opts.check:
         a3 = handle.reordering.reordered.to_scipy()

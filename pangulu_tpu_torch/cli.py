@@ -10,8 +10,9 @@
 the fused engine (K1 for wide tiles on the card); ``--backend`` picks
 its block kernels (``cuda``: K1 for the diagonal step, ``torch``:
 PyTorch ops throughout), ``--complex-mode native`` complex tiles for
-cr32/cr64.  The options the port
-does not implement yet exit with code 2 and name their ROADMAP.md item.
+cr32/cr64.  ``--profile-dir DIR`` writes a
+``torch.profiler`` trace of gstrf's numeric phase into DIR as Chrome
+trace JSON.
 
 ``--mesh p,q|auto`` factors and solves over a grid of ranks, one
 process a rank, and needs a launcher that starts them (outside one it
@@ -41,15 +42,6 @@ def _under_launcher() -> bool:
     """True when a launcher (torchrun) gave this process its rank."""
     return all(k in os.environ for k in ("RANK", "WORLD_SIZE",
                                          "MASTER_ADDR", "MASTER_PORT"))
-
-
-def _unported(args) -> str | None:
-    """Why the port refuses one of these options (its ROADMAP.md item),
-    or None."""
-    if args.profile_dir:
-        return ("--profile-dir: profiler traces of the numeric phase are "
-                "ROADMAP M6")
-    return None
 
 
 def main(argv=None) -> int:
@@ -100,9 +92,12 @@ def main(argv=None) -> int:
                     help="skip init+gstrf; load a factor saved with "
                          "--save-factor (by either package) and go "
                          "straight to gstrs")
-    ap.add_argument("--profile-dir", default=None,
-                    help="profiler trace of the numeric phase (ROADMAP "
-                         "M6, not ported yet)")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of gstrf's numeric "
+                         "phase into DIR: one Chrome trace JSON file "
+                         "(<host>_<pid>[_rank<r>].<ns>.pt.trace.json) for "
+                         "chrome://tracing or Perfetto, with the card's "
+                         "kernels on --device cuda")
     ap.add_argument("--tile-storage", default="dense",
                     choices=["dense", "compressed"],
                     help="factor storage: dense tiles, or O(fill) "
@@ -110,11 +105,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not args.file and not args.load_factor:
         ap.error("either -f/--file or --load-factor is required")
-    why = _unported(args)
-    if why:
-        print(f"pangulu_tpu_torch: {why} (not ported yet)",
-              file=sys.stderr)
-        return 2
     if args.mesh and not _under_launcher():
         print("pangulu_tpu_torch: --mesh runs one process a rank and needs "
               f"a launcher to start them: {LAUNCHER}", file=sys.stderr)
@@ -190,7 +180,8 @@ def _solve(args, primary: bool) -> int:
                            refine=args.refine, device=args.device,
                            tile_storage=args.tile_storage, mesh_shape=mesh,
                            backend=args.backend,
-                           complex_mode=args.complex_mode)
+                           complex_mode=args.complex_mode,
+                           profile_dir=args.profile_dir)
         try:
             handle = init(a, opts)
         except NotImplementedError as e:

@@ -170,7 +170,9 @@ class PanelLU:
         which P6 does not need: the same ``panel_cols`` at the same
         memory limit); ``PANGULU_OOC_CROSS_GB`` sets it outright.  The
         device's memory is ``torch.cuda.mem_get_info``'s total on the
-        card, and the JAX package's 15 GiB on the CPU."""
+        card times the process's allocator cap
+        (``torch.cuda.set_per_process_memory_fraction``, 1.0 unless a
+        caller sets it), and the JAX package's 15 GiB on the CPU."""
         nb = self.blocked.nb
         tile_b = nb * nb * np.dtype(self.blocked.dtype).itemsize
         env = os.environ.get("PANGULU_OOC_CROSS_GB")
@@ -178,7 +180,9 @@ class PanelLU:
             return max(int(float(env) * 2 ** 30 // tile_b), 64)
         hbm = 15.0 * 2 ** 30
         if self.device.type == "cuda":
-            hbm = float(torch.cuda.mem_get_info(self.device)[1])
+            hbm = (float(torch.cuda.mem_get_info(self.device)[1])
+                   * torch.cuda.get_per_process_memory_fraction(
+                       self.device))
         free = hbm - self.store.compressed_bytes - 4 * 2 ** 30
         return max(int(free // tile_b), 64)
 

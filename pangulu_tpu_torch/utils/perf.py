@@ -10,6 +10,8 @@ flop models (pangulu_kernel_interface.c:4-178), phase wall-times
 from __future__ import annotations
 
 import contextlib
+import os
+import socket
 import time
 
 import numpy as np
@@ -121,6 +123,35 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+@contextlib.contextmanager
+def profile_trace(profile_dir, device, rank: int | None = None):
+    """A ``torch.profiler`` trace of the enclosed work, written to
+    ``profile_dir`` as Chrome trace JSON (``<worker>.<time_ns>.pt.trace.
+    json``, chrome://tracing or Perfetto; the JAX package writes XPlane
+    with ``jax.profiler.trace``): host activity, and the card's kernels
+    when ``device`` is a CUDA device.  The worker name carries the host,
+    the pid and, on a grid of ranks, ``rank``, and the file name the
+    time in ns, so ranks and repeated calls never overwrite each other's
+    files.  The device's queued work is waited for before the trace
+    closes, so that it holds the kernels still running.  The trace
+    closes, and its file is written, also when the enclosed work
+    raises."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    worker = f"{socket.gethostname()}_{os.getpid()}"
+    if rank is not None:
+        worker += f"_rank{rank}"
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(
+                     str(profile_dir), worker_name=worker)):
+        yield
+        device_sync(device)
 
 
 def device_sync(device) -> None:

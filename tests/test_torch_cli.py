@@ -4,6 +4,7 @@ tests/test_io_and_blocks.py:205): the same files, the same flags, the
 same exit codes, and residuals at the reference's acceptance bounds.
 """
 
+import json
 import os
 import pathlib
 import subprocess
@@ -100,15 +101,27 @@ def test_cli_bad_file_exits_2(tmp_path, capsys):
     # --mesh runs under a launcher only (tests/test_torch_dist.py runs it
     # under one)
     (["--mesh", "2,2"], ("torch.distributed.run", "--nproc-per-node")),
-    (["--profile-dir", "prof"], ("M6", "ROADMAP")),
+    # --profile-dir runs since ROADMAP Queue 1 item 7 closed: words None
+    (["--profile-dir", "prof"], None),
 ])
 def test_cli_unported_flags_name_their_item(tmp_path, capsys, monkeypatch,
                                             flags, words):
-    """Options the port does not have yet exit 2 and name their
-    ROADMAP.md item, and --mesh outside a launcher exits 2 naming the
-    launcher, before any file is read."""
+    """--mesh outside a launcher exits 2 naming the launcher, before any
+    file is read; --profile-dir, which exited 2 until its ROADMAP.md
+    item closed, solves and writes one Chrome trace into the directory
+    (relative to the working directory, here the test's)."""
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)
+    if words is None:
+        monkeypatch.chdir(tmp_path)
+        write_matrix(tmp_path / "m.mtx", poisson2d(8))
+        assert cli.main(["-f", str(tmp_path / "m.mtx"), "-nb", "16",
+                         "--device", "cpu"] + flags) == 0
+        assert _residual(capsys.readouterr().out) < 1e-12
+        files = list((tmp_path / flags[1]).glob("*.pt.trace.json"))
+        assert len(files) == 1 and "traceEvents" in json.loads(
+            files[0].read_text())
+        return
     rc = cli.main(["-f", str(tmp_path / "never_read.mtx"), "--device",
                    "cpu"] + flags)
     assert rc == 2

@@ -27,6 +27,7 @@ products' values would hide.  The 3xTF32 instances (timed only) within
 
 import ctypes
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -1282,3 +1283,65 @@ def test_newton_kernel_on_unit_triangles(cuda):
                 for scale, row in (("max", False), ("row", True))}
     assert all(ek <= max(2 * ep, eps) for ek, ep in readings.values()), \
         readings
+
+
+# ---- profile_dir and the panel driver under an allocator cap
+
+
+def test_profile_dir_on_cuda(cuda, tmp_path):
+    """gstrf with profile_dir on the card (poisson3d(12), nb=128, nd,
+    r32: K1 and K4) writes exactly one Chrome trace that parses and holds
+    device kernels of K1 or K4 (the profiler may lose some, so their
+    launch counts are not read from it), and the factors are the bits of
+    a run without profile_dir."""
+    a = poisson3d(12)
+    opts = dict(nb=128, dtype="r32", ordering="nd", device="cuda")
+    plain = pt.init(a, pt.InitOptions(**opts))
+    pt.gstrf(plain)
+    h = pt.init(a, pt.InitOptions(profile_dir=str(tmp_path), **opts))
+    pt.gstrf(h)
+    files = sorted(tmp_path.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    assert any("getrf_inv_kernel" in n or "group_schur_kernel" in n
+               for n in kernels), sorted(kernels)[:20]
+    assert torch.equal(h.factor_tiles, plain.factor_tiles)
+
+
+def test_panel_lu_cross_budget_reads_the_allocator_cap(cuda, monkeypatch):
+    """PanelLU's cross budget is the card's memory times the process's
+    allocator fraction less the store and 4 GiB: under a cap that leaves
+    a third of the matrix's tiles it makes more panels than without one,
+    and the bits of an uncapped run given the same budget through
+    PANGULU_OOC_CROSS_GB.  The fraction is reset afterwards."""
+    from pangulu_tpu_torch.outofcore import PanelLU
+
+    monkeypatch.delenv("PANGULU_OOC_CROSS_GB", raising=False)
+    h = pt.init(poisson3d(16), pt.InitOptions(nb=128, dtype="r32",
+                                              ordering="nd", device="cpu"))
+    args = (h.blocked, h.schedule, h.reordering.reordered)
+    free = PanelLU(*args, device="cuda")
+    free.factorize()
+    tile_b = 128 * 128 * 4
+    total = torch.cuda.mem_get_info(cuda)[1]
+    want = h.blocked.num_tiles // 3
+    cap = 4 * 2 ** 30 + free.store.compressed_bytes + want * tile_b
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total, cuda)
+    try:
+        capped = PanelLU(*args, device="cuda")
+        budget = capped._dense_budget_tiles()
+        capped.factorize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, cuda)
+    assert torch.cuda.get_per_process_memory_fraction(cuda) == 1.0
+    assert abs(budget - want) <= 1
+    assert len(capped.panel_cols) > len(free.panel_cols)
+    monkeypatch.setenv("PANGULU_OOC_CROSS_GB", repr(budget * tile_b / 2 ** 30))
+    same = PanelLU(*args, device="cuda")
+    assert same._dense_budget_tiles() == budget
+    same.factorize()
+    assert same.panel_cols == capped.panel_cols
+    assert torch.equal(same.store.values, capped.store.values)

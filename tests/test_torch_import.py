@@ -1,18 +1,18 @@
 """The port imports without JAX, and never falls back silently.
 
 - Importing every module of pangulu_tpu_torch (the multi-device
-  pangulu_tpu_torch.parallel among them), the probes of
-  pangulu_tpu_torch/tools for P3-P5 and its multi-process tools
-  run_multiprocess and probe_dist, loads no jax module and nothing of
+  pangulu_tpu_torch.parallel and the examples among them), the probes
+  of pangulu_tpu_torch/tools for P3-P5, its multi-process tools
+  run_multiprocess and probe_dist and its out-of-core demo
+  demo_outofcore, loads no jax module and nothing of
   the JAX package (checked in a fresh interpreter, since this
   test process has JAX loaded by conftest.py), and needs neither triton
   nor nvcc.
 - device="cuda" without a GPU raises; a CUDA-tensor kernel call that
-  cannot build its library raises; options the port does not implement
-  raise NotImplementedError, and mesh_shape without a process group
-  raises ValueError; nb above K2-K5's limit raises in their wrappers,
-  and the compressed store and a mesh run at nb > 256 and with native
-  complex tiles.
+  cannot build its library raises; mesh_shape without a process group
+  raises ValueError, and profile_dir runs; nb above K2-K5's limit
+  raises in their wrappers, and the compressed store and a mesh run at
+  nb > 256 and with native complex tiles.
 """
 
 import os
@@ -37,17 +37,22 @@ for m in pkgutil.walk_packages(pangulu_tpu_torch.__path__,
                                "pangulu_tpu_torch."):
     importlib.import_module(m.name)
 # the H100 probes of the TPU probes P3-P5, of K1 for wide tiles and of
-# the compressed store's P6 and P2 (tools/ is no package)
+# the compressed store's P6 and P2, and the out-of-core demo (tools/ is
+# no package)
 for m in ("probe_overlap", "probe_scan_multi", "probe_newton_loop",
           "probe_clusters", "run_multiprocess", "probe_dist",
-          "probe_k1_wide", "probe_p6", "probe_p2"):
+          "probe_k1_wide", "probe_p6", "probe_p2", "demo_outofcore"):
     importlib.import_module("pangulu_tpu_torch.tools." + m)
 for m in ("pangulu_tpu_torch.io.mmio", "pangulu_tpu_torch.cli",
           "pangulu_tpu_torch.__main__", "pangulu_tpu_torch.compressed",
           "pangulu_tpu_torch.outofcore", "pangulu_tpu_torch.parallel.mesh",
           "pangulu_tpu_torch.parallel.multihost",
           "pangulu_tpu_torch.parallel.dist_numeric",
-          "pangulu_tpu_torch.parallel.dist_sptrsv"):
+          "pangulu_tpu_torch.parallel.dist_sptrsv",
+          "pangulu_tpu_torch.utils.perf",
+          "pangulu_tpu_torch.examples.run_trefethen",
+          "pangulu_tpu_torch.examples.run_refactorize",
+          "pangulu_tpu_torch.examples.run_circuit_compressed"):
     assert m in sys.modules, m
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pangulu_tpu",
@@ -209,7 +214,7 @@ def _runs(opts, engine):
     a = poisson2d(6)
     h = init(a, InitOptions(device="cpu", **opts))
     gstrf(h)
-    assert h.perf.kernels["engine"] == engine
+    assert engine is None or h.perf.kernels["engine"] == engine
     x1 = np.ones(a.n) + (1j if opts.get("dtype", "r64")[0] == "c" else 0)
     x = gstrs(h, a.to_scipy() @ x1)
     assert np.abs(x - x1).max() < 1e-5
@@ -224,14 +229,20 @@ def _runs(opts, engine):
     # and on a mesh, which needs the process group all the same
     (dict(dtype="cr64", complex_mode="native", mesh_shape=(2, 2)),
      ValueError, "no process group|none exists"),
-    (dict(profile_dir="/nonexistent"), NotImplementedError, "not ported"),
+    # profile_dir writes a trace of gstrf (item 7 closed; "TMP" is the
+    # test's directory)
+    (dict(profile_dir="TMP"), None, None),
 ])
-def test_unported_options_raise(opts, exc, item):
+def test_unported_options_raise(tmp_path, opts, exc, item):
     """What the port does not run raises, naming why; the options that
     raised until their ROADMAP item closed run (exc None: ``item`` is
-    the engine)."""
+    the engine, or None for any)."""
     if exc is None:
+        if opts.get("profile_dir") == "TMP":
+            opts = dict(opts, profile_dir=str(tmp_path))
         _runs(dict(nb=4, **opts), item)
+        if "profile_dir" in opts:
+            assert len(list(tmp_path.glob("*.pt.trace.json"))) == 1
         return
     with pytest.raises(exc, match=item):
         init(poisson2d(4), InitOptions(nb=4, device="cpu", **opts))
