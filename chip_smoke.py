@@ -275,6 +275,26 @@ CUDA toolkit (nvcc).  It
      below the cap and the dense bytes, residual < 1e-4); (d) K1 at
      EXTRAS_SPLIT_NB = 1088, two levels of its recursion, against its
      plain twin in f32 and f64; prints an {"extras": ...} line;
+ 10b. drives the JAX package's superfused and segmented engines
+     (superfused_phase, ~35 s): (a) poisson3d(32) nd r32 at nb = 128,
+     256 and 512, LUFactorizer(dispatch="superfused") on a fresh store
+     with the counts zeroed before and read after: exactly one K1
+     launch (one device launch) a super-level (25, 15, 10) and no K2-K5
+     launch, the factor within 1e-5 of the fused engine's on the same
+     store, two runs the same bits, gstrf residual on the card < 1e-5,
+     gstrs through the handle (the solve auto picks: K5 on inverses
+     rebuilt from the factor at nb <= 256, the fused level solve at
+     512) < 1e-10 and its ms, ms per factorization beside fused's and,
+     at nb <= 256, mega_group's, one traced factorization of each at 512 (K1's device ms and share,
+     busy against wall); (b) the same at r64 nb=256 (K7's cluster
+     kernel on batches up to 48; residuals < 1e-12); (c) native cr32
+     on poisson3d(24) with imaginary parts, nb=128 (backend torch, no
+     hand kernel, residual < 1e-10, ms beside fused's); (d) rcm at
+     nb=128: 256 K1 launches and fused's bits; (e) dispatch
+     "segmented", taken as the fused engine: fused's bits; (f) K1 on
+     each widest super-level's batch (85, 48, 27 tiles; 48 in f64) as
+     the path gives it, against its twin, beside its bound and
+     lu_factor_ex; a {"superfused": ...} line;
  11. with --profile, also traces one rcm solve and prints, per phase,
      each kernel's launches and device time, the host wall time and the
      device's idle share (K3's solve: exactly 2 launches of its sweep
@@ -285,7 +305,9 @@ CUDA toolkit (nvcc).  It
      with "dist_launches", a rank's in each case of step 8b (b)), P6
      (decompress_tiles, compress_tiles) and P2 (newton_inverses), their
      launches from the compressed path and the reloaded factor (K1, K2
-     and P6 also with "panel_launches", those of step 7b's main path),
+     and P6 also with "panel_launches", those of step 7b's main path;
+     K1 at nb = 128, 256 and 512 also with "superfused_launches", step
+     10b (a)'s),
      and the
      probes P5, P4, P3 (scan_overlap at mode both and 4096 steps,
      scan_multi at Q = 8 with products and 2048 steps, both with DMMA
@@ -334,6 +356,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import pathlib
 import re
@@ -3497,6 +3520,304 @@ def extras_phase(dev, nx: int = 32, nb: int = 128, demo_nx: int = DEMO_NX,
     return out
 
 
+# the superfused phase's tile widths on poisson3d(32) nd r32: one K1
+# launch a super-level (25, 15 and 10 of them)
+SUPERFUSED_NBS = (128, 256, 512)
+
+
+def superfused_phase(dev, nx: int = 32, nbs=SUPERFUSED_NBS,
+                     nb_r64: int = 256, nx_c: int = 24, nb_c: int = 128,
+                     nb_rcm: int = 128) -> tuple:
+    """The superfused and segmented engines (numeric.py, dispatch=
+    "superfused" / "segmented"; the JAX package's super-level fused and
+    segmented engines) on the card:
+
+      (a) poisson3d(nx), r32, nd, at each nb of nbs (backend cuda): on
+          one store LUFactorizer(dispatch="superfused"), with the counts
+          zeroed before and read after: exactly one K1 launch (one
+          device launch) a super-level and no other kernel; its factor
+          within 1e-5 of the fused engine's on the same store, relative
+          to the largest entry (TOL_GROUP_F32's 2e-4 is not needed); two
+          factorizations the same bits; the gstrf residual on the card <
+          1e-5, and through gstrs (the solve auto picks, recorded) after
+          the default refinement < 1e-10 and its ms per unrefined solve
+          (CUDA events, median of 5); ms per factorization (CUDA events,
+          median of 5) beside the fused engine's and, at nb <= 256,
+          mega_group's (K4); at the largest nb one traced factorization
+          of each of superfused and fused (K1's device ms and share, busy
+          against wall);
+      (b) the same at r64 and nb_r64 (K7's cluster kernel on batches up
+          to the widest super-level), residuals < 1e-12, the factor
+          within 1e-12 of fused's;
+      (c) complex_mode "native", cr32, poisson3d(nx_c) with imaginary
+          parts, nb_c, nd (backend torch, no hand kernel): residual <
+          1e-10 (A in the working precision), the factor within 1e-5 of
+          fused's, ms per factorization beside fused's (one run each:
+          fused takes seconds);
+      (d) rcm at nb_rcm, r32: one member a super-level, so exactly
+          block_length K1 launches, and the fused engine's bits;
+      (e) dispatch "segmented" on (a)'s store at nbs[0]: taken as the
+          fused engine (unpadded, the JAX package's segments run its
+          steps), exactly block_length K1 launches and its bits;
+      (f) K1 per launch on the widest super-level's batch of (a) and (b)
+          as the path gives it (its inputs taken in a factorization):
+          against its plain twin (kernels_torch.k1_wide) at TOL_F32 /
+          TOL_F64, device ms (back-to-back, median of 7) beside its
+          bound (k1_bound), the twin's ms and
+          torch.linalg.lu_factor_ex(pivot=False)'s on the same batch.
+
+    Returns (its numbers, per nb of nbs the K1 launches of (a)).  Any
+    failure raises."""
+    from pangulu_tpu_torch import InitOptions, gstrs, init
+    from pangulu_tpu_torch.models import poisson3d
+    from pangulu_tpu_torch.numeric import LUFactorizer
+    from pangulu_tpu_torch.ops import interface
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+    from pangulu_tpu_torch.testing import with_imaginary_parts
+    from pangulu_tpu_torch.utils.perf import residual_norm
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    a = poisson3d(nx)
+    s = a.to_scipy()
+    b = s @ np.ones(a.n)
+
+    def k1_only(what, calls):
+        got = (kc.LAUNCHES["getrf_with_inverses"],
+               kc.DEVICE_LAUNCHES["getrf_with_inverses"])
+        if got != (calls, calls) or any(
+                v for k, v in kc.LAUNCHES.items()
+                if k != "getrf_with_inverses"):
+            fail(f"{what}: launches {dict(kc.LAUNCHES)}, K1 device "
+                 f"launches {got[1]}; expected K1 {calls} (one device "
+                 "launch each) and no other kernel")
+
+    def factor_ms(fac, h, reps=5):
+        return cuda_ms(lambda t: fac.factorize(t, sync=False),
+                       setup=lambda: h.blocked.device_tiles(dev),
+                       reps=reps, warmup=1 if reps > 1 else 0)
+
+    def k1_batch(h, label):
+        """(f): the widest super-level's K1 batch as the path gives it."""
+        widest = max(len(m) for m in h.schedule.superlevels())
+        cuda = interface.get_backend("cuda")
+        seen = []
+
+        def grab(x, tol):
+            if x.dim() == 3 and x.shape[0] == widest and not seen:
+                seen.append(x.clone())
+            return cuda.diag_factor_invert(x, tol)
+
+        LUFactorizer(h.blocked, h.schedule, device=dev,
+                     dispatch="superfused",
+                     backend=dataclasses.replace(
+                         cuda, diag_factor_invert=grab)).factorize()
+        x = seen[0]
+        dt, nb = x.dtype, x.shape[-1]
+        tol = TOL_F32 if dt == torch.float32 else TOL_F64
+        err = 0.0
+        for n, g, r in zip(("f", "linv", "uinv"),
+                           kc.getrf_with_inverses(x), kt.k1_wide(x)):
+            err = max(err, compare(f"{label} K1 batch {widest} {n} (twin)",
+                                   g, r, *tol))
+        ms = device_ms(lambda: kc.getrf_with_inverses(x), n=20, reps=7)
+        lms = device_ms(lambda: torch.linalg.lu_factor_ex(x, pivot=False),
+                        n=20, reps=7)
+        pms = cuda_ms(lambda _: kt.k1_wide(x), reps=3)
+        r = dict(batch=widest, max_abs_err=err, ms=ms, ms_per_tile=ms /
+                 widest, plain_ms=pms, library_ms=lms,
+                 **k1_bound(nb, widest, dt))
+        print(f"  (f) K1 on the widest super-level's {widest} tiles, nb={nb}"
+              f" {dt}: {ms:.4f} ms a launch ({ms / widest:.4f} a tile), "
+              f"bound {r['bound_ms']:.3e} ms ({r['bound_by']}), twin "
+              f"{pms:.3f} ms, lu_factor_ex {lms:.4f} ms")
+        return r
+
+    def grouped(nb, dtype, ordering, limits, label, mega=True):
+        print(f"superfused {label}: poisson3d({nx}) nb={nb} {dtype} "
+              f"{ordering}, {dev}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ti = time.perf_counter()
+        h = init(a, InitOptions(nb=nb, dtype=dtype, ordering=ordering,
+                                device=str(dev)))
+        init_s = time.perf_counter() - ti
+        sizes = [len(m) for m in h.schedule.superlevels()]
+        bl, nt = h.schedule.block_length, h.blocked.num_tiles
+        kc.reset_launch_counts()
+        sf = LUFactorizer(h.blocked, h.schedule, device=dev,
+                          dispatch="superfused", backend="cuda")
+        tiles = sf.factorize()
+        k1_only(f"{label} superfused", len(sizes))
+        launched = dict(kc.LAUNCHES)
+        fu = LUFactorizer(h.blocked, h.schedule, device=dev,
+                          dispatch="fused", backend="cuda")
+        ref = fu.factorize()
+        dif = rel_err(tiles[:nt], ref[:nt].double())
+        same = torch.equal(sf.factorize(), tiles)
+        fres = factor_residual_device(h, tiles)
+        h._factorizer, h.factor_tiles, h._trisolver = sf, tiles, None
+        x = gstrs(h, b)
+        res = residual_norm(s, x, b)
+        ts = h._trisolver
+        solve, xb = ts.dispatch, ts.blockify_rhs(h.reordering.transform_b(b))
+        num = dict(n=a.n, bl=bl, tiles=nt, superlevels=len(sizes),
+                   widest=max(sizes), init_s=init_s, launches=launched,
+                   against_fused=dif, same_bits=same, gstrf_residual=fres,
+                   residual=res, solve_engine=solve,
+                   ms_per_solve=cuda_ms(lambda _: ts.solve_blocked(tiles, xb),
+                                        reps=5))
+        print(f"  {bl} levels -> {len(sizes)} super-levels (widest "
+              f"{max(sizes)}), {nt} tiles, init {init_s:.1f} s; K1 "
+              f"launches {launched['getrf_with_inverses']}; against fused "
+              f"{dif:.3e} (< {limits[0]:g}); two runs the same bits: "
+              f"{same}; gstrf residual {fres:.3e} (< {limits[1]:g}); "
+              f"solve ({solve}) residual {res:.3e} (< {limits[2]:g}), "
+              f"{num['ms_per_solve']:.3f} ms per solve (unrefined, CUDA "
+              "events, median of 5)")
+        if not (dif < limits[0] and same and fres < limits[1]
+                and res < limits[2]):
+            fail(f"superfused {label}: agreement, bits or residual")
+        if x.shape != (a.n,) or not np.isfinite(x).all():
+            fail(f"superfused {label}: solution not finite")
+        num["ms_per_factorization"] = factor_ms(sf, h)
+        num["fused_ms"] = factor_ms(fu, h)
+        msg = (f"  ms per factorization (CUDA events, median of 5): "
+               f"superfused {num['ms_per_factorization']:.3f}, fused "
+               f"{num['fused_ms']:.3f}")
+        if mega and nb <= kt.MAX_NB:
+            mg = LUFactorizer(h.blocked, h.schedule, device=dev,
+                              dispatch="mega_group")
+            num["mega_group_ms"] = factor_ms(mg, h)
+            msg += f", mega_group (K4) {num['mega_group_ms']:.3f}"
+        print(msg)
+        return h, sf, fu, num
+
+    def traced(num, sf, fu, h):
+        for name, fac in (("superfused", sf), ("fused", fu)):
+            tr = profile(lambda t: fac.factorize(t, sync=False),
+                         setup=lambda: h.blocked.device_tiles(dev))
+            k1 = {n: k for n, k in tr["kernels"].items()
+                  if any(x in n for x in ("lu_cluster_kernel",
+                                          "getrf_inv_kernel",
+                                          "lu_wide_kernel"))}
+            k1_ms = sum(k["device_ms"] for k in k1.values())
+            num[f"{name}_trace"] = dict(
+                wall_ms=tr["wall_ms"], busy_ms=tr["busy_ms"],
+                idle_share=tr["idle_share"], k1_device_ms=k1_ms,
+                k1_share=k1_ms / tr["busy_ms"],
+                k1_events=sum(k["launches"] for k in k1.values()),
+                top={n[:80]: k for n, k in sorted(
+                    tr["kernels"].items(),
+                    key=lambda kv: -kv[1]["device_ms"])[:6]})
+            print(f"  {name} traced: wall {tr['wall_ms']:.3f} ms, busy "
+                  f"{tr['busy_ms']:.3f} ms (idle share "
+                  f"{tr['idle_share']:.3f}); K1 {k1_ms:.3f} device ms "
+                  f"({k1_ms / tr['busy_ms']:.1%} of busy, "
+                  f"{num[f'{name}_trace']['k1_events']} events)")
+
+    # ---- (a), (f) r32 nd at each nb ------------------------------------
+    for nb in nbs:
+        h, sf, fu, num = grouped(nb, "r32", "nd", (1e-5, 1e-5, 1e-10),
+                                 f"(a) nb={nb}")
+        launches[nb] = num["launches"]["getrf_with_inverses"]
+        if nb == max(nbs):
+            traced(num, sf, fu, h)
+        num["k1_widest"] = k1_batch(h, f"nb={nb}")
+        if nb == nbs[0]:
+            # ---- (e) segmented on the same store --------------------------
+            kc.reset_launch_counts()
+            seg = LUFactorizer(h.blocked, h.schedule, device=dev,
+                               dispatch="segmented", backend="cuda")
+            st = seg.factorize()
+            k1_only("(e) segmented", h.schedule.block_length)
+            same = torch.equal(st, fu.factorize())
+            num["segmented"] = dict(engine=seg.dispatch, fused_bits=same,
+                                    ms_per_factorization=factor_ms(seg, h))
+            print(f"  (e) segmented: engine {seg.dispatch}, "
+                  f"{h.schedule.block_length} K1 launches, the fused bits: "
+                  f"{same}; {num['segmented']['ms_per_factorization']:.3f} "
+                  "ms per factorization")
+            if not same or seg.dispatch != "fused":
+                fail("segmented: not the fused engine or not its bits")
+        out[f"r32_nd_nb{nb}"] = num
+        del h, sf, fu
+
+    # ---- (b) r64 ----------------------------------------------------------
+    h, sf, fu, num = grouped(nb_r64, "r64", "nd", (1e-12, 1e-12, 1e-12),
+                             f"(b) nb={nb_r64} r64")
+    num["k1_widest"] = k1_batch(h, f"nb={nb_r64} r64")
+    out[f"r64_nd_nb{nb_r64}"] = num
+    del h, sf, fu
+
+    # ---- (d) rcm: one member a super-level ------------------------------
+    print(f"superfused (d): poisson3d({nx}) nb={nb_rcm} r32 rcm")
+    torch.cuda.empty_cache()
+    h = init(a, InitOptions(nb=nb_rcm, dtype="r32", ordering="rcm",
+                            device=str(dev)))
+    bl = h.schedule.block_length
+    kc.reset_launch_counts()
+    sf = LUFactorizer(h.blocked, h.schedule, device=dev,
+                      dispatch="superfused", backend="cuda")
+    tiles = sf.factorize()
+    k1_only("(d) rcm superfused", bl)
+    fu = LUFactorizer(h.blocked, h.schedule, device=dev, dispatch="fused",
+                      backend="cuda")
+    same = torch.equal(tiles, fu.factorize())
+    out["r32_rcm"] = dict(bl=bl, superlevels=len(sf.supers.diag_ids),
+                          fused_bits=same,
+                          ms_per_factorization=factor_ms(sf, h),
+                          fused_ms=factor_ms(fu, h))
+    print(f"  {bl} levels, {len(sf.supers.diag_ids)} super-levels, {bl} K1 "
+          f"launches; the fused bits: {same}; superfused "
+          f"{out['r32_rcm']['ms_per_factorization']:.3f} ms, fused "
+          f"{out['r32_rcm']['fused_ms']:.3f} ms per factorization")
+    if not same or len(sf.supers.diag_ids) != bl:
+        fail("rcm superfused: not one member a super-level, or not the "
+             "fused bits")
+    del h, sf, fu, tiles
+
+    # ---- (c) native complex ---------------------------------------------
+    print(f"superfused (c): complex_mode native, poisson3d({nx_c}) with "
+          f"imaginary parts, nb={nb_c}, cr32, nd")
+    torch.cuda.empty_cache()
+    ca = with_imaginary_parts(poisson3d(nx_c))
+    aw = ca.to_scipy().astype(np.complex64).astype(np.complex128)
+    bc = aw @ np.full(ca.n, 1 + 1j)
+    h = init(ca, InitOptions(nb=nb_c, dtype="cr32", ordering="nd",
+                             device=str(dev), complex_mode="native"))
+    kc.reset_launch_counts()
+    sf = LUFactorizer(h.blocked, h.schedule, device=dev,
+                      dispatch="superfused")
+    tiles = sf.factorize()
+    fu = LUFactorizer(h.blocked, h.schedule, device=dev, dispatch="fused")
+    nt = h.blocked.num_tiles
+    dif = rel_err(torch.view_as_real(tiles[:nt]),
+                  torch.view_as_real(fu.factorize()[:nt]).double())
+    h._factorizer, h.factor_tiles, h._trisolver = sf, tiles, None
+    x = gstrs(h, bc)
+    if any(kc.LAUNCHES.values()):
+        fail(f"native cr32 superfused launched {dict(kc.LAUNCHES)}")
+    res = residual_norm(aw, x, bc)
+    sms, fms = factor_ms(sf, h, reps=1), factor_ms(fu, h, reps=1)
+    out["native_cr32"] = dict(
+        bl=h.schedule.block_length, superlevels=len(sf.supers.diag_ids),
+        backend=sf.backend.name, against_fused=dif, residual=res,
+        ms_per_factorization=sms, fused_ms=fms)
+    print(f"  backend {sf.backend.name}, {h.schedule.block_length} levels -> "
+          f"{len(sf.supers.diag_ids)} super-levels; against fused {dif:.3e} "
+          f"(< 1e-5); residual {res:.3e} (< 1e-10); superfused {sms:.3f} "
+          f"ms, fused {fms:.3f} ms (one run each)")
+    if not (sf.backend.name == "torch" and dif < 1e-5 and res < 1e-10):
+        fail("native cr32 superfused: backend, agreement or residual")
+    del h, sf, fu, tiles
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"superfused phase: {out['seconds']:.1f} s")
+    return out, launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4305,6 +4626,11 @@ def main() -> int:
     detail["extras"] = extras
     print(json.dumps({"extras": extras}))
 
+    # ---- the superfused and segmented engines --------------------------
+    sup, sup_launches = superfused_phase(dev)
+    detail["superfused"] = sup
+    print(json.dumps({"superfused": sup}))
+
     launches = dict(rcm_launches)
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]
     launches["mega_solve_groups"] = nd_launches["mega_solve_groups"]
@@ -4344,6 +4670,11 @@ def main() -> int:
             # K1's launches on the compressed path at nb=512 as well
             k["compressed_launches"] = launches[
                 "getrf_with_inverses@nb=512 compressed"]
+        # K1's launches on the superfused path at its nb
+        for nb, n in sup_launches.items():
+            if k["name"] == ("getrf_with_inverses" if nb == 128
+                             else f"getrf_with_inverses@nb={nb}"):
+                k["superfused_launches"] = n
     detail["kernels"] = out["kernels"]
     detail["seconds_after_build_start"] = time.perf_counter() - t_start
     od = ROOT / "pangulu_tpu_torch" / "_build"

@@ -28,15 +28,28 @@ step, PyTorch ops for the rest), for any nb and value type:
 They run each level's real entries, which the host tables count: the
 JAX package pads every level to one shape so that one XLA trace serves
 them all, which eager PyTorch does not need, so its ``"segmented"``
-engine (bounded padding) has no counterpart.  They persist no inverses,
-as in the JAX package.
+engine (bounded padding, ``pangulu_tpu/numeric.py:456-460``) runs as
+``fused``: a ``dispatch="segmented"`` is taken as ``fused``, with the
+reason logged.  They persist no inverses, as in the JAX package.  One
+more engine of the JAX package runs only when asked for:
+
+  * ``"superfused"`` (``pangulu_tpu/numeric.py:217-250``): per
+    super-level (``Schedule.superlevels``, the columns of one
+    dependency depth) one diagonal step on the batch of its G
+    diagonals (one K1 launch on the card), the union of its members'
+    panels as one product each way, and the Schur updates in waves in
+    which a destination occurs once (the JAX package's scatter-add
+    sums duplicates in no fixed order on a GPU, the waves in member
+    order on every run).  It persists no inverses either.
 
 ``dispatch="auto"`` picks by the JAX package's rule
 (``pangulu_tpu/numeric.py:324-369``): ``levels`` for
 ``panel_solve="trsm"``; the mega engines for real tiles of nb <= 256
 unless ``backend="torch"`` is asked for (the JAX package's mega engines
 need its Pallas backend), ``mega_group`` when super-level groups pay;
-else ``fused``.
+else ``fused``.  It never takes ``superfused`` (nor does the JAX
+package's), and takes ``fused`` where the JAX package takes
+``segmented`` (skewed schedules).
 """
 
 from __future__ import annotations
@@ -50,7 +63,7 @@ from pangulu_tpu_torch.ops.interface import KernelBackend, get_backend
 from pangulu_tpu_torch.ops.kernels_torch import (DEFAULT_TOL, MAX_NB,
                                                  KernelTables, mega_uch,
                                                  true_f32_matmul)
-from pangulu_tpu_torch.schedule import Schedule, build_schedule
+from pangulu_tpu_torch.schedule import Schedule, build_schedule, occurrence
 from pangulu_tpu_torch.utils.log import get_logger
 from pangulu_tpu_torch.utils.perf import (PerfCounters, device_sync,
                                           resolve_device)
@@ -59,7 +72,8 @@ log = get_logger()
 
 MEGA_ENGINES = ("mega", "mega_group")
 LEVEL_ENGINES = ("fused", "levels")
-DISPATCHES = ("auto",) + MEGA_ENGINES + LEVEL_ENGINES
+DISPATCHES = ("auto",) + MEGA_ENGINES + LEVEL_ENGINES + ("segmented",
+                                                          "superfused")
 
 # Padded / real Schur work above which the JAX package leaves its fused
 # engine for the segmented one (pangulu_tpu/numeric.py:301).
@@ -101,6 +115,9 @@ def pick_engine(dispatch: str, schedule: Schedule, gmax: int, *,
         raise ValueError(f"dispatch={dispatch!r} runs K2-K5, which take "
                          f"real tiles of nb <= {MAX_NB}; got nb={nb}, "
                          f"{dtype}")
+    if dispatch == "segmented":
+        return "fused", ("segmented asked for: unpadded, its segments run "
+                         "the fused engine's steps")
     if dispatch != "auto":
         return dispatch, "asked for"
     if panel_solve == "trsm":
@@ -127,31 +144,79 @@ def resolve_backend(backend, nb: int, dtype: torch.dtype, tol, device):
     return get_backend(backend, nb=nb, dtype=dtype, tol=tol, device=device)
 
 
-class LevelTables:
-    """Per level of a schedule, its entries as slices of flat int64
-    index tensors on the device (shipped once), with the offsets on the
-    host: what the fused and levels engines and solves read."""
+class FlatTables:
+    """Named lists of index arrays as flat int64 tensors on the device
+    (shipped once), with the offsets on the host: ``of(field, i)`` is
+    entry i's slice."""
 
-    def __init__(self, schedule: Schedule, fields, device):
-        levels = schedule.levels
-        self.diag = [int(lev.diag) for lev in levels]
-        self.k = [int(lev.k) for lev in levels]
+    def __init__(self, parts: dict, device):
         self.off, self.dev = {}, {}
-        for f in fields:
-            parts = [np.asarray(getattr(lev, f), np.int64) for lev in levels]
-            self.off[f] = np.cumsum([0] + [len(p) for p in parts])
+        for f, arrs in parts.items():
+            arrs = [np.asarray(a, np.int64) for a in arrs]
+            self.off[f] = np.cumsum([0] + [len(a) for a in arrs])
             self.dev[f] = torch.as_tensor(
-                np.concatenate(parts) if parts else np.zeros(0, np.int64),
+                np.concatenate(arrs) if arrs else np.zeros(0, np.int64),
                 device=device)
 
     def of(self, field: str, i: int) -> torch.Tensor:
-        """Level i's entries of ``field``."""
+        """Entry i's indices of ``field``."""
         off = self.off[field]
         return self.dev[field][int(off[i]):int(off[i + 1])]
 
     def count(self, field: str, i: int) -> int:
         off = self.off[field]
         return int(off[i + 1] - off[i])
+
+
+class LevelTables(FlatTables):
+    """Per level of a schedule, the ``fields`` of its
+    :class:`~schedule.Level`: what the fused and levels engines and
+    solves read."""
+
+    def __init__(self, schedule: Schedule, fields, device):
+        levels = schedule.levels
+        self.diag = [int(lev.diag) for lev in levels]
+        self.k = [int(lev.k) for lev in levels]
+        super().__init__({f: [getattr(lev, f) for lev in levels]
+                          for f in fields}, device)
+
+
+class SuperLevelTables(FlatTables):
+    """Per super-level of a schedule (``Schedule.superlevels``), its
+    members' real entries concatenated: ``diag``; ``lpanel``/``ldsel``
+    and ``upanel``/``udsel`` (each panel tile's member); and by wave
+    ``upd_dst``, ``upd_l``, ``upd_u`` (indices into the concatenated
+    panels), wave w holding every destination's w-th occurrence in
+    member order (the split of ``Schedule.superfused_wave_tables``),
+    the waves of super-level i being ``waves[i]``.  ``diag_ids[i]``
+    holds its diagonal tile ids on the host."""
+
+    def __init__(self, schedule: Schedule, device):
+        parts = {f: [] for f in ("diag", "lpanel", "ldsel", "upanel",
+                                 "udsel", "upd_dst", "upd_l", "upd_u")}
+        self.diag_ids, self.waves = [], []
+        for mem in schedule.superlevels():
+            levs = [schedule.levels[k] for k in mem]
+            self.diag_ids.append(np.array([lev.diag for lev in levs]))
+            parts["diag"].append(self.diag_ids[-1])
+            upd = {}
+            for f, fsel, fu in (("lpanel", "ldsel", "upd_l"),
+                                ("upanel", "udsel", "upd_u")):
+                n = [len(getattr(lev, f)) for lev in levs]
+                parts[f].append(np.concatenate([getattr(lev, f)
+                                                for lev in levs]))
+                parts[fsel].append(np.repeat(np.arange(len(levs)), n))
+                upd[fu] = np.concatenate([
+                    np.asarray(getattr(lev, fu), np.int64) + o
+                    for lev, o in zip(levs, np.cumsum([0] + n))])
+            upd["upd_dst"] = np.concatenate([lev.upd_dst for lev in levs])
+            occ = occurrence(np.asarray(upd["upd_dst"], np.int64))
+            w0 = len(parts["upd_dst"])
+            for w in range(int(occ.max(initial=-1)) + 1):
+                for f, v in upd.items():
+                    parts[f].append(v[occ == w])
+            self.waves.append(range(w0, len(parts["upd_dst"])))
+        super().__init__(parts, device)
 
 
 class LUFactorizer:
@@ -190,8 +255,13 @@ class LUFactorizer:
                 backend, KernelBackend) else backend,
             panel_solve=panel_solve)
         nt = blocked.num_tiles
-        self.tables = self.levels = None
-        if self.dispatch in LEVEL_ENGINES:
+        self.tables = self.levels = self.supers = None
+        if self.dispatch == "superfused":
+            self.supers = SuperLevelTables(self.schedule, self.device)
+            why += (f"; backend {self.backend.name}; "
+                    f"{self.schedule.block_length} levels -> "
+                    f"{len(self.supers.diag_ids)} super-levels")
+        elif self.dispatch in LEVEL_ENGINES:
             why += f"; backend {self.backend.name}"
             self.levels = LevelTables(
                 self.schedule, ("lpanel", "upanel", "upd_dst", "upd_l",
@@ -243,6 +313,37 @@ class LUFactorizer:
                                           lblk[t.of("upd_l", i)],
                                           ublk[t.of("upd_u", i)])
 
+    def _factorize_superlevels(self, tiles: torch.Tensor) -> None:
+        """The superfused engine on ``tiles``, in place: per
+        super-level the diagonal step on its G diagonals at once, the
+        union of its L panels as ``tiles[l] @ U^-1[member]``, of its U
+        panels as ``L^-1[member] @ tiles[u]``, then the Schur updates
+        wave by wave, each a gather, a subtraction and a store
+        (pangulu_tpu/numeric.py:217-250).  A super-level of one member
+        runs the fused engine's step on it, bit for bit."""
+        be, t = self.backend, self.supers
+        with true_f32_matmul():
+            for i, ids in enumerate(t.diag_ids):
+                one = len(ids) == 1
+                d = int(ids[0]) if one else t.of("diag", i)
+                f, linv, uinv = be.diag_factor_invert(tiles[d], self.tol)
+                tiles[d] = f
+                if t.count("lpanel", i):
+                    lids = t.of("lpanel", i)
+                    lblk = tiles[lids] @ (uinv if one
+                                          else uinv[t.of("ldsel", i)])
+                    tiles[lids] = lblk
+                if t.count("upanel", i):
+                    uids = t.of("upanel", i)
+                    ublk = (linv if one
+                            else linv[t.of("udsel", i)]) @ tiles[uids]
+                    tiles[uids] = ublk
+                for w in t.waves[i]:
+                    dst = t.of("upd_dst", w)
+                    tiles[dst] = be.ssssm(tiles[dst],
+                                          lblk[t.of("upd_l", w)],
+                                          ublk[t.of("upd_u", w)])
+
     def factorize(self, tiles: torch.Tensor | None = None,
                   sync: bool = True) -> torch.Tensor:
         """Factor ``tiles`` (default: a fresh device copy of A's tile
@@ -256,7 +357,9 @@ class LUFactorizer:
                 tiles = self.blocked.device_tiles(self.device)
                 device_sync(self.device)
         with self.perf.phase("numeric"):
-            if self.dispatch in LEVEL_ENGINES:
+            if self.dispatch == "superfused":
+                self._factorize_superlevels(tiles)
+            elif self.dispatch in LEVEL_ENGINES:
                 self._factorize_levels(tiles)
             else:
                 engine = (kernels_cuda.mega_factorize_groups

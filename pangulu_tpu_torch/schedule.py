@@ -224,6 +224,157 @@ class Schedule:
             groups.setdefault(int(d), []).append(k)
         return [groups[d] for d in sorted(groups)]
 
+    def segmented_tables(self, scratch_tile: int, min_run: int = 4):
+        """Per run of consecutive levels that share one bucketed (nl, nu,
+        nup) signature (runs shorter than ``min_run`` merged into their
+        neighbour, :func:`group_runs`), fused tables padded to the
+        run's signature (pangulu_tpu/schedule.py:118-155): the JAX
+        package's segmented engine, which bounds the fused engine's
+        padding to 2x a dimension within a run.  The run length is
+        padded to a power of two too, the extra levels pointing at the
+        scratch tile.  Returns a list of (diag_idx, l_ids, u_ids,
+        upd_dst, upd_l, upd_u), each [bucket(run length), ...]."""
+        sig = [(bucket(max(len(l.lpanel), 1)),
+                bucket(max(len(l.upanel), 1)),
+                bucket(max(len(l.upd_dst), 1))) for l in self.levels]
+        out = []
+        for start, end, (nl, nu, np_) in group_runs(sig, min_run):
+            seg_p = bucket(end - start)
+            diag_idx = np.full(seg_p, scratch_tile, dtype=np.int32)
+            l_ids = np.full((seg_p, nl), scratch_tile, dtype=np.int32)
+            u_ids = np.full((seg_p, nu), scratch_tile, dtype=np.int32)
+            upd_dst = np.full((seg_p, np_), scratch_tile, dtype=np.int32)
+            upd_l = np.zeros((seg_p, np_), dtype=np.int32)
+            upd_u = np.zeros((seg_p, np_), dtype=np.int32)
+            for t, lev in enumerate(self.levels[start:end]):
+                diag_idx[t] = lev.diag
+                l_ids[t, : len(lev.lpanel)] = lev.lpanel
+                u_ids[t, : len(lev.upanel)] = lev.upanel
+                upd_dst[t, : len(lev.upd_dst)] = lev.upd_dst
+                upd_l[t, : len(lev.upd_l)] = lev.upd_l
+                upd_u[t, : len(lev.upd_u)] = lev.upd_u
+            out.append((diag_idx, l_ids, u_ids, upd_dst, upd_l, upd_u))
+        return out
+
+    def superfused_tables(self, scratch_tile: int, min_run: int = 1):
+        """Per segment, padded tables of the JAX package's super-level
+        fused engine (pangulu_tpu/schedule.py:524-583): a super-level
+        batches its G diagonals, the union of its members' panels and
+        their Schur updates; ``l_dsel``/``u_dsel`` give each panel tile
+        its member, and ``upd_l``/``upd_u`` index the concatenated
+        panels.  Segments are runs of one bucketed (G, NL, NU, NUP)
+        signature (``min_run=1``: no merging).  Returns a list of
+        (diag_idx[S,G], l_ids[S,NL], l_dsel[S,NL], u_ids[S,NU],
+        u_dsel[S,NU], upd_dst[S,NUP], upd_l[S,NUP], upd_u[S,NUP])."""
+        supers = self.superlevels()
+        sig = []
+        for mem in supers:
+            levs = [self.levels[k] for k in mem]
+            sig.append((bucket(max(len(mem), 1)),
+                        *(bucket(max(sum(len(getattr(lev, f))
+                                         for lev in levs), 1))
+                          for f in ("lpanel", "upanel", "upd_dst"))))
+        out = []
+        for s0, s1, (G, NL, NU, NUP) in group_runs(sig, min_run):
+            seg = s1 - s0
+            diag_idx = np.full((seg, G), scratch_tile, dtype=np.int32)
+            l_ids = np.full((seg, NL), scratch_tile, dtype=np.int32)
+            l_dsel = np.zeros((seg, NL), dtype=np.int32)
+            u_ids = np.full((seg, NU), scratch_tile, dtype=np.int32)
+            u_dsel = np.zeros((seg, NU), dtype=np.int32)
+            upd_dst = np.full((seg, NUP), scratch_tile, dtype=np.int32)
+            upd_l = np.zeros((seg, NUP), dtype=np.int32)
+            upd_u = np.zeros((seg, NUP), dtype=np.int32)
+            for t, mem in enumerate(supers[s0:s1]):
+                ol = ou = op = 0
+                for g, k in enumerate(mem):
+                    lev = self.levels[k]
+                    nlk, nuk = len(lev.lpanel), len(lev.upanel)
+                    nupk = len(lev.upd_dst)
+                    diag_idx[t, g] = lev.diag
+                    l_ids[t, ol:ol + nlk] = lev.lpanel
+                    l_dsel[t, ol:ol + nlk] = g
+                    u_ids[t, ou:ou + nuk] = lev.upanel
+                    u_dsel[t, ou:ou + nuk] = g
+                    upd_dst[t, op:op + nupk] = lev.upd_dst
+                    upd_l[t, op:op + nupk] = lev.upd_l + ol
+                    upd_u[t, op:op + nupk] = lev.upd_u + ou
+                    ol, ou, op = ol + nlk, ou + nuk, op + nupk
+            out.append((diag_idx, l_ids, l_dsel, u_ids, u_dsel,
+                        upd_dst, upd_l, upd_u))
+        return out
+
+    def superfused_wave_tables(self, scratch_tile: int, gmax: int = 16,
+                               min_run: int = 1):
+        """Per segment, padded tables of super-level groups whose Schur
+        updates apply in waves (pangulu_tpu/schedule.py:585-683): the
+        super-levels split at ``gmax`` members, and each group's
+        updates split so that wave w holds every destination's w-th
+        occurrence, in member order; a destination occurs at most once
+        a wave, so a wave is a gather, a subtraction and a store.
+        Returns a list of (lev_ids[S,G], diag_idx[S,G], l_ids[S,NL],
+        l_dsel[S,NL], u_ids[S,NU], u_dsel[S,NU], upd_dst[S,W,NW],
+        upd_l[S,W,NW], upd_u[S,W,NW]); ``lev_ids`` pads with
+        ``block_length``, tile ids with ``scratch_tile``."""
+        supers = [mem[s:s + gmax] for mem in self.superlevels()
+                  for s in range(0, len(mem), gmax)]
+        gdata, sig = [], []
+        for mem in supers:
+            nl = nu = 0
+            dsts, uls, uus = [], [], []
+            for k in mem:
+                lev = self.levels[k]
+                dsts.append(np.asarray(lev.upd_dst, dtype=np.int64))
+                uls.append(np.asarray(lev.upd_l, dtype=np.int64) + nl)
+                uus.append(np.asarray(lev.upd_u, dtype=np.int64) + nu)
+                nl += len(lev.lpanel)
+                nu += len(lev.upanel)
+            dst = np.concatenate(dsts) if dsts else np.empty(0, np.int64)
+            if len(dst):
+                ul, uu = np.concatenate(uls), np.concatenate(uus)
+                occ = occurrence(dst)        # the wave of each update
+                wpos = occurrence(occ)       # its place in the wave
+                wcnt = np.bincount(occ)
+                W, NW = len(wcnt), int(wcnt.max())
+            else:
+                ul = uu = dst
+                occ = wpos = np.zeros(0, dtype=np.int64)
+                W = NW = 1
+            gdata.append((mem, dst, ul, uu, occ, wpos))
+            sig.append((bucket(max(len(mem), 1)), bucket(max(nl, 1)),
+                        bucket(max(nu, 1)), W, bucket(max(NW, 1))))
+        out = []
+        for s0, s1, (G, NL, NU, W, NW) in group_runs(sig, min_run):
+            seg = s1 - s0
+            lev_ids = np.full((seg, G), self.block_length, dtype=np.int32)
+            diag_idx = np.full((seg, G), scratch_tile, dtype=np.int32)
+            l_ids = np.full((seg, NL), scratch_tile, dtype=np.int32)
+            l_dsel = np.zeros((seg, NL), dtype=np.int32)
+            u_ids = np.full((seg, NU), scratch_tile, dtype=np.int32)
+            u_dsel = np.zeros((seg, NU), dtype=np.int32)
+            upd_dst = np.full((seg, W, NW), scratch_tile, dtype=np.int32)
+            upd_l = np.zeros((seg, W, NW), dtype=np.int32)
+            upd_u = np.zeros((seg, W, NW), dtype=np.int32)
+            for t in range(seg):
+                mem, dst, ul, uu, occ, wpos = gdata[s0 + t]
+                ol = ou = 0
+                for g, k in enumerate(mem):
+                    lev = self.levels[k]
+                    nlk, nuk = len(lev.lpanel), len(lev.upanel)
+                    lev_ids[t, g] = k
+                    diag_idx[t, g] = lev.diag
+                    l_ids[t, ol:ol + nlk] = lev.lpanel
+                    l_dsel[t, ol:ol + nlk] = g
+                    u_ids[t, ou:ou + nuk] = lev.upanel
+                    u_dsel[t, ou:ou + nuk] = g
+                    ol, ou = ol + nlk, ou + nuk
+                upd_dst[t, occ, wpos] = dst
+                upd_l[t, occ, wpos] = ul
+                upd_u[t, occ, wpos] = uu
+            out.append((lev_ids, diag_idx, l_ids, l_dsel, u_ids,
+                        u_dsel, upd_dst, upd_l, upd_u))
+        return out
+
     def group_mega_tables(self, scratch_tile: int, uch: int = 64,
                           max_pch: int = 32, gmax: int = 16):
         """Index tables for the batched-group factorization
@@ -643,6 +794,43 @@ def group_solve_steps(tables: dict, sweep: str, bl: int) -> dict:
     ent = np.asarray(ent, np.int32).reshape(-1, 2)
     return dict(step=step, item=item, ent=ent,
                 width=int(np.diff(step[:, 0]).max(initial=0)))
+
+
+def occurrence(keys: np.ndarray) -> np.ndarray:
+    """Per entry of ``keys``, how many earlier entries hold the same
+    key (0 at a key's first appearance)."""
+    order = np.argsort(keys, kind="stable")
+    ks = keys[order]
+    idx = np.arange(len(ks))
+    start = np.maximum.accumulate(
+        np.where(np.r_[True, ks[1:] != ks[:-1]], idx, 0))
+    occ = np.empty_like(idx)
+    occ[order] = idx - start
+    return occ
+
+
+def group_runs(sig: list, min_run: int) -> list:
+    """Runs of consecutive equal signatures, each run shorter than
+    ``min_run`` merged into its predecessor (or its predecessor into it,
+    when the predecessor is short) under the elementwise-max signature
+    (pangulu_tpu/schedule.py:824-844).  Returns ``[[start,
+    end_exclusive, sig], ...]``."""
+    runs = []
+    s = 0
+    for i in range(1, len(sig) + 1):
+        if i == len(sig) or sig[i] != sig[s]:
+            runs.append([s, i, sig[s]])
+            s = i
+    merged = []
+    for run in runs:
+        if merged and (run[1] - run[0] < min_run
+                       or merged[-1][1] - merged[-1][0] < min_run):
+            prev = merged[-1]
+            prev[1] = run[1]
+            prev[2] = tuple(max(a, b) for a, b in zip(prev[2], run[2]))
+        else:
+            merged.append(run)
+    return merged
 
 
 def bucket(n: int) -> int:

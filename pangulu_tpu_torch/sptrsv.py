@@ -16,8 +16,13 @@ the ``"fused"`` and ``"levels"`` solves walk the levels on the host
 (``pangulu_tpu/sptrsv.py:35-78``): per level a triangular solve of the
 diagonal tile's segment (the backend's ``trsv_lower_unit`` /
 ``trsv_upper``), then ``x[rows] -= tiles[ids]·x[k]`` for the column's
-panel, PyTorch ops as they are XLA in the JAX package.  The transpose
-solve (:meth:`TriangularSolver.solve_trans`) runs as PyTorch ops too.
+panel, PyTorch ops as they are XLA in the JAX package.  A factor with
+no persisted inverses (the level engines', ``"superfused"``'s, a
+reloaded one) takes the solve ``auto`` picks too: where the mega solves
+apply, on inverses that :meth:`TriangularSolver._ensure_inverses`
+rebuilds, as the JAX package's solver does
+(``pangulu_tpu/sptrsv.py:294-320, 347-360``).  The transpose solve
+(:meth:`TriangularSolver.solve_trans`) runs as PyTorch ops too.
 
 Multi-RHS is first-class: the kernel carries ``x`` as
 ``[nrhs, bl+1, nb]`` (the +1 segment is the scratch segment that padded
@@ -62,6 +67,9 @@ class TriangularSolver:
         # by _ensure_inverses for checkpoint-loaded factors
         self.inv_tiles = inv_tiles
         dtype = blocked.torch_dtype
+        if dispatch == "superfused":
+            raise ValueError("dispatch='superfused' only factors (the JAX "
+                             "package has no such solve)")
         self.backend = resolve_backend(backend, blocked.nb, dtype, None,
                                        self.device)
         self.dispatch, why = pick_engine(

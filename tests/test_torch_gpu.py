@@ -1345,3 +1345,56 @@ def test_panel_lu_cross_budget_reads_the_allocator_cap(cuda, monkeypatch):
     same.factorize()
     assert same.panel_cols == capped.panel_cols
     assert torch.equal(same.store.values, capped.store.values)
+
+
+@pytest.mark.parametrize("nb,dtype", [(128, "r32"), (128, "r64"),
+                                      (256, "r32"), (384, "r32")])
+def test_superfused_on_cuda(cuda, nb, dtype):
+    """dispatch="superfused" on the card: one K1 launch (one device
+    launch) a super-level on the batch of its diagonals and no other
+    kernel; the factor within 1e-5 (f64 1e-12) of the fused engine's on
+    the same store, relative to its largest entry (the updates of one
+    super-level sum in member order, not level order); gstrs through the
+    handle takes the solve auto picks (K5 on rebuilt inverses at nb <=
+    256, the fused level solve above), residual < 1e-10."""
+    a = poisson3d(14)
+    h = pt.init(a, pt.InitOptions(nb=nb, dtype=dtype, ordering="nd",
+                                  device="cuda"))
+    ngroups = len(h.schedule.superlevels())
+    assert ngroups < h.schedule.block_length
+    kc.reset_launch_counts()
+    fac = pt.numeric.LUFactorizer(h.blocked, h.schedule, device="cuda",
+                                  dispatch="superfused")
+    tiles = fac.factorize()
+    assert kc.LAUNCHES == _counts(getrf_with_inverses=ngroups)
+    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": ngroups}
+    assert fac.backend.name == "cuda"
+    fused = pt.numeric.LUFactorizer(h.blocked, h.schedule, device="cuda",
+                                    dispatch="fused").factorize()
+    nt = h.blocked.num_tiles
+    err = float((tiles[:nt] - fused[:nt]).abs().max()
+                / fused[:nt].abs().max())
+    assert err < (1e-5 if dtype == "r32" else 1e-12)
+    assert torch.equal(fac.factorize(), tiles)
+    h._factorizer, h.factor_tiles = fac, tiles
+    b = a.to_scipy() @ np.ones(a.n)
+    x = pt.gstrs(h, b)
+    assert h._trisolver.dispatch == ("mega_group" if nb <= 256
+                                     else "fused")
+    assert residual_norm(a.to_scipy(), x, b) < 1e-10
+
+
+def test_segmented_on_cuda(cuda):
+    """dispatch="segmented" on the card runs the fused engine: one K1
+    launch a level, the fused engine's bits."""
+    h = pt.init(poisson3d(14), pt.InitOptions(nb=64, dtype="r32",
+                                              ordering="nd", device="cuda"))
+    kc.reset_launch_counts()
+    fac = pt.numeric.LUFactorizer(h.blocked, h.schedule, device="cuda",
+                                  dispatch="segmented")
+    tiles = fac.factorize()
+    bl = h.schedule.block_length
+    assert kc.LAUNCHES == _counts(getrf_with_inverses=bl)
+    assert fac.dispatch == "fused"
+    assert torch.equal(tiles, pt.numeric.LUFactorizer(
+        h.blocked, h.schedule, device="cuda", dispatch="fused").factorize())
