@@ -295,6 +295,27 @@ CUDA toolkit (nvcc).  It
      each widest super-level's batch (85, 48, 27 tiles; 48 in f64) as
      the path gives it, against its twin, beside its bound and
      lu_factor_ex; a {"superfused": ...} line;
+ 10c. drives K2's chain-ahead (chain_ahead_phase, PANGULU_TPU_SUPERLEVEL
+     =1: the levels in dependency-depth order, each same-depth level's
+     diagonal step run on a second stream beside the level before it):
+     (a) r32 on poisson3d(32) nd at nb = 128 and 256, smallworld(90) nd
+     and circuit(20000) nd at nb=128, and poisson3d(32) rcm (nothing
+     flagged: the original tables), dispatch="mega" with the switch
+     unset and set and mega_group on one store: exact counts (K1 = bl,
+     K2 = 1, the steps run ahead = the flagged levels), the same bits
+     with the second stream off, the factor within 2e-4 of the level
+     order's, gstrf residual < 1e-5, solve residual < 1e-10 (elsewhere
+     than poisson3d both within 2x the level order's), ms per
+     factorization of the four; (b) at nb =
+     128 and 256 on poisson3d(32) nd, K2 on the chain-ahead tables
+     against its plain version at TOL_F32 (the "chain_ahead" entry of
+     K2 in the kernels line, from nb=128); (c) the panel driver with
+     the switch set
+     and unset (exact counts, residuals, the stores within 2e-4, ms);
+     (d) one traced chain-ahead factorization of each (b) case: busy
+     over both streams, idle share, K1's share and the K1 intervals
+     that overlap a product kernel (nb=128 must show some); a
+     {"chain_ahead": ...} line;
  11. with --profile, also traces one rcm solve and prints, per phase,
      each kernel's launches and device time, the host wall time and the
      device's idle share (K3's solve: exactly 2 launches of its sweep
@@ -307,7 +328,9 @@ CUDA toolkit (nvcc).  It
      launches from the compressed path and the reloaded factor (K1, K2
      and P6 also with "panel_launches", those of step 7b's main path;
      K1 at nb = 128, 256 and 512 also with "superfused_launches", step
-     10b (a)'s),
+     10b (a)'s; K2 also with "chain_ahead", step 10c's variant: its
+     error against its plain version, ms, launches, the steps run
+     ahead, bound),
      and the
      probes P5, P4, P3 (scan_overlap at mode both and 4096 steps,
      scan_multi at Q = 8 with products and 2048 steps, both with DMMA
@@ -653,11 +676,13 @@ def device_ms(fn, n: int, reps: int = 3) -> float:
 RETRACED = {}
 
 
-def trace_once(fn, arg, pause: float = 0.0) -> tuple:
+def trace_once(fn, arg, pause: float = 0.0, events=None) -> tuple:
     """One call fn(arg) under torch.profiler, ``pause`` seconds after the
     trace starts (pangulu_tpu_torch/tools/probe_profiler.py weighs a
     pause): (host wall ms of the call, launch to synchronise; the device
-    intervals; per kernel name its launches and device ms)."""
+    intervals; per kernel name its launches and device ms).  ``events``,
+    a list, receives each device event as (start us, end us, name, the
+    profiler's device resource id: the stream)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
@@ -678,6 +703,9 @@ def trace_once(fn, arg, pause: float = 0.0) -> tuple:
         lo, hi = e.time_range.start, e.time_range.end
         spans.append((lo, hi))
         name = e.name.split("(")[0].removeprefix("void ")
+        if events is not None:
+            events.append((lo, hi, name,
+                           getattr(e, "device_resource_id", None)))
         k = kernels.setdefault(name, {"launches": 0, "device_ms": 0.0})
         k["launches"] += 1
         k["device_ms"] += (hi - lo) * 1e-3
@@ -706,13 +734,19 @@ def profile(fn, setup=lambda: None, retry: str = "",
         wall_ms, spans, kernels = trace_once(fn, setup())
     if not spans:
         fail("the profiler saw no device activity")
+    busy_ms = union_us(spans) * 1e-3
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms, kernels=kernels)
+
+
+def union_us(spans) -> float:
+    """The length of the union of the intervals (lo, hi): a device's
+    busy time, whatever stream each kernel ran on."""
     busy, end = 0.0, float("-inf")
     for lo, hi in sorted(spans):
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
-    busy_ms = busy * 1e-3
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                idle_share=1.0 - busy_ms / wall_ms, kernels=kernels)
+    return busy
 
 
 def print_profile(prof: dict) -> None:
@@ -3349,6 +3383,7 @@ def extras_phase(dev, nx: int = 32, nb: int = 128, demo_nx: int = DEMO_NX,
 
     from pangulu_tpu_torch import InitOptions, gstrf, init
     from pangulu_tpu_torch.examples import (run_circuit_compressed,
+                                            run_poisson3d, run_r64,
                                             run_refactorize, run_trefethen)
     from pangulu_tpu_torch.models import poisson3d
     from pangulu_tpu_torch.ops import kernels_cuda as kc
@@ -3432,7 +3467,9 @@ def extras_phase(dev, nx: int = 32, nb: int = 128, demo_nx: int = DEMO_NX,
     for mod, gstrfs, solves in ((run_trefethen, 1, 1),
                                 (run_refactorize, run_refactorize.STEPS,
                                  run_refactorize.STEPS),
-                                (run_circuit_compressed, 1, 1)):
+                                (run_circuit_compressed, 1, 1),
+                                # r64: no refinement round; r32: 2
+                                (run_r64, 1, 1), (run_poisson3d, 1, 3)):
         name = mod.__name__.rsplit(".", 1)[1]
         print(f"extras (b): {name}.main(['--device', '{dev.type}'])")
         kc.reset_launch_counts()
@@ -3816,6 +3853,359 @@ def superfused_phase(dev, nx: int = 32, nbs=SUPERFUSED_NBS,
     out["seconds"] = time.perf_counter() - t0
     print(f"superfused phase: {out['seconds']:.1f} s")
     return out, launches
+
+
+# the chain-ahead phase's cases: (label, generator, its size, ordering,
+# nb), r32; the first is the one traced and held against the plain
+# version, with the nb=256 one
+CHAIN_AHEAD_CASES = (
+    ("p3d32_nd_nb128", "poisson3d", 32, "nd", 128),
+    ("p3d32_nd_nb256", "poisson3d", 32, "nd", 256),
+    ("sw90_nd_nb128", "smallworld", 90, "nd", 128),
+    ("circuit20000_nd_nb128", "circuit", 20000, "nd", 128),
+    ("p3d32_rcm_nb128", "poisson3d", 32, "rcm", 128),
+)
+K1_KERNELS = ("getrf_inv_kernel", "lu_cluster_kernel")
+K2_PRODUCTS = ("panel_kernel", "schur_kernel")
+
+
+def chain_ahead_phase(dev, cases=CHAIN_AHEAD_CASES,
+                      traced_cases=("p3d32_nd_nb128", "p3d32_nd_nb256"),
+                      panel_nx: int = 32, panel_nb: int = 128,
+                      reps: int = 7) -> tuple:
+    """K2's chain-ahead (PANGULU_TPU_SUPERLEVEL=1: the levels in
+    dependency-depth order, each same-depth level's diagonal step run
+    on a second stream beside the level before it; csrc/lu_kernels.cu
+    mega_levels) on the card:
+
+      (a) per case of cases, r32, on one store: LUFactorizer(dispatch=
+          "mega") with the switch unset (the level order, the schedule's
+          own tables) and set (chain-ahead tables where the schedule has
+          levels of equal depth; at rcm none: then the tables must be
+          the unset ones), and mega_group (K4).  The switched one with
+          the counts zeroed before and read after: exactly K1 = bl (one
+          device launch each), K2 = 1 and no other kernel, the diagonal
+          steps run ahead (kernels_cuda.AHEAD) = the flagged levels; the
+          same tables with the second stream off (ahead=False) the same
+          bits in factors and inverses; the factor within 2e-4 of the
+          level order's (max |diff| / max |level order|); on poisson3d
+          the gstrf residual on the card < 1e-5 and gstrs through the
+          handle on the chain-ahead factor and its inverses < 1e-10
+          after the default refinement, elsewhere both within 2x the
+          level order factor's (smallworld(90)'s solve stalls at
+          ~1.2e-8 whatever the engine; the circuit's cond is ~1e16, its
+          r32 gstrf residual ~4e-4); ms
+          per factorization (CUDA events, median of reps) of the level
+          order, chain-ahead, its tables on one stream, and mega_group;
+      (b) on the first of traced_cases, K2 on the chain-ahead tables
+          against its plain version on the same tables (kernels_torch.
+          mega_factorize) at TOL_F32, the plain version's ms (that one
+          run, CUDA events): the kernels line's chain-ahead entry of
+          K2;
+      (c) the panel driver (tile_storage="compressed", PanelLU) on
+          poisson3d(panel_nx) nd at panel_nb with the switch set: chain-ahead
+          tables in its pass, exact launches (testing.panel_launches),
+          the steps run ahead, gstrf residual < 1e-5, solve residual <
+          1e-10, the store within 2e-4 of the switch-unset run's, ms per
+          factorization of both (the store refilled before each);
+      (d) one traced chain-ahead factorization of each of traced_cases:
+          per
+          kernel launches and device ms, busy (the union of the kernel
+          intervals over both streams), idle share, K1's share (the union
+          of its intervals), the K1 intervals that overlap a panel or
+          Schur kernel's (on one
+          stream none can), the time overlapped, and the streams K1 and
+          the products ran on; the first must show overlap.
+
+    Returns (its numbers, K2's chain-ahead entry).  Any failure raises."""
+    import os
+
+    from pangulu_tpu_torch import InitOptions, gstrf, gstrs, init
+    from pangulu_tpu_torch import models
+    from pangulu_tpu_torch.numeric import LUFactorizer
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+    from pangulu_tpu_torch.outofcore import PanelLU
+    from pangulu_tpu_torch.testing import panel_launches
+    from pangulu_tpu_torch.utils.perf import residual_norm
+
+    t_phase = time.perf_counter()
+    env = "PANGULU_TPU_SUPERLEVEL"
+    old = os.environ.pop(env, None)
+    out, entry = {}, None
+
+    def zero_but(**counts):
+        return {k: counts.get(k, 0) for k in kc.LAUNCHES}
+
+    def traced(label, fac, h):
+        """(d): one chain-ahead factorization traced, events kept; taken
+        again (up to 3 more times) while it shows no K1 or no product
+        kernel."""
+        fac.factorize(h.blocked.device_tiles(dev))
+        for n in range(1, 5):
+            evs = []
+            tiles = h.blocked.device_tiles(dev)
+            torch.cuda.synchronize()
+            wall, spans, kernels = trace_once(
+                lambda t: fac.factorize(t, sync=False), tiles, events=evs)
+            k1 = [e for e in evs if any(k in e[2] for k in K1_KERNELS)]
+            prods = sorted((e[0], e[1]) for e in evs
+                           if any(k in e[2] for k in K2_PRODUCTS))
+            if k1 and prods:
+                break
+            print(f"  (the profiler recorded {len(k1)} K1 and {len(prods)} "
+                  "product kernels; tracing again)")
+            RETRACED[f"chain-ahead {label}"] = n + 1
+        over_n, over_us = 0, 0.0
+        for lo, hi, _, _ in k1:
+            o = union_us([(max(lo, a), min(hi, b)) for a, b in prods
+                          if a < hi and b > lo])
+            over_n += o > 0
+            over_us += o
+        busy = union_us(spans)
+        # K1 on the main stream may run beside K1 on the second one: its
+        # share of busy is the union of its intervals
+        k1_us = union_us([(e[0], e[1]) for e in k1])
+        r = dict(wall_ms=wall, busy_ms=busy * 1e-3,
+                 idle_share=1.0 - busy * 1e-3 / wall,
+                 k1_events=len(k1), k1_expected=h.schedule.block_length,
+                 k1_device_ms=k1_us * 1e-3,
+                 k1_kernel_ms=sum(e[1] - e[0] for e in k1) * 1e-3,
+                 k1_share=k1_us / busy, k1_overlapping=over_n,
+                 k1_overlapped_ms=over_us * 1e-3,
+                 k1_streams=sorted({str(e[3]) for e in k1}),
+                 product_streams=sorted({str(e[3]) for e in evs if any(
+                     k in e[2] for k in K2_PRODUCTS)}),
+                 kernels={n[:80]: k for n, k in kernels.items()})
+        print(f"  (d) traced: wall {wall:.3f} ms, busy {r['busy_ms']:.3f} "
+              f"ms (union over streams; idle share {r['idle_share']:.3f}); "
+              f"K1 {r['k1_device_ms']:.3f} device ms as a union "
+              f"({r['k1_share']:.1%} of busy; its kernels' sum "
+              f"{r['k1_kernel_ms']:.3f}), {over_n} of {len(k1)} K1 events "
+              f"(of {h.schedule.block_length} launched) overlap a "
+              f"panel or Schur kernel ({r['k1_overlapped_ms']:.3f} ms "
+              f"overlapped); K1 on streams {r['k1_streams']}, products on "
+              f"{r['product_streams']}")
+        return r
+
+    try:
+        for label, gen, size, ordering, nb in cases:
+            print(f"chain-ahead (a) {label}: {gen}({size}) nb={nb} r32 "
+                  f"{ordering}, {dev}")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            a = getattr(models, gen)(size)
+            s = a.to_scipy()
+            b = s @ np.ones(a.n)
+            ti = time.perf_counter()
+            h = init(a, InitOptions(nb=nb, dtype="r32", ordering=ordering,
+                                    device=str(dev)))
+            init_s = time.perf_counter() - ti
+            bl, nt = h.schedule.block_length, h.blocked.num_tiles
+            depth = h.schedule.block_depths()
+            off = LUFactorizer(h.blocked, h.schedule, device=dev,
+                               dispatch="mega")
+            os.environ[env] = "1"
+            on = LUFactorizer(h.blocked, h.schedule, device=dev,
+                              dispatch="mega")
+            del os.environ[env]
+            grp = LUFactorizer(h.blocked, h.schedule, device=dev,
+                               dispatch="mega_group")
+            if "flag_tab" in off.tables.host:
+                fail(f"{label}: the switch unset took chain-ahead tables")
+            flagged = int(on.tables.host.get("flag_tab", np.zeros(1)).sum())
+            num = dict(n=a.n, bl=bl, tiles=nt, depths=int(depth.max()) + 1,
+                       flagged=flagged, init_s=init_s,
+                       groups=int(grp.tables.host["ngroups"]))
+            print(f"  {bl} levels, {num['depths']} depths, {flagged} "
+                  f"diagonal steps run ahead, {num['groups']} groups; "
+                  f"{nt} tiles; init {init_s:.1f} s")
+            if ordering == "rcm":
+                if "flag_tab" in on.tables.host or any(
+                        not np.array_equal(on.tables.host[k],
+                                           off.tables.host[k])
+                        for k in off.tables.host):
+                    fail(f"{label}: a chain schedule's tables changed")
+            elif flagged == 0:
+                fail(f"{label}: no level runs ahead")
+            kc.reset_launch_counts()
+            tiles = on.factorize()
+            launched = dict(kc.LAUNCHES)
+            ahead_n = kc.AHEAD["mega_factorize"]
+            dl = kc.DEVICE_LAUNCHES["getrf_with_inverses"]
+            print(f"  launches {launched}, K1 device launches {dl}, run "
+                  f"ahead {ahead_n}")
+            if (launched != zero_but(getrf_with_inverses=bl,
+                                     mega_factorize=1)
+                    or dl != bl or ahead_n != flagged):
+                fail(f"{label}: launches {launched}, device {dl}, ahead "
+                     f"{ahead_n}; expected K1 = {bl} (one device launch "
+                     f"each), K2 = 1, {flagged} run ahead")
+            num.update(launches=launched, ahead_launches=ahead_n)
+            t0 = h.blocked.device_tiles(dev)
+            kw = dict(nb=nb, tol=kt.DEFAULT_TOL[t0.dtype], bl=bl)
+            t1, i1 = kc.mega_factorize(t0.clone(), on.tables, ahead=False,
+                                       **kw)
+            same = (torch.equal(t1, tiles)
+                    and torch.equal(i1, on.inv_tiles))
+            ref = off.factorize(h.blocked.device_tiles(dev))
+            dif = rel_err(tiles[:nt], ref[:nt].double())
+            fres = factor_residual_device(h, tiles)
+            fres_ref = factor_residual_device(h, ref)
+            res = {}
+            for name, fac, t in (("level_order", off, ref),
+                                 ("chain_ahead", on, tiles)):
+                h._factorizer, h.factor_tiles, h._trisolver = fac, t, None
+                x = gstrs(h, b)
+                res[name] = residual_norm(s, x, b)
+            # poisson3d: the repo's limits; the others miss them whatever
+            # the engine (smallworld(90)'s solve stalls at 1.2e-8, the
+            # circuit's cond is ~1e16): within 2x the level order's
+            p3d = gen == "poisson3d"
+            flim = 1e-5 if p3d else 2 * fres_ref
+            limit = 1e-10 if p3d else 2 * res["level_order"]
+            num.update(same_bits_one_stream=same, against_level_order=dif,
+                       gstrf_residual=fres,
+                       level_order_gstrf_residual=fres_ref,
+                       residual=res["chain_ahead"],
+                       level_order_residual=res["level_order"])
+            print(f"  second stream off, the same bits: {same}; against "
+                  f"the level order {dif:.3e} (< 2e-4); gstrf residual "
+                  f"{fres:.3e} (< {flim:.3e}; the level order's "
+                  f"{fres_ref:.3e}); solve residual "
+                  f"{res['chain_ahead']:.3e} (< {limit:.3e}; the level "
+                  f"order's {res['level_order']:.3e})")
+            if not (same and dif < 2e-4 and fres < flim):
+                fail(f"{label}: bits, agreement or gstrf residual")
+            if not res["chain_ahead"] < limit:
+                fail(f"{label}: solve residual too large")
+            if x.shape != (a.n,) or not np.isfinite(x).all():
+                fail(f"{label}: solution not finite")
+            if label == traced_cases[0]:
+                # (b) against the plain version on the same tables, that
+                # run timed
+                plain = []
+                pms = cuda_ms(lambda t: plain.append(
+                    kt.mega_factorize(t, on.tables, **kw)),
+                              setup=t0.clone, reps=1, warmup=0)
+                tp, ip = plain[0]
+                err = max(compare(f"{label} chain-ahead K2 tiles",
+                                  tiles[:nt], tp[:nt], *TOL_F32),
+                          compare(f"{label} chain-ahead K2 invs",
+                                  on.inv_tiles, ip, *TOL_F32))
+                del tp, ip, plain
+                num["plain"] = dict(max_abs_err=err, plain_ms=pms)
+            del t1, i1, ref, t0
+            tiles_of = lambda: h.blocked.device_tiles(dev)  # noqa: E731
+            ms = {}
+            for name, fn in (
+                    ("level_order", lambda t: off.factorize(t, sync=False)),
+                    ("chain_ahead", lambda t: on.factorize(t, sync=False)),
+                    ("chain_ahead_one_stream",
+                     lambda t: kc.mega_factorize(t, on.tables, ahead=False,
+                                                 **kw)),
+                    ("mega_group", lambda t: grp.factorize(t, sync=False))):
+                ms[name] = cuda_ms(fn, setup=tiles_of, reps=reps)
+            num["ms_per_factorization"] = ms
+            print("  ms per factorization (CUDA events, median of "
+                  f"{reps}): " + ", ".join(f"{k} {v:.3f}"
+                                           for k, v in ms.items()))
+            if label in traced_cases:
+                num["traced"] = traced(label, on, h)
+            if "plain" in num:
+                if num["traced"]["k1_overlapping"] == 0:
+                    fail(f"{label}: no K1 interval on the second stream "
+                         "overlaps a product kernel")
+                entry = dict(
+                    variant="chain-ahead (PANGULU_TPU_SUPERLEVEL=1)",
+                    replaces="pangulu_tpu/ops/kernels_pallas.py:1213",
+                    source=SRC + " mega_levels",
+                    tables="Schedule.mega_tables(superlevel=True)",
+                    case=label, max_abs_err=num["plain"]["max_abs_err"],
+                    ms=ms["chain_ahead"], plain_ms=num["plain"]["plain_ms"],
+                    launches=launched["mega_factorize"],
+                    ahead_launches=ahead_n, library_ms=None,
+                    **bound(2 * (nt + bl) * nb * nb * 4,
+                            h.schedule.flop_estimate(), torch.float32,
+                            TC_FLOP_S))
+            out[label] = num
+            del h, on, off, grp, tiles, x
+
+        # ---- (c) the panel driver --------------------------------------
+        print(f"chain-ahead (c): the panel driver, poisson3d({panel_nx}) "
+              f"nd nb={panel_nb} r32 compressed, the switch set and unset")
+        torch.cuda.empty_cache()
+        a = models.poisson3d(panel_nx)
+        s = a.to_scipy()
+        b = s @ np.ones(a.n)
+        pan = {}
+        for turn in ("on", "off"):
+            if turn == "on":
+                os.environ[env] = "1"
+            try:
+                h = init(a, InitOptions(nb=panel_nb, dtype="r32",
+                                        ordering="nd",
+                                        device=str(dev),
+                                        tile_storage="compressed",
+                                        check=True))
+                kc.reset_launch_counts()
+                gstrf(h)
+                x = gstrs(h, b)
+            finally:
+                os.environ.pop(env, None)
+            plu = h._factorizer
+            if not isinstance(plu, PanelLU):
+                fail("(c) gstrf did not take the panel driver")
+            want = zero_but(**panel_launches(plu, solves=3))
+            launched = dict(kc.LAUNCHES)
+            flagged = sum(int(plu._pass(*c).tables.host.get(
+                "flag_tab", np.zeros(1)).sum()) for c in plu.panel_cols)
+            ahead_n = kc.AHEAD["mega_factorize"]
+            res = residual_norm(s, x, b)
+            fres = h.perf.kernels["gstrf_residual"]
+            st = plu.store
+            st.refill(h.reordering.reordered)
+            v0 = st.values.clone()
+            fms = cuda_ms(lambda _: plu.factorize(),
+                          setup=lambda: st.values.copy_(v0), reps=reps)
+            pan[turn] = dict(panels=len(plu.panel_cols), flagged=flagged,
+                             launches=launched, ahead_launches=ahead_n,
+                             gstrf_residual=fres, residual=res,
+                             ms_per_factorization=fms,
+                             dense=torch.as_tensor(st.to_dense()))
+            print(f"  switch {turn}: {len(plu.panel_cols)} panels, "
+                  f"{flagged} flagged, launches {launched}, run ahead "
+                  f"{ahead_n}; gstrf residual {fres:.3e} (< 1e-5), solve "
+                  f"residual {res:.3e} (< 1e-10); {fms:.3f} ms per "
+                  f"factorization (CUDA events, median of {reps})")
+            if (launched != want or ahead_n != (flagged if turn == "on"
+                                                else 0)
+                    or (turn == "on") != (flagged > 0)
+                    or not (fres < 1e-5 and res < 1e-10)):
+                fail(f"(c) switch {turn}: launches {launched} (expected "
+                     f"{want}), run ahead {ahead_n} of {flagged}, or "
+                     "residuals")
+            del h, plu, st, v0, x
+        nt_p = pan["on"]["dense"].shape[0] - 1
+        dif = rel_err(pan["on"]["dense"][:nt_p],
+                      pan["off"]["dense"][:nt_p].double())
+        for v in pan.values():
+            del v["dense"]
+        pan["store_against_off"] = dif
+        print(f"  store with the switch against without: {dif:.3e} "
+              "(< 2e-4)")
+        if not dif < 2e-4:
+            fail("(c) the panel driver's chain-ahead store disagrees")
+        out["panel"] = pan
+    finally:
+        if old is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = old
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"chain-ahead phase: {out['seconds']:.1f} s")
+    return out, entry
 
 
 def card_line() -> str:
@@ -4630,6 +5020,12 @@ def main() -> int:
     sup, sup_launches = superfused_phase(dev)
     detail["superfused"] = sup
     print(json.dumps({"superfused": sup}))
+
+    # ---- K2's chain-ahead (PANGULU_TPU_SUPERLEVEL=1) --------------------
+    chain, chain_k2 = chain_ahead_phase(dev)
+    detail["chain_ahead"] = chain
+    kernels["mega_factorize"]["chain_ahead"] = chain_k2
+    print(json.dumps({"chain_ahead": untraced(chain)}))
 
     launches = dict(rcm_launches)
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]

@@ -106,6 +106,14 @@ class InitOptions:
                                  # embedding), "native" (complex tiles:
                                  # the fused engine on dense tiles) or
                                  # "auto" (= embed on every device)
+    nthread: int = 0             # accepted for parity with the JAX
+                                 # package (pangulu_tpu/api.py:56), which
+                                 # ignores it too: PyTorch and the card
+                                 # manage their threads
+    compile_cache: bool = True   # accepted for parity (pangulu_tpu/
+                                 # api.py:60: XLA's compile cache); the
+                                 # kernel build is always cached, keyed by
+                                 # its sources (ops/build.py), either way
 
     def resolve_dtype(self):
         if self.dtype not in VALUE_DTYPES:

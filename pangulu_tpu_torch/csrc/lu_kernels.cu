@@ -82,8 +82,13 @@
 //   destinations are unique within a level, so each update is one
 //   block per 64 x 64 quadrant with no atomics; the TPU's (u-chunk,
 //   l-chunk, l) sort was for VMEM reuse and changes no result here.
-//   One persistent cooperative launch (or a CUDA graph of this loop),
-//   and lookahead of the next diagonal tile, are the follow-ups.
+//   The TPU kernel's super-level variant (flag_tab, lev_tab: the levels
+//   in dependency-depth order, the next same-depth level's diagonal LU
+//   run ahead inside the current level's work) is the chain-ahead of
+//   mega_levels: that diagonal step goes to a second stream, ordered by
+//   events, beside the current level's launches (PANGULU_TPU_SUPERLEVEL
+//   = 1, float32).  One persistent cooperative launch (or a CUDA graph
+//   of this loop) is the follow-up.
 //
 // K3 mega_solve
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_solve
@@ -300,18 +305,20 @@ __device__ __forceinline__ void panel_band(T* t, const T* inv, bool is_l,
 }
 
 // Block (b, s): b < nl: row band s of L panel lid[k][b] <- L·U^-1; else
-// column band s of U panel uid[k][b-nl] <- L^-1·U.
+// column band s of U panel uid[k][b-nl] <- L^-1·U, with the inverses in
+// slot ``slot`` of invs (k, or in chain-ahead tables the level's
+// original id).
 template <typename T, int NB>
 __global__ void __launch_bounds__(kGemmThreads)
     panel_kernel(T* tiles, const T* invs, const int* lid, const int* uid,
-                 int lw, int uw, int k, int nl, int nb) {
+                 int lw, int uw, int k, int slot, int nl, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const size_t nn = (size_t)nb * nb;
   const int b = blockIdx.x;
   const bool is_l = b < nl;
   const size_t id =
       is_l ? lid[(size_t)k * lw + b] : uid[(size_t)k * uw + b - nl];
-  panel_band<T, NB>(tiles + id * nn, invs + (size_t)(2 * k + is_l) * nn,
+  panel_band<T, NB>(tiles + id * nn, invs + (size_t)(2 * slot + is_l) * nn,
                     is_l, blockIdx.y, nb, reinterpret_cast<T*>(smem_raw));
 }
 
@@ -1289,13 +1296,61 @@ struct PanelKernels {
   }
 };
 
+// K2's diagonal steps run ahead (chain-ahead tables): a second stream,
+// the caller's, and two events.  ``start`` marks a level's start on the
+// main stream (every earlier level done); ``done`` follows the last
+// diagonal step run ahead on the side stream.  The events are made per
+// call and destroyed after the join, which CUDA allows while work
+// recorded on them is pending.
+struct Ahead {
+  cudaStream_t side = nullptr;
+  cudaEvent_t start = nullptr, done = nullptr;
+  bool used = false;
+
+  cudaError_t init(cudaStream_t s) {
+    side = s;
+    cudaError_t e = cudaEventCreateWithFlags(&start, cudaEventDisableTiming);
+    if (e == cudaSuccess)
+      e = cudaEventCreateWithFlags(&done, cudaEventDisableTiming);
+    return e;
+  }
+
+  // The main stream waits for everything queued on the side stream,
+  // then the events go.  Runs on every path out of mega_factorize.
+  cudaError_t join(cudaStream_t st) {
+    cudaError_t e = cudaSuccess;
+    if (used && (e = cudaEventRecord(done, side)) == cudaSuccess)
+      e = cudaStreamWaitEvent(st, done, 0);
+    if (start != nullptr) cudaEventDestroy(start);
+    if (done != nullptr) cudaEventDestroy(done);
+    return e;
+  }
+};
+
+// K2's level loop.  With chain-ahead tables (h_flag, h_lev: levels in
+// dependency-depth order, flag 1 where a level has the depth of the one
+// before it; pangulu_tpu/ops/kernels_pallas.py:662-690, 759-800) and a
+// side stream, the diagonal step of a flagged level k + 1 goes to the
+// side stream at level k's start, behind an event of the main stream,
+// and runs beside level k's diagonal step, panels and Schur updates;
+// level k + 1 then waits for it in place of running it.  Equal depth
+// means that level k writes nothing the step reads or writes
+// (schedule.check_ahead holds the tables to that), and K1 keeps no state
+// between launches, so the two streams share nothing.  One diagonal
+// ahead at a time, as the TPU kernel.  Without a side stream the same
+// tables run every step on the main stream: the same arithmetic, so the
+// same bits.  Position k's inverses go to slot h_lev[k] (k without
+// tables), so the solves read them by original level.  counts[0] and
+// counts[1]: K1's launches and device launches (bl each, on either
+// stream); counts[2]: the diagonal steps run on the side stream.
 template <typename T>
-int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
-                   const int* uid, const int* udst, const int* udl,
-                   const int* udu, const int* h_nl, const int* h_nu,
-                   const int* h_nup, int bl, int lw, int uw, int nchunks,
-                   int row_w, int uch, int nb, double tol, int* k1_launches,
-                   cudaStream_t st) {
+cudaError_t mega_levels(T* tiles, T* invs, const int* diag_tab,
+                        const int* lid, const int* uid, const int* udst,
+                        const int* udl, const int* udu, const int* h_nl,
+                        const int* h_nu, const int* h_nup, const int* h_flag,
+                        const int* h_lev, int bl, int lw, int uw,
+                        int nchunks, int row_w, int uch, int nb, double tol,
+                        int* counts, cudaStream_t st, Ahead& ahead) {
   DiagStep<T> diag;
   cudaError_t e = diag.init(nb);
   if (e != cudaSuccess) return e;
@@ -1305,17 +1360,38 @@ int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
     return e;
   const size_t nn = (size_t)nb * nb;
   const int qdim = (nb + kQuad - 1) / kQuad, bands = (nb + kBand - 1) / kBand;
+  // K1 on tile diag_tab[k], in place, its inverses to its slot
+  auto diag_at = [&](int k, cudaStream_t s) {
+    T* linv = invs + (size_t)(2 * (h_lev ? h_lev[k] : k)) * nn;
+    return diag.run(tiles, tiles, linv, linv + nn, 0, diag_tab + k, nullptr,
+                    1, (T)tol, counts, s);
+  };
+  const bool ahead_on = ahead.side != nullptr;
   for (int k = 0; k < bl; ++k) {
-    // diagonal step: K1 on tile diag_tab[k], in place; its launches are
-    // reported to the wrapper through k1_launches
-    T* linv = invs + (size_t)(2 * k) * nn;
-    if ((e = diag.run(tiles, tiles, linv, linv + nn, 0, diag_tab + k,
-                      nullptr, 1, (T)tol, k1_launches, st)) != cudaSuccess)
+    const bool next = ahead_on && k + 1 < bl && h_flag[k + 1];
+    if (next && (e = cudaEventRecord(ahead.start, st)) != cudaSuccess)
       return e;
+    if (ahead_on && h_flag[k]) {
+      // run ahead beside level k - 1
+      if ((e = cudaStreamWaitEvent(st, ahead.done, 0)) != cudaSuccess)
+        return e;
+    } else if ((e = diag_at(k, st)) != cudaSuccess) {
+      return e;
+    }
+    if (next) {
+      ahead.used = true;
+      if ((e = cudaStreamWaitEvent(ahead.side, ahead.start, 0)) !=
+              cudaSuccess ||
+          (e = diag_at(k + 1, ahead.side)) != cudaSuccess ||
+          (e = cudaEventRecord(ahead.done, ahead.side)) != cudaSuccess)
+        return e;
+      ++counts[2];
+    }
     const int np = h_nl[k] + h_nu[k];
     if (np > 0) {
       pk.chain<<<dim3(np, bands), kGemmThreads, psm, st>>>(
-          tiles, invs, lid, uid, lw, uw, k, h_nl[k], nb);
+          tiles, invs, lid, uid, lw, uw, k, h_lev ? h_lev[k] : k, h_nl[k],
+          nb);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
     if (h_nup[k] > 0) {
@@ -1326,6 +1402,31 @@ int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
     }
   }
   return cudaSuccess;
+}
+
+// K2: the level loop, with a side stream when ``side`` is given with
+// chain-ahead tables.  If the events cannot be made the call fails:
+// there is no fallback to one stream.
+template <typename T>
+int mega_factorize(T* tiles, T* invs, const int* diag_tab, const int* lid,
+                   const int* uid, const int* udst, const int* udl,
+                   const int* udu, const int* h_nl, const int* h_nu,
+                   const int* h_nup, const int* h_flag, const int* h_lev,
+                   int bl, int lw, int uw, int nchunks, int row_w, int uch,
+                   int nb, double tol, int* counts, cudaStream_t st,
+                   cudaStream_t side) {
+  Ahead ahead;
+  cudaError_t e = cudaSuccess;
+  if (side != nullptr) {
+    if (h_flag == nullptr) return cudaErrorInvalidValue;
+    e = ahead.init(side);
+  }
+  if (e == cudaSuccess)
+    e = mega_levels(tiles, invs, diag_tab, lid, uid, udst, udl, udu, h_nl,
+                    h_nu, h_nup, h_flag, h_lev, bl, lw, uw, nchunks, row_w,
+                    uch, nb, tol, counts, st, ahead);
+  const cudaError_t j = ahead.join(st);
+  return e != cudaSuccess ? e : j;
 }
 
 // One sweep: up to nb = 128 one cooperative launch whose grid h_n (host
@@ -1489,7 +1590,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 17; }
+int plu_kernels_abi() { return 18; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1593,18 +1694,22 @@ PLU_WIDE_PROBE(plu_wide_probe_f64, plu_wide_fit_f64, double)
 PLU_DIAG_STEP(plu_diag_step_f32, float)
 PLU_DIAG_STEP(plu_diag_step_f64, double)
 
+// K2; h_flag and h_lev: chain-ahead tables on the host, or null; side:
+// the second stream for the diagonal steps run ahead, or null (the same
+// tables on the main stream alone).  counts[3] as plu::mega_levels.
 #define PLU_MEGA_FACTORIZE(NAME, T)                                           \
   int NAME(int dev, T* tiles, T* invs, const int* diag_tab, const int* lid,  \
            const int* uid, const int* udst, const int* udl, const int* udu,  \
-           const int* h_nl, const int* h_nu, const int* h_nup, int bl,       \
-           int lw, int uw, int nchunks, int row_w, int uch, int nb,          \
-           double tol, int* k1_launches, void* st) {                         \
+           const int* h_nl, const int* h_nu, const int* h_nup,               \
+           const int* h_flag, const int* h_lev, int bl, int lw, int uw,      \
+           int nchunks, int row_w, int uch, int nb, double tol, int* counts, \
+           void* st, void* side) {                                           \
     cudaError_t e = cudaSetDevice(dev);                                      \
     if (e != cudaSuccess) return e;                                          \
     return plu::mega_factorize(tiles, invs, diag_tab, lid, uid, udst, udl,   \
-                               udu, h_nl, h_nu, h_nup, bl, lw, uw, nchunks,  \
-                               row_w, uch, nb, tol, k1_launches,             \
-                               PLU_STREAM(st));                              \
+                               udu, h_nl, h_nu, h_nup, h_flag, h_lev, bl,    \
+                               lw, uw, nchunks, row_w, uch, nb, tol, counts, \
+                               PLU_STREAM(st), PLU_STREAM(side));            \
   }
 PLU_MEGA_FACTORIZE(plu_mega_factorize_f32, float)
 PLU_MEGA_FACTORIZE(plu_mega_factorize_f64, double)

@@ -46,13 +46,29 @@ more engine of the JAX package runs only when asked for:
 (``pangulu_tpu/numeric.py:324-369``): ``levels`` for
 ``panel_solve="trsm"``; the mega engines for real tiles of nb <= 256
 unless ``backend="torch"`` is asked for (the JAX package's mega engines
-need its Pallas backend), ``mega_group`` when super-level groups pay;
+need its Pallas backend), ``mega_group`` when super-level groups pay
+(``PANGULU_TPU_GROUP=0/1`` decides instead, as in the JAX package);
 else ``fused``.  It never takes ``superfused`` (nor does the JAX
 package's), and takes ``fused`` where the JAX package takes
 ``segmented`` (skewed schedules).
+
+The JAX package's double-float engines for float64 on the TPU,
+``dispatch="dd_mega" | "dd_group" | "dd"``
+(``pangulu_tpu/numeric.py:385-404``), are taken on float64 stores as
+``mega`` / ``superfused`` / ``fused``, with the reason logged: the card
+has float64, so the same tables run at native precision.  On another
+type they raise.
+
+``"mega"`` under ``PANGULU_TPU_SUPERLEVEL=1`` (the JAX package's switch,
+``pangulu_tpu/numeric.py:405-433``) takes K2's chain-ahead tables on
+float32 working values where the schedule has levels of equal depth:
+the levels in depth order, each same-depth level's diagonal step run
+ahead on a second stream (:func:`chain_ahead_asked`).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -72,21 +88,46 @@ log = get_logger()
 
 MEGA_ENGINES = ("mega", "mega_group")
 LEVEL_ENGINES = ("fused", "levels")
-DISPATCHES = ("auto",) + MEGA_ENGINES + LEVEL_ENGINES + ("segmented",
-                                                          "superfused")
+# the JAX package's double-float engines (float64 on the TPU) and the
+# engines that run them here, on float64 stores
+DD_ENGINES = {"dd_mega": "mega", "dd_group": "superfused", "dd": "fused"}
+DISPATCHES = (("auto",) + MEGA_ENGINES + LEVEL_ENGINES
+              + ("segmented", "superfused") + tuple(DD_ENGINES))
 
 # Padded / real Schur work above which the JAX package leaves its fused
 # engine for the segmented one (pangulu_tpu/numeric.py:301).
 FUSED_OVERHEAD_LIMIT = 6.0
 
 
-def groups_worthwhile(schedule: Schedule, gmax: int) -> bool:
+def groups_worthwhile(schedule: Schedule, gmax: int,
+                      env: str = "PANGULU_TPU_GROUP") -> bool:
     """Batched super-level groups pay when they shorten the dependent
     chain enough: ``bl >= 1.5 * sum(ceil(len(superlevel) / gmax))``.
     Chain schedules (RCM bands: every level depends on the previous
-    one) compress nothing and keep the chain engine."""
+    one) compress nothing and keep the chain engine.  The environment
+    variable ``env`` set to 0 or 1 decides instead, as in the JAX
+    package: ``PANGULU_TPU_GROUP`` for the factorization
+    (``pangulu_tpu/numeric.py:484-495``), ``PANGULU_TPU_SOLVE_GROUP``
+    for the solve (``pangulu_tpu/sptrsv.py:370-379``)."""
+    val = os.environ.get(env)
+    if val is not None:
+        return val == "1"
     ng = sum(-(-len(m) // gmax) for m in schedule.superlevels())
     return schedule.block_length >= 1.5 * ng
+
+
+def chain_ahead_asked(dtype: torch.dtype) -> bool:
+    """``PANGULU_TPU_SUPERLEVEL=1`` asks for K2's chain-ahead tables
+    (``Schedule.mega_tables(superlevel=True)``).  Only float32 working
+    values take them: the JAX package's chain-ahead exists in its f32
+    K2 alone.  On another type the switch is logged and not taken."""
+    if os.environ.get("PANGULU_TPU_SUPERLEVEL") != "1":
+        return False
+    if dtype != torch.float32:
+        log.info("PANGULU_TPU_SUPERLEVEL=1 not taken: K2's chain-ahead "
+                 "runs on float32 working values only, got %s", dtype)
+        return False
+    return True
 
 
 def mega_ineligible(nb: int, dtype: torch.dtype, backend: str) -> str:
@@ -105,12 +146,25 @@ def mega_ineligible(nb: int, dtype: torch.dtype, backend: str) -> str:
 
 def pick_engine(dispatch: str, schedule: Schedule, gmax: int, *,
                 dtype: torch.dtype = torch.float32, backend: str = "auto",
-                panel_solve: str = "inv"):
-    """(engine, reason) for ``dispatch`` in :data:`DISPATCHES`."""
+                panel_solve: str = "inv",
+                group_env: str = "PANGULU_TPU_GROUP"):
+    """(engine, reason) for ``dispatch`` in :data:`DISPATCHES`;
+    ``group_env`` names the variable that overrides the group rule
+    (:func:`groups_worthwhile`)."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"dispatch must be one of {DISPATCHES}, got "
                          f"{dispatch!r}")
     nb = schedule.nb
+    dd_why = ""
+    if dispatch in DD_ENGINES:
+        if dtype != torch.float64:
+            raise ValueError(f"dispatch={dispatch!r} is the JAX package's "
+                             "double-float engine for float64; got "
+                             f"{dtype}")
+        dispatch, dd_why = DD_ENGINES[dispatch], (
+            f"{dispatch} asked for: the JAX package's double-float engine "
+            f"for float64 on the TPU, its tables run by {DD_ENGINES[dispatch]}"
+            " in native float64")
     if dispatch in MEGA_ENGINES and (dtype.is_complex or nb > MAX_NB):
         raise ValueError(f"dispatch={dispatch!r} runs K2-K5, which take "
                          f"real tiles of nb <= {MAX_NB}; got nb={nb}, "
@@ -119,12 +173,12 @@ def pick_engine(dispatch: str, schedule: Schedule, gmax: int, *,
         return "fused", ("segmented asked for: unpadded, its segments run "
                          "the fused engine's steps")
     if dispatch != "auto":
-        return dispatch, "asked for"
+        return dispatch, dd_why or "asked for"
     if panel_solve == "trsm":
         return "levels", "trsm panel solves need per-level dispatch"
     why_not = mega_ineligible(nb, dtype, backend)
     if not why_not:
-        if groups_worthwhile(schedule, gmax):
+        if groups_worthwhile(schedule, gmax, group_env):
             return ("mega_group",
                     "the schedule compresses into super-level groups")
         return "mega", "chain schedule (super-level groups would not pay)"
@@ -276,7 +330,18 @@ class LUFactorizer:
                 why += (f"; {self.schedule.block_length} levels -> "
                         f"{tables['ngroups']} groups (gmax={tables['gmax']})")
             else:
-                tables = self.schedule.mega_tables(nt, uch=uch)
+                depth = self.schedule.block_depths()
+                ahead = (chain_ahead_asked(dtype)
+                         and self.schedule.block_length
+                         - int(depth.max(initial=0)) - 1 > 0)
+                tables = self.schedule.mega_tables(nt, uch=uch,
+                                                   superlevel=ahead)
+                if ahead:
+                    log.info("mega super-level pipeline: %d levels, %d "
+                             "depths, %d chains run ahead",
+                             self.schedule.block_length,
+                             int(depth.max(initial=0)) + 1,
+                             int(tables["flag_tab"].sum()))
             self.tables = KernelTables.build(tables, self.device)
         log.info("engine: %s (%s)", self.dispatch, why)
         self.inv_tiles = None  # [bl, 2, nb, nb] after a mega factorize()

@@ -28,9 +28,10 @@ from pangulu_tpu_torch.ops import build
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
                                                  check_nb, check_store_nb)
-from pangulu_tpu_torch.schedule import group_dst_csr, group_solve_steps
+from pangulu_tpu_torch.schedule import (check_ahead, group_dst_csr,
+                                        group_solve_steps)
 
-_ABI = 17
+_ABI = 18
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -55,6 +56,11 @@ LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0,
 # launches (7 at 512 < nb <= 1024).  Zeroed with LAUNCHES.
 DEVICE_LAUNCHES = {"getrf_with_inverses": 0}
 
+# K2's diagonal steps run ahead on its second stream (chain-ahead
+# tables, PANGULU_TPU_SUPERLEVEL=1), as the C entry reports them; they
+# are among K1's launches above.  Zeroed with LAUNCHES.
+AHEAD = {"mega_factorize": 0}
+
 # The grid of the last K3 and K5 call ("mega_solve",
 # "mega_solve_groups"): blocks (CTAs) of its forward and backward
 # launch, the cluster size (1: the one-block kernels of nb <= 128; above,
@@ -67,7 +73,7 @@ _library: build.KernelLibrary | None = None
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, DEVICE_LAUNCHES):
+    for counts in (LAUNCHES, DEVICE_LAUNCHES, AHEAD):
         for k in counts:
             counts[k] = 0
 
@@ -99,8 +105,8 @@ def library() -> build.KernelLibrary:
         fn.argtypes = [i, p, p, p, p, i, i, d, p, p]
         fn = getattr(lib, f"plu_mega_factorize_{s}")
         fn.restype = i
-        fn.argtypes = ([i, p, p] + [p] * 6 + [p] * 3
-                       + [i] * 7 + [d, p, p])
+        fn.argtypes = ([i, p, p] + [p] * 6 + [p] * 5
+                       + [i] * 7 + [d, p, p, p])
         fn = getattr(lib, f"plu_mega_solve_{s}")
         fn.restype = i
         fn.argtypes = ([i, p, p, i, p, p] + [p] * 4 + [p] * 4
@@ -303,11 +309,52 @@ def wide_plan(nb: int, dtype) -> dict:
                 stripe=r)
 
 
+# K2's second stream, one per device, for the diagonal steps that
+# chain-ahead tables run ahead: a torch.cuda.Stream, so that PyTorch
+# knows every stream the tiles are used on.  The C entry joins it to the
+# caller's stream before it returns, so no tensor outlives work on it.
+_SIDE: dict = {}
+
+
+def side_stream(dev) -> torch.cuda.Stream:
+    """K2's second stream on ``dev``, made at first use."""
+    s = _SIDE.get(dev.index)
+    if s is None:
+        s = _SIDE[dev.index] = torch.cuda.Stream(dev)
+    return s
+
+
+def _ahead_tables(tables: KernelTables, bl: int):
+    """The host ``flag_tab`` and ``lev_tab`` of chain-ahead tables,
+    checked once per tables (``schedule.check_ahead``; the first level
+    unflagged; ``lev_tab`` a permutation of the levels), or (None,
+    None)."""
+    h = tables.host
+    if "flag_tab" not in h:
+        return None, None
+    if "ahead" not in tables.views:
+        flag, lev = _host_i32(h["flag_tab"]), _host_i32(h["lev_tab"])
+        if (flag.shape != (bl,) or lev.shape != (bl,)
+                or not np.isin(flag, (0, 1)).all()
+                or (bl and flag[0])
+                or not np.array_equal(np.sort(lev), np.arange(bl))):
+            raise ValueError("flag_tab/lev_tab are not chain-ahead tables "
+                             f"of {bl} levels")
+        check_ahead(h)
+        tables.views["ahead"] = (flag, lev)
+    return tables.views["ahead"]
+
+
 def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,
-                   tol: float, bl: int):
+                   tol: float, bl: int, ahead: bool = True):
     """K2: the whole factorization, ``tiles`` updated IN PLACE; returns
     ``(tiles, invs[bl, 2, nb, nb])``.  See
-    :func:`kernels_torch.mega_factorize`."""
+    :func:`kernels_torch.mega_factorize`.  With chain-ahead tables
+    (``flag_tab``, ``lev_tab``) the diagonal step of each flagged level
+    runs on K2's second stream (:func:`side_stream`) beside the level
+    before it, counted in :data:`AHEAD`; ``ahead=False`` runs the same
+    tables on the current stream alone, the same arithmetic and so the
+    same bits."""
     if not _on_cuda(tiles):
         return kt.mega_factorize(tiles, tables, nb=nb, tol=tol, bl=bl)
     s = _dtype_of(tiles)
@@ -333,16 +380,22 @@ def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,
         _check_table(k, h[k], 0, nt)
     _check_table("udl_tab", h["udl_tab"], 0, lw - 1)
     _check_table("udu_tab", h["udu_tab"], 0, uw - 1)
+    flag, lev = _ahead_tables(tables, bl)
+    side = (side_stream(dev).cuda_stream
+            if ahead and flag is not None and flag.any() else None)
     tabs = _dev_tables(tables, ("diag_tab", "lid_tab", "uid_tab",
                                 "udst_tab", "udl_tab", "udu_tab"), dev)
     invs = torch.empty((bl, 2, nb, nb), dtype=tiles.dtype, device=dev)
     lib = library().lib
-    k1 = (ctypes.c_int * 2)()
+    counts = (ctypes.c_int * 3)()
     _call(getattr(lib, f"plu_mega_factorize_{s}"), dev.index,
           tiles.data_ptr(), invs.data_ptr(), *(t.data_ptr() for t in tabs),
-          _ptr(nl), _ptr(nu), _ptr(nup), bl, lw, uw, nchunks, row_w, uch,
-          nb, float(tol), k1, _stream(dev))
-    _count_k1(k1)
+          _ptr(nl), _ptr(nu), _ptr(nup),
+          None if flag is None else _ptr(flag),
+          None if lev is None else _ptr(lev), bl, lw, uw, nchunks, row_w,
+          uch, nb, float(tol), counts, _stream(dev), side)
+    _count_k1(counts)
+    AHEAD["mega_factorize"] += counts[2]
     LAUNCHES["mega_factorize"] += 1
     return tiles, invs
 

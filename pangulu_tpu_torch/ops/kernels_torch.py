@@ -344,16 +344,22 @@ def mega_factorize(tiles: torch.Tensor, tables: KernelTables, *, nb: int,
     U panels <- L^-1·U, then ``dst -= L_i·U_j`` for each Schur update
     (destinations are unique within a level).  ``mm`` forms the panel
     and Schur products (:func:`tf32x3_matmul` emulates the kernel's
-    tensor-core scheme)."""
+    tensor-core scheme).  Chain-ahead tables
+    (``Schedule.mega_tables(superlevel=True)``) list the levels in
+    depth order; position k's inverses go to slot ``lev_tab[k]``, its
+    original level, so the solves read them as they read the chain's.
+    Nothing runs ahead here: in depth order one step after the other
+    computes what the card computes with the diagonal steps ahead."""
     h, d = tables.host, tables.dev
     uch = h["uch"]
+    slot = h["lev_tab"] if "lev_tab" in h else range(bl)
     invs = tiles.new_empty((bl, 2, nb, nb))
     for k in range(bl):
         dix = int(h["diag_tab"][k])
         f, linv, uinv = getrf_with_inverses(tiles[dix], tol)
         tiles[dix] = f
-        invs[k, 0] = linv
-        invs[k, 1] = uinv
+        invs[int(slot[k]), 0] = linv
+        invs[int(slot[k]), 1] = uinv
         nl, nu, nup = (int(h[t][k]) for t in ("nl_tab", "nu_tab",
                                                "nup_tab"))
         lids = d["lid_tab"][k, :nl].long()

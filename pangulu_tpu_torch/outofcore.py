@@ -20,7 +20,10 @@ Only the cross and one update chunk are ever dense, so the dense working
 set is O(cross) whatever the problem size, while the factorization runs
 through K2.  Where the whole matrix is one panel (the default budget
 covers it), a factorization is one decompress, one K2 launch and one
-compress.
+compress.  Under ``PANGULU_TPU_SUPERLEVEL=1`` each panel's K2 takes
+chain-ahead tables (``pangulu_tpu/outofcore.py:343-355``,
+:func:`~numeric.chain_ahead_asked`); its inverses then sit at the
+panel's local level ids, which the collected inverse store keeps.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 from pangulu_tpu_torch.blocks import BlockedMatrix
 from pangulu_tpu_torch.compressed import (CompressedLU, CompressedTiles,
                                           true_f32)
+from pangulu_tpu_torch.numeric import chain_ahead_asked
 from pangulu_tpu_torch.ops import kernels_cuda
 from pangulu_tpu_torch.ops.kernels_torch import (DEFAULT_TOL, MAX_NB,
                                                  Indices, KernelTables,
@@ -126,6 +130,9 @@ class PanelLU:
         self.tol = (tol if tol is not None
                     else DEFAULT_TOL[blocked.torch_dtype])
         self.out_chunk = out_chunk
+        # K2's chain-ahead tables for each panel cross (the switch read
+        # once, as LUFactorizer reads it)
+        self.ahead = chain_ahead_asked(blocked.torch_dtype)
         with self.perf.phase("preprocess"):
             if store is not None:      # refactorize: same pattern,
                 store.refill(a3)       # new values, O(nnz)
@@ -319,7 +326,8 @@ class PanelLU:
             # the kernel's convention: the scratch tile last (cap 0, so
             # P6 stages it as a zero tile)
             tables = KernelTables.build(
-                sub.mega_tables(len(cross), uch=mega_uch(st.nb)),
+                sub.mega_tables(len(cross), uch=mega_uch(st.nb),
+                                superlevel=self.ahead),
                 self.device)
             self._passes[key] = PanelPass(
                 cross=cross,

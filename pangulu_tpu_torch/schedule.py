@@ -118,7 +118,7 @@ class Schedule:
         return diag_idx, l_ids, l_rows, uc_ids, uc_rows
 
     def mega_tables(self, scratch_tile: int, uch: int = 64,
-                    max_pch: int = 32):
+                    max_pch: int = 32, superlevel: bool = False):
         """Index tables for the whole-factorization engine
         (``ops.kernels_torch.mega_factorize`` and its CUDA kernel): per
         level the diag tile, the REAL task counts, the panel tile ids,
@@ -127,7 +127,16 @@ class Schedule:
         Updates are sorted per level by (u-chunk, l-chunk, l) as in the
         JAX package, where the TPU kernel re-forms a panel chunk only
         when its key changes.  Each destination is updated once per
-        level, so the order does not change any result here."""
+        level, so the order does not change any result here.
+
+        ``superlevel=True`` (the JAX package's chain-ahead tables,
+        ``pangulu_tpu/schedule.py:216-228``): the levels in dependency-
+        depth order (``block_depths``, a valid elimination order), with
+        ``flag_tab`` (1 where a level has the depth of the one before
+        it, so that its diagonal step may run while the one before it
+        still runs) and ``lev_tab`` (position -> original level id, the
+        slot of its inverses).  Raises if a flagged level's diagonal
+        tile is written by the level before it (:func:`check_ahead`)."""
         bl = self.block_length
         nl_pan = max(bucket(max(self.max_lpanel, 1)), 1)
         nu_pan = max(bucket(max(self.max_upanel, 1)), 1)
@@ -165,10 +174,23 @@ class Schedule:
                 udst[i, cc, :cnt] = s_dst[c:c + cnt]
                 udl[i, cc, :cnt] = s_l[c:c + cnt]
                 udu[i, cc, :cnt] = s_u[c:c + cnt]
-        return dict(diag_tab=diag, nl_tab=nl, nu_tab=nu, nup_tab=nup,
-                    lid_tab=lid, uid_tab=uid,
-                    udst_tab=udst, udl_tab=udl, udu_tab=udu,
-                    npan_l=nl_pan, npan_u=nu_pan, pch=pch, uch=uch)
+        out = dict(diag_tab=diag, nl_tab=nl, nu_tab=nu, nup_tab=nup,
+                   lid_tab=lid, uid_tab=uid,
+                   udst_tab=udst, udl_tab=udl, udu_tab=udu,
+                   npan_l=nl_pan, npan_u=nu_pan, pch=pch, uch=uch)
+        if superlevel:
+            depth = self.block_depths()
+            order = np.lexsort((np.arange(bl), depth)).astype(np.int32)
+            flag = np.zeros(bl, dtype=np.int32)
+            flag[1:] = (depth[order[1:]] == depth[order[:-1]])
+            for key in ("diag_tab", "nl_tab", "nu_tab", "nup_tab",
+                        "lid_tab", "uid_tab", "udst_tab", "udl_tab",
+                        "udu_tab"):
+                out[key] = out[key][order]
+            out["flag_tab"] = flag
+            out["lev_tab"] = order
+            check_ahead(out)
+        return out
 
     def mega_solve_tables(self, scratch_tile: int):
         """Index tables for the whole-solve engine
@@ -658,6 +680,29 @@ def prodrow_tiers(pch: int) -> tuple:
     while tiers[-1] > 4 and len(tiers) < 4:
         tiers.append(tiers[-1] // 2)
     return tuple(tiers)
+
+
+def check_ahead(tables: dict) -> None:
+    """Raise unless every flagged level of chain-ahead tables
+    (``Schedule.mega_tables(superlevel=True)``) has a diagonal tile that
+    the level before it neither holds in its panels nor updates: the
+    card runs that diagonal step while the level before it still runs.
+    Equal depth means no pattern adjacency (``block_depths``), so this
+    holds by construction; the check keeps a wrong table from racing."""
+    uch = int(tables["uch"])
+    for k in np.flatnonzero(tables["flag_tab"]):
+        p = k - 1
+        written = np.concatenate([
+            tables["lid_tab"][p, :tables["nl_tab"][p]],
+            tables["uid_tab"][p, :tables["nu_tab"][p]],
+            tables["udst_tab"][p, :, :uch].reshape(-1)[
+                :tables["nup_tab"][p]]])
+        if tables["diag_tab"][k] in written:
+            raise ValueError(
+                f"chain-ahead tables: level {int(tables['lev_tab'][k])}'s "
+                f"diagonal tile {int(tables['diag_tab'][k])} is a panel or "
+                f"Schur destination of level {int(tables['lev_tab'][p])}, "
+                "which runs beside its diagonal step")
 
 
 def group_update_lists(tables: dict) -> list:

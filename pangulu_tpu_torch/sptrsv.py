@@ -9,7 +9,8 @@ kernel on a CUDA device, the plain version on the CPU):
 :func:`~ops.kernels_cuda.mega_solve` level by level (``"mega"``), or
 :func:`~ops.kernels_cuda.mega_solve_groups` over super-level groups
 (``"mega_group"``), picked by the factorizer's rule
-(``pangulu_tpu/sptrsv.py:371-386``) when ``dispatch="auto"``.  The
+(``pangulu_tpu/sptrsv.py:371-386``) when ``dispatch="auto"``, or by
+``PANGULU_TPU_SOLVE_GROUP=0/1`` where that is set.  The
 inverses are indexed by level, so either factorization engine feeds
 either solve.  Elsewhere (nb > 256, complex tiles, ``backend="torch"``)
 the ``"fused"`` and ``"levels"`` solves walk the levels on the host
@@ -50,6 +51,10 @@ from pangulu_tpu_torch.utils.perf import (PerfCounters, device_sync,
 
 log = get_logger()
 
+# The JAX package's override of the solve's group rule
+# (pangulu_tpu/sptrsv.py:370-379): 0 or 1 in place of the rule.
+SOLVE_GROUP_ENV = "PANGULU_TPU_SOLVE_GROUP"
+
 
 class TriangularSolver:
     """gstrs executor over factored tiles on ``device`` (``"cuda"``, the
@@ -67,15 +72,16 @@ class TriangularSolver:
         # by _ensure_inverses for checkpoint-loaded factors
         self.inv_tiles = inv_tiles
         dtype = blocked.torch_dtype
-        if dispatch == "superfused":
-            raise ValueError("dispatch='superfused' only factors (the JAX "
-                             "package has no such solve)")
         self.backend = resolve_backend(backend, blocked.nb, dtype, None,
                                        self.device)
         self.dispatch, why = pick_engine(
             dispatch, schedule, LUFactorizer.GROUP_GMAX, dtype=dtype,
             backend=self.backend.name if isinstance(
-                backend, KernelBackend) else backend)
+                backend, KernelBackend) else backend,
+            group_env=SOLVE_GROUP_ENV)
+        if self.dispatch == "superfused":
+            raise ValueError(f"dispatch={dispatch!r} only factors (the JAX "
+                             "package has no such solve)")
         nt = blocked.num_tiles
         self.tables = self.levels = None
         if self.dispatch in LEVEL_ENGINES:
@@ -97,7 +103,8 @@ class TriangularSolver:
         self._trans = None  # the transpose solve's tables, at first use
 
     def _solve_group_worthwhile(self) -> bool:
-        return groups_worthwhile(self.schedule, LUFactorizer.GROUP_GMAX)
+        return groups_worthwhile(self.schedule, LUFactorizer.GROUP_GMAX,
+                                 SOLVE_GROUP_ENV)
 
     def blockify_rhs(self, b: np.ndarray) -> torch.Tensor:
         """[n] or [n, nrhs] -> [bl+1, nb, nrhs] padded segments."""

@@ -9,6 +9,11 @@ against the JAX package.
   The circuit case is held by its store bytes, equal to the JAX
   package's, and by its residual, within 10x of the JAX package's: its
   matrices are near singular (cond ~1e16), so x is not compared.
+- run_r64 (examples/run_r64_tpu.py's poisson3d(12), nb=128, r64) and
+  run_poisson3d (examples/run_tpu_bench.py's options: r32, rcm, nb=128,
+  block symbolic; here at nx = 8) solve within 1e-12 (r64) and 1e-10
+  (r32, after the default refinement) of the JAX package's x, relative
+  in the 2-norm.
 - The demo at --nx 8 --nb 16: its tiles and dense bytes equal
   ``pangulu_tpu.api.analyze``'s for the same matrix and options,
   ``--analyze`` stops before gstrf, and ``--device-gib`` on the CPU
@@ -24,6 +29,7 @@ import pangulu_tpu.api as japi
 import pangulu_tpu.models as jm
 from pangulu_tpu.io.mmio import generated_rhs as j_rhs
 from pangulu_tpu_torch.examples import (run_circuit_compressed,
+                                        run_poisson3d, run_r64,
                                         run_refactorize, run_trefethen)
 from pangulu_tpu_torch.utils.perf import residual_norm
 
@@ -83,6 +89,33 @@ def test_circuit_compressed_example_matches_jax():
         st.compressed_bytes, st.dense_bytes)
     want = residual_norm(a.to_scipy(), x, b)
     assert got["residual"] <= 10 * want
+
+
+def test_r64_example_matches_jax(capsys):
+    got = run_r64.main(CPU)
+    a = jm.poisson3d(run_r64.NX)
+    b = np.asarray(a.to_scipy() @ np.ones(a.n))
+    h = japi.init(a, japi.InitOptions(nb=128, dtype="r64"))
+    x = japi.gssv(h, b)
+    assert got["residual"] < run_r64.LIMIT
+    assert _rel(got["x"], x) <= 1e-12
+    assert got["handle"].perf.kernels["engine"] in ("mega", "mega_group")
+    assert "engine: mega" in capsys.readouterr().out
+
+
+def test_poisson3d_example_matches_jax(capsys):
+    got = run_poisson3d.main(["8", *CPU])
+    a = jm.poisson3d(8)
+    h = japi.init(a, japi.InitOptions(nb=128, dtype="r32", ordering="rcm",
+                                      symbolic_mode="block"))
+    japi.gstrf(h)
+    b = np.asarray(a.to_scipy() @ np.ones(a.n, dtype=np.float32))
+    x = japi.gstrs(h, b)
+    assert got["residual"] < run_poisson3d.LIMIT
+    assert _rel(got["x"], x) <= 1e-10
+    assert got["handle"].perf.kernels["engine"] == "mega"
+    out = capsys.readouterr().out
+    assert "GFLOPS" in out and "solve residual" in out
 
 
 def _jax_analyze(nx, nb):

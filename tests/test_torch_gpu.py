@@ -542,6 +542,63 @@ def test_cluster_group_sweeps(cuda, nb, dtype, nrhs):
     assert torch.equal(got, kc.mega_solve_groups(x, tk, ik, stab, **kw))
 
 
+@pytest.mark.parametrize("gen,nb,dtype", [
+    (lambda: poisson2d(12), 16, "r32"),
+    (lambda: smallworld(30), 16, "r32"),
+    (lambda: poisson3d(16), 128, "r32"),
+    # K1's cluster kernel on the second stream
+    (lambda: poisson3d(24), 256, "r32"),
+    # the C entry takes double as well (LUFactorizer asks for float only)
+    (lambda: poisson3d(16), 128, "r64"),
+])
+def test_chain_ahead_kernel(cuda, monkeypatch, gen, nb, dtype):
+    """K2 on chain-ahead tables (PANGULU_TPU_SUPERLEVEL=1, nd): the
+    diagonal steps run ahead on the second stream give the bits of the
+    same tables on one stream, in factors and inverses, run after run;
+    K1 launches bl times on either (those run ahead counted in
+    kernels_cuda.AHEAD), K2 once; the result agrees with the plain
+    version on the same tables, and its inverses serve K3."""
+    monkeypatch.setenv("PANGULU_TPU_SUPERLEVEL", "1")
+    h = pt.init(gen(), pt.InitOptions(nb=nb, dtype=dtype, ordering="nd",
+                                      device="cuda"))
+    nt, bl = h.blocked.num_tiles, h.schedule.block_length
+    ftab = kt.KernelTables.build(h.schedule.mega_tables(
+        nt, uch=kt.mega_uch(nb), superlevel=True), cuda)
+    flagged = int(ftab.host["flag_tab"].sum())
+    assert flagged > 0
+    t0 = h.blocked.device_tiles(cuda)
+    kw = dict(nb=nb, tol=kt.DEFAULT_TOL[t0.dtype], bl=bl)
+    kc.reset_launch_counts()
+    ts, is_ = kc.mega_factorize(t0.clone(), ftab, ahead=False, **kw)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES == _counts(getrf_with_inverses=bl, mega_factorize=1)
+    assert kc.AHEAD["mega_factorize"] == 0
+    for _ in range(5):
+        kc.reset_launch_counts()
+        ta, ia = kc.mega_factorize(t0.clone(), ftab, **kw)
+        torch.cuda.synchronize()
+        assert kc.LAUNCHES == _counts(getrf_with_inverses=bl,
+                                      mega_factorize=1)
+        assert kc.DEVICE_LAUNCHES["getrf_with_inverses"] == bl
+        assert kc.AHEAD["mega_factorize"] == flagged
+        assert torch.equal(ta, ts) and torch.equal(ia, is_)
+    tp, ip = kt.mega_factorize(t0.clone(), ftab, **kw)
+    torch.testing.assert_close(ta[:nt], tp[:nt], **TOL[t0.dtype])
+    torch.testing.assert_close(ia, ip, **TOL[t0.dtype])
+    # the public route: LUFactorizer(dispatch="mega") takes the tables
+    # on float32, and its inverses serve the solve
+    fac = pangulu_tpu_torch.numeric.LUFactorizer(
+        h.blocked, h.schedule, device=cuda, dispatch="mega")
+    assert ("flag_tab" in fac.tables.host) is (dtype == "r32")
+    h._factorizer, h.factor_tiles = fac, fac.factorize()
+    if dtype == "r32":
+        assert torch.equal(h.factor_tiles, ta)
+    b = h.a_origin @ np.ones(h.a_origin.shape[0])
+    x = pt.gstrs(h, b)
+    assert residual_norm(h.a_origin, x, b) < (1e-10 if dtype == "r32"
+                                              else 1e-12)
+
+
 @pytest.mark.parametrize("ordering", ["rcm", "nd"])
 def test_cluster_sweeps_on_two_streams(cuda, ordering):
     """Two nb=256 solves of other right-hand sides on two streams at
