@@ -16,7 +16,8 @@ CUDA toolkit (nvcc).  It
      instances of K2's and K4's product kernels (panels for bands 128
      and 256 wide; no float instance may spill) and of K1's cluster
      kernel for 128 < nb <= 256 (lu_cluster_kernel, float and double:
-     neither may spill);
+     neither may spill) and of K1's kernels above 256 (csrc/wide_lu.cuh:
+     no float instance may spill, nor either lu_flow_kernel instance);
   2. holds each kernel against its plain PyTorch version on the same
      CUDA tensors, printing max errors and CUDA-event times beside the
      plain version's: K1 getrf_with_inverses at nb = 10, 16, 64, 128
@@ -221,10 +222,12 @@ CUDA toolkit (nvcc).  It
      against kernels_cuda.wide_plan at every nb up to 512, and the
      clusters that fit; K1 at nb = 288, 384, 512 and 640, float and
      double, batch 1 and 4, against its plain twin (kernels_torch.
-     k1_wide: the blocked step over the whole tile, on the leaves of the
-     recursion at 640) at the contract and the rank-1 scan at
-     BLOCKED_TOL, and with zero pivots at 0 and wide_split(nb); one K1
-     launch a call, of one device launch up to 512 (7 at 640); true f32
+     k1_wide: the blocked step over the whole tile, or on the leaves
+     of k1_leaf_width) at the contract and the rank-1 scan at
+     BLOCKED_TOL, and with zero pivots at 0 and wide_split(nb) (float
+     U^-1 at 640 by testing.zero_pivot_uinv_errors); one K1 launch a
+     call, of kernels_cuda.k1_device_launches (the flow kernel's one at
+     640 but for float64 batch 4: 7); true f32
      at nb = 512; per launch device ms beside the bound, the twin and
      lu_factor_ex; (b) init -> gstrf -> gstrs on poisson3d(32), nb=512,
      r32, rcm and nd, dispatch auto: engine fused on backend cuda, K1
@@ -273,8 +276,9 @@ CUDA toolkit (nvcc).  It
      subprocess on poisson3d(DEMO_NX) under --device-gib DEMO_GIB,
      below its dense store (exit 0, several panels, peak allocation
      below the cap and the dense bytes, residual < 1e-4); (d) K1 at
-     EXTRAS_SPLIT_NB = 1088, two levels of its recursion, against its
-     plain twin in f32 and f64; prints an {"extras": ...} line;
+     EXTRAS_SPLIT_NB = 1088, one device launch of the flow kernel,
+     against its plain twin in f32 and f64; prints an {"extras": ...}
+     line;
  10b. drives the JAX package's superfused and segmented engines
      (superfused_phase, ~35 s): (a) poisson3d(32) nd r32 at nb = 128,
      256 and 512, LUFactorizer(dispatch="superfused") on a fresh store
@@ -316,6 +320,21 @@ CUDA toolkit (nvcc).  It
      over both streams, idle share, K1's share and the K1 intervals
      that overlap a product kernel (nb=128 must show some); a
      {"chain_ahead": ...} line;
+ 10d. drives K1 above 512 on the flow kernel (flow_phase, csrc/
+     wide_lu.cuh lu_flow_kernel: one cooperative launch a call, its
+     CTAs passing the panels by ready flags, where the batch fits on
+     the card at once): (a) its plan, C side against kernels_cuda, at
+     every nb up to W_T (1408 in f32, 1120 in f64), and the leaf width
+     a batch; (b) K1 at 640, 768, 1024, 1088 and W_T, float and double,
+     batch 1 and 4: kernels_cuda.k1_device_launches a call (one at
+     batch 1), against its plain twin,
+     per launch beside its bound, the twin and lu_factor_ex; the flow
+     kernel alone at 512 beside the cluster kernel; (c) poisson3d(32) at
+     nb=1024 through the fused engine (r32 and r64, rcm) and superfused
+     (r32, nd): exact K1 launches and device launches,
+     residuals, the factor against the same engine on the plain twin,
+     ms per factorization, one trace (K1's device ms and share, busy,
+     wall, idle); a {"flow": ...} line;
  11. with --profile, also traces one rcm solve and prints, per phase,
      each kernel's launches and device time, the host wall time and the
      device's idle share (K3's solve: exactly 2 launches of its sweep
@@ -340,7 +359,8 @@ CUDA toolkit (nvcc).  It
      nb = 512 and 384 (getrf_with_inverses@nb=512 and @nb=384, the
      cluster kernel of csrc/wide_lu.cuh; launches from step 9b's rcm
      path at 512 and nd gstrf at 384, and at 512 also those of step
-     9c's compressed path), P6 at nb=512 (float32 slots, launches from
+     9c's compressed path), K1 at nb = 1024 (getrf_with_inverses@nb=1024,
+     the flow kernel; launches from step 10d's fused r32 rcm path), P6 at nb=512 (float32 slots, launches from
      step 9c's compressed r32 rcm path) and at nb=128 on complex128
      slots (step 9c (d)), P2 at nb=512 (launches from step 9c's
      reload), with
@@ -462,9 +482,10 @@ COMPRESSED_INSTANCES = 20
 # newton_loop_kernel<type, C> for float and double, C = 4, 8, 16
 PROBE_INSTANCES = 20
 # K1 above nb = 256 (csrc/wide_lu.cuh): lu_wide_kernel<type, rows> for
-# float and double; above 512 wide_gemm_kernel<type, op> for float and
-# double and the three store ops, wide_copy_kernel<type>
-WIDE_INSTANCES = 10
+# float and double; up to W_T lu_flow_kernel<type, rows> for float and
+# double; above W_T wide_gemm_kernel<type, op> for float and double and
+# the three store ops, wide_copy_kernel<type>
+WIDE_INSTANCES = 12
 # SMs of an H100 SXM: a probe's bound on the s SMs it runs on is the
 # card's operations bound times this / s (kept in the details file)
 SMS = 132
@@ -2550,8 +2571,7 @@ def probes_phase(dev) -> tuple:
 
 
 WIDE_NBS = (288, 384, 512)
-# K1 above 512: the recursion on the cluster kernel's leaves (640 -> 320
-# + 320), checked in xla_engines_phase (a)
+# K1 above 512 on the flow kernel, checked in xla_engines_phase (a)
 WIDE_SPLIT_NB = 640
 
 
@@ -2595,11 +2615,17 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
           types, and the clusters of the widest that fit at once; K1 at
           each nb of k1_nbs and at split_nb, float and double, batch 1
           and 4, against its plain twin (kernels_torch.k1_wide: the
-          blocked step over the whole tile up to 512, the recursion on
-          such leaves above) at TOL_F32 / TOL_F64 and the rank-1 scan at
+          blocked step on leaves of kernels_torch.k1_leaf_width, the
+          recursion above) at TOL_F32 / TOL_F64 and the rank-1 scan at
           BLOCKED_TOL, and on a tile with zero pivots at 0 and at
-          wide_split(nb); one K1 launch a call, of one device launch up
-          to 512 (7 at split_nb); true f32 at the widest nb of k1_nbs
+          wide_split(nb) (float U^-1 at the flow kernel's widths by
+          testing.zero_pivot_uinv_errors: the column at the second
+          pivot, its entries scaled by 1/tol, by its residual in
+          U·U^-1, the rest at the contract); one K1 launch
+          a call, of kernels_cuda.k1_device_launches (1 up to 512, and
+          at split_nb the flow kernel's 1 but for float64 batch 4,
+          whose tiles do not fit on the card at once: 7); true f32 at
+          the widest nb of k1_nbs
           (the f32 kernel's error against the f64 twin at most 2x the
           f32 twin's); per launch device ms (median of 7) beside its
           bound, the twin's ms and torch.linalg.lu_factor_ex(pivot=
@@ -2633,7 +2659,8 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
     from pangulu_tpu_torch.ops import kernels_torch as kt
     from pangulu_tpu_torch.sptrsv import TriangularSolver
     from pangulu_tpu_torch.testing import (BLOCKED_TOL, with_imaginary_parts,
-                                           wide_tiny_pivot_tile)
+                                           wide_tiny_pivot_tile,
+                                           zero_pivot_uinv_errors)
     from pangulu_tpu_torch.utils.perf import residual_norm
 
     out, entries, launches = {"K1": {}}, {}, {}
@@ -2641,8 +2668,10 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
 
     twin = kt.k1_wide
 
-    def k1_counts(what, calls, w=nb):
-        each = 1 if w <= kt.WIDE_LEAF else 7
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def k1_counts(what, calls, w=nb, batch=1, dt=torch.float32):
+        each = kc.k1_device_launches(w, batch, dt, sms)
         got = (kc.LAUNCHES["getrf_with_inverses"],
                kc.DEVICE_LAUNCHES["getrf_with_inverses"])
         if got != (calls, each * calls) or any(
@@ -2688,7 +2717,7 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
                                     + w * np.eye(w), dtype=dt, device=dev)
                 kc.reset_launch_counts()
                 got = kc.getrf_with_inverses(a)
-                k1_counts(f"K1 nb={w} {dt} batch {batch}", 1, w)
+                k1_counts(f"K1 nb={w} {dt} batch {batch}", 1, w, batch, dt)
                 for n, g, r in zip(("f", "linv", "uinv"), got, twin(a)):
                     err = max(err, compare(f"{dt} nb={w} batch {batch} {n} "
                                            "(twin)", g, r, *tol))
@@ -2706,8 +2735,24 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
                 fail(f"K1 nb={w} {dt}: the zero pivots at 0 and {m1} did "
                      "not become +tol")
             for n, g, r in zip(("f", "linv", "uinv"), got, twin(a)):
-                compare(f"{dt} nb={w} zero pivots at 0 and {m1} {n}", g, r,
-                        *tol)
+                what = f"{dt} nb={w} zero pivots at 0 and {m1} {n}"
+                if n != "uinv" or w <= kt.WIDE_LEAF or dt != torch.float32:
+                    compare(what, g, r, *tol)
+                    continue
+                # at the flow kernel's widths, where no split of the
+                # recursion falls on the pivot at m1, float U^-1's column
+                # there (entries scaled by 1/tol; the f32 twin is 100%
+                # off the f64 one there) is held by its residual in
+                # U·U^-1, the rest at the contract (testing.
+                # zero_pivot_uinv_errors)
+                zp = zero_pivot_uinv_errors(got[0], g, r, tol)
+                print(f"  {what}: columns but {m1} {zp['rest']:.3f} of "
+                      f"{tol}; column {m1}: its residual "
+                      f"{zp['residual']:.2e} of nb·u·|U||U^-1|, against "
+                      f"the twin {zp['column']:.3f} of {BLOCKED_TOL[dt][2]}")
+                if not all(np.isfinite(zp[x]) and zp[x] <= 1
+                           for x in ("rest", "residual")):
+                    fail(f"{what}: {zp} (rest and residual must be <= 1)")
             row[str(dt)] = dict(max_abs_err=err)
         out["K1"][w] = row
     w = max(k1_nbs)
@@ -2819,7 +2864,8 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
         tr = profile(factor, setup=setup)
         k1 = {n: k for n, k in tr["kernels"].items()
               if any(s in n for s in ("lu_cluster_kernel", "getrf_inv_kernel",
-                                      "lu_wide_kernel", "wide_gemm_kernel",
+                                      "lu_wide_kernel", "lu_flow_kernel",
+                                      "wide_gemm_kernel",
                                       "wide_copy_kernel"))}
         k1_ms = sum(k["device_ms"] for k in k1.values())
         rest = tr["busy_ms"] - k1_ms
@@ -3330,8 +3376,7 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
     return out, entries, launches
 
 
-# K1 two levels into its recursion: 1088 -> 544 + 544, each 544 -> 288
-# + 256 on the cluster kernel's leaves (extras_phase (d))
+# K1 at 1088 (extras_phase (d)): one launch of the flow kernel
 EXTRAS_SPLIT_NB = 1088
 # extras_phase (c): the out-of-core demo under an allocator cap below the
 # matrix's dense tile store (1.32 GiB at poisson3d(48), the store 0.60),
@@ -3370,9 +3415,9 @@ def extras_phase(dev, nx: int = 32, nb: int = 128, demo_nx: int = DEMO_NX,
           PANGULU_OOC_CROSS_GB=demo_cross_gb: exit 0, more than one
           panel, peak max_memory_allocated below the cap and the dense
           store's bytes, residual < 1e-4;
-      (d) K1 at split_nb (> 1024: two levels of its recursion), one
-          tile in float32 and float64, against kernels_torch.k1_wide at
-          TOL_F32 / TOL_F64, one K1 launch, its device launches printed;
+      (d) K1 at split_nb (the flow kernel up to W_T), one tile in
+          float32 and float64, against kernels_torch.k1_wide at TOL_F32 /
+          TOL_F64, one K1 launch of one device launch;
           its device ms per launch (median of 5 runs of 10 back-to-back
           launches) beside its bound, the twin's ms and
           torch.linalg.lu_factor_ex(pivot=False)'s.
@@ -3524,8 +3569,8 @@ def extras_phase(dev, nx: int = 32, nb: int = 128, demo_nx: int = DEMO_NX,
     out["demo"] = demo
 
     # ---- (d) K1 above 1024 ----------------------------------------------
-    print(f"extras (d): K1 at nb={split_nb} (two levels of its recursion) "
-          "against its plain twin kernels_torch.k1_wide")
+    print(f"extras (d): K1 at nb={split_nb} (the flow kernel) against its "
+          "plain twin kernels_torch.k1_wide")
     rng = np.random.default_rng(21)
     out["K1"] = {}
     for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
@@ -3538,6 +3583,9 @@ def extras_phase(dev, nx: int = 32, nb: int = 128, demo_nx: int = DEMO_NX,
         dl = kc.DEVICE_LAUNCHES["getrf_with_inverses"]
         expect(f"(d) K1 nb={split_nb} {dt}",
                zero_but(getrf_with_inverses=1))
+        if dl != 1:
+            fail(f"(d) K1 nb={split_nb} {dt}: {dl} device launches, "
+                 "expected the flow kernel's one")
         err = max(compare(f"{dt} nb={split_nb} {n} (twin)", g, r, *tol)
                   for n, g, r in zip(("f", "linv", "uinv"), got,
                                      kt.k1_wide(a)))
@@ -3738,7 +3786,8 @@ def superfused_phase(dev, nx: int = 32, nbs=SUPERFUSED_NBS,
             k1 = {n: k for n, k in tr["kernels"].items()
                   if any(x in n for x in ("lu_cluster_kernel",
                                           "getrf_inv_kernel",
-                                          "lu_wide_kernel"))}
+                                          "lu_wide_kernel",
+                                          "lu_flow_kernel"))}
             k1_ms = sum(k["device_ms"] for k in k1.values())
             num[f"{name}_trace"] = dict(
                 wall_ms=tr["wall_ms"], busy_ms=tr["busy_ms"],
@@ -4208,6 +4257,186 @@ def chain_ahead_phase(dev, cases=CHAIN_AHEAD_CASES,
     return out, entry
 
 
+# K1 on the flow kernel (csrc/wide_lu.cuh lu_flow_kernel) per launch at
+# these widths and at W_T; poisson3d(32) at FLOW_PATH_NB through the
+# engines that run it (flow_phase)
+FLOW_NBS = (640, 768, 1024, 1088)
+FLOW_PATH_NB = 1024
+
+
+def flow_phase(dev, nbs=FLOW_NBS, nb: int = FLOW_PATH_NB) -> tuple:
+    """K1 from 512 to W_T on the flow kernel (csrc/wide_lu.cuh
+    lu_flow_kernel: one cooperative launch a call, ceil(nb / 32) CTAs of
+    32 rows (f32) or twice as many of 16 (f64) a tile, passing the
+    panels by ready flags in global memory, where the batch's tiles all
+    fit on the card at once; else the recursion on narrower leaves):
+
+      (a) its plan from the C side (plu_flow_plan, plu_flow_max_nb,
+          plu_flow_flag_slots) against kernels_cuda's (flow_plan,
+          FLOW_MAX_NB, FLOW_FLAGS) at every nb up to W_T, both types,
+          and the recursion's leaf width (plu_flow_leaf against
+          kernels_torch.k1_leaf_width) at batches 1 to 64;
+      (b) K1 through its public wrapper at each nb of nbs and at W_T,
+          float32 and float64, batch 1 and 4: one K1 launch of
+          kernels_cuda.k1_device_launches device launches (1 where the
+          batch fits at once) and no other kernel, against its plain
+          twin (kernels_torch.k1_wide) at TOL_F32 / TOL_F64, device ms
+          per launch (back-to-back launches, CUDA events, median of 5)
+          beside its bound (k1_bound), torch.linalg.lu_factor_ex(pivot=
+          False)'s and, at batch 1, the twin's (one run: host-bound);
+          and at 512, batch 1, the flow kernel alone (kernels_cuda.
+          flow_kernel; on no path there) against its twin and bit for
+          bit against the cluster kernel that the path takes at 512,
+          beside its ms;
+      (c) poisson3d(32) at nb through the fused engine (r32 and r64,
+          rcm) and superfused (r32, nd), each by pangulu_tpu_torch/
+          tools/probe_k1_wide.py's paths(): exactly one K1 launch a
+          level (fused) or super-level (superfused), of
+          kernels_cuda.k1_device_launches device launches for its batch,
+          and no other kernel; gstrf residual on the card < 1e-5
+          (r64 1e-12); the refined solve's residual < 1e-10 (r64
+          1e-12); the factor within TOL_F32 (TOL_F64) of the same engine
+          with K1's plain twin, relative to its largest entry; ms per
+          factorization (CUDA events, median of 5); one traced
+          factorization: K1's device ms and share of busy, busy against
+          wall, idle share.
+
+    Returns (its numbers, the kernels-line entry of K1 at nb (float32,
+    batch 1), the K1 launches of (c)'s fused r32 rcm path).  Any failure
+    raises."""
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+    from pangulu_tpu_torch.tools.probe_k1_wide import paths
+
+    t_phase = time.perf_counter()
+    out = {"K1": {}}
+    rng = np.random.default_rng(24)
+    lib = kc.library().lib
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    # ---- (a) the plan ---------------------------------------------------
+    print("flow (a): the flow kernel's plan, C side against kernels_cuda")
+    plan = (ctypes.c_int * 4)()
+    if lib.plu_flow_flag_slots() != kc.FLOW_FLAGS:
+        fail(f"flags: C {lib.plu_flow_flag_slots()}, Python {kc.FLOW_FLAGS}")
+    out["plan"] = {}
+    for dt in (torch.float32, torch.float64):
+        size = torch.empty((), dtype=dt).element_size()
+        wt = kc.FLOW_MAX_NB[dt]
+        if lib.plu_flow_max_nb(size) != wt:
+            fail(f"W_T {dt}: C {lib.plu_flow_max_nb(size)}, Python {wt}")
+        for w in range(1, wt + 1):
+            want = kc.flow_plan(w, dt, sms)
+            if lib.plu_flow_plan(w, size, sms, plan) != 0 or tuple(plan) != (
+                    want["ctas"], want["rows"], want["smem"], want["sets"]):
+                fail(f"the flow plan at nb={w} {dt}: C {tuple(plan)}, "
+                     f"kernels_cuda {want}")
+        for batch in range(1, 65):
+            if lib.plu_flow_leaf(batch, size, sms) != kt.k1_leaf_width(
+                    batch, dt, sms):
+                fail(f"the leaf width at batch {batch} {dt}: C "
+                     f"{lib.plu_flow_leaf(batch, size, sms)}, kernels_torch."
+                     f"k1_leaf_width {kt.k1_leaf_width(batch, dt, sms)}")
+        out["plan"][str(dt)] = {str(w): kc.flow_plan(w, dt, sms)
+                                for w in (*nbs, wt)}
+        out["plan"][str(dt)]["leaf_width"] = {
+            str(b): kt.k1_leaf_width(b, dt, sms) for b in (1, 2, 3, 4, 8)}
+        print(f"  {dt}: plans agree at nb = 1..{wt} (W_T) on {sms} SMs; at "
+              f"W_T {kc.flow_plan(wt, dt, sms)}")
+
+    # ---- (b) K1 per launch ----------------------------------------------
+    print("flow (b): K1 on the flow kernel against its plain twin, per "
+          "launch beside its bound, the twin and lu_factor_ex(pivot=False)")
+    for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        for w in (*nbs, kc.FLOW_MAX_NB[dt]):
+            for batch in (1, 4):
+                a = torch.as_tensor(rng.standard_normal((batch, w, w))
+                                    + w * np.eye(w), dtype=dt, device=dev)
+                kc.reset_launch_counts()
+                got = kc.getrf_with_inverses(a)
+                counts = (kc.LAUNCHES["getrf_with_inverses"],
+                          kc.DEVICE_LAUNCHES["getrf_with_inverses"])
+                each = kc.k1_device_launches(w, batch, dt, sms)
+                if counts != (1, each) or sum(kc.LAUNCHES.values()) != 1:
+                    fail(f"K1 nb={w} {dt} batch {batch}: launches "
+                         f"{dict(kc.LAUNCHES)}, device launches "
+                         f"{counts[1]}; expected one K1 launch of {each}")
+                err = max(compare(f"{dt} nb={w} batch {batch} {n} (twin)",
+                                  g, r, *tol)
+                          for n, g, r in zip(("f", "linv", "uinv"), got,
+                                             kt.k1_wide(a)))
+                row = dict(
+                    max_abs_err=err, device_launches=each,
+                    ms=device_ms(lambda: kc.getrf_with_inverses(a), n=10,
+                                 reps=5),
+                    library_ms=device_ms(lambda: torch.linalg.lu_factor_ex(
+                        a, pivot=False), n=10, reps=5),
+                    **k1_bound(w, batch, dt))
+                if batch == 1:  # one run: the twin is host-bound
+                    row["plain_ms"] = cuda_ms(lambda _: kt.k1_wide(a),
+                                              reps=1, warmup=0)
+                print(f"  nb={w} {dt} batch {batch}: kernel {row['ms']:.4f} "
+                      f"ms ({each} device launch(es)), bound "
+                      f"{row['bound_ms']:.3e} ms "
+                      f"({row['bound_by']}), lu_factor_ex "
+                      f"{row['library_ms']:.4f} ms" + (
+                          f", twin {row['plain_ms']:.3f} ms" if batch == 1
+                          else ""))
+                out["K1"][f"{w} {str(dt)[6:]} batch {batch}"] = row
+        a = torch.as_tensor(rng.standard_normal((1, 512, 512))
+                            + 512 * np.eye(512), dtype=dt, device=dev)
+        *got, _ = kc.flow_kernel(a)
+        err = max(compare(f"{dt} nb=512 flow kernel alone {n} (twin)", g, r,
+                          *tol) for n, g, r in zip(
+            ("f", "linv", "uinv"), got, kt.getrf_with_inverses_blocked(a)))
+        if not all(torch.equal(g, r) for g, r in
+                   zip(got, kc.getrf_with_inverses(a))):
+            fail(f"nb=512 {dt}: the flow kernel's bits are not the cluster "
+                 "kernel's")
+        row = dict(max_abs_err=err, ms=device_ms(lambda: kc.flow_kernel(a),
+                                                 n=10, reps=5),
+                   cluster_ms=device_ms(lambda: kc.getrf_with_inverses(a),
+                                        n=10, reps=5))
+        print(f"  nb=512 {dt}: the flow kernel alone {row['ms']:.4f} ms, the "
+              f"cluster kernel (the path's) {row['cluster_ms']:.4f} ms")
+        out["K1"][f"512 {str(dt)[6:]} flow alone"] = row
+
+    # ---- (c) poisson3d(32) at nb through the engines ----------------------
+    print(f"flow (c): poisson3d(32) at nb={nb} through the fused engine "
+          "(r32, r64 rcm) and superfused (r32 nd)")
+    out["paths"] = got = paths(
+        dev, nb=nb, trace=lambda fn, setup: profile(fn, setup=setup),
+        factor_residual=factor_residual_device)
+    for label, row in got.items():
+        r64 = "r64" in label
+        calls = row["superlevels"] if "superfused" in label else row["bl"]
+        launched, want = row["launches"], row["k1_expected_device_launches"]
+        if (launched["getrf_with_inverses"], row["k1_device_launches"]) != (
+                calls, want) or sum(launched.values()) != calls:
+            fail(f"{label}: launches {launched}, K1 device launches "
+                 f"{row['k1_device_launches']}; expected K1 {calls} ({want} "
+                 "device launches, kernels_cuda.k1_device_launches) and no "
+                 "other kernel")
+        limits = (1e-12, 1e-12) if r64 else (1e-5, 1e-10)
+        if not (row["gstrf_residual"] < limits[0]
+                and row["residual"] < limits[1] and row["finite"]):
+            fail(f"{label}: residuals {row['gstrf_residual']:.3e}, "
+                 f"{row['residual']:.3e} (limits {limits})")
+        if not row["rel_err_vs_twin"] < (TOL_F64 if r64 else TOL_F32)[0]:
+            fail(f"{label}: {row['rel_err_vs_twin']:.3e} from the same "
+                 "engine on K1's plain twin")
+        if row["k1_traced_launches"] == 0:
+            fail(f"{label}: the trace shows no K1 kernel")
+    one = out["K1"][f"{nb} float32 batch 1"]
+    entry = dict(max_abs_err=one["max_abs_err"], ms=one["ms"],
+                 plain_ms=one["plain_ms"], library_ms=one["library_ms"],
+                 bound_ms=one["bound_ms"], bound_by=one["bound_by"])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"flow: {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return out, entry, got["fused_r32_rcm"]["launches"]["getrf_with_inverses"]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4352,18 +4581,20 @@ def main() -> int:
              f"ptxas says {probe_ptx}")
     detail["probe_ptxas"] = probe_ptx
     wide_ptx = {n: i for n, i in ptx.items()
-                if re.search(r"plu\d+(lu_wide|wide_gemm|wide_copy)_kernel",
-                             n)}
+                if re.search(r"plu\d+(lu_wide|lu_flow|wide_gemm|wide_copy)"
+                             r"_kernel", n)}
     print("ptxas: K1's kernels for nb > 256 (lu_wide<type, rows>, "
-          "wide_gemm<type, store op>, wide_copy<type>; csrc/wide_lu.cuh)")
+          "lu_flow<type, rows>, wide_gemm<type, store op>, wide_copy<type>;"
+          " csrc/wide_lu.cuh)")
     for name, info in sorted(wide_ptx.items()):
         print(f"  {name}: {info.get('registers')} registers, "
               f"{info.get('spill_bytes')} spill bytes")
     if len(wide_ptx) != WIDE_INSTANCES or any(
             i.get("spill_bytes") != 0 for n, i in wide_ptx.items()
-            if re.search(r"(wide|gemm|copy)_kernelIf", n)):
+            if re.search(r"(wide|gemm|copy)_kernelIf|lu_flow_kernel", n)):
         fail(f"K1 for nb > 256: expected {WIDE_INSTANCES} instances, the "
-             f"float ones without spills; ptxas says {wide_ptx}")
+             f"float ones and the flow kernel's without spills; ptxas says "
+             f"{wide_ptx}")
     detail["wide_ptxas"] = wide_ptx
 
     # ---- K1 ------------------------------------------------------------
@@ -5027,6 +5258,12 @@ def main() -> int:
     kernels["mega_factorize"]["chain_ahead"] = chain_k2
     print(json.dumps({"chain_ahead": untraced(chain)}))
 
+    # ---- K1 above 512 on the flow kernel, and the engines at nb=1024 -----
+    flow, flow_entry, flow_launches = flow_phase(dev)
+    detail["flow"] = flow
+    kernels[f"getrf_with_inverses@nb={FLOW_PATH_NB}"] = flow_entry
+    print(json.dumps({"flow": flow}))
+
     launches = dict(rcm_launches)
     launches["mega_factorize_groups"] = nd_launches["mega_factorize_groups"]
     launches["mega_solve_groups"] = nd_launches["mega_solve_groups"]
@@ -5037,7 +5274,8 @@ def main() -> int:
     launches.update(probe_launches)
     launches.update(xla_launches)
     launches.update(wide_launches)
-    wide = tuple(xla_launches)
+    launches[f"getrf_with_inverses@nb={FLOW_PATH_NB}"] = flow_launches
+    wide = (*xla_launches, f"getrf_with_inverses@nb={FLOW_PATH_NB}")
     stores = tuple(wide_kernels)
 
     def source(n):

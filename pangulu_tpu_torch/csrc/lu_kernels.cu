@@ -7,7 +7,9 @@
 // synchronises, and returns the first CUDA error (cudaGetLastError after
 // each launch), 0 on success.  Tiles are row-major nb x nb, nb <= 256,
 // except K1's, which takes wider tiles (wide_lu.cuh: one thread block
-// cluster launch up to nb = 512, a recursion on such launches above),
+// cluster launch up to nb = 512, one cooperative launch of the flow
+// kernel up to W_T = 1408 in float and 1120 in double, a recursion on
+// such launches above),
 // and the compressed store's P6 and P2 (compressed.cuh), which take any
 // nb their caller's checks allow.
 //
@@ -53,7 +55,9 @@
 //   Above nb = 256 (to 512) a tile goes to one cluster of ceil(nb / 32)
 //   CTAs of 32 rows each, the same panel step with the warps over
 //   columns and lookahead on the diagonal chain (wide_lu.cuh, whose
-//   note gives its design); wider tiles recurse on such launches.
+//   note gives its design); wider tiles, up to W_T, to one cooperative
+//   launch whose CTAs pass the panels by ready flags in global memory
+//   (the flow kernel); beyond, a recursion on such launches.
 
 // K2 mega_factorize
 //   Replaces pangulu_tpu/ops/kernels_pallas.py mega_factorize
@@ -1580,8 +1584,9 @@ int mega_solve_groups(T* x, T* y, int nrhs, const T* tiles, const T* invs,
 }  // namespace plu
 
 // ------------------------------------------------------ C interface
-// K1 for tiles wider than 256: its cluster kernel up to 512, built on
-// diag_panel and the atoms above, and the recursion beyond
+// K1 for tiles wider than 256: its cluster kernel up to 512, the flow
+// kernel up to W_T, both built on diag_panel and the atoms above, and
+// the recursion beyond
 #include "wide_lu.cuh"
 
 #define PLU_STREAM(s) reinterpret_cast<cudaStream_t>(s)
@@ -1590,7 +1595,7 @@ extern "C" {
 
 // Bumped with every change of an entry's signature; kernels_cuda.py
 // checks it at load.
-int plu_kernels_abi() { return 18; }
+int plu_kernels_abi() { return 19; }
 
 // ``iters`` grid barriers on (at most) ``want`` cooperative blocks of
 // K3's size; *blocks receives the grid actually launched.  A
@@ -1627,14 +1632,17 @@ int plu_getrf_inv_f64(int dev, const double* a, double* f, double* linv,
 }
 
 // K1 on tiles of nb > 256 (wide_lu.cuh): ``work`` holds batch *
-// plu_wide_work_elems(nb) elements.
+// plu_wide_work_elems(nb) elements; ``flags`` the stream's
+// plu_flow_flag_slots() ready flags of the flow kernel, ``epoch`` its
+// host counter (both kept by kernels_cuda a device and stream).
 #define PLU_GETRF_INV_WIDE(NAME, T)                                           \
-  int NAME(int dev, const T* a, T* f, T* linv, T* uinv, T* work, int batch, \
+  int NAME(int dev, const T* a, T* f, T* linv, T* uinv, T* work,             \
+           unsigned* flags, unsigned* epoch, int batch,                      \
            int nb, double tol, int* k1_launches, void* st) {                 \
     cudaError_t e = cudaSetDevice(dev);                                      \
     if (e != cudaSuccess) return e;                                          \
-    return plu::getrf_inv_wide(a, f, linv, uinv, work, batch, nb, tol,      \
-                               k1_launches, PLU_STREAM(st));                 \
+    return plu::getrf_inv_wide(a, f, linv, uinv, work, flags, epoch, batch, \
+                               nb, tol, k1_launches, PLU_STREAM(st));        \
   }
 PLU_GETRF_INV_WIDE(plu_getrf_inv_wide_f32, float)
 PLU_GETRF_INV_WIDE(plu_getrf_inv_wide_f64, double)
@@ -1642,6 +1650,54 @@ PLU_GETRF_INV_WIDE(plu_getrf_inv_wide_f64, double)
 long long plu_wide_work_elems(int nb) {
   return (long long)plu::wide_work_elems(nb);
 }
+
+// The flow kernel (wide_lu.cuh lu_flow_kernel): W_T, the widest tile it
+// takes, by element size; its plan for a tile of 1 <= nb <= W_T on
+// ``sms`` SMs, out[0..3] = CTAs a tile, rows a CTA, dynamic shared memory
+// a CTA, tiles in flight (kernels_cuda.flow_plan mirrors it); its flags
+// a (device, stream) and clock64 readings a CTA.
+int plu_flow_max_nb(int elem_bytes) {
+  return elem_bytes == 4 ? plu::flow_max_nb<float>()
+                         : plu::flow_max_nb<double>();
+}
+int plu_flow_plan(int nb, int elem_bytes, int sms, int* out) {
+  if ((elem_bytes != 4 && elem_bytes != 8) || nb < 1 ||
+      nb > plu_flow_max_nb(elem_bytes) || sms < 1)
+    return cudaErrorInvalidValue;
+  const plu::FlowPlan pl = elem_bytes == 4 ? plu::flow_plan<float>(nb, sms)
+                                           : plu::flow_plan<double>(nb, sms);
+  out[0] = pl.ctas;
+  out[1] = pl.rows;
+  out[2] = pl.smem;
+  out[3] = pl.sets;
+  return cudaSuccess;
+}
+int plu_flow_flag_slots() { return plu::kFlowFlags; }
+// The widest leaf of K1's recursion for a batch of ``batch`` tiles on
+// ``sms`` SMs (wide_lu.cuh flow_leaf; kernels_torch.k1_leaf_width
+// mirrors it), by element size.
+int plu_flow_leaf(int batch, int elem_bytes, int sms) {
+  if ((elem_bytes != 4 && elem_bytes != 8) || batch < 1 || sms < 1)
+    return -1;
+  return elem_bytes == 4 ? plu::flow_leaf<float>(batch, sms)
+                         : plu::flow_leaf<double>(batch, sms);
+}
+int plu_flow_clk_slots() { return plu::kFlowClk; }
+
+// The flow kernel alone at any 1 <= nb <= W_T (clk: nullptr, or CTAs *
+// plu_flow_clk_slots() device readings); *sets receives the tiles in
+// flight: a measurement (the path takes it for 512 < nb <= W_T).
+#define PLU_FLOW_PROBE(NAME, T)                                               \
+  int NAME(int dev, const T* a, T* f, T* linv, T* uinv,                     \
+           unsigned* flags, unsigned* epoch, int batch,                      \
+           int nb, double tol, long long* clk, int* sets, void* st) {        \
+    cudaError_t e = cudaSetDevice(dev);                                      \
+    if (e != cudaSuccess) return e;                                          \
+    return plu::flow_probe(a, f, linv, uinv, flags, epoch, batch, nb, tol,   \
+                           clk, sets, PLU_STREAM(st));                       \
+  }
+PLU_FLOW_PROBE(plu_flow_probe_f32, float)
+PLU_FLOW_PROBE(plu_flow_probe_f64, double)
 
 // The cluster kernel's plan for a tile of 1 <= nb <= 512 of elements of
 // elem_bytes (4 or 8): out[0..3] = CTAs a cluster, rows a CTA, dynamic

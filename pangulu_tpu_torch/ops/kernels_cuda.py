@@ -31,7 +31,7 @@ from pangulu_tpu_torch.ops.kernels_torch import (Indices, KernelTables,
 from pangulu_tpu_torch.schedule import (check_ahead, group_dst_csr,
                                         group_solve_steps)
 
-_ABI = 18
+_ABI = 19
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Per kernel, the number of times it was launched on the card: one per
@@ -50,10 +50,13 @@ LAUNCHES = {"getrf_with_inverses": 0, "mega_factorize": 0, "mega_solve": 0,
             "newton_loop": 0}
 
 # K1's device launches, as the C entries report them: one a K1 launch,
-# the register-tile kernel up to nb = 128 and a cluster kernel above, up
-# to nb = 512 (csrc/lu_kernels.cu lu_cluster_kernel to 256, csrc/
-# wide_lu.cuh lu_wide_kernel above); beyond, each of the recursion's
-# launches (7 at 512 < nb <= 1024).  Zeroed with LAUNCHES.
+# the register-tile kernel up to nb = 128, a cluster kernel above, up to
+# nb = 512 (csrc/lu_kernels.cu lu_cluster_kernel to 256, csrc/
+# wide_lu.cuh lu_wide_kernel above), and the flow kernel up to W_T
+# (FLOW_MAX_NB: 1408 in float32, 1120 in float64) where the batch's
+# tiles all fit on the card at once; beyond, each of the recursion's
+# launches (k1_device_launches: 7 for one split).  Zeroed with
+# LAUNCHES.
 DEVICE_LAUNCHES = {"getrf_with_inverses": 0}
 
 # K2's diagonal steps run ahead on its second stream (chain-ahead
@@ -123,7 +126,10 @@ def library() -> build.KernelLibrary:
         fn.argtypes = [i, p, p, p, i, i, d, p]
         fn = getattr(lib, f"plu_getrf_inv_wide_{s}")
         fn.restype = i
-        fn.argtypes = [i, p, p, p, p, p, i, i, d, p, p]
+        fn.argtypes = [i, p, p, p, p, p, p, p, i, i, d, p, p]
+        fn = getattr(lib, f"plu_flow_probe_{s}")
+        fn.restype = i
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, d, p, p, p]
         fn = getattr(lib, f"plu_diag_step_{s}")
         fn.restype = i
         fn.argtypes = [i, p, p, p, p, i, i, d, p, p]
@@ -136,6 +142,15 @@ def library() -> build.KernelLibrary:
         fn.argtypes = [i, i, p, p, i, p, p, p] + [i] * 6 + [p, p]
     lib.plu_wide_work_elems.restype = ctypes.c_longlong
     lib.plu_wide_work_elems.argtypes = [i]
+    lib.plu_flow_leaf.restype = i
+    lib.plu_flow_leaf.argtypes = [i, i, i]
+    lib.plu_flow_max_nb.restype = i
+    lib.plu_flow_max_nb.argtypes = [i]
+    lib.plu_flow_plan.restype = i
+    lib.plu_flow_plan.argtypes = [i, i, i, p]
+    for name in ("plu_flow_flag_slots", "plu_flow_clk_slots"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = []
     lib.plu_wide_plan.restype = i
     lib.plu_wide_plan.argtypes = [i, i, p]
     lib.plu_wide_clk_slots.restype = i
@@ -229,16 +244,23 @@ def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
     """K1: (f, L^-1, U^-1) of ``a`` ([nb, nb] or [B, nb, nb]); see
     :func:`kernels_torch.getrf_with_inverses`.  Above nb = 128 the card
     runs the blocked step of
-    :func:`kernels_torch.getrf_with_inverses_blocked` on a thread block
-    cluster a tile, one launch for the batch: up to nb = 256 on 2 (f32)
-    or 4 (f64) CTAs, above on one CTA a panel's 32 rows (csrc/
-    wide_lu.cuh, :func:`wide_plan`), up to nb = 512.  Its bound there is
-    the chain of the diagonal warp's panels (16 at 512), not bytes or
-    operations (PERF.md).  Wider tiles take the recursion of
-    :func:`kernels_torch.k1_wide` on such launches, counted as one
-    launch, its device launches in :data:`DEVICE_LAUNCHES`.  If a cluster
-    of the plan's shape does not fit on the card, the call raises.  On
-    the CPU a tile above nb = 256 goes to
+    :func:`kernels_torch.getrf_with_inverses_blocked`, one launch for
+    the batch: up to nb = 256 on a thread block cluster of 2 (f32) or 4
+    (f64) CTAs a tile; up to nb = 512 on a cluster of one CTA a panel's
+    32 rows (csrc/wide_lu.cuh, :func:`wide_plan`); up to W_T
+    (:data:`FLOW_MAX_NB`) on one cooperative launch of the flow kernel,
+    ceil(nb / 32) CTAs of 32 rows (f32) or twice as many of 16 (f64) a
+    tile, passing the panels by ready flags in global memory, every tile
+    of the batch at once, one CTA an SM (:func:`flow_plan`).  Its bound
+    there is the chain of the diagonal warp's panels, not bytes or
+    operations (PERF.md).  Wider tiles, and batches whose tiles do not
+    all fit on the card at once, take the recursion of
+    :func:`kernels_torch.k1_wide` on leaves of at most
+    :func:`kernels_torch.k1_leaf_width`, counted as one launch, its
+    device launches in :data:`DEVICE_LAUNCHES`
+    (:func:`k1_device_launches`).  If the
+    cluster or the cooperative grid does not fit on the card, the call
+    raises.  On the CPU a tile above nb = 256 goes to
     :func:`kernels_torch.getrf_with_inverses_wide` with the rank-1 scan
     at its leaves (the reference semantics)."""
     wide = a.shape[-1] > kt.MAX_NB
@@ -262,10 +284,12 @@ def getrf_with_inverses(a: torch.Tensor, tol: float | None = None):
         if wide:
             work = torch.empty(a3.shape[0] * lib.plu_wide_work_elems(nb),
                                dtype=a.dtype, device=a.device)
+            flags, epoch = _flow_sync(a.device)
             _call(getattr(lib, f"plu_getrf_inv_wide_{s}"), a.device.index,
                   a3.data_ptr(), f.data_ptr(), linv.data_ptr(),
-                  uinv.data_ptr(), work.data_ptr(), a3.shape[0], nb,
-                  float(tol), k1, _stream(a.device))
+                  uinv.data_ptr(), work.data_ptr(), flags.data_ptr(),
+                  epoch, a3.shape[0], nb, float(tol), k1,
+                  _stream(a.device))
         else:
             _call(getattr(lib, f"plu_getrf_inv_{s}"), a.device.index,
                   a3.data_ptr(), f.data_ptr(), linv.data_ptr(),
@@ -307,6 +331,119 @@ def wide_plan(nb: int, dtype) -> dict:
     return dict(ctas=ctas, rows=rows,
                 smem=elems * torch.empty((), dtype=dtype).element_size(),
                 stripe=r)
+
+
+# The flow kernel (csrc/wide_lu.cuh lu_flow_kernel): rows a CTA, by type
+# (FlowRows), and W_T, the widest tile it takes (flow_max_nb).
+FLOW_ROWS = {torch.float32: 32, torch.float64: 16}
+FLOW_MAX_NB = kt.FLOW_LEAF
+# SMs of an H100 SXM: the plan's tiles in flight by default
+H100_SMS = kt.H100_SMS
+# The flow kernel's ready flags a (device, stream) (kFlowFlags)
+FLOW_FLAGS = 16384
+
+
+def _flow_elems(nb: int, dtype) -> int:
+    """Elements of a CTA's shared memory at a tile of nb: wide_plan's
+    layout with FLOW_ROWS[dtype] rows of the tile padded to whole
+    panels."""
+    rows, r = FLOW_ROWS[dtype], kt.LU_PANEL
+    pad_a, pad_b = _WIDE_PADS[dtype]
+    np_ = -(-nb // r) * r
+    return (rows * (np_ + 4) + (r + rows) * (r + pad_a)
+            + _WIDE_WARPS * r * (r + pad_b) + 2 * _ROW_BUF)
+
+
+def flow_plan(nb: int, dtype, sms: int = H100_SMS) -> dict:
+    """The launch of the flow kernel for a tile of 1 <= nb <= W_T
+    (csrc/wide_lu.cuh flow_plan, which chip_smoke.py holds it to):
+    ``ctas`` a tile (ceil(nb / 32) panels of 32 / ``rows`` CTAs each),
+    ``rows`` a CTA, ``smem`` bytes of dynamic shared memory a CTA (as
+    :func:`wide_plan`'s) and ``sets``, the tiles in flight on ``sms``
+    SMs at one CTA an SM; the path gives it no more (the recursion
+    takes narrower leaves, :func:`kernels_torch.k1_leaf_width`), and
+    :func:`flow_kernel` runs a larger batch in rounds of ``sets``
+    tiles."""
+    if not 1 <= nb <= FLOW_MAX_NB[dtype]:
+        raise ValueError(f"the flow kernel takes 1 <= nb <= "
+                         f"{FLOW_MAX_NB[dtype]} in {dtype}, got nb={nb}")
+    rows = FLOW_ROWS[dtype]
+    ctas = -(-nb // kt.LU_PANEL) * (kt.LU_PANEL // rows)
+    smem = (_flow_elems(nb, dtype)
+            * torch.empty((), dtype=dtype).element_size())
+    return dict(ctas=ctas, rows=rows, smem=smem, sets=sms // ctas)
+
+
+def k1_device_launches(nb: int, batch: int, dtype,
+                       sms: int = H100_SMS) -> int:
+    """K1's device launches a call on ``batch`` tiles of nb (csrc/
+    wide_lu.cuh WideLu::run): one up to the leaf width
+    (:func:`kernels_torch.k1_leaf_width`), above it each split's five
+    launches of products and copies beside its halves'."""
+    leaf = kt.k1_leaf_width(batch, dtype, sms)
+
+    def count(m: int) -> int:
+        if m <= leaf:
+            return 1
+        h = kt.wide_split(m)
+        return count(h) + count(m - h) + 5
+    return count(nb)
+
+
+def flow_flags_needed(nb: int, dtype, sets: int) -> int:
+    """Flags a launch of ``sets`` tiles in flight at nb takes (csrc/
+    wide_lu.cuh FlowSync): per tile npan x npan stripe flags for each of
+    the CTAs of a panel, npan x npan flags of R and a done flag a CTA;
+    the launch refuses more than FLOW_FLAGS."""
+    npan = -(-nb // kt.LU_PANEL)
+    ctas = npan * (kt.LU_PANEL // FLOW_ROWS[dtype])
+    return sets * (npan * (ctas + npan) + ctas)
+
+
+# The flow kernel's ready flags and epoch, a pair a (device, stream):
+# plu_flow_flag_slots() 32-bit flags, zeroed when made on the stream,
+# and a 32-bit host counter that each launch advances by its rounds, so
+# that launches on one stream take them in turn with no clearing between
+# (csrc/wide_lu.cuh FlowSync).
+_FLOW: dict = {}
+
+
+def _flow_sync(dev):
+    """(flags tensor, epoch counter) of ``dev``'s current stream."""
+    key = (dev.index, _stream(dev))
+    got = _FLOW.get(key)
+    if got is None:
+        n = library().lib.plu_flow_flag_slots()
+        got = _FLOW[key] = (torch.zeros(n, dtype=torch.int32, device=dev),
+                            (ctypes.c_uint32 * 1)())
+    return got
+
+
+def flow_kernel(a: torch.Tensor, tol: float | None = None,
+                clk: torch.Tensor | None = None):
+    """The flow kernel alone on ``a`` ([B, nb, nb] on the card, 1 <= nb
+    <= W_T), at any nb: a measurement (the path takes it for 512 < nb
+    <= W_T through :func:`getrf_with_inverses`), counted nowhere.
+    ``clk``, an int64 tensor of ctas * plu_flow_clk_slots() entries,
+    receives the clock64 phases of the first tile's CTAs.  Returns (f,
+    L^-1, U^-1, the tiles in flight)."""
+    s = _dtype_of(a)
+    if a.device.type != "cuda" or a.dim() != 3:
+        raise ValueError("flow_kernel takes a [B, nb, nb] CUDA tensor")
+    nb = a.shape[-1]
+    flow_plan(nb, a.dtype)
+    if tol is None:
+        tol = kt.DEFAULT_TOL[a.dtype]
+    _check_tensor("a", a, a.dtype, a.shape, a.device)
+    f, linv, uinv = (torch.empty_like(a) for _ in range(3))
+    flags, epoch = _flow_sync(a.device)
+    sets = ctypes.c_int()
+    _call(getattr(library().lib, f"plu_flow_probe_{s}"), a.device.index,
+          a.data_ptr(), f.data_ptr(), linv.data_ptr(), uinv.data_ptr(),
+          flags.data_ptr(), epoch, a.shape[0], nb, float(tol),
+          None if clk is None else clk.data_ptr(), ctypes.byref(sets),
+          _stream(a.device))
+    return f, linv, uinv, sets.value
 
 
 # K2's second stream, one per device, for the diagonal steps that

@@ -73,9 +73,11 @@ DEFAULT_TOL = {torch.float32: 1e-8, torch.float64: 1e-16,
 # LU_PANEL columns (getrf_with_inverses_blocked is its plain twin); the
 # products of K2 and K4 have shared-memory windows for nb <= 128 and for
 # nb <= 256 (csrc/lu_kernels.cu).  K1 takes wider tiles: up to
-# WIDE_LEAF on one thread block cluster a tile, in the same panels
-# (getrf_with_inverses_blocked is its plain twin too), and above by a
-# recursion on halves of at most WIDE_LEAF (k1_wide, csrc/wide_lu.cuh);
+# WIDE_LEAF on one thread block cluster a tile, up to FLOW_LEAF on one
+# cooperative launch of the flow kernel, in the same panels
+# (getrf_with_inverses_blocked is its plain twin there too), and above,
+# or where a batch does not fit on the card at once, by a recursion on
+# halves of at most k1_leaf_width (k1_wide, csrc/wide_lu.cuh);
 # the engines that run it there are the fused and levels engines
 # (numeric.py), the compressed store and the multi-device engine.  The
 # compressed store's kernels P6 and P2 take any nb up to STORE_MAX_NB.
@@ -90,6 +92,16 @@ STORE_MAX_NB = 65535
 # The widest tile K1's cluster kernel for wide tiles takes in one launch
 # (csrc/wide_lu.cuh kWideLeaf).
 WIDE_LEAF = 512
+
+# W_T, the widest tile of K1's flow kernel, by type (csrc/wide_lu.cuh
+# flow_max_nb): a CTA holds 32 rows (float32) or 16 (float64) of the
+# tile in shared memory, 232,448 bytes at most; K1 is one launch up to
+# it where the whole batch fits on the card at once (k1_leaf_width), a
+# recursion on such leaves above.
+FLOW_LEAF = {torch.float32: 1408, torch.float64: 1120}
+
+# SMs of an H100 SXM, on which k1_leaf_width plans by default.
+H100_SMS = 132
 
 # K1's largest register tile: the blocked step takes the tiles above it,
 # and P2 (triangle_inverses) splits them into blocks of this width.
@@ -256,12 +268,31 @@ def k1_leaf(a: torch.Tensor, tol: float):
     return getrf_with_inverses_blocked(a, tol)
 
 
-def k1_wide(a: torch.Tensor, tol: float | None = None):
+def k1_leaf_width(batch: int, dtype, sms: int = H100_SMS) -> int:
+    """The widest leaf of the CUDA K1's recursion for a batch of
+    ``batch`` tiles on ``sms`` SMs (csrc/wide_lu.cuh flow_leaf): the
+    widest multiple of LU_PANEL, at most W_T (FLOW_LEAF), at which the
+    flow kernel runs every tile of the batch at once, one CTA of 32
+    (float32) or 16 (float64) rows an SM; WIDE_LEAF, the cluster
+    kernel's, where that is no wider (and for other types)."""
+    if dtype not in FLOW_LEAF:
+        return WIDE_LEAF
+    per = LU_PANEL // (32 if dtype == torch.float32 else 16)
+    w = min(FLOW_LEAF[dtype], sms // (batch * per) * LU_PANEL)
+    return max(w, WIDE_LEAF)
+
+
+def k1_wide(a: torch.Tensor, tol: float | None = None,
+            width: int | None = None):
     """The plain twin of the CUDA K1 for nb > MAX_NB (csrc/wide_lu.cuh):
-    the blocked step over the whole tile up to WIDE_LEAF, the recursion
-    of :func:`getrf_with_inverses_wide` on such leaves above (at least
-    224 wide, so :func:`k1_leaf` takes the blocked step on each)."""
-    return getrf_with_inverses_wide(a, tol, leaf=k1_leaf, width=WIDE_LEAF)
+    the blocked step over the whole tile up to ``width``
+    (:func:`k1_leaf_width` of ``a``'s batch, as on an H100, by default),
+    the recursion of :func:`getrf_with_inverses_wide` on such leaves
+    above (more than 128 wide, so :func:`k1_leaf` takes the blocked step
+    on each)."""
+    if width is None:
+        width = k1_leaf_width(a.shape[0] if a.dim() == 3 else 1, a.dtype)
+    return getrf_with_inverses_wide(a, tol, leaf=k1_leaf, width=width)
 
 
 def getrf_with_inverses_wide(a: torch.Tensor, tol: float | None = None,
@@ -279,10 +310,10 @@ def getrf_with_inverses_wide(a: torch.Tensor, tol: float | None = None,
 
     with ``leaf(a, tol)`` on the blocks of at most ``width`` (the JAX
     package recurses to 32 and takes the Newton inverses there).  The
-    CUDA K1 for nb > MAX_NB runs these steps above WIDE_LEAF
-    (csrc/wide_lu.cuh), on leaves of at most WIDE_LEAF
-    (:func:`k1_wide`); the default leaf, the rank-1 scan, is the
-    reference semantics.  The tiny-pivot rule holds in every leaf."""
+    CUDA K1 for nb > MAX_NB runs these steps on leaves of at most
+    :func:`k1_leaf_width` (csrc/wide_lu.cuh, :func:`k1_wide`); the
+    default leaf, the rank-1 scan, is the reference semantics.  The
+    tiny-pivot rule holds in every leaf."""
     if tol is None:
         tol = DEFAULT_TOL[a.dtype]
     m = a.shape[-1]

@@ -115,6 +115,43 @@ def wide_tiny_pivot_tile(nb: int, rng) -> np.ndarray:
     return a
 
 
+def zero_pivot_uinv_errors(f: torch.Tensor, uinv: torch.Tensor,
+                           twin_uinv: torch.Tensor, contract) -> dict:
+    """K1's U^-1 on a :func:`wide_tiny_pivot_tile` (or a batch of them)
+    against its twin's.  Its column k = wide_split(nb) holds entries
+    scaled by 1/tol and is ill-conditioned: in float32 the twin itself
+    is 100% off the float64 twin there, so no comparison with the twin
+    tests that column, and it is held by its residual instead.  The
+    ratios ``rest`` and ``residual`` pass at <= 1:
+
+      - ``rest``: every other column against the twin at ``contract``
+        (rtol, atol): the largest |kernel - twin| / (atol + rtol |twin|);
+      - ``residual``: column k of U·U^-1 - I, with U the upper triangle
+        of the kernel's own ``f``, in float64: its largest entry over
+        nb·u·(the largest of |U|·|U^-1|'s column k), u the unit
+        roundoff of the type; a column that is off by a share of its
+        size leaves a residual of that share of |U|·|U^-1|;
+      - ``column`` (a measurement, no bound): column k against the twin,
+        the ratio of ``rest`` at BLOCKED_TOL's U^-1 bound."""
+    nb = f.shape[-1]
+    k = kt.wide_split(nb)
+    rtol, atol = contract
+    g, r = uinv.double(), twin_uinv.double()
+    over = (g - r).abs() / (atol + rtol * r.abs())
+    brt, bat = BLOCKED_TOL[f.dtype][2]
+    col = ((g[..., :, k] - r[..., :, k]).abs()
+           / (bat + brt * r[..., :, k].abs()))
+    over[..., :, k] = 0.0
+    u = torch.triu(f.double())
+    x = g[..., :, k:k + 1]
+    res = u @ x
+    res[..., k, 0] -= 1.0
+    scale = (u.abs() @ x.abs()).amax()
+    unit = torch.finfo(f.dtype).eps / 2
+    return dict(rest=float(over.max()), column=float(col.max()),
+                residual=float(res.abs().amax() / (nb * unit * scale)))
+
+
 def diag_step(tiles: torch.Tensor, ids, invs: torch.Tensor, inv_ids,
               tol: float | None = None) -> None:
     """K1 as K4's diagonal step runs it, alone (the C entry

@@ -6,10 +6,10 @@ can be compared bit for bit:
     python3 pangulu_tpu_torch/tools/probe_factor_bits.py [--root DIR]
 
 With PANGULU_TPU_SUPERLEVEL unset, init -> gstrf -> gstrs on
-poisson3d(32), r32: rcm and nd at nb = 128 and 256 on the dense store
-(the engine ``auto`` picks), the chain engine forced on each nd
-schedule (``dispatch="mega"``, with a digest of its tables), and nd at
-nb=128 on the compressed store (the panel route).  For each: the
+poisson3d(32), r32: rcm and nd at nb = 128, 256 and 512 on the dense
+store (the engine ``auto`` picks), the chain engine forced on each nd
+schedule up to 256 (``dispatch="mega"``, with a digest of its
+tables), and nd at nb=128 on the compressed store (the panel route).  For each: the
 engine, the kernel launches (kernels_cuda.LAUNCHES), the first 16 hex
 digits of the SHA-256 of the factored tiles (the store's slots on the
 panel route) and the inverses, and of the solution.  The package is
@@ -34,13 +34,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 # (label, nb, ordering, tile storage), r32
 PATHS = (("rcm128", 128, "rcm", "dense"), ("nd128", 128, "nd", "dense"),
          ("rcm256", 256, "rcm", "dense"), ("nd256", 256, "nd", "dense"),
+         ("rcm512", 512, "rcm", "dense"), ("nd512", 512, "nd", "dense"),
          ("nd128_panel", 128, "nd", "compressed"))
 
 
 def digest(*tensors) -> str:
+    """Of the tensors given (None: an engine that keeps no inverses)."""
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.contiguous().cpu().numpy().tobytes())
+        if t is not None:
+            h.update(t.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -79,7 +82,7 @@ def main(argv=None) -> dict:
                                     if v},
                           bits=digest(tiles, f.inv_tiles),
                           x=digest(torch.as_tensor(x)))
-        if ordering == "nd" and storage == "dense":
+        if ordering == "nd" and storage == "dense" and nb <= 256:
             m = LUFactorizer(h.blocked, h.schedule, device=dev,
                              dispatch="mega")
             t = m.factorize()

@@ -45,7 +45,8 @@ from pangulu_tpu_torch.testing import (BLOCKED_TOL, blocked_tiny_pivot_tile,
                                        diag_step, newton_inputs,
                                        newton_mixed_inputs, probe_inputs,
                                        tiny_pivot_tile, wide_tiny_pivot_tile,
-                                       with_imaginary_parts)
+                                       with_imaginary_parts,
+                                       zero_pivot_uinv_errors)
 from pangulu_tpu_torch.utils.perf import residual_norm
 
 pytestmark = pytest.mark.gpu
@@ -169,23 +170,22 @@ def test_getrf_blocked_tiny_pivot_kernel(cuda, dtype, nb, k1, k2):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("batch", [1, 3])
-# clusters of 9, 10, 12 and 16 CTAs; 640 splits 320 + 320 over two such
-# launches
+# clusters of 9, 10, 12 and 16 CTAs; 640 on the flow kernel's
+# cooperative launch
 @pytest.mark.parametrize("nb", [288, 300, 384, 512, 640])
 def test_getrf_wide_kernel(cuda, dtype, nb, batch):
     """K1 above nb = 256 (csrc/wide_lu.cuh): its plain twin
     (kernels_torch.k1_wide: the blocked step over the whole tile up to
-    512, the recursion on such leaves above) at the f32 contract, the
-    rank-1 scan at the blocked-LU bound; one K1 launch, one device
-    launch up to 512 and 7 at 640."""
+    W_T) at the f32 contract, the rank-1 scan at the blocked-LU bound;
+    one K1 launch of one device launch (the cluster kernel up to 512,
+    the flow kernel at 640)."""
     rng = np.random.default_rng(nb)
     a = torch.as_tensor(rng.standard_normal((batch, nb, nb))
                         + nb * np.eye(nb), dtype=dtype, device=cuda)
     kc.reset_launch_counts()
     got = kc.getrf_with_inverses(a)
     assert kc.LAUNCHES["getrf_with_inverses"] == 1
-    assert kc.DEVICE_LAUNCHES == {
-        "getrf_with_inverses": 1 if nb <= kt.WIDE_LEAF else 7}
+    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses": 1}
     for g, r in zip(got, kt.k1_wide(a)):
         torch.testing.assert_close(g, r, **TOL[dtype])
     for g, r, (rtol, atol) in zip(got, kt.getrf_with_inverses(a),
@@ -225,6 +225,115 @@ def test_wide_plan_matches_the_c_side(cuda, dtype):
     assert getattr(lib, f"plu_wide_fit_{s}")(cuda.index, 512,
                                                ctypes.byref(fit)) == 0
     assert fit.value >= 1
+
+
+# the flow kernel's widths: 512 < nb <= W_T (kc.FLOW_MAX_NB, by type),
+# and W_T + 32, the recursion on two flow leaves
+FLOW_NBS = (544, 640, 768, 1024, 1088, "W_T", "W_T+32")
+
+
+def _flow_nb(nb, dtype) -> int:
+    wt = kc.FLOW_MAX_NB[dtype]
+    return {"W_T": wt, "W_T+32": wt + 32}.get(nb, nb)
+
+
+@pytest.mark.parametrize("kind", ["random", "zero pivots"])
+@pytest.mark.parametrize("batch", [1, 3, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb", FLOW_NBS)
+def test_flow_kernel(cuda, nb, dtype, batch, kind):
+    """K1 from 512 to W_T on the flow kernel (one cooperative launch a
+    call where the batch's tiles all fit on the card at once; else, as
+    above W_T, the recursion on leaves of kernels_torch.k1_leaf_width,
+    kernels_cuda.k1_device_launches device launches): its plain twin
+    (kernels_torch.k1_wide) at the f32 contract; with zero pivots at 0
+    and wide_split(nb) made +tol, float U^-1 by
+    testing.zero_pivot_uinv_errors (its column at the second pivot holds
+    entries scaled by 1/tol, which 3xTF32 and the twin's FP32 products
+    round apart, while the f32 twin is 100% off the f64 one there: that
+    column by its residual in U·U^-1, the others at the contract); two
+    calls give the same bits."""
+    nb = _flow_nb(nb, dtype)
+    rng = np.random.default_rng(nb + batch)
+    if kind == "random":
+        x = rng.standard_normal((batch, nb, nb)) + nb * np.eye(nb)
+    else:
+        x = np.stack([wide_tiny_pivot_tile(nb, rng) for _ in range(batch)])
+    a = torch.as_tensor(x, dtype=dtype, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    kc.reset_launch_counts()
+    got = kc.getrf_with_inverses(a)
+    assert kc.LAUNCHES["getrf_with_inverses"] == 1
+    assert kc.DEVICE_LAUNCHES == {"getrf_with_inverses":
+                                  kc.k1_device_launches(nb, batch, dtype,
+                                                        sms)}
+    assert (kc.DEVICE_LAUNCHES["getrf_with_inverses"] == 1) == (
+        batch * kc.flow_plan(min(nb, kc.FLOW_MAX_NB[dtype]), dtype,
+                             sms)["ctas"] <= sms and
+        nb <= kc.FLOW_MAX_NB[dtype])
+    twin = kt.k1_wide(a)
+    split = kind != "random" and dtype == torch.float32
+    for g, r in zip(got[:2] if split else got, twin):
+        torch.testing.assert_close(g, r, **TOL[dtype])
+    if split:
+        zp = zero_pivot_uinv_errors(got[0], got[2], twin[2],
+                                    (TOL[dtype]["rtol"], TOL[dtype]["atol"]))
+        assert zp["rest"] <= 1 and zp["residual"] <= 1, zp
+    if kind != "random":
+        tol = float(torch.tensor(kt.DEFAULT_TOL[dtype], dtype=dtype))
+        m1 = kt.wide_split(nb)
+        assert float(got[0][0, 0, 0]) == tol
+        assert float(got[0][0, m1, m1]) == tol
+    for g, r in zip(got, kc.getrf_with_inverses(a)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("kind", ["random", "zero pivots"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb", [288, 300, 512])
+def test_flow_kernel_is_the_cluster_kernel(cuda, nb, dtype, kind):
+    """The flow kernel alone at nb <= 512 (on no path there) gives the
+    cluster kernel's bits: the same arithmetic, panel by panel."""
+    rng = np.random.default_rng(nb)
+    x = (rng.standard_normal((3, nb, nb)) + nb * np.eye(nb)
+         if kind == "random" else
+         np.stack([wide_tiny_pivot_tile(nb, rng) for _ in range(3)]))
+    a = torch.as_tensor(x, dtype=dtype, device=cuda)
+    for g, r in zip(kc.flow_kernel(a)[:3], kc.getrf_with_inverses(a)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_flow_plan_matches_the_c_side(cuda, dtype):
+    """kernels_cuda.flow_plan, FLOW_MAX_NB and FLOW_FLAGS are the C
+    side's (plu_flow_plan, plu_flow_max_nb, plu_flow_flag_slots) at
+    every nb up to W_T, kernels_torch.k1_leaf_width is plu_flow_leaf at
+    batches 1 to 64, and the flow kernel alone takes each of a few
+    widths up to W_T in one launch, as many tiles at once as the plan
+    says fit (the tiles beyond in rounds)."""
+    lib = kc.library().lib
+    size = torch.empty((), dtype=dtype).element_size()
+    assert lib.plu_flow_max_nb(size) == kc.FLOW_MAX_NB[dtype]
+    assert lib.plu_flow_flag_slots() == kc.FLOW_FLAGS
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    out = (ctypes.c_int * 4)()
+    for nb in range(1, kc.FLOW_MAX_NB[dtype] + 1):
+        assert lib.plu_flow_plan(nb, size, sms, out) == 0
+        pl = kc.flow_plan(nb, dtype, sms)
+        assert tuple(out) == (pl["ctas"], pl["rows"], pl["smem"],
+                              pl["sets"])
+    for batch in range(1, 65):
+        assert lib.plu_flow_leaf(batch, size, sms) == kt.k1_leaf_width(
+            batch, dtype, sms)
+    rng = np.random.default_rng(1)
+    for nb in (33, 512, kc.FLOW_MAX_NB[dtype]):
+        pl = kc.flow_plan(nb, dtype, sms)
+        a = torch.as_tensor(rng.standard_normal((pl["sets"] + 1, nb, nb))
+                            + nb * np.eye(nb), dtype=dtype, device=cuda)
+        *got, sets = kc.flow_kernel(a)
+        assert sets == pl["sets"]
+        for g, r in zip(got, kt.getrf_with_inverses_blocked(a)):
+            torch.testing.assert_close(g, r, **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["r32", "r64"])
