@@ -265,7 +265,11 @@ CUDA toolkit (nvcc).  It
      / 1e-12, a reload, and P6 per launch on complex128 slots; (e) 2 x 2
      gloo ranks on this card: poisson3d(32) nb=512 r32 rcm and native
      cr64 on poisson3d(16), launches, residuals, the same bits on every
-     rank; prints its seconds and a {"wide_native_stores": ...} line;
+     rank; (f) native cr64 compressed at nb=512 on poisson3d(24) with
+     imaginary parts, rcm (P6's 16-byte words at nb > 256): exact
+     counts, gstrf and solve residuals < 1e-12, a reload, P6 per launch
+     on its widest level; prints its seconds and a
+     {"wide_native_stores": ...} line;
  10. drives the last public pieces (extras_phase, ~40 s): (a)
      profile_dir on a gstrf of poisson3d(32) nb=128 nd r32 (plain,
      traced, traced, plain: exact launch counts, one Chrome trace file
@@ -1336,14 +1340,16 @@ def compressed_phase(dev, nd: dict, a) -> tuple:
     # level's update tiles (pangulu_tpu_torch/tools/probe_p6.py)
     st.values.copy_(v0)
     out["p6"] = p6 = {}
-    for key, ids in p6_batches(clu).items():
+    batches = p6_batches(clu)
+    err = p6_bits(st, batches["c"])
+    for key, ids in batches.items():
         p6[key] = measure_batch(sys.modules[__name__], st, ids)
         print_batch(f"({key})", p6[key])
     if not torch.equal(st.values, v0):
         fail("compressing a batch's own tiles changed the store")
     for name, d in (("decompress_tiles", "decompress"),
                     ("compress_tiles", "compress")):
-        kern[name] = dict(max_abs_err=0.0, ms=p6["c"][f"{d}_ms"],
+        kern[name] = dict(max_abs_err=err, ms=p6["c"][f"{d}_ms"],
                           plain_ms=p6["c"][f"{d}_plain_ms"],
                           library_ms=p6["c"][f"{d}_library_ms"],
                           **p6["c"][f"{d}_bound"],
@@ -2988,16 +2994,181 @@ def xla_engines_phase(dev, nx: int = 32, nb: int = 512, nb_mid: int = 384,
     torch.cuda.empty_cache()
     return out, entries, launches
 
+def expect_counts(what: str, want: dict) -> dict:
+    """kernels_cuda.LAUNCHES, which must read ``want`` (0 for every kernel
+    it omits); else the run fails."""
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+
+    want = {k: want.get(k, 0) for k in kc.LAUNCHES}
+    got = dict(kc.LAUNCHES)
+    if got != want:
+        fail(f"{what}: launch counts {got}, expected {want}")
+    return got
+
+
+def p6_entry(m: dict, d: str, err: float) -> dict:
+    """The kernels-line entry of P6 direction ``d`` from probe_p6's
+    measure_batch numbers ``m`` and the largest |kernel - plain| ``err``
+    that p6_bits measured on the same batch."""
+    return dict(max_abs_err=err, ms=m[f"{d}_ms"], plain_ms=m[f"{d}_plain_ms"],
+                library_ms=m[f"{d}_library_ms"], **m[f"{d}_bound"])
+
+
+def p6_bits(st, ids) -> float:
+    """P6 both ways on the batch ``ids`` of compressed store ``st``
+    against its plain versions on the same inputs: decompress, and
+    compress of the kernel's dense tiles into two copies of the slots
+    filled with 5.0 (each slot it writes then holds the store's value).
+    Returns the largest |kernel - plain| over both directions; the run
+    fails unless both are torch.equal."""
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+
+    args = (st.values, st.idx, st.off, st.cap, ids)
+    got = kc.decompress_tiles(*args, st.nb)
+    want = kt.decompress_tiles(*args, st.nb)
+    backs = [torch.full_like(st.values, 5.0) for _ in range(2)]
+    kc.compress_tiles(backs[0], st.idx, st.off, st.cap, ids, got)
+    kt.compress_tiles(backs[1], st.idx, st.off, st.cap, ids, got)
+    torch.cuda.synchronize()
+    live = backs[1] != 5.0
+    ok = (torch.equal(got, want) and torch.equal(backs[0], backs[1])
+          and torch.equal(backs[0][live], st.values[live]))
+    err = max(float((got - want).abs().max()),
+              float((backs[0] - backs[1]).abs().max()))
+    print(f"  {st.values.dtype} ({st.values.element_size()}-byte slots): "
+          f"decompress and compress {'bit-equal' if ok else 'DIFFER'} to "
+          f"the plain versions (max |diff| {err:g})")
+    if not ok:
+        fail(f"P6 at nb={st.nb} {st.values.dtype} disagrees with its plain "
+             "version")
+    return err
+
+
+def store_dense(st) -> torch.Tensor:
+    """Every tile of compressed store ``st`` dense (P6's plain version),
+    the scratch tile last."""
+    from pangulu_tpu_torch.ops import kernels_torch as kt
+
+    ids = kt.Indices.build(np.arange(st.num_tiles + 1), st.values.device)
+    return kt.decompress_tiles(st.values, st.idx, st.off, st.cap, ids, st.nb)
+
+
+def native_store_step(dev, nx: int, nb: int) -> tuple:
+    """wide_native_stores_phase (f): complex_mode="native" on the
+    compressed store, cr64, poisson3d(nx) with imaginary parts, nb, rcm
+    (P6's 16-byte words at nb > 256): init -> gstrf -> gstrs and a
+    reload with exact counts (testing.compressed_launches), gstrf and
+    solve residuals < 1e-12 in complex128, P6 per launch on the store's
+    widest level (probe_p6.py measure_batch), the seconds of each part.
+    Returns (its numbers, kernels-line entries, their launches on the
+    path).  Any failure raises."""
+    import os
+    import tempfile
+
+    from pangulu_tpu_torch import InitOptions, gstrf, gstrs, init
+    from pangulu_tpu_torch.io import load_factor, save_factor
+    from pangulu_tpu_torch.models import poisson3d
+    from pangulu_tpu_torch.ops import kernels_cuda as kc
+    from pangulu_tpu_torch.testing import (compressed_launches,
+                                           with_imaginary_parts)
+    from pangulu_tpu_torch.tools.probe_p6 import (measure_batch, p6_batches,
+                                                   print_batch)
+    from pangulu_tpu_torch.utils.perf import residual_norm
+
+    t0 = last = time.perf_counter()
+    secs = {}
+
+    def lap(what):
+        nonlocal last
+        now = time.perf_counter()
+        secs[what], last = now - last, now
+
+    print(f"wide stores (f): complex_mode native, tile_storage compressed, "
+          f"poisson3d({nx}) with imaginary parts, nb={nb}, cr64, rcm")
+    fa = with_imaginary_parts(poisson3d(nx))
+    aw = fa.to_scipy().astype(np.complex128)
+    bf = aw @ np.full(fa.n, 1 + 1j)
+    h = init(fa, InitOptions(nb=nb, dtype="cr64", ordering="rcm",
+                             tile_storage="compressed",
+                             complex_mode="native", device=str(dev)))
+    lap("init")
+    kc.reset_launch_counts()
+    gstrf(h)
+    lap("gstrf")
+    x = gstrs(h, bf)
+    lap("gstrs")
+    sch, st, clu = h.schedule, h.factor_tiles, h._factorizer
+    got = expect_counts(f"native cr64 compressed nb={nb}",
+                        compressed_launches(sch, factorizations=1, solves=1,
+                                            complex_tiles=True))
+    fres = factor_residual_device(h, store_dense(st))
+    res = residual_norm(aw, x, bf)
+    print(f"  backend {h.perf.kernels['backend']}, {sch.block_length} "
+          f"levels; launches {got}; gstrf residual {fres:.3e}, solve "
+          f"residual {res:.3e} (< 1e-12 each)")
+    if h.perf.kernels["backend"] != "torch" or not (fres < 1e-12
+                                                    and res < 1e-12):
+        fail(f"native cr64 compressed nb={nb}: backend or residuals")
+    if x.shape != (fa.n,) or not np.isfinite(x).all():
+        fail("the native cr64 solution has the wrong shape or is not "
+             "finite")
+    lap("checks")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "native512.npz")
+        save_factor(h, path)
+        kc.reset_launch_counts()
+        h2 = load_factor(path, device=str(dev))
+        x2 = gstrs(h2, bf)
+        reload = expect_counts(f"the reloaded native cr64 nb={nb} store",
+                               compressed_launches(sch, solves=1, reloads=1,
+                                                   complex_tiles=True))
+    rres = residual_norm(aw, x2, bf)
+    print(f"  save -> load -> gstrs: {reload}, solve residual {rres:.3e}")
+    if not rres < 1e-12:
+        fail(f"the reloaded native cr64 nb={nb} store's solve residual")
+    lap("reload")
+    ids = p6_batches(clu)["c"]
+    print(f"  P6 on the widest level's {len(ids)} update tiles "
+          f"({int(st.cap.host[ids.host].sum())} slots)")
+    err = p6_bits(st, ids)
+    m = measure_batch(sys.modules[__name__], st, ids)
+    print_batch(f"nb={nb} complex128", m)
+    lap("p6")
+    entries, launches = {}, {}
+    for name, d in (("decompress_tiles", "decompress"),
+                    ("compress_tiles", "compress")):
+        n = f"{name}@nb={nb},complex128"
+        entries[n] = p6_entry(m, d, err)
+        launches[n] = got[name]
+    row = dict(nx=nx, bl=sch.block_length, launches=got,
+               reload_launches=reload, gstrf_residual=fres,
+               solve_residual=res, reload_solve_residual=rres,
+               p6=dict(max_abs_err=err, **m),
+               seconds_each=secs, seconds=time.perf_counter() - t0)
+    print(f"wide stores (f): {row['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    del h, h2, st, clu
+    torch.cuda.empty_cache()
+    return row, entries, launches
+
+
 # the wide and native stores phase: its 2 x 2 ranks on one card (r32 at
 # nb=512, K1 for wide tiles on every rank; native cr64 tiles)
 WIDE_DIST_CASES = ("p3d32_nb512_rcm:poisson3d:32:r32:rcm:512",
                    "p3d16_cr64n_rcm:poisson3d:16:cr64:rcm:128:native")
 
 
+# wide_native_stores_phase (f): the native complex128 compressed store at
+# nb=512 on poisson3d(WIDE_NATIVE_NX) with imaginary parts
+WIDE_NATIVE_NX = 24
+
+
 def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
                              p6_nbs=(288, 384, 512), p2_nbs=(384, 512),
                              nx_c: int = 16, nb_c: int = 128,
-                             dist_cases=WIDE_DIST_CASES) -> tuple:
+                             dist_cases=WIDE_DIST_CASES,
+                             nx_f: int = WIDE_NATIVE_NX) -> tuple:
     """The compressed store at nb > 256 and with native complex tiles,
     and the multi-device engine at nb > 256 and with native complex
     tiles, on the card:
@@ -3038,10 +3209,16 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
       (e) 2 x 2 ranks on this card over gloo (run_ranks, check_ranks):
           dist_cases, poisson3d(nx) nb r32 rcm (K1 for wide tiles once a
           group on every rank) and native cr64 on poisson3d(nx_c) (no
-          hand kernel), residuals, the same bits on every rank.
+          hand kernel), residuals, the same bits on every rank;
+      (f) complex_mode="native" on the compressed store at nb, cr64,
+          poisson3d(nx_f) with imaginary parts, rcm (P6's 16-byte words
+          at nb > 256 on a path): init -> gstrf -> gstrs and a reload,
+          exact counts, gstrf and solve residuals < 1e-12 in complex128,
+          P6 per launch on the store's widest level, its seconds
+          (native_store_step).
 
     Returns (its numbers, kernels-line entries, their launches on the
-    paths (c) and (d)).  Any failure raises."""
+    paths (c), (d) and (f)).  Any failure raises."""
     import os
     import shutil
     import tempfile
@@ -3053,7 +3230,6 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
     from pangulu_tpu_torch.numeric import LUFactorizer
     from pangulu_tpu_torch.ops import kernels_cuda as kc
     from pangulu_tpu_torch.ops import kernels_torch as kt
-    from pangulu_tpu_torch.ops.kernels_torch import Indices
     from pangulu_tpu_torch.testing import (compressed_launches,
                                            with_imaginary_parts)
     from pangulu_tpu_torch.tools.probe_p6 import (SLOT_TYPES, measure_batch,
@@ -3067,21 +3243,9 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
     out, entries, launches = {"p6": {}, "p2": {}}, {}, {}
     rng = np.random.default_rng(20)
 
-    def expect(what, want):
-        want = {k: want.get(k, 0) for k in kc.LAUNCHES}
-        got = dict(kc.LAUNCHES)
-        if got != want:
-            fail(f"{what}: launch counts {got}, expected {want}")
-        return got
-
     def step(label):
         print(f"wide stores ({label}) at {time.perf_counter() - t_phase:.1f}"
               " s")
-
-    def p6_entry(m, d, err=0.0):
-        return dict(max_abs_err=err, ms=m[f"{d}_ms"],
-                    plain_ms=m[f"{d}_plain_ms"],
-                    library_ms=m[f"{d}_library_ms"], **m[f"{d}_bound"])
 
     # ---- (a) P6 at the wide tiles, every slot type ------------------------
     step("a")
@@ -3096,34 +3260,19 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
               f"slots), every slot type")
         for dt in SLOT_TYPES:
             random_slots(st, dt, rng)
-            args = (st.values, st.idx, st.off, st.cap, ids)
-            got = kc.decompress_tiles(*args, w)
-            backs = [torch.full_like(st.values, 5.0) for _ in range(2)]
-            kc.compress_tiles(backs[0], st.idx, st.off, st.cap, ids, got)
-            kt.compress_tiles(backs[1], st.idx, st.off, st.cap, ids, got)
-            torch.cuda.synchronize()
-            live = backs[1] != 5.0
-            ok = (torch.equal(got, kt.decompress_tiles(*args, w))
-                  and torch.equal(backs[0], backs[1])
-                  and torch.equal(backs[0][live], st.values[live]))
-            print(f"  {dt} ({st.values.element_size()}-byte slots): "
-                  f"decompress and compress "
-                  f"{'bit-equal' if ok else 'DIFFER'} to the plain versions")
-            if not ok:
-                fail(f"P6 at nb={w} {dt} disagrees with its plain version")
+            err = p6_bits(st, ids)
             out["p6"][f"nb{w}_{dt}"] = dict(tiles=len(ids), largest_cap=cap,
-                                            bit_equal=ok)
+                                            bit_equal=True, max_abs_err=err)
             if w == nb and dt in (torch.float32, torch.complex128):
                 m = measure_batch(cs, st, ids)
                 print_batch(f"nb={w} {dt}", m)
                 out["p6"][f"nb{w}_{dt}"].update(m)
-            del got, backs
         del clu, st
         torch.cuda.empty_cache()
     m = out["p6"][f"nb{nb}_{torch.float32}"]
     for name, d in (("decompress_tiles", "decompress"),
                     ("compress_tiles", "compress")):
-        entries[f"{name}@nb={nb}"] = p6_entry(m, d)
+        entries[f"{name}@nb={nb}"] = p6_entry(m, d, m["max_abs_err"])
 
     # ---- (b) P2 above nb = 256 ---------------------------------------------
     step("b")
@@ -3172,11 +3321,6 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
                                        "bound_ms", "bound_by")})
 
     # ---- (c) the compressed store at nb --------------------------------
-    def store_dense(st):
-        ids = Indices.build(np.arange(st.num_tiles + 1), dev)
-        return kt.decompress_tiles(st.values, st.idx, st.off, st.cap, ids,
-                                   st.nb)
-
     step("c")
     for dtype, ordering in (("r32", "rcm"), ("r32", "nd"), ("r64", "rcm")):
         print(f"wide stores (c): init -> gstrf -> gstrs, poisson3d({nx}), "
@@ -3190,7 +3334,7 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
         solves = 3 if dtype == "r32" else 1
         sch, st, clu = h.schedule, h.factor_tiles, h._factorizer
         bl = sch.block_length
-        got = expect(f"compressed nb={nb} {dtype} {ordering}",
+        got = expect_counts(f"compressed nb={nb} {dtype} {ordering}",
                      compressed_launches(sch, factorizations=1,
                                          solves=solves))
         k1_dev = kc.DEVICE_LAUNCHES["getrf_with_inverses"]
@@ -3268,7 +3412,7 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
                 kc.reset_launch_counts()
                 h2 = load_factor(path, device=str(dev))
                 x2 = gstrs(h2, b)
-                row["reload_launches"] = expect(
+                row["reload_launches"] = expect_counts(
                     f"the reloaded nb={nb} store",
                     compressed_launches(sch, solves=3, reloads=1))
             row["reload_solve_residual"] = residual_norm(s, x2, b)
@@ -3302,7 +3446,7 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
         x = gstrs(h, bc)
         solves = 3 if dtype == "cr32" else 1
         sch, st, clu = h.schedule, h.factor_tiles, h._factorizer
-        got = expect(f"native {dtype} compressed", compressed_launches(
+        got = expect_counts(f"native {dtype} compressed", compressed_launches(
             sch, factorizations=1, solves=solves, complex_tiles=True))
         fres = factor_residual_device(h, store_dense(st))
         res = residual_norm(aw, x, bc)
@@ -3319,7 +3463,7 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
             kc.reset_launch_counts()
             h2 = load_factor(path, device=str(dev))
             x2 = gstrs(h2, bc)
-            reload = expect(f"the reloaded native {dtype} store",
+            reload = expect_counts(f"the reloaded native {dtype} store",
                             compressed_launches(sch, solves=solves,
                                                 reloads=1,
                                                 complex_tiles=True))
@@ -3346,13 +3490,15 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
                    ms_per_solve=sms, store_bytes=st.compressed_bytes,
                    dense_bytes=st.dense_bytes)
         if dtype == "cr64":
-            m = measure_batch(cs, st, p6_batches(clu)["c"])
+            ids = p6_batches(clu)["c"]
+            err = p6_bits(st, ids)
+            m = measure_batch(cs, st, ids)
             print_batch(f"nb={nb_c} complex128", m)
-            row["p6"] = m
+            row["p6"] = dict(max_abs_err=err, **m)
             for name, d in (("decompress_tiles", "decompress"),
                             ("compress_tiles", "compress")):
                 n = f"{name}@nb={nb_c},complex128"
-                entries[n] = p6_entry(m, d)
+                entries[n] = p6_entry(m, d, err)
                 launches[n] = got[name]
         out[f"native_{dtype}"] = row
         del h, h2, st, clu, xb
@@ -3370,6 +3516,13 @@ def wide_native_stores_phase(dev, nx: int = 32, nb: int = 512,
             out[spec.split(":")[0]] = check_ranks(tmp, spec)[0]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- (f) native complex128 on the compressed store at nb -----------
+    step("f")
+    out[f"native_cr64_nb{nb}"], e, n = native_store_step(dev, nx_f, nb)
+    entries.update(e)
+    launches.update(n)
+
     out["seconds"] = time.perf_counter() - t_phase
     print(f"wide stores: {out['seconds']:.1f} s")
     torch.cuda.empty_cache()

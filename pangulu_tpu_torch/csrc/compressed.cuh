@@ -37,21 +37,29 @@
 //   out with 16-byte stores, so each dense byte is written once.
 //   Compress block (b, j) takes slots [j S, (j + 1) S) of tile b;
 //   blocks past the tile's cap exit at once.  Both walk their rows or
-//   slots grid-stride, so any grid is right.  A thread takes kSlotGroup
-//   consecutive slots at once (one vector load of their values and one
-//   of their positions where the group is aligned and whole; a range's
-//   ragged head and tail slot by slot), every load before the stores.
+//   slots grid-stride, so any grid is right.  P6 moves values and
+//   computes nothing, so the kernels take a slot as a word of its width
+//   W (SlotWord: 4 bytes for float32, 8 for float64 and complex64, 16
+//   for complex128), not as a value type.  A group is the 16 / W
+//   consecutive slots of one 16-byte vector of values.  A pass of a
+//   block's loop takes kSlotPass * kSlotThreads slots: each thread
+//   kSlotPass / (16 / W) groups, lane after lane, so that every warp
+//   instruction reads or writes one contiguous piece of the slot arrays
+//   (positions, values, and for slots in order the dense values they
+//   name), by one vector load of a group's values and one of its
+//   positions where the group is aligned and whole (a range's ragged
+//   head and tail slot by slot), every load before the stores.  (The
+//   first design gave every width groups of 4 slots: at W = 16 a warp's
+//   lanes were 64 bytes apart, and compress lost to one torch.gather.)
 //   The wrapper picks R and S (kernels_cuda.stage_geometry) so that the
 //   grid holds a few blocks an SM where the batch allows.  The real ids
 //   of a batch are distinct (the wrapper checks), so no slot is written
 //   by two blocks.
-//   P6 moves values and computes nothing, so the kernels take a slot
-//   as a word of its width (SlotWord: 4 bytes for float32, 8 for
-//   float64 and complex64, 16 for complex128), not as a value type.
-//   Where it stands: near the byte bound on a wide batch; a small
-//   launch takes ~3 us, the launch and its chain of dependent loads
-//   (ids, then offset and cap, then positions, then values or dense
-//   values), whatever its size.
+//   Where it stands: near the byte bound on a wide batch (complex128
+//   at nb = 512: decompress 88% of it, compress faster than one
+//   torch.gather); a small launch takes ~3 us, the launch and its chain
+//   of dependent loads (ids, then offset and cap, then positions, then
+//   values or dense values), whatever its size.
 //
 // P2 triangle_inverses_kernel
 //   Replaces tools/exp_batched_scan.py batched_newton (the TPU probe of
@@ -107,8 +115,9 @@
 namespace plu {
 
 constexpr int kSlotThreads = 256;
-// consecutive slots a thread takes at once
-constexpr int kSlotGroup = 4;
+// slots a thread takes in one pass of a kernel's loop, whatever the
+// word width: kSlotPass / SlotWord<W>::kGroup groups
+constexpr int kSlotPass = 4;
 // the position of a slot outside the range a thread works on
 constexpr unsigned kNoSlot = 0xFFFFFFFFu;
 // shared memory of a decompress block at most (the rows it builds)
@@ -118,76 +127,99 @@ constexpr int kSlotGridY = 65535;
 // a decompress block reads a tile of at most this many slots whole,
 // keeping those of its rows, rather than searching them (two rounds of
 // loads saved on the small tiles of most launches)
-constexpr int kSlotDirect = 2 * kSlotGroup * kSlotThreads;
+constexpr int kSlotDirect = 2 * kSlotPass * kSlotThreads;
 
-// A slot's value as P6 moves it: a word of its width in bytes.
+// A slot's value as P6 moves it: a word T of its width W in bytes, and
+// its group, the kGroup = 16 / W consecutive slots of one 16-byte vector
+// of values: 4 slots of float32, 2 of float64 or complex64, 1 of
+// complex128.
 template <int W>
 struct SlotWord;
 template <>
 struct SlotWord<4> {
   using T = uint32_t;
+  static constexpr int kGroup = 4;
 };
 template <>
 struct SlotWord<8> {
   using T = uint2;
+  static constexpr int kGroup = 2;
 };
 template <>
 struct SlotWord<16> {
   using T = uint4;
+  static constexpr int kGroup = 1;
 };
+// groups of slot words T a thread takes in one pass, lane after lane:
+// thread t's u-th lies (u * kSlotThreads + t) groups past the pass's first
+template <typename T>
+constexpr int kSlotVectors = kSlotPass / SlotWord<sizeof(T)>::kGroup;
 
-// kSlotGroup slot words from p (kSlotGroup-aligned slots of an array
-// whose start is 16-byte aligned) by 16-byte loads, and back.
+// A group's slot words from p (a group-aligned slot of an array whose
+// start is 16-byte aligned) by one 16-byte load, and back.
 __device__ __forceinline__ void load_group(const uint32_t* __restrict__ p,
-                                           uint32_t (&v)[kSlotGroup]) {
+                                           uint32_t (&v)[4]) {
   const uint4 q = *reinterpret_cast<const uint4*>(p);
   v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
 }
 __device__ __forceinline__ void load_group(const uint2* __restrict__ p,
-                                           uint2 (&v)[kSlotGroup]) {
-  const uint4 a = reinterpret_cast<const uint4*>(p)[0];
-  const uint4 b = reinterpret_cast<const uint4*>(p)[1];
-  v[0] = make_uint2(a.x, a.y), v[1] = make_uint2(a.z, a.w);
-  v[2] = make_uint2(b.x, b.y), v[3] = make_uint2(b.z, b.w);
+                                           uint2 (&v)[2]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  v[0] = make_uint2(q.x, q.y), v[1] = make_uint2(q.z, q.w);
 }
-__device__ __forceinline__ void load_group(const uint4* __restrict__ p,
-                                           uint4 (&v)[kSlotGroup]) {
-#pragma unroll
-  for (int k = 0; k < kSlotGroup; ++k) v[k] = p[k];
+template <typename T>
+__device__ __forceinline__ void load_group(const T* __restrict__ p,
+                                           T (&v)[1]) {
+  v[0] = *p;
 }
 __device__ __forceinline__ void store_group(uint32_t* __restrict__ p,
-                                            const uint32_t (&v)[kSlotGroup]) {
+                                            const uint32_t (&v)[4]) {
   *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
 }
 __device__ __forceinline__ void store_group(uint2* __restrict__ p,
-                                            const uint2 (&v)[kSlotGroup]) {
-  reinterpret_cast<uint4*>(p)[0] = make_uint4(v[0].x, v[0].y, v[1].x, v[1].y);
-  reinterpret_cast<uint4*>(p)[1] = make_uint4(v[2].x, v[2].y, v[3].x, v[3].y);
+                                            const uint2 (&v)[2]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(v[0].x, v[0].y, v[1].x, v[1].y);
 }
-__device__ __forceinline__ void store_group(uint4* __restrict__ p,
-                                            const uint4 (&v)[kSlotGroup]) {
-#pragma unroll
-  for (int k = 0; k < kSlotGroup; ++k) p[k] = v[k];
+template <typename T>
+__device__ __forceinline__ void store_group(T* __restrict__ p,
+                                            const T (&v)[1]) {
+  *p = v[0];
 }
-// kSlotGroup positions from p, the same way.
+// A group's positions from p, by one load of their width.
 __device__ __forceinline__ void load_positions(const uint16_t* __restrict__ p,
-                                               unsigned (&v)[kSlotGroup]) {
+                                               unsigned (&v)[4]) {
   const uint2 q = *reinterpret_cast<const uint2*>(p);
   v[0] = q.x & 0xFFFFu, v[1] = q.x >> 16, v[2] = q.y & 0xFFFFu,
   v[3] = q.y >> 16;
 }
 __device__ __forceinline__ void load_positions(const uint32_t* __restrict__ p,
-                                               unsigned (&v)[kSlotGroup]) {
+                                               unsigned (&v)[4]) {
   const uint4 q = *reinterpret_cast<const uint4*>(p);
   v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
 }
+__device__ __forceinline__ void load_positions(const uint16_t* __restrict__ p,
+                                               unsigned (&v)[2]) {
+  const unsigned q = *reinterpret_cast<const unsigned*>(p);
+  v[0] = q & 0xFFFFu, v[1] = q >> 16;
+}
+__device__ __forceinline__ void load_positions(const uint32_t* __restrict__ p,
+                                               unsigned (&v)[2]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = q.x, v[1] = q.y;
+}
+template <typename I>
+__device__ __forceinline__ void load_positions(const I* __restrict__ p,
+                                               unsigned (&v)[1]) {
+  v[0] = *p;
+}
 
-// Whether the slot arrays take load_group and store_group.
-template <typename T, typename I>
+// Whether the slot arrays take load_group and store_group (groups of G
+// slots).
+template <int G, typename T, typename I>
 __device__ __forceinline__ bool groups_aligned(const T* values,
                                                const I* idx) {
   return reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(idx) % (kSlotGroup * sizeof(I)) == 0;
+         reinterpret_cast<uintptr_t>(idx) % (G * sizeof(I)) == 0;
 }
 
 // The first slots s0 and s1 of a tile's c strictly ascending positions
@@ -233,12 +265,13 @@ __global__ void __launch_bounds__(kSlotThreads)
                       const int* __restrict__ off, const int* __restrict__ cap,
                       const int* __restrict__ ids, int nb, int rows,
                       T* __restrict__ dense) {
+  constexpr int G = SlotWord<sizeof(T)>::kGroup, U = kSlotVectors<T>;
   extern __shared__ uint4 chunk4[];
   T* chunk = reinterpret_cast<T*>(chunk4);
   const int t = ids[blockIdx.x];
   const long long o = off[t];
   const int c = cap[t];
-  const bool vec = groups_aligned(values, idx);
+  const bool vec = groups_aligned<G>(values, idx);
   T* tile = dense + (size_t)blockIdx.x * nb * nb;
   for (int r0 = blockIdx.y * rows; r0 < nb; r0 += gridDim.y * rows) {
     const int n = (min(r0 + rows, nb) - r0) * nb;  // the chunk's values
@@ -253,25 +286,30 @@ __global__ void __launch_bounds__(kSlotThreads)
       __syncthreads();
     const long long lo = o + s0, hi = o + s1;
 #pragma unroll 2
-    for (long long g = (lo & ~(long long)(kSlotGroup - 1)) +
-                       kSlotGroup * threadIdx.x;
-         g < hi; g += kSlotGroup * kSlotThreads) {
-      unsigned p[kSlotGroup];
-      T v[kSlotGroup];
-      if (vec && g >= lo && g + kSlotGroup <= hi) {
-        load_positions(idx + g, p);
-        load_group(values + g, v);
-      } else {
+    for (long long g = (lo & ~(long long)(G - 1)) + G * threadIdx.x; g < hi;
+         g += U * G * kSlotThreads) {
+      unsigned p[U][G];
+      T v[U][G];
 #pragma unroll
-        for (int k = 0; k < kSlotGroup; ++k) {
-          const bool in = g + k >= lo && g + k < hi;
-          p[k] = in ? (unsigned)idx[g + k] : kNoSlot;
-          v[k] = in ? values[g + k] : T{};
+      for (int u = 0; u < U; ++u) {
+        const long long gu = g + u * G * kSlotThreads;
+        if (vec && gu >= lo && gu + G <= hi) {
+          load_positions(idx + gu, p[u]);
+          load_group(values + gu, v[u]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < G; ++k) {
+            const bool in = gu + k >= lo && gu + k < hi;
+            p[u][k] = in ? (unsigned)idx[gu + k] : kNoSlot;
+            v[u][k] = in ? values[gu + k] : T{};
+          }
         }
       }
 #pragma unroll
-      for (int k = 0; k < kSlotGroup; ++k)  // the slots of its rows
-        if (p[k] - p0 < (unsigned)n) chunk[p[k] - p0] = v[k];
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < G; ++k)  // the slots of its rows
+          if (p[u][k] - p0 < (unsigned)n) chunk[p[u][k] - p0] = v[u][k];
     }
     __syncthreads();
     T* d = tile + p0;
@@ -296,40 +334,54 @@ __global__ void __launch_bounds__(kSlotThreads)
                     const int* __restrict__ off, const int* __restrict__ cap,
                     const int* __restrict__ ids, int nb, int span,
                     const T* __restrict__ dense) {
+  constexpr int G = SlotWord<sizeof(T)>::kGroup, U = kSlotVectors<T>;
   const int t = ids[blockIdx.x];
   const int c = cap[t];
   const long long o = off[t];
   const unsigned nn = (unsigned)nb * nb;
   const T* d = dense + (size_t)blockIdx.x * nn;
-  const bool vec = groups_aligned(values, idx);
+  const bool vec = groups_aligned<G>(values, idx);
   for (long long s0 = (long long)blockIdx.y * span; s0 < c;
        s0 += (long long)gridDim.y * span) {
     const long long lo = o + s0, hi = o + min(s0 + span, (long long)c);
-    for (long long g = (lo & ~(long long)(kSlotGroup - 1)) +
-                       kSlotGroup * threadIdx.x;
-         g < hi; g += kSlotGroup * kSlotThreads) {
-      unsigned p[kSlotGroup];
-      const bool whole = vec && g >= lo && g + kSlotGroup <= hi;
-      if (whole) {
-        load_positions(idx + g, p);
-      } else {
+    for (long long g = (lo & ~(long long)(G - 1)) + G * threadIdx.x; g < hi;
+         g += U * G * kSlotThreads) {
+      unsigned p[U][G];
+      bool whole[U];
 #pragma unroll
-        for (int k = 0; k < kSlotGroup; ++k)
-          p[k] = g + k >= lo && g + k < hi ? (unsigned)idx[g + k] : kNoSlot;
+      for (int u = 0; u < U; ++u) {
+        const long long gu = g + u * G * kSlotThreads;
+        whole[u] = vec && gu >= lo && gu + G <= hi;
+        if (whole[u]) {
+          load_positions(idx + gu, p[u]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < G; ++k)
+            p[u][k] = gu + k >= lo && gu + k < hi ? (unsigned)idx[gu + k]
+                                                  : kNoSlot;
+        }
       }
-      T v[kSlotGroup];
-      bool all = whole;
+      T v[U][G];
+      bool all[U];
 #pragma unroll
-      for (int k = 0; k < kSlotGroup; ++k) {
-        v[k] = p[k] < nn ? d[p[k]] : T{};
-        all = all && p[k] < nn;
+      for (int u = 0; u < U; ++u) {
+        all[u] = whole[u];
+#pragma unroll
+        for (int k = 0; k < G; ++k) {
+          v[u][k] = p[u][k] < nn ? d[p[u][k]] : T{};
+          all[u] = all[u] && p[u][k] < nn;
+        }
       }
-      if (all) {
-        store_group(values + g, v);
-      } else {
 #pragma unroll
-        for (int k = 0; k < kSlotGroup; ++k)
-          if (p[k] < nn) values[g + k] = v[k];
+      for (int u = 0; u < U; ++u) {
+        const long long gu = g + u * G * kSlotThreads;
+        if (all[u]) {
+          store_group(values + gu, v[u]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < G; ++k)
+            if (p[u][k] < nn) values[gu + k] = v[u][k];
+        }
       }
     }
   }

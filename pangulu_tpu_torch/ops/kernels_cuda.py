@@ -797,19 +797,24 @@ _IDX_BYTES = {torch.uint16: 2, torch.uint32: 4}
 _SLOT_WORDS = {torch.float32: 4, torch.float64: 8, torch.complex64: 8,
                torch.complex128: 16}
 
-# P6's launch geometry (csrc/compressed.cuh): threads a block, slots a
-# thread takes at once, the largest tile a decompress block reads whole
-# (larger ones it searches), the shared memory a decompress block should
-# use for its rows and the most it may (kSlotChunkBytes: at least one
-# row of the tile must fit), the blocks an SM a decompress and a
-# compress grid should hold where the batch allows (chosen by
-# probe_p6.py --sweep on an H100: fewer, larger blocks for decompress,
-# whose rows each block writes from shared memory), the largest slot
-# span of a compress block in units of SLOT_GROUP * SLOT_THREADS, and
-# the largest second grid dimension.
+# P6's launch geometry (csrc/compressed.cuh): threads a block; slots a
+# thread takes in one pass of a kernel's loop (kSlotPass), as groups of
+# SLOT_GROUP[w] slots, the one 16-byte vector of values of w-byte words
+# (SlotWord<w>::kGroup), lane after lane; the largest tile a decompress
+# block reads whole (larger ones it searches); the shared memory a
+# decompress block should use for its rows and the most it may
+# (kSlotChunkBytes: at least one row of the tile must fit); the blocks
+# an SM a decompress and a compress grid should hold where the batch
+# allows (chosen by probe_p6.py --sweep on an H100: fewer, larger blocks
+# for decompress, whose rows each block writes from shared memory; on
+# 8- and 16-byte words no other compress grid was faster by more than
+# the runs' spread, so every width takes the same); the largest slot
+# span of a compress block in passes of a block (SLOT_PASS *
+# SLOT_THREADS slots); and the largest second grid dimension.
 SLOT_THREADS = 256
-SLOT_GROUP = 4
-SLOT_DIRECT = 2 * SLOT_GROUP * SLOT_THREADS
+SLOT_PASS = 4
+SLOT_GROUP = {4: 4, 8: 2, 16: 1}
+SLOT_DIRECT = 2 * SLOT_PASS * SLOT_THREADS
 SLOT_CHUNK_BYTES = 32768
 SLOT_CHUNK_LIMIT = 48 * 1024
 SLOT_DECOMPRESS_PER_SM = 4
@@ -846,7 +851,10 @@ def stage_geometry(nb: int, elem_bytes: int, caps, sms: int
     reads all its slots.  A decompress block's rows fit
     SLOT_CHUNK_BYTES (one row at least, which must fit the kernel's
     SLOT_CHUNK_LIMIT: else this raises), chunks of one tile are as even
-    as may be, a span is a whole number of thread groups."""
+    as may be.  A span is a whole number of a block's passes
+    (SLOT_PASS * SLOT_THREADS slots at every width: a thread takes
+    SLOT_PASS slots a pass, in groups of SLOT_GROUP[elem_bytes]), at
+    most SLOT_SPAN_UNITS of them."""
     if nb * elem_bytes > SLOT_CHUNK_LIMIT:
         raise ValueError(
             f"P6 decompresses a tile in blocks of whole rows held in "
@@ -863,7 +871,7 @@ def stage_geometry(nb: int, elem_bytes: int, caps, sms: int
                       -(-nb * batch // target)))
     chunks = -(-nb // rows)
     rows = -(-nb // chunks)
-    unit = SLOT_GROUP * SLOT_THREADS
+    unit = SLOT_PASS * SLOT_THREADS
     span = unit * max(1, min(SLOT_SPAN_UNITS, -(-int(caps.sum()) // (
         unit * SLOT_COMPRESS_PER_SM * sms))))
     spans = min(max(1, -(-int(caps.max(initial=0)) // span)), SLOT_GRID_Y)
@@ -912,6 +920,17 @@ def check_slot_order(idx: torch.Tensor, off: Indices, cap: Indices,
                      "positions in ascending order)")
 
 
+def _check_word_alignment(name: str, t: torch.Tensor) -> None:
+    """P6 reads and writes a tensor's words whole, at their own alignment
+    (16 bytes for complex128): a view into foreign memory off it is
+    refused."""
+    need = t.element_size()
+    if t.data_ptr() % need:
+        raise ValueError(f"{name} starts {t.data_ptr() % need} bytes off "
+                         f"the {need}-byte boundary P6 moves its "
+                         f"{t.dtype} words at")
+
+
 def _check_slots(values, idx, off: Indices, cap: Indices, nb: int):
     """The store's arrays, and (once a store) its host tables and slot
     order: every tile's slot range inside ``values``, the scratch tile
@@ -932,6 +951,8 @@ def _check_slots(values, idx, off: Indices, cap: Indices, nb: int):
         raise ValueError(f"uint16 slot positions hold nb <= 255 (sentinel "
                          f"nb*nb), got nb={nb}")
     _check_tensor("idx", idx, idx.dtype, values.shape, dev)
+    _check_word_alignment("values", values)
+    _check_word_alignment("idx", idx)
     nt = len(off) - 1
     for name, ix in (("off", off), ("cap", cap)):
         _check_tensor(name, ix.dev, torch.int32, (nt + 1,), dev)
@@ -1016,6 +1037,7 @@ def compress_tiles(values: torch.Tensor, idx: torch.Tensor, off: Indices,
     _check_ids(ids, nt, values.device)
     _check_tensor("dense", dense, values.dtype, (len(ids), nb, nb),
                   values.device)
+    _check_word_alignment("dense", dense)
     if len(ids):
         _stage_slots(False, values, idx, off, cap, ids, nb, dense)
         LAUNCHES["compress_tiles"] += 1

@@ -4,8 +4,9 @@ are exactly zero at a chosen step, the bound that holds K1's blocked
 step (128 < nb <= 256) against the rank-1 plain version, and K4's
 diagonal step alone on tiles of a store (``diag_step``); for the
 compressed store, a store of a matrix at any nb and value type
-(``compressed_store``) and the launches its engines make
-(``CompressedLU``, ``PanelLU``); for the TPU probes P3, P4 and P5, their
+(``compressed_store``), the launches its engines make
+(``CompressedLU``, ``PanelLU``) and copies of its arrays off their
+alignment (``offset_copy``); for the TPU probes P3, P4 and P5, their
 inputs; for the complex types, a damped operator with imaginary
 parts."""
 
@@ -251,6 +252,24 @@ def panel_launches(plu, solves: int = 0, reloads: int = 0) -> dict:
                getrf_with_inverses=sum(c1 - c0 for c0, c1 in plu.panel_cols),
                decompress_tiles=out["decompress_tiles"] + steps,
                compress_tiles=steps)
+    return out
+
+
+def offset_copy(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` on its device whose data starts
+    ``nbytes`` past a 64-byte boundary (a view into a byte buffer, as
+    memory from outside PyTorch may be): P6's slot arrays off the
+    alignment of their vector loads."""
+    n = t.numel() * t.element_size()
+    raw = torch.empty(n + 128, dtype=torch.uint8, device=t.device)
+    at = (-raw.data_ptr()) % 64 + nbytes
+    out = torch.empty(0, dtype=t.dtype, device=t.device).set_(
+        raw.untyped_storage()[at:at + n], 0, t.shape,
+        torch.empty(t.shape, device="meta").stride())
+    # byte for byte: PyTorch's own kernels may load a word whole
+    out.reshape(-1).view(torch.uint8).copy_(
+        t.contiguous().reshape(-1).view(torch.uint8))
+    assert out.data_ptr() % 64 == nbytes and out.is_contiguous()
     return out
 
 

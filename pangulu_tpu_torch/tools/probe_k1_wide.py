@@ -67,7 +67,6 @@ import ctypes
 import json
 import pathlib
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -433,46 +432,6 @@ def variant_edits(src: str) -> dict:
     return out
 
 
-def build_variants(edits: dict) -> tuple:
-    """One nvcc a variant, all at once; (dirs, ptxas logs)."""
-    from pangulu_tpu_torch.ops import build
-
-    base = ROOT / "pangulu_tpu_torch" / "_build" / "probe_k1_wide"
-    shipped = build.CSRC_DIR
-    src = (shipped / SRC).read_text()
-    dirs, jobs = {}, {}
-    t0 = time.perf_counter()
-    for name, changes in edits.items():
-        d = base / name
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(shipped, d / "csrc")
-        text = src
-        for old, new in changes:
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: edit does not match "
-                                   f"once: {old[:60]!r}")
-            text = text.replace(old, new)
-        (d / "csrc" / SRC).write_text(text)
-        bdir = d / "_build"
-        bdir.mkdir(parents=True, exist_ok=True)
-        build.CSRC_DIR = d / "csrc"
-        out = bdir / f"liblu_kernels_{build.source_hash()}.so"
-        dirs[name] = (d / "csrc", bdir)
-        jobs[name] = subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-             str(d / "csrc" / "lu_kernels.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-    build.CSRC_DIR = shipped
-    logs = {}
-    for name, p in jobs.items():
-        logs[name] = p.communicate()[0]
-        if p.returncode:
-            raise RuntimeError(f"variant {name}: nvcc failed\n"
-                               f"{logs[name][-3000:]}")
-    print(f"built {len(jobs)} variants in {time.perf_counter() - t0:.1f} s")
-    return dirs, logs
-
-
 def phases(c: np.ndarray, npan: int, h: int) -> dict:
     """Cycles a panel (median over CTAs) and the next owner's chain from
     the clock64 readings ``c`` [ctas, slots] of one tile."""
@@ -495,10 +454,11 @@ def variants(dev) -> dict:
     from pangulu_tpu_torch.ops import build
     from pangulu_tpu_torch.ops import kernels_cuda as kc
     from pangulu_tpu_torch.ops import kernels_torch as kt
+    from pangulu_tpu_torch.tools.variants import build_variants
 
     shipped_src = (build.CSRC_DIR / SRC).read_text()
     edits = variant_edits(shipped_src)
-    dirs, logs = build_variants(edits)
+    dirs, logs = build_variants(edits, SRC, "probe_k1_wide")
     data = {(nb, dt): tile(nb, dt, 1, dev) for nb in VARIANT_NBS
             for dt in (torch.float32, torch.float64)}
     refs = {k: kt.getrf_with_inverses_blocked(a) for k, a in data.items()}

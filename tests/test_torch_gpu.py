@@ -43,8 +43,9 @@ from pangulu_tpu_torch.ops import kernels_cuda as kc
 from pangulu_tpu_torch.ops import kernels_torch as kt
 from pangulu_tpu_torch.testing import (BLOCKED_TOL, blocked_tiny_pivot_tile,
                                        diag_step, newton_inputs,
-                                       newton_mixed_inputs, probe_inputs,
-                                       tiny_pivot_tile, wide_tiny_pivot_tile,
+                                       newton_mixed_inputs, offset_copy,
+                                       probe_inputs, tiny_pivot_tile,
+                                       wide_tiny_pivot_tile,
                                        with_imaginary_parts,
                                        zero_pivot_uinv_errors)
 from pangulu_tpu_torch.utils.perf import residual_norm
@@ -1043,6 +1044,64 @@ def test_slot_kernels_bit_exact(cuda, dtype, nb, batch):
     named = torch.as_tensor(named, device=cuda)
     assert torch.equal(back["k"][named], st.values[named])
     assert (back["k"][~named] == 5.0).all()   # other slots untouched
+
+
+def _bytes(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+# 8- and 16-byte words at nb=512 (u32 positions; a tile of more than
+# 65,536 slots) and nb=128 (u16) off their groups' alignment: values 8
+# bytes past a 16-byte boundary (float64: no groups of 2; complex128:
+# refused), positions one position past a group's boundary, dense tiles
+# 8 bytes off (compress; complex128: refused)
+@pytest.mark.parametrize("batch", ["ends", "largest"])
+@pytest.mark.parametrize("off", ["values", "idx", "dense"])
+@pytest.mark.parametrize("dtype", ["r64", "cr64"])
+@pytest.mark.parametrize("nb", [128, 512])
+def test_slot_kernels_unaligned_bit_exact(cuda, dtype, nb, off, batch):
+    """P6 on slot arrays that start off their vector loads' alignment
+    (``testing.offset_copy``), both directions, against the plain
+    versions on aligned copies, bit for bit, with the ragged ranges of
+    test_slot_kernels_bit_exact's batches; complex128 words off their
+    16 bytes refused with ValueError before the launch."""
+    st = _compressed_store(nb, dtype, cuda, lambda: poisson3d(16))
+    rng = np.random.default_rng(nb + 1)
+    v = rng.standard_normal(st.values.numel())
+    if st.values.is_complex():
+        v = v + 1j * rng.standard_normal(st.values.numel())
+    st.values = torch.as_tensor(v, dtype=st.values.dtype, device=cuda)
+    ids = kt.Indices.build(_slot_batch(st, batch, 132), cuda)
+    values, idx = st.values, st.idx
+    if off == "values":
+        values = offset_copy(values, 8)
+    elif off == "idx":
+        idx = offset_copy(idx, idx.element_size())
+    refused = st.values.element_size() == 16 and off != "idx"
+    refusal = pytest.raises(ValueError,
+                            match=f"{off} starts 8 bytes off the 16-byte")
+    args = (st.off, st.cap, ids)
+    want = kt.decompress_tiles(st.values, st.idx, *args, nb)
+    if refused and off == "values":
+        with refusal:
+            kc.decompress_tiles(values, idx, *args, nb)
+    else:
+        assert torch.equal(kc.decompress_tiles(values, idx, *args, nb),
+                           want)
+    # the plain version's tiles may be a strided view; P6 takes them
+    # contiguous
+    dense = offset_copy(want, 8) if off == "dense" else want.contiguous()
+    back = offset_copy(torch.full_like(st.values, 5.0), 8 if off ==
+                       "values" else 0)
+    if refused:
+        with refusal:
+            kc.compress_tiles(back, idx, *args, dense)
+        return
+    plain = torch.full_like(st.values, 5.0)
+    kc.compress_tiles(back, idx, *args, dense)
+    kt.compress_tiles(plain, st.idx, *args, want)
+    torch.cuda.synchronize()
+    assert torch.equal(_bytes(back), _bytes(plain))
 
 
 # nb > 256: the sweeps on each 128-wide diagonal block, then one

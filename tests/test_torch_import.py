@@ -37,11 +37,12 @@ for m in pkgutil.walk_packages(pangulu_tpu_torch.__path__,
                                "pangulu_tpu_torch."):
     importlib.import_module(m.name)
 # the H100 probes of the TPU probes P3-P5, of K1 for wide tiles and of
-# the compressed store's P6 and P2, and the out-of-core demo (tools/ is
-# no package)
+# the compressed store's P6 and P2, their variants' builds, and the
+# out-of-core demo (tools/ is no package)
 for m in ("probe_overlap", "probe_scan_multi", "probe_newton_loop",
           "probe_clusters", "run_multiprocess", "probe_dist",
-          "probe_k1_wide", "probe_p6", "probe_p2", "demo_outofcore"):
+          "probe_k1_wide", "probe_p6", "probe_p2", "variants",
+          "demo_outofcore"):
     importlib.import_module("pangulu_tpu_torch.tools." + m)
 for m in ("pangulu_tpu_torch.io.mmio", "pangulu_tpu_torch.cli",
           "pangulu_tpu_torch.__main__", "pangulu_tpu_torch.compressed",

@@ -6,9 +6,13 @@ The CUDA kernels of the compressed store's staging
 which block touches which dense value and which slot is index
 arithmetic: the wrapper's grid (``kernels_cuda.stage_geometry``), the
 block-wide two-round search for a chunk's slot range, the grid-stride
-walk over chunks and spans, and the groups of ``SLOT_GROUP`` slots a
-thread takes (whole groups by vector loads, a range's ragged head and
-tail slot by slot).  Here a numpy emulation of exactly that arithmetic
+walk over chunks and spans, and the groups a thread takes: a group is
+the ``SLOT_GROUP[w]`` slots of one 16-byte vector of w-byte words (4, 2
+or 1), a thread takes ``SLOT_PASS`` slots a pass, its groups
+``SLOT_THREADS`` groups apart, lane after lane, so that a warp's access
+is contiguous (whole groups by vector loads, a range's ragged head and
+tail, and every group of unaligned arrays, slot by slot).  Here a numpy
+emulation of exactly that arithmetic
 runs on real stores (poisson2d(12-20), poisson3d(8) and poisson3d(16),
 nd, at nb 5, 16, 100, 128, 256, 288 and 512; at 512 a tile holds more
 than 65,536 slots, so that the search's second round takes several
@@ -94,20 +98,38 @@ def slot_range(pos, c, p0, p1, threads=kc.SLOT_THREADS):
     return s0, s1
 
 
-def thread_groups(lo, hi, vec=True, group=kc.SLOT_GROUP,
-                  threads=kc.SLOT_THREADS):
-    """The slots of [lo, hi) as the kernels' loop takes them: thread i
-    from the aligned group (lo & ~(group-1)) + group i, every group *
-    threads slots.  Returns (slots taken, thread of each, whether its
-    group went by vector loads)."""
+def thread_groups(lo, hi, width, vec=True, threads=kc.SLOT_THREADS):
+    """The slots of [lo, hi) as the kernels' loop takes them for words of
+    ``width`` bytes: groups of G = SLOT_GROUP[width] slots from the
+    aligned slot lo & ~(G-1), a pass of U * G * threads slots (U =
+    SLOT_PASS // G) in which thread t takes groups u * threads + t of
+    the pass, u < U.  Returns (slots taken, thread of each, its group's
+    u, its pass, whether its group went by vector loads); also checks
+    that each taken group's thread entered that pass (the loop runs
+    while the thread's group u = 0 starts below hi)."""
+    group = kc.SLOT_GROUP[width]
+    per_pass = kc.SLOT_PASS // group * threads
     g0 = lo & ~(group - 1)
     gs = np.arange(g0, max(hi, g0), group)
-    thread = (np.arange(len(gs)) % threads)
+    k = (gs - g0) // group                 # the group's index from g0
+    thread, u, pas = k % threads, k % per_pass // threads, k // per_pass
+    first = g0 + (pas * per_pass + thread) * group   # its u = 0 group
+    assert (first < hi).all()
     whole = vec & (gs >= lo) & (gs + group <= hi)
     sl = gs[:, None] + np.arange(group)
     take = (sl >= lo) & (sl < hi)
-    return (sl[take], np.broadcast_to(thread[:, None], sl.shape)[take],
-            np.broadcast_to(whole[:, None], sl.shape)[take])
+
+    def each(a):
+        return np.broadcast_to(a[:, None], sl.shape)[take]
+
+    return sl[take], each(thread), each(u), each(pas), each(whole)
+
+
+def groups_aligned(width, values_off, idx_off, idx_bytes):
+    """compressed.cuh groups_aligned for arrays starting ``values_off``
+    and ``idx_off`` bytes past a 16-byte boundary."""
+    return values_off % 16 == 0 and \
+        idx_off % (kc.SLOT_GROUP[width] * idx_bytes) == 0
 
 
 def _host(st):
@@ -126,6 +148,8 @@ def emulate_decompress(st, ids, geo, vec=True, direct=kc.SLOT_DIRECT):
     times each slot was written."""
     values, idx, off, cap = _host(st)
     nb, nn = st.nb, st.nb * st.nb
+    width = st.values.element_size()
+    group = kc.SLOT_GROUP[width]
     out = np.full((len(ids), nn), np.nan, dtype=values.dtype)
     pos_hits = np.zeros((len(ids), nn), dtype=np.int64)
     slot_hits = np.zeros(len(values), dtype=np.int64)
@@ -143,9 +167,8 @@ def emulate_decompress(st, ids, geo, vec=True, direct=kc.SLOT_DIRECT):
                                                              [p0, p1])), \
                         (t, r0)
                 chunk = np.zeros(n, dtype=values.dtype)
-                sl, _, whole = thread_groups(o + s0, o + s1, vec)
-                assert not vec or len(np.unique(
-                    sl[~whole] // kc.SLOT_GROUP)) <= 2
+                sl, *_, whole = thread_groups(o + s0, o + s1, width, vec)
+                assert not vec or len(np.unique(sl[~whole] // group)) <= 2
                 keep = (idx[sl] >= p0) & (idx[sl] < p1)
                 assert keep.all() or c <= direct  # searched: its rows'
                 chunk[idx[sl[keep]] - p0] = values[sl[keep]]
@@ -161,17 +184,18 @@ def emulate_compress(st, ids, geo, dense, vec=True):
     values, idx, off, cap = _host(st)
     values = values.copy()
     nn = st.nb * st.nb
+    width = st.values.element_size()
     flat = dense.reshape(len(ids), nn)
     slot_hits = np.zeros(len(values), dtype=np.int64)
     for b, t in enumerate(ids):
         o, c = int(off[t]), int(cap[t])
         for j in range(geo.spans):
             for s0 in range(j * geo.span, c, geo.spans * geo.span):
-                sl, thread, whole = thread_groups(
-                    o + s0, o + min(s0 + geo.span, c), vec)
+                sl, *_, whole = thread_groups(
+                    o + s0, o + min(s0 + geo.span, c), width, vec)
                 # only a range's first and last group go slot by slot
                 assert not vec or len(np.unique(
-                    sl[~whole] // kc.SLOT_GROUP)) <= 2
+                    sl[~whole] // kc.SLOT_GROUP[width])) <= 2
                 real = idx[sl] < nn
                 values[sl[real]] = flat[b, idx[sl[real]]]
                 np.add.at(slot_hits, sl, 1)
@@ -195,6 +219,36 @@ def store(request):
     return _store(gen, size, nb)
 
 
+def _typed(values64, dtype):
+    """The store's float64 values as dtype (a complex slot's imaginary
+    part is its value's negative)."""
+    return (values64.to(dtype) if not dtype.is_complex
+            else torch.complex(values64, -values64).to(dtype))
+
+
+def _check_emulation(st, ids, geo, vec=True):
+    """Emulated decompress then compress of batch ``ids`` under ``geo``:
+    every dense position and every real slot once, bit-equal to the
+    plain versions."""
+    ind = Indices.build(ids, "cpu")
+    dense, pos_hits, slot_hits = emulate_decompress(st, ids, geo, vec)
+    assert (pos_hits == 1).all()          # every position, once
+    want, real = _named_slots(st, ids)
+    assert np.array_equal(slot_hits, real)  # every real slot, once
+    ref = kt.decompress_tiles(st.values, st.idx, st.off, st.cap, ind,
+                              st.nb)
+    assert np.array_equal(dense, ref.numpy())
+    assert not dense[ids == st.num_tiles].any()   # scratch: zeros
+    # compress back what decompress gave, plus a mark, into the store
+    moved = ref + 1.0
+    got, hits = emulate_compress(st, ids, geo, moved.numpy(), vec)
+    assert np.array_equal(hits, want)
+    plain = st.values.clone()
+    kt.compress_tiles(plain, st.idx, st.off, st.cap, ind, moved)
+    assert np.array_equal(got, plain.numpy())
+    assert not np.array_equal(got, st.values.numpy()) or not want.any()
+
+
 @pytest.mark.parametrize("sms", [SMS, 2])
 @pytest.mark.parametrize("batch", ["whole", "largest", "eight"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
@@ -206,30 +260,122 @@ def test_emulated_kernels_partition_and_match_plain(store, batch, dtype,
     part is its value's negative)."""
     st = store
     values64 = st.values
-    st.values = (values64.to(dtype) if not dtype.is_complex
-                 else torch.complex(values64, -values64).to(dtype))
+    st.values = _typed(values64, dtype)
     try:
         ids = np.asarray(_batches(st)[batch], dtype=np.int64)
-        ind = Indices.build(ids, "cpu")
         cap = np.append(st.host_cap, 0)
         geo = kc.stage_geometry(st.nb, st.values.element_size(), cap[ids],
                                 sms)
-        dense, pos_hits, slot_hits = emulate_decompress(st, ids, geo)
-        assert (pos_hits == 1).all()          # every position, once
-        want, real = _named_slots(st, ids)
-        assert np.array_equal(slot_hits, real)  # every real slot, once
-        ref = kt.decompress_tiles(st.values, st.idx, st.off, st.cap, ind,
-                                  st.nb)
-        assert np.array_equal(dense, ref.numpy())
-        assert not dense[ids == st.num_tiles].any()   # scratch: zeros
-        # compress back what decompress gave, plus a mark, into the store
-        moved = ref + 1.0
-        got, hits = emulate_compress(st, ids, geo, moved.numpy())
-        assert np.array_equal(hits, want)
-        plain = st.values.clone()
-        kt.compress_tiles(plain, st.idx, st.off, st.cap, ind, moved)
-        assert np.array_equal(got, plain.numpy())
-        assert not np.array_equal(got, st.values.numpy()) or not want.any()
+        _check_emulation(st, ids, geo)
+    finally:
+        st.values = values64
+
+
+# (slot type, bytes past a 16-byte boundary at which values and positions
+# start): float32 values at an 8-byte boundary break the groups of 4
+# slots; float64 and complex64 values at one, and u32 positions at a
+# 4-byte boundary (u16 at 2), break the groups of 2 slots (complex128
+# values off 16 bytes are refused: test_word_alignment_checked)
+UNALIGNED = [(torch.float32, 8, 0), (torch.float64, 8, 0),
+             (torch.complex64, 0, 4)]
+
+
+@pytest.mark.parametrize("batch", ["largest", "eight"])
+@pytest.mark.parametrize("dtype,values_off,idx_off", UNALIGNED)
+def test_emulated_unaligned_words_take_the_slot_path(store, batch, dtype,
+                                                     values_off, idx_off):
+    """Slot arrays off the groups' alignment (compressed.cuh
+    groups_aligned false): every group of every range slot by slot, the
+    same partition and the plain versions' bits."""
+    st = store
+    values64 = st.values
+    st.values = _typed(values64, dtype)
+    try:
+        width = st.values.element_size()
+        isz = st.idx.element_size()
+        vec = groups_aligned(width, values_off, idx_off * isz // 4, isz)
+        assert not vec
+        ids = np.asarray(_batches(st)[batch], dtype=np.int64)
+        geo = kc.stage_geometry(st.nb, width,
+                                np.append(st.host_cap, 0)[ids], SMS)
+        _check_emulation(st, ids, geo, vec)
+    finally:
+        st.values = values64
+
+
+@pytest.mark.parametrize("width", [4, 8, 16])
+@pytest.mark.parametrize("lo,hi", [(0, 1), (0, 5000), (3, 1029),
+                                   (1021, 263165), (262141, 262144),
+                                   (6, 6)])
+def test_lanes_take_contiguous_groups(width, lo, hi):
+    """Which lane takes which slot: every slot of [lo, hi) once; a
+    thread's SLOT_PASS slots of a pass are its groups SLOT_THREADS
+    groups apart (4 adjacent slots of 4-byte words as before; 2 pairs of
+    8-byte words 512 slots apart; 4 words of 16 bytes 256 apart); so
+    each warp access of whole groups (its lanes' u-th group of a pass)
+    is 32 consecutive groups in lane order: 512 contiguous bytes of
+    values and 32 * SLOT_GROUP[width] positions."""
+    group, vectors = kc.SLOT_GROUP[width], kc.SLOT_PASS // kc.SLOT_GROUP[
+        width]
+    sl, thread, u, pas, whole = thread_groups(lo, hi, width)
+    assert np.array_equal(np.sort(sl), np.arange(lo, hi))
+    assert u.max(initial=0) < vectors
+    # one warp access: a (pass, u, warp); its slots in order
+    access = (pas * vectors + u) * (kc.SLOT_THREADS // 32) + thread // 32
+    order = np.lexsort((sl, access))
+    o = order[whole[order]]
+    acc, s, lane = access[o], sl[o], thread[o] % 32
+    same = acc[1:] == acc[:-1]
+    assert (np.diff(s)[same] == 1).all()          # contiguous
+    assert np.array_equal(lane, (s - (lo & ~(group - 1))) // group % 32)
+    assert np.unique(acc, return_counts=True)[1].max(
+        initial=0) * width <= 512
+    # a thread's groups of a pass lie SLOT_THREADS groups apart
+    first = pas == 0
+    for t in np.unique(thread[first])[:40]:
+        g = np.unique(sl[first & (thread == t)] // group)
+        assert (np.diff(g) == kc.SLOT_THREADS).all()
+        assert len(g) <= vectors
+
+
+def _wide_store():
+    """The nb=512 store of poisson3d(16), nd, once a module (its largest
+    tile holds more than 65,536 slots)."""
+    if "wide" not in _CACHE:
+        _CACHE["wide"] = _store("poisson3d", 16, 512)
+    return _CACHE["wide"]
+
+
+_CACHE = {}
+
+
+# the wrapper's grid, one span a block (32 spans of the tile) and ragged
+# spans (not whole passes, not group-aligned) walked grid-stride
+@pytest.mark.parametrize("geometry", ["wrapper", "one_span", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+def test_emulated_wide_tile_split_over_spans(dtype, geometry):
+    """A nb=512 tile of more than 65,536 slots, alone, compressed over
+    several spans (and decompressed over several chunks): every slot
+    once, the plain versions' bits."""
+    st = _wide_store()
+    values64 = st.values
+    st.values = _typed(values64, dtype)
+    try:
+        t = int(np.argmax(st.host_cap))
+        c = int(st.host_cap[t])
+        assert c > 65536
+        ids = np.array([t, st.num_tiles])
+        geo = kc.stage_geometry(512, st.values.element_size(), [c, 0], SMS)
+        if geometry == "one_span":
+            geo = kc.StageGeometry(rows=geo.rows, chunks=geo.chunks,
+                                   span=-(-c // 32), spans=32)
+        elif geometry == "ragged":
+            geo = kc.StageGeometry(rows=7, chunks=5, span=40001, spans=2)
+        assert -(-c // geo.span) > 1           # several spans
+        if geometry == "ragged":              # walked grid-stride
+            assert geo.spans * geo.span < c
+        _check_emulation(st, ids, geo)
     finally:
         st.values = values64
 
@@ -253,7 +399,7 @@ def test_emulation_right_for_any_grid(direct):
     named, real = _named_slots(st, ids)
     assert (named != real).sum() == 3
     for geo in (kc.StageGeometry(rows=3, chunks=2, span=4, spans=3),
-                kc.StageGeometry(rows=16, chunks=1, span=kc.SLOT_GROUP,
+                kc.StageGeometry(rows=16, chunks=1, span=kc.SLOT_PASS,
                                  spans=1)):
         for vec in (True, False):
             dense, pos_hits, slot_hits = emulate_decompress(st, ids, geo,
@@ -299,7 +445,8 @@ def test_stage_geometry_bounds(nb, batch, elem):
     largest cap; both grid dimensions within the card's limit; and no
     more blocks than about SLOT_DECOMPRESS_PER_SM (half that for a batch
     of tiles read whole) and SLOT_COMPRESS_PER_SM an SM unless the rows
-    or spans are at their largest."""
+    or spans are at their largest (SLOT_SPAN_UNITS passes of a
+    block)."""
     caps = np.full(batch, min(nb * nb, 16384))
     caps[0] = 0                                   # a scratch tile
     g = kc.stage_geometry(nb, elem, caps, SMS)
@@ -307,7 +454,7 @@ def test_stage_geometry_bounds(nb, batch, elem):
         or g.rows == 1
     assert g.chunks * g.rows >= nb and (g.chunks - 1) * g.rows < nb
     assert g.chunks <= kc.SLOT_GRID_Y and 1 <= g.spans <= kc.SLOT_GRID_Y
-    unit = kc.SLOT_GROUP * kc.SLOT_THREADS
+    unit = kc.SLOT_PASS * kc.SLOT_THREADS
     assert g.span % unit == 0 and g.span <= kc.SLOT_SPAN_UNITS * unit
     assert g.spans * g.span >= caps.max()
     target = kc.SLOT_DECOMPRESS_PER_SM * SMS
@@ -365,6 +512,62 @@ def test_slot_order_checked_once_per_store(monkeypatch):
                         lambda *a: pytest.fail("checked twice"))
     for _ in range(2):
         assert kc._check_slots(st.values, st.idx, st.off, st.cap, 16) == nt
+
+
+class _Launched(Exception):
+    pass
+
+
+def _launch(*_):
+    raise _Launched
+
+
+# (slot type, what starts off: values, positions or the dense tiles, by
+# how many bytes, whether the wrapper takes it)
+OFFSETS = [(torch.complex128, "values", 8, False),
+           (torch.complex128, "values", 4, False),
+           (torch.complex128, "dense", 8, False),
+           (torch.complex128, "dense", 4, False),
+           (torch.float64, "values", 4, False),
+           (torch.complex64, "values", 4, False),
+           (torch.float32, "values", 4, True),
+           (torch.float32, "values", 2, False),
+           (torch.float32, "idx", 2, False),
+           (torch.float64, "idx", 4, True)]
+
+
+@pytest.mark.parametrize("dtype,what,nbytes,taken", OFFSETS)
+def test_word_alignment_checked(monkeypatch, dtype, what, nbytes, taken):
+    """On the card's path (forced here, the launch stubbed) P6 takes slot
+    values, positions and dense tiles at their words' own alignment (16
+    bytes for complex128) and refuses, with ValueError before the launch,
+    any that start off it."""
+    from pangulu_tpu_torch.testing import offset_copy
+
+    monkeypatch.setattr(kc, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(kc, "library", _launch)
+    monkeypatch.setattr(kc, "_sm_count", lambda device: SMS)
+    st = _store("poisson2d", 20, 256)       # uint32 positions
+    t = int(np.argmax(st.host_cap))
+    ids = Indices.build([t], "cpu")
+    values = _typed(st.values, dtype)
+    idx = st.idx
+    dense = torch.zeros(1, 256, 256, dtype=dtype)
+    if what == "values":
+        values = offset_copy(values, nbytes)
+    elif what == "idx":
+        idx = offset_copy(idx, nbytes)
+    else:
+        dense = offset_copy(dense, nbytes)
+    calls = [lambda: kc.compress_tiles(values, idx, st.off, st.cap, ids,
+                                       dense)]
+    if what != "dense":
+        calls.append(lambda: kc.decompress_tiles(values, idx, st.off,
+                                                 st.cap, ids, 256))
+    for call in calls:
+        with pytest.raises(_Launched if taken else ValueError,
+                           match=None if taken else f"{what} starts "):
+            call()
 
 
 @pytest.mark.parametrize("chunk", [3, 1 << 20])
